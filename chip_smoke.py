@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
-LWW reconcile pass. Needs one NVIDIA Hopper card; run from the repo
-root:
+LWW reconcile pass and the typed-CRDT apply. Needs one NVIDIA Hopper
+card; run from the repo root:
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a traceback and a nonzero code):
 
 1. build    — nvcc builds the kernels from evolu_tpu_torch/csrc/.
-2. kernels  — kernels L (segmented lex-max scan), X (segmented XOR scan)
-              and H (timestamp hash + digest) against their plain
-              PyTorch versions on the card, bit for bit.
+2. kernels  — kernels L (segmented lex-max scan), X (segmented XOR scan),
+              H (timestamp hash + digest) and S (segmented u64 sum,
+              wrapping values) against their plain PyTorch versions on
+              the card, bit for bit.
 3. path A   — `reconcile_owner_batches` on 1M CrdtMessages across 1k
               owners (~4 messages per cell, 60% of cells with a stored
               winner, one owner in non-canonical hex case), every
@@ -22,13 +23,39 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               through `apply_messages(planner=plan_batch_device_full)`;
               every table and the Merkle tree string byte-identical to
               `apply_messages_sequential` on a second database.
-5. columns  — the reconcile pass from device-resident columns at 1M and
+5. path C1 — the typed folds at the repo's benchmark sizes, each against
+              the port's host oracle: `pn_counter_sums` (2^20 ops, 2^18
+              cells), `rga_order` (2^20-2 elements, 2^12 cells),
+              `tensor_cell_folds` (2^20 ops x width 8, 2^15 cells) for
+              sum, mean and max, `counter_shard_sums_core` and
+              `tensor_shard_sums` (1M ops, 1k owners); S and L must
+              have launched.
+6. path C2 — SQLite typed apply: 8 batches of 31k messages (5k per typed
+              column of board(title, votes:counter, tags:awset,
+              body:list, w/avg/peak tensors of width 8) + 1k titles)
+              and a 10k re-delivery, through `apply_messages` with the
+              device planner and device folds; every table and the
+              Merkle tree byte-identical to `apply_messages_sequential`
+              with host folds on a second database. Every call of a
+              kernel's dispatcher is recorded (for the timing phase)
+              and must match its launch count.
+7. columns  — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-6. timing   — each kernel and its plain version timed on the inputs the
-              1M columns pass handed it.
+8. timing   — L, X, H and their plain versions timed on the inputs the
+              1M columns pass handed them; S on the inputs path C1's
+              counter and tensor-sum folds handed it, beside
+              `torch.cumsum` on the same column; then every kernel on
+              every input path C2 handed it (checked against its plain
+              version), summed to ms and bound per C2 run.
+
+Every path sets every kernel's launch count to 0 just before it runs
+and reads all four just after. In the kernels JSON, `launches` is the
+sum of those four counts and `launches_path_{a,b,c1,c2}` are the counts
+themselves; `ms`, `plain_ms`, `bound_ms` and `max_abs_err` are at the
+input named by `timed_on`.
 
 The last two lines are the card's `nvidia-smi` name and power limit
 and then {"ok": true, "device": {...}}; the line before them is the
@@ -39,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import statistics
 import subprocess
@@ -96,6 +124,17 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def reset(kernels):
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for k in kernels:
+        k["fn"].launches = 0
+
+
+def read(kernels):
+    """Every kernel's launch count (just after a path ran)."""
+    return {k["name"]: k["fn"].launches for k in kernels}
 
 
 def max_abs_err(got, want) -> int:
@@ -206,6 +245,11 @@ def kernels_vs_plain(torch, dev):
                  cuda_scan.segmented_max_scan_plain(f, a, b, reverse=reverse), f"L n={n} reverse={reverse}")
         v = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32)).to(dev)
         same([cuda_scan.segmented_xor_scan(f, v)], [cuda_scan.segmented_xor_scan_plain(f, v)], f"X n={n}")
+        w = rng.integers(0, 2**64, n, dtype=np.uint64)
+        w[rng.random(n) < 0.2] = np.uint64(2**64 - 1)  # every add wraps
+        w[rng.random(n) < 0.1] = np.uint64(1) << np.uint64(63)
+        w = torch.from_numpy(w.view(np.int64)).to(dev)
+        same([cuda_scan.segmented_sum_scan(f, w)], [cuda_scan.segmented_sum_scan_plain(f, w)], f"S n={n}")
     edge = [0, 951_782_400_000, 4_107_542_399_000, 253_402_300_799_999, -1, -999, -1000,
             -86_400_001, -62_135_596_800_000, 2**47]
     n = 70003
@@ -222,7 +266,7 @@ def kernels_vs_plain(torch, dev):
     torch.cuda.synchronize()
 
 
-def path_a(torch, kernels):
+def path_a(torch, kernels, need):
     from evolu_tpu_torch.core.merkle import minute_deltas_host
     from evolu_tpu_torch.parallel import reconcile_owner_batches
     from evolu_tpu_torch.storage.apply import plan_batch
@@ -232,17 +276,14 @@ def path_a(torch, kernels):
     n_msgs = sum(len(v) for v in batches.values())
     print(f"  path A: {n_msgs} messages, {len(batches)} owners built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for k in kernels:
-        k["fn"].launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     results, digest = reconcile_owner_batches(batches, winners)
     wall = time.perf_counter() - t0
-    launches = {k["name"]: k["fn"].launches for k in kernels}
+    launches = read(kernels)
     print(f"  path A: reconcile_owner_batches {wall:.3f}s ({n_msgs / wall:,.0f} msgs/s "
           f"end to end incl. host columnarization); launches {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"path A: kernel {name} never launched")
+    check_launched("path A", launches, need)
     t0 = time.perf_counter()
     want_digest = 0
     for owner, msgs in batches.items():
@@ -260,7 +301,7 @@ def path_a(torch, kernels):
     return launches
 
 
-def path_b(torch, kernels):
+def path_b(torch, kernels, need):
     from evolu_tpu_torch.core.merkle import merkle_tree_to_string
     from evolu_tpu_torch.core.types import CrdtMessage, TableDefinition
     from evolu_tpu_torch.ops.merge import plan_batch_device_full
@@ -307,19 +348,16 @@ def path_b(torch, kernels):
     planner = plan_batch_device_full
     db, oracle = make_db(), make_db()
     tree, oracle_tree = {}, {}
-    for k in kernels:
-        k["fn"].launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     for b in batches:
         tree = apply_messages(db, tree, b, planner=planner)
     wall = time.perf_counter() - t0
-    launches = {k["name"]: k["fn"].launches for k in kernels}
+    launches = read(kernels)
     total = sum(len(b) for b in batches)
     print(f"  path B: {total} messages in {len(batches)} batches applied in {wall:.3f}s "
           f"({total / wall:,.0f} msgs/s incl. SQLite); launches {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"path B: kernel {name} never launched")
+    check_launched("path B", launches, need)
     t0 = time.perf_counter()
     for b in batches:
         oracle_tree = apply_messages_sequential(oracle, oracle_tree, b)
@@ -332,6 +370,352 @@ def path_b(torch, kernels):
     print(f"  path B: every table and the Merkle tree byte-identical to the sequential oracle "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
     return launches
+
+
+def record_calls(orig, slot, calls):
+    """Wrap a dispatcher in its calling module: append every call's
+    arguments to `calls[slot]`, then run it."""
+    def run(*a, **kw):
+        calls.setdefault(slot, []).append((a, kw))
+        return orig(*a, **kw)
+    return run
+
+
+def check_launched(what, launches, names):
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} never launched: {launches}")
+
+
+def list_forest(rng, n, n_cells):
+    """RGA elements in the device layout (ascending (cell, tag), parents
+    below their children): per cell, 30% head inserts, 60% anchored on a
+    random earlier element, 10% dangling origins (orphans at the head);
+    20% tombstoned. → (cell_id, parent_ix, alive, origin_kind)."""
+    per = -(-n // n_cells)
+    j = np.arange(n) % per
+    cell_id = (np.arange(n) // per).astype(np.int32)
+    roll = rng.random(n)
+    earlier = (rng.random(n) * j).astype(np.int64)
+    anchored = (roll >= 0.3) & (roll < 0.9) & (j > 0)
+    parent = np.where(anchored, np.arange(n) - j + earlier, -1).astype(np.int32)
+    alive = (rng.random(n) < 0.8).astype(np.int32)
+    return cell_id, parent, alive, roll >= 0.9
+
+
+def list_oracle(cell_id, parent, alive, dangling):
+    """Positions from the host oracle `crdt_list.linearize`, cell by
+    cell, and the alive slots they imply."""
+    from evolu_tpu_torch.core.crdt_list import linearize
+
+    n = len(cell_id)
+    pos = np.empty(n, np.int32)
+    bounds = np.flatnonzero(np.diff(cell_id)) + 1
+    for lo, hi in zip(np.concatenate([[0], bounds]), np.concatenate([bounds, [n]])):
+        tags = [f"{i:07d}" for i in range(lo, hi)]
+        origins = [tags[p - lo] if p >= 0 else ("zzzz-dangling" if d else "")
+                   for p, d in zip(parent[lo:hi].tolist(), dangling[lo:hi].tolist())]
+        pos[lo:hi] = linearize(tags, origins)
+    order = np.lexsort((pos, cell_id))
+    a = alive[order].astype(np.int64)
+    run = np.cumsum(a)
+    starts = np.r_[True, cell_id[order][1:] != cell_id[order][:-1]]
+    base = np.maximum.accumulate(np.where(starts, run - a, 0))
+    slot = np.empty(n, np.int32)
+    slot[order] = np.where(a > 0, run - base - 1, -1)
+    return pos, slot
+
+
+def tensor_inputs(rng, n, width, monoid):
+    """Masked contributions as `crdt_tensor._materialize_device` builds
+    them, vectorized: quantized values × count (sum, mean) or monotone
+    keys (max). → (contrib u64 (n, width), f32 values, counts)."""
+    vals = (rng.random((n, width)) * 64.0 - 32.0).astype(np.float32)
+    counts = rng.integers(1, 9, n) if monoid == "mean" else np.ones(n, np.int64)
+    if monoid == "max":
+        b = vals.view(np.uint32)
+        keys = np.where(b >> 31 != 0, ~b, b | np.uint32(0x80000000)).astype(np.uint32)
+        return keys.astype(np.uint64), vals, counts
+    q = np.rint(vals.astype(np.float64) * 65536.0).astype(np.int64).view(np.uint64)
+    return q * counts.astype(np.uint64)[:, None], vals, counts
+
+
+def path_c1(torch, kernels, captured):
+    """The typed folds at the repo's benchmark sizes against the port's
+    host oracles. Returns (launches, report)."""
+    from evolu_tpu_torch.core import crdt_tensor as tz
+    from evolu_tpu_torch.core.crdt_types import fold_counter_ops
+    from evolu_tpu_torch.ops import crdt_merge as cm
+    from evolu_tpu_torch.ops import crdt_list_merge as lm
+    from evolu_tpu_torch.ops import crdt_tensor_merge as tm
+    from evolu_tpu_torch.ops import to_host_many
+
+    rng = np.random.default_rng(21)
+    t0 = time.perf_counter()
+    n_c, cells_c = 1 << 20, 1 << 18
+    c_cell = rng.integers(0, cells_c, n_c).astype(np.int32)
+    c_delta = rng.integers(-(2**31) + 1, 2**31, n_c).astype(np.int64)
+    n_l, cells_l = (1 << 20) - 2, 1 << 12
+    l_cell, l_parent, l_alive, l_dangling = list_forest(rng, n_l, cells_l)
+    n_t, width, cells_t = 1 << 20, 8, 1 << 15
+    t_cell = rng.integers(0, cells_t, n_t).astype(np.int32)
+    t_in = {m: tensor_inputs(rng, n_t, width, m) for m in ("sum", "mean", "max")}
+    n_s, owners, per_owner = 1_000_000, 1000, 256
+    s_owner = rng.integers(0, owners, n_s).astype(np.int32)
+    s_cell = (s_owner.astype(np.int64) * per_owner + rng.integers(0, per_owner, n_s)).astype(np.int32)
+    s_delta = rng.integers(-(2**31) + 1, 2**31, n_s).astype(np.int64)
+    s_contrib = rng.integers(0, 2**64, (n_s, width), dtype=np.uint64)
+    print(f"  path C1: inputs built in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    walls, out = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+
+    def counter_shard():
+        dev = [torch.from_numpy(a).cuda() for a in (s_owner, s_cell, s_delta)]
+        return to_host_many(*cm.counter_shard_sums_core(*dev))
+
+    reset(kernels)
+    with patched(cm, "segmented_sum_scan", record_calls(cm.segmented_sum_scan, "S_counter", captured)), \
+         patched(tm, "segmented_sum_scan", record_calls(tm.segmented_sum_scan, "S_tensor_sum", captured)):
+        timed("pn_counter_sums", lambda: cm.pn_counter_sums(c_cell, c_delta, cells_c))
+        timed("rga_order", lambda: lm.rga_order(l_cell, l_parent, l_alive))
+        for m in ("sum", "mean", "max"):
+            timed(f"tensor_cell_folds_{m}", lambda m=m: tm.tensor_cell_folds(t_cell, t_in[m][0], cells_t, m))
+        timed("counter_shard_sums_core", counter_shard)
+        timed("tensor_shard_sums", lambda: tm.tensor_shard_sums(s_owner, s_cell, s_contrib))
+    launches = read(kernels)
+    print(f"  path C1: walls {json.dumps({k: round(v, 4) for k, v in walls.items()})}; "
+          f"launches {launches}", flush=True)
+    check_launched("path C1", launches, ["seg_sum_scan", "seg_lex_max_scan"])
+
+    t0 = time.perf_counter()
+    # Counter: fold_counter_ops per cell, the host fold.
+    order = np.argsort(c_cell, kind="stable")
+    bounds = np.flatnonzero(np.diff(c_cell[order])) + 1
+    pos_w, neg_w = np.zeros(cells_c, np.int64), np.zeros(cells_c, np.int64)
+    for idx in np.split(order, bounds):
+        pos_w[c_cell[idx[0]]], neg_w[c_cell[idx[0]]] = fold_counter_ops(c_delta[idx].tolist())
+    pos, neg = out["pn_counter_sums"]
+    if not (np.array_equal(pos, pos_w) and np.array_equal(neg, neg_w)):
+        raise AssertionError("path C1: pn_counter_sums differs from the host fold")
+    # List: linearize cell by cell.
+    want_pos, want_slot = list_oracle(l_cell, l_parent, l_alive, l_dangling)
+    if not (np.array_equal(out["rga_order"][0], want_pos) and np.array_equal(out["rga_order"][1], want_slot)):
+        raise AssertionError("path C1: rga_order differs from crdt_list.linearize")
+    # Tensor: the accumulators (modular add / integer max), and the
+    # finalized bytes of sampled cells against `_fold_contributions`.
+    for m in ("sum", "mean", "max"):
+        contrib, vals, counts = t_in[m]
+        acc = np.zeros((cells_t, width), np.uint64)
+        (np.maximum if m == "max" else np.add).at(acc, t_cell, contrib)
+        got = out[f"tensor_cell_folds_{m}"]
+        if not np.array_equal(got, acc):
+            raise AssertionError(f"path C1: tensor_cell_folds {m} differs from the host accumulator")
+        cfg = tz.parse_tensor_type(f"tensor:{m}:f32:{width}")
+        for c in rng.choice(cells_t, 64, replace=False):
+            rows = np.flatnonzero(t_cell == c)
+            contribs = [("d", int(counts[i]), vals[i].tobytes()) for i in rows]
+            den = int(counts[rows].sum()) if m == "mean" else 1
+            if tz._finalize(cfg, got[c], den) != tz._fold_contributions(cfg, contribs):
+                raise AssertionError(f"path C1: tensor {m} cell {c} differs from _fold_contributions")
+    # Shard folds: per (owner, cell) totals against numpy.
+    grp, seg_end, pos_sum, neg_sum = out["counter_shard_sums_core"]
+    want_p, want_n = np.zeros(owners * per_owner, np.int64), np.zeros(owners * per_owner, np.int64)
+    np.add.at(want_p, s_cell, np.maximum(s_delta, 0))
+    np.add.at(want_n, s_cell, np.maximum(-s_delta, 0))
+    ends = np.flatnonzero(seg_end)
+    g = grp[ends]
+    touched = np.unique(s_cell)
+    if not (np.array_equal(g & ((1 << 25) - 1), touched) and np.array_equal(g >> 25, touched // per_owner)
+            and np.array_equal(pos_sum[ends], want_p[touched]) and np.array_equal(neg_sum[ends], want_n[touched])):
+        raise AssertionError("path C1: counter_shard_sums_core differs from numpy")
+    sums = out["tensor_shard_sums"]
+    want_t = np.zeros((owners * per_owner, width), np.uint64)
+    np.add.at(want_t, s_cell, s_contrib)
+    if sorted(sums) != [(int(c) // per_owner, int(c)) for c in touched] or not all(
+            np.array_equal(v.view(np.uint64), want_t[c]) for (_o, c), v in sums.items()):
+        raise AssertionError("path C1: tensor_shard_sums differs from numpy")
+    print(f"  path C1: every fold equals its host oracle ({time.perf_counter() - t0:.1f}s)", flush=True)
+    report = {"rows": {"pn_counter_sums": n_c, "rga_order": n_l, "tensor_cell_folds": n_t * width,
+                       "counter_shard_sums_core": n_s, "tensor_shard_sums": n_s * width},
+              "wall_s": {k: round(v, 5) for k, v in walls.items()}}
+    return launches, report
+
+
+TYPED_COLUMNS = ("title", "votes:counter", "tags:awset", "body:list", "w:tensor:sum:f32:8",
+                 "avg:tensor:mean:bf16:8", "peak:tensor:max:f32:8")
+
+
+def typed_traffic(rng, batches=8, per_column=5000, titles=1000, rows=2000, redeliver=10_000):
+    """Typed ops in logical time order (unique timestamps), then shuffled
+    across batches, so removes reach kills before their adds, list
+    inserts land on deleted anchors and deletes precede inserts. 1% of
+    typed ops are malformed. A last batch re-delivers `redeliver`
+    messages."""
+    import base64
+
+    from evolu_tpu_torch.core.crdt_tensor import bf16_bits
+    from evolu_tpu_torch.core.types import CrdtMessage
+
+    cols = ["votes", "tags", "body", "w", "avg", "peak"] * per_column + ["title"] * titles
+    cols = [cols[i] for i in rng.permutation(len(cols) * batches) % len(cols)]
+    n = len(cols)
+    ts = ts_strings(BASE_MILLIS + np.arange(n) * 3, rng.integers(0, 4, n),
+                    rng.integers(0, 64, n).astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15))
+    row_ix = rng.integers(0, rows, n)
+    vals = (rng.random((n, 8)) * 64 - 32).astype(np.float32)
+    adds, inserts, msgs = {}, {}, []
+    for i, (col, t, r) in enumerate(zip(cols, ts, row_ix.tolist())):
+        row, roll = f"row{r:05d}", rng.random()
+        if col != "title" and roll < 0.01:
+            value = ("garbage", '["x"]', 2**40)[i % 3]
+        elif col == "title":
+            value = f"title{i}"
+        elif col == "votes":
+            value = int(rng.integers(-1000, 1000))
+        elif col == "tags":
+            seen = adds.setdefault(row, [])
+            if seen and roll < 0.3:
+                obs = sorted({seen[int(k)] for k in rng.integers(0, len(seen), 2)})
+                value = json.dumps(["r", f"e{i % 16}", obs], separators=(",", ":"))
+            else:
+                value = json.dumps(["a", f"e{i % 16}"], separators=(",", ":"))
+                seen.append(t)
+        elif col == "body":
+            seen = inserts.setdefault(row, [])
+            if seen and roll < 0.25:
+                value = json.dumps(["d", seen[int(rng.integers(0, len(seen)))]], separators=(",", ":"))
+            else:
+                origin = ("" if roll < 0.35 or not seen else "zzzz-dangling" if roll < 0.4
+                          else seen[int(rng.integers(0, len(seen)))])
+                value = json.dumps(["i", origin, f"v{i}"], separators=(",", ":"))
+                seen.append(t)
+        else:
+            kind = "s" if roll < 0.1 else "d"
+            if col == "avg":
+                b64 = base64.b64encode(bf16_bits(vals[i]).astype("<u2").tobytes()).decode()
+                value = json.dumps([kind, b64, int(rng.integers(1, 8))], separators=(",", ":"))
+            else:
+                b64 = base64.b64encode(vals[i].astype("<f4").tobytes()).decode()
+                value = json.dumps([kind, b64], separators=(",", ":"))
+        msgs.append(CrdtMessage(t, "board", row, col, value))
+    msgs = [msgs[i] for i in rng.permutation(n)]
+    size = n // batches
+    out = [msgs[i * size:(i + 1) * size] for i in range(batches)]
+    out.append([msgs[int(i)] for i in rng.integers(0, n, redeliver)])
+    return out
+
+
+# Every dispatcher of a kernel that path C2 reaches, in its calling module.
+C2_DISPATCHERS = (
+    ("merge", "segmented_max_scan", "L"), ("merge", "masked_key_hashes", "H"),
+    ("merkle_ops", "segmented_xor_scan", "X"), ("crdt_merge", "segmented_sum_scan", "S"),
+    ("crdt_list_merge", "segmented_sum_scan", "S"), ("crdt_tensor_merge", "segmented_sum_scan", "S"),
+    ("crdt_tensor_merge", "segmented_max_scan", "L"),
+)
+
+
+def path_c2(torch, kernels, calls):
+    """SQLite typed apply through the device planner and device folds,
+    against the sequential oracle with host folds. Every dispatcher call
+    is appended to `calls[slot]`. Returns (launches, report)."""
+    from evolu_tpu_torch.core import crdt_types
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.core.types import TableDefinition
+    from evolu_tpu_torch.ops.merge import plan_batch_device_full
+    from evolu_tpu_torch.storage import (
+        PySqliteDatabase, apply_messages, apply_messages_sequential, init_db_model, update_db_schema,
+    )
+
+    def make_db():
+        db = PySqliteDatabase()
+        init_db_model(db)
+        update_db_schema(db, [TableDefinition.of("board", TYPED_COLUMNS)])
+        return db
+
+    t0 = time.perf_counter()
+    batches = typed_traffic(np.random.default_rng(29))
+    total = sum(len(b) for b in batches)
+    print(f"  path C2: {total} messages in {len(batches)} batches built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    db, oracle = make_db(), make_db()
+    tree, oracle_tree = {}, {}
+    with contextlib.ExitStack() as stack:
+        for mod, name, slot in C2_DISPATCHERS:
+            m = importlib.import_module(f"evolu_tpu_torch.ops.{mod}")
+            stack.enter_context(patched(m, name, record_calls(getattr(m, name), slot, calls)))
+        reset(kernels)
+        t0 = time.perf_counter()
+        for b in batches:
+            tree = apply_messages(db, tree, b, planner=plan_batch_device_full)
+        wall = time.perf_counter() - t0
+        launches = read(kernels)
+    print(f"  path C2: applied in {wall:.3f}s ({total / wall:,.0f} msgs/s incl. SQLite); "
+          f"launches {launches}", flush=True)
+    check_launched("path C2", launches, list(launches))
+    for k in kernels:
+        if len(calls.get(k["slot"], [])) != launches[k["name"]]:
+            raise AssertionError(f"path C2: {len(calls.get(k['slot'], []))} recorded calls of "
+                                 f"{k['name']}, {launches[k['name']]} launches")
+    t0 = time.perf_counter()
+    with patched(crdt_types, "DEVICE_FOLD_MIN", 10**12):  # host folds: an independent oracle
+        for b in batches:
+            oracle_tree = apply_messages_sequential(oracle, oracle_tree, b)
+    oracle_wall = time.perf_counter() - t0
+    order = {"__message": "1", "board": "1", "__crdt_schema": "1, 2", "__crdt_counter": "1, 2, 3",
+             "__crdt_set": "1", "__crdt_kill": "1", "__crdt_list": "1", "__crdt_list_kill": "1",
+             "__crdt_tensor": "1"}
+    sizes = {}
+    for t, by in order.items():
+        q = f'SELECT * FROM "{t}" ORDER BY {by}'
+        got = db.exec(q)
+        if got != oracle.exec(q):
+            raise AssertionError(f"path C2: table {t} differs from the sequential oracle")
+        sizes[t] = len(got)
+    if merkle_tree_to_string(tree) != merkle_tree_to_string(oracle_tree):
+        raise AssertionError("path C2: Merkle tree differs from the sequential oracle")
+    print(f"  path C2: every table ({json.dumps(sizes)} rows) and the Merkle tree byte-identical "
+          f"to the sequential oracle ({oracle_wall:.1f}s)", flush=True)
+    return launches, {"messages": total, "batches": len(batches), "wall_s": round(wall, 4),
+                      "msgs_per_s": round(total / wall), "oracle_wall_s": round(oracle_wall, 4),
+                      "rows": sizes}
+
+
+def u64_max_abs_err(got, want) -> int:
+    """Largest |kernel - plain| over u64 bit patterns (0 when equal)."""
+    g = got.cpu().numpy().view(np.uint64)
+    w = want.cpu().numpy().view(np.uint64)
+    bad = np.flatnonzero(g != w)
+    return max((abs(int(g[i]) - int(w[i])) for i in bad), default=0)
+
+
+def time_sum_kernel(torch, captured):
+    """Kernel S, its plain version and `torch.cumsum` (the nearest one-call
+    pass, no segments) on the inputs path C1 handed S."""
+    from evolu_tpu_torch.ops import cuda_scan
+
+    shapes = {}
+    for slot in ("S_counter", "S_tensor_sum"):
+        (flags, values), _ = captured[slot][0]
+        n = flags.shape[0]
+        got = cuda_scan.segmented_sum_scan_cuda(flags, values)
+        want = cuda_scan.segmented_sum_scan_plain(flags, values)
+        same([got], [want], f"S on path C1's {slot} input")
+        ms = cuda_ms(functools.partial(cuda_scan.segmented_sum_scan_cuda, flags, values))
+        plain_ms = cuda_ms(functools.partial(cuda_scan.segmented_sum_scan_plain, flags, values), reps=3, inner=2)
+        cumsum_ms = cuda_ms(functools.partial(torch.cumsum, values, 0))
+        bound = max(bound_parts("S", (flags, values)))
+        shapes[slot] = {"rows": n, "max_abs_err": u64_max_abs_err(got, want), "ms": round(ms, 5),
+                        "plain_ms": round(plain_ms, 5), "bound_ms": round(bound, 5),
+                        "cumsum_ms": round(cumsum_ms, 5)}
+        print(f"  S {slot}: {json.dumps(shapes[slot])}", flush=True)
+    return shapes
 
 
 def columns_pass(torch, n, captured=None, reps=3):
@@ -430,45 +814,75 @@ def check_against_plain(decoded, reference, what):
         raise AssertionError(f"{what}: kernel pass differs from the plain pass")
 
 
-def time_kernels(torch, kernels, captured):
-    """Each kernel and its plain version on the inputs the 1M columns
-    pass gave it; bound = max(bytes / HBM rate, ops / INT32 rate)."""
+def bound_parts(slot, a):
+    """(bytes / HBM rate, integer ops / INT32 rate) in ms for one call of
+    kernel `slot` on positional arguments `a`: each input read once,
+    each output written once. Bytes per row: L 1+8+8 in, 16 out; X 1+4
+    in, 4 out; S 1+8 in, 8 out; H 8+8+1 in, 4 out (and a 4-byte digest)."""
+    n = a[0].shape[0]
+    bytes_ = n * {"L": 33, "X": 9, "S": 17, "H": 21}[slot] + (4 if slot == "H" else 0)
+    ops = H_OPS_PER_HASHED_ROW * int(a[2].sum()) if slot == "H" else 0
+    return bytes_ / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+
+
+def kernel_forms():
+    """slot -> (kernel wrapper, plain version), both on a dispatcher's
+    arguments."""
     from evolu_tpu_torch.ops import cuda_hash, cuda_scan
 
+    return {"L": (cuda_scan.segmented_max_scan_cuda, cuda_scan.segmented_max_scan_plain),
+            "X": (cuda_scan.segmented_xor_scan_cuda, cuda_scan.segmented_xor_scan_plain),
+            "S": (cuda_scan.segmented_sum_scan_cuda, cuda_scan.segmented_sum_scan_plain),
+            "H": (cuda_hash.masked_key_hashes_cuda, cuda_hash.masked_key_hashes_plain)}
+
+
+def as_list(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def time_path_calls(kernels, calls):
+    """Each kernel on every input path C2 handed it, checked against its
+    plain version: kernel ms and bound ms summed over the calls, i.e.
+    per run of path C2."""
+    forms = kernel_forms()
+    out = {}
+    for k in kernels:
+        cuda_fn, plain_fn = forms[k["slot"]]
+        ms = bound = 0.0
+        rows = []
+        for a, kw in calls[k["slot"]]:
+            same(as_list(cuda_fn(*a, **kw)), as_list(plain_fn(*a, **kw)), k["name"] + " on path C2's input")
+            ms += cuda_ms(functools.partial(cuda_fn, *a, **kw))
+            bound += max(bound_parts(k["slot"], a))
+            rows.append(int(a[0].shape[0]))
+        out[k["name"]] = {"calls": len(rows), "rows_min": min(rows), "rows_max": max(rows),
+                          "ms": round(ms, 5), "bound_ms": round(bound, 5)}
+        print(f"  {k['name']} per run of path C2: {json.dumps(out[k['name']])}", flush=True)
+    return out
+
+
+def time_kernels(kernels, captured):
+    """Each kernel and its plain version on the inputs the 1M columns
+    pass gave it (L: the mean over its calls); bound = max(bytes / HBM
+    rate, ops / INT32 rate)."""
+    forms = kernel_forms()
     rows = []
     for k in kernels:
+        cuda_fn, plain_fn = forms[k["slot"]]
         calls = captured[k["slot"]]
-        (a, kw) = calls[0]
-        n = a[0].shape[0]
-        if k["slot"] == "L":
-            got = [cuda_scan.segmented_max_scan_cuda(*a, **kw) for a, kw in calls]
-            want = [cuda_scan.segmented_max_scan_plain(*a, **kw) for a, kw in calls]
-            ms = sum(cuda_ms(functools.partial(cuda_scan.segmented_max_scan_cuda, *a, **kw)) for a, kw in calls) / len(calls)
-            plain_ms = sum(cuda_ms(functools.partial(cuda_scan.segmented_max_scan_plain, *a, **kw), reps=3, inner=2) for a, kw in calls) / len(calls)
-            bytes_ = n * (1 + 8 + 8) + n * 16
-            ops = 0
-        elif k["slot"] == "X":
-            got = [[cuda_scan.segmented_xor_scan_cuda(*a)] for a, _ in calls]
-            want = [[cuda_scan.segmented_xor_scan_plain(*a)] for a, _ in calls]
-            ms = cuda_ms(functools.partial(cuda_scan.segmented_xor_scan_cuda, *a))
-            plain_ms = cuda_ms(functools.partial(cuda_scan.segmented_xor_scan_plain, *a), reps=3, inner=2)
-            bytes_ = n * (1 + 4) + n * 4
-            ops = 0
-        else:
-            got = [cuda_hash.masked_key_hashes_cuda(*a) for a, _ in calls]
-            want = [cuda_hash.masked_key_hashes_plain(*a) for a, _ in calls]
-            ms = cuda_ms(functools.partial(cuda_hash.masked_key_hashes_cuda, *a))
-            plain_ms = cuda_ms(functools.partial(cuda_hash.masked_key_hashes_plain, *a), reps=3, inner=2)
-            bytes_ = n * (8 + 8 + 1) + n * 4 + 4
-            ops = H_OPS_PER_HASHED_ROW * int(a[2].sum())
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        timed = calls if k["slot"] == "L" else calls[:1]
+        got = [as_list(cuda_fn(*a, **kw)) for a, kw in calls]
+        want = [as_list(plain_fn(*a, **kw)) for a, kw in calls]
         for g, w in zip(got, want):
             same(g, w, k["name"] + " on main-path inputs")
-        t_bytes, t_ops = bytes_ / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        ms = statistics.mean(cuda_ms(functools.partial(cuda_fn, *a, **kw)) for a, kw in timed)
+        plain_ms = statistics.mean(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2)
+                                   for a, kw in timed)
+        t_bytes, t_ops = bound_parts(k["slot"], calls[0][0])
         rows.append({
             "name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-            "launches": k["launches"], "launches_path_b": k["launches_b"],
-            "rows": n, "max_abs_err": err, "matches_plain": err == 0,
+            "timed_on": "columns pass 1M", "rows": int(calls[0][0][0].shape[0]),
+            "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
             "ms": round(ms, 5), "plain_ms": round(plain_ms, 5),
             "bound_ms": round(max(t_bytes, t_ops), 5),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -494,7 +908,11 @@ def main() -> int:
          "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:158"},
         {"name": "timestamp_hash", "slot": "H", "fn": cuda_hash.timestamp_hash_cuda,
          "source": "evolu_tpu_torch/csrc/ts_hash.cu", "replaces": "evolu_tpu/ops/pallas_hash.py:98"},
+        {"name": "seg_sum_scan", "slot": "S", "fn": cuda_scan.segmented_sum_scan_cuda,
+         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:159"},
     ]
+    lwws = kernels[:3]
+    lww_names = [k["name"] for k in lwws]
 
     with phase("build", gpu):
         cuda_lib.load()
@@ -504,13 +922,18 @@ def main() -> int:
                 print("  " + line.strip())
     with phase("kernels vs plain", gpu):
         kernels_vs_plain(torch, dev)
+    launches = {}
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
-        for k, c in zip(kernels, path_a(torch, kernels).values()):
-            k["launches"] = c
+        launches["a"] = path_a(torch, kernels, lww_names)
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
-        for k, c in zip(kernels, path_b(torch, kernels).values()):
-            k["launches_b"] = c
-    captured = {}
+        launches["b"] = path_b(torch, kernels, lww_names)
+    captured, c2_calls = {}, {}
+    with phase("path C1: typed folds at benchmark sizes", gpu):
+        launches["c1"], report_c1 = path_c1(torch, kernels, captured)
+        print("  " + json.dumps(report_c1), flush=True)
+    with phase("path C2: SQLite typed apply 8 x 31k + 10k re-delivery", gpu):
+        launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
+        print("  " + json.dumps(report_c2), flush=True)
     reports = []
     for n in (1_000_000, 10_000_000):
         with phase(f"columns pass {n:,} messages", gpu):
@@ -522,8 +945,25 @@ def main() -> int:
             del args
             torch.cuda.empty_cache()
     with phase("kernel timing on main-path inputs", gpu):
-        table = time_kernels(torch, kernels, captured)
-    print(json.dumps({"columns": reports}))
+        table = time_kernels(lwws, captured)
+        s_shapes = time_sum_kernel(torch, captured)
+        c2_times = time_path_calls(kernels, c2_calls)
+    s_row = s_shapes["S_counter"]
+    table.append({
+        "name": "seg_sum_scan", "route": "cuda", "source": kernels[3]["source"],
+        "replaces": kernels[3]["replaces"], "timed_on": "path C1 pn_counter_sums", "rows": s_row["rows"],
+        "max_abs_err": max(v["max_abs_err"] for v in s_shapes.values()),
+        "ms": s_row["ms"], "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "cumsum_ms_nearest_one_call": s_row["cumsum_ms"],
+        "at_tensor_sum_input": s_shapes["S_tensor_sum"],
+    })
+    for row in table:
+        for p in ("a", "b", "c1", "c2"):
+            row[f"launches_path_{p}"] = launches[p][row["name"]]
+        row["launches"] = sum(launches[p][row["name"]] for p in launches)
+        row["path_c2_ms"] = c2_times[row["name"]]["ms"]
+        row["path_c2_bound_ms"] = c2_times[row["name"]]["bound_ms"]
+    print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-// Kernels L and X: inclusive segmented scans for the LWW planner and the
-// Merkle minute fold, one template per monoid.
+// Kernels L, X and S: inclusive segmented scans for the LWW planner, the
+// Merkle minute fold and the typed-CRDT folds, one template per monoid.
 //
 // Replace evolu_tpu/ops/pallas_scan.py::_make_scan_kernel as instantiated
 // for _LEX_KERNEL (combine `_comb`: lexicographic max of (k1, k2) unsigned
-// u64 pairs) and _XOR_KERNEL (combine `_seg_xor`: XOR of u32 hashes). The
-// segment flag marks a segment start; the element nearest the scan head
+// u64 pairs), _XOR_KERNEL (combine `_seg_xor`: XOR of u32 hashes) and
+// _SUM_KERNEL (combine `_seg_sum`: modular u64 sum; the TPU kernel carries
+// it across hi/lo u32 limbs, here it is one native unsigned add that wraps
+// mod 2^64, which is what the limb carry computes). The segment flag marks a segment start; the element nearest the scan head
 // wins outright when flagged:
 //   combine(l, r) = (l.f | r.f, r.f ? r.v : op(l.v, r.v)).
 // With reverse != 0 the scan runs right to left over the same memory
@@ -20,8 +22,9 @@
 // (no u32 limb planes) with unsigned compares.
 //
 // Bound on the card: memory bytes. L moves 1 + 16 bytes in and 16 out per
-// row, X 1 + 4 in and 4 out; phase A reads the inputs a second time,
-// which costs 17 (L) / 5 (X) bytes per row over that bound. A single-pass
+// row, X 1 + 4 in and 4 out, S 1 + 8 in and 8 out; phase A reads the
+// inputs a second time, which costs 17 (L) / 5 (X) / 9 (S) bytes per row
+// over that bound. A single-pass
 // decoupled look-back would remove it; this first version stays simple.
 
 #include <cuda_runtime.h>
@@ -55,6 +58,15 @@ struct Xor {
   __device__ static V zero() { return 0u; }
   __device__ static V op(V l, V r) { return l ^ r; }
   __device__ static V shfl_up(V x, int d) { return __shfl_up_sync(kFull, x, d); }
+};
+
+struct Sum {
+  using V = uint64_t;
+  __device__ static V zero() { return 0ull; }
+  __device__ static V op(V l, V r) { return l + r; }  // unsigned: wraps mod 2^64
+  __device__ static V shfl_up(V x, int d) {
+    return (uint64_t)__shfl_up_sync(kFull, (unsigned long long)x, d);
+  }
 };
 
 template <class M>
@@ -134,6 +146,16 @@ struct XorIO {
     return Elem<Xor>{v[p], flags[p] ? 1u : 0u};
   }
   __device__ void store(int64_t p, uint32_t x) const { out[p] = x; }
+};
+
+struct SumIO {
+  const uint8_t* flags;
+  const uint64_t* v;
+  uint64_t* out;
+  __device__ Elem<Sum> load(int64_t p) const {
+    return Elem<Sum>{v[p], flags[p] ? 1u : 0u};
+  }
+  __device__ void store(int64_t p, uint64_t x) const { out[p] = x; }
 };
 
 // Logical scan position j → memory position.
@@ -234,9 +256,14 @@ int run_scan(const IO& io, int64_t n, int reverse, void* scratch, cudaStream_t s
 
 extern "C" {
 
-// Bytes of device scratch the scan of n rows needs (monoid 0 = L, 1 = X).
+// Bytes of device scratch the scan of n rows needs (monoid 0 = L, 1 = X,
+// 2 = S).
 long long evolu_seg_scan_scratch_bytes(int monoid, long long n) {
-  return monoid == 0 ? scratch_bytes<LexMax>(n) : scratch_bytes<Xor>(n);
+  switch (monoid) {
+    case 0: return scratch_bytes<LexMax>(n);
+    case 1: return scratch_bytes<Xor>(n);
+    default: return scratch_bytes<Sum>(n);
+  }
 }
 
 // Kernel L. flags: n bytes (0/1); k1, k2: n u64; o1, o2: n u64 outputs.
@@ -253,6 +280,14 @@ int evolu_seg_xor_scan(const void* flags, const void* v, void* out, long long n,
   XorIO io{static_cast<const uint8_t*>(flags), static_cast<const uint32_t*>(v),
            static_cast<uint32_t*>(out)};
   return run_scan<Xor>(io, n, 0, scratch, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel S. flags: n bytes (0/1), segment starts; v: n u64; out: n u64.
+int evolu_seg_sum_scan(const void* flags, const void* v, void* out, long long n, void* scratch,
+                       void* stream) {
+  SumIO io{static_cast<const uint8_t*>(flags), static_cast<const uint64_t*>(v),
+           static_cast<uint64_t*>(out)};
+  return run_scan<Sum>(io, n, 0, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -104,6 +104,8 @@ def _bind(lib):
     lib.evolu_seg_lex_max_scan.restype = i
     lib.evolu_seg_xor_scan.argtypes = [vp, vp, vp, ll, vp, vp]
     lib.evolu_seg_xor_scan.restype = i
+    lib.evolu_seg_sum_scan.argtypes = [vp, vp, vp, ll, vp, vp]
+    lib.evolu_seg_sum_scan.restype = i
     lib.evolu_ts_hash.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
     lib.evolu_ts_hash.restype = i
     return lib

@@ -1,4 +1,4 @@
-"""Kernels L and X (`csrc/seg_scan.cu`) and their plain PyTorch versions.
+"""Kernels L, X and S (`csrc/seg_scan.cu`) and their plain PyTorch versions.
 
 - L, `segmented_max_scan`: inclusive segmented lexicographic max of
   (k1, k2) unsigned u64 pairs (int64 bit patterns). `flags[i]` marks a
@@ -7,6 +7,11 @@
 - X, `segmented_xor_scan`: inclusive segmented XOR of u32 hashes (int32
   bit patterns); at a segment's last row the value is the segment's
   Merkle delta. Replaces pallas_scan.py `_XOR_KERNEL`.
+- S, `segmented_sum_scan`: inclusive segmented modular u64 sum (int64
+  bit patterns; int64 `+` wraps exactly as u64 addition does), forward,
+  flags marking segment starts. Serves the typed-CRDT folds (counter
+  pos/neg sums, RGA alive slots, tensor sum/mean). Replaces
+  pallas_scan.py `_SUM_KERNEL`.
 
 On a CUDA tensor the dispatchers launch the kernel (or raise); the plain
 versions serve CPU tensors only. The plain versions are the blocked
@@ -40,6 +45,10 @@ def _lex_max(left: Sequence[torch.Tensor], right: Sequence[torch.Tensor]) -> Lis
 
 def _xor(left: Sequence[torch.Tensor], right: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [left[0] ^ right[0]]
+
+
+def _add(left: Sequence[torch.Tensor], right: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    return [left[0] + right[0]]
 
 
 def _shift_right(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -94,6 +103,12 @@ def segmented_xor_scan_plain(flags, values):
     return out
 
 
+def segmented_sum_scan_plain(flags, values):
+    """Plain version of kernel S (any device)."""
+    (out,) = _seg_scan_plain(flags, [values], _add)
+    return out
+
+
 # ---- kernels --------------------------------------------------------------
 
 
@@ -140,6 +155,27 @@ def segmented_xor_scan_cuda(flags, values):
 segmented_xor_scan_cuda.launches = 0
 
 
+def segmented_sum_scan_cuda(flags, values):
+    """Kernel S on CUDA tensors: bool flags, int64 values → int64."""
+    n = flags.shape[0]
+    require(flags, torch.bool, n, "segmented_sum_scan flags")
+    require(values, torch.int64, n, "segmented_sum_scan values")
+    lib = load()
+    out = torch.empty_like(values)
+    scratch = torch.empty(max(lib.evolu_seg_scan_scratch_bytes(2, n), 1),
+                          dtype=torch.uint8, device=values.device)
+    rc = lib.evolu_seg_sum_scan(
+        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n,
+        scratch.data_ptr(), stream_handle(values),
+    )
+    check(rc, "segmented sum scan")
+    segmented_sum_scan_cuda.launches += 1
+    return out
+
+
+segmented_sum_scan_cuda.launches = 0
+
+
 # ---- dispatch -------------------------------------------------------------
 
 
@@ -155,3 +191,10 @@ def segmented_xor_scan(flags, values):
     if flags.is_cuda:
         return segmented_xor_scan_cuda(flags, values)
     return segmented_xor_scan_plain(flags, values)
+
+
+def segmented_sum_scan(flags, values):
+    """Kernel S on a CUDA tensor, its plain version on the CPU."""
+    if flags.is_cuda:
+        return segmented_sum_scan_cuda(flags, values)
+    return segmented_sum_scan_plain(flags, values)

@@ -165,6 +165,33 @@ class PlannedBatch(tuple):
         return self
 
 
+def strip_typed_upserts(plan, messages, schema):
+    """Typed cells never take the LWW app-table upsert: their app value
+    is the merge-state materialization (`core.crdt_types`). One copy for
+    every planner; the xor mask and Merkle deltas are timestamp-only and
+    stay as they are. Takes the 2-tuple, 3-tuple or PlannedBatch plan
+    and returns the same shape."""
+    typed_idx = [i for i, m in enumerate(messages) if schema.is_typed(m.table, m.column)]
+    if not typed_idx:
+        return plan
+
+    def keep(m):
+        return not schema.is_typed(m.table, m.column)
+
+    if isinstance(plan, PlannedBatch):
+        xor_mask, upserts, deltas = plan
+        mask = plan.upsert_mask
+        if mask is not None:
+            mask = np.array(mask, copy=True)
+            mask[typed_idx] = False
+        return PlannedBatch(xor_mask, [m for m in upserts if keep(m)], deltas, mask)
+    if len(plan) == 3:
+        xor_mask, upserts, deltas = plan
+        return xor_mask, [m for m in upserts if keep(m)], deltas
+    xor_mask, upserts = plan
+    return xor_mask, [m for m in upserts if keep(m)]
+
+
 def select_messages(messages: Sequence[CrdtMessage], mask: np.ndarray) -> List[CrdtMessage]:
     """messages[i] for mask[i], without a per-message Python loop."""
     ix = np.nonzero(mask)[0]

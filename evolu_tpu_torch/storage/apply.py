@@ -1,4 +1,4 @@
-"""LWW message application — the merge hot path, LWW columns only.
+"""Message application — the merge hot path.
 
 `apply_messages_sequential` reproduces the reference's per-message loop
 exactly and is the correctness oracle:
@@ -15,12 +15,21 @@ exactly and is the correctness oracle:
 winner query for all touched cells, masks from a planner (the host
 `plan_batch`, or `ops.merge.plan_batch_device_full` on the card), then
 bulk SQL, all in one transaction.
+
+Typed CRDT cells (counter, awset, list, tensor) ride the same
+transaction: `crdt_types.apply_typed_ops` folds their new ops into the
+`__crdt_*` state and materializes the app values before the batch's
+`__message` insert, and `ops.merge.strip_typed_upserts` removes their
+LWW upserts from the plan. `device` (None = CUDA) is where the typed
+folds run once a batch reaches `crdt_types.DEVICE_FOLD_MIN`; LWW-only
+batches never read it.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from evolu_tpu_torch.core.crdt_types import apply_typed_ops, load_schema
 from evolu_tpu_torch.core.merkle import apply_prefix_xors, insert_into_merkle_tree, minute_deltas_host
 from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage
@@ -43,14 +52,24 @@ def _upsert_sql(table: str, column: str) -> str:
     return f"INSERT INTO {t} (\"id\", {c}) VALUES (?, ?) ON CONFLICT(\"id\") DO UPDATE SET {c} = ?"
 
 
+def _typed_messages(db, messages):
+    schema = load_schema(db)
+    return schema, ([m for m in messages if schema.is_typed(m.table, m.column)] if schema else [])
+
+
 def apply_messages_sequential(
-    db: PySqliteDatabase, merkle_tree: dict, messages: Sequence[CrdtMessage]
+    db: PySqliteDatabase, merkle_tree: dict, messages: Sequence[CrdtMessage], device=None
 ) -> dict:
-    """The reference loop, message by message (O(n) SQL round trips)."""
+    """The reference loop, message by message (O(n) SQL round trips).
+    Typed ops fold and materialize first, before the loop inserts any
+    `__message` row (the dedup screen reads pre-batch state)."""
+    schema, typed = _typed_messages(db, messages)
+    if typed:
+        apply_typed_ops(db, schema, typed, device)
     for m in messages:
         rows = db.exec_sql_query(_SELECT_WINNER, (m.table, m.row, m.column))
         t = rows[0]["timestamp"] if rows else None
-        if t is None or t < m.timestamp:
+        if (t is None or t < m.timestamp) and not (typed and schema.is_typed(m.table, m.column)):
             db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
         if t is None or t != m.timestamp:
             db.run(_INSERT_MESSAGE, (m.timestamp, m.table, m.row, m.column, m.value))
@@ -110,6 +129,7 @@ def apply_messages(
     merkle_tree: dict,
     messages: Sequence[CrdtMessage],
     planner=None,
+    device=None,
 ) -> dict:
     """Batched apply, end state identical to the sequential oracle.
 
@@ -122,6 +142,12 @@ def apply_messages(
     with db.transaction():  # whole-batch atomicity
         existing = fetch_existing_winners(db, {(m.table, m.row, m.column) for m in messages})
         plan = planner(messages, existing)
+        schema, typed = _typed_messages(db, messages)
+        if typed:
+            from evolu_tpu_torch.ops.merge import strip_typed_upserts
+
+            apply_typed_ops(db, schema, typed, device)
+            plan = strip_typed_upserts(plan, messages, schema)
         if len(plan) == 3:
             xor_mask, upserts, deltas = plan
         else:

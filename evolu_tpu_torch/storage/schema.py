@@ -1,9 +1,11 @@
 """The `__message` log table and add-only app-table evolution.
 
 App columns get BLOB affinity on purpose — no storage-class coercion —
-which is what makes end states comparable byte for byte. Only the LWW
-part of the reference schema is here: no owner, mnemonic, clock or
-typed-CRDT tables.
+which is what makes end states comparable byte for byte. A column may
+carry a CRDT type suffix (`"votes:counter"`, `"tags:awset"`,
+`"body:list"`, `"w:tensor:sum:f32:8"`), which is stripped for the DDL
+and declared in `__crdt_schema` (`core/crdt_types.py`). No owner,
+mnemonic or clock tables.
 """
 
 from __future__ import annotations
@@ -36,17 +38,39 @@ def get_existing_tables(db: PySqliteDatabase) -> Set[str]:
     return {r["name"] for r in rows if not r["name"].startswith("__")}
 
 
-def update_db_schema(db: PySqliteDatabase, table_definitions: Iterable[TableDefinition]) -> None:
+def update_db_schema(db: PySqliteDatabase, table_definitions: Iterable[TableDefinition],
+                     device=None) -> None:
     """Add-only migration: CREATE missing tables (id TEXT PRIMARY KEY +
-    BLOB columns) or ALTER ... ADD COLUMN. Plain LWW columns only."""
+    BLOB columns) or ALTER ... ADD COLUMN, then declare the typed
+    columns (`device` serves the fold of ops logged before a
+    declaration)."""
+    from evolu_tpu_torch.core.crdt_types import declare_column_types, parse_column_spec
+
     existing = get_existing_tables(db)
+    declarations = []
     for td in table_definitions:
+        parsed = [parse_column_spec(c) for c in td.columns]
+        declarations.extend((td.name, name, ctype) for name, ctype in parsed if ctype != "lww")
+        names = [name for name, _ in parsed]
         if td.name in existing:
             have = {r["name"] for r in db.exec_sql_query(
                 f"PRAGMA table_info ({quote_ident(td.name)})")}
-            for col in td.columns:
+            for col in names:
                 if col not in have:
                     db.run(f"ALTER TABLE {quote_ident(td.name)} ADD COLUMN {quote_ident(col)} BLOB")
         else:
-            cols = ", ".join(f"{quote_ident(c)} BLOB" for c in td.columns)
+            cols = ", ".join(f"{quote_ident(c)} BLOB" for c in names)
             db.exec(f'CREATE TABLE {quote_ident(td.name)} ("id" TEXT PRIMARY KEY, {cols})')
+    if declarations:
+        declare_column_types(db, declarations, device)
+
+
+def delete_all_tables(db: PySqliteDatabase) -> None:
+    """DROP every table, the `__crdt_*` ones included, and drop the
+    connection's typed-schema cache with them."""
+    from evolu_tpu_torch.core.crdt_types import invalidate_schema_cache
+
+    rows = db.exec_sql_query("SELECT \"name\" FROM sqlite_schema WHERE type='table'")
+    for r in rows:
+        db.exec(f"DROP TABLE {quote_ident(r['name'])}")
+    invalidate_schema_cache(db)

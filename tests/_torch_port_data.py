@@ -64,3 +64,91 @@ def port_messages(tuples):
 
 def as_tuples(messages):
     return [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages]
+
+
+# --- typed-CRDT traffic (counter, awset, list, tensor) ---
+
+TYPED_TABLE = "board"
+TYPED_COLUMNS = ("title", "votes:counter", "tags:awset", "body:list",
+                 "w:tensor:sum:f32:2", "avg:tensor:mean:bf16:2", "peak:tensor:max:f32:2")
+_MALFORMED = ("x", "[]", '["z",1]', '["d","%%%"]', 2**40, True, None, '["i",5,"v"]', '["r","e",5]')
+
+
+def _tensor_value(rng, monoid, kind):
+    """A tensor op value for width 2, built by hand (base64 of the
+    declared dtype's bytes) so both packages decode the same string."""
+    import base64
+    import json
+
+    v = np.round(rng.uniform(-100, 100, 2), 2)
+    if monoid == "mean":  # bf16 column: bf16-representable values
+        v = v.astype(np.float32).view(np.uint32) & np.uint32(0xFFFF0000)
+        payload = (v >> np.uint32(16)).astype("<u2").tobytes()
+        return json.dumps([kind, base64.b64encode(payload).decode(), int(rng.integers(1, 5))],
+                          separators=(",", ":"))
+    payload = v.astype("<f4").tobytes()
+    return json.dumps([kind, base64.b64encode(payload).decode()], separators=(",", ":"))
+
+
+def typed_tuples(rng, n, n_rows=6, malformed_frac=0.05, millis=BASE_MILLIS):
+    """n typed-traffic tuples in logical time order, timestamps unique
+    per message: counter deltas; set adds and removes that observe
+    earlier add tags; list inserts anchored on earlier elements (head,
+    or a dangling origin) and deletes of earlier elements; tensor set
+    and delta ops; LWW titles; a few malformed values. Shuffling the
+    result delivers kills before adds and inserts anchored on deleted
+    elements."""
+    import json
+
+    nodes = rng.integers(0, 2**64, 4, dtype=np.uint64)
+    adds, inserts, out = {}, {}, []
+    for i in range(n):
+        ts = ts_string(millis + 7 * i, int(rng.integers(0, 4)), nodes[int(rng.integers(0, 4))])
+        row = f"r{int(rng.integers(0, n_rows))}"
+        col = ("title", "votes", "tags", "body", "w", "avg", "peak")[int(rng.integers(0, 7))]
+        cell = (row, col)
+        if col != "title" and rng.random() < malformed_frac:
+            value = _MALFORMED[int(rng.integers(0, len(_MALFORMED)))]
+        elif col == "title":
+            value = f"t{i}"
+        elif col == "votes":
+            value = int(rng.integers(-1000, 1000))
+        elif col == "tags":
+            elem = ("red", "blue", 7)[int(rng.integers(0, 3))]
+            seen = adds.setdefault(cell, [])
+            if seen and rng.random() < 0.35:
+                observed = sorted({seen[int(k)] for k in rng.integers(0, len(seen), 3)})
+                value = json.dumps(["r", elem, observed], separators=(",", ":"))
+            else:
+                value = json.dumps(["a", elem], separators=(",", ":"))
+                seen.append(ts)
+        elif col == "body":
+            seen = inserts.setdefault(cell, [])
+            if seen and rng.random() < 0.3:
+                value = json.dumps(["d", seen[int(rng.integers(0, len(seen)))]], separators=(",", ":"))
+            else:
+                roll = rng.random()
+                origin = ("" if roll < 0.2 or not seen else
+                          "2099-01-01T00:00:00.000Z-0000-ffffffffffffffff" if roll < 0.3 else
+                          seen[int(rng.integers(0, len(seen)))])
+                value = json.dumps(["i", origin, f"v{i}"], separators=(",", ":"))
+                seen.append(ts)
+        else:
+            monoid = {"w": "sum", "avg": "mean", "peak": "max"}[col]
+            value = _tensor_value(rng, monoid, "s" if rng.random() < 0.15 else "d")
+        out.append((ts, TYPED_TABLE, row, col, value))
+    return out
+
+
+def typed_batches(seed, n=600, n_batches=4):
+    """Shuffled typed traffic cut into batches, then a re-delivery batch
+    of messages already applied."""
+    rng = np.random.default_rng(seed)
+    msgs = typed_tuples(rng, n)
+    order = rng.permutation(len(msgs))
+    msgs = [msgs[i] for i in order]
+    cut = len(msgs) // n_batches
+    batches = [msgs[i * cut:(i + 1) * cut] for i in range(n_batches - 1)]
+    batches.append(msgs[(n_batches - 1) * cut:])
+    batches.append([msgs[int(i)] for i in rng.integers(0, len(msgs), len(msgs) // 5)])
+    return batches

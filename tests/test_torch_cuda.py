@@ -1,4 +1,4 @@
-"""Kernels L, X and H on the card against their plain PyTorch versions.
+"""Kernels L, X, H and S on the card against their plain PyTorch versions.
 
 Imports neither jax nor `evolu_tpu`, so it runs on the GPU machine:
 
@@ -75,9 +75,36 @@ def test_kernel_h_matches_plain(n, dev):
     assert torch.equal(got_h, want_h) and torch.equal(got_d, want_d)
 
 
+@pytest.mark.parametrize("n", (1, 255, 256, 4097, (1 << 15) + 3, (1 << 20) + 3))
+def test_kernel_s_matches_plain(n, dev):
+    f, _, _ = _lex_inputs(n, n, dev)
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 2**64, n, dtype=np.uint64)
+    v[rng.random(n) < 0.2] = np.uint64(2**64 - 1)  # every add wraps
+    v[rng.random(n) < 0.1] = np.uint64(1) << np.uint64(63)
+    values = torch.from_numpy(v.view(np.int64)).to(dev)
+    before = cuda_scan.segmented_sum_scan_cuda.launches
+    got = cuda_scan.segmented_sum_scan(f, values)
+    assert cuda_scan.segmented_sum_scan_cuda.launches == before + 1
+    assert torch.equal(got, cuda_scan.segmented_sum_scan_plain(f, values))
+
+
+def test_kernel_s_wraps_like_u64(dev):
+    f = torch.tensor([True, False, False, True, False], device=dev)
+    v = torch.tensor(np.array([2**63 - 1, 1, 2**64 - 1, 2**64 - 2, 3], np.uint64).view(np.int64), device=dev)
+    want = np.array([2**63 - 1, 2**63, 2**63 - 1, 2**64 - 2, 1], np.uint64)
+    np.testing.assert_array_equal(cuda_scan.segmented_sum_scan(f, v).cpu().numpy().view(np.uint64), want)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     f, a, b = _lex_inputs(256, 1, dev)
     with pytest.raises(ValueError):
         cuda_scan.segmented_max_scan_cuda(f, a[::2], b[::2])
     with pytest.raises(ValueError):
         cuda_scan.segmented_xor_scan_cuda(f, a)  # int64 values, kernel takes int32
+    with pytest.raises(ValueError):
+        cuda_scan.segmented_sum_scan_cuda(f, a.to(torch.int32))  # kernel S takes int64
+    with pytest.raises(ValueError):
+        cuda_scan.segmented_sum_scan_cuda(f, a[::2])  # wrong length, not contiguous
+    with pytest.raises(ValueError):
+        cuda_scan.segmented_sum_scan_cuda(f.cpu(), a.cpu())  # CPU tensors: plain version only

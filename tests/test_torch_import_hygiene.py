@@ -1,5 +1,6 @@
-"""`evolu_tpu_torch` imports neither jax nor `evolu_tpu`, directly or
-transitively, and importing it does not initialize CUDA."""
+"""`evolu_tpu_torch` imports neither jax, `evolu_tpu` nor `ml_dtypes`
+(the card's machine has none of them), directly or transitively, and
+importing it does not initialize CUDA."""
 
 import json
 import os
@@ -22,7 +23,7 @@ import torch
 print("RESULT:" + json.dumps({
     "modules": names,
     "forbidden": sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu")),
+                        if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu", "ml_dtypes")),
     "cuda_initialized": torch.cuda.is_initialized(),
 }))
 """
@@ -38,5 +39,7 @@ def test_port_imports_no_jax_and_touches_no_card():
     result = json.loads(line[len("RESULT:"):])
     assert "evolu_tpu_torch.parallel.reconcile" in result["modules"]
     assert "evolu_tpu_torch.storage.apply" in result["modules"]
+    assert "evolu_tpu_torch.ops.crdt_merge" in result["modules"]
+    assert "evolu_tpu_torch.core.crdt_tensor" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
