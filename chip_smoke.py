@@ -11,7 +11,10 @@ Phases (any failure ends the run with a traceback and a nonzero code):
 2. kernels  — kernels L (segmented lex-max scan), X (segmented XOR scan),
               H (timestamp hash + digest) and S (segmented u64 sum,
               wrapping values) against their plain PyTorch versions on
-              the card, bit for bit.
+              the card, bit for bit; then L and S on inputs that stress
+              their decoupled look-back (one segment over 2^23+5 rows,
+              every row flagged, sizes around the tile, unaligned views,
+              back-to-back calls and a second stream).
 3. path A   — `reconcile_owner_batches` on 1M CrdtMessages across 1k
               owners (~4 messages per cell, 60% of cells with a stored
               winner, one owner in non-canonical hex case), every
@@ -49,13 +52,20 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
               every input path C2 handed it (checked against its plain
-              version), summed to ms and bound per C2 run.
+              version), summed to ms, device ms and bound per C2 run.
+              `ms` is CUDA events around 10 back-to-back wrapper calls
+              (host cost included wherever the host is the slower);
+              `device_ms` is the kernels' own duration from
+              torch.profiler; `host_us` is the wrapper's host time per
+              call over 1000 calls with no synchronize, on the smallest
+              input path C2 gave the kernel (`host_us_rows`).
 
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after. In the kernels JSON, `launches` is the
 sum of those four counts and `launches_path_{a,b,c1,c2}` are the counts
-themselves; `ms`, `plain_ms`, `bound_ms` and `max_abs_err` are at the
-input named by `timed_on`.
+themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
+are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
+are summed over every call path C2 made.
 
 The last two lines are the card's `nvidia-smi` name and power limit
 and then {"ok": true, "device": {...}}; the line before them is the
@@ -124,6 +134,41 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(torch, fns, reps: int = 10) -> float:
+    """Device time of the kernels that one call of each of `fns` launches,
+    summed over `fns` and averaged over `reps` rounds, from torch.profiler
+    (CUPTI kernel records), after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return sum(spans) / reps / 1e3
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host time of one call of `fn`, over `calls` calls with no
+    synchronize between them (the device is drained after the clock
+    stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def reset(kernels):
@@ -264,6 +309,66 @@ def kernels_vs_plain(torch, dev):
     same(cuda_hash.masked_key_hashes_cuda(k1, d, mask),
          cuda_hash.masked_key_hashes_plain(k1, d, mask), "H keys + digest")
     torch.cuda.synchronize()
+
+
+def lookback_stress(torch, dev):
+    """L (both directions) and S against their plain versions on inputs
+    that stress the look-back: one segment over the whole array (the
+    longest chain of tiles waiting on their predecessors), no flag at all,
+    every row a segment start, sizes around the tile, views whose data
+    start 8 bytes past a 16-byte boundary, two calls back to back on one
+    stream and one on a second stream. Returns the number of cases."""
+    from evolu_tpu_torch.ops import cuda_lib, cuda_scan
+
+    tile = cuda_lib.load().evolu_seg_scan_tile_rows()
+    rng = np.random.default_rng(17)
+
+    def inputs(n, kind):
+        f = np.zeros(n, bool) if kind != "every row" else np.ones(n, bool)
+        if kind in ("one segment", "random"):
+            f[0] = True
+        if kind == "random":
+            f |= rng.random(n) < 0.03
+        k = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(3)]
+        k[0][rng.random(n) < 0.3] = np.uint64(42) << np.uint64(32)
+        k[2][rng.random(n) < 0.2] = np.uint64(2**64 - 1)
+        return [torch.from_numpy(f).to(dev)] + [torch.from_numpy(x.view(np.int64)).to(dev) for x in k]
+
+    def check(f, a, b, w, what):
+        for reverse in (False, True):
+            same(cuda_scan.segmented_max_scan(f, a, b, reverse=reverse),
+                 cuda_scan.segmented_max_scan_plain(f, a, b, reverse=reverse), f"L {what} reverse={reverse}")
+        same([cuda_scan.segmented_sum_scan(f, w)], [cuda_scan.segmented_sum_scan_plain(f, w)], f"S {what}")
+
+    cases = [("one segment", (1 << 20) + 3), ("one segment", (1 << 23) + 5), ("no flag", 3 * tile + 5),
+             ("every row", (1 << 20) + 3)]
+    cases += [("random", m) for m in (tile - 1, tile, tile + 1, 3 * tile + 5)]
+    for kind, n in cases:
+        check(*inputs(n, kind), f"{kind} n={n}")
+    for kind, n in (("random", 70001), ("one segment", 3 * tile + 6)):
+        f, a, b, w = (x[1:] for x in inputs(n, kind))
+        if a.data_ptr() % 16 != 8 or w.data_ptr() % 16 != 8:
+            raise AssertionError("the offset views start on a 16-byte boundary")
+        check(f, a, b, w, f"{kind} view at offset 1, n={n - 1}")
+    first, second = inputs(3 * tile + 5, "random"), inputs(3 * tile + 5, "one segment")
+    got = [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_sum_scan(second[0], second[3]),
+           *cuda_scan.segmented_max_scan(first[0], first[1], first[2]),
+           *cuda_scan.segmented_max_scan(second[0], second[1], second[2])]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got += [cuda_scan.segmented_sum_scan(second[0], second[3]),
+                *cuda_scan.segmented_max_scan(second[0], second[1], second[2], reverse=True)]
+    torch.cuda.current_stream().wait_stream(side)
+    want = [cuda_scan.segmented_sum_scan_plain(first[0], first[3]),
+            cuda_scan.segmented_sum_scan_plain(second[0], second[3]),
+            *cuda_scan.segmented_max_scan_plain(first[0], first[1], first[2]),
+            *cuda_scan.segmented_max_scan_plain(second[0], second[1], second[2]),
+            cuda_scan.segmented_sum_scan_plain(second[0], second[3]),
+            *cuda_scan.segmented_max_scan_plain(second[0], second[1], second[2], reverse=True)]
+    same(got, want, "L and S back to back on one stream, then on a second stream")
+    torch.cuda.synchronize()
+    return len(cases) + 3
 
 
 def path_a(torch, kernels, need):
@@ -707,12 +812,14 @@ def time_sum_kernel(torch, captured):
         got = cuda_scan.segmented_sum_scan_cuda(flags, values)
         want = cuda_scan.segmented_sum_scan_plain(flags, values)
         same([got], [want], f"S on path C1's {slot} input")
-        ms = cuda_ms(functools.partial(cuda_scan.segmented_sum_scan_cuda, flags, values))
+        call = functools.partial(cuda_scan.segmented_sum_scan_cuda, flags, values)
+        ms = cuda_ms(call)
+        dev_ms = device_ms(torch, [call])
         plain_ms = cuda_ms(functools.partial(cuda_scan.segmented_sum_scan_plain, flags, values), reps=3, inner=2)
         cumsum_ms = cuda_ms(functools.partial(torch.cumsum, values, 0))
         bound = max(bound_parts("S", (flags, values)))
         shapes[slot] = {"rows": n, "max_abs_err": u64_max_abs_err(got, want), "ms": round(ms, 5),
-                        "plain_ms": round(plain_ms, 5), "bound_ms": round(bound, 5),
+                        "device_ms": round(dev_ms, 5), "plain_ms": round(plain_ms, 5), "bound_ms": round(bound, 5),
                         "cumsum_ms": round(cumsum_ms, 5)}
         print(f"  S {slot}: {json.dumps(shapes[slot])}", flush=True)
     return shapes
@@ -783,6 +890,7 @@ def columns_pass(torch, n, captured=None, reps=3):
     report = {
         "messages": n, "rows_padded": int(args[0].shape[0]), "kernel": kernel.__name__,
         "stage_ms": {k: round(v, 4) for k, v in stages.items()},
+        "stage_ms_reps": [{k: round(v, 4) for k, v in r[0].items()} for r in runs],
         "device_ms": round(sum(v for k, v in stages.items() if k != "delta_encode"), 4),
         "pass_s": round(wall, 4), "rows_per_s": round(n / wall),
         "peak_device_bytes": max(r[2] for r in runs),
@@ -840,28 +948,33 @@ def as_list(out):
     return list(out) if isinstance(out, tuple) else [out]
 
 
-def time_path_calls(kernels, calls):
+def time_path_calls(torch, kernels, calls):
     """Each kernel on every input path C2 handed it, checked against its
-    plain version: kernel ms and bound ms summed over the calls, i.e.
-    per run of path C2."""
+    plain version: kernel ms (CUDA events), device ms (profiler) and bound
+    ms summed over the calls, i.e. per run of path C2; and the wrapper's
+    host time per call on the smallest of those inputs."""
     forms = kernel_forms()
     out = {}
     for k in kernels:
         cuda_fn, plain_fn = forms[k["slot"]]
         ms = bound = 0.0
-        rows = []
+        rows, fns = [], []
         for a, kw in calls[k["slot"]]:
             same(as_list(cuda_fn(*a, **kw)), as_list(plain_fn(*a, **kw)), k["name"] + " on path C2's input")
-            ms += cuda_ms(functools.partial(cuda_fn, *a, **kw))
+            fns.append(functools.partial(cuda_fn, *a, **kw))
+            ms += cuda_ms(fns[-1])
             bound += max(bound_parts(k["slot"], a))
             rows.append(int(a[0].shape[0]))
+        small = min(range(len(rows)), key=rows.__getitem__)
         out[k["name"]] = {"calls": len(rows), "rows_min": min(rows), "rows_max": max(rows),
-                          "ms": round(ms, 5), "bound_ms": round(bound, 5)}
+                          "ms": round(ms, 5), "device_ms": round(device_ms(torch, fns, reps=5), 5),
+                          "bound_ms": round(bound, 5), "host_us": round(host_us(torch, fns[small]), 3),
+                          "host_us_rows": rows[small]}
         print(f"  {k['name']} per run of path C2: {json.dumps(out[k['name']])}", flush=True)
     return out
 
 
-def time_kernels(kernels, captured):
+def time_kernels(torch, kernels, captured):
     """Each kernel and its plain version on the inputs the 1M columns
     pass gave it (L: the mean over its calls); bound = max(bytes / HBM
     rate, ops / INT32 rate)."""
@@ -876,6 +989,7 @@ def time_kernels(kernels, captured):
         for g, w in zip(got, want):
             same(g, w, k["name"] + " on main-path inputs")
         ms = statistics.mean(cuda_ms(functools.partial(cuda_fn, *a, **kw)) for a, kw in timed)
+        dev_ms = device_ms(torch, [functools.partial(cuda_fn, *a, **kw) for a, kw in timed]) / len(timed)
         plain_ms = statistics.mean(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2)
                                    for a, kw in timed)
         t_bytes, t_ops = bound_parts(k["slot"], calls[0][0])
@@ -883,7 +997,7 @@ def time_kernels(kernels, captured):
             "name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "timed_on": "columns pass 1M", "rows": int(calls[0][0][0].shape[0]),
             "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
-            "ms": round(ms, 5), "plain_ms": round(plain_ms, 5),
+            "ms": round(ms, 5), "device_ms": round(dev_ms, 5), "plain_ms": round(plain_ms, 5),
             "bound_ms": round(max(t_bytes, t_ops), 5),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
@@ -922,6 +1036,7 @@ def main() -> int:
                 print("  " + line.strip())
     with phase("kernels vs plain", gpu):
         kernels_vs_plain(torch, dev)
+        print(f"  L and S equal their plain versions on {lookback_stress(torch, dev)} look-back stress cases")
     launches = {}
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
         launches["a"] = path_a(torch, kernels, lww_names)
@@ -945,15 +1060,15 @@ def main() -> int:
             del args
             torch.cuda.empty_cache()
     with phase("kernel timing on main-path inputs", gpu):
-        table = time_kernels(lwws, captured)
+        table = time_kernels(torch, lwws, captured)
         s_shapes = time_sum_kernel(torch, captured)
-        c2_times = time_path_calls(kernels, c2_calls)
+        c2_times = time_path_calls(torch, kernels, c2_calls)
     s_row = s_shapes["S_counter"]
     table.append({
         "name": "seg_sum_scan", "route": "cuda", "source": kernels[3]["source"],
         "replaces": kernels[3]["replaces"], "timed_on": "path C1 pn_counter_sums", "rows": s_row["rows"],
         "max_abs_err": max(v["max_abs_err"] for v in s_shapes.values()),
-        "ms": s_row["ms"], "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
+        "ms": s_row["ms"], "device_ms": s_row["device_ms"], "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "cumsum_ms_nearest_one_call": s_row["cumsum_ms"],
         "at_tensor_sum_input": s_shapes["S_tensor_sum"],
     })
@@ -962,7 +1077,10 @@ def main() -> int:
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
+        row["path_c2_device_ms"] = c2_times[row["name"]]["device_ms"]
         row["path_c2_bound_ms"] = c2_times[row["name"]]["bound_ms"]
+        row["host_us"] = c2_times[row["name"]]["host_us"]
+        row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}}))
     print(json.dumps({"kernels": table}))
     print(gpu)

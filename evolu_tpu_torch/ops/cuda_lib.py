@@ -97,15 +97,19 @@ def _build(out_dir: Path) -> str:
 
 
 def _bind(lib):
-    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.evolu_seg_scan_scratch_bytes.argtypes = [i, ll]
-    lib.evolu_seg_scan_scratch_bytes.restype = ll
-    lib.evolu_seg_lex_max_scan.argtypes = [vp, vp, vp, vp, vp, ll, i, vp, vp]
+    vp, ll, i, u = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+    lib.evolu_seg_scan_tile_rows.argtypes = []
+    lib.evolu_seg_scan_tile_rows.restype = ll
+    lib.evolu_seg_scan_lookback_bytes.argtypes = [ll]
+    lib.evolu_seg_scan_lookback_bytes.restype = ll
+    lib.evolu_seg_lex_max_scan.argtypes = [vp, vp, vp, vp, vp, ll, i, vp, ll, u, vp]
     lib.evolu_seg_lex_max_scan.restype = i
+    lib.evolu_seg_sum_scan.argtypes = [vp, vp, vp, ll, vp, ll, u, vp]
+    lib.evolu_seg_sum_scan.restype = i
+    lib.evolu_seg_xor_scan_scratch_bytes.argtypes = [ll]
+    lib.evolu_seg_xor_scan_scratch_bytes.restype = ll
     lib.evolu_seg_xor_scan.argtypes = [vp, vp, vp, ll, vp, vp]
     lib.evolu_seg_xor_scan.restype = i
-    lib.evolu_seg_sum_scan.argtypes = [vp, vp, vp, ll, vp, vp]
-    lib.evolu_seg_sum_scan.restype = i
     lib.evolu_ts_hash.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
     lib.evolu_ts_hash.restype = i
     return lib

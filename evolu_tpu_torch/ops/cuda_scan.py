@@ -22,6 +22,7 @@ over the row totals (recursively) and a carry into each row.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, List, Sequence
 
 import torch
@@ -112,19 +113,61 @@ def segmented_sum_scan_plain(flags, values):
 # ---- kernels --------------------------------------------------------------
 
 
+class _LookBack:
+    """Look-back scratch of one device and stream: the tiles' status words
+    and values, zeroed when made, and the epoch of the last call on it."""
+
+    __slots__ = ("buf", "tiles", "rows", "epoch")
+
+    def __init__(self, buf, tiles, rows):
+        self.buf, self.tiles, self.rows, self.epoch = buf, tiles, rows, 0
+
+
+_EPOCH_LIMIT = 1 << 29  # status words hold epoch << 3 (seg_scan.cu kEpochLimit)
+_lookback = {}  # (device index, stream handle) -> _LookBack
+_lookback_lock = threading.Lock()
+
+
+def _lookback_scratch(t, n: int):
+    """(pointer, tiles, epoch, stream) for one look-back scan of n rows on
+    `t`'s device and current stream. The scratch grows to the largest n
+    seen and is zeroed only when made or when the epoch wraps: no two calls
+    on it share an epoch, so a status word an earlier call left never
+    reads as ready. Two streams never share one, so their calls cannot
+    overlap on it."""
+    index = t.device.index
+    # The current stream's raw handle: torch.cuda.current_stream would
+    # build a Stream object on every call, a large share of the host cost.
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    key = (index, stream)
+    with _lookback_lock:
+        s = _lookback.get(key)
+        if s is None or n > s.rows:
+            lib = load()
+            tile = lib.evolu_seg_scan_tile_rows()
+            tiles = max(-(-n // tile), 2 * s.tiles if s is not None else 1)
+            buf = torch.zeros(lib.evolu_seg_scan_lookback_bytes(tiles), dtype=torch.uint8, device=t.device)
+            s = _lookback[key] = _LookBack(buf, tiles, tiles * tile)
+        s.epoch += 1
+        if s.epoch == _EPOCH_LIMIT:
+            s.buf.zero_()
+            s.epoch = 1
+        return s.buf.data_ptr(), s.tiles, s.epoch, stream
+
+
 def segmented_max_scan_cuda(flags, k1, k2, reverse: bool = False):
-    """Kernel L on CUDA tensors: bool flags, int64 k1/k2 → (m1, m2)."""
+    """Kernel L on CUDA tensors: bool flags, int64 k1/k2 → (m1, m2). One
+    launch, no allocation but the outputs."""
     n = flags.shape[0]
     require(flags, torch.bool, n, "segmented_max_scan flags")
     require(k1, torch.int64, n, "segmented_max_scan k1")
     require(k2, torch.int64, n, "segmented_max_scan k2")
-    lib = load()
-    o1, o2 = torch.empty_like(k1), torch.empty_like(k2)
-    scratch = torch.empty(max(lib.evolu_seg_scan_scratch_bytes(0, n), 1),
-                          dtype=torch.uint8, device=k1.device)
-    rc = lib.evolu_seg_lex_max_scan(
+    o1 = torch.empty(n, dtype=torch.int64, device=k1.device)
+    o2 = torch.empty(n, dtype=torch.int64, device=k1.device)
+    scratch, tiles, epoch, stream = _lookback_scratch(k1, n)
+    rc = load().evolu_seg_lex_max_scan(
         flags.data_ptr(), k1.data_ptr(), k2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
-        n, int(reverse), scratch.data_ptr(), stream_handle(k1),
+        n, int(reverse), scratch, tiles, epoch, stream,
     )
     check(rc, "segmented lex-max scan")
     segmented_max_scan_cuda.launches += 1
@@ -141,7 +184,7 @@ def segmented_xor_scan_cuda(flags, values):
     require(values, torch.int32, n, "segmented_xor_scan values")
     lib = load()
     out = torch.empty_like(values)
-    scratch = torch.empty(max(lib.evolu_seg_scan_scratch_bytes(1, n), 1),
+    scratch = torch.empty(max(lib.evolu_seg_xor_scan_scratch_bytes(n), 1),
                           dtype=torch.uint8, device=values.device)
     rc = lib.evolu_seg_xor_scan(
         flags.data_ptr(), values.data_ptr(), out.data_ptr(), n,
@@ -156,17 +199,15 @@ segmented_xor_scan_cuda.launches = 0
 
 
 def segmented_sum_scan_cuda(flags, values):
-    """Kernel S on CUDA tensors: bool flags, int64 values → int64."""
+    """Kernel S on CUDA tensors: bool flags, int64 values → int64. One
+    launch, no allocation but the output."""
     n = flags.shape[0]
     require(flags, torch.bool, n, "segmented_sum_scan flags")
     require(values, torch.int64, n, "segmented_sum_scan values")
-    lib = load()
-    out = torch.empty_like(values)
-    scratch = torch.empty(max(lib.evolu_seg_scan_scratch_bytes(2, n), 1),
-                          dtype=torch.uint8, device=values.device)
-    rc = lib.evolu_seg_sum_scan(
-        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n,
-        scratch.data_ptr(), stream_handle(values),
+    out = torch.empty(n, dtype=torch.int64, device=values.device)
+    scratch, tiles, epoch, stream = _lookback_scratch(values, n)
+    rc = load().evolu_seg_sum_scan(
+        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n, scratch, tiles, epoch, stream,
     )
     check(rc, "segmented sum scan")
     segmented_sum_scan_cuda.launches += 1

@@ -51,6 +51,19 @@ def test_sum_scan_matches_jax(n):
     assert n < 2 or (got < v).any()
 
 
+@pytest.mark.parametrize("kind", ["one segment", "every row"])
+def test_sum_scan_matches_jax_on_look_back_chains(kind):
+    """The inputs that stress kernel S's look-back on the card: one
+    segment over three tiles and a ragged one, and every row flagged."""
+    n = 3 * 2048 + 5  # kernel S's tile is 2048 rows
+    _, v = _sum_inputs(n, seed=11)
+    flags = np.full(n, kind == "every row")
+    flags[0] = True
+    with jax.enable_x64(True):
+        want = _jax_sum_scan(jnp.asarray(flags), jnp.asarray(v))
+    np.testing.assert_array_equal(_port_sum(flags, v), np.asarray(want))
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_sum_scan_matches_pallas_interpret(n):
     flags, v = _sum_inputs(n, seed=1000 + n)

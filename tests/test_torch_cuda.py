@@ -15,7 +15,8 @@ from evolu_tpu_torch.ops import cuda_hash, cuda_scan
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (1, 127, 128, 4096, 70000, (1 << 20) + 3)
+TILE = 2048  # rows per block of kernels L and S (seg_scan.cu kTile)
+SIZES = (1, 127, 128, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 4096, 70000, (1 << 20) + 3)
 EDGE_MILLIS = [0, 951_782_400_000, 4_107_542_399_000, 253_402_300_799_999,
                -1, -999, -86_400_001, -62_135_596_800_000, 2**47]
 
@@ -75,14 +76,19 @@ def test_kernel_h_matches_plain(n, dev):
     assert torch.equal(got_h, want_h) and torch.equal(got_d, want_d)
 
 
-@pytest.mark.parametrize("n", (1, 255, 256, 4097, (1 << 15) + 3, (1 << 20) + 3))
-def test_kernel_s_matches_plain(n, dev):
-    f, _, _ = _lex_inputs(n, n, dev)
-    rng = np.random.default_rng(n)
+def _sum_values(n, seed, dev):
+    rng = np.random.default_rng(seed)
     v = rng.integers(0, 2**64, n, dtype=np.uint64)
     v[rng.random(n) < 0.2] = np.uint64(2**64 - 1)  # every add wraps
     v[rng.random(n) < 0.1] = np.uint64(1) << np.uint64(63)
-    values = torch.from_numpy(v.view(np.int64)).to(dev)
+    return torch.from_numpy(v.view(np.int64)).to(dev)
+
+
+@pytest.mark.parametrize("n", (1, 255, 256, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 4097, (1 << 15) + 3,
+                               (1 << 20) + 3))
+def test_kernel_s_matches_plain(n, dev):
+    f, _, _ = _lex_inputs(n, n, dev)
+    values = _sum_values(n, n, dev)
     before = cuda_scan.segmented_sum_scan_cuda.launches
     got = cuda_scan.segmented_sum_scan(f, values)
     assert cuda_scan.segmented_sum_scan_cuda.launches == before + 1
@@ -108,3 +114,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         cuda_scan.segmented_sum_scan_cuda(f, a[::2])  # wrong length, not contiguous
     with pytest.raises(ValueError):
         cuda_scan.segmented_sum_scan_cuda(f.cpu(), a.cpu())  # CPU tensors: plain version only
+
+
+def _assert_l_and_s_match_plain(f, a, b, v):
+    for reverse in (False, True):
+        got = cuda_scan.segmented_max_scan(f, a, b, reverse=reverse)
+        want = cuda_scan.segmented_max_scan_plain(f, a, b, reverse=reverse)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"L reverse={reverse}"
+    assert torch.equal(cuda_scan.segmented_sum_scan(f, v), cuda_scan.segmented_sum_scan_plain(f, v)), "S"
+
+
+@pytest.mark.parametrize("kind,n", [("one segment", (1 << 20) + 3), ("one segment", (1 << 23) + 5),
+                                    ("no flag", 3 * TILE + 5), ("every row", TILE + 1),
+                                    ("every row", (1 << 20) + 3)])
+def test_kernels_l_and_s_on_look_back_chains(kind, n, dev):
+    """One segment over the whole array (forward, and no segment end at
+    all in reverse) makes every tile wait on its predecessor's inclusive
+    prefix: the longest look-back chain. Every row flagged makes none wait."""
+    _, a, b = _lex_inputs(n, n, dev)
+    f = torch.full((n,), kind == "every row", dtype=torch.bool, device=dev)
+    f[0] = kind != "no flag"
+    _assert_l_and_s_match_plain(f, a, b, _sum_values(n, n, dev))
+
+
+@pytest.mark.parametrize("start", (1, 2))
+@pytest.mark.parametrize("n", (TILE + 1, 70001))
+def test_kernels_l_and_s_on_offset_views(n, start, dev):
+    """Views at a storage offset: the u64 columns start 8 bytes past a
+    16-byte boundary (start 1) or on one (start 2), the flags 1 or 2
+    bytes past one, so the kernels' ragged head and tail rows run."""
+    f, a, b = (x[start:] for x in _lex_inputs(n, n, dev))
+    v = _sum_values(n, n + 1, dev)[start:]
+    assert a.data_ptr() % 16 == (8 if start == 1 else 0) and f.data_ptr() % 16 == start
+    _assert_l_and_s_match_plain(f, a, b, v)
+
+
+def test_look_back_scratch_across_calls_and_streams(dev):
+    """Two different inputs back to back on one stream, then a call on a
+    second stream: each call's status words carry their own epoch, and
+    each stream has its own scratch."""
+    n = 3 * TILE + 5
+    first = (*_lex_inputs(n, 1, dev), _sum_values(n, 1, dev))
+    second = list(_lex_inputs(n, 2, dev)) + [_sum_values(n, 2, dev)]
+    second[0] = torch.zeros_like(second[0])
+    second[0][0] = True
+    got = [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_sum_scan(second[0], second[3]),
+           *cuda_scan.segmented_max_scan(*first[:3]), *cuda_scan.segmented_max_scan(*second[:3])]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got += [cuda_scan.segmented_sum_scan(first[0], first[3]),
+                *cuda_scan.segmented_max_scan(*first[:3], reverse=True)]
+    torch.cuda.current_stream().wait_stream(side)
+    want = [cuda_scan.segmented_sum_scan_plain(first[0], first[3]),
+            cuda_scan.segmented_sum_scan_plain(second[0], second[3]),
+            *cuda_scan.segmented_max_scan_plain(*first[:3]), *cuda_scan.segmented_max_scan_plain(*second[:3]),
+            cuda_scan.segmented_sum_scan_plain(first[0], first[3]),
+            *cuda_scan.segmented_max_scan_plain(*first[:3], reverse=True)]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (torch.cuda.current_device(), side.cuda_stream) in cuda_scan._lookback
+
+
+def test_look_back_epoch_wraps(dev):
+    n = 3 * TILE + 5
+    f, a, b = _lex_inputs(n, 3, dev)
+    v = _sum_values(n, 3, dev)
+    cuda_scan.segmented_sum_scan(f, v)  # the scratch of this stream exists
+    state = cuda_scan._lookback[(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)]
+    state.epoch = cuda_scan._EPOCH_LIMIT - 2
+    for _ in range(3):  # 9 calls: the last epoch, a wrap that clears the status words, epochs 2..8
+        _assert_l_and_s_match_plain(f, a, b, v)
+    assert state.epoch == 8
+
+
+def test_one_kernel_launch_per_call(dev):
+    """Each dispatcher call of L (either direction) and S launches exactly
+    one CUDA kernel, as CUPTI records it, and allocates nothing on the
+    device but its outputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 70000
+    f, a, b = _lex_inputs(n, 4, dev)
+    v = _sum_values(n, 4, dev)
+    calls = {"L": lambda: cuda_scan.segmented_max_scan(f, a, b),
+             "L reverse": lambda: cuda_scan.segmented_max_scan(f, a, b, reverse=True),
+             "S": lambda: cuda_scan.segmented_sum_scan(f, v)}
+    for name, call in calls.items():
+        call()  # the stream's scratch exists before the profiled call
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "lookback_scan" in kernels[0], (name, kernels)

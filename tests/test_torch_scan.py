@@ -44,17 +44,34 @@ def _port_lex(flags, k1, k2, reverse):
     return o1.numpy().view(np.uint64), o2.numpy().view(np.uint64)
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("n", SIZES)
-def test_lex_scan_matches_reference(n, reverse):
-    flags, k1, k2 = _lex_inputs(n, seed=n)
-    f = np.roll(flags, -1) if reverse else flags  # segment ends
+def _assert_lex_matches_reference(f, k1, k2, reverse):
     with jax.enable_x64(True):
         e1, e2 = _lex_reference(
             jax.numpy.asarray(f), jax.numpy.asarray(k1), jax.numpy.asarray(k2), reverse=reverse)
     g1, g2 = _port_lex(f, k1, k2, reverse)
     np.testing.assert_array_equal(g1, np.asarray(e1))
     np.testing.assert_array_equal(g2, np.asarray(e2))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", SIZES)
+def test_lex_scan_matches_reference(n, reverse):
+    flags, k1, k2 = _lex_inputs(n, seed=n)
+    f = np.roll(flags, -1) if reverse else flags  # segment ends
+    _assert_lex_matches_reference(f, k1, k2, reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", ["one segment", "every row"])
+def test_lex_scan_matches_reference_on_look_back_chains(kind, reverse):
+    """The inputs that stress kernel L's look-back on the card: one segment
+    over three tiles and a ragged one (every tile waits on its
+    predecessor), and every row its own segment."""
+    n = 3 * 2048 + 5  # kernel L's tile is 2048 rows
+    _, k1, k2 = _lex_inputs(n, seed=7)
+    f = np.full(n, kind == "every row")
+    f[-1 if reverse else 0] = True
+    _assert_lex_matches_reference(f, k1, k2, reverse)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
