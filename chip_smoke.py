@@ -7,14 +7,21 @@ card; run from the repo root:
 
 Phases (any failure ends the run with a traceback and a nonzero code):
 
-1. build    — nvcc builds the kernels from evolu_tpu_torch/csrc/.
+1. build    — nvcc builds the kernels from evolu_tpu_torch/csrc/ and,
+              beside them, a one-row probe of H's `timestamp_hash`;
+              prints ptxas' registers and spills, H's grid, and H's
+              integer instructions a hashed row, counted in the probe's
+              SASS (the count behind H's bound).
 2. kernels  — kernels L (segmented lex-max scan), X (segmented XOR scan),
               H (timestamp hash + digest) and S (segmented u64 sum,
               wrapping values) against their plain PyTorch versions on
-              the card, bit for bit; then L and S on inputs that stress
-              their decoupled look-back (one segment over 2^23+5 rows,
-              every row flagged, sizes around the tile, unaligned views,
-              back-to-back calls and a second stream).
+              the card, bit for bit (H on dates up to the int32 day
+              wrap); then L, X and S on inputs that stress their
+              decoupled look-back (one segment over 2^23+5 rows, every
+              row flagged, sizes around the tile, unaligned views,
+              back-to-back calls and a second stream), and H's digest
+              and sizes (n = 1, 255, 257, 2^24+3; all-false masks;
+              back-to-back calls, the empty call, a second stream).
 3. path A   — `reconcile_owner_batches` on 1M CrdtMessages across 1k
               owners (~4 messages per cell, 60% of cells with a stored
               winner, one owner in non-canonical hex case), every
@@ -48,7 +55,8 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               the same pass with every kernel swapped for its plain
               version.
 8. timing   — L, X, H and their plain versions timed on the inputs the
-              1M columns pass handed them; S on the inputs path C1's
+              1M columns pass handed them, X also on the 10M pass's
+              minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
               every input path C2 handed it (checked against its plain
@@ -65,7 +73,11 @@ and reads all four just after. In the kernels JSON, `launches` is the
 sum of those four counts and `launches_path_{a,b,c1,c2}` are the counts
 themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
-are summed over every call path C2 made.
+are summed over every call path C2 made; `ported` and `redesigned` are
+the numbered changes that ported and redesigned each kernel, as
+PERF.md's kernel table lists them, and `design` names the design; X's
+`at_columns_10m` holds the same numbers at 2^24 rows and H's
+`ops_per_hashed_row` the count from the probe's SASS.
 
 The last two lines are the card's `nvidia-smi` name and power limit
 and then {"ok": true, "device": {...}}; the line before them is the
@@ -78,17 +90,30 @@ import contextlib
 import functools
 import importlib
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 BASE_MILLIS = 1_700_000_000_000
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-INT32_OPS_PER_S = 16.7e12        # 132 SMs x 64 INT32 lanes x 1.98 GHz (derived, see PERF.md)
-H_OPS_PER_HASHED_ROW = 300       # ALU ops of one render + murmur3, counted from ts_hash.cu, rounded down
+# 132 SMs x 128 32-bit integer instructions a clock x 1.98 GHz: 4 schedulers
+# an SM each issue one 32-lane instruction a clock, and integer work fills
+# them from two 64-lane pipes (IMAD on the FMA pipe, logic, shift and add
+# on the integer ALU). The 64-lane figure alone (16.7e12) is no peak:
+# kernel H runs above it (PERF.md).
+INT32_OPS_PER_S = 33.4e12
+# Timestamps whose canonical strings the kernels must render like the JAX
+# package: leap days, end of 9999, pre-1970, 2^47, and the ends of the
+# days window [2^31 - 719468, 2^31 - 1] where `days + 719468` wraps in int32.
+EDGE_MILLIS = [0, 951_782_400_000, 4_107_542_399_000, 253_402_300_799_999, -1, -999, -1000,
+               -86_400_001, -62_135_596_800_000, 2**47, 185_480_425_152_000_000, 185_542_587_187_199_999]
 
 
 def gpu_line() -> str:
@@ -139,22 +164,25 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
 def device_ms(torch, fns, reps: int = 10) -> float:
     """Device time of the kernels that one call of each of `fns` launches,
     summed over `fns` and averaged over `reps` rounds, from torch.profiler
-    (CUPTI kernel records), after a warm-up."""
+    (CUPTI kernel records), after a warm-up. A session whose record comes
+    back empty (seen once on the H100 in many sessions) is run again, up
+    to three in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return sum(spans) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / reps / 1e3
+    raise AssertionError("torch.profiler recorded no device activity in 3 sessions")
 
 
 def host_us(torch, fn, calls: int = 1000) -> float:
@@ -295,29 +323,170 @@ def kernels_vs_plain(torch, dev):
         w[rng.random(n) < 0.1] = np.uint64(1) << np.uint64(63)
         w = torch.from_numpy(w.view(np.int64)).to(dev)
         same([cuda_scan.segmented_sum_scan(f, w)], [cuda_scan.segmented_sum_scan_plain(f, w)], f"S n={n}")
-    edge = [0, 951_782_400_000, 4_107_542_399_000, 253_402_300_799_999, -1, -999, -1000,
-            -86_400_001, -62_135_596_800_000, 2**47]
-    n = 70003
-    millis = np.concatenate([edge, BASE_MILLIS + rng.integers(0, 10**12, n - len(edge))]).astype(np.int64)
-    counter = rng.integers(0, 65536, n).astype(np.int32)
-    node = rng.integers(0, 2**64, n, dtype=np.uint64)
-    node[:2] = [0, 2**64 - 1]
-    m, c, d = (torch.from_numpy(x).to(dev) for x in (millis, counter, node.view(np.int64)))
+    m, c, d, k1 = hash_inputs(torch, dev, rng, 70003)
     same([cuda_hash.timestamp_hashes_cuda(m, c, d)], [cuda_hash.timestamp_hashes_plain(m, c, d)], "H columns")
-    k1 = (m.clamp(min=0) << 16) | c.to(torch.int64)
-    mask = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    mask = torch.from_numpy(rng.random(70003) < 0.6).to(dev)
     same(cuda_hash.masked_key_hashes_cuda(k1, d, mask),
          cuda_hash.masked_key_hashes_plain(k1, d, mask), "H keys + digest")
     torch.cuda.synchronize()
 
 
+def hash_inputs(torch, dev, rng, n):
+    """H's columns (millis with EDGE_MILLIS first, counter, node) on the
+    card, and the reconcile form's keys k1 from them."""
+    edge = EDGE_MILLIS[:n]
+    millis = np.concatenate([edge, BASE_MILLIS + rng.integers(0, 10**12, n - len(edge))]).astype(np.int64)
+    counter = rng.integers(0, 65536, n).astype(np.int32)
+    node = rng.integers(0, 2**64, n, dtype=np.uint64)
+    node[:2] = [0, 2**64 - 1][:n]
+    m, c, d = (torch.from_numpy(x).to(dev) for x in (millis, counter, node.view(np.int64)))
+    return m, c, d, (m.clamp(min=0) << 16) | c.to(torch.int64)
+
+
+def hash_stress(torch, dev):
+    """H, both forms, against its plain version: sizes around the block and
+    past 2^24 rows (the grid strides), masks random, all false (digest 0)
+    and all true; then the digest's block counter across calls back to
+    back on one stream, the empty call and calls on a second stream.
+    Returns the number of cases."""
+    from evolu_tpu_torch.ops import cuda_hash
+
+    rng = np.random.default_rng(19)
+    cases = 0
+    for n in (1, 255, 257, (1 << 24) + 3):
+        m, c, d, k1 = hash_inputs(torch, dev, rng, n)
+        same([cuda_hash.timestamp_hashes_cuda(m, c, d)], [cuda_hash.timestamp_hashes_plain(m, c, d)],
+             f"H columns n={n}")
+        for kind, mask in (("random", torch.from_numpy(rng.random(n) < 0.6).to(dev)),
+                           ("all false", torch.zeros(n, dtype=torch.bool, device=dev)),
+                           ("all true", torch.ones(n, dtype=torch.bool, device=dev))):
+            got = cuda_hash.masked_key_hashes_cuda(k1, d, mask)
+            same(got, cuda_hash.masked_key_hashes_plain(k1, d, mask), f"H keys n={n} mask {kind}")
+            if kind == "all false" and int(got[1]) != 0:
+                raise AssertionError(f"H n={n}: digest of an all-false mask is not 0")
+        cases += 4
+        del m, c, d, k1
+    inputs = [hash_inputs(torch, dev, rng, n)[2:] for n in (70001, 257, 1 << 20)]
+    masks = [torch.from_numpy(rng.random(d.shape[0]) < 0.5).to(dev) for d, _ in inputs]
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    got = [x for (d, k1), mask in zip(inputs, masks) for x in cuda_hash.masked_key_hashes_cuda(k1, d, mask)]
+    got += cuda_hash.masked_key_hashes_cuda(empty, empty, empty.bool())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got += [x for (d, k1), mask in zip(inputs, masks) for x in cuda_hash.masked_key_hashes_cuda(k1, d, mask)]
+    torch.cuda.current_stream().wait_stream(side)
+    want = [x for (d, k1), mask in zip(inputs, masks) for x in cuda_hash.masked_key_hashes_plain(k1, d, mask)]
+    want = want + [empty.int(), torch.zeros(1, dtype=torch.int32, device=dev)] + want
+    same(got, want, "H back to back on one stream, the empty call, then a second stream")
+    torch.cuda.synchronize()
+    return cases + 1
+
+
+# One row of kernel H's hash and nothing else (no row index, no loop, no
+# mask, no digest), for counting the hash's own instructions in its SASS.
+H_PROBE = r"""#include "{source}"
+extern "C" __global__ void hash_one_row(const int64_t* millis, const uint32_t* counter,
+                                        const uint64_t* node, uint32_t* out) {{
+  *out = timestamp_hash(*millis, *counter, *node);
+}}
+"""
+
+
+def start_hash_probe(tmp):
+    """Start nvcc on H_PROBE, which includes csrc/ts_hash.cu, with the
+    library's flags, beside the library's own build. → (process, cubin)."""
+    from evolu_tpu_torch.ops import cuda_lib
+
+    src, cubin = os.path.join(tmp, "hash_probe.cu"), os.path.join(tmp, "hash_probe.cubin")
+    with open(src, "w") as f:
+        f.write(H_PROBE.format(source=cuda_lib.CSRC / "ts_hash.cu"))
+    cmd = [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-cubin", src, "-o", cubin]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cubin
+
+
+_REG = re.compile(r"\b(U?R|U?P)(\d+)\b")
+
+
+def _regs(operand, width=1):
+    """Registers an operand names, `width` consecutive ones from each
+    general register it names (a 64-bit operand `R2.64` names two)."""
+    width = max(width, 2 if ".64" in operand else 1)
+    return {f"{kind}{int(num) + k}" for kind, num in _REG.findall(operand)
+            for k in range(width if kind.endswith("R") else 1)}
+
+
+def data_instructions(sass):
+    """The instructions of straight-line SASS that compute on loaded data:
+    a global load's destination is data, and so is every destination of an
+    instruction that reads data (its guard predicate included). Loads,
+    stores and control flow are not counted; nor is what computes on
+    parameters and constants alone (addressing, constants a loop would
+    hoist). → opcodes, in order."""
+    data, ops = set(), []
+    for ins in sass:
+        guard = re.match(r"@!?(U?P\d+)\s+", ins)
+        if guard:
+            ins = ins[guard.end():]
+        op, _, rest = ins.partition(" ")
+        operands = [o.strip() for o in rest.split(",")] if rest.strip() else []
+        # A second destination is a predicate (carry out, or ISETP's PT).
+        ndest = 2 if len(operands) > 1 and re.fullmatch(r"U?P(T|\d+)", operands[1]) else 1
+        width = 4 if ".128" in op else 2 if (".WIDE" in op or ".64" in op) else 1
+        written = set().union(*(_regs(d, width) for d in operands[:ndest]))
+        if op.startswith(("LDG", "LD.")):
+            data |= written
+            continue
+        if op.startswith(("LD", "ULD", "ST", "BRA", "EXIT", "RET", "NOP", "BSSY", "BSYNC", "BAR")):
+            continue
+        src = operands[ndest:]
+        # IMAD.WIDE's addend, its last operand, is a register pair.
+        read = set().union(set(guard.groups()) if guard else set(),
+                           *(_regs(o, 2 if ".WIDE" in op and i == len(src) - 1 else 1)
+                             for i, o in enumerate(src)))
+        if read & data:
+            data |= written
+            ops.append(op.split(".")[0])
+        else:
+            data -= written
+    return ops
+
+
+def sass_ops_per_hashed_row(proc, cubin):
+    """Integer instructions one hashed row of kernel H issues: the SASS
+    (`cuobjdump -sass`) of H_PROBE's `hash_one_row`, counted by
+    `data_instructions`. Raises if the probe or the tool fails. → (count,
+    opcode counts)."""
+    import collections
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for the hash probe\n" + log)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    fn, body = None, []
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn == "hash_one_row":
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                body.append(m.group(1))
+    ops = data_instructions(body)
+    if not ops:
+        raise AssertionError("no data instructions found in hash_one_row's SASS")
+    return len(ops), dict(collections.Counter(ops).most_common())
+
+
 def lookback_stress(torch, dev):
-    """L (both directions) and S against their plain versions on inputs
+    """L (both directions), X and S against their plain versions on inputs
     that stress the look-back: one segment over the whole array (the
     longest chain of tiles waiting on their predecessors), no flag at all,
     every row a segment start, sizes around the tile, views whose data
-    start 8 bytes past a 16-byte boundary, two calls back to back on one
-    stream and one on a second stream. Returns the number of cases."""
+    start past a 16-byte boundary (8 bytes for L and S, 4, 8 and 12 for
+    X), calls of all three back to back on one stream, which they share,
+    and on a second stream. Returns the number of cases."""
     from evolu_tpu_torch.ops import cuda_lib, cuda_scan
 
     tile = cuda_lib.load().evolu_seg_scan_tile_rows()
@@ -332,43 +501,62 @@ def lookback_stress(torch, dev):
         k = [rng.integers(0, 2**64, n, dtype=np.uint64) for _ in range(3)]
         k[0][rng.random(n) < 0.3] = np.uint64(42) << np.uint64(32)
         k[2][rng.random(n) < 0.2] = np.uint64(2**64 - 1)
-        return [torch.from_numpy(f).to(dev)] + [torch.from_numpy(x.view(np.int64)).to(dev) for x in k]
+        x = rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32)
+        return ([torch.from_numpy(f).to(dev)] + [torch.from_numpy(v.view(np.int64)).to(dev) for v in k]
+                + [torch.from_numpy(x).to(dev)])
 
-    def check(f, a, b, w, what):
+    def check_x(f, x, what):
+        same([cuda_scan.segmented_xor_scan(f, x)], [cuda_scan.segmented_xor_scan_plain(f, x)], f"X {what}")
+
+    def check(f, a, b, w, x, what):
         for reverse in (False, True):
             same(cuda_scan.segmented_max_scan(f, a, b, reverse=reverse),
                  cuda_scan.segmented_max_scan_plain(f, a, b, reverse=reverse), f"L {what} reverse={reverse}")
         same([cuda_scan.segmented_sum_scan(f, w)], [cuda_scan.segmented_sum_scan_plain(f, w)], f"S {what}")
+        check_x(f, x, what)
 
     cases = [("one segment", (1 << 20) + 3), ("one segment", (1 << 23) + 5), ("no flag", 3 * tile + 5),
-             ("every row", (1 << 20) + 3)]
-    cases += [("random", m) for m in (tile - 1, tile, tile + 1, 3 * tile + 5)]
+             ("every row", tile + 1), ("every row", (1 << 20) + 3)]
+    xtile = 2 * tile  # X's tile (seg_scan.cu kXorRows)
+    cases += [("random", m) for m in (tile - 1, tile, tile + 1, 3 * tile + 5, xtile - 1, xtile + 1)]
     for kind, n in cases:
         check(*inputs(n, kind), f"{kind} n={n}")
     for kind, n in (("random", 70001), ("one segment", 3 * tile + 6)):
-        f, a, b, w = (x[1:] for x in inputs(n, kind))
+        f, a, b, w, x = (v[1:] for v in inputs(n, kind))
         if a.data_ptr() % 16 != 8 or w.data_ptr() % 16 != 8:
             raise AssertionError("the offset views start on a 16-byte boundary")
-        check(f, a, b, w, f"{kind} view at offset 1, n={n - 1}")
+        check(f, a, b, w, x, f"{kind} view at offset 1, n={n - 1}")
+    views = 0
+    for start in (2, 3):  # X's int32 rows 8 and 12 bytes past a 16-byte boundary (4 is above)
+        for kind, n in (("random", 70001), ("one segment", 3 * tile + 6)):
+            f, _, _, _, x = inputs(n, kind)
+            if x[start:].data_ptr() % 16 != 4 * start:
+                raise AssertionError("X's offset view is not where it should be")
+            check_x(f[start:], x[start:], f"{kind} view at row {start}, n={n - start}")
+            views += 1
     first, second = inputs(3 * tile + 5, "random"), inputs(3 * tile + 5, "one segment")
-    got = [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_sum_scan(second[0], second[3]),
+    got = [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_xor_scan(second[0], second[4]),
+           cuda_scan.segmented_sum_scan(second[0], second[3]), cuda_scan.segmented_xor_scan(first[0], first[4]),
            *cuda_scan.segmented_max_scan(first[0], first[1], first[2]),
            *cuda_scan.segmented_max_scan(second[0], second[1], second[2])]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        got += [cuda_scan.segmented_sum_scan(second[0], second[3]),
+        got += [cuda_scan.segmented_sum_scan(second[0], second[3]), cuda_scan.segmented_xor_scan(second[0], second[4]),
                 *cuda_scan.segmented_max_scan(second[0], second[1], second[2], reverse=True)]
     torch.cuda.current_stream().wait_stream(side)
     want = [cuda_scan.segmented_sum_scan_plain(first[0], first[3]),
+            cuda_scan.segmented_xor_scan_plain(second[0], second[4]),
             cuda_scan.segmented_sum_scan_plain(second[0], second[3]),
+            cuda_scan.segmented_xor_scan_plain(first[0], first[4]),
             *cuda_scan.segmented_max_scan_plain(first[0], first[1], first[2]),
             *cuda_scan.segmented_max_scan_plain(second[0], second[1], second[2]),
             cuda_scan.segmented_sum_scan_plain(second[0], second[3]),
+            cuda_scan.segmented_xor_scan_plain(second[0], second[4]),
             *cuda_scan.segmented_max_scan_plain(second[0], second[1], second[2], reverse=True)]
-    same(got, want, "L and S back to back on one stream, then on a second stream")
+    same(got, want, "L, X and S back to back on one stream, then on a second stream")
     torch.cuda.synchronize()
-    return len(cases) + 3
+    return len(cases) + 2 + views + 1
 
 
 def path_a(torch, kernels, need):
@@ -825,10 +1013,12 @@ def time_sum_kernel(torch, captured):
     return shapes
 
 
-def columns_pass(torch, n, captured=None, reps=3):
+def columns_pass(torch, n, captured=None, slots=("L", "H", "X"), reps=3):
     """The reconcile pass on device-resident columns: stage times from
-    CUDA events recorded where each kernel is entered and left. Returns
-    (decoded outputs, report)."""
+    CUDA events recorded where each kernel is entered and left. Then one
+    more, untimed, run hands the inputs of the kernels in `slots` to
+    `captured`, so that holding them moves no timed run's peak memory.
+    Returns (decoded outputs, report)."""
     from evolu_tpu_torch.ops import columns_to_device, to_host_many
     from evolu_tpu_torch.ops import merge as pm
     from evolu_tpu_torch.ops import merkle_ops as mo
@@ -840,7 +1030,7 @@ def columns_pass(torch, n, captured=None, reps=3):
     t = columns_to_device(cols, "cuda")
     args = [t[k] for k in pr.COLUMN_NAMES]
     kernel = pr.shard_kernel_for(cols)
-    ev = {}
+    ev, into = {}, None
 
     def mark(name):
         if name is not None and name not in ev:
@@ -851,24 +1041,29 @@ def columns_pass(torch, n, captured=None, reps=3):
     def spy(orig, before, after, slot):
         def run(*a, **kw):
             mark(before)
-            if captured is not None:
-                captured.setdefault(slot, []).append((a, kw))
+            if into is not None and slot in slots:
+                into.setdefault(slot, []).append((a, kw))
             out = orig(*a, **kw)
             if after:
                 mark(after)
             return out
         return run
 
+    def spies():
+        stack = contextlib.ExitStack()
+        stack.enter_context(patched(pm, "segmented_max_scan",
+                                    spy(pm.segmented_max_scan, "key_sort_end", None, "L")))
+        stack.enter_context(patched(pr, "masked_key_hashes",
+                                    spy(pr.masked_key_hashes, "plan_compare_end", "hash_render_end", "H")))
+        stack.enter_context(patched(mo, "segmented_xor_scan", spy(mo.segmented_xor_scan, None, None, "X")))
+        return stack
+
     runs = []
     for _ in range(reps):
         ev.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with patched(pm, "segmented_max_scan",
-                     spy(pm.segmented_max_scan, "key_sort_end", None, "L")), \
-             patched(pr, "masked_key_hashes",
-                     spy(pr.masked_key_hashes, "plan_compare_end", "hash_render_end", "H")), \
-             patched(mo, "segmented_xor_scan", spy(mo.segmented_xor_scan, None, None, "X")):
+        with spies():
             t0 = time.perf_counter()
             mark("start")
             outs = kernel(*args)
@@ -879,7 +1074,6 @@ def columns_pass(torch, n, captured=None, reps=3):
             xor_mask, upsert_mask = unpermute_masks(xor_s, upsert_s, i_s)
             deltas = decode_owner_minute_deltas(*segs)
             t2 = time.perf_counter()
-        captured = None  # capture the first run's inputs only
         order = ["start", "key_sort_end", "plan_compare_end", "hash_render_end", "minute_fold_end"]
         names = ["key_sort", "plan_compare", "hash_render", "minute_fold"]
         stages = {nm: ev[a].elapsed_time(ev[b]) for nm, a, b in zip(names, order, order[1:])}
@@ -895,6 +1089,11 @@ def columns_pass(torch, n, captured=None, reps=3):
         "pass_s": round(wall, 4), "rows_per_s": round(n / wall),
         "peak_device_bytes": max(r[2] for r in runs),
     }
+    if captured is not None:
+        into = captured
+        with spies():
+            kernel(*args)
+        torch.cuda.synchronize()
     decoded = (xor_mask, upsert_mask, deltas, int(digest.view(np.uint32)[0]))
     return decoded, report, (kernel, args)
 
@@ -922,14 +1121,18 @@ def check_against_plain(decoded, reference, what):
         raise AssertionError(f"{what}: kernel pass differs from the plain pass")
 
 
+h_ops_per_row = None  # counted in the SASS of timestamp_hash in main()
+
+
 def bound_parts(slot, a):
     """(bytes / HBM rate, integer ops / INT32 rate) in ms for one call of
     kernel `slot` on positional arguments `a`: each input read once,
     each output written once. Bytes per row: L 1+8+8 in, 16 out; X 1+4
-    in, 4 out; S 1+8 in, 8 out; H 8+8+1 in, 4 out (and a 4-byte digest)."""
+    in, 4 out; S 1+8 in, 8 out; H 8+8+1 in, 4 out (and a 4-byte digest).
+    H's operations: `h_ops_per_row` for each row its mask hashes."""
     n = a[0].shape[0]
     bytes_ = n * {"L": 33, "X": 9, "S": 17, "H": 21}[slot] + (4 if slot == "H" else 0)
-    ops = H_OPS_PER_HASHED_ROW * int(a[2].sum()) if slot == "H" else 0
+    ops = h_ops_per_row * int(a[2].sum()) if slot == "H" else 0
     return bytes_ / MEM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
 
 
@@ -971,6 +1174,24 @@ def time_path_calls(torch, kernels, calls):
                           "bound_ms": round(bound, 5), "host_us": round(host_us(torch, fns[small]), 3),
                           "host_us_rows": rows[small]}
         print(f"  {k['name']} per run of path C2: {json.dumps(out[k['name']])}", flush=True)
+    return out
+
+
+def time_x_at(torch, a, kw, what):
+    """Kernel X and its plain version on one input, checked bit for bit."""
+    from evolu_tpu_torch.ops import cuda_scan
+
+    got = cuda_scan.segmented_xor_scan_cuda(*a, **kw)
+    want = cuda_scan.segmented_xor_scan_plain(*a, **kw)
+    same([got], [want], f"X on {what}")
+    call = functools.partial(cuda_scan.segmented_xor_scan_cuda, *a, **kw)
+    t_bytes, _ = bound_parts("X", a)
+    out = {"timed_on": what, "rows": int(a[0].shape[0]), "max_abs_err": max_abs_err([got], [want]),
+           "ms": round(cuda_ms(call), 5), "device_ms": round(device_ms(torch, [call]), 5),
+           "plain_ms": round(cuda_ms(functools.partial(cuda_scan.segmented_xor_scan_plain, *a, **kw),
+                                     reps=3, inner=2), 5),
+           "bound_ms": round(t_bytes, 5), "bound_by": "bytes"}
+    print(f"  X {what}: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1017,26 +1238,38 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = [
         {"name": "seg_lex_max_scan", "slot": "L", "fn": cuda_scan.segmented_max_scan_cuda,
-         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:157"},
+         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:157",
+         "ported": 1, "redesigned": 3, "design": "lookback_scan<LexTile>"},
         {"name": "seg_xor_scan", "slot": "X", "fn": cuda_scan.segmented_xor_scan_cuda,
-         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:158"},
+         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:158",
+         "ported": 1, "redesigned": 4, "design": "lookback_scan<XorTile>"},
         {"name": "timestamp_hash", "slot": "H", "fn": cuda_hash.timestamp_hash_cuda,
-         "source": "evolu_tpu_torch/csrc/ts_hash.cu", "replaces": "evolu_tpu/ops/pallas_hash.py:98"},
+         "source": "evolu_tpu_torch/csrc/ts_hash.cu", "replaces": "evolu_tpu/ops/pallas_hash.py:98",
+         "ported": 1, "redesigned": 4,
+         "design": "one 64-bit step, SWAR words, digest by the last block"},
         {"name": "seg_sum_scan", "slot": "S", "fn": cuda_scan.segmented_sum_scan_cuda,
-         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:159"},
+         "source": "evolu_tpu_torch/csrc/seg_scan.cu", "replaces": "evolu_tpu/ops/pallas_scan.py:159",
+         "ported": 2, "redesigned": 3, "design": "lookback_scan<SumTile>"},
     ]
     lwws = kernels[:3]
     lww_names = [k["name"] for k in lwws]
 
-    with phase("build", gpu):
-        cuda_lib.load()
+    global h_ops_per_row
+    with phase("build", gpu), tempfile.TemporaryDirectory() as tmp:
+        probe = start_hash_probe(tmp)
+        lib = cuda_lib.load()
         print(f"  build {cuda_lib.build_info['seconds']:.2f}s -> {cuda_lib.build_info['path']}")
         for line in cuda_lib.build_info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip())
+        print(f"  H grid: {lib.evolu_ts_hash_scratch_bytes() // 4 - 1} blocks of 256 (reconcile form)")
+        h_ops_per_row, detail = sass_ops_per_hashed_row(*probe)
+        print(f"  H integer instructions a hashed row: {h_ops_per_row}, counted in the SASS of "
+              f"timestamp_hash alone: {detail}", flush=True)
     with phase("kernels vs plain", gpu):
         kernels_vs_plain(torch, dev)
-        print(f"  L and S equal their plain versions on {lookback_stress(torch, dev)} look-back stress cases")
+        print(f"  L, X and S equal their plain versions on {lookback_stress(torch, dev)} look-back stress cases")
+        print(f"  H equals its plain version on {hash_stress(torch, dev)} digest and size stress cases")
     launches = {}
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
         launches["a"] = path_a(torch, kernels, lww_names)
@@ -1049,20 +1282,25 @@ def main() -> int:
     with phase("path C2: SQLite typed apply 8 x 31k + 10k re-delivery", gpu):
         launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
         print("  " + json.dumps(report_c2), flush=True)
-    reports = []
-    for n in (1_000_000, 10_000_000):
+    reports, captured_10m = [], {}
+    # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
+    for n, sink, slots in ((1_000_000, captured, ("L", "H", "X")), (10_000_000, captured_10m, ("X",))):
         with phase(f"columns pass {n:,} messages", gpu):
-            decoded, report, (kernel, args) = columns_pass(
-                torch, n, captured=captured if n == 1_000_000 else None)
+            decoded, report, (kernel, args) = columns_pass(torch, n, sink, slots)
             check_against_plain(decoded, plain_reference(torch, kernel, args), f"columns {n}")
             print("  " + json.dumps(report), flush=True)
             reports.append(report)
             del args
             torch.cuda.empty_cache()
+    x_10m = captured_10m["X"][0]  # the 10M pass's minute fold: 2^24 rows
+    del captured_10m
     with phase("kernel timing on main-path inputs", gpu):
         table = time_kernels(torch, lwws, captured)
+        x_24 = time_x_at(torch, *x_10m, "columns pass 10M minute fold")
         s_shapes = time_sum_kernel(torch, captured)
         c2_times = time_path_calls(torch, kernels, c2_calls)
+    table[1]["at_columns_10m"] = x_24
+    table[2]["ops_per_hashed_row"] = h_ops_per_row
     s_row = s_shapes["S_counter"]
     table.append({
         "name": "seg_sum_scan", "route": "cuda", "source": kernels[3]["source"],
@@ -1072,7 +1310,8 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None, "cumsum_ms_nearest_one_call": s_row["cumsum_ms"],
         "at_tensor_sum_input": s_shapes["S_tensor_sum"],
     })
-    for row in table:
+    for row, k in zip(table, kernels):
+        row.update({key: k[key] for key in ("ported", "redesigned", "design")})
         for p in ("a", "b", "c1", "c2"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)

@@ -20,7 +20,7 @@
 // written once. L moves 1 + 16 bytes in and 16 out per row (33 B/row), S
 // 1 + 8 in and 8 out (17 B/row), X 1 + 4 in and 4 out (9 B/row).
 //
-// L and S are one kernel per call, a single-pass scan with decoupled
+// L, X and S are one kernel per call, a single-pass scan with decoupled
 // look-back (Merrill & Garland, 2016). What it does about the three
 // limits of the reduce-then-scan it replaced:
 //  1. Three launches and two reads of the input. Each block reads its
@@ -32,19 +32,17 @@
 //     predecessor tile that holds a segment start, and a tile whose first
 //     row starts a segment needs no prefix at all.
 //  2. Strided per-thread loads. Neighbouring threads load neighbouring
-//     16-byte pairs of rows (flags 16 bytes a thread), every load of the
-//     tile in flight before the first lands in shared memory, padded one
-//     u64 in 16 so that each thread's run of 8 rows reads without bank
-//     conflicts. A row before the first 16-byte boundary and a row after
-//     the last pair load alone, so any contiguous view works. About 50
-//     registers a thread: 4 blocks of 256 threads fit an SM.
+//     16 bytes of rows (2 u64 rows of L and S, 4 u32 rows of X; flags 16
+//     bytes a thread), every load of the tile in flight before the first
+//     lands in shared memory, padded so that each thread's run of rows (8
+//     for L and S, 16 for X) reads without bank conflicts (one u64 in 16,
+//     one u32 in 32). The rows before the first 16-byte boundary and after
+//     the last 16-byte load load alone, so any contiguous view works.
 //  3. The wrapper's fixed cost. Status words carry a per-call epoch, so a
 //     stale word never reads as ready: the wrapper keeps one scratch per
-//     device and stream, clears it only when the epoch wraps, and makes
-//     one launch per call with no allocation but the outputs.
-//
-// X still runs the three-phase reduce-then-scan (tile_reduce,
-// scan_aggregates, tile_scan) until it moves to the look-back template.
+//     device and stream, shared by the three scans, clears it only when
+//     the epoch wraps, and makes one launch per call with no allocation
+//     but the outputs. X's 4-byte values fit the slots sized for L's 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +88,8 @@ struct Xor {
   __device__ static V zero() { return 0u; }
   __device__ static V op(V l, V r) { return l ^ r; }
   __device__ static V shfl_up(V x, int d) { return __shfl_up_sync(kFull, x, d); }
+  __device__ static void publish(V* p, V x) { *reinterpret_cast<volatile uint32_t*>(p) = x; }
+  __device__ static V read(const V* p) { return *reinterpret_cast<const volatile uint32_t*>(p); }
 };
 
 struct Sum {
@@ -157,74 +157,118 @@ __device__ Elem<M> block_exclusive(Elem<M> x, Elem<M>* warp_tot, Elem<M>& total)
   return prefix;
 }
 
-// ---- L and S: single pass with decoupled look-back ------------------------
+// ---- L, X and S: single pass with decoupled look-back ---------------------
 
-constexpr int kLbPadded = kTile + kTile / 16;
 constexpr uint32_t kAggregate = 1, kInclusive = 2;
 constexpr uint32_t kEpochLimit = 1u << 29;  // status = epoch << 3 | flag << 2 | state
 
-// Shared-memory slot of tile row r: one u64 of padding after every 16, so
-// that thread t reading rows 8t..8t+7 hits 16 distinct 8-byte banks.
-__device__ __forceinline__ int pad(int r) { return r + (r >> 4); }
+// X's tile is twice L's and S's, 16 rows a thread: its rows are 4 bytes,
+// and a block's life (load, reduce, publish, look back, rescan, store) has
+// a fixed latency that 8 rows of 9 bytes a thread do not cover. The scratch
+// sized in tiles of kTile rows holds X's fewer, larger tiles too.
+constexpr int kXorRows = 2 * kTile;
+static_assert(kXorRows / 16 <= kThreads, "one 16-byte flag chunk a thread");
 
-constexpr int kPairs = kTile / 2 / kThreads;  // 16-byte loads a thread per u64 column
-static_assert(kTile / 16 <= kThreads, "one 16-byte flag chunk a thread");
+// Shared-memory slot of tile row r of a column of T (8 or 4 bytes): one T
+// of padding after every 128 bytes of rows, so that a thread's run of rows
+// (8 u64 rows of L and S, 16 u32 rows of X) and the rows of a warp's
+// 16-byte loads both hit distinct banks. For u64, row r at slot r + r/16:
+// thread t's rows 8t..8t+7 hit 16 distinct 8-byte banks. For u32:
+//
+//   row   0 .. 31 | -- | 32 .. 63 | -- | 64 .. 95 | -- | ...
+//   slot  0 .. 31 | 32 | 33 .. 64 | 65 | 66 .. 97 | 98 | ...
+//
+// - thread t's run of 16 rows, row 16t + i at slot 16t + i + t/2: across a
+//   warp's lanes l that is bank 16(l % 2) + l/2 + i + const (mod 32),
+//   distinct for the 32 lanes;
+// - a 16-byte load c (rows 4c..4c+3), row 4c + j at slot 4c + c/8 + j:
+//   bank 4(l % 8) + l/8 + j + const, distinct too (a ragged head of 1-3
+//   rows shifts them, and then at most two lanes share a bank).
+// pad<T>(kRows) is the slots a tile of kRows rows takes.
+template <class T>
+__host__ __device__ constexpr int pad(int r) {
+  static_assert(sizeof(T) == 8 || sizeof(T) == 4, "u64 or u32 rows");
+  return r + (r >> (sizeof(T) == 8 ? 4 : 5));
+}
 
-// Rows [0, count) of one u64 column g, loaded 16 bytes a thread from the
-// first 16-byte-aligned row on, all of a thread's loads in flight before
-// any lands in shared memory; a row before the first pair and a row after
-// the last load alone (threads 0 and 1). g is 8-byte aligned, as every
-// int64 tensor's data is. put() stores row r at s[pad(r)].
+// Rows of g before its first 16-byte boundary, at most n. g is
+// sizeof(T)-aligned, as every tensor's data is.
+template <class T>
+__device__ __forceinline__ int head_rows(const T* g, int n) {
+  return min(n, (int)(((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) / sizeof(T)));
+}
+
+// 16 bytes of rows: one load or store.
+template <class T>
+union Chunk {
+  uint4 raw;
+  T row[16 / sizeof(T)];
+};
+
+// Rows [0, count) of one column g of T, loaded 16 bytes (kVec rows) a
+// thread from the first 16-byte-aligned row on, every load of a thread in
+// flight before any lands in shared memory; the 0 to kVec - 1 rows before
+// the first aligned load go one a thread (threads 0..), likewise those
+// after the last one (threads kVec..). put() stores row r at s[pad<T>(r)].
+template <class T, int kRows>
 struct RowLoad {
-  ulonglong2 x[kPairs];
-  uint64_t edge;
-  int head, pairs, count;
-  __device__ __forceinline__ void fetch(const uint64_t* g, int n) {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kLoads = kRows / kVec / kThreads;
+  Chunk<T> x[kLoads];
+  T edge;
+  int head, vecs, count;
+  __device__ __forceinline__ void fetch(const T* g, int n) {
     count = n;
-    head = min(n, (int)((reinterpret_cast<uintptr_t>(g) >> 3) & 1));
-    pairs = (n - head) >> 1;
-    const ulonglong2* g2 = reinterpret_cast<const ulonglong2*>(g + head);
+    head = head_rows(g, n);
+    vecs = (unsigned)(n - head) / kVec;
+    const uint4* g4 = reinterpret_cast<const uint4*>(g + head);
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
+    for (int i = 0; i < kLoads; ++i) {
       const int p = threadIdx.x + i * kThreads;
-      if (p < pairs) x[i] = g2[p];
+      if (p < vecs) x[i].raw = g4[p];
     }
-    if (threadIdx.x == 0 && head) edge = g[0];
-    if (threadIdx.x == 1 && head + 2 * pairs < n) edge = g[n - 1];
+    const int t = threadIdx.x, tail = head + kVec * vecs;
+    if (t < head) edge = g[t];
+    if (t >= kVec && t - kVec < n - tail) edge = g[tail + t - kVec];
   }
-  __device__ __forceinline__ void put(uint64_t* s) const {
+  __device__ __forceinline__ void put(T* s) const {
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
+    for (int i = 0; i < kLoads; ++i) {
       const int p = threadIdx.x + i * kThreads;
-      if (p < pairs) {
-        const int r = head + 2 * p;
-        s[pad(r)] = x[i].x;
-        s[pad(r + 1)] = x[i].y;
+      if (p < vecs) {
+        const int r = head + kVec * p;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) s[pad<T>(r + j)] = x[i].row[j];
       }
     }
-    if (threadIdx.x == 0 && head) s[pad(0)] = edge;
-    if (threadIdx.x == 1 && head + 2 * pairs < count) s[pad(count - 1)] = edge;
+    const int t = threadIdx.x, tail = head + kVec * vecs;
+    if (t < head) s[pad<T>(t)] = edge;
+    if (t >= kVec && t - kVec < count - tail) s[pad<T>(tail + t - kVec)] = edge;
   }
 };
 
-// The mirror of RowLoad: s[pad(r)] to rows [0, count) of g.
-__device__ __forceinline__ void store_rows(uint64_t* g, int count, const uint64_t* s) {
-  const int head = min(count, (int)((reinterpret_cast<uintptr_t>(g) >> 3) & 1));
-  const int pairs = (count - head) >> 1;
-  ulonglong2* g2 = reinterpret_cast<ulonglong2*>(g + head);
+// The mirror of RowLoad: s[pad<T>(r)] to rows [0, count) of g.
+template <class T, int kRows>
+__device__ __forceinline__ void store_rows(T* g, int count, const T* s) {
+  constexpr int kVec = RowLoad<T, kRows>::kVec;
+  const int head = head_rows(g, count);
+  const int vecs = (unsigned)(count - head) / kVec;
+  const int tail = head + kVec * vecs;
+  uint4* g4 = reinterpret_cast<uint4*>(g + head);
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
+  for (int i = 0; i < RowLoad<T, kRows>::kLoads; ++i) {
     const int p = threadIdx.x + i * kThreads;
-    if (p < pairs) {
-      const int r = head + 2 * p;
-      ulonglong2 x;
-      x.x = s[pad(r)];
-      x.y = s[pad(r + 1)];
-      g2[p] = x;
+    if (p < vecs) {
+      const int r = head + kVec * p;
+      Chunk<T> c;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) c.row[j] = s[pad<T>(r + j)];
+      g4[p] = c.raw;
     }
   }
-  if (threadIdx.x == 0 && head) g[0] = s[pad(0)];
-  if (threadIdx.x == 1 && head + 2 * pairs < count) g[count - 1] = s[pad(count - 1)];
+  const int t = threadIdx.x;
+  if (t < head) g[t] = s[pad<T>(t)];
+  if (t >= kVec && t - kVec < count - tail) g[tail + t - kVec] = s[pad<T>(tail + t - kVec)];
 }
 
 // Flag bytes [0, count) of g: one 16-byte load a thread from each aligned
@@ -257,10 +301,11 @@ struct FlagLoad {
 // result in place, store.
 struct LexTile {
   using M = LexMax;
+  static constexpr int kRows = kTile;
   struct Smem {
-    uint64_t a[kLbPadded];
-    uint64_t b[kLbPadded];
-    alignas(16) uint8_t f[kTile + 16];
+    uint64_t a[pad<uint64_t>(kRows)];
+    uint64_t b[pad<uint64_t>(kRows)];
+    alignas(16) uint8_t f[kRows + 16];
   };
   const uint8_t* flags;
   const uint64_t* k1;
@@ -268,7 +313,7 @@ struct LexTile {
   uint64_t* o1;
   uint64_t* o2;
   __device__ int load(Smem& s, int64_t at, int count) const {
-    RowLoad a, b;
+    RowLoad<uint64_t, kRows> a, b;
     FlagLoad f;
     a.fetch(k1 + at, count);
     b.fetch(k2 + at, count);
@@ -278,30 +323,32 @@ struct LexTile {
     return f.put(s.f);
   }
   __device__ Elem<M> get(const Smem& s, int off, int m) const {
-    return Elem<M>{M::V{s.a[pad(m)], s.b[pad(m)]}, s.f[off + m] ? 1u : 0u};
+    return Elem<M>{M::V{s.a[pad<uint64_t>(m)], s.b[pad<uint64_t>(m)]}, s.f[off + m] ? 1u : 0u};
   }
   __device__ void put(Smem& s, int m, const M::V& v) const {
-    s.a[pad(m)] = v.a;
-    s.b[pad(m)] = v.b;
+    s.a[pad<uint64_t>(m)] = v.a;
+    s.b[pad<uint64_t>(m)] = v.b;
   }
   __device__ void store(const Smem& s, int64_t at, int count) const {
-    store_rows(o1 + at, count, s.a);
-    store_rows(o2 + at, count, s.b);
+    store_rows<uint64_t, kRows>(o1 + at, count, s.a);
+    store_rows<uint64_t, kRows>(o2 + at, count, s.b);
   }
 };
 
-// One tile of kernel S in shared memory.
-struct SumTile {
-  using M = Sum;
+// One tile of kernel S or X in shared memory: one column of T, combined by M.
+template <class Monoid, class T, int kTileRows>
+struct ColumnTile {
+  using M = Monoid;
+  static constexpr int kRows = kTileRows;
   struct Smem {
-    uint64_t v[kLbPadded];
-    alignas(16) uint8_t f[kTile + 16];
+    T v[pad<T>(kRows)];
+    alignas(16) uint8_t f[kRows + 16];
   };
   const uint8_t* flags;
-  const uint64_t* v;
-  uint64_t* out;
+  const T* v;
+  T* out;
   __device__ int load(Smem& s, int64_t at, int count) const {
-    RowLoad a;
+    RowLoad<T, kRows> a;
     FlagLoad f;
     a.fetch(v + at, count);
     f.fetch(flags + at, count);
@@ -309,11 +356,14 @@ struct SumTile {
     return f.put(s.f);
   }
   __device__ Elem<M> get(const Smem& s, int off, int m) const {
-    return Elem<M>{s.v[pad(m)], s.f[off + m] ? 1u : 0u};
+    return Elem<M>{s.v[pad<T>(m)], s.f[off + m] ? 1u : 0u};
   }
-  __device__ void put(Smem& s, int m, uint64_t x) const { s.v[pad(m)] = x; }
-  __device__ void store(const Smem& s, int64_t at, int count) const { store_rows(out + at, count, s.v); }
+  __device__ void put(Smem& s, int m, T x) const { s.v[pad<T>(m)] = x; }
+  __device__ void store(const Smem& s, int64_t at, int count) const { store_rows<T, kRows>(out + at, count, s.v); }
 };
+
+using SumTile = ColumnTile<Sum, uint64_t, kTile>;
+using XorTile = ColumnTile<Xor, uint32_t, kXorRows>;
 
 // Published state of every tile of one call. A value is written before
 // its status word (a fence between), and read only after the status word
@@ -362,9 +412,9 @@ struct LookBack {
   }
 };
 
-// Tile t covers scan positions [t*kTile, t*kTile + count). Forward, that
-// is memory from `at` on; reversed, memory [n - t*kTile - count,
-// n - t*kTile) read backwards, so the ragged tile lies at the start of
+// Tile t covers scan positions [t*R, t*R + count), R = Tile::kRows.
+// Forward, that is memory from `at` on; reversed, memory [n - t*R - count,
+// n - t*R) read backwards, so the ragged tile lies at the start of
 // memory. Blocks wait only on tiles of a lower blockIdx, which are
 // dispatched before them.
 template <class Tile>
@@ -374,15 +424,16 @@ __global__ void __launch_bounds__(kThreads) lookback_scan(Tile io, int64_t n, in
   __shared__ Elem<M> warp_tot[kWarps];
   __shared__ Elem<M> tile_prefix;
   const int64_t tile = blockIdx.x;
-  const int64_t start = tile * kTile;
-  const int count = (int)(n - start < kTile ? n - start : kTile);
+  constexpr int kRows = Tile::kRows, kItemsT = kRows / kThreads;
+  const int64_t start = tile * kRows;
+  const int count = (int)(n - start < kRows ? n - start : kRows);
   const int64_t at = reverse ? n - start - count : start;
   const int off = io.load(s, at, count);
   __syncthreads();
-  const int base = threadIdx.x * kItems;
+  const int base = threadIdx.x * kItemsT;
   Elem<M> acc = identity<M>();
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < kItemsT; ++i) {
     const int j = base + i;
     if (j < count) acc = combine<M>(acc, io.get(s, off, reverse ? count - 1 - j : j));
   }
@@ -403,7 +454,7 @@ __global__ void __launch_bounds__(kThreads) lookback_scan(Tile io, int64_t n, in
   __syncthreads();
   run = combine<M>(tile_prefix, run);
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
+  for (int i = 0; i < kItemsT; ++i) {
     const int j = base + i;
     if (j < count) {
       const int m = reverse ? count - 1 - j : j;
@@ -422,7 +473,7 @@ int run_lookback(const Tile& io, int64_t n, int reverse, void* scratch, int64_t 
                  uint32_t epoch, cudaStream_t stream) {
   using V = typename Tile::M::V;
   if (n <= 0) return 0;
-  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t tiles = (n + Tile::kRows - 1) / Tile::kRows;
   if (tiles > scratch_tiles || tiles > 0x7fffffff || epoch == 0 || epoch >= kEpochLimit)
     return (int)cudaErrorInvalidValue;
   uint8_t* base = static_cast<uint8_t*>(scratch);
@@ -432,112 +483,18 @@ int run_lookback(const Tile& io, int64_t n, int reverse, void* scratch, int64_t 
   return (int)cudaGetLastError();
 }
 
-// ---- X: three-phase reduce-then-scan ------------------------------------
-
-struct XorIO {
-  const uint8_t* flags;
-  const uint32_t* v;
-  uint32_t* out;
-  __device__ Elem<Xor> load(int64_t p) const {
-    return Elem<Xor>{v[p], flags[p] ? 1u : 0u};
-  }
-  __device__ void store(int64_t p, uint32_t x) const { out[p] = x; }
-};
-
-// Phase A: one aggregate per tile.
-template <class M, class IO>
-__global__ void __launch_bounds__(kThreads) tile_reduce(IO io, int64_t n, Elem<M>* aggs) {
-  __shared__ Elem<M> warp_tot[kWarps];
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  Elem<M> acc = identity<M>();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = base + i;
-    if (j < n) acc = combine<M>(acc, io.load(j));
-  }
-  Elem<M> total;
-  block_exclusive<M>(acc, warp_tot, total);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
-}
-
-// Phase B: one block turns the m tile aggregates into exclusive prefixes,
-// in place, a chunk of kTile at a time with a running carry.
-template <class M>
-__global__ void __launch_bounds__(kThreads) scan_aggregates(Elem<M>* aggs, int64_t m) {
-  __shared__ Elem<M> warp_tot[kWarps];
-  Elem<M> carry = identity<M>();
-  for (int64_t start = 0; start < m; start += kTile) {
-    const int64_t base = start + (int64_t)threadIdx.x * kItems;
-    Elem<M> items[kItems];
-    Elem<M> acc = identity<M>();
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      items[i] = base + i < m ? aggs[base + i] : identity<M>();
-      acc = combine<M>(acc, items[i]);
-    }
-    Elem<M> total;
-    Elem<M> run = combine<M>(carry, block_exclusive<M>(acc, warp_tot, total));
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      if (base + i < m) aggs[base + i] = run;
-      run = combine<M>(run, items[i]);
-    }
-    carry = combine<M>(carry, total);
-  }
-}
-
-// Phase C: rescan each tile from its exclusive prefix and write the rows.
-template <class M, class IO>
-__global__ void __launch_bounds__(kThreads) tile_scan(IO io, int64_t n, const Elem<M>* prefix) {
-  __shared__ Elem<M> warp_tot[kWarps];
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  Elem<M> items[kItems];
-  Elem<M> acc = identity<M>();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = base + i;
-    items[i] = j < n ? io.load(j) : identity<M>();
-    acc = combine<M>(acc, items[i]);
-  }
-  Elem<M> total;
-  Elem<M> run = block_exclusive<M>(acc, warp_tot, total);
-  if (prefix != nullptr) run = combine<M>(prefix[blockIdx.x], run);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t j = base + i;
-    run = combine<M>(run, items[i]);
-    if (j < n) io.store(j, run.v);
-  }
-}
-
-template <class M, class IO>
-int run_scan(const IO& io, int64_t n, void* scratch, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  Elem<M>* aggs = static_cast<Elem<M>*>(scratch);
-  if (tiles > 1) {
-    tile_reduce<M, IO><<<(unsigned)tiles, kThreads, 0, stream>>>(io, n, aggs);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    scan_aggregates<M><<<1, kThreads, 0, stream>>>(aggs, tiles);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  tile_scan<M, IO><<<(unsigned)tiles, kThreads, 0, stream>>>(io, n, tiles > 1 ? aggs : nullptr);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Rows per block of the look-back scans (L and S).
+// Rows per tile of the look-back scans L and S, the unit of the scratch
+// (X's tiles are twice as large, so it needs fewer).
 long long evolu_seg_scan_tile_rows(void) { return kTile; }
 
 // Bytes of look-back scratch for `tiles` tiles: status words, then the
 // aggregates and the inclusive prefixes, sized for L's 16-byte values
-// (S uses the first half of each). Zero it once; the epoch does the rest.
+// (S uses the first half of each, X the first quarter). Zero it once; the
+// epoch does the rest.
 long long evolu_seg_scan_lookback_bytes(long long tiles) {
   return status_bytes(tiles) + 2 * tiles * (long long)sizeof(LexMax::V);
 }
@@ -563,17 +520,13 @@ int evolu_seg_sum_scan(const void* flags, const void* v, void* out, long long n,
   return run_lookback(io, n, 0, scratch, scratch_tiles, epoch, static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of device scratch kernel X needs for n rows.
-long long evolu_seg_xor_scan_scratch_bytes(long long n) {
-  return ((n + kTile - 1) / kTile) * (long long)sizeof(Elem<Xor>);
-}
-
-// Kernel X. flags: n bytes (0/1); v: n u32; out: n u32.
+// Kernel X. flags: n bytes (0/1), segment starts; v: n u32; out: n u32;
+// scratch and epoch as for kernel L.
 int evolu_seg_xor_scan(const void* flags, const void* v, void* out, long long n, void* scratch,
-                       void* stream) {
-  XorIO io{static_cast<const uint8_t*>(flags), static_cast<const uint32_t*>(v),
-           static_cast<uint32_t*>(out)};
-  return run_scan<Xor>(io, n, scratch, static_cast<cudaStream_t>(stream));
+                       long long scratch_tiles, unsigned epoch, void* stream) {
+  XorTile io{static_cast<const uint8_t*>(flags), static_cast<const uint32_t*>(v),
+             static_cast<uint32_t*>(out)};
+  return run_lookback(io, n, 0, scratch, scratch_tiles, epoch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from evolu_tpu_torch.ops import wrap_int32
-from evolu_tpu_torch.ops.cuda_lib import check, load, require, stream_handle
+from evolu_tpu_torch.ops.cuda_lib import check, load, require, stream_handle, stream_state
 from evolu_tpu_torch.ops.encode import render_hashes_i64, unpack_ts_keys
 
 
@@ -54,15 +54,34 @@ def masked_key_hashes_plain(k1, k2, mask):
 # ---- kernel ---------------------------------------------------------------
 
 
-def timestamp_hash_cuda(a, counter, node, mask, digest):
-    """The launch of kernel H. `counter=None` means `a` holds packed keys
-    k1 (millis << 16 | counter); `mask` and `digest` may be None."""
+def _digest_scratch(buf, device):
+    """The reconcile form's digest scratch (None before the first call): a
+    block counter that each call leaves at 0, and one partial a block,
+    zeroed once, when made."""
+    if buf is None:
+        size = load().evolu_ts_hash_scratch_bytes()
+        if size <= 0:
+            raise RuntimeError("evolu_tpu_torch: timestamp hash grid query failed")
+        buf = torch.zeros(size, dtype=torch.uint8, device=device)
+    return buf
+
+
+def timestamp_hash_cuda(a, counter, node, mask):
+    """The launch of kernel H, one a call. `counter=None` means `a` holds
+    packed keys k1 (millis << 16 | counter) and `mask` picks the rows to
+    hash: the one output holds the n hashes, then the digest. Otherwise
+    every row is hashed and the output holds the n hashes."""
     n = a.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=a.device)
+    keys = counter is None
+    if keys:
+        scratch, stream = stream_state("digest", a, _digest_scratch)
+    else:
+        scratch, stream = None, stream_handle(a)
+    out = torch.empty(n + 1 if keys else n, dtype=torch.int32, device=a.device)
     rc = load().evolu_ts_hash(
-        a.data_ptr(), None if counter is None else counter.data_ptr(), node.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        None if digest is None else digest.data_ptr(), n, stream_handle(a),
+        a.data_ptr(), None if keys else counter.data_ptr(), node.data_ptr(),
+        mask.data_ptr() if keys else None, out.data_ptr(),
+        scratch.data_ptr() if keys else None, n, stream,
     )
     check(rc, "timestamp hash")
     timestamp_hash_cuda.launches += 1
@@ -78,17 +97,19 @@ def timestamp_hashes_cuda(millis, counter, node):
     require(millis, torch.int64, n, "timestamp_hashes millis")
     require(counter, torch.int32, n, "timestamp_hashes counter")
     require(node, torch.int64, n, "timestamp_hashes node")
-    return timestamp_hash_cuda(millis, counter, node, None, None)
+    return timestamp_hash_cuda(millis, counter, node, None)
 
 
 def masked_key_hashes_cuda(k1, k2, mask):
-    """Kernel H, reconcile form: int64 k1/k2 and bool mask → (hashes, digest)."""
+    """Kernel H, reconcile form: int64 k1/k2 and bool mask → (hashes,
+    digest), two views of one allocation; no memset, one launch."""
     n = k1.shape[0]
     require(k1, torch.int64, n, "masked_key_hashes k1")
     require(k2, torch.int64, n, "masked_key_hashes k2")
     require(mask, torch.bool, n, "masked_key_hashes mask")
-    digest = torch.zeros(1, dtype=torch.int32, device=k1.device)
-    return timestamp_hash_cuda(k1, None, k2, mask, digest), digest
+    # Both views from one call: two slices, or `split`, cost more host time.
+    hashes, digest = timestamp_hash_cuda(k1, None, k2, mask).split_with_sizes((n, 1))
+    return hashes, digest
 
 
 # ---- dispatch -------------------------------------------------------------

@@ -36,7 +36,8 @@ _lib = None
 build_info = {"seconds": None, "log": "", "path": None}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of nvcc: on PATH, else the CUDA toolkit's default place."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -57,13 +58,13 @@ def _build_dir() -> Path:
 def _build(out_dir: Path) -> str:
     """Compile every source in parallel, link, and move the library into
     `out_dir` atomically. Returns the compiler's log."""
-    nvcc = _nvcc()
+    compiler = nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         procs = []
         for name in SOURCES:
             obj = os.path.join(tmp, name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
+            cmd = [compiler, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         log, failed = [], []
@@ -76,7 +77,7 @@ def _build(out_dir: Path) -> str:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n" + "\n".join(log))
         lib_tmp = os.path.join(tmp, "libevolu_kernels.so")
         link = subprocess.run(
-            [nvcc, "-shared", "-o", lib_tmp, *(obj for _, obj, _ in procs)],
+            [compiler, "-shared", "-o", lib_tmp, *(obj for _, obj, _ in procs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         log.append(f"== link\n{link.stdout}")
@@ -106,10 +107,10 @@ def _bind(lib):
     lib.evolu_seg_lex_max_scan.restype = i
     lib.evolu_seg_sum_scan.argtypes = [vp, vp, vp, ll, vp, ll, u, vp]
     lib.evolu_seg_sum_scan.restype = i
-    lib.evolu_seg_xor_scan_scratch_bytes.argtypes = [ll]
-    lib.evolu_seg_xor_scan_scratch_bytes.restype = ll
-    lib.evolu_seg_xor_scan.argtypes = [vp, vp, vp, ll, vp, vp]
+    lib.evolu_seg_xor_scan.argtypes = [vp, vp, vp, ll, vp, ll, u, vp]
     lib.evolu_seg_xor_scan.restype = i
+    lib.evolu_ts_hash_scratch_bytes.argtypes = []
+    lib.evolu_ts_hash_scratch_bytes.restype = ll
     lib.evolu_ts_hash.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
     lib.evolu_ts_hash.restype = i
     return lib
@@ -119,6 +120,8 @@ def load():
     """The kernel library, built on first call. Raises if nvcc or the
     build fails; there is no fallback."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             out_dir = _build_dir()
@@ -150,7 +153,25 @@ def require(t, dtype, n: int, what: str) -> None:
 
 
 def stream_handle(t) -> int:
-    """The current PyTorch stream of `t`'s device, as a raw handle."""
+    """The current PyTorch stream of `t`'s device, as a raw handle.
+    `torch.cuda.current_stream` would build a Stream object on every call,
+    a large share of a small call's host cost."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_stream_states = {}  # (kind, device index, stream handle) -> state
+_stream_states_lock = threading.Lock()
+
+
+def stream_state(kind: str, t, update, *args):
+    """(state, stream): the `kind` scratch state of `t`'s device and
+    current stream, after `update(state or None, device, *args)` has
+    returned it, under one lock. Two streams never share a state, so
+    their calls cannot overlap on it."""
+    stream = stream_handle(t)
+    key = (kind, t.device.index, stream)
+    with _stream_states_lock:
+        state = _stream_states[key] = update(_stream_states.get(key), t.device, *args)
+    return state, stream

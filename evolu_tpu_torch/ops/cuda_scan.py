@@ -22,13 +22,12 @@ over the row totals (recursively) and a carry into each row.
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, List, Sequence
 
 import torch
 
 from evolu_tpu_torch.ops import u64_order
-from evolu_tpu_torch.ops.cuda_lib import check, load, require, stream_handle
+from evolu_tpu_torch.ops.cuda_lib import check, load, require, stream_state
 
 _BLOCK = 256
 
@@ -124,35 +123,31 @@ class _LookBack:
 
 
 _EPOCH_LIMIT = 1 << 29  # status words hold epoch << 3 (seg_scan.cu kEpochLimit)
-_lookback = {}  # (device index, stream handle) -> _LookBack
-_lookback_lock = threading.Lock()
+
+
+def _next_epoch(s, device, n: int):
+    """The look-back state `s` (None before the first call) ready for one
+    scan of n rows: grown to the largest n seen, zeroed only when made or
+    when the epoch wraps, and on a fresh epoch, so a status word an
+    earlier call left never reads as ready."""
+    if s is None or n > s.rows:
+        lib = load()
+        tile = lib.evolu_seg_scan_tile_rows()
+        tiles = max(-(-n // tile), 2 * s.tiles if s is not None else 1)
+        buf = torch.zeros(lib.evolu_seg_scan_lookback_bytes(tiles), dtype=torch.uint8, device=device)
+        s = _LookBack(buf, tiles, tiles * tile)
+    s.epoch += 1
+    if s.epoch == _EPOCH_LIMIT:
+        s.buf.zero_()
+        s.epoch = 1
+    return s
 
 
 def _lookback_scratch(t, n: int):
     """(pointer, tiles, epoch, stream) for one look-back scan of n rows on
-    `t`'s device and current stream. The scratch grows to the largest n
-    seen and is zeroed only when made or when the epoch wraps: no two calls
-    on it share an epoch, so a status word an earlier call left never
-    reads as ready. Two streams never share one, so their calls cannot
-    overlap on it."""
-    index = t.device.index
-    # The current stream's raw handle: torch.cuda.current_stream would
-    # build a Stream object on every call, a large share of the host cost.
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    key = (index, stream)
-    with _lookback_lock:
-        s = _lookback.get(key)
-        if s is None or n > s.rows:
-            lib = load()
-            tile = lib.evolu_seg_scan_tile_rows()
-            tiles = max(-(-n // tile), 2 * s.tiles if s is not None else 1)
-            buf = torch.zeros(lib.evolu_seg_scan_lookback_bytes(tiles), dtype=torch.uint8, device=t.device)
-            s = _lookback[key] = _LookBack(buf, tiles, tiles * tile)
-        s.epoch += 1
-        if s.epoch == _EPOCH_LIMIT:
-            s.buf.zero_()
-            s.epoch = 1
-        return s.buf.data_ptr(), s.tiles, s.epoch, stream
+    `t`'s device and current stream, whose scratch L, X and S share."""
+    s, stream = stream_state("lookback", t, _next_epoch, n)
+    return s.buf.data_ptr(), s.tiles, s.epoch, stream
 
 
 def segmented_max_scan_cuda(flags, k1, k2, reverse: bool = False):
@@ -178,17 +173,15 @@ segmented_max_scan_cuda.launches = 0
 
 
 def segmented_xor_scan_cuda(flags, values):
-    """Kernel X on CUDA tensors: bool flags, int32 values → int32."""
+    """Kernel X on CUDA tensors: bool flags, int32 values → int32. One
+    launch, no allocation but the output."""
     n = flags.shape[0]
     require(flags, torch.bool, n, "segmented_xor_scan flags")
     require(values, torch.int32, n, "segmented_xor_scan values")
-    lib = load()
-    out = torch.empty_like(values)
-    scratch = torch.empty(max(lib.evolu_seg_xor_scan_scratch_bytes(n), 1),
-                          dtype=torch.uint8, device=values.device)
-    rc = lib.evolu_seg_xor_scan(
-        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n,
-        scratch.data_ptr(), stream_handle(values),
+    out = torch.empty(n, dtype=torch.int32, device=values.device)
+    scratch, tiles, epoch, stream = _lookback_scratch(values, n)
+    rc = load().evolu_seg_xor_scan(
+        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n, scratch, tiles, epoch, stream,
     )
     check(rc, "segmented xor scan")
     segmented_xor_scan_cuda.launches += 1

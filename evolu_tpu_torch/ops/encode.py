@@ -34,9 +34,14 @@ def _fdiv(a: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def _civil_from_days(days: torch.Tensor):
-    """days-since-1970-01-01 → (year, month, day), Howard Hinnant's
-    civil_from_days with floor division throughout."""
-    z = days + 719468
+    """int32-valued days-since-1970-01-01 → (year, month, day), Howard
+    Hinnant's civil_from_days with floor division throughout.
+
+    The JAX package runs it in int32, so `days + 719468` wraps for days
+    in [2^31 - 719468, 2^31 - 1]; `wrap_int32` repeats that wrap. No later
+    step leaves int32 except `era * 146097` at era = -14700, and there
+    `doe` is the same exact value in [0, 146096] either way."""
+    z = wrap_int32(days + 719468).to(torch.int64)
     era = _fdiv(z, 146097)
     doe = z - era * 146097
     yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524) - _fdiv(doe, 146096), 365)

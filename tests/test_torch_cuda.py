@@ -11,14 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from evolu_tpu_torch.ops import cuda_hash, cuda_scan
+from evolu_tpu_torch.ops import cuda_hash, cuda_lib, cuda_scan
 
 pytestmark = pytest.mark.cuda
 
 TILE = 2048  # rows per block of kernels L and S (seg_scan.cu kTile)
-SIZES = (1, 127, 128, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 4096, 70000, (1 << 20) + 3)
+X_TILE = 2 * TILE  # rows per block of kernel X (seg_scan.cu kXorRows)
+SIZES = (1, 127, 128, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, X_TILE, X_TILE + 1, 70000, (1 << 20) + 3)
+# The last two: the ends of the days window [2^31 - 719468, 2^31 - 1] in
+# which `days + 719468` wraps in int32.
 EDGE_MILLIS = [0, 951_782_400_000, 4_107_542_399_000, 253_402_300_799_999,
-               -1, -999, -86_400_001, -62_135_596_800_000, 2**47]
+               -1, -999, -86_400_001, -62_135_596_800_000, 2**47,
+               185_480_425_152_000_000, 185_542_587_187_199_999]
 
 
 @pytest.fixture
@@ -52,28 +56,84 @@ def test_kernel_l_matches_plain(n, reverse, dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _xor_values(n, seed, dev):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint32)
+                            .view(np.int32)).to(dev)
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_kernel_x_matches_plain(n, dev):
     f, _, _ = _lex_inputs(n, n, dev)
-    v = torch.from_numpy(np.random.default_rng(n).integers(0, 2**32, n, dtype=np.uint32)
-                         .view(np.int32)).to(dev)
-    assert torch.equal(cuda_scan.segmented_xor_scan(f, v), cuda_scan.segmented_xor_scan_plain(f, v))
+    v = _xor_values(n, n, dev)
+    before = cuda_scan.segmented_xor_scan_cuda.launches
+    got = cuda_scan.segmented_xor_scan(f, v)
+    assert cuda_scan.segmented_xor_scan_cuda.launches == before + 1
+    assert torch.equal(got, cuda_scan.segmented_xor_scan_plain(f, v))
+
+
+def _h_inputs(n, seed, dev):
+    """Columns (millis, counter, node) with EDGE_MILLIS first, and the
+    reconcile form's keys k1 from them."""
+    rng = np.random.default_rng(seed)
+    edge = EDGE_MILLIS[:n]
+    millis = np.concatenate([edge, 1_700_000_000_000 + rng.integers(0, 10**12, n - len(edge))])
+    counter = rng.integers(0, 65536, n).astype(np.int32)
+    node = rng.integers(0, 2**64, n, dtype=np.uint64)
+    node[:2] = [0, 2**64 - 1][:n]
+    m, c, d = (torch.from_numpy(x).to(dev) for x in (millis.astype(np.int64), counter, node.view(np.int64)))
+    return m, c, d, (m.clamp(min=0) << 16) | c.to(torch.int64)
+
+
+def _assert_h_matches_plain(m, c, d, k1, mask):
+    assert torch.equal(cuda_hash.timestamp_hashes_cuda(m, c, d), cuda_hash.timestamp_hashes_plain(m, c, d))
+    got_h, got_d = cuda_hash.masked_key_hashes(k1, d, mask)
+    want_h, want_d = cuda_hash.masked_key_hashes_plain(k1, d, mask)
+    assert torch.equal(got_h, want_h) and torch.equal(got_d, want_d)
 
 
 @pytest.mark.parametrize("n", [len(EDGE_MILLIS), 70001])
 def test_kernel_h_matches_plain(n, dev):
-    rng = np.random.default_rng(n)
-    millis = np.concatenate([EDGE_MILLIS, 1_700_000_000_000 + rng.integers(0, 10**12, n - len(EDGE_MILLIS))])
-    counter = rng.integers(0, 65536, n).astype(np.int32)
-    node = rng.integers(0, 2**64, n, dtype=np.uint64)
-    node[:2] = [0, 2**64 - 1]
-    m, c, d = (torch.from_numpy(x).to(dev) for x in (millis.astype(np.int64), counter, node.view(np.int64)))
-    assert torch.equal(cuda_hash.timestamp_hashes_cuda(m, c, d), cuda_hash.timestamp_hashes_plain(m, c, d))
-    k1 = (m.clamp(min=0) << 16) | c.to(torch.int64)
-    mask = torch.from_numpy(rng.random(n) < 0.6).to(dev)
-    got_h, got_d = cuda_hash.masked_key_hashes(k1, d, mask)
-    want_h, want_d = cuda_hash.masked_key_hashes_plain(k1, d, mask)
-    assert torch.equal(got_h, want_h) and torch.equal(got_d, want_d)
+    m, c, d, k1 = _h_inputs(n, n, dev)
+    mask = torch.from_numpy(np.random.default_rng(n).random(n) < 0.6).to(dev)
+    _assert_h_matches_plain(m, c, d, k1, mask)
+
+
+@pytest.mark.parametrize("mask_kind", ["random", "all false", "all true"])
+@pytest.mark.parametrize("n", [1, 255, 257, (1 << 24) + 3])
+def test_kernel_h_sizes_and_digest(n, mask_kind, dev):
+    """Both forms around the block size and past 2^24 rows, where the grid
+    strides; an all-false mask hashes nothing and its digest is 0."""
+    m, c, d, k1 = _h_inputs(n, n + 1, dev)
+    mask = {"random": torch.from_numpy(np.random.default_rng(n).random(n) < 0.6).to(dev),
+            "all false": torch.zeros(n, dtype=torch.bool, device=dev),
+            "all true": torch.ones(n, dtype=torch.bool, device=dev)}[mask_kind]
+    before = cuda_hash.timestamp_hash_cuda.launches
+    _assert_h_matches_plain(m, c, d, k1, mask)
+    assert cuda_hash.timestamp_hash_cuda.launches == before + 2
+    if mask_kind == "all false":
+        assert int(cuda_hash.masked_key_hashes(k1, d, mask)[1]) == 0
+
+
+def test_kernel_h_digest_across_calls_and_streams(dev):
+    """The digest's block counter is reset by the last block of each call:
+    calls back to back on one stream, the empty call (n = 0, digest 0),
+    then calls on a second stream with its own scratch."""
+    inputs = [_h_inputs(n, n, dev) for n in (70001, 257, 1 << 20)]
+    masks = [torch.from_numpy(np.random.default_rng(i).random(k1.shape[0]) < 0.5).to(dev)
+             for i, (_, _, _, k1) in enumerate(inputs)]
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    got = [cuda_hash.masked_key_hashes(k1, d, mask) for (_, _, d, k1), mask in zip(inputs, masks)]
+    got.append(cuda_hash.masked_key_hashes(empty, empty, empty.bool()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got += [cuda_hash.masked_key_hashes(k1, d, mask) for (_, _, d, k1), mask in zip(inputs, masks)]
+    torch.cuda.current_stream().wait_stream(side)
+    want = [cuda_hash.masked_key_hashes_plain(k1, d, mask) for (_, _, d, k1), mask in zip(inputs, masks)]
+    want = want + [(empty.int(), torch.zeros(1, dtype=torch.int32, device=dev))] + want
+    for (gh, gd), (wh, wd) in zip(got, want):
+        assert torch.equal(gh, wh) and torch.equal(gd, wd)
+    assert ("digest", torch.cuda.current_device(), side.cuda_stream) in cuda_lib._stream_states
 
 
 def _sum_values(n, seed, dev):
@@ -114,6 +174,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         cuda_scan.segmented_sum_scan_cuda(f, a[::2])  # wrong length, not contiguous
     with pytest.raises(ValueError):
         cuda_scan.segmented_sum_scan_cuda(f.cpu(), a.cpu())  # CPU tensors: plain version only
+    with pytest.raises(ValueError):
+        cuda_hash.masked_key_hashes_cuda(a, b, f[::2])  # a mask of another length
+    with pytest.raises(ValueError):
+        cuda_hash.timestamp_hashes_cuda(a, a, b)  # int64 counter, kernel takes int32
 
 
 def _assert_l_and_s_match_plain(f, a, b, v):
@@ -137,6 +201,37 @@ def test_kernels_l_and_s_on_look_back_chains(kind, n, dev):
     _assert_l_and_s_match_plain(f, a, b, _sum_values(n, n, dev))
 
 
+def _assert_x_matches_plain(f, v, what=""):
+    assert torch.equal(cuda_scan.segmented_xor_scan(f, v), cuda_scan.segmented_xor_scan_plain(f, v)), f"X {what}"
+
+
+@pytest.mark.parametrize("kind,n", [("one segment", (1 << 20) + 3), ("one segment", (1 << 23) + 5),
+                                    ("no flag", 3 * X_TILE + 5), ("every row", X_TILE + 1),
+                                    ("every row", (1 << 20) + 3), ("random", X_TILE - 1), ("random", X_TILE),
+                                    ("random", X_TILE + 1)])
+def test_kernel_x_on_look_back_chains(kind, n, dev):
+    """X on the look-back stress inputs of L and S: the longest chain of
+    tiles waiting on their predecessors, no flag at all, every row its own
+    segment, and sizes around the tile."""
+    if kind == "random":
+        f, _, _ = _lex_inputs(n, n, dev)
+    else:
+        f = torch.full((n,), kind == "every row", dtype=torch.bool, device=dev)
+        f[0] = kind != "no flag"
+    _assert_x_matches_plain(f, _xor_values(n, n, dev))
+
+
+@pytest.mark.parametrize("start", (1, 2, 3))
+@pytest.mark.parametrize("n", (X_TILE + 1, 70001))
+def test_kernel_x_on_offset_views(n, start, dev):
+    """Views 1, 2 and 3 int32 rows past a 16-byte boundary: X's ragged head
+    (the rows before the first 16-byte load) and tail rows run."""
+    f, _, _ = _lex_inputs(n + start, n, dev)
+    v = _xor_values(n + start, n, dev)[start:]
+    assert v.data_ptr() % 16 == 4 * start
+    _assert_x_matches_plain(f[start:], v, f"view at row {start}")
+
+
 @pytest.mark.parametrize("start", (1, 2))
 @pytest.mark.parametrize("n", (TILE + 1, 70001))
 def test_kernels_l_and_s_on_offset_views(n, start, dev):
@@ -150,60 +245,78 @@ def test_kernels_l_and_s_on_offset_views(n, start, dev):
 
 
 def test_look_back_scratch_across_calls_and_streams(dev):
-    """Two different inputs back to back on one stream, then a call on a
-    second stream: each call's status words carry their own epoch, and
-    each stream has its own scratch."""
+    """Two different inputs back to back on one stream through L, X and S,
+    which share the stream's scratch, then calls on a second stream: each
+    call's status words carry their own epoch, and each stream has its own
+    scratch."""
     n = 3 * TILE + 5
-    first = (*_lex_inputs(n, 1, dev), _sum_values(n, 1, dev))
-    second = list(_lex_inputs(n, 2, dev)) + [_sum_values(n, 2, dev)]
+    first = (*_lex_inputs(n, 1, dev), _sum_values(n, 1, dev), _xor_values(n, 1, dev))
+    second = list(_lex_inputs(n, 2, dev)) + [_sum_values(n, 2, dev), _xor_values(n, 2, dev)]
     second[0] = torch.zeros_like(second[0])
     second[0][0] = True
-    got = [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_sum_scan(second[0], second[3]),
+    got = [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_xor_scan(second[0], second[4]),
+           cuda_scan.segmented_sum_scan(second[0], second[3]), cuda_scan.segmented_xor_scan(first[0], first[4]),
            *cuda_scan.segmented_max_scan(*first[:3]), *cuda_scan.segmented_max_scan(*second[:3])]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        got += [cuda_scan.segmented_sum_scan(first[0], first[3]),
+        got += [cuda_scan.segmented_sum_scan(first[0], first[3]), cuda_scan.segmented_xor_scan(second[0], second[4]),
                 *cuda_scan.segmented_max_scan(*first[:3], reverse=True)]
     torch.cuda.current_stream().wait_stream(side)
     want = [cuda_scan.segmented_sum_scan_plain(first[0], first[3]),
+            cuda_scan.segmented_xor_scan_plain(second[0], second[4]),
             cuda_scan.segmented_sum_scan_plain(second[0], second[3]),
+            cuda_scan.segmented_xor_scan_plain(first[0], first[4]),
             *cuda_scan.segmented_max_scan_plain(*first[:3]), *cuda_scan.segmented_max_scan_plain(*second[:3]),
             cuda_scan.segmented_sum_scan_plain(first[0], first[3]),
+            cuda_scan.segmented_xor_scan_plain(second[0], second[4]),
             *cuda_scan.segmented_max_scan_plain(*first[:3], reverse=True)]
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (torch.cuda.current_device(), side.cuda_stream) in cuda_scan._lookback
+    assert ("lookback", torch.cuda.current_device(), side.cuda_stream) in cuda_lib._stream_states
 
 
 def test_look_back_epoch_wraps(dev):
     n = 3 * TILE + 5
     f, a, b = _lex_inputs(n, 3, dev)
     v = _sum_values(n, 3, dev)
+    x = _xor_values(n, 3, dev)
     cuda_scan.segmented_sum_scan(f, v)  # the scratch of this stream exists
-    state = cuda_scan._lookback[(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)]
-    state.epoch = cuda_scan._EPOCH_LIMIT - 2
-    for _ in range(3):  # 9 calls: the last epoch, a wrap that clears the status words, epochs 2..8
+    state = cuda_lib._stream_states[("lookback", torch.cuda.current_device(),
+                                     torch.cuda.current_stream().cuda_stream)]
+    state.epoch = cuda_scan._EPOCH_LIMIT - 3
+    for _ in range(3):  # 12 calls: the last two epochs, a wrap that clears the status words, epochs 2..10
         _assert_l_and_s_match_plain(f, a, b, v)
-    assert state.epoch == 8
+        _assert_x_matches_plain(f, x)
+    assert state.epoch == 10
 
 
 def test_one_kernel_launch_per_call(dev):
-    """Each dispatcher call of L (either direction) and S launches exactly
-    one CUDA kernel, as CUPTI records it, and allocates nothing on the
-    device but its outputs."""
+    """Each dispatcher call of L (either direction), X, S and H's reconcile
+    form launches exactly one CUDA kernel, as CUPTI records it: no memset
+    and no fill kernel, nothing on the device but its outputs."""
     from torch.profiler import ProfilerActivity, profile
 
     n = 70000
     f, a, b = _lex_inputs(n, 4, dev)
     v = _sum_values(n, 4, dev)
-    calls = {"L": lambda: cuda_scan.segmented_max_scan(f, a, b),
-             "L reverse": lambda: cuda_scan.segmented_max_scan(f, a, b, reverse=True),
-             "S": lambda: cuda_scan.segmented_sum_scan(f, v)}
-    for name, call in calls.items():
+    x = _xor_values(n, 4, dev)
+    _, _, d, k1 = _h_inputs(n, 4, dev)
+    calls = {"L": (lambda: cuda_scan.segmented_max_scan(f, a, b), "lookback_scan"),
+             "L reverse": (lambda: cuda_scan.segmented_max_scan(f, a, b, reverse=True), "lookback_scan"),
+             "X": (lambda: cuda_scan.segmented_xor_scan(f, x), "lookback_scan"),
+             "S": (lambda: cuda_scan.segmented_sum_scan(f, v), "lookback_scan"),
+             "H": (lambda: cuda_hash.masked_key_hashes(k1, d, f), "ts_hash_kernel")}
+    for name, (call, kernel) in calls.items():
         call()  # the stream's scratch exists before the profiled call
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == 1 and "lookback_scan" in kernels[0], (name, kernels)
+        # CUPTI's record of a session now and then comes back empty on the
+        # H100; such a session is profiled again, up to three in all.
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if device:
+                break
+        assert len(device) == 1 and kernel in device[0], (name, device)
+        assert not any("memset" in e.lower() or "fill" in e.lower() for e in device), (name, device)

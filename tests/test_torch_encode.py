@@ -41,6 +41,20 @@ def _batch(n, seed, millis=None):
 
 BASE = 1_700_000_000_000
 
+# days-since-epoch in [2^31 - 719468, 2^31 - 1]: `days + 719468` leaves
+# int32 and wraps in the JAX package (int32 days, encode._civil_from_days
+# and the Pallas kernel alike). Millis at the window's two ends, one step
+# outside each end, and the same four shifted by ±2^32 days (their int32
+# wrap images).
+_DAY = 86_400_000
+_WRAP_FIRST = ((1 << 31) - 719_468) * _DAY
+_WRAP_LAST = (1 << 31) * _DAY - 1
+DAY_WRAP_MILLIS = [
+    m + shift * (1 << 32) * _DAY
+    for shift in (0, 1, -1)
+    for m in (_WRAP_FIRST, _WRAP_LAST, _WRAP_FIRST - 1, _WRAP_LAST + 1)
+]
+
 
 def _port(millis, counter, node):
     got = timestamp_hashes(torch.from_numpy(millis), torch.from_numpy(counter),
@@ -53,7 +67,8 @@ def _jax(millis, counter, node):
         return np.asarray(jax_hashes(millis, counter, node))
 
 
-@pytest.mark.parametrize("case", ["random", "edge_dates", "beyond_2_47", "negative", "non_tile"])
+@pytest.mark.parametrize("case", ["random", "edge_dates", "beyond_2_47", "negative", "non_tile",
+                                  "int32_day_wrap"])
 def test_timestamp_hashes_match_jax(case):
     millis = {
         "random": None,
@@ -61,12 +76,13 @@ def test_timestamp_hashes_match_jax(case):
         "beyond_2_47": np.random.default_rng(1).integers(2**47, 253_402_300_799_999, 300),
         "negative": [-1, -999, -1000, -86_400_000, -86_400_001, -62_135_596_800_000, -(2**40)],
         "non_tile": None,
+        "int32_day_wrap": DAY_WRAP_MILLIS * 5,
     }[case]
     millis, counter, node = _batch(8193 if case == "non_tile" else 300, seed=3, millis=millis)
     np.testing.assert_array_equal(_port(millis, counter, node), _jax(millis, counter, node))
 
 
-@pytest.mark.parametrize("millis", [None, EDGE_MILLIS * 13])
+@pytest.mark.parametrize("millis", [None, EDGE_MILLIS * 13, DAY_WRAP_MILLIS * 5])
 def test_timestamp_hashes_match_pallas_interpret(millis):
     millis, counter, node = _batch(200, seed=4, millis=millis)
     want = np.asarray(timestamp_hashes_pallas(millis, counter, node, interpret=True))
