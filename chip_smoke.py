@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
-LWW reconcile pass and the typed-CRDT apply. Needs one NVIDIA Hopper
-card; run from the repo root:
+LWW reconcile pass, the typed-CRDT apply and the client worker. Needs
+one NVIDIA Hopper card; run from the repo root:
 
     python3 chip_smoke.py
 
@@ -49,12 +49,26 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               with host folds on a second database. Every call of a
               kernel's dispatcher is recorded (for the timing phase)
               and must match its launch count.
-7. columns  — the reconcile pass from device-resident columns at 1M and
+7. path D   — the client `DbWorker(device=None)` with `backend="auto"` and
+              the device-resident winner cache, on the config-2 todo shape
+              (todo, todoCategory, todoNote): D1 one Receive of 2^19
+              messages over ~2^17 cells in 4 chunks of 2^17; D2 8 Receives
+              of 100k over a steady 5k-row population; D3 4 Receives of 50k
+              over fresh rows each (the gate streams), then 2 over the
+              steady rows (and back); D4 a Send of 1k, a sweep of 10
+              subscribed queries, a Sync and a Receive whose server tree
+              differs. A `backend="cpu"` worker gets the same commands:
+              outputs, pushes and every table byte-identical; the cache
+              audit after every Receive; any OnError fails. L, H and X
+              must launch per device-planned chunk or batch, S never. Then
+              D1 and D2 again with `winner_cache=False` (winners streamed
+              from SQLite), D2 timed.
+8. columns  — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-8. timing   — L, X, H and their plain versions timed on the inputs the
+9. timing   — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them, X also on the 10M pass's
               minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
@@ -70,7 +84,7 @@ Phases (any failure ends the run with a traceback and a nonzero code):
 
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after. In the kernels JSON, `launches` is the
-sum of those four counts and `launches_path_{a,b,c1,c2}` are the counts
+sum of those counts and `launches_path_{a,b,c1,c2,d}` are the counts
 themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
@@ -102,6 +116,7 @@ import time
 import numpy as np
 
 BASE_MILLIS = 1_700_000_000_000
+MNEMONIC = "legal winner thank year wave sausage worth useful legal winner thank yellow"
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 # 132 SMs x 128 32-bit integer instructions a clock x 1.98 GHz: 4 schedulers
 # an SM each issue one 32-lane instruction a clock, and integer work fills
@@ -606,7 +621,7 @@ def path_b(torch, kernels, need):
 
     def make_db():
         db = PySqliteDatabase()
-        init_db_model(db)
+        init_db_model(db, MNEMONIC)
         update_db_schema(db, [TableDefinition.of(t, c) for t, c in tables.items()])
         return db
 
@@ -928,7 +943,7 @@ def path_c2(torch, kernels, calls):
 
     def make_db():
         db = PySqliteDatabase()
-        init_db_model(db)
+        init_db_model(db, MNEMONIC)
         update_db_schema(db, [TableDefinition.of("board", TYPED_COLUMNS)])
         return db
 
@@ -978,6 +993,299 @@ def path_c2(torch, kernels, calls):
     return launches, {"messages": total, "batches": len(batches), "wall_s": round(wall, 4),
                       "msgs_per_s": round(total / wall), "oracle_wall_s": round(oracle_wall, 4),
                       "rows": sizes}
+
+
+D_TABLES = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",),
+            "todoNote": ("text",)}
+D1_BASE = BASE_MILLIS - 1_000_000_000  # a restored device's history, before the live traffic
+
+
+def config2_batch(batch_no, n, rotate=False, seed=2):
+    """`benchmarks/winner_cache.build_batch` as port messages: the config-2
+    todo shape over one persistent 5k-row population, or with `rotate` a
+    fresh row namespace every batch; 8 nodes; timestamps unique (millis
+    step every 4 messages, counter 0..3)."""
+    import random
+
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, Timestamp
+
+    rng = random.Random(seed + batch_no)
+    tables = list(D_TABLES.items())
+    nodes = [f"{rng.getrandbits(64):016x}" for _ in range(8)]
+    base = BASE_MILLIS + batch_no * 40_000_000
+    prefix = f"b{batch_no}_" if rotate else ""
+    out = []
+    for i in range(n):
+        table, cols = rng.choice(tables)
+        out.append(CrdtMessage(timestamp_to_string(Timestamp(base + i // 4, i % 4, rng.choice(nodes))),
+                               table, f"{prefix}row{rng.randrange(5000)}", rng.choice(cols), f"v{i}"))
+    return base, out
+
+
+def d1_history(n=1 << 19, rows=26_843, seed=3):
+    """A restored device's initial sync: n messages over ~2^17 cells of the
+    config-2 shape (5 cells a row), 16 messages a millisecond so the
+    history spans 32.8 s, inside the 60 s drift bound of one receive."""
+    import random
+
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, Timestamp
+
+    rng = random.Random(seed)
+    tables = list(D_TABLES.items())
+    nodes = [f"{rng.getrandbits(64):016x}" for _ in range(8)]
+    return [CrdtMessage(timestamp_to_string(Timestamp(D1_BASE + i // 16, i % 16, rng.choice(nodes))),
+                        t, f"row{rng.randrange(rows)}", rng.choice(cols), f"h{i}")
+            for i in range(n) for t, cols in [rng.choice(tables)]]
+
+
+D_QUERIES = (
+    ('SELECT * FROM "todo" ORDER BY "id" LIMIT 100', ()),
+    ('SELECT COUNT(*) AS "n" FROM "todo"', ()),
+    ('SELECT * FROM "todo" WHERE "id" = ?', ("row7",)),
+    ('SELECT "id", "title" FROM "todo" WHERE "id" IN (?, ?, ?)', ("row1", "row2", "local3")),
+    ('SELECT * FROM "todo" WHERE "isCompleted" = ? ORDER BY "id" LIMIT 20', ("v3",)),
+    ('SELECT * FROM "todoCategory" ORDER BY "id" LIMIT 50', ()),
+    ('SELECT "name" FROM "todoCategory" WHERE "id" = ?', ("row11",)),
+    ('SELECT COUNT(*) AS "n", MAX("id") AS "m" FROM "todoCategory"', ()),
+    ('SELECT * FROM "todoNote" ORDER BY "id" DESC LIMIT 10', ()),
+    ('SELECT COUNT(*) AS "n" FROM "todoNote" WHERE "text" IS NOT NULL', ()),
+)
+
+
+class DWorker:
+    """One port `DbWorker` of path D with its outputs, pushes and a
+    scripted wall clock that both workers read the same way."""
+
+    def __init__(self, name, config, clock, device=None):
+        from evolu_tpu_torch.core import timestamp as ts_mod
+        from evolu_tpu_torch.core.types import TableDefinition
+        from evolu_tpu_torch.runtime import messages as msg
+        from evolu_tpu_torch.runtime.worker import DbWorker
+        from evolu_tpu_torch.storage import PySqliteDatabase
+
+        self.name, self.outputs, self.pushes, self.walls = name, [], [], {}
+        self.worker = DbWorker(PySqliteDatabase(), config, on_output=self.outputs.append,
+                               post_sync=self.pushes.append, now=lambda: clock["now"], device=device)
+        # init_db_model seeds __clock with a random node id: one for all.
+        with patched(ts_mod, "create_node_id", lambda: "0f1e2d3c4b5a6978"):
+            self.worker.start(MNEMONIC)
+        self.run("setup", msg.UpdateDbSchema(tuple(TableDefinition.of(t, c) for t, c in D_TABLES.items())))
+
+    @property
+    def cache(self):
+        return getattr(self.worker._planner, "cache", None)
+
+    def run(self, phase, command):
+        """Post one command, wait for it, add its wall time to `phase`
+        and return it; any OnError fails the run."""
+        from evolu_tpu_torch.runtime import messages as msg
+
+        n_out = len(self.outputs)
+        t0 = time.perf_counter()
+        self.worker.post(command)
+        self.worker.flush()
+        wall = time.perf_counter() - t0
+        self.walls[phase] = self.walls.get(phase, 0.0) + wall
+        errors = [o.error for o in self.outputs[n_out:] if isinstance(o, msg.OnError)]
+        if errors:
+            raise AssertionError(f"path D: {self.name} worker answered OnError: {errors!r}") from errors[0]
+        return wall
+
+    def receive(self, phase, messages, tree="{}", previous_diff=None):
+        """A Receive; on a worker with a cache, then the audit of every
+        live slot against SQLite. → the route and the cache's counts."""
+        from evolu_tpu_torch.runtime import messages as msg
+
+        cache = self.cache
+        before = dict(cache.counts) if cache is not None else {}
+        wall = self.run(phase, msg.Receive(tuple(messages), tree, previous_diff))
+        if cache is None:
+            return {"wall_s": wall}
+        checked = self.worker.verify_winner_cache()
+        if checked != len(cache._slots):
+            raise AssertionError(f"path D: verify_winner_cache checked {checked} of {len(cache._slots)} slots")
+        plans = {k[:-6]: v - before.get(k, 0) for k, v in cache.counts.items()
+                 if k.endswith("_plans") and v != before.get(k, 0)}
+        return {"wall_s": wall, "plans": plans, "slots": len(cache._slots), "ewma": round(cache._seed_ewma, 4)}
+
+    def stop(self):
+        self.worker.stop()
+
+
+def server_trees(batches):
+    """The relay's Merkle tree string after each batch: the previous one
+    with the batch's per-minute hash deltas XORed in. Every message of
+    path D has a timestamp of its own and arrives once, so every one
+    XORs; the deltas come from the port's planner with no stored winners,
+    on the CPU (no kernel launch). A Receive that carries the tree its
+    client will hold after applying the batch leaves no diff, so no
+    resend: what a relay answers after a full sync."""
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, merkle_tree_to_string
+    from evolu_tpu_torch.ops.merge import plan_batch_device_full
+
+    tree, out = {}, []
+    for batch in batches:
+        _, _, deltas = plan_batch_device_full(batch, {}, device="cpu")
+        tree = apply_prefix_xors(tree, deltas)
+        out.append(merkle_tree_to_string(tree))
+    return out
+
+
+def d_dump(db):
+    names = [r[0] for r in db.exec("SELECT name FROM sqlite_schema WHERE type='table' ORDER BY name")]
+    return {t: db.exec(f'SELECT * FROM "{t}" ORDER BY 1, 2') for t in names}
+
+
+def d_outputs(worker):
+    out = []
+    for o in worker.outputs:
+        name = type(o).__name__
+        out.append((name, o.queries_patches, o.on_complete_ids) if name == "OnQuery"
+                   else (name, o.owner) if name == "OnInit" else (name,))
+    return out
+
+
+def d_pushes(worker):
+    return [(r.messages, r.clock_timestamp, r.merkle_tree, r.owner, r.previous_diff) for r in worker.pushes]
+
+
+def path_d(torch, kernels):
+    """The client DbWorker on the card (`backend="auto"`, the winner cache,
+    `device=None`) against a `backend="cpu"` worker fed the same commands:
+    D1 one Receive of 2^19 messages in 4 chunks of 2^17; D2 8 Receives of
+    100k over a steady population; D3 4 Receives of 50k over fresh rows
+    each, then 2 of 50k over the steady population; D4 a Send of 1k, a
+    sweep of 10 subscribed queries, a Sync, and a Receive whose server
+    tree differs. Every other Receive carries the relay's tree after the
+    batch (`server_trees`). Returns (launches, report, the relay's trees
+    after D1 and each D2 batch)."""
+    from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
+    from evolu_tpu_torch.runtime import messages as msg
+    from evolu_tpu_torch.storage.clock import read_clock
+    from evolu_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    d1 = d1_history()
+    d2 = [config2_batch(b, 100_000) for b in range(8)]
+    # Batch numbers keep rising, so each batch's millis (and the clock) do.
+    d3 = [config2_batch(8 + b, 50_000, rotate=True) for b in range(4)]
+    d3 += [config2_batch(12 + b, 50_000) for b in range(2)]
+    trees = server_trees([d1] + [b for _, b in d2 + d3])
+    print(f"  path D: {len(d1) + sum(len(b) for _, b in d2 + d3)} messages and the relay's trees "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    clock = {"now": D1_BASE}
+    chunk = 1 << 17
+    gpu = DWorker("gpu", Config(backend="auto", winner_cache=True, receive_chunk_size=chunk), clock)
+    cpu = DWorker("cpu oracle", Config(backend="cpu", receive_chunk_size=chunk), clock)
+    routes = {"d1": [], "d2": [], "d3": []}
+    reset(kernels)
+    # The device's wall clock as each batch arrives: its oldest stamp (a
+    # receive of more than 65,535 messages older than `now` overflows the
+    # HLC counter, one `now` a command and +1 a message, in the reference
+    # too).
+    clock["now"] = D1_BASE
+    routes["d1"].append(gpu.receive("d1", d1, trees[0]))
+    cpu.receive("d1", d1, trees[0])
+    for (base, batch), tree in zip(d2, trees[1:]):
+        clock["now"] = base
+        routes["d2"].append(gpu.receive("d2", batch, tree))
+        cpu.receive("d2", batch, tree)
+    for (base, batch), tree in zip(d3, trees[1 + len(d2):]):
+        clock["now"] = base
+        routes["d3"].append(gpu.receive("d3", batch, tree))
+        cpu.receive("d3", batch, tree)
+    clock["now"] = BASE_MILLIS + 5_000_000_000
+    queries = tuple(msg.serialize_query(q, p) for q, p in D_QUERIES)
+    local = tuple(NewCrdtMessage(*(("todo", f"local{i}", "title", f"mine{i}") if i % 2 else
+                                   ("todoNote", f"local{i}", "text", f"note{i}"))) for i in range(1000))
+    remote = [CrdtMessage(timestamp_to_string(Timestamp(clock["now"] - 30_000 + i, 0, "00000000000000d4")),
+                          "todoCategory", f"row{i}", "name", f"cat{i}") for i in range(200)]
+    for w in (gpu, cpu):
+        w.run("d4", msg.Send(local, ("sent",), queries))
+        w.run("d4", msg.Query(queries))
+        w.run("d4", msg.Sync(queries))
+    # The server holds one hash this client lacks, in a minute after all
+    # of its history: the diff names that minute and the client resends.
+    server = merkle_tree_to_string(insert_into_merkle_tree(
+        Timestamp(clock["now"] + 120_000, 0, "00000000000000e5"), read_clock(gpu.worker.db).merkle_tree))
+    for w in (gpu, cpu):
+        w.receive("d4", remote, server)
+        w.run("d4", msg.Query(queries))
+    launches = read(kernels)
+    counts = dict(gpu.cache.counts)
+    device_plans = counts.get("cached_plans", 0) + counts.get("stream_plans", 0)
+    print(f"  path D: launches {launches}; device-planned chunks and batches {device_plans}; "
+          f"cache counts {json.dumps(counts)}", flush=True)
+    pushes = d_pushes(gpu)
+    if [p[4] is not None for p in pushes] != [False] * (len(pushes) - 1) + [True]:
+        raise AssertionError("path D: a request with previous_diff should be the last push, and the only one")
+    t0 = time.perf_counter()
+    if d_outputs(gpu) != d_outputs(cpu):
+        raise AssertionError("path D: outputs differ from the backend='cpu' oracle")
+    if pushes != d_pushes(cpu):
+        raise AssertionError("path D: sync pushes differ from the backend='cpu' oracle")
+    sizes = {}
+    got, want = d_dump(gpu.worker.db), d_dump(cpu.worker.db)
+    for t in want:
+        if got.get(t) != want[t]:
+            raise AssertionError(f"path D: table {t} differs from the backend='cpu' oracle")
+        sizes[t] = len(want[t])
+    if set(got) != set(want):
+        raise AssertionError("path D: the two workers hold different tables")
+    del got, want
+    print(f"  path D: outputs ({len(gpu.outputs)}), pushes ({len(pushes)}) and every table "
+          f"({json.dumps(sizes)} rows) byte-identical to the backend='cpu' oracle "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    n = {"d1": len(d1), "d2": sum(len(b) for _, b in d2), "d3": sum(len(b) for _, b in d3),
+         "d4": len(local) + len(remote)}
+    report = {p: {"messages": n[p], "wall_s": round(gpu.walls[p], 4), "msgs_per_s": round(n[p] / gpu.walls[p]),
+                  "oracle_wall_s": round(cpu.walls[p], 4), "oracle_msgs_per_s": round(n[p] / cpu.walls[p])}
+              for p in n}
+    for p in routes:
+        for key in ("plans", "slots", "ewma", "wall_s"):
+            report[p][key + "_per_receive"] = [r[key] if key != "wall_s" else round(r[key], 4)
+                                               for r in routes[p]]
+    short = {k["name"]: launches[k["name"]] for k in kernels if k["slot"] in "LHX"
+             and launches[k["name"]] < device_plans * (2 if k["slot"] == "L" else 1)}
+    if device_plans == 0 or short:
+        raise AssertionError(f"path D: kernels launched fewer times than device plans ({device_plans}): {short}")
+    if launches["seg_sum_scan"]:
+        raise AssertionError(f"path D: kernel S launched {launches['seg_sum_scan']} times on the LWW path")
+    report["d4"]["commands"] = "Send 1k, Query x10, Sync, Receive 200 with a differing server tree, Query"
+    report["cache_counts"] = counts
+    report["rows"] = sizes
+    for w in (gpu, cpu):
+        w.stop()
+    return launches, report, trees[:1 + len(d2)]
+
+
+def path_d_streamed(trees):
+    """D1 and D2 again on a fresh worker with `winner_cache=False`: every
+    device-planned batch streams its winners from SQLite
+    (`plan_batch_device_full`), the comparison of benchmarks/winner_cache.py.
+    D2 is timed; `trees` are the relay's trees after D1 and each D2 batch,
+    so no receive leaves a diff."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.storage.clock import read_clock
+    from evolu_tpu_torch.utils.config import Config
+
+    clock = {"now": D1_BASE}
+    w = DWorker("streamed", Config(backend="auto", winner_cache=False, receive_chunk_size=1 << 17), clock)
+    w.receive("d1", d1_history(), trees[0])
+    walls, n = [], 0
+    for b, tree in enumerate(trees[1:]):
+        clock["now"], batch = config2_batch(b, 100_000)
+        walls.append(w.receive("d2", batch, tree)["wall_s"])
+        n += len(batch)
+    if merkle_tree_to_string(read_clock(w.worker.db).merkle_tree) != trees[-1] or w.pushes:
+        raise AssertionError("path D: the streamed worker's Merkle tree after D2 differs from the relay's")
+    w.stop()
+    return {"d1_wall_s": round(w.walls["d1"], 4), "d2_wall_s": round(sum(walls), 4),
+            "d2_msgs_per_s": round(n / sum(walls)), "d2_batch_s": [round(t, 4) for t in walls]}
 
 
 def u64_max_abs_err(got, want) -> int:
@@ -1282,6 +1590,12 @@ def main() -> int:
     with phase("path C2: SQLite typed apply 8 x 31k + 10k re-delivery", gpu):
         launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
         print("  " + json.dumps(report_c2), flush=True)
+    with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
+        launches["d"], report_d, trees_d2 = path_d(torch, kernels)
+        print("  " + json.dumps(report_d), flush=True)
+    with phase("path D timing: D1 + D2 with winner_cache=False", gpu):
+        report_d["d2_winner_cache_off"] = path_d_streamed(trees_d2)
+        print("  " + json.dumps(report_d["d2_winner_cache_off"]), flush=True)
     reports, captured_10m = [], {}
     # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
     for n, sink, slots in ((1_000_000, captured, ("L", "H", "X")), (10_000_000, captured_10m, ("X",))):
@@ -1312,7 +1626,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2"):
+        for p in ("a", "b", "c1", "c2", "d"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -1320,7 +1634,7 @@ def main() -> int:
         row["path_c2_bound_ms"] = c2_times[row["name"]]["bound_ms"]
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
-    print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}}))
+    print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Core CRDT data types and errors (the slice of `evolu_tpu.core.types`
-the reconcile pass needs).
+the reconcile pass and the client worker need).
 
 A `CrdtValue` is `None | str | int | float`. Messages address a single
 (table, row, column) cell and carry an HLC timestamp string that
@@ -12,6 +12,8 @@ from dataclasses import dataclass
 from typing import Union
 
 CrdtValue = Union[None, str, int, float]
+
+MAX_COUNTER = 65535
 
 
 @dataclass(frozen=True)
@@ -26,6 +28,16 @@ class Timestamp:
 
 
 @dataclass(frozen=True)
+class NewCrdtMessage:
+    """A cell write not yet stamped with a timestamp."""
+
+    table: str
+    row: str
+    column: str
+    value: CrdtValue
+
+
+@dataclass(frozen=True)
 class CrdtMessage:
     """A stamped cell write; `timestamp` is the 46-char string encoding."""
 
@@ -34,6 +46,22 @@ class CrdtMessage:
     row: str
     column: str
     value: CrdtValue
+
+
+@dataclass(frozen=True)
+class CrdtClock:
+    """Per-replica clock state persisted in `__clock`."""
+
+    timestamp: Timestamp
+    merkle_tree: dict
+
+
+@dataclass(frozen=True)
+class Owner:
+    """A database owner: identity derived from a BIP39 mnemonic."""
+
+    id: str
+    mnemonic: str
 
 
 @dataclass(frozen=True)
@@ -55,8 +83,47 @@ class EvoluError(Exception):
         return {"type": self.type}
 
 
+class TimestampDriftError(EvoluError):
+    type = "TimestampDriftError"
+
+    def __init__(self, next_millis: int, now: int):
+        super().__init__(f"clock drift: next={next_millis} now={now}")
+        self.next = next_millis
+        self.now = now
+
+    def to_dict(self) -> dict:
+        return {"type": self.type, "next": self.next, "now": self.now}
+
+
+class TimestampCounterOverflowError(EvoluError):
+    type = "TimestampCounterOverflowError"
+
+    def __init__(self) -> None:
+        super().__init__("HLC counter overflow (> 65535)")
+
+
+class TimestampDuplicateNodeError(EvoluError):
+    type = "TimestampDuplicateNodeError"
+
+    def __init__(self, node: str):
+        super().__init__(f"duplicate node id: {node}")
+        self.node = node
+
+    def to_dict(self) -> dict:
+        return {"type": self.type, "node": self.node}
+
+
 class TimestampParseError(EvoluError):
     type = "TimestampParseError"
+
+
+class SyncError(EvoluError):
+    """The replica cannot converge: the same Merkle diff twice in a row."""
+
+    type = "SyncError"
+
+    def __init__(self) -> None:
+        super().__init__("sync livelock: repeated identical merkle diff")
 
 
 class UnknownError(EvoluError):

@@ -84,10 +84,14 @@ def masks_from_sorted_flags(grp, s1, s2, a_s, b_s, real):
     return xor_sorted & real, upsert_sorted
 
 
-def plan_merge_sorted_core(cell_id, k1, k2, ex_k1, ex_k2, extras=()):
+def plan_merge_sorted_core(cell_id, k1, k2, ex_k1, ex_k2, extras=(), return_winners=False):
     """The planner with the stored-winner VALUES riding the sort (the
     form for batches over 2^24 rows, whose idx no longer fits the packed
-    key). → (xor_sorted, upsert_sorted, i_s, s1, s2, extras_sorted)."""
+    key, and for the winner cache, which needs the values). → (xor_sorted,
+    upsert_sorted, i_s, s1, s2, extras_sorted), and with `return_winners`
+    also (beats1, beats2, seg_end, real): (beats1, beats2) is
+    lex_max(segment total max, stored winner), unsigned, the cell's
+    updated winner, meaningful at `seg_end` rows."""
     n = cell_id.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=cell_id.device)
     if n <= 1 << 24:
@@ -106,13 +110,17 @@ def plan_merge_sorted_core(cell_id, k1, k2, ex_k1, ex_k2, extras=()):
     p1, p2 = _exclusive(seg_start, m1, m2)
     r1, r2 = _lex_max(p1, p2, e1, e2)
     xor_sorted = (r1 != s1) | (r2 != s2)
-    t1, t2 = segmented_max_scan(_ends(seg_start), m1, m2, reverse=True)
+    seg_end = _ends(seg_start)
+    t1, t2 = segmented_max_scan(seg_end, m1, m2, reverse=True)
     eligible = (s1 == t1) & (s2 == t2)
     first_eligible = eligible & ~((p1 == t1) & (p2 == t2))
     beats1, beats2 = _lex_max(t1, t2, e1, e2)
     beats = (beats1 != e1) | (beats2 != e2)
     real = c != int(_PAD_CELL)
-    return xor_sorted & real, first_eligible & beats & real, i_s, s1, s2, extras_sorted
+    out = (xor_sorted & real, first_eligible & beats & real, i_s, s1, s2, extras_sorted)
+    if return_winners:
+        return out + ((beats1, beats2, seg_end, real),)
+    return out
 
 
 def plan_merge_sorted_flags(cell_id, k1, k2, ex_k1, ex_k2, extras=()):
@@ -255,14 +263,18 @@ def pad_columns(arrays, n: int, pad_cell: bool = True):
     return out, size
 
 
-def _host_fallback(messages, existing_winners):
-    """Non-canonical hex case in the batch or its stored winners: route
-    to the host oracle before any side effect, with the Merkle deltas
-    folded on the host (verbatim node case)."""
+def _host_fallback(messages, existing_winners, with_deltas=False):
+    """Non-canonical hex case in the batch or its stored winners: the
+    device order and hash would diverge from the reference's raw-string
+    semantics, so route to the host oracle before any side effect.
+    `with_deltas` keeps the device planners' 3-tuple contract, with the
+    Merkle deltas folded on the host (verbatim node case)."""
     from evolu_tpu_torch.core.merkle import minute_deltas_host
     from evolu_tpu_torch.storage.apply import plan_batch
 
     xor_mask, upserts = plan_batch(messages, existing_winners)
+    if not with_deltas:
+        return xor_mask, upserts
     deltas, _ = minute_deltas_host(m.timestamp for flag, m in zip(xor_mask, messages) if flag)
     return xor_mask, upserts, deltas
 
@@ -319,7 +331,7 @@ def plan_batch_device_full(
         cols if cols is not None else messages_to_columns(messages, existing_winners)
     )
     if not rest[-1]:  # canonical flag
-        return _host_fallback(messages, existing_winners)
+        return _host_fallback(messages, existing_winners, with_deltas=True)
     xor_mask, upsert_mask, deltas = _run_full_plan(cell_ids, k1, k2, ex_k1, ex_k2, n, device)
     return PlannedBatch(
         xor_mask.tolist(), select_messages(messages, upsert_mask), deltas, upsert_mask

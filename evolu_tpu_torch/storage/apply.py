@@ -13,8 +13,12 @@ exactly and is the correctness oracle:
 
 `apply_messages` is the batched path with the same end state: one
 winner query for all touched cells, masks from a planner (the host
-`plan_batch`, or `ops.merge.plan_batch_device_full` on the card), then
-bulk SQL, all in one transaction.
+`plan_batch`, `ops.merge.plan_batch_device_full` on the card, or the
+device-resident winner cache `ops.winner_cache.DeviceWinnerCache`, which
+sources stored winners itself), then bulk SQL, all in one transaction.
+`apply_messages_chunked` folds a huge batch chunk by chunk, each chunk
+its own transaction. `changes` (a `storage.changes.ChangedSet`) collects
+the rows each apply touches, for the worker's query invalidation.
 
 Typed CRDT cells (counter, awset, list, tensor) ride the same
 transaction: `crdt_types.apply_typed_ops` folds their new ops into the
@@ -33,6 +37,7 @@ from evolu_tpu_torch.core.crdt_types import apply_typed_ops, load_schema
 from evolu_tpu_torch.core.merkle import apply_prefix_xors, insert_into_merkle_tree, minute_deltas_host
 from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.storage.changes import record_batch, record_typed_tables
 from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, quote_ident
 
 _SELECT_WINNER = (
@@ -58,13 +63,16 @@ def _typed_messages(db, messages):
 
 
 def apply_messages_sequential(
-    db: PySqliteDatabase, merkle_tree: dict, messages: Sequence[CrdtMessage], device=None
+    db: PySqliteDatabase, merkle_tree: dict, messages: Sequence[CrdtMessage],
+    changes=None, device=None,
 ) -> dict:
     """The reference loop, message by message (O(n) SQL round trips).
     Typed ops fold and materialize first, before the loop inserts any
     `__message` row (the dedup screen reads pre-batch state)."""
+    record_batch(changes, messages)
     schema, typed = _typed_messages(db, messages)
     if typed:
+        record_typed_tables(changes)
         apply_typed_ops(db, schema, typed, device)
     for m in messages:
         rows = db.exec_sql_query(_SELECT_WINNER, (m.table, m.row, m.column))
@@ -129,38 +137,126 @@ def apply_messages(
     merkle_tree: dict,
     messages: Sequence[CrdtMessage],
     planner=None,
+    changes=None,
     device=None,
 ) -> dict:
     """Batched apply, end state identical to the sequential oracle.
 
     `planner(messages, existing_winners)` defaults to the host
     `plan_batch` (→ 2-tuple; the Merkle deltas are then folded on the
-    host); a device planner returns (xor_mask, upserts, deltas)."""
+    host); a device planner returns (xor_mask, upserts, deltas). A
+    planner whose `fetches_winners` is False (on the function, or on
+    the instance of a bound method) sources stored winners itself and
+    gets `{}`. If the transaction fails, the planner's
+    `on_transaction_failed` hook runs: a planner that advanced its own
+    state at plan time (the winner cache) is then ahead of SQLite."""
     if not len(messages):
         return merkle_tree
     planner = planner or plan_batch
-    with db.transaction():  # whole-batch atomicity
-        existing = fetch_existing_winners(db, {(m.table, m.row, m.column) for m in messages})
-        plan = planner(messages, existing)
-        schema, typed = _typed_messages(db, messages)
-        if typed:
-            from evolu_tpu_torch.ops.merge import strip_typed_upserts
+    try:
+        with db.transaction():  # whole-batch atomicity
+            return _apply_in_txn(db, merkle_tree, messages, planner, changes, device)
+    except BaseException:
+        _notify_plan_failure(planner)
+        raise
 
-            apply_typed_ops(db, schema, typed, device)
-            plan = strip_typed_upserts(plan, messages, schema)
-        if len(plan) == 3:
-            xor_mask, upserts, deltas = plan
-        else:
-            xor_mask, upserts = plan
-            # Folded BEFORE any write, so a malformed timestamp rolls the
-            # whole batch back.
-            deltas, _ = minute_deltas_host(
-                m.timestamp for i, m in enumerate(messages) if xor_mask[i]
-            )
-        for m in upserts:  # only the final winner per cell touches the row
-            db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
-        db.run_many(
-            _INSERT_MESSAGE,
-            [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages],
+
+def _notify_plan_failure(planner) -> None:
+    """Fire the planner's transaction-failure hook, if any. The hook may
+    sit on the planner function (the worker's planner) or on a bound
+    method's instance (`DeviceWinnerCache.plan_batch`)."""
+    on_failed = getattr(planner, "on_transaction_failed", None)
+    if on_failed is None:
+        on_failed = getattr(getattr(planner, "__self__", None), "on_transaction_failed", None)
+    if on_failed is not None:
+        on_failed()
+
+
+def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
+    # Recorded before planning: a route that fails half-way still leaves
+    # a superset in the changed-set.
+    record_batch(changes, messages)
+    owner = getattr(planner, "__self__", None)
+    fetches = getattr(planner, "fetches_winners", getattr(owner, "fetches_winners", True))
+    if fetches:
+        existing = fetch_existing_winners(db, {(m.table, m.row, m.column) for m in messages})
+    else:
+        existing = {}  # the planner owns its winner source (the device cache)
+    plan = planner(messages, existing)
+    schema, typed = _typed_messages(db, messages)
+    if typed:
+        from evolu_tpu_torch.ops.merge import strip_typed_upserts
+
+        record_typed_tables(changes)
+        apply_typed_ops(db, schema, typed, device)
+        plan = strip_typed_upserts(plan, messages, schema)
+    if len(plan) == 3:
+        xor_mask, upserts, deltas = plan
+    else:
+        xor_mask, upserts = plan
+        # Folded BEFORE any write, so a malformed timestamp rolls the
+        # whole batch back.
+        deltas, _ = minute_deltas_host(
+            m.timestamp for i, m in enumerate(messages) if xor_mask[i]
         )
+    for m in upserts:  # only the final winner per cell touches the row
+        db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
+    db.run_many(
+        _INSERT_MESSAGE,
+        [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages],
+    )
     return apply_prefix_xors(merkle_tree, deltas)
+
+
+class ChunkedApplyError(Exception):
+    """A chunk failed after earlier chunks committed. `partial_tree`
+    covers every committed chunk and `applied` counts their messages;
+    the caller must persist `partial_tree` (e.g. to the clock) or the
+    digest diverges from the stored rows for good."""
+
+    def __init__(self, partial_tree: dict, applied: int, cause: BaseException):
+        super().__init__(f"chunked apply failed after {applied} messages: {cause}")
+        self.partial_tree = partial_tree
+        self.applied = applied
+        self.__cause__ = cause
+
+
+def apply_messages_chunked(
+    db: PySqliteDatabase,
+    merkle_tree: dict,
+    messages: Sequence[CrdtMessage],
+    chunk_size: int = 1 << 20,
+    planner=None,
+    on_chunk=None,
+    changes=None,
+    device=None,
+) -> dict:
+    """Blockwise apply of a batch too large for one transaction.
+
+    The LWW contraction is associative: each chunk's winners are the
+    next chunk's stored winners, so folding chunks left to right equals
+    one giant batch, with bounded device and transaction memory.
+    `on_chunk(tree, applied_count)` runs inside the chunk's transaction,
+    so the chunk's rows and what the callback persists (the clock)
+    commit together. If a chunk or its callback fails, that chunk rolls
+    back and `ChunkedApplyError` carries the tree and count of the
+    chunks that did commit."""
+    applied = 0
+    for i in range(0, len(messages), chunk_size):
+        chunk = messages[i:i + chunk_size]
+        try:
+            with db.transaction():
+                next_tree = apply_messages(db, merkle_tree, chunk, planner,
+                                           changes=changes, device=device)
+                if on_chunk is not None:
+                    on_chunk(next_tree, applied + len(chunk))
+        except Exception as e:
+            # The inner apply fires the planner's failure hook only for
+            # its own exceptions; an `on_chunk` failure rolls the chunk
+            # back here, after the planner advanced. The hook is an
+            # idempotent reset, so firing twice is harmless.
+            _notify_plan_failure(planner or plan_batch)
+            raise ChunkedApplyError(merkle_tree, applied, e) from e
+        merkle_tree = next_tree
+        applied += len(chunk)
+    return merkle_tree

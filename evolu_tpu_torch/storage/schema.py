@@ -1,35 +1,55 @@
-"""The `__message` log table and add-only app-table evolution.
+"""System tables and add-only app-table evolution.
+
+`init_db_model` bootstraps the `__message` log and its covering index,
+the `__clock` row (initial timestamp, empty Merkle tree) and the
+`__owner` row (the mnemonic identity).
 
 App columns get BLOB affinity on purpose — no storage-class coercion —
 which is what makes end states comparable byte for byte. A column may
 carry a CRDT type suffix (`"votes:counter"`, `"tags:awset"`,
 `"body:list"`, `"w:tensor:sum:f32:8"`), which is stripped for the DDL
-and declared in `__crdt_schema` (`core/crdt_types.py`). No owner,
-mnemonic or clock tables.
+and declared in `__crdt_schema` (`core/crdt_types.py`).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Set
+from typing import Iterable, Optional, Set
 
-from evolu_tpu_torch.core.types import TableDefinition
+from evolu_tpu_torch.core.ids import mnemonic_to_owner_id
+from evolu_tpu_torch.core.merkle import create_initial_merkle_tree, merkle_tree_to_string
+from evolu_tpu_torch.core.mnemonic import generate_mnemonic
+from evolu_tpu_torch.core.timestamp import create_initial_timestamp, timestamp_to_string
+from evolu_tpu_torch.core.types import Owner, TableDefinition
 from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, quote_ident
 
 
-def init_db_model(db: PySqliteDatabase) -> None:
-    """Idempotent bootstrap of `__message` and its covering index."""
-    if db.exec_sql_query("PRAGMA table_info (__message)"):
-        return
-    with db.transaction():
-        db.exec(
-            'CREATE TABLE __message ('
-            '"timestamp" BLOB PRIMARY KEY, "table" BLOB, "row" BLOB, '
-            '"column" BLOB, "value" BLOB)'
-        )
-        db.exec(
-            'CREATE INDEX index__message ON __message '
-            '("table", "row", "column", "timestamp")'
-        )
+def init_db_model(db: PySqliteDatabase, mnemonic: Optional[str] = None) -> Owner:
+    """Idempotent bootstrap: `__message` and its covering index, `__clock`
+    seeded with the initial timestamp and the empty tree, `__owner`
+    seeded with the (possibly generated) mnemonic identity."""
+    if not db.exec_sql_query("PRAGMA table_info (__message)"):
+        if mnemonic is None:
+            mnemonic = generate_mnemonic()
+        timestamp = timestamp_to_string(create_initial_timestamp())
+        merkle = merkle_tree_to_string(create_initial_merkle_tree())
+        with db.transaction():
+            db.exec(
+                'CREATE TABLE __message ('
+                '"timestamp" BLOB PRIMARY KEY, "table" BLOB, "row" BLOB, '
+                '"column" BLOB, "value" BLOB)'
+            )
+            db.exec(
+                'CREATE INDEX index__message ON __message '
+                '("table", "row", "column", "timestamp")'
+            )
+            db.exec('CREATE TABLE __clock ("timestamp" BLOB, "merkleTree" BLOB)')
+            db.run('INSERT INTO __clock ("timestamp", "merkleTree") VALUES (?, ?)',
+                   (timestamp, merkle))
+            db.exec('CREATE TABLE __owner ("id" BLOB, "mnemonic" BLOB)')
+            db.run('INSERT INTO __owner ("id", "mnemonic") VALUES (?, ?)',
+                   (mnemonic_to_owner_id(mnemonic), mnemonic))
+    row = db.exec_sql_query('SELECT "id", "mnemonic" FROM __owner LIMIT 1')[0]
+    return Owner(id=row["id"], mnemonic=row["mnemonic"])
 
 
 def get_existing_tables(db: PySqliteDatabase) -> Set[str]:

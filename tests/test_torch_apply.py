@@ -37,7 +37,7 @@ PORT_PLANNER = functools.partial(plan_batch_device_full, device="cpu")
 
 def _port_db():
     db = PySqliteDatabase()
-    init_db_model(db)
+    init_db_model(db, MNEMONIC)
     update_db_schema(db, [TableDefinition.of(t, c) for t, c in COLUMNS.items()])
     return db
 

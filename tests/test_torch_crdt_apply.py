@@ -58,7 +58,7 @@ PORT_PLANNER = functools.partial(plan_batch_device_full, device="cpu")
 
 def _port_db(columns=TYPED_COLUMNS, table=TYPED_TABLE):
     db = PySqliteDatabase()
-    init_db_model(db)
+    init_db_model(db, MNEMONIC)
     update_db_schema(db, [TableDefinition.of(table, columns)], device="cpu")
     return db
 

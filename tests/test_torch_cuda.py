@@ -320,3 +320,133 @@ def test_one_kernel_launch_per_call(dev):
                 break
         assert len(device) == 1 and kernel in device[0], (name, device)
         assert not any("memset" in e.lower() or "fill" in e.lower() for e in device), (name, device)
+
+
+# ---- the winner cache and the client worker on the card ---------------------
+
+_TODO = 'CREATE TABLE "todo" ("id" TEXT PRIMARY KEY, "title" BLOB, "done" BLOB)'
+
+
+def _cache_batches(seed, n_batches=6, n=3000, rows=700, big_frac=0.2):
+    """Batches over a steady population with a churn burst in the middle;
+    keys with bit 63 set (millis ≥ 2^47 for `big_frac` of the messages,
+    nodes ≥ 2^63) beside small ones; timestamps unique per message."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, Timestamp
+
+    rng = np.random.default_rng(seed)
+    out, used = [], set()
+    for b in range(n_batches):
+        burst = b == 3
+        batch = []
+        while len(batch) < n:
+            big = rng.random() < big_frac
+            millis = (1 << 47) + int(rng.integers(0, 10**9)) if big else 1_700_000_000_000 + int(rng.integers(0, 10**9))
+            node = int(rng.integers(0, 2**64, dtype=np.uint64))
+            ts = timestamp_to_string(Timestamp(millis, int(rng.integers(0, 4)), f"{node:016x}"))
+            if ts in used:
+                continue
+            used.add(ts)
+            row = f"burst{b}-{rng.integers(0, 10**6)}" if burst else f"r{rng.integers(0, rows)}"
+            batch.append(CrdtMessage(ts, "todo", row, ("title", "done")[int(rng.integers(0, 2))], f"v{len(used)}"))
+        out.append(batch)
+    return out
+
+
+def test_cached_plan_on_card_matches_cpu(dev):
+    """`DeviceWinnerCache` on the card against the same cache on the CPU
+    (the plain versions), over twin databases and several batches:
+    equal masks, deltas, routes, slots, slot arrays and SQLite end state,
+    with L, H and X launched and S not."""
+    from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache
+    from evolu_tpu_torch.storage import PySqliteDatabase, apply_messages, init_db_model
+
+    sides = []
+    for device in ("cuda", "cpu"):
+        db = PySqliteDatabase()
+        init_db_model(db, "legal winner thank year wave sausage worth useful legal winner thank yellow")
+        db.exec(_TODO)
+        cache = DeviceWinnerCache(db, capacity=1024, device=device)
+        plans = []
+
+        def planner(messages, existing, cache=cache, plans=plans):
+            plan = cache.plan_batch(messages, existing)
+            plans.append((list(plan[0]), plan.upsert_mask.tolist(), plan[2], cache.last_route))
+            return plan
+
+        planner.fetches_winners = False
+        sides.append({"db": db, "cache": cache, "plans": plans, "planner": planner, "tree": {}})
+    counters = (cuda_scan.segmented_max_scan_cuda, cuda_hash.timestamp_hash_cuda,
+                cuda_scan.segmented_xor_scan_cuda, cuda_scan.segmented_sum_scan_cuda)
+    before = [c.launches for c in counters]
+    card, cpu = sides
+    for batch in _cache_batches(3):
+        for side in sides:
+            side["tree"] = apply_messages(side["db"], side["tree"], batch, planner=side["planner"])
+        assert card["plans"] == cpu["plans"]
+        assert card["cache"]._slots == cpu["cache"]._slots and card["cache"]._free == cpu["cache"]._free
+        for a, b in zip(card["cache"].slot_values(), cpu["cache"].slot_values()):
+            assert np.array_equal(a, b)
+        assert card["cache"].verify_against_db() == cpu["cache"].verify_against_db() == len(card["cache"]._slots)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched[0] > 0 and launched[1] > 0 and launched[2] > 0 and launched[3] == 0, launched
+    assert {p[3] for p in card["plans"]} == {"cached", "stream"}, card["plans"]
+    assert card["tree"] == cpu["tree"]
+    for t in ("__message", "todo"):
+        q = f'SELECT * FROM "{t}" ORDER BY 1, 2'
+        assert card["db"].exec(q) == cpu["db"].exec(q)
+
+
+def test_db_worker_round_on_card(dev):
+    """A small client round through `DbWorker(device=None)` on the card
+    against a `backend="cpu"` worker: equal outputs, pushes and tables,
+    and the cache audit passing."""
+    from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, TableDefinition
+    from evolu_tpu_torch.runtime import messages as msg
+    from evolu_tpu_torch.runtime.worker import DbWorker
+    from evolu_tpu_torch.storage import PySqliteDatabase
+    from evolu_tpu_torch.utils.config import Config
+
+    mnemonic = "legal winner thank year wave sausage worth useful legal winner thank yellow"
+    q = msg.serialize_query('SELECT * FROM "todo" ORDER BY "id"')
+    sides = []
+    for cfg in (Config(backend="cuda", receive_chunk_size=2000), Config(backend="cpu", receive_chunk_size=2000)):
+        outs, pushes = [], []
+        w = DbWorker(PySqliteDatabase(), cfg, on_output=outs.append, post_sync=pushes.append,
+                     now=lambda: 1_700_000_000_000 + 10**9)  # past every remote stamp: no drift
+        sides.append((w, outs, pushes))
+    import evolu_tpu_torch.core.timestamp as ts_mod
+
+    node = ts_mod.create_node_id
+    ts_mod.create_node_id = lambda: "0f1e2d3c4b5a6978"
+    try:
+        for w, _, _ in sides:
+            w.start(mnemonic)
+    finally:
+        ts_mod.create_node_id = node
+    # Millis ≥ 2^47 would reach minutes past 2^31, where the Merkle diff
+    # (JS `| 0`) goes negative and the resend query's timestamp has no
+    # ISO form, in the JAX package too; the cache test above covers them.
+    batches = _cache_batches(9, n_batches=4, n=2500, rows=300, big_frac=0.0)
+    for w, _, _ in sides:
+        w.post(msg.UpdateDbSchema((TableDefinition.of("todo", ("title", "done")),)))
+        w.post(msg.Send(tuple(NewCrdtMessage("todo", f"r{i}", "title", f"mine{i}") for i in range(50)), (), (q,)))
+        for b in batches:
+            w.post(msg.Receive(tuple(CrdtMessage(*(m.timestamp, m.table, m.row, m.column, m.value)) for m in b),
+                               "{}"))
+        w.post(msg.Query((q,)))
+        w.flush()
+    (gw, gout, gpush), (ow, oout, opush) = sides
+    try:
+        assert not any(isinstance(o, msg.OnError) for o in gout + oout), [o for o in gout if isinstance(o, msg.OnError)]
+        assert [type(o).__name__ for o in gout] == [type(o).__name__ for o in oout]
+        assert [o.queries_patches for o in gout if isinstance(o, msg.OnQuery)] == \
+            [o.queries_patches for o in oout if isinstance(o, msg.OnQuery)]
+        assert [(r.messages, r.clock_timestamp, r.merkle_tree) for r in gpush] == \
+            [(r.messages, r.clock_timestamp, r.merkle_tree) for r in opush]
+        for t in ("__message", "todo", "__clock", "__owner"):
+            qq = f'SELECT * FROM "{t}" ORDER BY 1, 2'
+            assert gw.db.exec(qq) == ow.db.exec(qq)
+        assert gw.verify_winner_cache() == len(gw._planner.cache._slots)
+    finally:
+        gw.stop(), ow.stop()
