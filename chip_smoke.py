@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
-LWW reconcile pass, the typed-CRDT apply and the client worker. Needs
-one NVIDIA Hopper card; run from the repo root:
+LWW reconcile pass, the typed-CRDT apply, the client worker and the
+relay engine. Needs one NVIDIA Hopper card; run from the repo root:
 
     python3 chip_smoke.py
 
@@ -61,14 +61,29 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               outputs, pushes and every table byte-identical; the cache
               audit after every Receive; any OnError fails. L, H and X
               must launch per device-planned chunk or batch, S never. Then
-              D1 and D2 again with `winner_cache=False` (winners streamed
-              from SQLite), D2 timed.
-8. columns  — the reconcile pass from device-resident columns at 1M and
+              D1 and D2's first 2 batches again with `winner_cache=False`
+              (winners streamed from SQLite), D2 timed.
+8. path E   — the relay's batched sync pass at BASELINE config 3:
+              `BatchReconciler(RelayStore()).run_batch_wire` on the card
+              against `serve_single_request` request by request on a second
+              `RelayStore` (host hashing). E1 1M messages over 1k owners
+              (benchmarks/config3_server_reconcile.py's shape, 116-byte
+              contents), each request with its post-apply tree; E2 100k new
+              + 50k stored + 10k in-batch duplicates, half the owners with
+              their tree from before E2; E3 cold sync of 25 owners; E4, on
+              fresh stores, a millis span of 2^32 ms (the 20-B upload), every
+              row its own minute (cap overflow, full-width rerun), one owner
+              in upper-case hex (the host fold). After every step the
+              responses' bytes, the `message` table and the `merkleTree`
+              table equal the oracle's; the engine's stage times (host clock,
+              device leg synchronized) and route counts are printed; H and X
+              launch once a device dispatch, L and S never.
+9. columns  — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-9. timing   — L, X, H and their plain versions timed on the inputs the
+10. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them, X also on the 10M pass's
               minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
@@ -80,17 +95,21 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               `device_ms` is the kernels' own duration from
               torch.profiler; `host_us` is the wrapper's host time per
               call over 1000 calls with no synchronize, on the smallest
-              input path C2 gave the kernel (`host_us_rows`).
+              input path C2 gave the kernel (`host_us_rows`). The relay
+              engine's three kernel functions on E1's columns: bytes up and
+              down, upload, device and pull times; and H and X on the inputs
+              E1 gave them, against their plain versions.
 
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after. In the kernels JSON, `launches` is the
-sum of those counts and `launches_path_{a,b,c1,c2,d}` are the counts
+sum of those counts and `launches_path_{a,b,c1,c2,d,e}` are the counts
 themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
 the numbered changes that ported and redesigned each kernel, as
 PERF.md's kernel table lists them, and `design` names the design; X's
-`at_columns_10m` holds the same numbers at 2^24 rows and H's
+`at_columns_10m` holds the same numbers at 2^24 rows, X's and H's
+`at_path_e` the same numbers on path E's E1, and H's
 `ops_per_hashed_row` the count from the probe's SASS.
 
 The last two lines are the card's `nvidia-smi` name and power limit
@@ -1263,16 +1282,22 @@ def path_d(torch, kernels):
     return launches, report, trees[:1 + len(d2)]
 
 
+# D2 batches of the winner_cache=False rerun: cut from 8 to keep the whole
+# script well inside its time limit once path E was added.
+D_STREAMED_BATCHES = 2
+
+
 def path_d_streamed(trees):
-    """D1 and D2 again on a fresh worker with `winner_cache=False`: every
-    device-planned batch streams its winners from SQLite
-    (`plan_batch_device_full`), the comparison of benchmarks/winner_cache.py.
-    D2 is timed; `trees` are the relay's trees after D1 and each D2 batch,
-    so no receive leaves a diff."""
+    """D1 and D2's first D_STREAMED_BATCHES batches again on a fresh worker
+    with `winner_cache=False`: every device-planned batch streams its
+    winners from SQLite (`plan_batch_device_full`), the comparison of
+    benchmarks/winner_cache.py. D2 is timed; `trees` are the relay's trees
+    after D1 and each D2 batch, so no receive leaves a diff."""
     from evolu_tpu_torch.core.merkle import merkle_tree_to_string
     from evolu_tpu_torch.storage.clock import read_clock
     from evolu_tpu_torch.utils.config import Config
 
+    trees = trees[:1 + D_STREAMED_BATCHES]
     clock = {"now": D1_BASE}
     w = DWorker("streamed", Config(backend="auto", winner_cache=False, receive_chunk_size=1 << 17), clock)
     w.receive("d1", d1_history(), trees[0])
@@ -1286,6 +1311,358 @@ def path_d_streamed(trees):
     w.stop()
     return {"d1_wall_s": round(w.walls["d1"], 4), "d2_wall_s": round(sum(walls), 4),
             "d2_msgs_per_s": round(n / sum(walls)), "d2_batch_s": [round(t, 4) for t in walls]}
+
+
+E_MESSAGES = 1_000_000  # BASELINE config 3: 1M messages over 1k owners
+E_OWNERS = 1000
+E4_ROWS = 1 << 16
+E_POOL = 8192
+E_CONTENT_BYTES = 116  # the reference bench's v1 OpenPGP ciphertexts measure 115-116 B
+
+
+def e_stamps(start, n, owners, rng):
+    """benchmarks/config3_server_reconcile.py:67-90's stamps: message i
+    goes to a random owner, at millis BASE + i // 16, counter i % 16,
+    node f"{owner:015x}{r:x}". → (owner, millis, counter, node as
+    np.uint64, timestamp strings), one entry a message."""
+    from evolu_tpu_torch.core.timestamp import millis_to_iso
+
+    i = np.arange(start, start + n, dtype=np.int64)
+    owner = rng.integers(0, owners, n)
+    node = owner.astype(np.uint64) * np.uint64(16) + rng.integers(0, 16, n).astype(np.uint64)
+    millis, counter = BASE_MILLIS + i // 16, (i % 16).astype(np.int32)
+    iso = {}
+    stamps = []
+    for m, c, d in zip(millis.tolist(), counter.tolist(), node.tolist()):
+        s = iso.get(m)
+        if s is None:
+            s = iso[m] = millis_to_iso(m)
+        stamps.append(f"{s}-{c:04X}-{d:016x}")
+    return owner, millis, counter, node, stamps
+
+
+def e_trees(trees, owner, millis, counter, node):
+    """Each owner's tree in `trees` (a dict of tree dicts, updated) with its
+    rows folded in, as its client holds it after applying its own
+    messages: hashes by the plain version of kernel H on the CPU (the
+    node hex is lower case), one XOR a (owner, minute) by numpy."""
+    import torch
+
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, minutes_base3
+    from evolu_tpu_torch.core.murmur import to_int32
+    from evolu_tpu_torch.ops.cuda_hash import timestamp_hashes_plain
+
+    h = timestamp_hashes_plain(torch.from_numpy(millis), torch.from_numpy(counter),
+                               torch.from_numpy(node.view(np.int64))).numpy().view(np.uint32)
+    minute = millis // 60000
+    order = np.lexsort((minute, owner))
+    o_s, m_s = owner[order], minute[order]
+    starts = np.flatnonzero(np.r_[True, (o_s[1:] != o_s[:-1]) | (m_s[1:] != m_s[:-1])])
+    xors = np.bitwise_xor.reduceat(h[order], starts)
+    deltas = {}
+    for o, m, x in zip(o_s[starts].tolist(), m_s[starts].tolist(), xors.tolist()):
+        deltas.setdefault(o, {})[minutes_base3(m * 60000)] = to_int32(x)
+    for o, d in deltas.items():
+        trees[o] = apply_prefix_xors(trees.get(o, {}), d)
+    return trees
+
+
+def e_tree(tree, stamps):
+    """`tree` (a dict) with `stamps` folded in on the host, each hashed as
+    its string reads (node case verbatim)."""
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, minute_deltas_host
+
+    deltas, _ = minute_deltas_host(stamps)
+    return apply_prefix_xors(tree, deltas)
+
+
+def e_request(user, stamps, contents, tree, node="f" * 16):
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.sync import protocol
+
+    msgs = tuple(protocol.EncryptedCrdtMessage(t, c) for t, c in zip(stamps, contents))
+    return protocol.SyncRequest(msgs, user, node, tree if isinstance(tree, str) else merkle_tree_to_string(tree))
+
+
+def ts_one(millis, counter, node):
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+
+    return timestamp_to_string(Timestamp(millis, counter, node))
+
+
+def protocol_messages(data):
+    from evolu_tpu_torch.sync import protocol
+
+    return protocol.decode_sync_response(data).messages
+
+
+def e_dump(store):
+    return (store.db.exec('SELECT "userId", "timestamp", "content" FROM "message" ORDER BY 1, 2'),
+            store.db.exec('SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1'))
+
+
+class EStages:
+    """Host-clock time of each stage of one engine pass, by wrapping the
+    engine's calls in their calling module and on the reconciler; the
+    device leg (upload, kernels) is synchronized on both sides."""
+
+    def __init__(self, torch, engine_mod, reconciler):
+        self.torch, self.s, self.rec = torch, {}, reconciler
+        self.swaps = [(engine_mod, "parse_timestamp_strings", "parse", False),
+                      (engine_mod, "columns_to_device", "upload", True),
+                      (engine_mod, "_merkle_shard_kernel_compact_delta", "device", True),
+                      (engine_mod, "_merkle_shard_kernel_compact", "device", True),
+                      (engine_mod, "_merkle_shard_kernel", "device", True),
+                      (engine_mod, "to_host_many", "pull", False),
+                      (engine_mod, "_decode_compact", "decode", False),
+                      (engine_mod, "decode_owner_minute_deltas", "decode", False),
+                      (engine_mod, "minute_deltas_host", "host_fold", False),
+                      (reconciler, "_new_messages", "new_messages", False),
+                      (reconciler, "_insert_new", "insert", False),
+                      (reconciler, "_store_trees", "tree_updates", False),
+                      (reconciler, "_respond_wire", "respond", False)]
+
+    def _timed(self, fn, name, sync):
+        def run(*a, **kw):
+            if sync:
+                self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                self.torch.cuda.synchronize()
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def on(self):
+        self.s = {}
+        olds = [(obj, attr, getattr(obj, attr)) for obj, attr, _, _ in self.swaps]
+        for obj, attr, name, sync in self.swaps:
+            setattr(obj, attr, self._timed(getattr(obj, attr), name, sync))
+        try:
+            yield self.s
+        finally:
+            for obj, attr, old in olds:
+                if obj is self.rec:
+                    delattr(obj, attr)  # back to the class's method
+                else:
+                    setattr(obj, attr, old)
+
+
+def path_e(torch, kernels, captured):
+    """The relay's batched sync pass at config 3 on the card:
+    `BatchReconciler(RelayStore(), device=None).run_batch_wire` against
+    `serve_single_request` request by request on a second `RelayStore`
+    (host hashing). E1 steady state, 1M messages over 1k owners, each
+    request with its post-apply tree; E2 re-delivery, 100k new + 50k
+    stored + 10k in-batch duplicates, half the owners with their tree from
+    before E2; E3 cold sync of 25 owners; E4, on fresh stores, a span of
+    2^32 ms (the 20-B upload), a batch whose every row has its own minute (cap overflow and
+    the full-width rerun), one owner in upper-case hex (the host fold).
+    After every step the responses, the `message` table and the
+    `merkleTree` table equal the oracle's. `captured` gets E1's engine
+    kernel inputs and its calls of H and X. Returns (launches, report)."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.ops import merkle_ops
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+
+    rng = np.random.default_rng(17)
+    pool = [bytes(b) for b in rng.integers(0, 256, (E_POOL, E_CONTENT_BYTES), dtype=np.uint8)]
+    t0 = time.perf_counter()
+    owner, millis, counter, node, stamps = e_stamps(0, E_MESSAGES, E_OWNERS, rng)
+    by_owner = {}
+    for i, o in enumerate(owner.tolist()):
+        by_owner.setdefault(o, []).append(i)
+    users = {o: f"owner{o:04d}" for o in range(E_OWNERS)}
+    trees1 = e_trees({}, owner, millis, counter, node)
+    e1 = [e_request(users[o], [stamps[i] for i in ix], [pool[i % E_POOL] for i in ix], trees1[o])
+          for o, ix in by_owner.items()]
+    print(f"  path E: E1 {len(stamps)} messages over {len(e1)} owners built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    store, oracle = RelayStore(), RelayStore()
+    rec = eng.BatchReconciler(store)
+    stages = EStages(torch, eng, rec)
+    report, n_steps = {}, {}
+
+    def keep_state(dispatch):
+        def run(*a, **kw):
+            state = dispatch(*a, **kw)
+            captured.setdefault("path_e_state", state)
+            return state
+        return run
+
+    def step(name, requests, timed=False, record=False):
+        n = sum(len(r.messages) for r in requests)
+        calls = {}
+        with contextlib.ExitStack() as stack:
+            if timed:
+                s = stack.enter_context(stages.on())
+            if record:
+                stack.enter_context(patched(eng, "masked_key_hashes", record_calls(eng.masked_key_hashes, "H", calls)))
+                stack.enter_context(patched(merkle_ops, "segmented_xor_scan",
+                                            record_calls(merkle_ops.segmented_xor_scan, "X", calls)))
+                stack.enter_context(patched(eng, "deltas_dispatch", keep_state(eng.deltas_dispatch)))
+            t1 = time.perf_counter()
+            got = rec.run_batch_wire(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        want = [serve_single_request(oracle, r) for r in requests]
+        oracle_wall = time.perf_counter() - t1
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"path E {name}: response {bad} ({requests[bad].user_id}) differs from the oracle")
+        t1 = time.perf_counter()
+        mine, theirs = e_dump(store), e_dump(oracle)
+        if mine[0] != theirs[0]:
+            raise AssertionError(f"path E {name}: the message table differs from the oracle")
+        if mine[1] != theirs[1]:
+            raise AssertionError(f"path E {name}: the merkleTree table differs from the oracle")
+        rows = len(mine[0])
+        del mine, theirs
+        out = {"requests": len(requests), "messages": n, "wall_s": round(wall, 4),
+               "msgs_per_s": round(n / wall) if n else None, "oracle_wall_s": round(oracle_wall, 4),
+               "oracle_msgs_per_s": round(n / oracle_wall) if n else None,
+               "response_messages": sum(len(protocol_messages(b)) for b in got),
+               "stored_rows": rows, "compare_s": round(time.perf_counter() - t1, 3)}
+        if timed:
+            out["stages_s"] = {k: round(v, 4) for k, v in s.items()}
+            out["stages_s"]["other"] = round(wall - sum(s.values()), 4)
+        if record:
+            captured["path_e"] = calls
+        report[name] = out
+        print(f"  path E {name}: {json.dumps(out)}", flush=True)
+
+    reset(kernels)
+    routes0 = dict(eng.counts)
+    step("e1", e1, timed=True, record=True)
+    del e1
+
+    # E2: new messages continuing E1's stamps, messages E1 stored, and
+    # duplicates inside the batch, one request an owner.
+    owner2, millis2, counter2, node2, stamps2 = e_stamps(E_MESSAGES, E_MESSAGES // 10, E_OWNERS, rng)
+    new2 = {}
+    for i, o in enumerate(owner2.tolist()):
+        new2.setdefault(o, []).append((stamps2[i], pool[(E_MESSAGES + i) % E_POOL]))
+    old_ix = rng.choice(len(stamps), E_MESSAGES // 20, replace=False)
+    old2 = {}
+    for i in old_ix.tolist():
+        old2.setdefault(int(owner[i]), []).append((stamps[i], pool[i % E_POOL]))
+    dup_ix = rng.choice(len(stamps2), E_MESSAGES // 100, replace=False)
+    dups = {}
+    for i in dup_ix.tolist():
+        dups.setdefault(int(owner2[i]), []).append((stamps2[i], pool[(E_MESSAGES + i) % E_POOL]))
+    trees2 = e_trees(dict(trees1), owner2, millis2, counter2, node2)
+    e2 = []
+    for o in sorted(set(new2) | set(old2)):
+        rows = new2.get(o, []) + old2.get(o, []) + dups.get(o, [])
+        tree = trees1.get(o, {}) if o % 2 == 0 else trees2.get(o, {})  # half: their tree from before E2
+        e2.append(e_request(users[o], [t for t, _ in rows], [c for _, c in rows], tree))
+    step("e2", e2, timed=True)
+    del e2, trees1, trees2
+
+    # E3: restored devices with empty trees pull their owner's whole history.
+    step("e3", [e_request(users[o], [], [], "{}", node="e" * 16) for o in range(25)])
+
+    # E4: the other routes, about 64k rows each, on a fresh pair of stores
+    # (their dumps then cost ~0.2 s, not ~5 s).
+    store.close(), oracle.close()
+    store, oracle = RelayStore(), RelayStore()
+    rec = eng.BatchReconciler(store)
+    def e4(tag, millis, node_of):
+        n = len(millis)
+        per = {}
+        for i, m in enumerate(millis):
+            o = i % 64
+            per.setdefault(o, []).append(ts_one(int(m), i % 16, node_of(o)))
+        return [e_request(f"{tag}{o:02d}", s, [pool[i % E_POOL] for i in range(len(s))], e_tree({}, s))
+                for o, s in per.items()]
+
+    base4 = BASE_MILLIS + 10**9
+    wide = base4 + np.arange(E4_ROWS) // 16
+    wide[-E4_ROWS // 64:] += 1 << 32  # the last rows 2^32 ms later: the 20-B upload
+    step("e4_span_2_32", e4("span", wide, lambda o: f"{o:016x}"))
+    step("e4_cap_overflow", e4("minute", base4 + 2 * 10**9 + np.arange(E4_ROWS) * 60_000,
+                                lambda o: f"{o:016x}"))
+    step("e4_upper_case_hex", e4("hex", base4 + 3 * 10**9 + np.arange(E4_ROWS) // 16,
+                                  lambda o: (f"{o:016x}" if o else "ABCDEF0123456789")))
+    launches = read(kernels)
+    carried = {k: v["response_messages"] for k, v in report.items()}
+    if any(carried[k] for k in ("e1", "e4_span_2_32", "e4_cap_overflow", "e4_upper_case_hex")) \
+            or not (carried["e2"] and carried["e3"]):
+        raise AssertionError(f"path E: response messages {carried}: only E2's stale trees and E3 should carry any")
+    routes = {k: v - routes0[k] for k, v in eng.counts.items()}
+    report["route_counts"] = routes
+    dispatches = routes["delta"] + routes["full"] + routes["overflow"]
+    print(f"  path E: launches {launches}; route counts {json.dumps(routes)}", flush=True)
+    want_routes = {"delta": 4, "full": 1, "overflow": 1, "host_owners": 1}
+    if routes != want_routes:
+        raise AssertionError(f"path E: routes {routes}, expected {want_routes}")
+    for k in kernels:
+        expect = dispatches if k["slot"] in "HX" else 0
+        if launches[k["name"]] != expect:
+            raise AssertionError(f"path E: {k['name']} launched {launches[k['name']]} times, expected {expect}")
+    return launches, report
+
+
+def engine_kernel_timing(torch, captured):
+    """The three engine kernels on E1's columns: device ms (CUDA events
+    around 10 back-to-back calls; and the profiler's kernel time), bytes
+    up and down, the upload and the pull (host clock, median of 7). And H
+    and X on the inputs E1 handed them, against their plain versions."""
+    from evolu_tpu_torch.ops import columns_to_device, to_host_many
+    from evolu_tpu_torch.server import engine as eng
+
+    k1, node, oix, _dev, cap = captured["path_e_state"][4]
+    real = oix >= 0
+    millis = (k1 >> np.uint64(16)).astype(np.int64)
+    base = int(millis[real].min())
+    forms = {
+        "compact_delta_16B": ({"dmillis": np.where(real, millis - base, 0).astype(np.uint32).view(np.int32),
+                               "ownctr": np.where(real, (oix.astype(np.uint32) << np.uint32(16))
+                                                  | (k1 & np.uint64(0xFFFF)).astype(np.uint32),
+                                                  np.uint32(0xFFFF << 16)).view(np.int32),
+                               "node": node},
+                              lambda t: eng._merkle_shard_kernel_compact_delta(
+                                  t["dmillis"], t["ownctr"], t["node"], base, cap)),
+        "compact_20B": ({"k1": k1, "node": node, "owner_ix": oix},
+                        lambda t: eng._merkle_shard_kernel_compact(t["k1"], t["node"], t["owner_ix"], cap)),
+        "full_width_29B": ({"millis": millis, "counter": (k1 & np.uint64(0xFFFF)).astype(np.int32), "node": node,
+                            "valid": real, "owner_ix": np.maximum(oix, 0).astype(np.int64)},
+                           lambda t: eng._merkle_shard_kernel(t["millis"], t["counter"], t["node"],
+                                                              t["valid"], t["owner_ix"])),
+    }
+    out = {}
+    for name, (cols, fn) in forms.items():
+        ups, pulls = [], []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = columns_to_device(cols, "cuda")
+            torch.cuda.synchronize()
+            ups.append(time.perf_counter() - t0)
+        for _ in range(7):
+            res = fn(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = to_host_many(*res)
+            pulls.append(time.perf_counter() - t0)
+        out[name] = {"rows": int(k1.shape[0]), "cap": cap,
+                     "bytes_up": int(sum(a.nbytes for a in cols.values())),
+                     "bytes_down": int(sum(a.nbytes for a in host)),
+                     "upload_ms": round(statistics.median(ups) * 1e3, 5),
+                     "ms": round(cuda_ms(lambda: fn(t)), 5),
+                     "device_ms": round(device_ms(torch, [lambda: fn(t)]), 5),
+                     "pull_ms": round(statistics.median(pulls) * 1e3, 5)}
+        print(f"  engine kernel {name} on E1's columns: {json.dumps(out[name])}", flush=True)
+    calls = captured["path_e"]
+    out["H_on_e1"] = time_slot_at(torch, "H", *calls["H"][0], "path E E1")
+    out["X_on_e1"] = time_slot_at(torch, "X", *calls["X"][0], "path E E1")
+    return out
 
 
 def u64_max_abs_err(got, want) -> int:
@@ -1485,21 +1862,19 @@ def time_path_calls(torch, kernels, calls):
     return out
 
 
-def time_x_at(torch, a, kw, what):
-    """Kernel X and its plain version on one input, checked bit for bit."""
-    from evolu_tpu_torch.ops import cuda_scan
-
-    got = cuda_scan.segmented_xor_scan_cuda(*a, **kw)
-    want = cuda_scan.segmented_xor_scan_plain(*a, **kw)
-    same([got], [want], f"X on {what}")
-    call = functools.partial(cuda_scan.segmented_xor_scan_cuda, *a, **kw)
-    t_bytes, _ = bound_parts("X", a)
-    out = {"timed_on": what, "rows": int(a[0].shape[0]), "max_abs_err": max_abs_err([got], [want]),
+def time_slot_at(torch, slot, a, kw, what):
+    """Kernel `slot` and its plain version on one input, checked bit for bit."""
+    cuda_fn, plain_fn = kernel_forms()[slot]
+    got = as_list(cuda_fn(*a, **kw))
+    want = as_list(plain_fn(*a, **kw))
+    same(got, want, f"{slot} on {what}")
+    call = functools.partial(cuda_fn, *a, **kw)
+    t_bytes, t_ops = bound_parts(slot, a)
+    out = {"timed_on": what, "rows": int(a[0].shape[0]), "max_abs_err": max_abs_err(got, want),
            "ms": round(cuda_ms(call), 5), "device_ms": round(device_ms(torch, [call]), 5),
-           "plain_ms": round(cuda_ms(functools.partial(cuda_scan.segmented_xor_scan_plain, *a, **kw),
-                                     reps=3, inner=2), 5),
-           "bound_ms": round(t_bytes, 5), "bound_by": "bytes"}
-    print(f"  X {what}: {json.dumps(out)}", flush=True)
+           "plain_ms": round(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2), 5),
+           "bound_ms": round(max(t_bytes, t_ops), 5), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"  {slot} {what}: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1596,6 +1971,9 @@ def main() -> int:
     with phase("path D timing: D1 + D2 with winner_cache=False", gpu):
         report_d["d2_winner_cache_off"] = path_d_streamed(trees_d2)
         print("  " + json.dumps(report_d["d2_winner_cache_off"]), flush=True)
+    captured_e = {}
+    with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
+        launches["e"], report_e = path_e(torch, kernels, captured_e)
     reports, captured_10m = [], {}
     # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
     for n, sink, slots in ((1_000_000, captured, ("L", "H", "X")), (10_000_000, captured_10m, ("X",))):
@@ -1610,10 +1988,14 @@ def main() -> int:
     del captured_10m
     with phase("kernel timing on main-path inputs", gpu):
         table = time_kernels(torch, lwws, captured)
-        x_24 = time_x_at(torch, *x_10m, "columns pass 10M minute fold")
+        x_24 = time_slot_at(torch, "X", *x_10m, "columns pass 10M minute fold")
         s_shapes = time_sum_kernel(torch, captured)
         c2_times = time_path_calls(torch, kernels, c2_calls)
+        report_e["engine_kernels"] = engine_kernel_timing(torch, captured_e)
+    del captured_e
     table[1]["at_columns_10m"] = x_24
+    table[1]["at_path_e"] = report_e["engine_kernels"]["X_on_e1"]
+    table[2]["at_path_e"] = report_e["engine_kernels"]["H_on_e1"]
     table[2]["ops_per_hashed_row"] = h_ops_per_row
     s_row = s_shapes["S_counter"]
     table.append({
@@ -1626,7 +2008,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d"):
+        for p in ("a", "b", "c1", "c2", "d", "e"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -1634,7 +2016,8 @@ def main() -> int:
         row["path_c2_bound_ms"] = c2_times[row["name"]]["bound_ms"]
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
-    print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d}))
+    print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
+                      "relay": report_e}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

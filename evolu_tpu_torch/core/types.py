@@ -1,5 +1,5 @@
 """Core CRDT data types and errors (the slice of `evolu_tpu.core.types`
-the reconcile pass and the client worker need).
+the reconcile pass, the client worker and the relay need).
 
 A `CrdtValue` is `None | str | int | float`. Messages address a single
 (table, row, column) cell and carry an HLC timestamp string that
@@ -135,3 +135,11 @@ class UnknownError(EvoluError):
 
     def to_dict(self) -> dict:
         return {"type": self.type, "error": {"message": str(self.error)}}
+
+
+class NonCanonicalStoreError(UnknownError):
+    """A stored relay timestamp is not the canonical 46-byte width, so a
+    fixed-width fetch path cannot serve it; callers fall back to the
+    generic SQL path."""
+
+    type = "UnknownError"  # wire-visible type is unchanged

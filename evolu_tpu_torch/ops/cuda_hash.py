@@ -57,13 +57,15 @@ def masked_key_hashes_plain(k1, k2, mask):
 def _digest_scratch(buf, device):
     """The reconcile form's digest scratch (None before the first call): a
     block counter that each call leaves at 0, and one partial a block,
-    zeroed once, when made."""
+    zeroed once, when made. → (state, view), both the buffer itself."""
+    # No epoch and never replaced: launches on one stream run in order, so
+    # threads that share the stream need nothing more than the buffer.
     if buf is None:
         size = load().evolu_ts_hash_scratch_bytes()
         if size <= 0:
             raise RuntimeError("evolu_tpu_torch: timestamp hash grid query failed")
         buf = torch.zeros(size, dtype=torch.uint8, device=device)
-    return buf
+    return buf, buf
 
 
 def timestamp_hash_cuda(a, counter, node, mask):

@@ -166,12 +166,14 @@ _stream_states_lock = threading.Lock()
 
 
 def stream_state(kind: str, t, update, *args):
-    """(state, stream): the `kind` scratch state of `t`'s device and
-    current stream, after `update(state or None, device, *args)` has
-    returned it, under one lock. Two streams never share a state, so
-    their calls cannot overlap on it."""
+    """(view, stream) for one launch on `t`'s device and current stream.
+    `update(state or None, device, *args)` returns the `kind` scratch state,
+    which is stored, and the view of it that the launch uses; both happen
+    under one lock, so a launch never reads the shared state after another
+    host thread on the same stream has changed it. Two streams never share
+    a state, so their calls cannot overlap on it."""
     stream = stream_handle(t)
     key = (kind, t.device.index, stream)
     with _stream_states_lock:
-        state = _stream_states[key] = update(_stream_states.get(key), t.device, *args)
-    return state, stream
+        _stream_states[key], view = update(_stream_states.get(key), t.device, *args)
+    return view, stream

@@ -129,7 +129,10 @@ def _next_epoch(s, device, n: int):
     """The look-back state `s` (None before the first call) ready for one
     scan of n rows: grown to the largest n seen, zeroed only when made or
     when the epoch wraps, and on a fresh epoch, so a status word an
-    earlier call left never reads as ready."""
+    earlier call left never reads as ready. → (state, (buf, tiles,
+    epoch)): the view is taken here, under `stream_state`'s lock, and
+    holds the buffer itself, so a grow by another thread cannot free it
+    before this launch is queued."""
     if s is None or n > s.rows:
         lib = load()
         tile = lib.evolu_seg_scan_tile_rows()
@@ -140,14 +143,14 @@ def _next_epoch(s, device, n: int):
     if s.epoch == _EPOCH_LIMIT:
         s.buf.zero_()
         s.epoch = 1
-    return s
+    return s, (s.buf, s.tiles, s.epoch)
 
 
 def _lookback_scratch(t, n: int):
-    """(pointer, tiles, epoch, stream) for one look-back scan of n rows on
+    """(buffer, tiles, epoch, stream) for one look-back scan of n rows on
     `t`'s device and current stream, whose scratch L, X and S share."""
-    s, stream = stream_state("lookback", t, _next_epoch, n)
-    return s.buf.data_ptr(), s.tiles, s.epoch, stream
+    (buf, tiles, epoch), stream = stream_state("lookback", t, _next_epoch, n)
+    return buf, tiles, epoch, stream
 
 
 def segmented_max_scan_cuda(flags, k1, k2, reverse: bool = False):
@@ -162,7 +165,7 @@ def segmented_max_scan_cuda(flags, k1, k2, reverse: bool = False):
     scratch, tiles, epoch, stream = _lookback_scratch(k1, n)
     rc = load().evolu_seg_lex_max_scan(
         flags.data_ptr(), k1.data_ptr(), k2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
-        n, int(reverse), scratch, tiles, epoch, stream,
+        n, int(reverse), scratch.data_ptr(), tiles, epoch, stream,
     )
     check(rc, "segmented lex-max scan")
     segmented_max_scan_cuda.launches += 1
@@ -181,7 +184,7 @@ def segmented_xor_scan_cuda(flags, values):
     out = torch.empty(n, dtype=torch.int32, device=values.device)
     scratch, tiles, epoch, stream = _lookback_scratch(values, n)
     rc = load().evolu_seg_xor_scan(
-        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n, scratch, tiles, epoch, stream,
+        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n, scratch.data_ptr(), tiles, epoch, stream,
     )
     check(rc, "segmented xor scan")
     segmented_xor_scan_cuda.launches += 1
@@ -200,7 +203,7 @@ def segmented_sum_scan_cuda(flags, values):
     out = torch.empty(n, dtype=torch.int64, device=values.device)
     scratch, tiles, epoch, stream = _lookback_scratch(values, n)
     rc = load().evolu_seg_sum_scan(
-        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n, scratch, tiles, epoch, stream,
+        flags.data_ptr(), values.data_ptr(), out.data_ptr(), n, scratch.data_ptr(), tiles, epoch, stream,
     )
     check(rc, "segmented sum scan")
     segmented_sum_scan_cuda.launches += 1

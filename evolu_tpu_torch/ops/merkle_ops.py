@@ -20,8 +20,9 @@ import torch
 
 from evolu_tpu_torch.core.merkle import minutes_base3
 from evolu_tpu_torch.core.murmur import to_int32
-from evolu_tpu_torch.ops import wrap_int32
+from evolu_tpu_torch.ops import columns_to_device, to_host_many, wrap_int32
 from evolu_tpu_torch.ops.cuda_scan import segmented_xor_scan
+from evolu_tpu_torch.ops.encode import timestamp_hashes
 
 _SENTINEL_HI = 0x7FFFFFFF  # int32 max: masked rows sort after every real key
 
@@ -97,6 +98,29 @@ def decode_owner_minute_deltas(
         d = out.setdefault(o_ix, {})
         d[key] = to_int32(d.get(key, 0) ^ int(seg_xor[i]))
     return out
+
+
+def minute_deltas_core(millis, counter, node, xor_mask):
+    """Per-minute XOR deltas for one owner's timestamp batch on tensors:
+    int64 millis, int32 counter, int64-carried u64 node, bool xor_mask
+    (False rows contribute nothing). Masked rows park under the hi-key
+    sentinel, so they never share a segment with a real minute. →
+    (minute_sorted int64, seg_end, seg_xor, valid_sorted)."""
+    zero = torch.zeros((), dtype=torch.int32, device=millis.device)
+    hashes = torch.where(xor_mask, timestamp_hashes(millis, counter, node), zero)
+    hi = torch.where(xor_mask, zero, torch.full_like(hashes, _SENTINEL_HI))
+    lo = torch.where(xor_mask, js_minutes(millis), zero)
+    _, lo_s, seg_end, seg_xor, valid_sorted = segment_xor2_core(hi, lo, hashes)
+    return lo_s.to(torch.int64), seg_end, seg_xor, valid_sorted
+
+
+def merkle_minute_deltas(millis, counter, node, xor_mask, device=None):
+    """`minute_deltas_core` on host numpy columns (node as np.uint64):
+    uploaded to `device` (None = the card), outputs pulled back as numpy
+    for `minute_deltas_to_dict`."""
+    t = columns_to_device({"millis": millis, "counter": counter, "node": node,
+                           "xor_mask": xor_mask}, device)
+    return to_host_many(*minute_deltas_core(t["millis"], t["counter"], t["node"], t["xor_mask"]))
 
 
 def minute_deltas_to_dict(m_sorted, seg_end, seg_xor, valid_sorted) -> Dict[str, int]:

@@ -25,6 +25,7 @@ class PySqliteDatabase:
         self._conn.isolation_level = None  # explicit BEGIN/COMMIT
         self._lock = threading.RLock()
         self.path = path
+        self._begin_sql = "BEGIN"
 
     def exec(self, sql: str) -> List[Tuple]:
         """Execute a single statement; returns its rows (if any)."""
@@ -66,7 +67,7 @@ class PySqliteDatabase:
             if self._conn.in_transaction:
                 yield self
                 return
-            self._conn.execute("BEGIN")
+            self._conn.execute(self._begin_sql)
             try:
                 yield self
             except BaseException:
@@ -75,6 +76,26 @@ class PySqliteDatabase:
             else:
                 self._conn.execute("COMMIT")
 
+    def set_begin_immediate(self) -> None:
+        """Writers sharing the database FILE with other processes must
+        take the write lock at BEGIN: a deferred transaction that
+        upgrades to write after a concurrent commit gets SQLITE_BUSY
+        immediately — busy_timeout does not apply to that upgrade."""
+        self._begin_sql = "BEGIN IMMEDIATE"
+
     def close(self) -> None:
         with self._lock:
             self._conn.close()
+
+
+def configure_shared_file_db(db) -> None:
+    """Make a FILE-BACKED database safe for concurrent writers across
+    processes. busy_timeout first, so the WAL switch (a write) waits out
+    a concurrent writer; WAL + synchronous=NORMAL; BEGIN IMMEDIATE. No-op
+    for :memory: databases — nothing shares those."""
+    if getattr(db, "path", None) in (None, ":memory:"):
+        return
+    for pragma in ("busy_timeout=5000", "journal_mode=WAL",
+                   "synchronous=NORMAL"):
+        db.exec_sql_query(f"PRAGMA {pragma}", ())
+    db.set_begin_immediate()

@@ -290,6 +290,41 @@ def test_look_back_epoch_wraps(dev):
     assert state.epoch == 10
 
 
+def test_look_back_two_threads_on_one_stream(dev):
+    """Two host threads launch L, X and S 200 times each on the same device
+    and stream, so they share one look-back scratch; every result equals its
+    plain version (each launch takes its own epoch under the lock)."""
+    import threading
+
+    n = 3 * TILE + 5
+    inputs = [(*_lex_inputs(n, 10 + i, dev), _sum_values(n, 10 + i, dev), _xor_values(n, 10 + i, dev))
+              for i in range(2)]
+    want = [(*cuda_scan.segmented_max_scan_plain(*x[:3]), cuda_scan.segmented_sum_scan_plain(x[0], x[3]),
+             cuda_scan.segmented_xor_scan_plain(x[0], x[4])) for x in inputs]
+    stream = torch.cuda.current_stream().cuda_stream
+    bad, errors = [], []
+
+    def run(i):
+        try:
+            f, a, b, v, x = inputs[i]
+            for r in range(200):
+                assert torch.cuda.current_stream().cuda_stream == stream
+                got = (*cuda_scan.segmented_max_scan(f, a, b), cuda_scan.segmented_sum_scan(f, v),
+                       cuda_scan.segmented_xor_scan(f, x))
+                if not all(torch.equal(g, w) for g, w in zip(got, want[i])):
+                    bad.append((i, r))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert not bad, bad
+
+
 def test_one_kernel_launch_per_call(dev):
     """Each dispatcher call of L (either direction), X, S and H's reconcile
     form launches exactly one CUDA kernel, as CUPTI records it: no memset
@@ -450,3 +485,112 @@ def test_db_worker_round_on_card(dev):
         assert gw.verify_winner_cache() == len(gw._planner.cache._slots)
     finally:
         gw.stop(), ow.stop()
+
+
+# ---- the relay engine on the card -----------------------------------------------
+
+
+def _engine_columns(seed, n, total, owners, span_ms):
+    rng = np.random.default_rng(seed)
+    millis = np.zeros(total, np.int64)
+    counter = np.zeros(total, np.int32)
+    node = np.zeros(total, np.uint64)
+    owner = np.full(total, -1, np.int32)
+    millis[:n] = 1_700_000_000_000 + rng.integers(0, span_ms, n)
+    counter[:n] = rng.integers(0, 16, n)
+    node[:n] = rng.integers(0, 2**64, n, dtype=np.uint64)
+    owner[:n] = np.sort(rng.integers(0, owners, n))
+    return millis, counter, node, owner
+
+
+@pytest.mark.parametrize("span", [300_000, 3_000_000_000])  # under the cap; past it
+def test_engine_kernels_on_card_match_cpu(span, dev):
+    """The three engine kernels at 2^16 rows on the card against the same
+    calls on the CPU (the plain versions of H and X)."""
+    from evolu_tpu_torch.ops import columns_to_device, to_host_many
+    from evolu_tpu_torch.server import engine as pe
+
+    n, total = 60_000, 1 << 16
+    millis, counter, node, owner = _engine_columns(21, n, total, 1000, span)
+    cap = pe.bucket_size(total // 8)
+    base = int(millis[:n].min())
+    real = owner >= 0
+    k1 = (millis.astype(np.uint64) << np.uint64(16)) | counter.astype(np.uint64)
+    cols = {"k1": k1, "node": node, "owner": owner,
+            "dmillis": np.where(real, millis - base, 0).astype(np.uint32).view(np.int32),
+            "ownctr": np.where(real, (owner.astype(np.uint32) << np.uint32(16)) | counter.astype(np.uint32),
+                               np.uint32(0xFFFF << 16)).view(np.int32),
+            "millis": millis, "counter": counter, "valid": real,
+            "owner64": np.maximum(owner, 0).astype(np.int64)}
+    outs = []
+    for d in (dev, "cpu"):
+        t = columns_to_device(cols, d)
+        outs.append((
+            to_host_many(*pe._merkle_shard_kernel_compact(t["k1"], t["node"], t["owner"], cap)),
+            to_host_many(*pe._merkle_shard_kernel_compact_delta(t["dmillis"], t["ownctr"], t["node"], base, cap)),
+            to_host_many(*pe._merkle_shard_kernel(t["millis"], t["counter"], t["node"], t["valid"], t["owner64"]))))
+    (card_full, card_delta, card_wide), (cpu_full, cpu_delta, cpu_wide) = outs
+    for got, want in ((card_full, cpu_full), (card_delta, cpu_delta), (card_delta, cpu_full)):
+        c = min(int(want[2][0]), cap)
+        assert int(got[2][0]) == int(want[2][0]) and c > 0
+        assert np.array_equal(got[0][:c], want[0][:c]) and np.array_equal(got[1][:c], want[1][:c])
+        assert got[3][0] == want[3][0]
+    assert (int(cpu_full[2][0]) > cap) == (span > 10**9)
+    ends = cpu_wide[2] & cpu_wide[4]
+    for i in (0, 1, 2, 4, 5):
+        assert np.array_equal(card_wide[i], cpu_wide[i])
+    assert np.array_equal(card_wide[3][ends], cpu_wide[3][ends])
+
+
+def _relay_batches():
+    """Requests for `run_batch_wire`: 64 owners' first delivery with their
+    post-apply trees, a re-delivery with stale trees, cold syncs, a batch
+    whose every row has its own minute (cap overflow), and one spanning
+    2^32 ms (the 20-B upload)."""
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, merkle_tree_to_string, minute_deltas_host
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+    from evolu_tpu_torch.sync import protocol as pp
+
+    rng = np.random.default_rng(22)
+    base = 1_700_000_000_000
+
+    def request(o, stamps, tree=None, node="f" * 16):
+        msgs = tuple(pp.EncryptedCrdtMessage(s, bytes(rng.integers(0, 256, 16, dtype=np.uint8))) for s in stamps)
+        if tree is None:
+            deltas, _ = minute_deltas_host(stamps)
+            tree = merkle_tree_to_string(apply_prefix_xors({}, deltas))
+        return pp.SyncRequest(msgs, f"owner{o:03d}", node, tree)
+
+    per = {o: [] for o in range(64)}
+    for i in range(1 << 16):
+        o = int(rng.integers(0, 64))
+        per[o].append(timestamp_to_string(Timestamp(base + i // 16, i % 16, f"{o:015x}{int(rng.integers(0, 16)):x}")))
+    first = [request(o, s[: len(s) * 3 // 4]) for o, s in per.items()]
+    again = [request(o, s[len(s) * 3 // 4:] + s[:20], tree=first[o].merkle_tree) for o, s in per.items()]
+    cold = [request(o, [], tree="{}", node="e" * 16) for o in range(8)]
+    minutes = [request(64 + o, [timestamp_to_string(Timestamp(base + (o * 512 + i) * 60_000, 0, "a" * 16))
+                                for i in range(512)]) for o in range(8)]
+    wide = [request(80, [timestamp_to_string(Timestamp(m, 0, "b" * 16)) for m in (base, base + (1 << 32))])]
+    return [first, again, cold, minutes, wide]
+
+
+def test_relay_engine_on_card_matches_cpu(dev):
+    """`BatchReconciler.run_batch_wire` on the card against the same batches
+    with `device="cpu"`: equal bytes and tables, and the routes predicted."""
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.server.relay import RelayStore
+
+    batches = _relay_batches()
+    sides = []
+    for d in (None, "cpu"):
+        store = RelayStore()
+        engine = pe.BatchReconciler(store, device=d)
+        before = dict(pe.counts)
+        out = [engine.run_batch_wire(b) for b in batches]
+        sides.append((out, {k: v - before[k] for k, v in pe.counts.items()}, store))
+    (card, card_routes, card_store), (cpu, _, cpu_store) = sides
+    assert card == cpu
+    assert card_routes == {"delta": 3, "full": 1, "overflow": 1, "host_owners": 0}
+    for q in ('SELECT * FROM "message" ORDER BY 1, 2', 'SELECT * FROM "merkleTree" ORDER BY 1'):
+        assert card_store.db.exec(q) == cpu_store.db.exec(q)

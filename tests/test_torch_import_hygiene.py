@@ -43,5 +43,7 @@ def test_port_imports_no_jax_and_touches_no_card():
     assert "evolu_tpu_torch.core.crdt_tensor" in result["modules"]
     assert "evolu_tpu_torch.runtime.worker" in result["modules"]
     assert "evolu_tpu_torch.ops.winner_cache" in result["modules"]
+    assert "evolu_tpu_torch.server.relay" in result["modules"]
+    assert "evolu_tpu_torch.server.engine" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
