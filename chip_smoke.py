@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
-LWW reconcile pass, the typed-CRDT apply, the client worker and the
-relay engine. Needs one NVIDIA Hopper card; run from the repo root:
+LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
+engine and the client handle with its encrypted sync. Needs one NVIDIA
+Hopper card; run from the repo root:
 
     python3 chip_smoke.py
 
@@ -52,8 +53,8 @@ Phases (any failure ends the run with a traceback and a nonzero code):
 7. path D   — the client `DbWorker(device=None)` with `backend="auto"` and
               the device-resident winner cache, on the config-2 todo shape
               (todo, todoCategory, todoNote): D1 one Receive of 2^19
-              messages over ~2^17 cells in 4 chunks of 2^17; D2 8 Receives
-              of 100k over a steady 5k-row population; D3 4 Receives of 50k
+              messages over ~2^17 cells in 4 chunks of 2^17; D2 5 Receives
+              of 100k over a steady 5k-row population; D3 2 Receives of 50k
               over fresh rows each (the gate streams), then 2 over the
               steady rows (and back); D4 a Send of 1k, a sweep of 10
               subscribed queries, a Sync and a Receive whose server tree
@@ -78,12 +79,32 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               table equal the oracle's; the engine's stage times (host clock,
               device leg synchronized) and route counts are printed; H and X
               launch once a device dispatch, L and S never.
-9. columns  — the reconcile pass from device-resident columns at 1M and
+9. path F   — the client handle with end-to-end encrypted sync: clients
+              made by `create_evolu`/`create_hooks(device=None)` (the
+              worker's device planner and winner cache, `backend="auto"`)
+              sync through `SyncTransport`s whose `http_post` answers with
+              `BatchReconciler(RelayStore()).run_batch_wire` on the card
+              (OpenPGP contents both ways). F1 config 1: the todo table, 2
+              replicas, 930 messages in `batching()` groups under live
+              QueryViews, B's reset_owner / restore_owner and re-sync (host
+              route); F2 config 2: A's 10 Sends of 10k, B pulls after each,
+              a third device C restores A's mnemonic after the 5th and pulls
+              the 50k history in one round, then pulls with B; F3 the typed
+              calls on path C2's board schema, 8 groups of 2,048. An oracle
+              set (`backend="cpu"` clients on `device="cpu"`,
+              `serve_single_request` on a second store) gets the same
+              commands with the same ids and clock: every client's tables,
+              OnQuery patches and query rows, the relays' trees and stored
+              (timestamp, owner) columns equal, every client's tree equal to
+              its relay's. Each step prints both sets' msgs/s, the card set's
+              wall split into encrypt, relay answer, decrypt, the workers'
+              apply and the rest, and the transports' counts.
+10. columns — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-10. timing  — L, X, H and their plain versions timed on the inputs the
+11. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them, X also on the 10M pass's
               minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
@@ -102,7 +123,7 @@ Phases (any failure ends the run with a traceback and a nonzero code):
 
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after. In the kernels JSON, `launches` is the
-sum of those counts and `launches_path_{a,b,c1,c2,d,e}` are the counts
+sum of those counts and `launches_path_{a,b,c1,c2,d,e,f}` are the counts
 themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
@@ -122,6 +143,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib
+import itertools
 import json
 import os
 import re
@@ -1014,6 +1036,9 @@ def path_c2(torch, kernels, calls):
                       "rows": sizes}
 
 
+# Receives of D2 and D3, cut from 8 and 4 + 2 to keep the whole script well
+# inside its time limit once path F was added.
+D2_BATCHES, D3_CHURN, D3_STEADY = 5, 2, 2
 D_TABLES = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",),
             "todoNote": ("text",)}
 D1_BASE = BASE_MILLIS - 1_000_000_000  # a restored device's history, before the live traffic
@@ -1153,8 +1178,12 @@ def server_trees(batches):
 
 
 def d_dump(db):
-    names = [r[0] for r in db.exec("SELECT name FROM sqlite_schema WHERE type='table' ORDER BY name")]
-    return {t: db.exec(f'SELECT * FROM "{t}" ORDER BY 1, 2') for t in names}
+    """Every table of a client, rows in key order."""
+    out = {}
+    for (t,) in db.exec("SELECT name FROM sqlite_schema WHERE type='table' ORDER BY name"):
+        cols = len(db.exec(f'PRAGMA table_info("{t}")'))
+        out[t] = db.exec(f'SELECT * FROM "{t}" ORDER BY {"1, 2" if cols > 1 else "1"}')
+    return out
 
 
 def d_outputs(worker):
@@ -1173,11 +1202,11 @@ def d_pushes(worker):
 def path_d(torch, kernels):
     """The client DbWorker on the card (`backend="auto"`, the winner cache,
     `device=None`) against a `backend="cpu"` worker fed the same commands:
-    D1 one Receive of 2^19 messages in 4 chunks of 2^17; D2 8 Receives of
-    100k over a steady population; D3 4 Receives of 50k over fresh rows
-    each, then 2 of 50k over the steady population; D4 a Send of 1k, a
-    sweep of 10 subscribed queries, a Sync, and a Receive whose server
-    tree differs. Every other Receive carries the relay's tree after the
+    D1 one Receive of 2^19 messages in 4 chunks of 2^17; D2 D2_BATCHES
+    Receives of 100k over a steady population; D3 D3_CHURN Receives of 50k
+    over fresh rows each, then D3_STEADY of 50k over the steady population;
+    D4 a Send of 1k, a sweep of 10 subscribed queries, a Sync, and a
+    Receive whose server tree differs. Every other Receive carries the relay's tree after the
     batch (`server_trees`). Returns (launches, report, the relay's trees
     after D1 and each D2 batch)."""
     from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
@@ -1189,10 +1218,10 @@ def path_d(torch, kernels):
 
     t0 = time.perf_counter()
     d1 = d1_history()
-    d2 = [config2_batch(b, 100_000) for b in range(8)]
+    d2 = [config2_batch(b, 100_000) for b in range(D2_BATCHES)]
     # Batch numbers keep rising, so each batch's millis (and the clock) do.
-    d3 = [config2_batch(8 + b, 50_000, rotate=True) for b in range(4)]
-    d3 += [config2_batch(12 + b, 50_000) for b in range(2)]
+    d3 = [config2_batch(8 + b, 50_000, rotate=True) for b in range(D3_CHURN)]
+    d3 += [config2_batch(12 + b, 50_000) for b in range(D3_STEADY)]
     trees = server_trees([d1] + [b for _, b in d2 + d3])
     print(f"  path D: {len(d1) + sum(len(b) for _, b in d2 + d3)} messages and the relay's trees "
           f"built in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1609,6 +1638,414 @@ def path_e(torch, kernels, captured):
     return launches, report
 
 
+# ---- path F: the client handle with end-to-end encrypted sync -----------------------
+
+F_TODO = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",)}
+F_BOARD = {"board": ("title", "votes:counter", "tags:awset", "body:list", "w:tensor:sum:f32:8",
+                     "avg:tensor:mean:f32:8", "peak:tensor:max:f32:8")}
+F_BASE = BASE_MILLIS + 9_000_000_000  # after every stamp of paths A-E
+F_MNEMONIC2 = "letter advice cage absurd amount doctor acoustic avoid letter advice cage above"
+F_PARTS = ("encrypt", "relay", "decrypt", "apply")
+# The scripted clock moves a minute between rounds. A pull answers every
+# message since the first differing Merkle minute, so rounds inside one
+# minute re-deliver older messages, and a re-delivered message that lost
+# its cell to a later one is XORed into the client's tree again (the
+# reference's apply does so too): the trees then never agree.
+F_ROUND_MS = 60_000
+# F2: Sends of F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2 = 10,000 messages.
+F2_SENDS, F2_CATS, F2_TODOS, F2_UPDATES = 10, 200, 1600, 700
+F3_ROWS, F3_GROUPS, F3_CALLS = 256, 8, 2048
+
+
+class FSet:
+    """One set of path F's clients and its relay. The card's set: clients
+    `create_evolu(..., device=None)` with `backend="auto"` and the winner
+    cache, the relay `BatchReconciler(RelayStore()).run_batch_wire` on the
+    card. The oracle set: `backend="cpu"` clients on `device="cpu"` (host
+    plans, host-side typed folds) and `serve_single_request` on a second
+    `RelayStore`. Each client syncs through a `SyncTransport` whose
+    `http_post` answers in process; row ids, node ids, `now` and `now_iso`
+    come from this set's own counters and scripted clock."""
+
+    def __init__(self, name, on_card, card_device=None):
+        from evolu_tpu_torch.server.engine import BatchReconciler
+        from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+        from evolu_tpu_torch.sync import protocol
+
+        self.name, self.on_card = name, on_card
+        self.device = card_device if on_card else "cpu"
+        self.store = RelayStore()
+        engine = BatchReconciler(self.store, device=self.device) if on_card else None
+        self._answer = ((lambda r: engine.run_batch_wire([r])[0]) if on_card
+                        else (lambda r: serve_single_request(self.store, r)))
+        self._decode = protocol.decode_sync_request
+        self.clock = {"now": F_BASE}
+        self._ids, self._nodes = itertools.count(), itertools.count(1)
+        self.clients, self.outputs, self.errors = {}, {}, []
+        self.parts = dict.fromkeys(F_PARTS, 0.0)
+        self.walls = {}
+
+    def post(self, url, body):
+        t0 = time.perf_counter()
+        out = self._answer(self._decode(body))
+        self.parts["relay"] += time.perf_counter() - t0
+        return out
+
+    @contextlib.contextmanager
+    def active(self):
+        """Route id and node-id draws to this set's counters, and time the
+        encrypt, decrypt and worker-apply legs into `parts`."""
+        from evolu_tpu_torch.core import timestamp as ts_mod
+        from evolu_tpu_torch.runtime import client as client_mod
+        from evolu_tpu_torch.sync import client as sync_client
+
+        def timed(fn, part):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.parts[part] += time.perf_counter() - t0
+            return run
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(client_mod, "create_id", lambda: f"f{next(self._ids):020d}"))
+            stack.enter_context(patched(ts_mod, "create_node_id", lambda: f"{next(self._nodes):016x}"))
+            stack.enter_context(patched(sync_client, "encrypt_messages",
+                                        timed(sync_client.encrypt_messages, "encrypt")))
+            stack.enter_context(patched(sync_client, "decrypt_messages",
+                                        timed(sync_client.decrypt_messages, "decrypt")))
+            yield self
+
+    def client(self, key, schema, mnemonic, hooks=False):
+        """A client on this set (create_hooks or create_evolu), wired to the
+        relay with a SyncTransport, its clock scripted, its outputs kept."""
+        from evolu_tpu_torch.api.hooks import create_hooks
+        from evolu_tpu_torch.core.timestamp import millis_to_iso
+        from evolu_tpu_torch.runtime import messages as msg
+        from evolu_tpu_torch.runtime.client import create_evolu
+        from evolu_tpu_torch.sync.client import SyncTransport
+        from evolu_tpu_torch.utils.config import Config
+
+        cfg = Config(backend="auto" if self.on_card else "cpu")
+        made = (create_hooks(schema, config=cfg, mnemonic=mnemonic, device=self.device) if hooks
+                else create_evolu(schema, config=cfg, mnemonic=mnemonic, device=self.device))
+        evolu = made.evolu if hooks else made
+        evolu.worker.now = lambda: self.clock["now"]
+        evolu._now_iso = lambda: millis_to_iso(self.clock["now"])
+        outputs = self.outputs.setdefault(key, [])
+        dispatch, handle = evolu.worker.on_output, evolu.worker.handle
+
+        def on_output(o):
+            if isinstance(o, msg.OnQuery):
+                outputs.append((o.queries_patches, o.on_complete_ids))
+            dispatch(o)
+
+        def timed_handle(command):
+            t0 = time.perf_counter()
+            try:
+                handle(command)
+            finally:
+                if isinstance(command, (msg.Send, msg.Receive)):
+                    self.parts["apply"] += time.perf_counter() - t0
+
+        evolu.worker.on_output, evolu.worker.handle = on_output, timed_handle
+        evolu.subscribe_error(self.errors.append)
+        transport = SyncTransport(cfg, on_receive=evolu.receive, sync_lock=evolu.worker.sync_lock,
+                                  on_error=lambda e: evolu._dispatch_output(msg.OnError(e)),
+                                  http_post=self.post)
+        evolu.attach_transport(transport)
+        self.clients[key] = evolu
+        return made
+
+    @staticmethod
+    def settle(evolu):
+        """Drive rounds until quiet: worker, transport, worker again, until a
+        pass moves no request (a Receive's resend queues one more round)."""
+        t = evolu._transport
+        while True:
+            n = t.counts.get("requests", 0)
+            evolu.worker.flush()
+            t.flush()
+            evolu.worker.flush()
+            if t.counts.get("requests", 0) == n:
+                return
+
+    def pull(self, evolu):
+        evolu.sync()
+        self.settle(evolu)
+
+    def check(self, step):
+        if self.errors:
+            raise AssertionError(f"path F {step} ({self.name}): the error channel got {self.errors!r}") \
+                from self.errors[0]
+
+    def close(self):
+        for e in self.clients.values():
+            e.dispose()
+
+
+def f1_todos(fs):
+    """F1, BASELINE config 1: the examples/nextjs todo table, 2 replicas,
+    ~1k messages. A (through create_hooks, with live QueryViews) makes 10
+    batching() groups of creates and updates, B pulls after each; B edits,
+    A pulls; then reset_owner and restore_owner on B (on_reload firing
+    in-process) and B's re-sync of the whole history. Every batch is under
+    `min_device_batch`: the worker plans on the host."""
+    from evolu_tpu_torch.api.query import fn
+
+    hooks = fs.client("A", F_TODO, MNEMONIC, hooks=True)
+    a = hooks.evolu
+    b = fs.client("B", F_TODO, MNEMONIC)
+    views = [
+        hooks.use_query(lambda t: t("todo").select("id", "title", "isCompleted", "categoryId")
+                        .where_is_deleted(False).order_by("id")),
+        hooks.use_query(lambda t: t("todo").select(("todo.title", "title"), ("todoCategory.name", "category"))
+                        .inner_join("todoCategory", "todoCategory.id", "todo.categoryId").order_by("todo.title")),
+        hooks.use_query(lambda t: t("todo").select("categoryId", fn.count("id").as_("n")).group_by("categoryId")
+                        .order_by("categoryId")),
+    ]
+    fired = []
+    views[0].subscribe(lambda: fired.append(1))
+    for v in views:
+        b.subscribe_query(v._query)
+    todos, n = [], 0
+    for g in range(10):
+        fs.clock["now"] += F_ROUND_MS
+        with a.batching():
+            cats = [a.create("todoCategory", {"name": f"cat{g}-{j}"}) for j in range(2)]
+            for i in range(14):
+                todos.append(a.create("todo", {"title": f"todo{g}-{i}", "isCompleted": False,
+                                                "categoryId": cats[i % 2]}))
+            for i in range(8):
+                a.update("todo", todos[(g * 11 + i * 5) % len(todos)], {"isCompleted": True})
+        n += 2 * 3 + 14 * 5 + 8 * 2
+        fs.settle(a)
+        fs.pull(b)
+    fs.clock["now"] += F_ROUND_MS
+    with b.batching():
+        for i in range(5):
+            b.update("todo", todos[i * 7], {"title": f"edited by B {i}"})
+    n += 5 * 2
+    fs.settle(b)
+    fs.pull(a)
+    reloads = []
+    b.on_reload(lambda: reloads.append(1))
+    b.reset_owner()
+    b.worker.flush()
+    b.restore_owner(MNEMONIC)
+    b.worker.flush()
+    if reloads != [1, 1] or not fired:
+        raise AssertionError(f"path F F1 ({fs.name}): on_reload fired {reloads}, the view {len(fired)} times")
+    b.update_db_schema(F_TODO)
+    fs.clock["now"] += F_ROUND_MS
+    fs.pull(b)
+    fs.pull(a)
+    rows = [v.rows for v in views] + [b.get_query_rows(v._query) for v in views]
+    return n, rows
+
+
+def f2_config2(fs):
+    """F2, BASELINE config 2: todo/todoCategory, 100k messages. A makes 10
+    Sends of 10k (1,600 todo creates, 200 category creates and 700 updates
+    a Send, in batching()); B pulls after each. After the 5th Send a third
+    device C restores A's mnemonic on an empty database and pulls the 50k
+    history in one round, then pulls with B. Every batch is device-planned."""
+    from evolu_tpu_torch.api.query import fn, table
+
+    a = fs.client("A", F_TODO, MNEMONIC)
+    b = fs.client("B", F_TODO, MNEMONIC)
+    queries = [table("todo").select("id", "title", "categoryId").order_by("id").limit(50),
+               table("todo").select(fn.count("id").as_("n"), fn.max("title").as_("m")),
+               table("todoCategory").select("id", "name").where("name", "like", "cat3-%").order_by("id")]
+    for e in (a, b):
+        for q in queries:
+            e.subscribe_query(q)
+    todos, n, c, restore_s = [], 0, None, None
+    for s in range(F2_SENDS):
+        fs.clock["now"] += F_ROUND_MS
+        with a.batching():
+            cats = [a.create("todoCategory", {"name": f"cat{s}-{j}"}) for j in range(F2_CATS)]
+            for i in range(F2_TODOS):
+                todos.append(a.create("todo", {"title": f"todo{s}-{i}", "isCompleted": 0,
+                                                "categoryId": cats[i % F2_CATS]}))
+            for i in range(F2_UPDATES):
+                a.update("todo", todos[(i * 7919 + s) % len(todos)], {"title": f"upd{s}-{i}"})
+        n += F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2
+        fs.settle(a)
+        fs.pull(b)
+        if c is not None:
+            fs.pull(c)
+        if s == F2_SENDS // 2 - 1:
+            t0 = time.perf_counter()
+            c = fs.client("C", F_TODO, F_MNEMONIC2)
+            c.restore_owner(MNEMONIC)
+            c.worker.flush()
+            c.update_db_schema(F_TODO)
+            for q in queries:
+                c.subscribe_query(q)
+            fs.pull(c)
+            restore_s = time.perf_counter() - t0
+    rows = [e.get_query_rows(q) for e in (a, b, c) for q in queries]
+    return n, rows, restore_s
+
+
+def f3_board(fs):
+    """F3, the typed calls on path C2's board schema: A creates 256 rows,
+    then 8 batching() groups of 2,048 typed calls over them (increment,
+    set_add/set_remove, list_append/list_insert/list_delete, tensor_delta
+    and tensor_set on the width-8 sum, mean and max tensors); B pulls
+    after each group. The folds run on both the Send and the Receive side."""
+    from evolu_tpu_torch.api.query import table
+
+    a = fs.client("A", F_BOARD, MNEMONIC)
+    b = fs.client("B", F_BOARD, MNEMONIC)
+    q = table("board").select("id", "title", "votes", "tags", "body").order_by("id").limit(64)
+    for e in (a, b):
+        e.subscribe_query(q)
+    fs.clock["now"] += F_ROUND_MS
+    with a.batching():
+        rows = [a.create("board", {"title": f"card{i}"}) for i in range(F3_ROWS)]
+    n = F3_ROWS * 3
+    fs.settle(a)
+    fs.pull(b)
+    for g in range(F3_GROUPS):
+        fs.clock["now"] += F_ROUND_MS
+        with a.batching():
+            for i in range(F3_CALLS):
+                # Each kind visits every row once a group.
+                row, kind = rows[(i // 8 + g * 13) % F3_ROWS], i % 8
+                vec = np.full(8, ((i + g) % 9 - 4) / 4, np.float32)
+                vec[i % 8] += 1.0
+                if kind == 0:
+                    a.increment("board", row, "votes", (i % 11) - 5)
+                elif kind == 1:
+                    a.set_add("board", row, "tags", f"t{i % 17}")
+                elif kind == 2:
+                    a.set_remove("board", row, "tags", f"t{(i + 3) % 17}")
+                elif kind == 3:
+                    a.list_append("board", row, "body", f"g{g}i{i}")
+                elif kind == 4:
+                    a.list_insert("board", row, "body", f"h{g}i{i}")
+                elif kind == 5:
+                    elems = a.list_elements("board", row, "body")
+                    if elems:
+                        a.list_delete("board", row, "body", elems[(i // 8) % len(elems)][0])
+                    else:
+                        a.list_append("board", row, "body", f"d{g}i{i}")
+                elif kind == 6 and (i // 8) % 64 == 5:
+                    a.tensor_set("board", row, "w", vec)
+                elif kind == 6:
+                    a.tensor_delta("board", row, "w", vec)
+                elif (i // 8) % 2 == 0:
+                    a.tensor_delta("board", row, "avg", vec, count=1 + (i // 8) % 3)
+                else:
+                    a.tensor_delta("board", row, "peak", vec)
+        n += F3_CALLS
+        fs.settle(a)
+        fs.pull(b)
+    tensors = [(r, c, a.tensor_value("board", r, c).tolist(), b.tensor_value("board", r, c).tolist())
+               for r in rows[:16] for c in ("w", "avg", "peak")]
+    return n, [a.get_query_rows(q), b.get_query_rows(q), tensors]
+
+
+def f_compare(step, gset, oset):
+    """Card set against oracle set: every client's tables, OnQuery patches
+    and the relays' trees and stored (timestamp, owner) columns; every
+    client's tree equal to its relay's. → table sizes."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.storage.clock import read_clock
+
+    sizes = {}
+    for key, ge in gset.clients.items():
+        oe = oset.clients[key]
+        got, want = d_dump(ge.db), d_dump(oe.db)
+        for t in sorted(set(got) | set(want)):
+            if got.get(t) != want.get(t):
+                raise AssertionError(f"path F {step}: client {key}'s table {t} differs from the oracle set's")
+        sizes[key] = {t: len(v) for t, v in want.items() if not t.startswith("__crdt_schema")}
+        if gset.outputs[key] != oset.outputs[key]:
+            raise AssertionError(f"path F {step}: client {key}'s OnQuery patches differ from the oracle set's")
+        for fs, e in ((gset, ge), (oset, oe)):
+            tree = merkle_tree_to_string(read_clock(e.db).merkle_tree)
+            if tree != fs.store.get_merkle_tree_string(e.owner.id):
+                raise AssertionError(f"path F {step}: client {key}'s tree differs from its relay's ({fs.name})")
+    for sql, what in (('SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1', "Merkle trees"),
+                      ('SELECT "userId", "timestamp" FROM "message" ORDER BY 1, 2', "stored (timestamp, owner) columns")):
+        if gset.store.db.exec(sql) != oset.store.db.exec(sql):
+            raise AssertionError(f"path F {step}: the relays' {what} differ")
+    sizes["relay_messages"] = gset.store.db.exec('SELECT COUNT(*) FROM "message"')[0][0]
+    return sizes
+
+
+def path_f(torch, kernels, card_device=None, gpu=""):
+    """The port's client handle with end-to-end encrypted sync on the card:
+    F1 (config 1), F2 (config 2, with a restored third device) and F3 (the
+    typed calls), each on a card set and an oracle set given the same
+    commands and compared after the step. The card set's wall is split into
+    encrypt (push), the relay's answer, decrypt (pull), the workers' apply
+    of Sends and Receives, and the rest. `card_device` (None = the card)
+    is where the card set runs; `gpu` (the card's nvidia-smi line) ends
+    each printed line. Returns (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+
+    report = {}
+    reset(kernels)
+    for step, drive in (("f1", f1_todos), ("f2", f2_config2), ("f3", f3_board)):
+        sets, results = [FSet("card", True, card_device), FSet("oracle", False)], []
+        before = read(kernels)
+        routes = dict(eng.counts)
+        try:
+            for fs in sets:
+                with fs.active():
+                    t0 = time.perf_counter()
+                    results.append(drive(fs))
+                    fs.walls[step] = time.perf_counter() - t0
+                fs.check(step)
+            gset, oset = sets
+            launched = {k: v - before[k] for k, v in read(kernels).items()}
+            if results[0][1] != results[1][1]:
+                raise AssertionError(f"path F {step}: query rows differ from the oracle set's")
+            t0 = time.perf_counter()
+            sizes = f_compare(step, gset, oset)
+            n = results[0][0]
+            plans = sum(sum(v for k, v in getattr(e.worker._planner, "cache").counts.items()
+                            if k in ("cached_plans", "stream_plans")) for e in gset.clients.values())
+            relay = {k: eng.counts[k] - routes[k] for k in routes}
+            parts = {k: round(v, 4) for k, v in gset.parts.items()}
+            parts["rest"] = round(gset.walls[step] - sum(gset.parts.values()), 4)
+            out = {"messages": n, "wall_s": round(gset.walls[step], 4), "msgs_per_s": round(n / gset.walls[step]),
+                   "oracle_wall_s": round(oset.walls[step], 4), "oracle_msgs_per_s": round(n / oset.walls[step]),
+                   "split_s": parts, "crypto_share": round((gset.parts["encrypt"] + gset.parts["decrypt"])
+                                                           / gset.walls[step], 4),
+                   "oracle_split_s": {k: round(v, 4) for k, v in oset.parts.items()},
+                   "launches": launched, "worker_device_plans": plans, "relay_routes": relay,
+                   "transport_counts": {k: dict(e._transport.counts) for k, e in gset.clients.items()},
+                   "rows": sizes, "compare_s": round(time.perf_counter() - t0, 3)}
+            if step == "f2":
+                out["c_restore_and_initial_sync_s"] = round(results[0][2], 4)
+                out["oracle_c_restore_and_initial_sync_s"] = round(results[1][2], 4)
+            report[step] = out
+            print(f"  path F {step}: {json.dumps(out)} | {gpu}", flush=True)
+            # The relay's device pass launches H and X; the workers' device
+            # plans launch L twice, H and X; the typed folds S (tensor sum,
+            # mean) and L (tensor max, lists).
+            if launched["timestamp_hash"] != launched["seg_xor_scan"] or launched["timestamp_hash"] < plans:
+                raise AssertionError(f"path F {step}: H and X launched {launched}, {plans} device plans")
+            if step == "f1" and (plans or launched["seg_lex_max_scan"] or launched["seg_sum_scan"]):
+                raise AssertionError(f"path F f1: the host route launched {launched} ({plans} device plans)")
+            if step != "f1" and (plans == 0 or launched["seg_lex_max_scan"] < 2 * plans):
+                raise AssertionError(f"path F {step}: L launched {launched} for {plans} device plans")
+            if (step == "f3") != (launched["seg_sum_scan"] > 0):
+                raise AssertionError(f"path F {step}: S launched {launched['seg_sum_scan']} times")
+        finally:
+            for fs in sets:
+                fs.close()
+    launches = read(kernels)
+    print(f"  path F: launches {launches} | {gpu}", flush=True)
+    return launches, report
+
+
 def engine_kernel_timing(torch, captured):
     """The three engine kernels on E1's columns: device ms (CUDA events
     around 10 back-to-back calls; and the profiler's kernel time), bytes
@@ -1974,6 +2411,8 @@ def main() -> int:
     captured_e = {}
     with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
         launches["e"], report_e = path_e(torch, kernels, captured_e)
+    with phase("path F: client handle, encrypted sync through the relay, card set vs oracle set", gpu):
+        launches["f"], report_f = path_f(torch, kernels, gpu=gpu)
     reports, captured_10m = [], {}
     # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
     for n, sink, slots in ((1_000_000, captured, ("L", "H", "X")), (10_000_000, captured_10m, ("X",))):
@@ -2008,7 +2447,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -2017,7 +2456,7 @@ def main() -> int:
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
-                      "relay": report_e}))
+                      "relay": report_e, "handle": report_f}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

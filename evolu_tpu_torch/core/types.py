@@ -1,5 +1,5 @@
 """Core CRDT data types and errors (the slice of `evolu_tpu.core.types`
-the reconcile pass, the client worker and the relay need).
+the reconcile pass, the client handle and worker, and the relay need).
 
 A `CrdtValue` is `None | str | int | float`. Messages address a single
 (table, row, column) cell and carry an HLC timestamp string that
@@ -124,6 +124,16 @@ class SyncError(EvoluError):
 
     def __init__(self) -> None:
         super().__init__("sync livelock: repeated identical merkle diff")
+
+
+class ValidationError(EvoluError):
+    """A model brand rejected a value (format or length)."""
+
+    type = "ValidationError"
+
+
+class StringMaxLengthError(ValidationError):
+    type = "StringMaxLengthError"
 
 
 class UnknownError(EvoluError):

@@ -1,1 +1,2 @@
-"""The client runtime: the single-writer `DbWorker` and its command protocol."""
+"""The client runtime: the `Evolu` handle (`client`), the single-writer
+`DbWorker` and its command protocol."""

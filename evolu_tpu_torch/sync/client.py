@@ -1,0 +1,588 @@
+"""The sync transport — SyncWorker analog.
+
+The port's copy of `evolu_tpu.sync.client`. Reference:
+packages/evolu/src/sync.worker.ts. One input shape (a sync request
+carrying optional fresh messages + the clock), one pipeline
+(sync.worker.ts:177-229): encrypt each message's content → protobuf
+SyncRequest → HTTP POST octet-stream → parse SyncResponse → decrypt →
+hand the result back to the DbWorker as a Receive command.
+
+Network failure is swallowed by design — offline is a normal state,
+recovery is the next sync trigger (sync.worker.ts:217-227). Every
+round runs under the per-database sync lock, making sync mutually
+exclusive across clients of the same database (syncLock.ts:8-12).
+
+Departures from `evolu_tpu.sync.client`, all of them routes this
+slice does not port and never replaces:
+
+- Encryption and decryption run the pure per-message loops, the
+  reference's own route when its fused C library is absent (the same
+  ciphertext format, the same exceptions in the same order).
+- Where the reference counts into its metrics registry, traces and
+  logs, the transport keeps plain `counts`; the POST carries no
+  traceparent header (the reference's path for a 2-argument
+  `http_post`).
+- The relay push-subscription leg (`Config.push_subscribe`) and the
+  partial-replication scope clause (`Config.sync_scope`) are refused
+  with NotImplementedError before any thread starts.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import urllib.error
+import urllib.parse
+import urllib.request
+from typing import Callable, Optional
+
+from evolu_tpu_torch.core.timestamp import timestamp_from_string
+from evolu_tpu_torch.core.types import CrdtMessage, UnknownError
+from evolu_tpu_torch.runtime.messages import OnError, SyncRequestInput
+from evolu_tpu_torch.runtime.synclock import SyncLock
+from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.sync.crypto import encrypt_symmetric
+from evolu_tpu_torch.utils.config import Config
+
+
+def encrypt_messages(messages, mnemonic: str):
+    """sync.worker.ts:50-91 — per-message protobuf-encode + encrypt;
+    the timestamp stays plaintext (the relay orders and diffs by it).
+    The transport always encodes with extensions allowed: the wire gate
+    (incl. strict interop, Config.wire_extensions=False) is enforced at
+    MUTATION time (worker._send), so anything in the log is either
+    authored encodable or arrived from a remote peer — and a relay must
+    forward remote messages verbatim, never refuse them (refusing here
+    would wedge anti-entropy resends forever)."""
+    out = []
+    for m in messages:
+        content = protocol.encode_content(m.table, m.row, m.column, m.value)
+        out.append(
+            protocol.EncryptedCrdtMessage(m.timestamp, encrypt_symmetric(content, mnemonic))
+        )
+    return tuple(out)
+
+
+def encrypt_messages_v2(messages, mnemonic: str):
+    """The aead-batch-v1 twin of `encrypt_messages` (sync/aead.py):
+    session-keyed GCM records instead of per-message OpenPGP S2K. Only
+    the NEGOTIATED push path calls this; it raises exactly what the v1
+    loop raises for unencodable values (encode_content owns the
+    TypeError surface in both)."""
+    session = aead.get_session(mnemonic, records=len(messages))
+    out = []
+    for m in messages:
+        content = protocol.encode_content(m.table, m.row, m.column, m.value)
+        out.append(
+            protocol.EncryptedCrdtMessage(
+                m.timestamp, aead.encrypt_record(session.key, session.salt, content)
+            )
+        )
+    return tuple(out)
+
+
+def _decrypt_one(m, password: str) -> CrdtMessage:
+    # decrypt_content dispatches v1 OpenPGP vs aead-batch-v1 records by
+    # the self-describing magic — both are read unconditionally
+    # (negotiation gates emission, never decoding).
+    table, row, column, value = protocol.decode_content(
+        aead.decrypt_content(m.content, password)
+    )
+    return CrdtMessage(m.timestamp, table, row, column, value)
+
+
+def decrypt_messages(messages, mnemonic: str):
+    """sync.worker.ts:135-173, message by message in order, so the
+    first failing message raises (PgpError for the ciphertext,
+    ValueError for the content's wire)."""
+    return tuple(_decrypt_one(m, mnemonic) for m in messages)
+
+
+class SyncTransport:
+    """Owns a transport thread; `request_sync` enqueues a round.
+
+    `on_receive(messages, merkle_tree, previous_diff)` is called with
+    the decrypted response — typically `Evolu.receive`, closing the
+    anti-entropy loop (SURVEY.md §3.3).
+
+    `counts` tallies what the reference sends to its metrics registry:
+    requests, responses and their messages and bytes, v2 push legs,
+    v1 fallbacks by reason, redirects, route and capability
+    invalidations, HTTP errors and offline rounds.
+    """
+
+    def __init__(
+        self,
+        config: Config,
+        on_receive: Callable[[tuple, str, Optional[int]], None],
+        sync_lock: Optional[SyncLock] = None,
+        on_error: Optional[Callable[[Exception], None]] = None,
+        http_post: Optional[Callable[[str, bytes], bytes]] = None,
+        http_probe: Optional[Callable[[str], None]] = None,
+        on_reconnect: Optional[Callable[[], None]] = None,
+    ):
+        if getattr(config, "sync_scope", None) is not None:
+            raise NotImplementedError(
+                "Config.sync_scope: partial replication is not ported yet (the scoped-sync slice)")
+        self.config = config
+        self.on_receive = on_receive
+        self.sync_lock = sync_lock or SyncLock()
+        self.on_error = on_error or (lambda _e: None)
+        self._http_post = http_post or _http_post
+        self._http_probe = http_probe or _http_ping
+        self.on_reconnect = on_reconnect or (lambda: None)
+        self._queue: "queue.Queue[object]" = queue.Queue()
+        self._stop = object()
+        self.counts: dict = {}
+        self._counts_lock = threading.Lock()  # the prober thread counts too
+        # Learned owner→relay routes (fleet 307 redirects). Touched only
+        # on the transport thread. Invalidated by the next 307
+        # (re-learn), a 404 (stale route — the owner moved or the relay
+        # left the fleet), or a connection failure on the learned URL
+        # (fail back to the configured relay before declaring offline).
+        self._routes: dict = {}
+        # Negotiated wire capabilities per relay URL: what the LAST
+        # response from that relay echoed back from our advertised set.
+        # Empty/absent = a v1 peer.
+        self.negotiated_capabilities: dict = {}
+        # Reconnect probing state (db.ts:390-412 analog): offline is
+        # entered by a swallowed fetch error, left by the first probe
+        # success or successful round — either fires on_reconnect.
+        self._probe_lock = threading.Lock()
+        self._probe_stop = threading.Event()
+        self._prober: Optional[threading.Thread] = None
+        self._offline = False
+        self._pending_reconnect = False  # transport-thread only
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="evolu-sync")
+        self._thread.start()
+
+    def _count(self, name: str, n: int = 1) -> None:
+        with self._counts_lock:
+            self.counts[name] = self.counts.get(name, 0) + n
+
+    def request_sync(self, request: SyncRequestInput) -> None:
+        self._queue.put(request)
+
+    def stop(self) -> None:
+        self._probe_stop.set()
+        with self._probe_lock:
+            prober = self._prober
+        if prober is not None and prober is not threading.current_thread():
+            # Bounded: the prober may be mid-GET with a 5s socket
+            # timeout; it is a daemon thread that only touches the
+            # network, so don't stall dispose() on it.
+            prober.join(timeout=0.2)
+        self._queue.put(self._stop)
+        self._thread.join()
+
+    # -- offline → online transitions --
+
+    def _note_offline(self) -> None:
+        """A fetch error was swallowed: start probing GET /ping until
+        the transport comes back (unless probing is disabled)."""
+        interval = self.config.reconnect_probe_interval
+        with self._probe_lock:
+            self._offline = True
+            if interval is None or self._probe_stop.is_set():
+                return
+            if self._prober is not None and self._prober.is_alive():
+                return
+            self._prober = threading.Thread(
+                target=self._probe_loop, args=(interval,),
+                daemon=True, name="evolu-sync-probe",
+            )
+            self._prober.start()
+
+    def _probe_loop(self, interval: float) -> None:
+        ping_url = _ping_url(self.config.sync_url)
+        delay = interval
+        try:
+            while not self._probe_stop.wait(delay):
+                with self._probe_lock:
+                    if not self._offline:
+                        return  # a successful round beat the probe
+                try:
+                    self._http_probe(ping_url)
+                except urllib.error.HTTPError:
+                    # The server ANSWERED (e.g. /ping 404s behind a
+                    # path-prefixed deployment): the transport is up.
+                    pass
+                except Exception:  # noqa: BLE001 - still offline; back
+                    # off so an hours-long outage doesn't hammer 1/s
+                    delay = min(delay * 2, max(30.0, interval))
+                    continue
+                self._came_back()
+                # Back off after a reconnect attempt too: if /ping
+                # succeeds but the sync POST keeps failing, each probe
+                # success fires a doomed round. A true recovery exits at
+                # the next _offline check. Do NOT return here: a flap may
+                # already have re-marked us offline, and exiting while
+                # _note_offline still saw this thread alive would leave
+                # NO prober running.
+                delay = min(delay * 2, max(30.0, interval))
+        finally:
+            # Closes the remaining flap window: if offline was re-set
+            # between our last check and this exit, restart a fresh
+            # prober (suppressed during stop()).
+            with self._probe_lock:
+                self._prober = None
+                restart = self._offline and not self._probe_stop.is_set()
+            if restart:
+                self._note_offline()
+
+    def _note_online(self) -> None:
+        """A round succeeded (or the server answered an error — either
+        way the transport is up); if we were offline this IS the
+        reconnect. Firing is deferred to the loop, after the sync lock
+        is released (see _loop)."""
+        with self._probe_lock:
+            was_offline = self._offline
+            self._offline = False
+        if was_offline:
+            self._pending_reconnect = True
+
+    def _came_back(self) -> None:
+        with self._probe_lock:
+            # stop() joins the daemon prober with a short timeout, so a
+            # probe can complete mid-dispose — don't fire the reconnect
+            # hook into an already-disposed Evolu instance.
+            if self._probe_stop.is_set() or not self._offline:
+                return
+            self._offline = False
+        self._fire_reconnect()
+
+    def _fire_reconnect(self) -> None:
+        self._count("reconnects")
+        try:
+            self.on_reconnect()
+        except Exception as e:  # noqa: BLE001 - hook must not kill transport
+            self.on_error(UnknownError(e))
+
+    def flush(self) -> None:
+        done = threading.Event()
+        self._queue.put(done)
+        done.wait()
+
+    def _loop(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is self._stop:
+                return
+            if isinstance(item, threading.Event):
+                item.set()
+                continue
+            with self.sync_lock.hold():
+                received = self._sync_round_body(item)
+            # Everything below runs with the sync lock RELEASED. The
+            # worker's _receive skips its anti-entropy resend while the
+            # lock is pending/held — handing it the response under the
+            # lock would race that gate and silently drop the resend.
+            # Same for the reconnect hook's pull round.
+            if received is not None:
+                try:
+                    self.on_receive(*received)
+                except Exception as e:  # noqa: BLE001
+                    self.on_error(UnknownError(e))
+            if self._pending_reconnect:
+                self._pending_reconnect = False
+                self._fire_reconnect()
+
+    def _aead_negotiated(self, url: str, caps) -> bool:
+        """v2 emission gate: we advertise aead-batch-v1 AND the LAST
+        response from `url` echoed it back. Everything else — first
+        contact, a v1 relay, a failover target we never spoke to —
+        gets the v1 wire. Decoding needs no gate (records
+        self-describe), so this only ever controls what we WRITE."""
+        return (
+            protocol.CAP_AEAD_BATCH in caps
+            and protocol.CAP_AEAD_BATCH in self.negotiated_capabilities.get(url, ())
+        )
+
+    def _drop_negotiated(self, url: str) -> None:
+        """Invalidate the cached capability set alongside a route
+        invalidation: a failover replica must be treated as
+        un-negotiated (v1) until its own response says otherwise."""
+        if self.negotiated_capabilities.pop(url, None) is not None:
+            self._count("capability_invalidations")
+
+    def _encode_push(self, request: SyncRequestInput, node_id: str,
+                     caps, use_v2: bool) -> bytes:
+        """One request body: per-message OpenPGP (v1), or — negotiated
+        only — one session key and one GCM record a message (v2).
+        Capabilities append identically on both; absent caps = the v1
+        wire byte for byte."""
+        if use_v2 and request.messages:
+            encrypted = encrypt_messages_v2(request.messages, request.owner.mnemonic)
+        else:
+            encrypted = encrypt_messages(request.messages, request.owner.mnemonic)
+        body = protocol.encode_sync_request(
+            protocol.SyncRequest(encrypted, request.owner.id, node_id, request.merkle_tree)
+        )
+        if caps:
+            body = body + protocol.encode_request_capabilities(caps)
+        return body
+
+    def _sync_round_body(self, request: SyncRequestInput):
+        """One encrypt→POST→decrypt round. Returns the decoded
+        (messages, merkle_tree, previous_diff) for the caller to hand
+        to on_receive AFTER releasing the lock, or None when there is
+        nothing to receive."""
+        caps = tuple(self.config.sync_capabilities or ())
+        owner_id = request.owner.id
+        base = self.config.sync_url
+        url = self._routes.get(owner_id, base)
+        use_v2 = self._aead_negotiated(url, caps)
+        try:
+            node_id = timestamp_from_string(request.clock_timestamp).node
+            body = self._encode_push(request, node_id, caps, use_v2)
+        except Exception as e:  # noqa: BLE001
+            self.on_error(UnknownError(e))
+            return None
+        self._count("requests")
+        self._count("request_messages", len(request.messages))
+        self._count("request_bytes", len(body))
+
+        class _Abort(Exception):
+            pass
+
+        downgraded = False
+
+        def retarget(new_url: str):
+            """Move this round to another relay. If the body was a v2
+            envelope but the new target is not negotiated for it,
+            re-emit the round as v1 — a failover replica must NEVER
+            receive v2 records it didn't advertise for."""
+            nonlocal url, body, use_v2, downgraded
+            url = new_url
+            if not (use_v2 and not self._aead_negotiated(new_url, caps)):
+                return
+            use_v2 = False
+            downgraded = True
+            try:
+                body = self._encode_push(request, node_id, caps, use_v2)
+            except Exception as e:  # noqa: BLE001 - encode must never
+                # kill the transport thread; surface and end the round
+                self.on_error(UnknownError(e))
+                raise _Abort() from e
+            self._count("v1_fallback_failover")
+
+        followed = False
+        try:
+            while True:
+                try:
+                    response_bytes = self._http_post(url, body)
+                    break
+                except urllib.error.HTTPError as e:
+                    # A fleet relay answers a non-placed sync POST with
+                    # 307 + the authoritative peer URL. Follow AT MOST ONE
+                    # redirect per request and cache the learned
+                    # owner→relay route; each hop's POST keeps its own
+                    # 429/503/connection backoff inside _http_post.
+                    location = e.headers.get("Location") if e.headers else None
+                    if e.code == 307 and location and not followed:
+                        followed = True
+                        target = urllib.parse.urljoin(url, location)
+                        self._routes[owner_id] = target
+                        self._count("redirects")
+                        retarget(target)
+                        continue
+                    if e.code in (307, 404) and self._routes.pop(owner_id, None):
+                        # A second 307 (ring churn) or a 404 (the learned
+                        # relay no longer serves this owner): the cached
+                        # route is stale — and so is what we thought that
+                        # relay had negotiated.
+                        self._count("route_invalidations")
+                        self._drop_negotiated(url)
+                        if e.code == 404 and url != base:
+                            retarget(base)
+                            continue
+                    # The server answered: a real error (4xx/5xx), not
+                    # offline — surface it so divergence isn't silent.
+                    # The transport is demonstrably UP.
+                    self._count("http_errors")
+                    self._note_online()
+                    self.on_error(UnknownError(e))
+                    return None
+                except (urllib.error.URLError, OSError):
+                    if url != base and self._routes.pop(owner_id, None):
+                        # The LEARNED relay is unreachable — that says
+                        # nothing about the configured one: drop the
+                        # route (and its negotiated set) and fail over.
+                        self._count("route_invalidations")
+                        self._drop_negotiated(url)
+                        retarget(base)
+                        continue
+                    # Offline is not an error (sync.worker.ts:217-227)
+                    # — but it arms the reconnect probe.
+                    self._count("offline_rounds")
+                    self._note_offline()
+                    return None
+        except _Abort:
+            return None
+        self._note_online()
+        # Push-mix counts AFTER the POST landed: `use_v2` reflects the
+        # FINAL body (the failover downgrade is counted in retarget).
+        if request.messages:
+            if use_v2:
+                self._count("v2_push_legs")
+                self._count("v2_push_messages", len(request.messages))
+            elif protocol.CAP_AEAD_BATCH in caps and not downgraded:
+                self._count("v1_fallback_not_negotiated")
+        if caps:
+            try:
+                negotiated = protocol.scan_sync_response_capabilities(response_bytes)
+            except ValueError:
+                negotiated = ()  # decode error surfaces below, on the real decoder
+            self.negotiated_capabilities[url] = negotiated
+        try:
+            response = protocol.decode_sync_response(response_bytes)
+            messages = decrypt_messages(response.messages, request.owner.mnemonic)
+            self._count("responses")
+            self._count("response_messages", len(messages))
+            self._count("response_bytes", len(response_bytes))
+            return (messages, response.merkle_tree, request.previous_diff)
+        except Exception as e:  # noqa: BLE001
+            self.on_error(UnknownError(e))
+            return None
+
+
+# Transport backoff policy. A sync POST is idempotent (INSERT OR
+# IGNORE + pure diff), so retrying a 429/503 or a connection failure is
+# always safe. Bounded: after the retries are spent, the original
+# error surfaces — a 4xx/5xx to on_error (divergence must not be
+# silent), a connection error to the offline/probe machinery (offline
+# remains a normal state, not an error).
+BACKOFF_RETRIES = 3
+BACKOFF_BASE_S = 0.05
+BACKOFF_MAX_S = 5.0
+RETRYABLE_HTTP = (429, 503)
+
+
+def _retry_after_seconds(error: urllib.error.HTTPError) -> Optional[float]:
+    """Parse a Retry-After header: RFC 7231 delay-seconds (a float is
+    accepted too — relays emit sub-second values for local deploys).
+    HTTP-date form and garbage fall back to our own backoff schedule
+    (None)."""
+    raw = error.headers.get("Retry-After") if error.headers else None
+    if raw is None:
+        return None
+    try:
+        value = float(raw.strip())
+    except ValueError:
+        return None
+    return value if value >= 0 else None
+
+
+def _http_post(url: str, body: bytes, *, retries: int = BACKOFF_RETRIES,
+               base_delay: float = BACKOFF_BASE_S, max_delay: float = BACKOFF_MAX_S,
+               sleep=None, rng=None, headers: Optional[dict] = None) -> bytes:
+    """POST with bounded exponential backoff + full jitter on 429/503
+    (honoring Retry-After — the relay's backpressure contract) and on
+    connection errors. `sleep`/`rng` are injectable for tests;
+    `headers` merge over the defaults."""
+    import random
+    import time
+
+    sleep = sleep or time.sleep
+    rng = rng or random.random
+    attempt = 0
+    base_headers = {"Content-Type": "application/octet-stream"}
+    if headers:
+        base_headers.update(headers)
+    while True:
+        req = urllib.request.Request(
+            url, data=body, headers=base_headers, method="POST"
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.read()
+        except urllib.error.HTTPError as e:
+            if e.code not in RETRYABLE_HTTP or attempt >= retries:
+                raise
+            delay = _retry_after_seconds(e)
+            if delay is None:
+                # Full jitter: delay ∈ [0, base * 2^attempt] — the
+                # standard de-synchronizer for a fleet of clients all
+                # bounced by the same overloaded relay.
+                delay = min(max_delay, base_delay * (2 ** attempt)) * rng()
+        except (urllib.error.URLError, OSError):
+            if attempt >= retries:
+                raise
+            delay = min(max_delay, base_delay * (2 ** attempt)) * rng()
+        sleep(min(delay, max_delay))
+        attempt += 1
+
+
+def _ping_url(sync_url: str) -> str:
+    """The relay's health endpoint (index.ts:250-252) lives at /ping on
+    the same origin as the sync POST endpoint."""
+    parts = urllib.parse.urlsplit(sync_url)
+    return urllib.parse.urlunsplit((parts.scheme, parts.netloc, "/ping", "", ""))
+
+
+def _http_ping(url: str) -> None:
+    """One cheap GET — raises while offline, returns once reachable."""
+    with urllib.request.urlopen(url, timeout=5) as resp:
+        resp.read()
+
+
+class PeriodicSyncer:
+    """Timer analog of the reference's load/online/focus sync triggers
+    (db.ts:390-412): posts a pull-only sync round every `interval`
+    seconds until stopped."""
+
+    def __init__(self, evolu, interval: float):
+        self._evolu = evolu
+        self._interval = interval
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="evolu-autosync")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval):
+            try:
+                self._evolu.sync(refresh_queries=False)
+            except Exception:  # noqa: BLE001 — never kill the timer
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not threading.current_thread():
+            self._thread.join()
+
+
+def connect(evolu, config: Optional[Config] = None) -> SyncTransport:
+    """Wire a client to its relay: transport → Evolu.receive, and
+    Evolu's post_sync → transport (db.ts:134-156's channel setup).
+    When the config sets `sync_interval`, a periodic pull starts too
+    (stopped by `evolu.dispose()`)."""
+    cfg = config or evolu.config
+    if cfg.push_subscribe:
+        raise NotImplementedError(
+            "Config.push_subscribe: the relay push leg is not ported yet (the relay tier slice)")
+
+    def on_reconnect():
+        # The reference's online listener re-syncs immediately
+        # (db.ts:390-412); app listeners fire first so they observe the
+        # transition itself. The disposed gate closes the straggler-probe
+        # race: stop() only joins the prober for 0.2s.
+        if getattr(evolu, "_disposed", False):
+            return
+        evolu._fire_reconnect()
+        evolu.sync(refresh_queries=False)
+
+    transport = SyncTransport(
+        cfg,
+        on_receive=evolu.receive,
+        sync_lock=evolu.worker.sync_lock,
+        on_error=lambda e: evolu._dispatch_output(OnError(e)),
+        on_reconnect=on_reconnect,
+    )
+    evolu.attach_transport(transport)
+    prev = getattr(evolu, "_auto_syncer", None)
+    if prev is not None:
+        prev.stop()
+        evolu._auto_syncer = None
+    if cfg.sync_interval:
+        evolu._auto_syncer = PeriodicSyncer(evolu, cfg.sync_interval)
+    return transport

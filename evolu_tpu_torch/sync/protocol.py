@@ -1,7 +1,7 @@
 """The protobuf wire contract, hand-rolled: the port's copy of
-`evolu_tpu.sync.protocol` for the client's `Send` gate and the relay's
-sync wire. `decode_content` and the replica, snapshot and fleet codecs
-come with the slices that use them.
+`evolu_tpu.sync.protocol` for the client's `Send` gate, the sync
+transport's message contents and the relay's sync wire. The replica,
+snapshot and fleet codecs come with the slices that use them.
 
 Field numbers are the contract with the reference's protobuf.proto:
 
@@ -181,6 +181,32 @@ def assert_wire_encodable(value: CrdtValue, extensions: bool = True) -> None:
     if isinstance(value, str):
         return  # skip encoding arbitrarily large strings just to gate
     encode_content("", "", "", value, extensions=extensions)
+
+
+@_wire_decoder
+def decode_content(data: bytes) -> Tuple[str, str, str, CrdtValue]:
+    table = row = column = ""
+    value: CrdtValue = None
+    pos = 0
+    while pos < len(data):
+        num, wt, v, pos = _read_field(data, pos)
+        if num == 1:
+            table = v.decode("utf-8")
+        elif num == 2:
+            row = v.decode("utf-8")
+        elif num == 3:
+            column = v.decode("utf-8")
+        elif num == 4:
+            value = v.decode("utf-8")
+        elif num == 5:
+            # int32: sign-extended 64-bit varint on the wire; truncate
+            # to int32 like every conformant decoder.
+            value = ((v & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+        elif num == 6:
+            value = struct.unpack("<d", int(v).to_bytes(8, "little"))[0]
+        elif num == 7:
+            value = v - (1 << 64) if v >= 1 << 63 else v  # int64 extension
+    return table, row, column, value
 
 
 # --- EncryptedCrdtMessage (proto:15-18) ---

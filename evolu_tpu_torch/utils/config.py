@@ -1,6 +1,7 @@
-"""Runtime configuration of the client worker: the fields of
-`evolu_tpu.utils.config.Config` that `runtime/worker.py` and its planner
-read, with the same defaults.
+"""Runtime configuration of the client: the fields of
+`evolu_tpu.utils.config.Config` that the handle (`runtime/client.py`),
+the worker and its planner (`runtime/worker.py`) and the sync transport
+(`sync/client.py`) read, with the same defaults.
 
 `backend` picks the merge PLANNER:
 
@@ -20,11 +21,13 @@ kernel.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Union
+from typing import List, Tuple, Union
 
 
 @dataclass
 class Config:
+    # The relay's sync endpoint (the transport POSTs here).
+    sync_url: str = "http://localhost:4000"
     # Accepted for the reference's shape; the port has no logger yet
     # (it comes with the observability seams).
     log: Union[bool, str, List[str]] = False
@@ -50,3 +53,21 @@ class Config:
     query_cache_max: "int | None" = 32768
     # Partial replication scope. Only None (a full replica) is ported.
     sync_scope: "object | None" = None
+    # Periodic pull interval in seconds for `sync.client.connect` (None =
+    # only explicit `sync()` calls).
+    sync_interval: "float | None" = None
+    # Wire capabilities the transport advertises. `aead-batch-v1` gates
+    # emission of session-keyed GCM records: only after a relay echoes
+    # it; every client decodes them unconditionally. () sends the v1
+    # wire byte for byte.
+    sync_capabilities: Tuple[str, ...] = (
+        "crdt-types-v1", "crdt-list-v1", "crdt-tensor-v1",
+        "aead-batch-v1", "sync-scope-v1")
+    # After a swallowed offline round, probe the relay's GET /ping from
+    # this cadence in seconds (backing off 2x a failure up to 30 s); the
+    # first success fires the reconnect hook. None disables probing.
+    reconnect_probe_interval: "float | None" = 1.0
+    # The relay push-subscription leg of `connect`. Not ported: True is
+    # refused (`connect` raises NotImplementedError).
+    push_subscribe: bool = False
+    push_poll_timeout_s: float = 25.0

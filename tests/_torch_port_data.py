@@ -152,3 +152,29 @@ def typed_batches(seed, n=600, n_batches=4):
     batches.append(msgs[(n_batches - 1) * cut:])
     batches.append([msgs[int(i)] for i in rng.integers(0, len(msgs), len(msgs) // 5)])
     return batches
+
+
+def within(seconds, fn):
+    """Run `fn` on a daemon thread and return its result; fail if it has
+    not returned after `seconds`, so a hung worker, transport or watcher
+    thread fails its test rather than the whole run."""
+    import threading
+
+    import pytest
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised on the test thread
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        pytest.fail(f"did not finish within {seconds} s")
+    if "error" in box:
+        raise box["error"]
+    return box["value"]

@@ -594,3 +594,111 @@ def test_relay_engine_on_card_matches_cpu(dev):
     assert card_routes == {"delta": 3, "full": 1, "overflow": 1, "host_owners": 0}
     for q in ('SELECT * FROM "message" ORDER BY 1, 2', 'SELECT * FROM "merkleTree" ORDER BY 1'):
         assert card_store.db.exec(q) == cpu_store.db.exec(q)
+
+
+# ---- the client handle with encrypted sync on the card ---------------------------
+
+
+def _handles_through_relay(device):
+    """Two owners, two `create_evolu` clients each (`Config(backend="cuda")`,
+    so every batch is device-planned), syncing through one relay
+    (`BatchReconciler(RelayStore())` on `device`) with a SyncTransport each.
+    Each owner's script runs on its own thread, so two owners' workers
+    launch on the card at once. → every client's tables and the relay's."""
+    import itertools
+    import threading
+
+    from evolu_tpu_torch.core import timestamp as ts_mod
+    from evolu_tpu_torch.runtime.client import create_evolu
+    from evolu_tpu_torch.runtime.synclock import SyncLock
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.sync import protocol
+    from evolu_tpu_torch.sync.client import SyncTransport
+    from evolu_tpu_torch.utils.config import Config
+
+    mnemonics = ("legal winner thank year wave sausage worth useful legal winner thank yellow",
+                 "letter advice cage absurd amount doctor acoustic avoid letter advice cage above")
+    engine, lock = BatchReconciler(RelayStore(), device=device), threading.Lock()
+
+    def post(url, body):
+        with lock:
+            return engine.run_batch_wire([protocol.decode_sync_request(body)])[0]
+
+    nodes, node = itertools.count(1), ts_mod.create_node_id
+    ts_mod.create_node_id = lambda: f"{next(nodes):016x}"
+    pairs = []
+    try:
+        for m in mnemonics:
+            pair = []
+            for _ in range(2):
+                e = create_evolu({"todo": ("title", "done")}, config=Config(backend="cuda"), mnemonic=m,
+                                 device=device)
+                clock = itertools.count(1_700_000_000_000, 60_000)  # a minute a command
+                e.worker.now = lambda c=clock: next(c)
+                e._now_iso = lambda: "2024-01-01T00:00:00.000Z"
+                e.worker.sync_lock = SyncLock()  # owners do not wait on each other
+                t = SyncTransport(e.config, on_receive=e.receive, sync_lock=e.worker.sync_lock, http_post=post)
+                e.attach_transport(t)
+                pair.append(e)
+            pairs.append(pair)
+    finally:
+        ts_mod.create_node_id = node
+
+    def settle(e):
+        while True:
+            n = e._transport.counts.get("requests", 0)
+            e.worker.flush(); e._transport.flush(); e.worker.flush()
+            if e._transport.counts.get("requests", 0) == n:
+                return
+
+    def drive(o, a, b, errors):
+        try:
+            for r in range(5):
+                with a.batching():
+                    for i in range(700):
+                        a.update("todo", f"row{(i * 7 + r) % 400}", {"title": f"o{o}r{r}i{i}", "done": i % 3})
+                settle(a)
+                b.sync()
+                settle(b)
+            with b.batching():
+                for i in range(600):
+                    b.update("todo", f"row{i % 300}", {"done": -i})
+            settle(b)
+            a.sync()
+            settle(a)
+        except BaseException as e:  # noqa: BLE001 - reported on the test thread
+            errors.append(e)
+
+    errors = []
+    threads = [threading.Thread(target=drive, args=(o, *pair, errors)) for o, pair in enumerate(pairs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    try:
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert all(e.get_error() is None for pair in pairs for e in pair)
+        dumps = [{t: e.db.exec(f'SELECT * FROM "{t}" ORDER BY 1, 2') for t in ("__message", "todo", "__clock")}
+                 for pair in pairs for e in pair]
+        relay = [engine.store.db.exec(q) for q in ('SELECT "userId", "timestamp" FROM "message" ORDER BY 1, 2',
+                                                   'SELECT * FROM "merkleTree" ORDER BY 1')]
+        return dumps, relay
+    finally:
+        for pair in pairs:
+            for e in pair:
+                e.dispose()
+
+
+def test_two_clients_sync_on_card_match_cpu(dev):
+    """Path F in small: clients on the card (their workers on two threads
+    at once, every batch device-planned, the relay's Merkle pass on the
+    card too) end with the same tables and relay as the same scripts on
+    `device="cpu"`; L, H and X launched."""
+    before = {f: f.launches for f in (cuda_scan.segmented_max_scan_cuda, cuda_scan.segmented_xor_scan_cuda,
+                                      cuda_hash.timestamp_hash_cuda)}
+    got = _handles_through_relay(None)
+    assert all(f.launches > n for f, n in before.items())
+    want = _handles_through_relay("cpu")
+    assert got == want
+    assert len(got[0][0]["__message"]) == 5 * 700 * 3 + 600 * 2  # title, done, updatedAt; done, updatedAt

@@ -2,8 +2,10 @@
 (the card's machine has none of them), directly or transitively, and
 importing it does not initialize CUDA."""
 
+import ast
 import json
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -45,5 +47,59 @@ def test_port_imports_no_jax_and_touches_no_card():
     assert "evolu_tpu_torch.ops.winner_cache" in result["modules"]
     assert "evolu_tpu_torch.server.relay" in result["modules"]
     assert "evolu_tpu_torch.server.engine" in result["modules"]
+    for name in ("api", "api.model", "api.query", "api.hooks", "utils.reload", "runtime.client",
+                 "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client"):
+        assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
+
+
+def test_cryptography_only_behind_module_not_found():
+    """`cryptography` is optional (the card's machine may not have it):
+    every import of it sits in a `try` whose handler catches
+    ModuleNotFoundError, as in the reference."""
+    found = 0
+    for path in pathlib.Path(_REPO, "evolu_tpu_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        guarded = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Try) and any(
+                    isinstance(h.type, ast.Name) and h.type.id == "ModuleNotFoundError" for h in node.handlers):
+                guarded |= {id(n) for stmt in node.body for n in ast.walk(stmt)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] == "cryptography" for n in names):
+                found += 1
+                assert id(node) in guarded, f"{path}:{node.lineno} imports cryptography unguarded"
+    assert found == 3  # crypto.py's Cipher; aead.py's AESGCM and InvalidTag
+
+
+_NO_WHEEL = r"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] == "cryptography":
+            raise ModuleNotFoundError(name)
+sys.meta_path.insert(0, Block())
+from evolu_tpu_torch.sync import aead, crypto
+assert "cryptography" not in sys.modules
+assert crypto.Cipher.__module__ == "evolu_tpu_torch.sync._evp_cfb"
+assert aead.AESGCM.__module__ == "evolu_tpu_torch.sync._evp_gcm"
+ct = crypto.encrypt_symmetric(b"payload", "pw")
+assert crypto.decrypt_symmetric(ct, "pw") == b"payload"
+s = aead.get_session("pw", records=1)
+assert aead.decrypt_content(aead.encrypt_record(s.key, s.salt, b"v2"), "pw") == b"v2"
+print("RESULT:ok")
+"""
+
+
+def test_crypto_runs_on_libcrypto_without_the_wheel():
+    """With `cryptography` absent, OpenPGP and the v2 records run on the
+    system libcrypto through ctypes."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_WHEEL], cwd=_REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "RESULT:ok" in out.stdout

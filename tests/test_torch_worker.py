@@ -212,6 +212,61 @@ def test_worker_matches_jax(pair):
             s.worker.stop()
 
 
+TYPED_PAIRS = {
+    "device planner": (dict(backend="tpu", hot_owner_min_batch=None), dict(backend="cuda")),
+    "host oracle": (dict(backend="cpu"), dict(backend="cpu")),
+}
+
+
+@pytest.mark.parametrize("fold_min", [4096, 1])
+@pytest.mark.parametrize("pair", list(TYPED_PAIRS))
+def test_typed_worker_matches_jax(pair, fold_min, monkeypatch):
+    """The DbWorker on a typed schema (counter, AW-set, RGA list, tensor
+    sum, mean and max, LWW title; malformed ops among them): Receives
+    chunked by 64 with a re-delivery last, then a Send of typed ops and a
+    malformed counter op, with the device planner (`device="cpu"`) and
+    the host oracle, the folds on their host route (4096) and on their
+    device route (1). Outputs, pushes and every table exactly equal."""
+    from evolu_tpu.core import crdt_types as jct
+    from evolu_tpu_torch.core import crdt_types as pct
+
+    from _torch_port_data import TYPED_COLUMNS, TYPED_TABLE, typed_batches
+
+    monkeypatch.setattr(jct, "DEVICE_FOLD_MIN", fold_min)
+    monkeypatch.setattr(pct, "DEVICE_FOLD_MIN", fold_min)
+    jcfg, pcfg = TYPED_PAIRS[pair]
+    jax = Side(JaxWorker, JaxDb, JaxConfig(receive_chunk_size=64, **jcfg), jmsg, jt)
+    port = Side(DbWorker, PySqliteDatabase, Config(receive_chunk_size=64, **pcfg), pmsg, pt, device="cpu")
+    query = jmsg.serialize_query(f'SELECT * FROM "{TYPED_TABLE}" ORDER BY "id"')
+    try:
+        for s in (jax, port):
+            s.worker.now = lambda ticks=iter(range(NOW + 10**7, NOW + 10**10, 1000)): next(ticks)
+            s.worker.start(MNEMONIC)
+            s.post("UpdateDbSchema", s.tables({TYPED_TABLE: TYPED_COLUMNS}))
+            s.post("Query", (query,))
+        for batch in typed_batches(3):
+            for s in (jax, port):
+                s.post("Receive", s.messages(batch), "{}")
+        local = [(TYPED_TABLE, "row1", "votes", '["c",5]'), (TYPED_TABLE, "row1", "votes", "not an op"),
+                 (TYPED_TABLE, "row2", "tags", '["a","x"]'), (TYPED_TABLE, "row2", "title", "mine")]
+        for s in (jax, port):
+            s.post("Send", s.new_messages(local), ("sent",), (query,))
+            s.worker.flush()
+        assert [_norm_output(o) for o in port.outputs] == [_norm_output(o) for o in jax.outputs]
+        assert [_norm_push(r) for r in port.pushes] == [_norm_push(r) for r in jax.pushes]
+        got, want = ({t: sorted(rows, key=repr) for t, rows in _typed_dump(s.db).items()} for s in (port, jax))
+        assert got == want
+        assert got["__crdt_counter"] and got["__crdt_list"] and got["__crdt_tensor"] and got["__crdt_kill"]
+    finally:
+        for s in (jax, port):
+            s.worker.stop()
+
+
+def _typed_dump(db):
+    names = [r[0] for r in db.exec("SELECT name FROM sqlite_schema WHERE type='table' ORDER BY name")]
+    return {t: db.exec(f'SELECT * FROM "{t}"') for t in names}
+
+
 class _PackedBatch:
     """Stands in for a packed (columnar) receive batch: sized, not a
     sequence of messages."""
@@ -221,8 +276,11 @@ class _PackedBatch:
 
 
 def test_unported_routes_raise():
-    """Scoped sync and packed receives are refused, never routed elsewhere."""
+    """Scoped sync, packed receives, the native SQLite backend and the
+    relay push leg are refused, never routed elsewhere."""
+    from evolu_tpu_torch.runtime.client import Evolu
     from evolu_tpu_torch.runtime.worker import select_planner
+    from evolu_tpu_torch.sync.client import SyncTransport, connect
 
     with pytest.raises(NotImplementedError, match="scoped-sync"):
         DbWorker(PySqliteDatabase(), Config(sync_scope=object()), device="cpu")
@@ -240,3 +298,18 @@ def test_unported_routes_raise():
     errors = [o.error for o in outputs if isinstance(o, pmsg.OnError)]
     assert [type(e) for e in errors] == [NotImplementedError] * 2
     assert "scoped-sync" in str(errors[0]) and "packed" in str(errors[1])
+    with pytest.raises(NotImplementedError, match="native"):
+        Evolu(backend="native", device="cpu")
+    with pytest.raises(NotImplementedError, match="scoped-sync"):
+        SyncTransport(Config(sync_scope=object()), on_receive=lambda *a: None)
+    e = Evolu(config=Config(backend="cpu"), mnemonic=MNEMONIC, device="cpu")
+    try:
+        packed = _PackedBatch()
+        packed.ts_slab = b""
+        with pytest.raises(NotImplementedError, match="packed"):
+            e.receive(packed, "{}")
+        with pytest.raises(NotImplementedError, match="push"):
+            connect(e, Config(push_subscribe=True))
+        assert e._transport is None
+    finally:
+        e.dispose()
