@@ -153,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 
 import numpy as np
 
@@ -1649,8 +1650,10 @@ F_PARTS = ("encrypt", "relay", "decrypt", "apply")
 # The scripted clock moves a minute between rounds. A pull answers every
 # message since the first differing Merkle minute, so rounds inside one
 # minute re-deliver older messages, and a re-delivered message that lost
-# its cell to a later one is XORed into the client's tree again (the
-# reference's apply does so too): the trees then never agree.
+# its cell to a later one is XORed into the client's tree again: the
+# trees then never agree. That is an open fault of the reference that
+# the port keeps, ROADMAP queue 3 item 2, pinned by
+# tests/test_torch_apply.py::test_redelivered_loser_is_xored_again_as_in_jax.
 F_ROUND_MS = 60_000
 # F2: Sends of F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2 = 10,000 messages.
 F2_SENDS, F2_CATS, F2_TODOS, F2_UPDATES = 10, 200, 1600, 700
@@ -1667,13 +1670,13 @@ class FSet:
     `http_post` answers in process; row ids, node ids, `now` and `now_iso`
     come from this set's own counters and scripted clock."""
 
-    def __init__(self, name, on_card, card_device=None):
+    def __init__(self, name, on_card):
         from evolu_tpu_torch.server.engine import BatchReconciler
         from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
         from evolu_tpu_torch.sync import protocol
 
         self.name, self.on_card = name, on_card
-        self.device = card_device if on_card else "cpu"
+        self.device = None if on_card else "cpu"
         self.store = RelayStore()
         engine = BatchReconciler(self.store, device=self.device) if on_card else None
         self._answer = ((lambda r: engine.run_batch_wire([r])[0]) if on_card
@@ -1681,15 +1684,23 @@ class FSet:
         self._decode = protocol.decode_sync_request
         self.clock = {"now": F_BASE}
         self._ids, self._nodes = itertools.count(), itertools.count(1)
-        self.clients, self.outputs, self.errors = {}, {}, []
+        self.clients, self.outputs, self.errors, self.faults = {}, {}, [], []
         self.parts = dict.fromkeys(F_PARTS, 0.0)
         self.walls = {}
 
     def post(self, url, body):
+        """The transport's `http_post`. A relay fault becomes an HTTP 500,
+        so the transport reports it through `on_error` and stays alive
+        (any other exception would end its thread, and `flush` would then
+        wait forever); `check` raises it with its own traceback."""
         t0 = time.perf_counter()
-        out = self._answer(self._decode(body))
-        self.parts["relay"] += time.perf_counter() - t0
-        return out
+        try:
+            return self._answer(self._decode(body))
+        except Exception as e:  # noqa: BLE001 - kept in `faults`, raised by `check`
+            self.faults.append(e)
+            raise urllib.error.HTTPError(url, 500, f"relay fault: {e!r}", None, None) from e
+        finally:
+            self.parts["relay"] += time.perf_counter() - t0
 
     @contextlib.contextmanager
     def active(self):
@@ -1758,16 +1769,17 @@ class FSet:
         self.clients[key] = evolu
         return made
 
-    @staticmethod
-    def settle(evolu):
+    def settle(self, evolu):
         """Drive rounds until quiet: worker, transport, worker again, until a
-        pass moves no request (a Receive's resend queues one more round)."""
+        pass moves no request (a Receive's resend queues one more round).
+        Fails at once when a round reported an error."""
         t = evolu._transport
         while True:
             n = t.counts.get("requests", 0)
             evolu.worker.flush()
             t.flush()
             evolu.worker.flush()
+            self.check("settle")
             if t.counts.get("requests", 0) == n:
                 return
 
@@ -1776,6 +1788,8 @@ class FSet:
         self.settle(evolu)
 
     def check(self, step):
+        if self.faults:
+            raise AssertionError(f"path F {step} ({self.name}): the relay failed") from self.faults[0]
         if self.errors:
             raise AssertionError(f"path F {step} ({self.name}): the error channel got {self.errors!r}") \
                 from self.errors[0]
@@ -1978,21 +1992,20 @@ def f_compare(step, gset, oset):
     return sizes
 
 
-def path_f(torch, kernels, card_device=None, gpu=""):
+def path_f(torch, kernels, gpu=""):
     """The port's client handle with end-to-end encrypted sync on the card:
     F1 (config 1), F2 (config 2, with a restored third device) and F3 (the
     typed calls), each on a card set and an oracle set given the same
     commands and compared after the step. The card set's wall is split into
     encrypt (push), the relay's answer, decrypt (pull), the workers' apply
-    of Sends and Receives, and the rest. `card_device` (None = the card)
-    is where the card set runs; `gpu` (the card's nvidia-smi line) ends
-    each printed line. Returns (launches, report)."""
+    of Sends and Receives, and the rest. `gpu` (the card's nvidia-smi
+    line) ends each printed line. Returns (launches, report)."""
     from evolu_tpu_torch.server import engine as eng
 
     report = {}
     reset(kernels)
     for step, drive in (("f1", f1_todos), ("f2", f2_config2), ("f3", f3_board)):
-        sets, results = [FSet("card", True, card_device), FSet("oracle", False)], []
+        sets, results = [FSet("card", True), FSet("oracle", False)], []
         before = read(kernels)
         routes = dict(eng.counts)
         try:

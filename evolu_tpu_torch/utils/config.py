@@ -70,4 +70,3 @@ class Config:
     # The relay push-subscription leg of `connect`. Not ported: True is
     # refused (`connect` raises NotImplementedError).
     push_subscribe: bool = False
-    push_poll_timeout_s: float = 25.0

@@ -29,7 +29,7 @@ from evolu_tpu_torch.storage import (
     update_db_schema,
 )
 
-from _torch_port_data import COLUMNS, jax_messages, message_tuples, port_messages
+from _torch_port_data import BASE_MILLIS, COLUMNS, jax_messages, message_tuples, port_messages, ts_string
 
 MNEMONIC = "legal winner thank year wave sausage worth useful legal winner thank yellow"
 PORT_PLANNER = functools.partial(plan_batch_device_full, device="cpu")
@@ -99,3 +99,34 @@ def test_host_planner_matches_sequential_oracle():
         oracle_tree = apply_messages_sequential(oracle, oracle_tree, port_messages(b))
     assert _dump(db) == _dump(oracle)
     assert merkle_tree_to_string(tree) == merkle_tree_to_string(oracle_tree)
+
+
+@pytest.mark.parametrize("device_planner", [False, True])
+def test_redelivered_loser_is_xored_again_as_in_jax(device_planner):
+    """A pinned fault of the reference that the port keeps (ROADMAP queue
+    3 item 2): re-delivering a message that lost its cell XORs its hash
+    into the client's tree a second time, so the tree leaves the relay's
+    (which stores by timestamp and XORs each once). A re-delivered winner
+    leaves the tree as it is. Port and JAX trees and tables stay equal at
+    each step; exact comparison."""
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.sync.protocol import EncryptedCrdtMessage
+
+    row = "row00000000000000001ab"
+    loser = (ts_string(BASE_MILLIS, 0, 1), "todo", row, "title", "old")
+    winner = (ts_string(BASE_MILLIS + 1_000, 0, 2), "todo", row, "title", "new")
+    port_planner, jax_plan = (PORT_PLANNER, jax_planner) if device_planner else (None, None)
+    pdb, jdb = _port_db(), _jax_db()
+    ptree, jtree, trees = {}, {}, []
+    for batch in ([loser, winner], [loser], [winner]):
+        ptree = apply_messages(pdb, ptree, port_messages(batch), planner=port_planner)
+        with jax.enable_x64(True):
+            jtree = jax_apply(jdb, jtree, jax_messages(batch), planner=jax_plan)
+        assert _dump(pdb) == _dump(jdb)
+        assert merkle_tree_to_string(ptree) == jax_tree_string(jtree)
+        trees.append(merkle_tree_to_string(ptree))
+    relay = RelayStore()
+    relay.add_messages("owner", [EncryptedCrdtMessage(t[0], b"x") for t in (loser, winner, loser)])
+    assert trees[0] == relay.get_merkle_tree_string("owner")
+    assert trees[1] != trees[0], "the re-delivered loser no longer changes the tree"
+    assert trees[2] == trees[1]
