@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
 LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
-engine and the client handle with its encrypted sync. Needs one NVIDIA
-Hopper card; run from the repo root:
+engine, the client handle with its encrypted sync, and the packed/native
+receive. Needs one NVIDIA Hopper card, g++, libsqlite3.so.0 and
+libcrypto; run from the repo root:
 
     python3 chip_smoke.py
 
-Phases (any failure ends the run with a traceback and a nonzero code):
+The first line names the host compiler and the soname each native
+library links (the run fails here if one cannot link). Phases (any
+failure ends the run with a traceback and a nonzero code):
 
-1. build    — nvcc builds the kernels from evolu_tpu_torch/csrc/ and,
+1. build    — g++ builds the two native host libraries from the unchanged
+              native/*.cpp into evolu_tpu_torch/_build/native/ in a thread
+              while nvcc builds the kernels from evolu_tpu_torch/csrc/ and,
               beside them, a one-row probe of H's `timestamp_hash`;
               prints ptxas' registers and spills, H's grid, and H's
               integer instructions a hashed row, counted in the probe's
@@ -27,9 +32,10 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               owners (~4 messages per cell, 60% of cells with a stored
               winner, one owner in non-canonical hex case), every
               owner's result and the digest against the host oracle
-              (`plan_batch` + `minute_deltas_host`); each kernel must
-              have launched.
-4. path B   — SQLite apply: 100k messages over todo/todoCategory in
+              (`plan_batch` + `minute_deltas_host`, owner by owner in a
+              pool of spawned processes); each kernel must have launched.
+4. path B   — SQLite apply (`PySqliteDatabase`, as in paths C2, D and E):
+              100k messages over todo/todoCategory in
               batches, then 64 replicas editing the same 100 rows,
               through `apply_messages(planner=plan_batch_device_full)`;
               every table and the Merkle tree string byte-identical to
@@ -41,7 +47,7 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               sum, mean and max, `counter_shard_sums_core` and
               `tensor_shard_sums` (1M ops, 1k owners); S and L must
               have launched.
-6. path C2 — SQLite typed apply: 8 batches of 31k messages (5k per typed
+6. path C2 — SQLite typed apply: 4 batches of 31k messages (5k per typed
               column of board(title, votes:counter, tags:awset,
               body:list, w/avg/peak tensors of width 8) + 1k titles)
               and a 10k re-delivery, through `apply_messages` with the
@@ -53,26 +59,27 @@ Phases (any failure ends the run with a traceback and a nonzero code):
 7. path D   — the client `DbWorker(device=None)` with `backend="auto"` and
               the device-resident winner cache, on the config-2 todo shape
               (todo, todoCategory, todoNote): D1 one Receive of 2^19
-              messages over ~2^17 cells in 4 chunks of 2^17; D2 5 Receives
-              of 100k over a steady 5k-row population; D3 2 Receives of 50k
-              over fresh rows each (the gate streams), then 2 over the
-              steady rows (and back); D4 a Send of 1k, a sweep of 10
+              messages over ~2^17 cells in 4 chunks of 2^17; D2 3 Receives
+              of 100k over a steady 5k-row population; D3 1 Receive of 50k
+              over fresh rows (the gate streams), then 1 over the
+              steady rows; D4 a Send of 1k, a sweep of 10
               subscribed queries, a Sync and a Receive whose server tree
               differs. A `backend="cpu"` worker gets the same commands:
               outputs, pushes and every table byte-identical; the cache
               audit after every Receive; any OnError fails. L, H and X
               must launch per device-planned chunk or batch, S never. Then
-              D1 and D2's first 2 batches again with `winner_cache=False`
+              D1 and D2's first batch again with `winner_cache=False`
               (winners streamed from SQLite), D2 timed.
 8. path E   — the relay's batched sync pass at BASELINE config 3:
-              `BatchReconciler(RelayStore()).run_batch_wire` on the card
-              against `serve_single_request` request by request on a second
+              `BatchReconciler(RelayStore(backend="python")).run_batch_wire`
+              (the generic ingest) on the card against
+              `serve_single_request` request by request on a second Python
               `RelayStore` (host hashing). E1 1M messages over 1k owners
               (benchmarks/config3_server_reconcile.py's shape, 116-byte
               contents), each request with its post-apply tree; E2 100k new
               + 50k stored + 10k in-batch duplicates, half the owners with
               their tree from before E2; E3 cold sync of 25 owners; E4, on
-              fresh stores, a millis span of 2^32 ms (the 20-B upload), every
+              fresh stores with 16,384 rows each, a millis span of 2^32 ms (the 20-B upload), every
               row its own minute (cap overflow, full-width rerun), one owner
               in upper-case hex (the host fold). After every step the
               responses' bytes, the `message` table and the `merkleTree`
@@ -80,31 +87,55 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               device leg synchronized) and route counts are printed; H and X
               launch once a device dispatch, L and S never.
 9. path F   — the client handle with end-to-end encrypted sync: clients
-              made by `create_evolu`/`create_hooks(device=None)` (the
-              worker's device planner and winner cache, `backend="auto"`)
-              sync through `SyncTransport`s whose `http_post` answers with
-              `BatchReconciler(RelayStore()).run_batch_wire` on the card
-              (OpenPGP contents both ways). F1 config 1: the todo table, 2
-              replicas, 930 messages in `batching()` groups under live
+              made by `Evolu`/`create_hooks(device=None)` with the
+              reference's defaults (storage and planner `backend="auto"`:
+              the native C++ SQLite layer, the device planner and winner
+              cache) sync through `SyncTransport`s on the native crypto leg
+              (fused push bodies; every response decoded to a
+              PackedReceive, or the step fails) whose `http_post` answers
+              with `BatchReconciler(RelayStore()).run_batch_wire` on the
+              card over a native store (OpenPGP contents both ways). F1
+              config 1: the todo table, 2 replicas, 930 messages in
+              `batching()` groups under live
               QueryViews, B's reset_owner / restore_owner and re-sync (host
               route); F2 config 2: A's 10 Sends of 10k, B pulls after each,
               a third device C restores A's mnemonic after the 5th and pulls
               the 50k history in one round, then pulls with B; F3 the typed
-              calls on path C2's board schema, 8 groups of 2,048. An oracle
-              set (`backend="cpu"` clients on `device="cpu"`,
-              `serve_single_request` on a second store) gets the same
+              calls on path C2's board schema, 4 groups of 2,048. An oracle
+              set (`backend="cpu"` clients on `device="cpu"` over
+              `PySqliteDatabase`, the pure crypto loops,
+              `serve_single_request` on a Python store) gets the same
               commands with the same ids and clock: every client's tables,
               OnQuery patches and query rows, the relays' trees and stored
               (timestamp, owner) columns equal, every client's tree equal to
               its relay's. Each step prints both sets' msgs/s, the card set's
-              wall split into encrypt, relay answer, decrypt, the workers'
-              apply and the rest, and the transports' counts.
-10. columns — the reconcile pass from device-resident columns at 1M and
+              wall split into encrypt (the push body), relay answer, decrypt
+              (the response decode), the workers' apply and the rest, the
+              responses by decode route, the apply routes and the
+              transports' counts.
+10. path G  — the packed/native receive. G1: path D's D1 and D2 (the
+              2^19-message initial sync in 4 chunks, then 3 steady
+              Receives of 100k) sealed with the native `encrypt_batch`,
+              pushed into a native `RelayStore` and served back by
+              `serve_single_request`; the card side decodes each response
+              with `decrypt_response_columns` into a `DbWorker(device=None)`
+              on `CppSqliteDatabase` with the winner cache; the same bytes
+              through the pure loops must give exactly what path D's
+              `backend="cpu"` worker on `PySqliteDatabase` received, and
+              that worker's state after D2 is the oracle: outputs, pushes,
+              tables and tree equal,
+              every chunk and batch planned and applied packed (no bounce),
+              both native libraries loaded from the port's build. G2: path
+              E's E1 and E2 requests through `BatchReconciler` on a native
+              `RelayStore` (the packed ingest), E1 also on 4 native shards:
+              responses equal path E's, tables equal path E's store. Each
+              prints msgs/s and its wall split, and H and X's launches.
+11. columns — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-11. timing  — L, X, H and their plain versions timed on the inputs the
+12. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them, X also on the 10M pass's
               minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
@@ -122,9 +153,9 @@ Phases (any failure ends the run with a traceback and a nonzero code):
               E1 gave them, against their plain versions.
 
 Every path sets every kernel's launch count to 0 just before it runs
-and reads all four just after. In the kernels JSON, `launches` is the
-sum of those counts and `launches_path_{a,b,c1,c2,d,e,f}` are the counts
-themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
+and reads all four just after (G1 and G2 each, summed as path G). In
+the kernels JSON, `launches` is the sum of those counts and
+`launches_path_{a,b,c1,c2,d,e,f,g}` are the counts themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
 the numbered changes that ported and redesigned each kernel, as
@@ -145,6 +176,7 @@ import functools
 import importlib
 import itertools
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -158,6 +190,9 @@ import urllib.error
 import numpy as np
 
 BASE_MILLIS = 1_700_000_000_000
+# Processes of the spawned pool that runs path A's host oracle and G1's
+# pure decode, off the paths that are timed.
+ORACLE_PROCESSES = 6
 MNEMONIC = "legal winner thank year wave sausage worth useful legal winner thank yellow"
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 # 132 SMs x 128 32-bit integer instructions a clock x 1.98 GHz: 4 schedulers
@@ -616,10 +651,21 @@ def lookback_stress(torch, dev):
     return len(cases) + 2 + views + 1
 
 
-def path_a(torch, kernels, need):
+def owner_oracle(msgs, winners):
+    """Path A's host oracle for one owner: `plan_batch` and the host
+    Merkle fold. → (xor mask, upserts, deltas, digest)."""
     from evolu_tpu_torch.core.merkle import minute_deltas_host
-    from evolu_tpu_torch.parallel import reconcile_owner_batches
     from evolu_tpu_torch.storage.apply import plan_batch
+
+    exp_xor, exp_upserts = plan_batch(msgs, winners)
+    exp_deltas, digest = minute_deltas_host(m.timestamp for f, m in zip(exp_xor, msgs) if f)
+    return exp_xor, exp_upserts, exp_deltas, digest
+
+
+def path_a(torch, kernels, need, pool):
+    """`reconcile_owner_batches` on config 3 against the host oracle,
+    owner by owner in the processes of `pool`."""
+    from evolu_tpu_torch.parallel import reconcile_owner_batches
 
     t0 = time.perf_counter()
     batches, winners = owner_batches()
@@ -636,18 +682,17 @@ def path_a(torch, kernels, need):
     check_launched("path A", launches, need)
     t0 = time.perf_counter()
     want_digest = 0
-    for owner, msgs in batches.items():
+    owners = list(batches)
+    expected = pool.starmap(owner_oracle, [(batches[o], winners[o]) for o in owners], chunksize=25)
+    for owner, (exp_xor, exp_upserts, exp_deltas, owner_digest) in zip(owners, expected):
         xor_mask, upserts, deltas = results[owner]
-        exp_xor, exp_upserts = plan_batch(msgs, winners[owner])
-        exp_deltas, owner_digest = minute_deltas_host(
-            m.timestamp for f, m in zip(exp_xor, msgs) if f)
         want_digest ^= owner_digest
         if xor_mask != exp_xor or set(upserts) != set(exp_upserts) or deltas != exp_deltas:
             raise AssertionError(f"path A: owner {owner} differs from the host oracle")
     if digest != want_digest:
         raise AssertionError(f"path A: digest {digest:#x} != oracle {want_digest:#x}")
     print(f"  path A: every owner and digest {digest:#010x} equal the host oracle "
-          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+          f"({time.perf_counter() - t0:.1f}s in {ORACLE_PROCESSES} processes)", flush=True)
     return launches
 
 
@@ -902,7 +947,9 @@ TYPED_COLUMNS = ("title", "votes:counter", "tags:awset", "body:list", "w:tensor:
                  "avg:tensor:mean:bf16:8", "peak:tensor:max:f32:8")
 
 
-def typed_traffic(rng, batches=8, per_column=5000, titles=1000, rows=2000, redeliver=10_000):
+# C2's batches cut from 8 to 4 when path G was added, to keep the whole
+# script inside its time limit.
+def typed_traffic(rng, batches=4, per_column=5000, titles=1000, rows=2000, redeliver=10_000):
     """Typed ops in logical time order (unique timestamps), then shuffled
     across batches, so removes reach kills before their adds, list
     inserts land on deleted anchors and deletes precede inserts. 1% of
@@ -1039,7 +1086,10 @@ def path_c2(torch, kernels, calls):
 
 # Receives of D2 and D3, cut from 8 and 4 + 2 to keep the whole script well
 # inside its time limit once path F was added.
-D2_BATCHES, D3_CHURN, D3_STEADY = 5, 2, 2
+# D2 cut from 5 to 3 Receives, D3's churn from 2 to 1 and its steady
+# Receives from 2 to 1 (and D_STREAMED_BATCHES below from 2 to 1) when
+# path G was added, to keep the whole script inside its time limit.
+D2_BATCHES, D3_CHURN, D3_STEADY = 3, 1, 1
 D_TABLES = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",),
             "todoNote": ("text",)}
 D1_BASE = BASE_MILLIS - 1_000_000_000  # a restored device's history, before the live traffic
@@ -1103,7 +1153,7 @@ class DWorker:
     """One port `DbWorker` of path D with its outputs, pushes and a
     scripted wall clock that both workers read the same way."""
 
-    def __init__(self, name, config, clock, device=None):
+    def __init__(self, name, config, clock, device=None, db=None):
         from evolu_tpu_torch.core import timestamp as ts_mod
         from evolu_tpu_torch.core.types import TableDefinition
         from evolu_tpu_torch.runtime import messages as msg
@@ -1111,7 +1161,7 @@ class DWorker:
         from evolu_tpu_torch.storage import PySqliteDatabase
 
         self.name, self.outputs, self.pushes, self.walls = name, [], [], {}
-        self.worker = DbWorker(PySqliteDatabase(), config, on_output=self.outputs.append,
+        self.worker = DbWorker(db or PySqliteDatabase(), config, on_output=self.outputs.append,
                                post_sync=self.pushes.append, now=lambda: clock["now"], device=device)
         # init_db_model seeds __clock with a random node id: one for all.
         with patched(ts_mod, "create_node_id", lambda: "0f1e2d3c4b5a6978"):
@@ -1139,13 +1189,17 @@ class DWorker:
         return wall
 
     def receive(self, phase, messages, tree="{}", previous_diff=None):
-        """A Receive; on a worker with a cache, then the audit of every
-        live slot against SQLite. → the route and the cache's counts."""
+        """A Receive (a message sequence, or a PackedReceive as it is); on a
+        worker with a cache, then the audit of every live slot against
+        SQLite. → the route and the cache's counts."""
+        from evolu_tpu_torch.core.packed import PackedReceive
         from evolu_tpu_torch.runtime import messages as msg
 
         cache = self.cache
         before = dict(cache.counts) if cache is not None else {}
-        wall = self.run(phase, msg.Receive(tuple(messages), tree, previous_diff))
+        if not isinstance(messages, PackedReceive):
+            messages = tuple(messages)
+        wall = self.run(phase, msg.Receive(messages, tree, previous_diff))
         if cache is None:
             return {"wall_s": wall}
         checked = self.worker.verify_winner_cache()
@@ -1164,26 +1218,51 @@ def server_trees(batches):
     with the batch's per-minute hash deltas XORed in. Every message of
     path D has a timestamp of its own and arrives once, so every one
     XORs; the deltas come from the port's planner with no stored winners,
-    on the CPU (no kernel launch). A Receive that carries the tree its
-    client will hold after applying the batch leaves no diff, so no
-    resend: what a relay answers after a full sync."""
-    from evolu_tpu_torch.core.merkle import apply_prefix_xors, merkle_tree_to_string
-    from evolu_tpu_torch.ops.merge import plan_batch_device_full
+    folded by `e_trees` (the plain hash on the CPU, no kernel launch). A
+    Receive that carries the tree its client will hold after applying the
+    batch leaves no diff, so no resend: what a relay answers after a full
+    sync."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.ops.host_parse import parse_timestamp_strings
 
-    tree, out = {}, []
+    trees, out = {}, []
     for batch in batches:
-        _, _, deltas = plan_batch_device_full(batch, {}, device="cpu")
-        tree = apply_prefix_xors(tree, deltas)
-        out.append(merkle_tree_to_string(tree))
+        millis, counter, node = parse_timestamp_strings([m.timestamp for m in batch])
+        e_trees(trees, np.zeros(len(batch), np.int64), millis, counter, node)
+        out.append(merkle_tree_to_string(trees[0]))
     return out
+
+
+@contextlib.contextmanager
+def bulk_reader(db):
+    """`db` for bulk reads. A database on the C++ layer is copied first
+    with `VACUUM INTO` to a temporary file and read through the stdlib
+    module: the copy holds the same rows and values, and its one-call
+    fetch costs a fraction of the C++ layer's per-cell ctypes reads at a
+    million rows."""
+    from evolu_tpu_torch.storage.native import CppSqliteDatabase
+    from evolu_tpu_torch.storage.sqlite import PySqliteDatabase
+
+    if not isinstance(db, CppSqliteDatabase):
+        yield db
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "copy.db")
+        db.exec(f"VACUUM INTO '{path}'")
+        copy = PySqliteDatabase(path)
+        try:
+            yield copy
+        finally:
+            copy.close()
 
 
 def d_dump(db):
     """Every table of a client, rows in key order."""
     out = {}
-    for (t,) in db.exec("SELECT name FROM sqlite_schema WHERE type='table' ORDER BY name"):
-        cols = len(db.exec(f'PRAGMA table_info("{t}")'))
-        out[t] = db.exec(f'SELECT * FROM "{t}" ORDER BY {"1, 2" if cols > 1 else "1"}')
+    with bulk_reader(db) as r:
+        for (t,) in r.exec("SELECT name FROM sqlite_schema WHERE type='table' ORDER BY name"):
+            cols = len(r.exec(f'PRAGMA table_info("{t}")'))
+            out[t] = r.exec(f'SELECT * FROM "{t}" ORDER BY {"1, 2" if cols > 1 else "1"}')
     return out
 
 
@@ -1209,7 +1288,9 @@ def path_d(torch, kernels):
     D4 a Send of 1k, a sweep of 10 subscribed queries, a Sync, and a
     Receive whose server tree differs. Every other Receive carries the relay's tree after the
     batch (`server_trees`). Returns (launches, report, the relay's trees
-    after D1 and each D2 batch)."""
+    after D1 and each D2 batch, D1 and the D2 batches as (base,
+    messages), and the oracle worker's outputs, pushes, tables and tree
+    after them: path G1 replays those receives against that state)."""
     from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
     from evolu_tpu_torch.core.timestamp import timestamp_to_string
     from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
@@ -1243,6 +1324,10 @@ def path_d(torch, kernels):
         clock["now"] = base
         routes["d2"].append(gpu.receive("d2", batch, tree))
         cpu.receive("d2", batch, tree)
+    # The oracle worker's state after D1 and D2: path G1 replays exactly
+    # these receives through the packed route and is held against it.
+    g1_oracle = {"outputs": d_outputs(cpu), "pushes": d_pushes(cpu), "dump": d_dump(cpu.worker.db),
+                 "tree": merkle_tree_to_string(read_clock(cpu.worker.db).merkle_tree)}
     for (base, batch), tree in zip(d3, trees[1 + len(d2):]):
         clock["now"] = base
         routes["d3"].append(gpu.receive("d3", batch, tree))
@@ -1309,20 +1394,22 @@ def path_d(torch, kernels):
     report["rows"] = sizes
     for w in (gpu, cpu):
         w.stop()
-    return launches, report, trees[:1 + len(d2)]
+    return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, g1_oracle
 
 
-# D2 batches of the winner_cache=False rerun: cut from 8 to keep the whole
-# script well inside its time limit once path E was added.
-D_STREAMED_BATCHES = 2
+# D2 batches of the winner_cache=False rerun: cut from 8 to 2 once path E
+# was added and to 1 once path G was, to keep the whole script well inside
+# its time limit.
+D_STREAMED_BATCHES = 1
 
 
-def path_d_streamed(trees):
+def path_d_streamed(trees, batches):
     """D1 and D2's first D_STREAMED_BATCHES batches again on a fresh worker
     with `winner_cache=False`: every device-planned batch streams its
     winners from SQLite (`plan_batch_device_full`), the comparison of
-    benchmarks/winner_cache.py. D2 is timed; `trees` are the relay's trees
-    after D1 and each D2 batch, so no receive leaves a diff."""
+    benchmarks/winner_cache.py. D2 is timed; `batches` are path D's D1
+    and D2 as (base, messages) and `trees` the relay's trees after each,
+    so no receive leaves a diff."""
     from evolu_tpu_torch.core.merkle import merkle_tree_to_string
     from evolu_tpu_torch.storage.clock import read_clock
     from evolu_tpu_torch.utils.config import Config
@@ -1330,10 +1417,10 @@ def path_d_streamed(trees):
     trees = trees[:1 + D_STREAMED_BATCHES]
     clock = {"now": D1_BASE}
     w = DWorker("streamed", Config(backend="auto", winner_cache=False, receive_chunk_size=1 << 17), clock)
-    w.receive("d1", d1_history(), trees[0])
+    w.receive("d1", batches[0][1], trees[0])
     walls, n = [], 0
-    for b, tree in enumerate(trees[1:]):
-        clock["now"], batch = config2_batch(b, 100_000)
+    for (base, batch), tree in zip(batches[1:], trees[1:]):
+        clock["now"] = base
         walls.append(w.receive("d2", batch, tree)["wall_s"])
         n += len(batch)
     if merkle_tree_to_string(read_clock(w.worker.db).merkle_tree) != trees[-1] or w.pushes:
@@ -1345,7 +1432,7 @@ def path_d_streamed(trees):
 
 E_MESSAGES = 1_000_000  # BASELINE config 3: 1M messages over 1k owners
 E_OWNERS = 1000
-E4_ROWS = 1 << 16
+E4_ROWS = 1 << 14  # cut from 2^16 when path G was added; every route still taken
 E_POOL = 8192
 E_CONTENT_BYTES = 116  # the reference bench's v1 OpenPGP ciphertexts measure 115-116 B
 
@@ -1428,64 +1515,46 @@ def protocol_messages(data):
 
 
 def e_dump(store):
-    return (store.db.exec('SELECT "userId", "timestamp", "content" FROM "message" ORDER BY 1, 2'),
-            store.db.exec('SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1'))
+    with bulk_reader(store.db) as r:
+        return (r.exec('SELECT "userId", "timestamp", "content" FROM "message" ORDER BY 1, 2'),
+                r.exec('SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1'))
 
 
-class EStages:
-    """Host-clock time of each stage of one engine pass, by wrapping the
-    engine's calls in their calling module and on the reconciler; the
-    device leg (upload, kernels) is synchronized on both sides."""
+class Timed:
+    """Host-clock time of named calls, swapped in on their owners (a
+    class, a module or an instance) for the length of `on()`; a call with
+    `sync` set is bracketed by torch.cuda.synchronize()."""
 
-    def __init__(self, torch, engine_mod, reconciler):
-        self.torch, self.s, self.rec = torch, {}, reconciler
-        self.swaps = [(engine_mod, "parse_timestamp_strings", "parse", False),
-                      (engine_mod, "columns_to_device", "upload", True),
-                      (engine_mod, "_merkle_shard_kernel_compact_delta", "device", True),
-                      (engine_mod, "_merkle_shard_kernel_compact", "device", True),
-                      (engine_mod, "_merkle_shard_kernel", "device", True),
-                      (engine_mod, "to_host_many", "pull", False),
-                      (engine_mod, "_decode_compact", "decode", False),
-                      (engine_mod, "decode_owner_minute_deltas", "decode", False),
-                      (engine_mod, "minute_deltas_host", "host_fold", False),
-                      (reconciler, "_new_messages", "new_messages", False),
-                      (reconciler, "_insert_new", "insert", False),
-                      (reconciler, "_store_trees", "tree_updates", False),
-                      (reconciler, "_respond_wire", "respond", False)]
+    def __init__(self, torch, swaps):
+        self.torch, self.swaps, self.s = torch, swaps, {}
 
     def _timed(self, fn, name, sync):
         def run(*a, **kw):
             if sync:
                 self.torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            if sync:
-                self.torch.cuda.synchronize()
-            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
-            return out
+            try:
+                return fn(*a, **kw)
+            finally:
+                if sync:
+                    self.torch.cuda.synchronize()
+                self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
         return run
 
     @contextlib.contextmanager
     def on(self):
         self.s = {}
-        olds = [(obj, attr, getattr(obj, attr)) for obj, attr, _, _ in self.swaps]
-        for obj, attr, name, sync in self.swaps:
-            setattr(obj, attr, self._timed(getattr(obj, attr), name, sync))
-        try:
+        with contextlib.ExitStack() as stack:
+            for obj, attr, name, sync in self.swaps:
+                stack.enter_context(patched(obj, attr, self._timed(getattr(obj, attr), name, sync)))
             yield self.s
-        finally:
-            for obj, attr, old in olds:
-                if obj is self.rec:
-                    delattr(obj, attr)  # back to the class's method
-                else:
-                    setattr(obj, attr, old)
 
 
-def path_e(torch, kernels, captured):
+def path_e(torch, kernels, captured, keep):
     """The relay's batched sync pass at config 3 on the card:
-    `BatchReconciler(RelayStore(), device=None).run_batch_wire` against
-    `serve_single_request` request by request on a second `RelayStore`
-    (host hashing). E1 steady state, 1M messages over 1k owners, each
+    `BatchReconciler(RelayStore(backend="python"), device=None).run_batch_wire`
+    (the generic ingest) against `serve_single_request` request by request
+    on a second Python `RelayStore` (host hashing). E1 steady state, 1M messages over 1k owners, each
     request with its post-apply tree; E2 re-delivery, 100k new + 50k
     stored + 10k in-batch duplicates, half the owners with their tree from
     before E2; E3 cold sync of 25 owners; E4, on fresh stores, a span of
@@ -1493,7 +1562,9 @@ def path_e(torch, kernels, captured):
     the full-width rerun), one owner in upper-case hex (the host fold).
     After every step the responses, the `message` table and the
     `merkleTree` table equal the oracle's. `captured` gets E1's engine
-    kernel inputs and its calls of H and X. Returns (launches, report)."""
+    kernel inputs and its calls of H and X; `keep` E1's and E2's requests
+    and responses and the store after E3, which path G2 replays on native
+    stores. Returns (launches, report)."""
     from evolu_tpu_torch.core.merkle import merkle_tree_to_string
     from evolu_tpu_torch.ops import merkle_ops
     from evolu_tpu_torch.server import engine as eng
@@ -1513,9 +1584,21 @@ def path_e(torch, kernels, captured):
     print(f"  path E: E1 {len(stamps)} messages over {len(e1)} owners built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    store, oracle = RelayStore(), RelayStore()
+    store, oracle = RelayStore(backend="python"), RelayStore(backend="python")
     rec = eng.BatchReconciler(store)
-    stages = EStages(torch, eng, rec)
+    stages = Timed(torch, [(eng, "parse_timestamp_strings", "parse", False),
+                           (eng, "columns_to_device", "upload", True),
+                           (eng, "_merkle_shard_kernel_compact_delta", "device", True),
+                           (eng, "_merkle_shard_kernel_compact", "device", True),
+                           (eng, "_merkle_shard_kernel", "device", True),
+                           (eng, "to_host_many", "pull", False),
+                           (eng, "_decode_compact", "decode", False),
+                           (eng, "decode_owner_minute_deltas", "decode", False),
+                           (eng, "minute_deltas_host", "host_fold", False),
+                           (rec, "_new_messages", "new_messages", False),
+                           (rec, "_insert_new", "insert", False),
+                           (rec, "_store_trees", "tree_updates", False),
+                           (rec, "_respond_wire", "respond", False)])
     report, n_steps = {}, {}
 
     def keep_state(dispatch):
@@ -1564,13 +1647,14 @@ def path_e(torch, kernels, captured):
             out["stages_s"]["other"] = round(wall - sum(s.values()), 4)
         if record:
             captured["path_e"] = calls
+        if name in ("e1", "e2"):
+            keep[name] = (requests, got)
         report[name] = out
         print(f"  path E {name}: {json.dumps(out)}", flush=True)
 
     reset(kernels)
     routes0 = dict(eng.counts)
     step("e1", e1, timed=True, record=True)
-    del e1
 
     # E2: new messages continuing E1's stamps, messages E1 stored, and
     # duplicates inside the batch, one request an owner.
@@ -1593,15 +1677,16 @@ def path_e(torch, kernels, captured):
         tree = trees1.get(o, {}) if o % 2 == 0 else trees2.get(o, {})  # half: their tree from before E2
         e2.append(e_request(users[o], [t for t, _ in rows], [c for _, c in rows], tree))
     step("e2", e2, timed=True)
-    del e2, trees1, trees2
+    del trees1, trees2
 
     # E3: restored devices with empty trees pull their owner's whole history.
     step("e3", [e_request(users[o], [], [], "{}", node="e" * 16) for o in range(25)])
 
     # E4: the other routes, about 64k rows each, on a fresh pair of stores
     # (their dumps then cost ~0.2 s, not ~5 s).
-    store.close(), oracle.close()
-    store, oracle = RelayStore(), RelayStore()
+    keep["store"] = store
+    oracle.close()
+    store, oracle = RelayStore(backend="python"), RelayStore(backend="python")
     rec = eng.BatchReconciler(store)
     def e4(tag, millis, node_of):
         n = len(millis)
@@ -1657,18 +1742,44 @@ F_PARTS = ("encrypt", "relay", "decrypt", "apply")
 F_ROUND_MS = 60_000
 # F2: Sends of F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2 = 10,000 messages.
 F2_SENDS, F2_CATS, F2_TODOS, F2_UPDATES = 10, 200, 1600, 700
-F3_ROWS, F3_GROUPS, F3_CALLS = 256, 8, 2048
+# F3's groups cut from 8 to 4 when path G was added.
+F3_ROWS, F3_GROUPS, F3_CALLS = 256, 4, 2048
+
+
+def pure_transport():
+    """A `SyncTransport` class on the pure per-message loops alone: the
+    oracle set's, independent of the native crypto leg."""
+    from evolu_tpu_torch.sync import client as sync_client
+    from evolu_tpu_torch.sync import protocol
+
+    class PureTransport(sync_client.SyncTransport):
+        def _encode_push(self, request, node_id, caps, use_v2):
+            encrypted = sync_client.encrypt_messages_pure(request.messages, request.owner.mnemonic)
+            body = protocol.encode_sync_request(
+                protocol.SyncRequest(encrypted, request.owner.id, node_id, request.merkle_tree))
+            return body + protocol.encode_request_capabilities(caps) if caps else body
+
+        def _decode_response(self, response_bytes, mnemonic):
+            response = protocol.decode_sync_response(response_bytes)
+            return sync_client.decrypt_messages_pure(response.messages, mnemonic), response.merkle_tree
+
+    return PureTransport
 
 
 class FSet:
-    """One set of path F's clients and its relay. The card's set: clients
-    `create_evolu(..., device=None)` with `backend="auto"` and the winner
-    cache, the relay `BatchReconciler(RelayStore()).run_batch_wire` on the
-    card. The oracle set: `backend="cpu"` clients on `device="cpu"` (host
-    plans, host-side typed folds) and `serve_single_request` on a second
-    `RelayStore`. Each client syncs through a `SyncTransport` whose
-    `http_post` answers in process; row ids, node ids, `now` and `now_iso`
-    come from this set's own counters and scripted clock."""
+    """One set of path F's clients and its relay. The card's set runs the
+    reference's defaults: clients `Evolu(..., device=None)` with storage
+    `backend="auto"` (the native C++ SQLite layer), planner `backend="auto"`
+    and the winner cache, the native crypto leg (fused push bodies, the
+    columnar `PackedReceive` decode), and the relay
+    `BatchReconciler(RelayStore()).run_batch_wire` on the card over the
+    native store (the packed ingest). The oracle set: `backend="cpu"`
+    clients on `device="cpu"` (host plans, host-side typed folds) over
+    `PySqliteDatabase`, the pure crypto loops (`pure_transport`), and
+    `serve_single_request` on a Python `RelayStore`. Each client syncs
+    through a transport whose `http_post` answers in process; row ids,
+    node ids, `now` and `now_iso` come from this set's own counters and
+    scripted clock."""
 
     def __init__(self, name, on_card):
         from evolu_tpu_torch.server.engine import BatchReconciler
@@ -1677,7 +1788,8 @@ class FSet:
 
         self.name, self.on_card = name, on_card
         self.device = None if on_card else "cpu"
-        self.store = RelayStore()
+        self.backend = "auto" if on_card else "python"
+        self.store = RelayStore(backend=self.backend)
         engine = BatchReconciler(self.store, device=self.device) if on_card else None
         self._answer = ((lambda r: engine.run_batch_wire([r])[0]) if on_card
                         else (lambda r: serve_single_request(self.store, r)))
@@ -1686,6 +1798,7 @@ class FSet:
         self._ids, self._nodes = itertools.count(), itertools.count(1)
         self.clients, self.outputs, self.errors, self.faults = {}, {}, [], []
         self.parts = dict.fromkeys(F_PARTS, 0.0)
+        self.decoded = {"packed": 0, "object": 0}  # responses by decode route
         self.walls = {}
 
     def post(self, url, body):
@@ -1704,43 +1817,45 @@ class FSet:
 
     @contextlib.contextmanager
     def active(self):
-        """Route id and node-id draws to this set's counters, and time the
-        encrypt, decrypt and worker-apply legs into `parts`."""
+        """Route id and node-id draws to this set's counters."""
         from evolu_tpu_torch.core import timestamp as ts_mod
         from evolu_tpu_torch.runtime import client as client_mod
-        from evolu_tpu_torch.sync import client as sync_client
-
-        def timed(fn, part):
-            def run(*a, **kw):
-                t0 = time.perf_counter()
-                try:
-                    return fn(*a, **kw)
-                finally:
-                    self.parts[part] += time.perf_counter() - t0
-            return run
 
         with contextlib.ExitStack() as stack:
             stack.enter_context(patched(client_mod, "create_id", lambda: f"f{next(self._ids):020d}"))
             stack.enter_context(patched(ts_mod, "create_node_id", lambda: f"{next(self._nodes):016x}"))
-            stack.enter_context(patched(sync_client, "encrypt_messages",
-                                        timed(sync_client.encrypt_messages, "encrypt")))
-            stack.enter_context(patched(sync_client, "decrypt_messages",
-                                        timed(sync_client.decrypt_messages, "decrypt")))
             yield self
 
+    def timed(self, fn, part):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.parts[part] += time.perf_counter() - t0
+        return run
+
     def client(self, key, schema, mnemonic, hooks=False):
-        """A client on this set (create_hooks or create_evolu), wired to the
-        relay with a SyncTransport, its clock scripted, its outputs kept."""
+        """A client on this set (create_hooks, or `Evolu` with the schema as
+        create_evolu sets it), wired to the relay with a transport, its
+        clock scripted, its outputs kept. The transport's push encode and
+        response decode are timed into `parts` ("encrypt", "decrypt"), and
+        each response counted by its decode route in `decoded`."""
         from evolu_tpu_torch.api.hooks import create_hooks
+        from evolu_tpu_torch.core.packed import PackedReceive
         from evolu_tpu_torch.core.timestamp import millis_to_iso
         from evolu_tpu_torch.runtime import messages as msg
-        from evolu_tpu_torch.runtime.client import create_evolu
+        from evolu_tpu_torch.runtime.client import Evolu
         from evolu_tpu_torch.sync.client import SyncTransport
         from evolu_tpu_torch.utils.config import Config
 
         cfg = Config(backend="auto" if self.on_card else "cpu")
-        made = (create_hooks(schema, config=cfg, mnemonic=mnemonic, device=self.device) if hooks
-                else create_evolu(schema, config=cfg, mnemonic=mnemonic, device=self.device))
+        kw = dict(config=cfg, mnemonic=mnemonic, device=self.device, backend=self.backend)
+        if hooks:
+            made = create_hooks(schema, **kw)
+        else:
+            made = Evolu(**kw)
+            made.update_db_schema(schema)
         evolu = made.evolu if hooks else made
         evolu.worker.now = lambda: self.clock["now"]
         evolu._now_iso = lambda: millis_to_iso(self.clock["now"])
@@ -1762,9 +1877,18 @@ class FSet:
 
         evolu.worker.on_output, evolu.worker.handle = on_output, timed_handle
         evolu.subscribe_error(self.errors.append)
-        transport = SyncTransport(cfg, on_receive=evolu.receive, sync_lock=evolu.worker.sync_lock,
-                                  on_error=lambda e: evolu._dispatch_output(msg.OnError(e)),
-                                  http_post=self.post)
+        transport = (SyncTransport if self.on_card else pure_transport())(
+            cfg, on_receive=evolu.receive, sync_lock=evolu.worker.sync_lock,
+            on_error=lambda e: evolu._dispatch_output(msg.OnError(e)), http_post=self.post)
+        decode = transport._decode_response
+
+        def counted(body, mnemonic):
+            messages, tree = decode(body, mnemonic)
+            self.decoded["packed" if isinstance(messages, PackedReceive) else "object"] += 1
+            return messages, tree
+
+        transport._encode_push = self.timed(transport._encode_push, "encrypt")
+        transport._decode_response = self.timed(counted, "decrypt")
         evolu.attach_transport(transport)
         self.clients[key] = evolu
         return made
@@ -2001,6 +2125,7 @@ def path_f(torch, kernels, gpu=""):
     of Sends and Receives, and the rest. `gpu` (the card's nvidia-smi
     line) ends each printed line. Returns (launches, report)."""
     from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.storage import apply as papply
 
     report = {}
     reset(kernels)
@@ -2010,10 +2135,12 @@ def path_f(torch, kernels, gpu=""):
         routes = dict(eng.counts)
         try:
             for fs in sets:
+                applied = dict(papply.counts)
                 with fs.active():
                     t0 = time.perf_counter()
                     results.append(drive(fs))
                     fs.walls[step] = time.perf_counter() - t0
+                fs.applied = {k: papply.counts[k] - applied[k] for k in applied if papply.counts[k] != applied[k]}
                 fs.check(step)
             gset, oset = sets
             launched = {k: v - before[k] for k, v in read(kernels).items()}
@@ -2033,6 +2160,8 @@ def path_f(torch, kernels, gpu=""):
                                                            / gset.walls[step], 4),
                    "oracle_split_s": {k: round(v, 4) for k, v in oset.parts.items()},
                    "launches": launched, "worker_device_plans": plans, "relay_routes": relay,
+                   "responses_decoded": gset.decoded, "oracle_responses_decoded": oset.decoded,
+                   "apply_routes": gset.applied, "oracle_apply_routes": oset.applied,
                    "transport_counts": {k: dict(e._transport.counts) for k, e in gset.clients.items()},
                    "rows": sizes, "compare_s": round(time.perf_counter() - t0, 3)}
             if step == "f2":
@@ -2051,11 +2180,271 @@ def path_f(torch, kernels, gpu=""):
                 raise AssertionError(f"path F {step}: L launched {launched} for {plans} device plans")
             if (step == "f3") != (launched["seg_sum_scan"] > 0):
                 raise AssertionError(f"path F {step}: S launched {launched['seg_sum_scan']} times")
+            if gset.decoded["object"] or not gset.decoded["packed"] or oset.decoded["packed"]:
+                raise AssertionError(f"path F {step}: responses decoded {gset.decoded} on the card set "
+                                     f"(every one through the columnar leg), {oset.decoded} on the oracle set")
         finally:
             for fs in sets:
                 fs.close()
     launches = read(kernels)
     print(f"  path F: launches {launches} | {gpu}", flush=True)
+    return launches, report
+
+
+# ---- path G: the packed/native receive and the relay's packed ingest ---------------
+
+def native_paths_in_port_build():
+    """Both native libraries' paths, asserted to be the port's own builds
+    under evolu_tpu_torch/_build/native/."""
+    from evolu_tpu_torch.utils import native_loader
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "evolu_tpu_torch", "_build", "native")
+    paths = {so: (native_loader.build_info.get(so) or {}).get("path") for so in native_loader.TARGETS}
+    for so, path in paths.items():
+        if not path or os.path.commonpath([os.path.abspath(path), root]) != root:
+            raise AssertionError(f"path G: {so} is not loaded from the port's build directory: {path}")
+    return paths
+
+
+def pure_decrypt(pool, contents, mnemonic):
+    """The pure OpenPGP loop (`decrypt_messages_pure`) over `contents` in
+    the processes of `pool`, contiguous slices in order: the G1 oracle's
+    decode, off the path the card side is timed on."""
+    from evolu_tpu_torch.sync.client import decrypt_messages_pure
+
+    size = -(-len(contents) // ORACLE_PROCESSES)
+    slices = [(contents[i:i + size], mnemonic) for i in range(0, len(contents), size)]
+    return tuple(itertools.chain.from_iterable(pool.starmap(decrypt_messages_pure, slices)))
+
+
+def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
+    """G1, a client's packed receive on the card, at path D's config-2 todo
+    shape: D1's initial sync (2^19 messages over ~2^17 cells, in 4 chunks
+    of 2^17), then D2's Receives of 100k over the 5k-row population (the
+    cached case). Each batch is sealed with the native `encrypt_batch`,
+    pushed into a native `RelayStore` (the packed ingest on the card), and
+    served back to the client as a sync response by
+    `serve_single_request`; these bytes are made before the counts are
+    reset. The card side decodes each with `decrypt_response_columns` (one
+    C call to a PackedReceive; None fails the run) and hands it to a
+    `DbWorker(device=None)` on `CppSqliteDatabase` with the winner cache.
+    The oracle decodes the same bytes with the pure loops (in the
+    processes of `pool`), which must give exactly the messages and trees
+    path D's `backend="cpu"` worker on `PySqliteDatabase` received for D1
+    and D2, with the same clock; that worker's outputs, pushes, tables and
+    tree after them (`oracle`, taken in path D) are the oracle's. They
+    must equal the card side's; every batch must plan and apply packed (no
+    bounce); L twice, H and X once a plan, S never. `batches` are path D's
+    D1 and D2 as (base, messages) and `trees` the relay's trees after
+    each. Returns (launches, report)."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.core.packed import PackedReceive
+    from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache
+    from evolu_tpu_torch.runtime import worker as worker_mod
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+    from evolu_tpu_torch.storage import apply as papply
+    from evolu_tpu_torch.storage.clock import read_clock
+    from evolu_tpu_torch.storage.native import CppSqliteDatabase
+    from evolu_tpu_torch.sync import native_crypto, protocol
+    from evolu_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    clock = {"now": D1_BASE}
+    gpu = DWorker("g1", Config(backend="auto", winner_cache=True, receive_chunk_size=1 << 17), clock,
+                  db=CppSqliteDatabase())
+    owner = gpu.worker.owner.id
+    node = read_clock(gpu.worker.db).timestamp.node
+    store = RelayStore(backend="native")
+    relay = BatchReconciler(store)
+    bodies, prev = [], "{}"
+    for (base, batch), tree in zip(batches, trees):
+        sealed = native_crypto.encrypt_batch(batch, MNEMONIC)
+        if sealed is None:
+            raise AssertionError("path G1: the native encrypt_batch declined a canonical batch")
+        pushed = protocol.decode_sync_response(
+            relay.run_batch_wire([protocol.SyncRequest(sealed, owner, "f" * 16, tree)])[0])
+        if pushed.messages or pushed.merkle_tree != tree:
+            raise AssertionError("path G1: the relay's tree after the push differs from the client's")
+        bodies.append(("d1" if not bodies else "d2", base, len(batch),
+                       serve_single_request(store, protocol.SyncRequest((), owner, node, prev))))
+        prev = tree
+    relay.close()
+    del sealed
+    print(f"  path G1: {sum(b[2] for b in bodies)} messages sealed, pushed into a native relay and "
+          f"served as {len(bodies)} responses ({sum(len(b[3]) for b in bodies)} bytes) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    split = Timed(torch, [(PackedReceive, "parse_timestamps", "hlc_fold", False),
+                          (worker_mod, "receive_timestamps_batch_packed", "hlc_fold", False),
+                          (DeviceWinnerCache, "plan_packed", "plan", False),
+                          (CppSqliteDatabase, "apply_planned_cells", "sqlite_apply", False)])
+    decrypt_s, routes = {"d1": 0.0, "d2": 0.0}, {"d1": [], "d2": []}
+    applied = dict(papply.counts)
+    reset(kernels)
+    with split.on() as parts:
+        for ph, base, n, body in bodies:
+            clock["now"] = base
+            t1 = time.perf_counter()
+            decoded = native_crypto.decrypt_response_columns(body, MNEMONIC)
+            decrypt_s[ph] += time.perf_counter() - t1
+            if decoded is None or len(decoded[0]) != n:
+                raise AssertionError(f"path G1: a response of {n} messages did not decode to columns")
+            routes[ph].append(gpu.receive(ph, *decoded))
+    launches = read(kernels)
+    apply_routes = {k: papply.counts[k] - applied[k] for k in applied}
+    parts = {k: round(v, 4) for k, v in parts.items()}
+    oracle_decrypt = {"d1": 0.0, "d2": 0.0}
+    for (ph, _base, _n, body), (_b, batch), tree in zip(bodies, batches, trees):
+        t1 = time.perf_counter()
+        response = protocol.decode_sync_response(body)
+        messages = pure_decrypt(pool, response.messages, MNEMONIC)
+        oracle_decrypt[ph] += time.perf_counter() - t1
+        if messages != tuple(batch) or response.merkle_tree != tree:
+            raise AssertionError("path G1: the pure decode of a response differs from what path D's "
+                                 "oracle worker received")
+    del messages, response
+    plans = sum(sum(r["plans"].values()) for ph in routes for r in routes[ph])
+    print(f"  path G1: launches {launches}; device plans {plans}; apply routes {json.dumps(apply_routes)}",
+          flush=True)
+    if apply_routes["packed"] != plans or apply_routes["packed_bounces"] or apply_routes["object"]:
+        raise AssertionError(f"path G1: apply routes {apply_routes} for {plans} device plans: every "
+                             f"chunk and batch must plan and apply packed, with no bounce")
+    want = {"seg_lex_max_scan": 2 * plans, "timestamp_hash": plans, "seg_xor_scan": plans, "seg_sum_scan": 0}
+    if plans == 0 or launches != want:
+        raise AssertionError(f"path G1: launches {launches}, expected {want}")
+    t1 = time.perf_counter()
+    if d_outputs(gpu) != oracle["outputs"] or d_pushes(gpu) != oracle["pushes"]:
+        raise AssertionError("path G1: outputs or pushes differ from the pure oracle's")
+    got, want_dump = d_dump(gpu.worker.db), oracle["dump"]
+    if got != want_dump:
+        raise AssertionError(f"path G1: tables {sorted(t for t in want_dump if got.get(t) != want_dump[t])} "
+                             f"differ from the pure oracle's")
+    tree = merkle_tree_to_string(read_clock(gpu.worker.db).merkle_tree)
+    if tree != trees[-1] or tree != oracle["tree"]:
+        raise AssertionError("path G1: the Merkle tree differs from the relay's or the oracle's")
+    rows = {t: len(v) for t, v in want_dump.items()}
+    del got, want_dump
+    paths = native_paths_in_port_build()
+    print(f"  path G1: outputs, pushes, every table ({json.dumps(rows)} rows) and the Merkle tree "
+          f"byte-identical to the pure oracle ({time.perf_counter() - t1:.1f}s); native libraries "
+          f"{json.dumps(paths)}", flush=True)
+    report = {}
+    for ph in ("d1", "d2"):
+        n = sum(b[2] for b in bodies if b[0] == ph)
+        wall = decrypt_s[ph] + gpu.walls[ph]
+        report[ph] = {"messages": n, "decrypt_columns_s": round(decrypt_s[ph], 4),
+                      "receive_wall_s": round(gpu.walls[ph], 4), "msgs_per_s": round(n / wall),
+                      "receive_msgs_per_s": round(n / gpu.walls[ph]),
+                      "path_d_object_route_msgs_per_s": report_d[ph]["msgs_per_s"],
+                      f"oracle_decrypt_{ORACLE_PROCESSES}_processes_s": round(oracle_decrypt[ph], 4),
+                      "oracle_wall_s_in_path_d": report_d[ph]["oracle_wall_s"],
+                      "plans_per_receive": [r["plans"] for r in routes[ph]]}
+    total = sum(decrypt_s.values()) + sum(gpu.walls[ph] for ph in ("d1", "d2"))
+    split_s = {"decrypt_columns": round(sum(decrypt_s.values()), 4), **parts}
+    split_s["rest"] = round(total - sum(split_s.values()), 4)
+    import sqlite3
+
+    report.update({"split_s": split_s, "apply_routes": apply_routes, "launches": launches,
+                   "cache_counts": dict(gpu.cache.counts), "rows": rows, "native_libraries": paths,
+                   "sqlite_versions": {"native": gpu.worker.db.exec("SELECT sqlite_version()")[0][0],
+                                       "python": sqlite3.sqlite_version}})
+    gpu.stop()
+    return launches, report
+
+
+def shards_hold_the_same_rows(single, sharded):
+    """Whether each shard of `sharded` holds exactly the rows of `single`
+    (both on the C++ layer) for the owners it places, both tables, compared
+    as the packed result bytes the C++ layer returns."""
+    owners = [r[0] for r in single.db.exec('SELECT "userId" FROM "merkleTree"')]
+    placed = {}
+    for o in owners:
+        placed.setdefault(sharded.shard_index(o), []).append(o)
+    for i, shard in enumerate(sharded.shards):
+        mine = tuple(placed.get(i, ()))
+        where = f'WHERE "userId" IN ({",".join("?" * len(mine))})' if mine else "WHERE 0"
+        for sql in ('SELECT "userId", "timestamp", "content" FROM "message" {} ORDER BY 1, 2',
+                    'SELECT "userId", "merkleTree" FROM "merkleTree" {} ORDER BY 1'):
+            if shard.db.exec_sql_query_packed_raw(sql.format("")) != \
+                    single.db.exec_sql_query_packed_raw(sql.format(where), mine):
+                return False
+    return True
+
+
+def path_g2(torch, kernels, keep):
+    """G2, the relay's packed ingest on the card: path E's E1 (1M messages
+    over 1k owners) and E2 (re-delivery) requests through
+    `BatchReconciler(RelayStore(backend="native")).run_batch_wire` (one
+    native INSERT OR IGNORE a shard with was-new flags, one native parse,
+    one device dispatch), and E1 also on a
+    `ShardedRelayStore(backend="native", shards=4)`. Every response must
+    equal path E's (the generic ingest on a Python store, itself equal to
+    `serve_single_request`), the sharded store's tables after E1 the
+    single store's, and the single store's tables after E2 those of path
+    E's store. Stage times (host clock, the device leg synchronized) for
+    the single store. H and X launch once a dispatch, L and S never.
+    Returns (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayStore, ShardedRelayStore
+    from evolu_tpu_torch.storage.native import CppSqliteDatabase
+
+    (e1, e1_out), (e2, e2_out), generic = keep.pop("e1"), keep.pop("e2"), keep.pop("store")
+    native, sharded = RelayStore(backend="native"), ShardedRelayStore(backend="native", shards=4)
+    report = {}
+    routes0 = dict(eng.counts)
+    reset(kernels)
+
+    def step(name, store, requests, want):
+        rec = eng.BatchReconciler(store)
+        stages = Timed(torch, [(CppSqliteDatabase, "relay_insert_packed", "native_insert", False),
+                               (eng, "parse_packed_timestamps", "native_parse", False),
+                               (eng, "_pack_rows", "pack", False),
+                               (eng, "deltas_from_columns", "device", True),
+                               (eng, "apply_prefix_xors", "trees", False),
+                               (eng, "merkle_tree_to_string", "trees", False),
+                               (rec, "_respond_wire", "respond", False)])
+        n = sum(len(r.messages) for r in requests)
+        try:
+            with stages.on() as s:
+                t0 = time.perf_counter()
+                got = rec.run_batch_wire(requests)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            rec.close()
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"path G2 {name}: response {bad} differs from path E's generic ingest")
+        out = {"requests": len(requests), "messages": n, "wall_s": round(wall, 4), "msgs_per_s": round(n / wall),
+               "response_messages": sum(len(protocol_messages(b)) for b in got)}
+        if store is native:  # shard threads overlap their stages: timed on the single store only
+            out["stages_s"] = {k: round(v, 4) for k, v in s.items()}
+            out["stages_s"]["other"] = round(wall - sum(s.values()), 4)
+        report[name] = out
+        print(f"  path G2 {name}: {json.dumps(out)}", flush=True)
+
+    step("e1", native, e1, e1_out)
+    step("e1_sharded_4", sharded, e1, e1_out)
+    t0 = time.perf_counter()
+    if not shards_hold_the_same_rows(native, sharded):
+        raise AssertionError("path G2: the 4-shard store's tables after E1 differ from the single store's")
+    del e1, e1_out
+    sharded.close()
+    step("e2", native, e2, e2_out)
+    if e_dump(native) != e_dump(generic):
+        raise AssertionError("path G2: the native store's tables after E2 differ from path E's Python store")
+    report["compare_s"] = round(time.perf_counter() - t0, 3)
+    native.close(), generic.close()
+    launches = read(kernels)
+    routes = {k: v - routes0[k] for k, v in eng.counts.items()}
+    report["route_counts"] = routes
+    print(f"  path G2: launches {launches}; route counts {json.dumps(routes)}", flush=True)
+    if routes != {"delta": 3, "full": 0, "overflow": 0, "host_owners": 0}:
+        raise AssertionError(f"path G2: routes {routes}, expected one 16-B dispatch a step")
+    want = {"seg_lex_max_scan": 0, "timestamp_hash": 3, "seg_xor_scan": 3, "seg_sum_scan": 0}
+    if launches != want:
+        raise AssertionError(f"path G2: launches {launches}, expected {want}")
     return launches, report
 
 
@@ -2359,6 +2748,36 @@ def time_kernels(torch, kernels, captured):
     return rows
 
 
+def native_build():
+    """Build the two native host libraries (g++, at first use) in a thread
+    while nvcc builds the kernels. → a function that waits for the build
+    and raises its log if it failed."""
+    import threading
+
+    from evolu_tpu_torch.storage.native import load_library
+    from evolu_tpu_torch.sync import native_crypto
+    from evolu_tpu_torch.utils import native_loader
+
+    errors = []
+
+    def build():
+        try:
+            load_library()
+            native_loader.load_native_library(native_crypto.SO_NAME, native_crypto._configure)
+        except native_loader.NativeBuildError as e:
+            errors.append(e)
+
+    thread = threading.Thread(target=build, name="native-build")
+    thread.start()
+
+    def join():
+        thread.join()
+        if errors:
+            raise errors[0]
+
+    return join
+
+
 def main() -> int:
     import torch
 
@@ -2366,6 +2785,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
     from evolu_tpu_torch.ops import cuda_hash, cuda_lib, cuda_scan
+    from evolu_tpu_torch.utils import native_loader
+
+    tools = native_loader.toolchain()
+    print(f"native toolchain: {tools['compiler']}; links: "
+          + ", ".join(f"{so} -> {linked or 'NONE'}" for so, linked in tools["links"].items()), flush=True)
+    missing = [so for so, linked in tools["links"].items() if linked is None]
+    if missing:
+        raise AssertionError(f"the native libraries {missing} cannot link here (no libsqlite3.so.0 or "
+                             f"libcrypto); path G needs them")
 
     gpu = gpu_line()
     dev = torch.device("cuda")
@@ -2390,6 +2818,7 @@ def main() -> int:
     global h_ops_per_row
     with phase("build", gpu), tempfile.TemporaryDirectory() as tmp:
         probe = start_hash_probe(tmp)
+        native_built = native_build()
         lib = cuda_lib.load()
         print(f"  build {cuda_lib.build_info['seconds']:.2f}s -> {cuda_lib.build_info['path']}")
         for line in cuda_lib.build_info["log"].splitlines():
@@ -2399,38 +2828,58 @@ def main() -> int:
         h_ops_per_row, detail = sass_ops_per_hashed_row(*probe)
         print(f"  H integer instructions a hashed row: {h_ops_per_row}, counted in the SASS of "
               f"timestamp_hash alone: {detail}", flush=True)
+        native_built()
+        for so, info in native_loader.build_info.items():
+            print(f"  native {so}: {info['seconds']:.2f}s -> {info['path']} (links {info['linked']})", flush=True)
+        native_paths_in_port_build()
     with phase("kernels vs plain", gpu):
         kernels_vs_plain(torch, dev)
         print(f"  L, X and S equal their plain versions on {lookback_stress(torch, dev)} look-back stress cases")
         print(f"  H equals its plain version on {hash_stress(torch, dev)} digest and size stress cases")
     launches = {}
+    # Daemonic workers: an exception that ends the run ends them too.
+    pool = multiprocessing.get_context("spawn").Pool(ORACLE_PROCESSES)
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
-        launches["a"] = path_a(torch, kernels, lww_names)
+        launches["a"] = path_a(torch, kernels, lww_names, pool)
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
         launches["b"] = path_b(torch, kernels, lww_names)
     captured, c2_calls = {}, {}
     with phase("path C1: typed folds at benchmark sizes", gpu):
         launches["c1"], report_c1 = path_c1(torch, kernels, captured)
         print("  " + json.dumps(report_c1), flush=True)
-    with phase("path C2: SQLite typed apply 8 x 31k + 10k re-delivery", gpu):
+    with phase("path C2: SQLite typed apply 4 x 31k + 10k re-delivery", gpu):
         launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
         print("  " + json.dumps(report_c2), flush=True)
     with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
-        launches["d"], report_d, trees_d2 = path_d(torch, kernels)
+        launches["d"], report_d, trees_d2, batches_d, g1_oracle = path_d(torch, kernels)
         print("  " + json.dumps(report_d), flush=True)
     with phase("path D timing: D1 + D2 with winner_cache=False", gpu):
-        report_d["d2_winner_cache_off"] = path_d_streamed(trees_d2)
+        report_d["d2_winner_cache_off"] = path_d_streamed(trees_d2, batches_d)
         print("  " + json.dumps(report_d["d2_winner_cache_off"]), flush=True)
-    captured_e = {}
+    captured_e, keep_e = {}, {}
     with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
-        launches["e"], report_e = path_e(torch, kernels, captured_e)
+        launches["e"], report_e = path_e(torch, kernels, captured_e, keep_e)
     with phase("path F: client handle, encrypted sync through the relay, card set vs oracle set", gpu):
         launches["f"], report_f = path_f(torch, kernels, gpu=gpu)
+    with phase("path G1: packed receive, native decrypt to columns into a card DbWorker on the C++ "
+               "SQLite layer vs the pure oracle", gpu):
+        launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, g1_oracle, pool)
+        del batches_d, g1_oracle
+        print("  " + json.dumps(report_g1) + f" | {gpu}", flush=True)
+    pool.terminate()
+    pool.join()
+    with phase("path G2: the relay's packed ingest on native stores vs path E's generic ingest", gpu):
+        launches_g2, report_g2 = path_g2(torch, kernels, keep_e)
+        print("  " + json.dumps(report_g2) + f" | {gpu}", flush=True)
+    launches["g"] = {k: launches_g1[k] + launches_g2[k] for k in launches_g1}
+    report_g = {"g1": report_g1, "g2": report_g2, "launches_g1": launches_g1, "launches_g2": launches_g2}
     reports, captured_10m = [], {}
     # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
-    for n, sink, slots in ((1_000_000, captured, ("L", "H", "X")), (10_000_000, captured_10m, ("X",))):
+    # The 10M pass runs once (cut from a median of 3 when path G was added).
+    for n, sink, slots, reps in ((1_000_000, captured, ("L", "H", "X"), 3),
+                                 (10_000_000, captured_10m, ("X",), 1)):
         with phase(f"columns pass {n:,} messages", gpu):
-            decoded, report, (kernel, args) = columns_pass(torch, n, sink, slots)
+            decoded, report, (kernel, args) = columns_pass(torch, n, sink, slots, reps=reps)
             check_against_plain(decoded, plain_reference(torch, kernel, args), f"columns {n}")
             print("  " + json.dumps(report), flush=True)
             reports.append(report)
@@ -2460,7 +2909,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -2469,7 +2918,7 @@ def main() -> int:
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
-                      "relay": report_e, "handle": report_f}))
+                      "relay": report_e, "handle": report_f, "packed_native": report_g}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -158,6 +158,31 @@ def receive_timestamps_batch(
     )
 
 
+def receive_timestamps_batch_packed(
+    local: Timestamp, millis, counter, node_u64, nodes, now: int = 0, max_drift: int = 60000,
+) -> Timestamp:
+    """`receive_timestamps_batch` for the packed receive: node ids arrive
+    as the parsed uint64 column, and `nodes` is a zero-argument callable
+    giving the raw node strings, called only when a screen fires and
+    the exact sequential fold must run. The duplicate-node screen
+    compares u64 values, which is case-insensitive and so a superset of
+    the sequential fold's exact string equality: a false positive only
+    costs the slow path, never a wrong outcome."""
+    try:
+        local_u64 = np.uint64(int(local.node, 16))
+    except (ValueError, OverflowError):
+        # A non-hex or out-of-range local node: sequential, as the
+        # safe path for direct callers (the worker's strict parse pins
+        # 16 hex characters).
+        return _receive_batch(local, millis, counter, now, max_drift,
+                              dup_screen=lambda: True, nodes=nodes)
+    return _receive_batch(
+        local, millis, counter, now, max_drift,
+        dup_screen=lambda: bool((np.asarray(node_u64, np.uint64) == local_u64).any()),
+        nodes=nodes,
+    )
+
+
 def _receive_batch(
     local: Timestamp, millis, counter, now: int, max_drift: int, dup_screen, nodes,
 ) -> Timestamp:

@@ -1,9 +1,11 @@
-"""Vectorized host-side batch parsing (numpy only).
+"""Vectorized host-side batch parsing.
 
 Parses a whole batch of canonical 46-char timestamp strings and interns
 cells with numpy, leaving no per-message Python in the batched apply
 path. Timestamps must be exactly `YYYY-MM-DDTHH:mm:ss.sssZ-CCCC-node16`;
 any malformed row raises TimestampParseError, aborting the batch.
+`parse_packed_timestamps` parses an already-packed buffer of 46-byte
+records in one call into the native host library.
 """
 
 from __future__ import annotations
@@ -114,6 +116,41 @@ def parse_timestamp_strings(timestamps: Sequence[str], with_case: bool = False):
             | ((nb >= ord("A")) & (nb <= ord("F"))).any(axis=1)
         )
         return millis, counter, node, case_ok
+    return millis, counter, node
+
+
+def parse_packed_timestamps(packed: bytes, n: int, with_case: bool = False, strict: bool = True):
+    """Native (C) batch parse over an already-packed buffer of n 46-byte
+    records: one pass, and no join when the caller already built the
+    buffer (the relay's packed ingest reuses its insert buffer here).
+
+    Returns the same tuple as `parse_timestamp_strings`. With
+    `strict=False`, returns None when the native library is unavailable
+    so the caller can parse the strings with numpy."""
+    import ctypes
+
+    from evolu_tpu_torch.storage.native import load_library, native_available
+
+    if not strict and not native_available():
+        return None
+    lib = load_library()
+    if len(packed) != n * _LEN:
+        raise TimestampParseError("malformed timestamp in batch")
+    millis = np.empty(n, np.int64)
+    counter = np.empty(n, np.int32)
+    node = np.empty(n, np.uint64)
+    case_ok = np.empty(n, np.uint8)
+    rc = lib.eh_parse_timestamps(
+        packed, n,
+        millis.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        counter.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        node.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        case_ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    if rc != 0:
+        raise TimestampParseError("malformed timestamp in batch")
+    if with_case:
+        return millis, counter, node, case_ok.astype(bool)
     return millis, counter, node
 
 

@@ -312,6 +312,39 @@ def _run_full_plan(cell_ids, k1, k2, ex_k1, ex_k2, n: int, device):
     return xor_mask[:n], upsert_mask[:n], deltas
 
 
+def plan_packed_device_full(cell_ids, k1, k2, ex_k1, ex_k2, n: int, device=None):
+    """The columns-only twin of `plan_batch_device_full` for a
+    `PackedReceive`: the same kernels, but the result is
+    `(xor_mask, upsert_mask, deltas)` with positional numpy masks only;
+    the packed SQLite apply binds straight from the batch's buffers, so
+    no `upserts` message list is built."""
+    return _run_full_plan(cell_ids, k1, k2, ex_k1, ex_k2, n, resolve_device(device))
+
+
+def plan_packed_streamed(db, pb, millis, counter, node, cells, touched_ids, device=None):
+    """Packed plan with winners streamed from SQLite for the touched
+    cells: one copy of the fetch, scatter and plan sequence, shared by
+    the winner cache's streaming mode and the worker's no-cache packed
+    route (they must stay identical or the cache-on and -off routes
+    diverge). `cells` are the touched unique cells; `touched_ids` their
+    indices into `pb.cells`. None on a non-canonical stored winner (the
+    caller materializes the batch for the object path)."""
+    from evolu_tpu_torch.storage.apply import fetch_existing_winners
+
+    winners = fetch_existing_winners(db, cells)
+    ex1_t, ex2_t, canonical = winner_key_columns(cells, winners)
+    if not canonical:
+        return None
+    ex1 = np.zeros(len(pb.cells), np.uint64)
+    ex2 = np.zeros(len(pb.cells), np.uint64)
+    ex1[touched_ids] = ex1_t
+    ex2[touched_ids] = ex2_t
+    k1 = pack_ts_key_host(millis, counter)
+    return plan_packed_device_full(
+        pb.cell_id, k1, node, ex1[pb.cell_id], ex2[pb.cell_id], pb.n, device
+    )
+
+
 def plan_batch_device_full(
     messages: Sequence[CrdtMessage],
     existing_winners: Dict[Tuple[str, str, str], str],

@@ -376,6 +376,52 @@ class DeviceWinnerCache:
         ).get(0, {})
         return xor_mask[:n], upsert_mask[:n], deltas
 
+    def plan_packed(self, pb):
+        """The packed twin of `plan_batch` for a `PackedReceive`: the
+        columns come straight from the C decrypt (timestamps parsed once
+        over the 46-wide slab, cells already interned), and the result
+        is positional numpy masks `(xor_mask, upsert_mask, deltas)` for
+        the packed SQLite apply, so no upsert message list is built.
+
+        None when the batch must take the object path instead:
+        non-canonical hex case in the batch (checked before any EWMA or
+        cache change, so the re-route through `plan_batch` keeps the
+        gate's state equal to an object-only flow), or a non-canonical
+        stored winner seed (`_skip_ewma_once` is armed before that
+        bounce, so the re-entered gate does not sample the EWMA twice
+        for one batch)."""
+        n = pb.n
+        if n == 0:
+            return np.zeros(0, bool), np.zeros(0, bool), {}
+        self._drop_if_foreign_write()
+        millis, counter, node, case_ok = pb.parse_timestamps()
+        if not bool(case_ok.all()):
+            return None
+        # A slice shares the whole batch's interned cells; only the ids
+        # this chunk touches get slots and seeds.
+        touched_ids, cells = pb.touched_cells()
+        mode, new_cells = self._adaptive_gate(cells)
+        if mode == "cached":
+            new_cells = self._enforce_capacity(cells, new_cells)
+        if mode == "stream" or new_cells is None:
+            from evolu_tpu_torch.ops.merge import plan_packed_streamed
+
+            plan = plan_packed_streamed(self._db, pb, millis, counter, node, cells, touched_ids,
+                                        self.device)
+            if plan is not None:
+                self.counts["streamed_cells"] += len(cells)
+                self._took("stream")
+            return plan
+        if new_cells and not self._seed_new_cells(new_cells):
+            self._skip_ewma_once = True
+            return None  # non-canonical stored winner: the object path
+        self.counts["hits"] += len(cells) - len(new_cells)
+        self.counts["misses"] += len(new_cells)
+        self._took("cached")
+        slot_arr = np.zeros(len(pb.cells), np.int64)
+        slot_arr[touched_ids] = [self._slots[c] for c in cells]
+        return self._run_cached_plan(pb.cell_id, slot_arr[pb.cell_id], millis, counter, node, n)
+
     def _plan_streamed(self, messages, cells, cell_ids, millis, counter, node):
         """High-churn mode: winners streamed from SQLite, no cache state
         touched (it was dropped on entry). The end state equals the

@@ -14,11 +14,11 @@ Differences from the browser, by design:
 - Sync triggers (`load`/`online`/`focus`, db.ts:390-412) become the
   explicit `sync()` method plus the transport's periodic pull.
 
-Departures from `evolu_tpu.runtime.client`: the database is the stdlib
-`PySqliteDatabase` (the native SQLite backend is not ported, and
-`backend="native"` raises), `device` (None = the CUDA card, which
-raises without one) is where the worker's device planner and typed
-folds run, and a packed (columnar) Receive is refused.
+Departures from `evolu_tpu.runtime.client`: `device` (None = the CUDA
+card, which raises without one) is where the worker's device planner
+and typed folds run. The database is `storage.native.open_database`'s:
+the C++ backend for "native" (raising the build's log when it does not
+build) and for "auto" when it builds, else `PySqliteDatabase`.
 """
 
 from __future__ import annotations
@@ -28,24 +28,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from evolu_tpu_torch.api.model import COMMON_COLUMNS, sqlite_value
 from evolu_tpu_torch.core.ids import create_id
+from evolu_tpu_torch.core.packed import PackedReceive
 from evolu_tpu_torch.core.types import NewCrdtMessage, Owner, TableDefinition
 from evolu_tpu_torch.runtime import messages as msg
 from evolu_tpu_torch.runtime.jsonpatch import apply_patch
 from evolu_tpu_torch.runtime.worker import DbWorker
-from evolu_tpu_torch.storage.sqlite import PySqliteDatabase
+from evolu_tpu_torch.storage.native import open_database
 from evolu_tpu_torch.utils.config import Config
-
-
-def open_database(path: str = ":memory:", backend: str = "auto") -> PySqliteDatabase:
-    """The client's storage: the stdlib SQLite backend for "auto" and
-    "python". The reference's "native" C++ layer is not ported and is
-    refused, never replaced."""
-    if backend == "native":
-        raise NotImplementedError(
-            "evolu_tpu_torch: the native SQLite backend is not ported yet")
-    if backend not in ("auto", "python"):
-        raise ValueError(f"unknown storage backend {backend!r}")
-    return PySqliteDatabase(path)
 
 
 def _now_iso() -> str:
@@ -450,15 +439,12 @@ class Evolu:
         self, messages: tuple, merkle_tree: str, previous_diff: Optional[int] = None
     ) -> None:
         """Feed a sync response into the engine (db.worker.ts:129-135).
-        `messages` is a CrdtMessage sequence. A PackedReceive columnar
-        batch (the reference's fused receive leg, recognized by its
-        timestamp slab) is not ported and is refused here, before it
-        reaches the worker."""
-        if hasattr(messages, "ts_slab"):
-            raise NotImplementedError(
-                "evolu_tpu_torch: packed receive batches are not ported yet "
-                "(the packed/native receive slice)")
-        self.worker.post(msg.Receive(tuple(messages), merkle_tree, previous_diff))
+        `messages` is either a CrdtMessage sequence or a PackedReceive
+        columnar batch (the fused receive leg); the worker handles both
+        with the same end state."""
+        if not isinstance(messages, PackedReceive):
+            messages = tuple(messages)
+        self.worker.post(msg.Receive(messages, merkle_tree, previous_diff))
 
     def _post_sync(self, request: msg.SyncRequestInput) -> None:
         if self._transport is not None:

@@ -15,10 +15,17 @@ across batches (`ops.winner_cache.DeviceWinnerCache`). End state is
 identical either way. `device` (None = CUDA) is where the device planner
 and the typed-CRDT folds run.
 
+A Receive may carry a `PackedReceive` (the fused native decode of a
+sync response): its timestamps parse in one native call, the HLC fold
+runs on the columns, and the planner's `plan_packed` with the C++
+backend's `apply_planned_cells` apply it without per-row objects.
+Batches the packed route cannot take bounce to the object path exactly
+where the reference's do. On the C++ backend the query sweep reads each
+result as packed bytes and skips unchanged ones without a parse.
+
 Not ported yet, and refused rather than routed elsewhere: partial
-replication (`Config.sync_scope`, `WidenSyncScope`), packed receive
-batches, the multi-device hot-owner route, and the metrics, flight
-recorder and tracing seams.
+replication (`Config.sync_scope`, `WidenSyncScope`), the multi-device
+hot-owner route, and the metrics, flight recorder and tracing seams.
 """
 
 from __future__ import annotations
@@ -30,10 +37,12 @@ from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Sequence
 
 from evolu_tpu_torch.core.merkle import diff_merkle_trees, merkle_tree_from_string, merkle_tree_to_string
+from evolu_tpu_torch.core.packed import PackedReceive
 from evolu_tpu_torch.core.timestamp import (
     create_sync_timestamp,
     receive_timestamp,
     receive_timestamps_batch,
+    receive_timestamps_batch_packed,
     send_timestamp,
     timestamp_from_string,
     timestamp_to_string,
@@ -111,11 +120,38 @@ def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device
             return plan_batch_device_full(batch, existing, device=device)
         return plan_batch(batch, existing)
 
+    def plan_packed(pb):
+        """The packed twin of `planner` for a PackedReceive. None =
+        materialize and take the object path (which owns invalidation
+        for those shapes): small batches take the host oracle there."""
+        if len(pb) < threshold:
+            return None
+        if cache is not None:
+            return cache.plan_packed(pb)
+        if db is None:
+            return None
+        return _plan_packed_streamed_nocache(db, pb, device)
+
+    planner.plan_packed = plan_packed
     if cache is not None:
         planner.fetches_winners = False
         planner.on_transaction_failed = cache.on_transaction_failed
         planner.cache = cache
     return planner
+
+
+def _plan_packed_streamed_nocache(db, pb, device):
+    """Packed plan with winners streamed from SQLite (winner_cache off):
+    the PackedReceive analog of `plan_batch_device_full`. None = the
+    object path (non-canonical hex case in the batch or a stored
+    winner)."""
+    from evolu_tpu_torch.ops.merge import plan_packed_streamed
+
+    millis, counter, node, case_ok = pb.parse_timestamps()
+    if not bool(case_ok.all()):
+        return None
+    touched_ids, cells = pb.touched_cells()
+    return plan_packed_streamed(db, pb, millis, counter, node, cells, touched_ids, device)
 
 
 class DbWorker:
@@ -147,6 +183,12 @@ class DbWorker:
         self.device = device
         self.owner: Optional[Owner] = None
         self.queries_rows_cache: Dict[str, List[dict]] = {}
+        # (raw packed result bytes, per-row offsets) a query on the C++
+        # backend: the sweep's change detector (bytes) and the
+        # row-granular unpack's alignment key (offsets). Staged, committed,
+        # evicted and cleared together with queries_rows_cache: a desynced
+        # pair would suppress or duplicate patches.
+        self.queries_raw_cache: Dict[str, tuple] = {}
         # Incremental invalidation: the change log is a short list of
         # (seq, ChangedSet) batches; each tracked query remembers the seq
         # it last executed at (`_query_seen`), so gating asks "did
@@ -163,6 +205,7 @@ class DbWorker:
         self._planner = select_planner(self.config, self.db, device)
         self._staged_effects: List = []
         self._staged_cache: Dict[str, List[dict]] = {}
+        self._staged_raw: Dict[str, tuple] = {}
         self._staged_changes: ChangedSet = ChangedSet()
         self._staged_seen: set = set()
         self._queue: "queue.Queue[object]" = queue.Queue()
@@ -232,6 +275,7 @@ class DbWorker:
         and surface as OnError."""
         self._staged_effects = []
         self._staged_cache = {}
+        self._staged_raw = {}
         self._staged_changes = ChangedSet()
         self._staged_seen = set()
         try:
@@ -281,6 +325,7 @@ class DbWorker:
                 # Earlier chunks committed: their staged effects (the
                 # OnReceive) must still fire.
                 self.queries_rows_cache.update(self._staged_cache)
+                self.queries_raw_cache.update(self._staged_raw)
                 self._flush_staged_effects()
             try:
                 self.on_output(msg.OnError(e))
@@ -295,6 +340,7 @@ class DbWorker:
         for q in self._staged_seen:
             self._query_seen[q] = self._change_seq
         self.queries_rows_cache.update(self._staged_cache)
+        self.queries_raw_cache.update(self._staged_raw)
         self._enforce_query_cache_cap()
         self._flush_staged_effects()
 
@@ -330,6 +376,7 @@ class DbWorker:
 
     def _evict_query_entry(self, q: str) -> None:
         self.queries_rows_cache.pop(q, None)
+        self.queries_raw_cache.pop(q, None)
         self._query_deps.pop(q, None)
         self._query_seen.pop(q, None)
         self._query_lru.pop(q, None)
@@ -345,6 +392,7 @@ class DbWorker:
             q = next(iter(self._query_lru))
             del self._query_lru[q]
             self.queries_rows_cache.pop(q, _MISSING)
+            self.queries_raw_cache.pop(q, None)
             self._query_deps.pop(q, None)
             self._query_seen.pop(q, None)
         if len(self._query_lru) > 2 * cap:
@@ -417,33 +465,42 @@ class DbWorker:
 
     def _receive(self, command: msg.Receive) -> None:
         """receive.ts: merge remote messages, then anti-entropy."""
-        if not isinstance(command.messages, (tuple, list)):
-            raise NotImplementedError(
-                "Receive of a packed batch: the packed receive is not ported yet "
-                "(the packed/native receive slice)"
-            )
         clock = read_clock(self.db)
-        if command.messages:
+        if len(command.messages):
             # The HLC merge folded over every remote timestamp with one
             # wall-clock sample. A parse failure re-runs the fold
             # message by message, so the first failing message defines
             # the error, as in the reference.
             now = self.now()
+            packed = isinstance(command.messages, PackedReceive)
             try:
-                r_millis, r_counter, _ = parse_timestamp_strings(
-                    [m.timestamp for m in command.messages]
-                )
-                t = receive_timestamps_batch(
-                    clock.timestamp, r_millis, r_counter,
-                    [m.timestamp[30:46] for m in command.messages],
-                    now=now, max_drift=self.config.max_drift,
-                )
+                if packed:
+                    # The 46-wide slab parses in one native call; node
+                    # strings materialize only if a screen forces the
+                    # exact sequential fold.
+                    pb = command.messages
+                    r_millis, r_counter, r_node, _case = pb.parse_timestamps()
+                    t = receive_timestamps_batch_packed(
+                        clock.timestamp, r_millis, r_counter, r_node,
+                        lambda: [s[30:46] for s in pb.timestamp_strings()],
+                        now=now, max_drift=self.config.max_drift,
+                    )
+                else:
+                    r_millis, r_counter, _ = parse_timestamp_strings(
+                        [m.timestamp for m in command.messages]
+                    )
+                    t = receive_timestamps_batch(
+                        clock.timestamp, r_millis, r_counter,
+                        [m.timestamp[30:46] for m in command.messages],
+                        now=now, max_drift=self.config.max_drift,
+                    )
             except TimestampParseError:
+                ts_strings = (command.messages.timestamp_strings() if packed
+                              else [m.timestamp for m in command.messages])
                 t = clock.timestamp
-                for m in command.messages:
-                    t = receive_timestamp(t, timestamp_from_string(m.timestamp), now,
-                                          self.config.max_drift)
-            messages = list(command.messages)
+                for ts in ts_strings:
+                    t = receive_timestamp(t, timestamp_from_string(ts), now, self.config.max_drift)
+            messages = command.messages if packed else list(command.messages)
             chunk = self.config.receive_chunk_size
             if chunk and len(messages) > chunk:
                 # Huge history (a restored device's initial sync): apply
@@ -540,6 +597,9 @@ class DbWorker:
         baseline (first run, or LRU-evicted) emits a root-replace patch,
         which converges a subscriber from any state."""
         patches = []
+        raw_capable = hasattr(self.db, "exec_sql_query_packed_raw")
+        if raw_capable:
+            from evolu_tpu_torch.storage.native import unpack_changed_rows, unpack_packed_rows
         gate = gated and self.config.query_invalidation
         build_deps = self.config.query_invalidation
         memo: Dict[int, object] = {}
@@ -555,12 +615,34 @@ class DbWorker:
                 # the execution below.
                 self._query_deps[q] = query_dependencies(self.db, sql, parameters)
             cached = q in self._staged_cache or q in self.queries_rows_cache
-            rows = self.db.exec_sql_query(sql, parameters)
+            prev = self._staged_cache.get(q, self.queries_rows_cache.get(q, []))
+            entry = None
+            if raw_capable:
+                # The packed result bytes are the change detector: equal
+                # bytes ⇔ an equal result set (SQLite stores no NaN), so
+                # an unchanged query skips the parse and the diff.
+                entry = self.db.exec_sql_query_packed_raw(sql, parameters, with_offsets=True)
+                raw, offs = entry
+                prev_entry = self._staged_raw.get(q, self.queries_raw_cache.get(q))
+                if cached and prev_entry is not None and prev_entry[0] == raw:
+                    self._staged_raw[q] = prev_entry
+                    continue  # unchanged: no parse, no diff, no patch
+                if prev_entry is not None and prev:
+                    # Rows whose bytes are unchanged reuse prev's dicts.
+                    rows = unpack_changed_rows(raw, offs, prev_entry[0], prev_entry[1], prev)
+                else:
+                    rows = unpack_packed_rows(raw)
+            else:
+                rows = self.db.exec_sql_query(sql, parameters)
             if cached:
-                ops = create_patch(self._staged_cache.get(q, self.queries_rows_cache.get(q, [])), rows)
+                ops = create_patch(prev, rows)
             else:
                 ops = [{"op": "replace", "path": "", "value": rows}]
+            # Rows are staged before the raw entry: a failure between the
+            # two leaves both at their old values.
             self._staged_cache[q] = rows
+            if entry is not None:
+                self._staged_raw[q] = entry
             if ops:
                 patches.append((q, ops))
         if patches or on_complete_ids:
@@ -599,6 +681,7 @@ class DbWorker:
 
     def _clear_query_caches(self) -> None:
         self.queries_rows_cache.clear()
+        self.queries_raw_cache.clear()
         self._query_deps.clear()
         self._query_seen.clear()
         self._query_lru.clear()

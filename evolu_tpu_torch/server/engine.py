@@ -6,8 +6,11 @@ by message (apps/server/src/index.ts:148-159). This engine takes a
 whole batch of SyncRequests (config 3: 1M messages across 1k owners),
 and:
 
-1. set-diffs incoming timestamps against storage in bulk SQL (the
-   INSERT OR IGNORE dedup, batched through a temp-table join);
+1. finds the new rows: on a store with the native packed insert (the C++
+   backend, or shards of it) one `INSERT OR IGNORE` call a shard that
+   returns per-row was-new flags, then one native parse of the same
+   packed buffer (`_ingest_packed`, shards in parallel threads);
+   elsewhere a bulk temp-table set-diff (`_ingest_generic`);
 2. hashes every new timestamp (kernel H) and reduces per-(owner,
    minute) XOR deltas on the card (`owner_minute_segments`: a sort and
    kernel X), compacted on the card to the segment ends;
@@ -19,13 +22,16 @@ the digest; one card is one shard, so the all-reduce is the identity.
 Every entry point runs on the card unless the caller passes
 `device="cpu"`; without a card it raises.
 
-Not ported yet, and refused with NotImplementedError rather than
-rerouted: the packed ingest of a store with a native packed insert, the
-write-behind mode, and scoped requests.
+Not ported yet, and refused with NotImplementedError before any side
+effect rather than rerouted: the pipelined streaming ingest
+(`start_batch`, `finish_batch`, `reconcile_stream`; `run_batch_wire`
+takes the one-shot ingest on every store), the write-behind mode, and
+scoped requests.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,7 +49,7 @@ from evolu_tpu_torch.core.types import NonCanonicalStoreError
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
 from evolu_tpu_torch.ops.encode import pack_ts_keys, unpack_ts_keys
-from evolu_tpu_torch.ops.host_parse import parse_timestamp_strings
+from evolu_tpu_torch.ops.host_parse import parse_packed_timestamps, parse_timestamp_strings
 from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas, owner_minute_segments
 from evolu_tpu_torch.server.relay import ShardedRelayStore, fetch_response_stream, refuse_scoped
 from evolu_tpu_torch.sync import protocol
@@ -275,6 +281,35 @@ def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
     return deltas, digest ^ int(dev_digest.view(np.uint32)[0])
 
 
+def _pack_rows(ts_list, contents):
+    """Pack one shard's rows into flat buffers. Each timestamp's width is
+    checked before packing: a total-length check alone would accept
+    ["", "<two stamps concatenated>"] and commit rows with shifted
+    timestamp/content pairs."""
+    n = len(ts_list)
+    if (np.fromiter(map(len, ts_list), np.int64, count=n) != 46).any():
+        raise ValueError("non-canonical timestamp width in batch")
+    ts_packed = "".join(ts_list).encode("ascii")
+    lens = np.fromiter(map(len, contents), np.int32, count=n)
+    return ts_packed, b"".join(contents), lens
+
+
+class _PackedRows:
+    """Lazy timestamp-string access over per-shard packed 46-byte buffers
+    (read only by the host fold of a non-canonical owner)."""
+
+    def __init__(self, buffers: List[bytes], offsets: List[int]):
+        self._buffers = buffers
+        self._offsets = offsets
+
+    def __getitem__(self, i: int) -> str:
+        import bisect
+
+        j = bisect.bisect_right(self._offsets, i) - 1
+        local = i - self._offsets[j]
+        return self._buffers[j][local * 46 : (local + 1) * 46].decode("ascii")
+
+
 class BatchReconciler:
     """Reconcile a batch of SyncRequests against one RelayStore or a
     ShardedRelayStore, the Merkle leg on `device` (None = the card; raises
@@ -286,6 +321,7 @@ class BatchReconciler:
                 "evolu_tpu_torch: the write-behind engine mode is not ported yet")
         self.store = store
         self.device = resolve_device(device)
+        self._executor = None
 
     def _new_messages(
         self, requests: Sequence[protocol.SyncRequest]
@@ -334,14 +370,14 @@ class BatchReconciler:
         for r in requests:
             refuse_scoped(r)
         stores, _ = self._shards()
-        if all(hasattr(getattr(s, "db", None), "relay_insert_packed") for s in stores):
-            raise NotImplementedError(
-                "evolu_tpu_torch: the packed ingest of a native store is not ported yet")
         strings: Dict[str, str] = {}
-        if isinstance(self.store, ShardedRelayStore) or getattr(self.store, "db", None) is None:
-            # A sharded store, or a generic one with no `.db` SQL handle:
-            # per-request ingest; the respond side degrades likewise
-            # (`_respond_wire`'s object fallback).
+        if all(hasattr(getattr(s, "db", None), "relay_insert_packed") for s in stores):
+            # A native store, or a sharded store of native shards.
+            trees = self._ingest_packed(requests, strings)
+        elif isinstance(self.store, ShardedRelayStore) or getattr(self.store, "db", None) is None:
+            # Sharded Python-backend shards, or a generic store with no
+            # `.db` SQL handle: per-request ingest; the respond side
+            # degrades likewise (`_respond_wire`'s object fallback).
             trees = {
                 r.user_id: self.store.add_messages(r.user_id, r.messages)
                 for r in requests
@@ -355,9 +391,152 @@ class BatchReconciler:
             return self.store.shards, self.store.shard_index
         return [self.store], (lambda _u: 0)
 
+    def _pool(self, n: int):
+        """One worker per storage shard (sized to the store, not to the
+        batch, so a small first batch cannot cap later ones)."""
+        if self._executor is None and n > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._executor = ThreadPoolExecutor(max_workers=n, thread_name_prefix="evolu-ingest")
+        return self._executor
+
+    def _map_shards(self, fn, live, n_stores):
+        """fn(si) for each live shard, in parallel when a pool exists. Waits
+        for every worker before raising: a rollback while a worker still
+        runs would let its insert land in autocommit mode, rows outside
+        any tree."""
+        pool = self._pool(n_stores)
+        if pool is not None and len(live) > 1:
+            futures = [pool.submit(fn, si) for si in live]
+            results, first_err = [], None
+            for f in futures:
+                try:
+                    results.append(f.result())
+                except BaseException as e:  # noqa: BLE001 - re-raised below
+                    first_err = first_err or e
+            if first_err is not None:
+                raise first_err
+            return results
+        return [fn(si) for si in live]
+
+    @contextmanager
+    def _shard_transactions(self, stores, live):
+        """One open transaction per live shard, rolled back together on
+        error, committed together on exit (the first commit error wins).
+        Short-lock begin/commit, so worker threads can execute inside
+        them; each shard has exactly one writer (its worker)."""
+        begun: List[int] = []
+        try:
+            for si in live:
+                stores[si].db.begin()
+                begun.append(si)
+            yield
+        except BaseException:
+            for si in begun:
+                stores[si].db.rollback()
+            raise
+        commit_err: Optional[Exception] = None
+        for si in begun:
+            try:
+                stores[si].db.commit()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                commit_err = commit_err or e
+        if commit_err is not None:
+            raise commit_err
+
     def close(self) -> None:
-        """Nothing to release: the thread pools of the reference serve the
-        packed ingest only."""
+        """Stop the shard ingest's thread pool."""
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
+
+    def _ingest_packed(self, requests, tree_strings=None) -> Dict[str, dict]:
+        """The packed columnar ingest. Per storage shard: pack the shard's
+        timestamps and ciphertexts into flat buffers and INSERT OR IGNORE
+        them in ONE native call (the primary key dedups, in-batch
+        duplicates included, with per-row was-new flags: index.ts:153-158
+        semantics), then parse the packed buffer natively. Shards ingest
+        in parallel threads (the C calls drop the GIL). The new rows of
+        every shard ride ONE device dispatch for the per-(owner, minute)
+        hashes, and each shard's inserts and tree updates commit in one
+        transaction, so rows never outrun their tree; a failure anywhere
+        rolls every uncommitted shard back."""
+        stores, shard_index = self._shards()
+        per_shard: List[List[protocol.SyncRequest]] = [[] for _ in stores]
+        for r in requests:
+            per_shard[shard_index(r.user_id)].append(r)
+        live = [si for si, reqs in enumerate(per_shard) if any(len(r.messages) for r in reqs)]
+        trees: Dict[str, dict] = {}
+        if not live:
+            return trees
+
+        def ingest_shard(si: int):
+            db = stores[si].db
+            reqs = per_shard[si]
+            gu = [r.user_id for r in reqs]
+            gc = [len(r.messages) for r in reqs]
+            ts_list = [m.timestamp for r in reqs for m in r.messages]
+            contents = [m.content for r in reqs for m in r.messages]
+            ts_packed, content_packed, lens = _pack_rows(ts_list, contents)
+            was_new = db.relay_insert_packed(gu, gc, ts_packed, content_packed, lens)
+            cols = parse_packed_timestamps(ts_packed, len(ts_list), with_case=True)
+            return gu, gc, ts_packed, was_new, cols
+
+        with self._shard_transactions(stores, live):
+            # The transactions stay open across the device dispatch, so
+            # the inserts and the trees commit together.
+            results = self._map_shards(ingest_shard, live, len(stores))
+            owner_index: Dict[str, List[np.ndarray]] = {}
+            buffers, offsets = [], []
+            col_parts = ([], [], [], [])
+            off = 0
+            for gu, gc, ts_packed, was_new, cols in results:
+                pos = 0
+                for u, k in zip(gu, gc):
+                    ix = np.nonzero(was_new[pos : pos + k])[0] + (pos + off)
+                    if len(ix):
+                        owner_index.setdefault(u, []).append(ix)
+                    pos += k
+                buffers.append(ts_packed)
+                offsets.append(off)
+                for part, c in zip(col_parts, cols):
+                    part.append(c)
+                off += len(was_new)
+            merged = {u: (v[0] if len(v) == 1 else np.concatenate(v)) for u, v in owner_index.items()}
+            all_m, all_c, all_n, case_ok = (
+                (p[0] if len(p) == 1 else np.concatenate(p)) for p in col_parts
+            )
+            deltas_by_owner, _digest = deltas_from_columns(
+                merged, all_m, all_c, all_n, case_ok, _PackedRows(buffers, offsets),
+                device=self.device,
+            )
+            tree_rows: List[List[Tuple[str, str]]] = [[] for _ in stores]
+            for o, deltas in deltas_by_owner.items():
+                if not deltas:
+                    continue
+                si = shard_index(o)
+                tree = apply_prefix_xors(stores[si].get_merkle_tree(o), deltas)
+                trees[o] = tree
+                s = merkle_tree_to_string(tree)
+                if tree_strings is not None:
+                    tree_strings[o] = s  # the respond reuses the upsert's dump
+                tree_rows[si].append((o, s))
+            for si in live:
+                if tree_rows[si]:
+                    stores[si].db.run_many(
+                        'INSERT OR REPLACE INTO "merkleTree" ("userId", "merkleTree") VALUES (?, ?)',
+                        tree_rows[si],
+                    )
+        return trees
+
+    def _refuse_streaming(self, *_args, **_kwargs):
+        raise NotImplementedError(
+            "evolu_tpu_torch: the pipelined streaming ingest is not ported yet; "
+            "run_batch_wire and reconcile_wire take the one-shot ingest")
+
+    # The reference's pipelined streaming reconcile; refused before any
+    # side effect until it is ported.
+    start_batch = finish_batch = reconcile_stream = _refuse_streaming
 
     def _ingest_generic(self, requests, tree_strings=None) -> Dict[str, dict]:
         """Temp-table set-diff, the device Merkle pass over the new rows,
@@ -441,8 +620,10 @@ class BatchReconciler:
 
     def run_batch_wire(self, requests: Sequence[protocol.SyncRequest]) -> List[bytes]:
         """ONE engine/store pass for a live micro-batch → wire bytes per
-        request. On the stores the port opens this is `reconcile_wire`;
-        a failure rolls the transaction back before raising."""
+        request: `reconcile_wire`, whose `_ingest` picks the one-shot
+        ingest for the store (the reference's packed stores take its
+        streaming ingest here, which gives the same bytes). A failure
+        rolls every shard transaction back before raising."""
         return self.reconcile_wire(requests)
 
     def _respond_wire(

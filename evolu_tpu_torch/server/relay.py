@@ -6,15 +6,16 @@ storage shape and sync pipeline as the reference relay
 (`timestamp NOT LIKE '%' || nodeId`, index.ts:100). The relay is
 E2EE-blind: rows are (timestamp, userId, ciphertext).
 
-`add_messages` inserts row by row (it needs each row's rowcount for the
-changes==1 Merkle gate) and hashes on the host; the batched many-owner
-path is `evolu_tpu_torch.server.engine.BatchReconciler`, which set-diffs
-in bulk SQL and hashes on the card.
+`add_messages` inserts with per-row was-new flags (the changes==1
+Merkle gate) and hashes on the host; the batched many-owner path is
+`evolu_tpu_torch.server.engine.BatchReconciler`, which hashes on the
+card.
 
-The store opens the port's `PySqliteDatabase` (backend "auto" or
-"python"); the native backend comes with the packed receive. A scoped
-request is refused until scoped sync is ported: it is never served
-unscoped.
+The store opens `storage.native.open_database(path, backend)`: the C++
+host layer for "native" (and for "auto" when it builds), whose one-call
+insert, reads and response stream the engine's packed ingest uses, or
+`PySqliteDatabase` for "python". A scoped request is refused until
+scoped sync is ported: it is never served unscoped.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from evolu_tpu_torch.core.timestamp import (
     timestamp_to_string,
 )
 from evolu_tpu_torch.core.types import NonCanonicalStoreError
-from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, configure_shared_file_db
+from evolu_tpu_torch.storage.native import open_database
+from evolu_tpu_torch.storage.sqlite import configure_shared_file_db
 from evolu_tpu_torch.sync import protocol
 
 
@@ -77,12 +79,7 @@ class RelayStore:
     """Message + Merkle storage for many users (index.ts:60-105)."""
 
     def __init__(self, path: str = ":memory:", backend: str = "auto"):
-        if backend == "native":
-            raise NotImplementedError(
-                "evolu_tpu_torch: the native SQLite backend is not ported yet")
-        if backend not in ("auto", "python"):
-            raise ValueError(f"unknown storage backend {backend!r}")
-        self.db = PySqliteDatabase(path)
+        self.db = open_database(path, backend)
         # File-backed stores may be shared across processes.
         configure_shared_file_db(self.db)
         # The reference's uniqueness pair (timestamp, userId), keyed
@@ -112,12 +109,21 @@ class RelayStore:
         with self.db.transaction():
             tree = self.get_merkle_tree(user_id)
             deltas: Dict[str, int] = {}
-            for m in messages:
-                was_new = self.db.run(
-                    'INSERT OR IGNORE INTO "message" ("timestamp", "userId", "content") '
-                    "VALUES (?, ?, ?)",
-                    (m.timestamp, user_id, m.content),
-                ) == 1
+            if hasattr(self.db, "relay_insert"):
+                # C++ backend: one bulk insert with per-row was-new flags.
+                new_flags = self.db.relay_insert(
+                    [(m.timestamp, user_id, m.content) for m in messages]
+                )
+            else:
+                new_flags = [
+                    self.db.run(
+                        'INSERT OR IGNORE INTO "message" ("timestamp", "userId", "content") '
+                        "VALUES (?, ?, ?)",
+                        (m.timestamp, user_id, m.content),
+                    ) == 1
+                    for m in messages
+                ]
+            for m, was_new in zip(messages, new_flags):
                 if was_new:
                     t = timestamp_from_string(m.timestamp)
                     key = minutes_base3(t.millis)
@@ -138,6 +144,14 @@ class RelayStore:
         if diff is None:
             return ()
         since = timestamp_to_string(create_sync_timestamp(diff))
+        if hasattr(self.db, "fetch_relay_messages"):
+            # C++ backend: one packed call. The query text lives in
+            # native/evolu_host.cpp::eh_get_messages and below too.
+            try:
+                rows = self.db.fetch_relay_messages(user_id, since, node_id)
+                return tuple(protocol.EncryptedCrdtMessage(t, c) for t, c in rows)
+            except NonCanonicalStoreError:
+                pass  # a malformed stored width degrades to the SQL path
         rows = self.db.exec_sql_query(
             'SELECT "timestamp", "content" FROM "message" '
             'WHERE "userId" = ? AND "timestamp" > ? AND "timestamp" NOT LIKE \'%\' || ? '
@@ -185,9 +199,9 @@ class RelayStore:
 
     def sync_wire(self, request: protocol.SyncRequest) -> Optional[bytes]:
         """`sync` + `encode_sync_response` fused, where the database serves
-        the messages stream in one call; byte-identical to the pure
-        pipeline. None → the caller takes the object path (always, on
-        `PySqliteDatabase`)."""
+        the messages stream in one call (the C++ backend); byte-identical
+        to the pure pipeline. None → the caller takes the object path
+        (always, on `PySqliteDatabase`)."""
         if not hasattr(self.db, "fetch_relay_messages_wire"):
             return None
         tree = self.add_messages(request.user_id, request.messages)

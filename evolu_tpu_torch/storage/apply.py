@@ -27,6 +27,15 @@ transaction: `crdt_types.apply_typed_ops` folds their new ops into the
 LWW upserts from the plan. `device` (None = CUDA) is where the typed
 folds run once a batch reaches `crdt_types.DEVICE_FOLD_MIN`; LWW-only
 batches never read it.
+
+On the C++ backend (`storage.native.CppSqliteDatabase`) the sequential
+loop, the winner lookup and the planned apply each run as one native
+call. A `PackedReceive` batch (the fused receive leg) plans with the
+planner's `plan_packed` and applies with `apply_planned_cells`, with no
+per-row objects; a packed batch that holds a typed cell, or that the
+planner or the backend cannot take, is materialized and takes the
+object path before any side effect. `counts` says which route each
+batch took, in place of the reference's metrics.
 """
 
 from __future__ import annotations
@@ -35,10 +44,18 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from evolu_tpu_torch.core.crdt_types import apply_typed_ops, load_schema
 from evolu_tpu_torch.core.merkle import apply_prefix_xors, insert_into_merkle_tree, minute_deltas_host
+from evolu_tpu_torch.core.packed import PackedReceive
 from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage
 from evolu_tpu_torch.storage.changes import record_batch, record_typed_tables
 from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, quote_ident
+
+# Batches by route: `packed` planned and applied columnar, `object` on
+# the object path, `packed_bounces` packed batches materialized for the
+# object path (of them `typed_bounces` for a typed cell), `sequential`
+# and `native_sequential` the two sequential loops.
+counts = {"packed": 0, "object": 0, "packed_bounces": 0, "typed_bounces": 0,
+          "sequential": 0, "native_sequential": 0}
 
 _SELECT_WINNER = (
     'SELECT "timestamp" FROM "__message" '
@@ -66,11 +83,27 @@ def apply_messages_sequential(
     db: PySqliteDatabase, merkle_tree: dict, messages: Sequence[CrdtMessage],
     changes=None, device=None,
 ) -> dict:
-    """The reference loop, message by message (O(n) SQL round trips).
-    Typed ops fold and materialize first, before the loop inserts any
+    """The reference loop, message by message. On the C++ backend the
+    whole loop (winner check, upsert, insert) runs as one native call
+    returning the XOR mask; elsewhere it is O(n) SQL round trips. Typed
+    ops fold and materialize first, before the loop inserts any
     `__message` row (the dedup screen reads pre-batch state)."""
     record_batch(changes, messages)
     schema, typed = _typed_messages(db, messages)
+    # The C loop's char* ABI is NUL-terminated (binds and winner
+    # compares), so NUL-bearing fields take the Python loop, which binds
+    # full bytes; typed batches too, or the C loop would upsert raw op
+    # values into app tables.
+    if hasattr(db, "apply_sequential") and not typed and not any(
+        "\x00" in m.timestamp or "\x00" in m.table or "\x00" in m.row or "\x00" in m.column
+        for m in messages
+    ):
+        counts["native_sequential"] += 1
+        for m, flagged in zip(messages, db.apply_sequential(messages)):
+            if flagged:
+                merkle_tree = insert_into_merkle_tree(timestamp_from_string(m.timestamp), merkle_tree)
+        return merkle_tree
+    counts["sequential"] += 1
     if typed:
         record_typed_tables(changes)
         apply_typed_ops(db, schema, typed, device)
@@ -89,10 +122,14 @@ def fetch_existing_winners(
     db: PySqliteDatabase, cells: Iterable[Tuple[str, str, str]]
 ) -> Dict[Tuple[str, str, str], str]:
     """Current winner timestamp per cell, one indexed query per batch via
-    a temp-table join on the (table, row, column, timestamp) index."""
+    a temp-table join on the (table, row, column, timestamp) index. On
+    the C++ backend, below 4096 cells, per-cell indexed lookups in one
+    native call (above that the single join wins)."""
     cells = list(cells)
     if not cells:
         return {}
+    if hasattr(db, "fetch_winners") and len(cells) < 4096:
+        return {c: w for c, w in zip(cells, db.fetch_winners(cells)) if w is not None}
     with db.transaction():
         db.exec('CREATE TEMP TABLE IF NOT EXISTS "__cells" ("t" BLOB, "r" BLOB, "c" BLOB)')
         db.run('DELETE FROM "__cells"')
@@ -176,6 +213,27 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
     # Recorded before planning: a route that fails half-way still leaves
     # a superset in the changed-set.
     record_batch(changes, messages)
+    if isinstance(messages, PackedReceive):
+        schema = load_schema(db)
+        if schema and schema.has_typed(messages.cells):
+            # The packed cell apply would LWW-upsert raw op values, and
+            # the typed fold needs message objects: bounce before any
+            # side effect.
+            counts["typed_bounces"] += 1
+        else:
+            plan_packed = getattr(planner, "plan_packed", None)
+            plan = (plan_packed(messages)
+                    if plan_packed is not None and hasattr(db, "apply_planned_cells") else None)
+            if plan is not None:
+                counts["packed"] += 1
+                xor_mask, upsert_mask, deltas = plan
+                db.apply_planned_cells(messages, upsert_mask)
+                return apply_prefix_xors(merkle_tree, deltas)
+        # Bounced (a typed cell, non-canonical hex case, a small batch,
+        # or a backend without the cell apply): materialize exactly.
+        counts["packed_bounces"] += 1
+        messages = messages.to_messages()
+    counts["object"] += 1
     owner = getattr(planner, "__self__", None)
     fetches = getattr(planner, "fetches_winners", getattr(owner, "fetches_winners", True))
     if fetches:
@@ -199,12 +257,29 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
         deltas, _ = minute_deltas_host(
             m.timestamp for i, m in enumerate(messages) if xor_mask[i]
         )
-    for m in upserts:  # only the final winner per cell touches the row
-        db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
-    db.run_many(
-        _INSERT_MESSAGE,
-        [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages],
-    )
+    if hasattr(db, "apply_planned"):
+        # C++ backend: upserts and the bulk __message insert in one call.
+        mask = getattr(plan, "upsert_mask", None)
+        if mask is None:
+            # Host planners return upserts only: rebuild the positional
+            # mask keyed by cell and timestamp, flagging only the FIRST
+            # occurrence of each winner key, so a duplicate timestamp
+            # with another value cannot upsert twice (the Python path
+            # applies the planner's single chosen winner).
+            pending = {(m.table, m.row, m.column, m.timestamp) for m in upserts}
+            mask = []
+            for m in messages:
+                key = (m.table, m.row, m.column, m.timestamp)
+                mask.append(key in pending)
+                pending.discard(key)
+        db.apply_planned(messages, mask)
+    else:
+        for m in upserts:  # only the final winner per cell touches the row
+            db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
+        db.run_many(
+            _INSERT_MESSAGE,
+            [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages],
+        )
     return apply_prefix_xors(merkle_tree, deltas)
 
 

@@ -6,9 +6,8 @@ Every apply reports the (table, rowId) pairs it touched into a
 only ever over-approximate: "don't know" escalates (`mark_unknown`, or a
 per-table row set overflowing to all rows), so correctness never depends
 on precision. Recording happens at the apply level (`storage/apply.py`),
-the same whichever planner produced the plan. The port records object
-batches (`CrdtMessage` sequences); the packed columnar batch waits for
-the packed receive.
+the same whichever planner produced the plan, for object batches
+(`CrdtMessage` sequences) and packed columnar ones (`PackedReceive`).
 """
 
 from __future__ import annotations
@@ -88,13 +87,20 @@ class ChangedSet:
 def record_batch(changes: Optional[ChangedSet], messages) -> None:
     """Record one apply batch's touched rows: the (table, row) of every
     message, plus `__message` (row-unknown: its rowids are timestamps,
-    not app ids). Any failure escalates to conservative."""
+    not app ids). Takes CrdtMessage sequences and PackedReceive batches
+    (their touched cells); any failure escalates to conservative."""
     if changes is None:
         return
     try:
         changes.add_table("__message")
-        for m in messages:
-            changes.add_cell(m.table, m.row)
+        from evolu_tpu_torch.core.packed import PackedReceive
+
+        if isinstance(messages, PackedReceive):
+            for table, row, _col in messages.touched_cells()[1]:
+                changes.add_cell(table, row)
+        else:
+            for m in messages:
+                changes.add_cell(m.table, m.row)
     except Exception:  # noqa: BLE001 - don't know ⇒ full invalidation
         changes.mark_unknown()
 

@@ -7,6 +7,13 @@ carrying optional fresh messages + the clock), one pipeline
 SyncRequest → HTTP POST octet-stream → parse SyncResponse → decrypt →
 hand the result back to the DbWorker as a Receive command.
 
+As in the reference, each leg takes the fused C layer first
+(`sync.native_crypto`, built at first use) and the pure per-message
+loops behind it: a push body is one native call, and a response decodes
+in one call into a columnar `PackedReceive` that the worker applies
+without per-row objects. Any shape the native layer declines re-runs on
+the pure path, which owns the exact error surface.
+
 Network failure is swallowed by design — offline is a normal state,
 recovery is the next sync trigger (sync.worker.ts:217-227). Every
 round runs under the per-database sync lock, making sync mutually
@@ -15,9 +22,6 @@ exclusive across clients of the same database (syncLock.ts:8-12).
 Departures from `evolu_tpu.sync.client`, all of them routes this
 slice does not port and never replaces:
 
-- Encryption and decryption run the pure per-message loops, the
-  reference's own route when its fused C library is absent (the same
-  ciphertext format, the same exceptions in the same order).
 - Where the reference counts into its metrics registry, traces and
   logs, the transport keeps plain `counts`; the POST carries no
   traceparent header (the reference's path for a 2-argument
@@ -40,7 +44,7 @@ from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage, UnknownError
 from evolu_tpu_torch.runtime.messages import OnError, SyncRequestInput
 from evolu_tpu_torch.runtime.synclock import SyncLock
-from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.sync import aead, native_crypto, protocol
 from evolu_tpu_torch.sync.crypto import encrypt_symmetric
 from evolu_tpu_torch.utils.config import Config
 
@@ -53,7 +57,19 @@ def encrypt_messages(messages, mnemonic: str):
     MUTATION time (worker._send), so anything in the log is either
     authored encodable or arrived from a remote peer — and a relay must
     forward remote messages verbatim, never refuse them (refusing here
-    would wedge anti-entropy resends forever)."""
+    would wedge anti-entropy resends forever).
+
+    The batched C++ path handles canonical values; None from it means
+    some value needs the pure loop's error surface, so it re-runs here."""
+    if messages:
+        native = native_crypto.encrypt_batch(messages, mnemonic)
+        if native is not None:
+            return native
+    return encrypt_messages_pure(messages, mnemonic)
+
+
+def encrypt_messages_pure(messages, mnemonic: str):
+    """The pure per-message OpenPGP loop behind `encrypt_messages`."""
     out = []
     for m in messages:
         content = protocol.encode_content(m.table, m.row, m.column, m.value)
@@ -92,9 +108,17 @@ def _decrypt_one(m, password: str) -> CrdtMessage:
 
 
 def decrypt_messages(messages, mnemonic: str):
-    """sync.worker.ts:135-173, message by message in order, so the
-    first failing message raises (PgpError for the ciphertext,
-    ValueError for the content's wire)."""
+    """sync.worker.ts:135-173. Canonical rows decrypt on the batched C++
+    path; every other row, and the whole batch when the library is
+    unavailable, re-runs through the pure oracle at its original
+    position (the same errors, first failure first)."""
+    return native_crypto.decrypt_batch(messages, mnemonic)
+
+
+def decrypt_messages_pure(messages, mnemonic: str):
+    """The pure loop, message by message in order, so the first failing
+    message raises (PgpError for the ciphertext, ValueError for the
+    content's wire)."""
     return tuple(_decrypt_one(m, mnemonic) for m in messages)
 
 
@@ -307,20 +331,53 @@ class SyncTransport:
 
     def _encode_push(self, request: SyncRequestInput, node_id: str,
                      caps, use_v2: bool) -> bytes:
-        """One request body: per-message OpenPGP (v1), or — negotiated
-        only — one session key and one GCM record a message (v2).
-        Capabilities append identically on both; absent caps = the v1
-        wire byte for byte."""
+        """One request body. v1: the fused C wire path (byte-identical
+        to `encode_sync_request` over `encrypt_messages`), the pure
+        per-message OpenPGP loop behind it. v2 (negotiated only): one
+        session key and one GCM record a message
+        (`encode_push_request_aead`), the pure aead loop behind it.
+        Capabilities append identically on every path; absent caps =
+        the v1 wire byte for byte."""
+        body = None
         if use_v2 and request.messages:
-            encrypted = encrypt_messages_v2(request.messages, request.owner.mnemonic)
-        else:
+            session = aead.get_session(request.owner.mnemonic, records=len(request.messages))
+            body = native_crypto.encode_push_request_aead(
+                request.messages, session.key, session.salt,
+                request.owner.id, node_id, request.merkle_tree,
+            )
+            if body is None:
+                encrypted = encrypt_messages_v2(request.messages, request.owner.mnemonic)
+                body = protocol.encode_sync_request(
+                    protocol.SyncRequest(encrypted, request.owner.id, node_id, request.merkle_tree)
+                )
+        if body is None:
+            body = native_crypto.encode_push_request(
+                request.messages, request.owner.mnemonic,
+                request.owner.id, node_id, request.merkle_tree,
+            )
+        if body is None:
             encrypted = encrypt_messages(request.messages, request.owner.mnemonic)
-        body = protocol.encode_sync_request(
-            protocol.SyncRequest(encrypted, request.owner.id, node_id, request.merkle_tree)
-        )
+            body = protocol.encode_sync_request(
+                protocol.SyncRequest(encrypted, request.owner.id, node_id, request.merkle_tree)
+            )
         if caps:
             body = body + protocol.encode_request_capabilities(caps)
         return body
+
+    def _decode_response(self, response_bytes: bytes, mnemonic: str):
+        """Response bytes → (messages, merkle_tree). The fully fused
+        decode first: protobuf walk, decrypt and columns in one C call
+        → a `PackedReceive` for the worker's packed apply. Any
+        non-canonical shape falls to the object-path fused decoder, then
+        to the pure decoder (identical error surfaces down the chain)."""
+        packed = native_crypto.decrypt_response_columns(response_bytes, mnemonic)
+        if packed is not None:
+            return packed
+        fused = native_crypto.decrypt_response(response_bytes, mnemonic)
+        if fused is not None:
+            return fused
+        response = protocol.decode_sync_response(response_bytes)
+        return decrypt_messages(response.messages, mnemonic), response.merkle_tree
 
     def _sync_round_body(self, request: SyncRequestInput):
         """One encrypt→POST→decrypt round. Returns the decoded
@@ -435,12 +492,11 @@ class SyncTransport:
                 negotiated = ()  # decode error surfaces below, on the real decoder
             self.negotiated_capabilities[url] = negotiated
         try:
-            response = protocol.decode_sync_response(response_bytes)
-            messages = decrypt_messages(response.messages, request.owner.mnemonic)
+            messages, merkle_tree = self._decode_response(response_bytes, request.owner.mnemonic)
             self._count("responses")
             self._count("response_messages", len(messages))
             self._count("response_bytes", len(response_bytes))
-            return (messages, response.merkle_tree, request.previous_diff)
+            return (messages, merkle_tree, request.previous_diff)
         except Exception as e:  # noqa: BLE001
             self.on_error(UnknownError(e))
             return None

@@ -125,7 +125,7 @@ def test_redelivered_loser_is_xored_again_as_in_jax(device_planner):
         assert _dump(pdb) == _dump(jdb)
         assert merkle_tree_to_string(ptree) == jax_tree_string(jtree)
         trees.append(merkle_tree_to_string(ptree))
-    relay = RelayStore()
+    relay = RelayStore(backend="python")
     relay.add_messages("owner", [EncryptedCrdtMessage(t[0], b"x") for t in (loser, winner, loser)])
     assert trees[0] == relay.get_merkle_tree_string("owner")
     assert trees[1] != trees[0], "the re-delivered loser no longer changes the tree"

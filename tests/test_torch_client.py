@@ -55,8 +55,9 @@ class Pkg:
         self.clients, self.outputs, self.pushes = [], [], []
 
     def kw(self):
-        """Evolu kwargs: the deterministic ISO clock, and on the port the CPU."""
-        return {"now_iso": self.now_iso, **({"device": "cpu"} if self.port else {})}
+        """Evolu kwargs: the deterministic ISO clock, and on the port the CPU
+        and the Python SQLite backend."""
+        return {"now_iso": self.now_iso, **({"device": "cpu", "backend": "python"} if self.port else {})}
 
     def adopt(self, evolu):
         """Make a client's worker clock deterministic and record its
@@ -501,25 +502,32 @@ def test_handle_matches_jax(name, monkeypatch, tmp_path):
 
 
 def test_unported_routes_raise_before_any_side_effect(tmp_path):
-    """The native SQLite backend and a packed receive batch are refused,
-    never routed elsewhere; a bad backend name is a ValueError."""
-    from evolu_tpu.core.packed import PackedReceive
+    """A bad backend name is a ValueError, and a native backend that does
+    not build raises its log, both before the database file exists; a
+    scoped-sync widening is refused, never routed elsewhere."""
+    from evolu_tpu_torch.runtime import messages
     from evolu_tpu_torch.runtime.client import Evolu
+    from evolu_tpu_torch.utils import native_loader
 
     path = tmp_path / "never.db"
-    with pytest.raises(NotImplementedError, match="native"):
-        Evolu(db_path=str(path), backend="native", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         Evolu(db_path=str(path), backend="sqlite4", device="cpu")
-    assert not path.exists()
-    e = Evolu(mnemonic=MNEMONIC, device="cpu")
+    failed = native_loader.NativeBuildError("evolu_tpu_torch: building libevolu_host.so failed\nlog")
+    saved = native_loader._cache.get("libevolu_host.so")
+    native_loader._cache["libevolu_host.so"] = failed
     try:
-        packed = PackedReceive.__new__(PackedReceive)
-        packed.ts_slab = b""
-        with pytest.raises(NotImplementedError, match="packed"):
-            e.receive(packed, "{}")
+        with pytest.raises(native_loader.NativeBuildError, match="failed"):
+            Evolu(db_path=str(path), backend="native", device="cpu")
+    finally:
+        native_loader._cache.pop("libevolu_host.so")
+        if saved is not None:
+            native_loader._cache["libevolu_host.so"] = saved
+    assert not path.exists()
+    e = Evolu(mnemonic=MNEMONIC, device="cpu", backend="python")
+    try:
+        e.worker.post(messages.WidenSyncScope(full=True))
         e.worker.flush()
-        assert e.get_error() is None
+        assert isinstance(e.get_error(), NotImplementedError)
         assert e.db.exec('SELECT COUNT(*) FROM "__message"') == [(0,)]
     finally:
         e.dispose()

@@ -584,7 +584,7 @@ def test_relay_engine_on_card_matches_cpu(dev):
     batches = _relay_batches()
     sides = []
     for d in (None, "cpu"):
-        store = RelayStore()
+        store = RelayStore(backend="python")
         engine = pe.BatchReconciler(store, device=d)
         before = dict(pe.counts)
         out = [engine.run_batch_wire(b) for b in batches]
@@ -596,13 +596,92 @@ def test_relay_engine_on_card_matches_cpu(dev):
         assert card_store.db.exec(q) == cpu_store.db.exec(q)
 
 
+@pytest.mark.parametrize("shards", [1, 4])
+def test_native_ingest_on_card_matches_python_store(shards, dev):
+    """The packed ingest (native `INSERT OR IGNORE` with was-new flags, the
+    native parse, one device dispatch) on the card, on one native store and
+    on four native shards, against the generic ingest on a Python store on
+    the CPU: equal bytes and tables, the same routes."""
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.server.relay import RelayStore, ShardedRelayStore
+
+    batches = _relay_batches()
+    native = RelayStore(backend="native") if shards == 1 else ShardedRelayStore(shards=shards, backend="native")
+    python = RelayStore(backend="python")
+    sides = []
+    for store, d in ((native, None), (python, "cpu")):
+        engine = pe.BatchReconciler(store, device=d)
+        before = dict(pe.counts)
+        try:
+            out = [engine.run_batch_wire(b) for b in batches]
+        finally:
+            engine.close()
+        sides.append((out, {k: v - before[k] for k, v in pe.counts.items()}))
+    assert sides[0] == sides[1]
+    assert sides[0][1] == {"delta": 3, "full": 1, "overflow": 1, "host_owners": 0}
+    for q in ('SELECT * FROM "message" ORDER BY 1, 2', 'SELECT * FROM "merkleTree" ORDER BY 1'):
+        stores = native.shards if shards > 1 else [native]
+        assert sorted(r for s in stores for r in s.db.exec(q)) == python.db.exec(q)
+
+
+@pytest.mark.parametrize("winner_cache", [True, False])
+def test_packed_plan_on_card_matches_cpu(winner_cache, dev):
+    """A `PackedReceive` from the native decrypt, planned by the worker's
+    `plan_packed` (the winner cache's, or winners streamed from SQLite) on
+    the card and on the CPU, over twin native databases: equal masks,
+    deltas, trees and tables; every batch on the packed route, with L, H
+    and X launched on the card."""
+    from evolu_tpu_torch.runtime.worker import select_planner
+    from evolu_tpu_torch.storage import apply as papply
+    from evolu_tpu_torch.storage import CppSqliteDatabase, apply_messages, init_db_model
+    from evolu_tpu_torch.sync import native_crypto, protocol
+    from evolu_tpu_torch.utils.config import Config
+
+    mnemonic = "legal winner thank year wave sausage worth useful legal winner thank yellow"
+    batches = []
+    for batch in _cache_batches(5, n_batches=4, n=3000):
+        body = protocol.encode_sync_response(protocol.SyncResponse(native_crypto.encrypt_batch(batch, mnemonic), "{}"))
+        batches.append(body)
+    sides = []
+    for device in ("cuda", "cpu"):
+        db = CppSqliteDatabase()
+        init_db_model(db, mnemonic)
+        db.exec(_TODO)
+        planner = select_planner(Config(backend="cuda", winner_cache=winner_cache), db, device)
+        plans, plan_packed = [], planner.plan_packed
+
+        def recording(pb, plans=plans, plan_packed=plan_packed):
+            plan = plan_packed(pb)
+            plans.append((plan[0].tolist(), plan[1].tolist(), plan[2]))
+            return plan
+
+        planner.plan_packed = recording
+        sides.append({"db": db, "planner": planner, "plans": plans, "tree": {}})
+    counters = (cuda_scan.segmented_max_scan_cuda, cuda_hash.timestamp_hash_cuda,
+                cuda_scan.segmented_xor_scan_cuda, cuda_scan.segmented_sum_scan_cuda)
+    before, packed_before = [c.launches for c in counters], papply.counts["packed"]
+    for body in batches:
+        for side in sides:
+            pb, _tree = native_crypto.decrypt_response_columns(body, mnemonic)
+            side["tree"] = apply_messages(side["db"], side["tree"], pb, planner=side["planner"])
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    card, cpu = sides
+    assert card["plans"] == cpu["plans"] and len(card["plans"]) == len(batches)
+    assert papply.counts["packed"] - packed_before == 2 * len(batches)
+    assert launched == [2 * len(batches), len(batches), len(batches), 0], launched
+    assert card["tree"] == cpu["tree"]
+    for t in ("__message", "todo"):
+        q = f'SELECT * FROM "{t}" ORDER BY 1, 2'
+        assert card["db"].exec(q) == cpu["db"].exec(q)
+
+
 # ---- the client handle with encrypted sync on the card ---------------------------
 
 
 def _handles_through_relay(device):
     """Two owners, two `create_evolu` clients each (`Config(backend="cuda")`,
     so every batch is device-planned), syncing through one relay
-    (`BatchReconciler(RelayStore())` on `device`) with a SyncTransport each.
+    (`BatchReconciler(RelayStore(backend="python"))` on `device`) with a SyncTransport each.
     Each owner's script runs on its own thread, so two owners' workers
     launch on the card at once. → every client's tables and the relay's."""
     import itertools
@@ -619,7 +698,7 @@ def _handles_through_relay(device):
 
     mnemonics = ("legal winner thank year wave sausage worth useful legal winner thank yellow",
                  "letter advice cage absurd amount doctor acoustic avoid letter advice cage above")
-    engine, lock = BatchReconciler(RelayStore(), device=device), threading.Lock()
+    engine, lock = BatchReconciler(RelayStore(backend="python"), device=device), threading.Lock()
 
     def post(url, body):
         with lock:

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_touches_no_card():
     assert "evolu_tpu_torch.server.relay" in result["modules"]
     assert "evolu_tpu_torch.server.engine" in result["modules"]
     for name in ("api", "api.model", "api.query", "api.hooks", "utils.reload", "runtime.client",
-                 "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client"):
+                 "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client",
+                 "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
@@ -103,3 +104,38 @@ def test_crypto_runs_on_libcrypto_without_the_wheel():
     )
     assert out.returncode == 0, out.stderr
     assert "RESULT:ok" in out.stdout
+
+
+_NATIVE = r"""
+import json, os, sys
+from evolu_tpu_torch.storage.native import CppSqliteDatabase
+from evolu_tpu_torch.sync import native_crypto
+from evolu_tpu_torch.utils import native_loader
+CppSqliteDatabase().exec("SELECT 1")
+assert native_crypto.load_library() is not None
+maps = open("/proc/self/maps").read()
+print("RESULT:" + json.dumps({
+    "forbidden": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu")),
+    "paths": {k: v["path"] for k, v in native_loader.build_info.items()},
+    "mapped": sorted({l.split()[-1] for l in maps.splitlines() if "libevolu_" in l}),
+}))
+"""
+
+
+def test_native_libraries_load_from_the_port_build_alone():
+    """The port's loader imports nothing of `evolu_tpu`, and the native
+    libraries the process maps are the port's builds under
+    `evolu_tpu_torch/_build/native/`, never `native/*.so`."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE], cwd=_REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
+    result = json.loads(line[len("RESULT:"):])
+    assert result["forbidden"] == []
+    root = os.path.join(_REPO, "evolu_tpu_torch", "_build", "native") + os.sep
+    assert set(result["paths"]) == {"libevolu_host.so", "libevolu_crypto.so"}
+    assert len(result["mapped"]) == 2
+    for path in list(result["paths"].values()) + result["mapped"]:
+        assert path.startswith(root), path

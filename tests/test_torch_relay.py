@@ -113,7 +113,7 @@ def test_batched_pass_matches_jax(entry):
 def test_batched_pass_matches_the_per_request_serve():
     """The batch against `serve_single_request` request by request on a
     second port store: same bytes and tables where no owner repeats."""
-    store, oracle = RelayStore(), RelayStore()
+    store, oracle = RelayStore(backend="python"), RelayStore(backend="python")
     engine = pe.BatchReconciler(store, device="cpu")
     for spec in _batches(4):
         spec = list({o: (o, r, n, t) for o, r, n, t in spec}.values())  # one request an owner
@@ -123,7 +123,7 @@ def test_batched_pass_matches_the_per_request_serve():
 
 
 def test_sharded_store_takes_the_per_request_route():
-    jax_store, store = JaxSharded(shards=3, backend="python"), ShardedRelayStore(shards=3)
+    jax_store, store = JaxSharded(shards=3, backend="python"), ShardedRelayStore(shards=3, backend="python")
     jax_engine = JaxReconciler(jax_store, create_mesh(1))
     engine = pe.BatchReconciler(store, device="cpu")
     before = dict(pe.counts)
@@ -136,7 +136,7 @@ def test_sharded_store_takes_the_per_request_route():
 
 def test_store_surface_matches_jax():
     rows = _owner_rows(6, owners=5)
-    jax_store, store = JaxStore(backend="python"), RelayStore()
+    jax_store, store = JaxStore(backend="python"), RelayStore(backend="python")
     for o, r in rows.items():
         req = (o, r[: len(r) // 2], "0" * 16, "{}")
         assert serve_single_request(store, _requests(pp, [req])[0]) == \
@@ -157,42 +157,38 @@ def test_store_surface_matches_jax():
 
 
 def test_shared_file_store_takes_the_write_lock_at_begin(tmp_path):
-    store = RelayStore(str(tmp_path / "relay.db"))
+    store = RelayStore(str(tmp_path / "relay.db"), backend="python")
     assert store.db.exec("PRAGMA journal_mode") == [("wal",)]
     assert store.db._begin_sql == "BEGIN IMMEDIATE"
-    memory = RelayStore()
+    memory = RelayStore(backend="python")
     configure_shared_file_db(memory.db)
     assert memory.db._begin_sql == "BEGIN"
     rows = _owner_rows(7, owners=1)
     (o, r), = rows.items()
     serve_single_request(store, _requests(pp, [(o, r, "f" * 16, "{}")])[0])
-    again = RelayStore(str(tmp_path / "relay.db"))
+    again = RelayStore(str(tmp_path / "relay.db"), backend="python")
     assert _dump(again) == _dump(store)
 
 
-class _PackedDb:
-    relay_insert_packed = None
-
-
-class _PackedStore:
-    db = _PackedDb()
-
-
 def test_unported_routes_raise_before_any_side_effect():
-    store = RelayStore()
-    engine = pe.BatchReconciler(store, device="cpu")
+    """Scoped requests, the write-behind mode and the pipelined streaming
+    ingest are refused on a Python and on a native store, before any
+    side effect."""
     (o, r), = _owner_rows(8, owners=1).items()
     plain = _requests(pp, [(o, r, "f" * 16, "{}")])[0]
     scoped = pp.SyncRequest(plain.messages, o, "f" * 16, "{}", (pp.CAP_SYNC_SCOPE,),
                             pp.ScopeClause(watermark_millis=BASE))
-    for call in (lambda: engine.run_batch_wire([plain, scoped]), lambda: engine.reconcile([scoped]),
-                 lambda: serve_single_request(store, scoped),
-                 lambda: pe.BatchReconciler(_PackedStore(), device="cpu").run_batch_wire([plain]),
-                 lambda: pe.BatchReconciler(store, device="cpu", write_behind=object()),
-                 lambda: RelayStore(backend="native")):
-        with pytest.raises(NotImplementedError):
-            call()
-    assert _dump(store) == [[], []]
+    for backend in ("python", "native"):
+        store = RelayStore(backend=backend)
+        engine = pe.BatchReconciler(store, device="cpu")
+        for call in (lambda: engine.run_batch_wire([plain, scoped]), lambda: engine.reconcile([scoped]),
+                     lambda: serve_single_request(store, scoped),
+                     lambda: engine.start_batch([plain]), lambda: engine.finish_batch(None),
+                     lambda: engine.reconcile_stream([[plain]]),
+                     lambda: pe.BatchReconciler(store, device="cpu", write_behind=object())):
+            with pytest.raises(NotImplementedError):
+                call()
+        assert _dump(store) == [[], []]
 
 
 def test_entry_points_default_to_the_card():
@@ -202,7 +198,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        pe.BatchReconciler(RelayStore())
+        pe.BatchReconciler(RelayStore(backend="python"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pe.owner_minute_deltas({"a": [timestamp_to_string(Timestamp(BASE, 0, "a" * 16))]})
 
@@ -233,7 +229,7 @@ def test_wire_stream_route_matches_the_object_route():
     `run_batch_wire` and `serve_single_request` take the stream route, and
     a malformed stored row sends its request back to the object path; the
     bytes equal those of plain stores."""
-    wire, wire_oracle, plain = RelayStore(), RelayStore(), RelayStore()
+    wire, wire_oracle, plain = (RelayStore(backend="python") for _ in range(3))
     wire.db, wire_oracle.db = _WireDb(wire.db), _WireDb(wire_oracle.db)
     engine, plain_engine = pe.BatchReconciler(wire, device="cpu"), pe.BatchReconciler(plain, device="cpu")
     bad_owner = None

@@ -261,7 +261,7 @@ def test_port_and_jax_clients_converge_through_the_port_relay():
     from evolu_tpu_torch.server.relay import RelayStore
     from evolu_tpu_torch.utils.config import Config
 
-    store = RelayStore()
+    store = RelayStore(backend="python")
     engine = BatchReconciler(store, device="cpu")
     lock = threading.Lock()
 

@@ -267,17 +267,9 @@ def _typed_dump(db):
     return {t: db.exec(f'SELECT * FROM "{t}"') for t in names}
 
 
-class _PackedBatch:
-    """Stands in for a packed (columnar) receive batch: sized, not a
-    sequence of messages."""
-
-    def __len__(self):
-        return 3
-
-
 def test_unported_routes_raise():
-    """Scoped sync, packed receives, the native SQLite backend and the
-    relay push leg are refused, never routed elsewhere."""
+    """Scoped sync and the relay push leg are refused, never routed
+    elsewhere."""
     from evolu_tpu_torch.runtime.client import Evolu
     from evolu_tpu_torch.runtime.worker import select_planner
     from evolu_tpu_torch.sync.client import SyncTransport, connect
@@ -291,23 +283,16 @@ def test_unported_routes_raise():
     w.start(MNEMONIC)
     try:
         w.post(pmsg.WidenSyncScope(full=True))
-        w.post(pmsg.Receive(_PackedBatch(), "{}"))
         w.flush()
     finally:
         w.stop()
     errors = [o.error for o in outputs if isinstance(o, pmsg.OnError)]
-    assert [type(e) for e in errors] == [NotImplementedError] * 2
-    assert "scoped-sync" in str(errors[0]) and "packed" in str(errors[1])
-    with pytest.raises(NotImplementedError, match="native"):
-        Evolu(backend="native", device="cpu")
+    assert [type(e) for e in errors] == [NotImplementedError]
+    assert "scoped-sync" in str(errors[0])
     with pytest.raises(NotImplementedError, match="scoped-sync"):
         SyncTransport(Config(sync_scope=object()), on_receive=lambda *a: None)
-    e = Evolu(config=Config(backend="cpu"), mnemonic=MNEMONIC, device="cpu")
+    e = Evolu(config=Config(backend="cpu"), mnemonic=MNEMONIC, device="cpu", backend="python")
     try:
-        packed = _PackedBatch()
-        packed.ts_slab = b""
-        with pytest.raises(NotImplementedError, match="packed"):
-            e.receive(packed, "{}")
         with pytest.raises(NotImplementedError, match="push"):
             connect(e, Config(push_subscribe=True))
         assert e._transport is None
