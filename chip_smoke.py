@@ -2,8 +2,8 @@
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
 LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
-receive. Needs one NVIDIA Hopper card, g++, libsqlite3.so.0 and
-libcrypto; run from the repo root:
+receive, and the relay as a live HTTP server. Needs one NVIDIA Hopper
+card, g++, libsqlite3.so.0 and libcrypto; run from the repo root:
 
     python3 chip_smoke.py
 
@@ -130,12 +130,31 @@ failure ends the run with a traceback and a nonzero code):
               `RelayStore` (the packed ingest), E1 also on 4 native shards:
               responses equal path E's, tables equal path E's store. Each
               prints msgs/s and its wall split, and H and X's launches.
-11. columns — the reconcile pass from device-resident columns at 1M and
+11. path H  — the relay as a live server. H1: path E's E1 and E2
+              requests POSTed over HTTP by `sync.client._http_post` from 32
+              client threads (disjoint owners, path E's order an owner) to
+              `RelayServer(RelayStore(<file>, backend="native"),
+              batching=True)` on the card: the continuous-batching
+              `SyncScheduler` runs each batch through `start_batch` /
+              `finish_batch`; responses equal path E's, tables path E's
+              store's; msgs/s, requests/s, client p50/p99 latency, engine
+              passes and their sizes, the scheduler's counts and the
+              streaming split. H2: E1 in 8 batches of 125 owners, then E2,
+              through `reconcile_stream` and through `run_batch_wire` batch
+              by batch on fresh native stores: equal to path E and to each
+              other, with the pull thread's wait beside the host leg per
+              batch. H3: path F's F2 handles (5 Sends of 10k) over real
+              HTTP, the card set at a batching card relay, the oracle set at
+              a per-request relay on the CPU: round 1 stores OpenPGP only,
+              `aead-batch-v1` negotiated after it, every later Send stored
+              as v2 records; everything equals the oracle set's; the crypto
+              share beside F2's v1 share.
+12. columns — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-12. timing  — L, X, H and their plain versions timed on the inputs the
+13. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them, X also on the 10M pass's
               minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
@@ -145,7 +164,9 @@ failure ends the run with a traceback and a nonzero code):
               `ms` is CUDA events around 10 back-to-back wrapper calls
               (host cost included wherever the host is the slower);
               `device_ms` is the kernels' own duration from
-              torch.profiler; `host_us` is the wrapper's host time per
+              torch.profiler (null, with `device_ms_events` from CUDA
+              events beside it, where the profiler recorded nothing in
+              five sessions); `host_us` is the wrapper's host time per
               call over 1000 calls with no synchronize, on the smallest
               input path C2 gave the kernel (`host_us_rows`). The relay
               engine's three kernel functions on E1's columns: bytes up and
@@ -155,7 +176,8 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g}` are the counts themselves; `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
+`launches_path_{a,b,c1,c2,d,e,f,g,h}` are the counts themselves (H1, H2
+and H3 each, summed as path H); `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
 the numbered changes that ported and redesigned each kernel, as
@@ -253,18 +275,21 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fns, reps: int = 10) -> float:
+def device_ms(torch, fns, reps: int = 10, per: int = 1) -> dict:
     """Device time of the kernels that one call of each of `fns` launches,
-    summed over `fns` and averaged over `reps` rounds, from torch.profiler
-    (CUPTI kernel records), after a warm-up. A session whose record comes
-    back empty (seen once on the H100 in many sessions) is run again, up
-    to three in all."""
+    summed over `fns`, averaged over `reps` rounds and divided by `per`,
+    from torch.profiler (CUPTI kernel records), after a warm-up:
+    {"device_ms": t}. A session whose record comes back empty (seen now
+    and then on the H100, once three sessions in a row) is run again, up
+    to five in all; after that the row says so: {"device_ms": None,
+    "device_ms_events": t}, t from CUDA events around the same calls, an
+    upper bound that includes the launch gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 for fn in fns:
@@ -273,8 +298,18 @@ def device_ms(torch, fns, reps: int = 10) -> float:
         spans = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if spans:
-            return sum(spans) / reps / 1e3
-    raise AssertionError("torch.profiler recorded no device activity in 3 sessions")
+            return {"device_ms": round(sum(spans) / reps / 1e3 / per, 5)}
+        time.sleep(1.0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for fn in fns:
+            fn()
+    end.record()
+    end.synchronize()
+    print("  device_ms: torch.profiler recorded no device activity in 5 sessions; "
+          "the row carries device_ms_events instead", flush=True)
+    return {"device_ms": None, "device_ms_events": round(start.elapsed_time(end) / reps / per, 5)}
 
 
 def host_us(torch, fn, calls: int = 1000) -> float:
@@ -1781,19 +1816,27 @@ class FSet:
     node ids, `now` and `now_iso` come from this set's own counters and
     scripted clock."""
 
-    def __init__(self, name, on_card):
+    def __init__(self, name, on_card, http=False):
         from evolu_tpu_torch.server.engine import BatchReconciler
-        from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+        from evolu_tpu_torch.server.relay import RelayServer, RelayStore, serve_single_request
         from evolu_tpu_torch.sync import protocol
 
         self.name, self.on_card = name, on_card
         self.device = None if on_card else "cpu"
         self.backend = "auto" if on_card else "python"
-        self.store = RelayStore(backend=self.backend)
-        engine = BatchReconciler(self.store, device=self.device) if on_card else None
-        self._answer = ((lambda r: engine.run_batch_wire([r])[0]) if on_card
-                        else (lambda r: serve_single_request(self.store, r)))
-        self._decode = protocol.decode_sync_request
+        self.server = self.url = self.engine = None
+        if http:
+            # Path H3: the clients POST over HTTP to a port relay, a batching
+            # one on the card for the card set.
+            self.server = RelayServer(RelayStore(backend=self.backend), batching=on_card,
+                                      device=self.device).start()
+            self.store, self.url = self.server.store, self.server.url + "/"
+        else:
+            self.store = RelayStore(backend=self.backend)
+            self.engine = engine = BatchReconciler(self.store, device=self.device) if on_card else None
+            self._answer = ((lambda r: engine.run_batch_wire([r])[0]) if on_card
+                            else (lambda r: serve_single_request(self.store, r)))
+            self._decode = protocol.decode_sync_request
         self.clock = {"now": F_BASE}
         self._ids, self._nodes = itertools.count(), itertools.count(1)
         self.clients, self.outputs, self.errors, self.faults = {}, {}, [], []
@@ -1846,10 +1889,10 @@ class FSet:
         from evolu_tpu_torch.core.timestamp import millis_to_iso
         from evolu_tpu_torch.runtime import messages as msg
         from evolu_tpu_torch.runtime.client import Evolu
-        from evolu_tpu_torch.sync.client import SyncTransport
+        from evolu_tpu_torch.sync.client import SyncTransport, _http_post
         from evolu_tpu_torch.utils.config import Config
 
-        cfg = Config(backend="auto" if self.on_card else "cpu")
+        cfg = Config(backend="auto" if self.on_card else "cpu", **({"sync_url": self.url} if self.url else {}))
         kw = dict(config=cfg, mnemonic=mnemonic, device=self.device, backend=self.backend)
         if hooks:
             made = create_hooks(schema, **kw)
@@ -1879,7 +1922,8 @@ class FSet:
         evolu.subscribe_error(self.errors.append)
         transport = (SyncTransport if self.on_card else pure_transport())(
             cfg, on_receive=evolu.receive, sync_lock=evolu.worker.sync_lock,
-            on_error=lambda e: evolu._dispatch_output(msg.OnError(e)), http_post=self.post)
+            on_error=lambda e: evolu._dispatch_output(msg.OnError(e)),
+            http_post=self.timed(_http_post, "relay") if self.url else self.post)
         decode = transport._decode_response
 
         def counted(body, mnemonic):
@@ -1921,6 +1965,10 @@ class FSet:
     def close(self):
         for e in self.clients.values():
             e.dispose()
+        if self.server is not None:
+            self.server.stop()
+        if self.engine is not None:
+            self.engine.close()  # its pull thread
 
 
 def f1_todos(fs):
@@ -1983,12 +2031,14 @@ def f1_todos(fs):
     return n, rows
 
 
-def f2_config2(fs):
+def f2_config2(fs, sends=F2_SENDS, after_send=None):
     """F2, BASELINE config 2: todo/todoCategory, 100k messages. A makes 10
     Sends of 10k (1,600 todo creates, 200 category creates and 700 updates
     a Send, in batching()); B pulls after each. After the 5th Send a third
     device C restores A's mnemonic on an empty database and pulls the 50k
-    history in one round, then pulls with B. Every batch is device-planned."""
+    history in one round, then pulls with B. Every batch is device-planned.
+    `sends` cuts the Sends (C restores after half of them); `after_send(s)`
+    runs once A's Send s has reached the relay."""
     from evolu_tpu_torch.api.query import fn, table
 
     a = fs.client("A", F_TODO, MNEMONIC)
@@ -2000,7 +2050,7 @@ def f2_config2(fs):
         for q in queries:
             e.subscribe_query(q)
     todos, n, c, restore_s = [], 0, None, None
-    for s in range(F2_SENDS):
+    for s in range(sends):
         fs.clock["now"] += F_ROUND_MS
         with a.batching():
             cats = [a.create("todoCategory", {"name": f"cat{s}-{j}"}) for j in range(F2_CATS)]
@@ -2011,10 +2061,12 @@ def f2_config2(fs):
                 a.update("todo", todos[(i * 7919 + s) % len(todos)], {"title": f"upd{s}-{i}"})
         n += F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2
         fs.settle(a)
+        if after_send is not None:
+            after_send(s)
         fs.pull(b)
         if c is not None:
             fs.pull(c)
-        if s == F2_SENDS // 2 - 1:
+        if s == sends // 2 - 1:
             t0 = time.perf_counter()
             c = fs.client("C", F_TODO, F_MNEMONIC2)
             c.restore_owner(MNEMONIC)
@@ -2373,11 +2425,12 @@ def shards_hold_the_same_rows(single, sharded):
 
 
 def path_g2(torch, kernels, keep):
-    """G2, the relay's packed ingest on the card: path E's E1 (1M messages
-    over 1k owners) and E2 (re-delivery) requests through
-    `BatchReconciler(RelayStore(backend="native")).run_batch_wire` (one
-    native INSERT OR IGNORE a shard with was-new flags, one native parse,
-    one device dispatch), and E1 also on a
+    """G2, the relay's one-shot packed ingest on the card: path E's E1 (1M
+    messages over 1k owners) and E2 (re-delivery) requests through
+    `BatchReconciler(RelayStore(backend="native")).reconcile_wire` (its
+    `_ingest_packed`: one native INSERT OR IGNORE a shard with was-new
+    flags, one native parse, one device dispatch; `run_batch_wire` takes
+    the streaming ingest there, which path H runs), and E1 also on a
     `ShardedRelayStore(backend="native", shards=4)`. Every response must
     equal path E's (the generic ingest on a Python store, itself equal to
     `serve_single_request`), the sharded store's tables after E1 the
@@ -2389,7 +2442,7 @@ def path_g2(torch, kernels, keep):
     from evolu_tpu_torch.server.relay import RelayStore, ShardedRelayStore
     from evolu_tpu_torch.storage.native import CppSqliteDatabase
 
-    (e1, e1_out), (e2, e2_out), generic = keep.pop("e1"), keep.pop("e2"), keep.pop("store")
+    (e1, e1_out), (e2, e2_out), generic = keep["e1"], keep["e2"], keep["store"]
     native, sharded = RelayStore(backend="native"), ShardedRelayStore(backend="native", shards=4)
     report = {}
     routes0 = dict(eng.counts)
@@ -2408,7 +2461,7 @@ def path_g2(torch, kernels, keep):
         try:
             with stages.on() as s:
                 t0 = time.perf_counter()
-                got = rec.run_batch_wire(requests)
+                got = rec.reconcile_wire(requests)  # the one-shot ingest; path H runs the streaming one
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
@@ -2435,7 +2488,7 @@ def path_g2(torch, kernels, keep):
     if e_dump(native) != e_dump(generic):
         raise AssertionError("path G2: the native store's tables after E2 differ from path E's Python store")
     report["compare_s"] = round(time.perf_counter() - t0, 3)
-    native.close(), generic.close()
+    native.close()
     launches = read(kernels)
     routes = {k: v - routes0[k] for k, v in eng.counts.items()}
     report["route_counts"] = routes
@@ -2445,6 +2498,306 @@ def path_g2(torch, kernels, keep):
     want = {"seg_lex_max_scan": 0, "timestamp_hash": 3, "seg_xor_scan": 3, "seg_sum_scan": 0}
     if launches != want:
         raise AssertionError(f"path G2: launches {launches}, expected {want}")
+    return launches, report
+
+
+# ---- path H: the relay as a live server ----------------------------------------------
+
+H_CLIENTS = 32  # H1's client threads, each with a disjoint slice of owners
+H2_BATCHES = 8  # E1 split into batches of 125 owners for the pipeline
+H3_SENDS = 5  # F2 cut to 5 Sends of 10k for the HTTP clients
+F2_V1_CRYPTO_SHARE = "13.5-15.6%"  # path F's F2 on the v1 wire (PERF.md section 5)
+
+
+def durations(obj, attr, out):
+    """`obj.attr` swapped for a wrapper that appends each call's host-clock
+    seconds to `out` (a context manager)."""
+    orig = getattr(obj, attr)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            out.append(time.perf_counter() - t0)
+    return patched(obj, attr, run)
+
+
+def h_stream_split(torch, eng):
+    """The streaming engine's stages, host clock, nothing synchronized (the
+    pipeline must run as it does): dispatch (`start_batch`), the pull
+    thread's wait (`_pull_outputs`), the dispatcher's wait for it and the
+    decode (`deltas_finish`), the native insert, the tree folds and the
+    respond."""
+    from evolu_tpu_torch.storage.native import CppSqliteDatabase
+
+    return Timed(torch, [(eng.BatchReconciler, "start_batch", "dispatch", False),
+                         (eng, "_pull_outputs", "pull_thread", False),
+                         (eng, "deltas_finish", "pull_wait_and_decode", False),
+                         (CppSqliteDatabase, "relay_insert_packed", "insert", False),
+                         (eng, "apply_prefix_xors", "trees", False),
+                         (eng, "merkle_tree_to_string", "trees", False),
+                         (eng.BatchReconciler, "_respond_wire", "respond", False)])
+
+
+def path_h1(torch, kernels, keep, tmp):
+    """H1, the live relay at config 3: path E's E1 requests (1M messages over
+    1k owners), then its E2 requests, POSTed over HTTP by `sync.client.
+    _http_post` from H_CLIENTS threads, each owning a disjoint slice of
+    owners and sending each owner's requests in path E's order, to
+    `RelayServer(RelayStore(<file>, backend="native"), batching=True)` with
+    `device=None`: every batch takes `start_batch`/`finish_batch` on the
+    card. Every response equals path E's and the tables path E's store (a
+    batch never holds two requests of one owner). → (launches, report)."""
+    import threading
+
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync import protocol
+    from evolu_tpu_torch.sync.client import _http_post
+
+    (e1, e1_out), (e2, e2_out), generic = keep["e1"], keep["e2"], keep["store"]
+    t0 = time.perf_counter()
+    jobs = [(r, out) for reqs, outs in ((e1, e1_out), (e2, e2_out)) for r, out in zip(reqs, outs)]
+    bodies = [protocol.encode_sync_request(r) for r, _ in jobs]
+    encode_s = time.perf_counter() - t0
+    slot = {}
+    for i, (r, _) in enumerate(jobs):
+        slot.setdefault(r.user_id, len(slot) % H_CLIENTS)
+    lanes = [[] for _ in range(H_CLIENTS)]
+    for i, (r, _) in enumerate(jobs):  # E1 before E2 in every lane: path E's order
+        lanes[slot[r.user_id]].append(i)
+    n = sum(len(r.messages) for r, _ in jobs)
+
+    store = RelayStore(os.path.join(tmp, "h1.db"), backend="native")
+    server = RelayServer(store, batching=True).start()
+    got, lat, errors, sizes, decodes = [None] * len(jobs), [0.0] * len(jobs), [], [], []
+    routes0 = dict(eng.counts)
+    split = h_stream_split(torch, eng)
+    reset(kernels)
+    try:
+        def lane(ix):
+            try:
+                for i in ix:
+                    t1 = time.perf_counter()
+                    got[i] = _http_post(server.url, bodies[i])
+                    lat[i] = time.perf_counter() - t1
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        orig_run = eng.BatchReconciler.run_batch_wire
+
+        def sized(self, requests):
+            sizes.append(len(requests))
+            return orig_run(self, requests)
+
+        with patched(eng.BatchReconciler, "run_batch_wire", sized), split.on() as stages, \
+                durations(protocol, "decode_sync_request", decodes):
+            threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t1
+        counts = dict(server.scheduler.counts)
+    finally:
+        server.stop()
+    launches = read(kernels)
+    if errors:
+        raise AssertionError("path H1: a client's POST failed") from errors[0]
+    for i, (r, want) in enumerate(jobs):
+        if got[i] != want:
+            raise AssertionError(f"path H1: the response to {r.user_id} differs from path E's")
+    t1 = time.perf_counter()
+    store = RelayStore(os.path.join(tmp, "h1.db"), backend="native")
+    mine, theirs = e_dump(store), keep.setdefault("store_dump", e_dump(generic))
+    store.close()
+    if mine[0] != theirs[0] or mine[1] != theirs[1]:
+        raise AssertionError("path H1: the message or merkleTree table differs from path E's store")
+    del mine
+    routes = {k: eng.counts[k] - routes0[k] for k in routes0}
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {"requests": len(jobs), "messages": n, "client_threads": H_CLIENTS,
+           "wall_s": round(wall, 4), "msgs_per_s": round(n / wall), "requests_per_s": round(len(jobs) / wall, 1),
+           "latency_ms_p50": round(lat_ms[len(lat_ms) // 2], 3),
+           "latency_ms_p99": round(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))], 3),
+           "engine_passes": len(sizes), "pass_requests_mean": round(statistics.mean(sizes), 2),
+           "pass_requests_max": max(sizes), "scheduler_counts": counts, "route_counts": routes,
+           # The dispatcher's stages by its own wall clock, GIL waits
+           # included; the handler threads' decode summed over the threads.
+           "stream_split_s": {k: round(v, 4) for k, v in stages.items()},
+           "handler_decode_s_summed": round(sum(decodes), 4),
+           "bodies_encode_s": round(encode_s, 3), "compare_s": round(time.perf_counter() - t1, 3)}
+    print(f"  path H1: {json.dumps(out)}", flush=True)
+    if counts["poisoned_batches"] or counts["singles"] or counts["batches"] != len(sizes) \
+            or counts["coalesced"] != len(jobs):
+        raise AssertionError(f"path H1: scheduler counts {counts} for {len(sizes)} engine passes")
+    expect = {"seg_lex_max_scan": 0, "seg_sum_scan": 0,
+              "timestamp_hash": len(sizes) + routes["overflow"], "seg_xor_scan": len(sizes) + routes["overflow"]}
+    if launches != expect:
+        raise AssertionError(f"path H1: launches {launches}, expected {expect}")
+    return launches, out
+
+
+def path_h2(torch, kernels, keep):
+    """H2, the pipeline alone: E1's requests split into H2_BATCHES batches of
+    125 owners, then E2 as one batch, through `reconcile_stream` on a fresh
+    native store and through `run_batch_wire` one batch at a time on
+    another. The encoded responses equal path E's on both, and both
+    stores' tables path E's store's. Per batch: the dispatch, the pull
+    thread's wait, the dispatcher's wait for the pull and decode, and the
+    host leg (`finish_batch`). → (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.sync import protocol
+
+    (e1, e1_out), (e2, e2_out), generic = keep["e1"], keep["e2"], keep["store"]
+    per = len(e1) // H2_BATCHES
+    batches = [e1[i * per:(i + 1) * per] for i in range(H2_BATCHES - 1)] + [e1[(H2_BATCHES - 1) * per:], e2]
+    want = e1_out + e2_out
+    n = sum(len(r.messages) for b in batches for r in b)
+    report, stores = {}, {}
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    for mode in ("reconcile_stream", "run_batch_wire"):
+        store = stores[mode] = RelayStore(backend="native")
+        rec = eng.BatchReconciler(store)
+        times = {"dispatch": [], "pull_thread": [], "pull_wait_and_decode": [], "host_leg": []}
+        try:
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(durations(rec, "start_batch", times["dispatch"]))
+                stack.enter_context(durations(eng, "_pull_outputs", times["pull_thread"]))
+                stack.enter_context(durations(eng, "deltas_finish", times["pull_wait_and_decode"]))
+                stack.enter_context(durations(rec, "finish_batch", times["host_leg"]))
+                t0 = time.perf_counter()
+                if mode == "reconcile_stream":
+                    got = [protocol.encode_sync_response(r) for out in rec.reconcile_stream(batches) for r in out]
+                else:
+                    got = [b for batch in batches for b in rec.run_batch_wire(batch)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            rec.close()
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"path H2 {mode}: response {bad} differs from path E's")
+        report[mode] = {"batches": len(batches), "messages": n, "wall_s": round(wall, 4),
+                        "msgs_per_s": round(n / wall),
+                        "per_batch_ms": {k: [round(x * 1e3, 2) for x in v] for k, v in times.items()}}
+        print(f"  path H2 {mode}: {json.dumps(report[mode])}", flush=True)
+    t0 = time.perf_counter()
+    a, b = stores.values()
+    for sql in ('SELECT "userId", "timestamp", "content" FROM "message" ORDER BY 1, 2',
+                'SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1'):
+        if a.db.exec_sql_query_packed_raw(sql) != b.db.exec_sql_query_packed_raw(sql):
+            raise AssertionError("path H2: the pipelined and the one-batch-at-a-time stores' tables differ")
+    if e_dump(a) != keep.setdefault("store_dump", e_dump(generic)):
+        raise AssertionError("path H2: the stores' tables differ from path E's store")
+    report["compare_s"] = round(time.perf_counter() - t0, 3)
+    for st in stores.values():
+        st.close()
+    launches = read(kernels)
+    report["route_counts"] = {k: eng.counts[k] - routes0[k] for k in routes0}
+    expect = 2 * len(batches) + report["route_counts"]["overflow"]
+    if launches != {"seg_lex_max_scan": 0, "timestamp_hash": expect, "seg_xor_scan": expect, "seg_sum_scan": 0}:
+        raise AssertionError(f"path H2: launches {launches}, expected H and X {expect} times each")
+    return launches, report
+
+
+def path_h3(torch, kernels, gpu=""):
+    """H3, clients over HTTP with the v2 wire: path F's F2 handles, cut to
+    H3_SENDS Sends of 10k with B pulling after each (C restores after half
+    of them). The card set's `Evolu(device=None)` clients on the native
+    crypto leg POST through the real `_http_post` to a card
+    `RelayServer(batching=True)`; the oracle set's (path F's) to a port
+    `RelayServer(batching=False)` on a Python store with `device="cpu"`.
+    Round 1 stores only OpenPGP records; after the echo
+    `negotiated_capabilities[url]` holds `aead-batch-v1` and every later
+    Send stores v2 records (magic 45 32 01). Tables, query rows, trees and
+    the stored (timestamp, owner) columns equal the oracle set's. →
+    (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.sync import aead, protocol
+
+    per_send = F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2
+    sets, results, mix = [FSet("card", True, http=True), FSet("oracle", False, http=True)], [], []
+    gset, oset = sets
+    reset(kernels)
+    routes = dict(eng.counts)
+
+    def stored_mix(s):
+        rows = gset.store.db.exec('SELECT "content" FROM "message"')
+        v2 = sum(aead.is_v2_record(bytes(c)) for (c,) in rows)
+        mix.append({"send": s, "v1": len(rows) - v2, "v2": v2,
+                    "negotiated": sorted(gset.clients["A"]._transport.negotiated_capabilities.get(gset.url, ()))})
+
+    try:
+        for fs in sets:
+            with fs.active():
+                t0 = time.perf_counter()
+                results.append(f2_config2(fs, sends=H3_SENDS, after_send=stored_mix if fs is gset else None))
+                fs.walls["h3"] = time.perf_counter() - t0
+            fs.check("h3")
+        launches = read(kernels)
+        if results[0][1] != results[1][1]:
+            raise AssertionError("path H3: query rows differ from the oracle set's")
+        t0 = time.perf_counter()
+        sizes = f_compare("h3", gset, oset)
+        counts = dict(gset.server.scheduler.counts)
+    finally:
+        for fs in sets:
+            fs.close()
+    if mix[0]["v2"] or mix[0]["v1"] != per_send:
+        raise AssertionError(f"path H3: round 1 stored {mix[0]}, expected {per_send} OpenPGP records only")
+    if protocol.CAP_AEAD_BATCH not in mix[0]["negotiated"]:
+        raise AssertionError(f"path H3: A's transport negotiated {mix[0]['negotiated']} after round 1")
+    if mix[-1]["v1"] != per_send or mix[-1]["v2"] != (H3_SENDS - 1) * per_send:
+        raise AssertionError(f"path H3: the relay holds {mix[-1]}, expected every Send after the echo as v2")
+    n = results[0][0]
+    plans = sum(sum(v for k, v in e.worker._planner.cache.counts.items() if k in ("cached_plans", "stream_plans"))
+                for e in gset.clients.values())
+    wall = gset.walls["h3"]
+    parts = {k: round(v, 4) for k, v in gset.parts.items()}
+    parts["rest"] = round(wall - sum(gset.parts.values()), 4)
+    out = {"messages": n, "wall_s": round(wall, 4), "msgs_per_s": round(n / wall),
+           "oracle_wall_s": round(oset.walls["h3"], 4), "oracle_msgs_per_s": round(n / oset.walls["h3"]),
+           "split_s": parts, "crypto_share": round((gset.parts["encrypt"] + gset.parts["decrypt"]) / wall, 4),
+           "f2_v1_crypto_share": F2_V1_CRYPTO_SHARE, "stored_after_send": mix,
+           "scheduler_counts": counts, "relay_routes": {k: eng.counts[k] - routes[k] for k in routes},
+           "worker_device_plans": plans, "responses_decoded": gset.decoded,
+           "transport_counts": {k: dict(e._transport.counts) for k, e in gset.clients.items()},
+           "rows": sizes, "compare_s": round(time.perf_counter() - t0, 3)}
+    print(f"  path H3: {json.dumps(out)} | {gpu}", flush=True)
+    if counts["poisoned_batches"] or counts["singles"]:
+        raise AssertionError(f"path H3: scheduler counts {counts}")
+    dispatches = sum(out["relay_routes"][k] for k in ("delta", "full", "overflow"))
+    if launches["timestamp_hash"] != launches["seg_xor_scan"] or launches["seg_sum_scan"] \
+            or launches["timestamp_hash"] < plans + dispatches or launches["seg_lex_max_scan"] < 2 * plans \
+            or plans == 0 or dispatches == 0:
+        raise AssertionError(f"path H3: launches {launches} for {plans} device plans, "
+                             f"{dispatches} relay dispatches")
+    if gset.decoded["object"] or not gset.decoded["packed"]:
+        raise AssertionError(f"path H3: the card set decoded {gset.decoded}")
+    return launches, out
+
+
+def path_h(torch, kernels, keep, gpu=""):
+    """Path H: H1, H2 and H3, each with its own launch counts (summed as
+    path H). Closes path E's store at the end. → (launches, report)."""
+    report, per = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            per["h1"], report["h1"] = path_h1(torch, kernels, keep, tmp)
+        per["h2"], report["h2"] = path_h2(torch, kernels, keep)
+        keep.pop("store").close()
+        keep.clear()
+        per["h3"], report["h3"] = path_h3(torch, kernels, gpu)
+    finally:
+        if "store" in keep:
+            keep["store"].close()
+    report["launches"] = per
+    launches = {k: sum(p[k] for p in per.values()) for k in per["h1"]}
     return launches, report
 
 
@@ -2495,7 +2848,7 @@ def engine_kernel_timing(torch, captured):
                      "bytes_down": int(sum(a.nbytes for a in host)),
                      "upload_ms": round(statistics.median(ups) * 1e3, 5),
                      "ms": round(cuda_ms(lambda: fn(t)), 5),
-                     "device_ms": round(device_ms(torch, [lambda: fn(t)]), 5),
+                     **device_ms(torch, [lambda: fn(t)]),
                      "pull_ms": round(statistics.median(pulls) * 1e3, 5)}
         print(f"  engine kernel {name} on E1's columns: {json.dumps(out[name])}", flush=True)
     calls = captured["path_e"]
@@ -2526,12 +2879,12 @@ def time_sum_kernel(torch, captured):
         same([got], [want], f"S on path C1's {slot} input")
         call = functools.partial(cuda_scan.segmented_sum_scan_cuda, flags, values)
         ms = cuda_ms(call)
-        dev_ms = device_ms(torch, [call])
+        dev = device_ms(torch, [call])
         plain_ms = cuda_ms(functools.partial(cuda_scan.segmented_sum_scan_plain, flags, values), reps=3, inner=2)
         cumsum_ms = cuda_ms(functools.partial(torch.cumsum, values, 0))
         bound = max(bound_parts("S", (flags, values)))
         shapes[slot] = {"rows": n, "max_abs_err": u64_max_abs_err(got, want), "ms": round(ms, 5),
-                        "device_ms": round(dev_ms, 5), "plain_ms": round(plain_ms, 5), "bound_ms": round(bound, 5),
+                        **dev, "plain_ms": round(plain_ms, 5), "bound_ms": round(bound, 5),
                         "cumsum_ms": round(cumsum_ms, 5)}
         print(f"  S {slot}: {json.dumps(shapes[slot])}", flush=True)
     return shapes
@@ -2694,7 +3047,7 @@ def time_path_calls(torch, kernels, calls):
             rows.append(int(a[0].shape[0]))
         small = min(range(len(rows)), key=rows.__getitem__)
         out[k["name"]] = {"calls": len(rows), "rows_min": min(rows), "rows_max": max(rows),
-                          "ms": round(ms, 5), "device_ms": round(device_ms(torch, fns, reps=5), 5),
+                          "ms": round(ms, 5), **device_ms(torch, fns, reps=5),
                           "bound_ms": round(bound, 5), "host_us": round(host_us(torch, fns[small]), 3),
                           "host_us_rows": rows[small]}
         print(f"  {k['name']} per run of path C2: {json.dumps(out[k['name']])}", flush=True)
@@ -2710,7 +3063,7 @@ def time_slot_at(torch, slot, a, kw, what):
     call = functools.partial(cuda_fn, *a, **kw)
     t_bytes, t_ops = bound_parts(slot, a)
     out = {"timed_on": what, "rows": int(a[0].shape[0]), "max_abs_err": max_abs_err(got, want),
-           "ms": round(cuda_ms(call), 5), "device_ms": round(device_ms(torch, [call]), 5),
+           "ms": round(cuda_ms(call), 5), **device_ms(torch, [call]),
            "plain_ms": round(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2), 5),
            "bound_ms": round(max(t_bytes, t_ops), 5), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     print(f"  {slot} {what}: {json.dumps(out)}", flush=True)
@@ -2732,7 +3085,7 @@ def time_kernels(torch, kernels, captured):
         for g, w in zip(got, want):
             same(g, w, k["name"] + " on main-path inputs")
         ms = statistics.mean(cuda_ms(functools.partial(cuda_fn, *a, **kw)) for a, kw in timed)
-        dev_ms = device_ms(torch, [functools.partial(cuda_fn, *a, **kw) for a, kw in timed]) / len(timed)
+        dev = device_ms(torch, [functools.partial(cuda_fn, *a, **kw) for a, kw in timed], per=len(timed))
         plain_ms = statistics.mean(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2)
                                    for a, kw in timed)
         t_bytes, t_ops = bound_parts(k["slot"], calls[0][0])
@@ -2740,7 +3093,7 @@ def time_kernels(torch, kernels, captured):
             "name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "timed_on": "columns pass 1M", "rows": int(calls[0][0][0].shape[0]),
             "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
-            "ms": round(ms, 5), "device_ms": round(dev_ms, 5), "plain_ms": round(plain_ms, 5),
+            "ms": round(ms, 5), **dev, "plain_ms": round(plain_ms, 5),
             "bound_ms": round(max(t_bytes, t_ops), 5),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
@@ -2873,6 +3226,10 @@ def main() -> int:
         print("  " + json.dumps(report_g2) + f" | {gpu}", flush=True)
     launches["g"] = {k: launches_g1[k] + launches_g2[k] for k in launches_g1}
     report_g = {"g1": report_g1, "g2": report_g2, "launches_g1": launches_g1, "launches_g2": launches_g2}
+    with phase("path H: the relay as a live HTTP server (batching RelayServer, the streaming ingest, "
+               "clients on the v2 wire) vs path E and path F's oracle set", gpu):
+        launches["h"], report_h = path_h(torch, kernels, keep_e, gpu)
+        print("  " + json.dumps(report_h["launches"]) + f" | {gpu}", flush=True)
     reports, captured_10m = [], {}
     # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
     # The 10M pass runs once (cut from a median of 3 when path G was added).
@@ -2903,22 +3260,25 @@ def main() -> int:
         "name": "seg_sum_scan", "route": "cuda", "source": kernels[3]["source"],
         "replaces": kernels[3]["replaces"], "timed_on": "path C1 pn_counter_sums", "rows": s_row["rows"],
         "max_abs_err": max(v["max_abs_err"] for v in s_shapes.values()),
-        "ms": s_row["ms"], "device_ms": s_row["device_ms"], "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
+        "ms": s_row["ms"], **{k: s_row[k] for k in ("device_ms", "device_ms_events") if k in s_row},
+        "plain_ms": s_row["plain_ms"], "bound_ms": s_row["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "cumsum_ms_nearest_one_call": s_row["cumsum_ms"],
         "at_tensor_sum_input": s_shapes["S_tensor_sum"],
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
-        row["path_c2_device_ms"] = c2_times[row["name"]]["device_ms"]
+        for key in ("device_ms", "device_ms_events"):
+            if key in c2_times[row["name"]]:
+                row[f"path_c2_{key}"] = c2_times[row["name"]][key]
         row["path_c2_bound_ms"] = c2_times[row["name"]]["bound_ms"]
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
-                      "relay": report_e, "handle": report_f, "packed_native": report_g}))
+                      "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from evolu_tpu_torch.ops import wrap_int32
-from evolu_tpu_torch.ops.cuda_lib import check, load, require, stream_handle, stream_state
+from evolu_tpu_torch.ops.cuda_lib import KernelError, check, load, require, stream_handle, stream_state
 from evolu_tpu_torch.ops.encode import render_hashes_i64, unpack_ts_keys
 
 
@@ -63,7 +63,7 @@ def _digest_scratch(buf, device):
     if buf is None:
         size = load().evolu_ts_hash_scratch_bytes()
         if size <= 0:
-            raise RuntimeError("evolu_tpu_torch: timestamp hash grid query failed")
+            raise KernelError("evolu_tpu_torch: timestamp hash grid query failed")
         buf = torch.zeros(size, dtype=torch.uint8, device=device)
     return buf, buf
 

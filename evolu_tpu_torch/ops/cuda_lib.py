@@ -7,7 +7,8 @@ PyTorch's headers, so a build takes seconds. The library lands in
 `evolu_tpu_torch/_build/<content hash>/`, keyed by the sources and the
 flags, so an edited source never loads a stale build. Pointers and the
 stream cross the boundary as `c_void_p`; every entry point returns a
-`cudaError_t`, which `check` turns into an exception.
+`cudaError_t`, which `check` turns into a `KernelError`, as it does a
+failed build.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib = None
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built or launched, or the card failed its
+    work. A RuntimeError, so callers that catch that keep working; the
+    relay's scheduler tells it apart from a request that poisons a batch."""
+
 build_info = {"seconds": None, "log": "", "path": None}
 
 
@@ -44,7 +52,7 @@ def nvcc() -> str:
     fallback = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(fallback):
         return fallback
-    raise RuntimeError("evolu_tpu_torch: nvcc not found; the CUDA kernels cannot be built")
+    raise KernelError("evolu_tpu_torch: nvcc not found; the CUDA kernels cannot be built")
 
 
 def _build_dir() -> Path:
@@ -74,7 +82,7 @@ def _build(out_dir: Path) -> str:
             if p.returncode != 0:
                 failed.append(name)
         if failed:
-            raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n" + "\n".join(log))
+            raise KernelError("nvcc failed for " + ", ".join(failed) + "\n" + "\n".join(log))
         lib_tmp = os.path.join(tmp, "libevolu_kernels.so")
         link = subprocess.run(
             [compiler, "-shared", "-o", lib_tmp, *(obj for _, obj, _ in procs)],
@@ -82,7 +90,7 @@ def _build(out_dir: Path) -> str:
         )
         log.append(f"== link\n{link.stdout}")
         if link.returncode != 0:
-            raise RuntimeError("nvcc link failed\n" + "\n".join(log))
+            raise KernelError("nvcc link failed\n" + "\n".join(log))
         text = "\n".join(log)
         Path(tmp, "build.log").write_text(text)
         staged = Path(tmp, "out")
@@ -140,7 +148,7 @@ def load():
 def check(rc: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if rc != 0:
-        raise RuntimeError(f"evolu_tpu_torch: {what} launch failed: cudaError_t {rc}")
+        raise KernelError(f"evolu_tpu_torch: {what} launch failed: cudaError_t {rc}")
 
 
 def require(t, dtype, n: int, what: str) -> None:

@@ -9,8 +9,10 @@ and:
 1. finds the new rows: on a store with the native packed insert (the C++
    backend, or shards of it) one `INSERT OR IGNORE` call a shard that
    returns per-row was-new flags, then one native parse of the same
-   packed buffer (`_ingest_packed`, shards in parallel threads);
-   elsewhere a bulk temp-table set-diff (`_ingest_generic`);
+   packed buffer (`_ingest_packed`, shards in parallel threads; or the
+   pipelined `start_batch`/`finish_batch`, which `run_batch_wire` and
+   `reconcile_stream` take); elsewhere a bulk temp-table set-diff
+   (`_ingest_generic`);
 2. hashes every new timestamp (kernel H) and reduces per-(owner,
    minute) XOR deltas on the card (`owner_minute_segments`: a sort and
    kernel X), compacted on the card to the segment ends;
@@ -23,14 +25,12 @@ Every entry point runs on the card unless the caller passes
 `device="cpu"`; without a card it raises.
 
 Not ported yet, and refused with NotImplementedError before any side
-effect rather than rerouted: the pipelined streaming ingest
-(`start_batch`, `finish_batch`, `reconcile_stream`; `run_batch_wire`
-takes the one-shot ingest on every store), the write-behind mode, and
-scoped requests.
+effect rather than rerouted: the write-behind mode and scoped requests.
 """
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -48,6 +48,7 @@ from evolu_tpu_torch.core.murmur import to_int32
 from evolu_tpu_torch.core.types import NonCanonicalStoreError
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
+from evolu_tpu_torch.ops.cuda_lib import KernelError
 from evolu_tpu_torch.ops.encode import pack_ts_keys, unpack_ts_keys
 from evolu_tpu_torch.ops.host_parse import parse_packed_timestamps, parse_timestamp_strings
 from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas, owner_minute_segments
@@ -57,8 +58,16 @@ from evolu_tpu_torch.sync import protocol
 # Dispatches by route, in place of the reference's metrics: `delta` and
 # `full` count the 16-B and 20-B compact uploads, `overflow` the
 # full-width reruns after a cap overflow, `host_owners` the owners whose
-# non-canonical hex case sent them to the host fold.
+# non-canonical hex case sent them to the host fold. Every engine of the
+# process counts here, from whichever thread dispatches: `_count` takes
+# the lock.
 counts = {"delta": 0, "full": 0, "overflow": 0, "host_owners": 0}
+_counts_lock = threading.Lock()
+
+
+def _count(key: str, n: int = 1) -> None:
+    with _counts_lock:
+        counts[key] += n
 
 
 def _merkle_shard_kernel(millis, counter, node, valid, owner_ix):
@@ -177,7 +186,7 @@ def deltas_dispatch(
     deltas: Dict[str, Dict[str, int]] = {o: {} for o in owners}
     digest = 0
     host_owners = [o for o, ix in owner_index.items() if len(ix) and not case_ok[ix].all()]
-    counts["host_owners"] += len(host_owners)
+    _count("host_owners", len(host_owners))
     for o in host_owners:
         deltas[o], d = minute_deltas_host(ts_strings[i] for i in owner_index[o])
         digest ^= d
@@ -217,7 +226,7 @@ def deltas_dispatch(
         and len(good) < _DELTA_PAD_OWNER
     )
     if use_delta:
-        counts["delta"] += 1
+        _count("delta")
         dmillis = np.where(real, millis - base, 0).astype(np.uint32)
         ownctr = np.where(
             real,
@@ -225,13 +234,14 @@ def deltas_dispatch(
             | (k1 & np.uint64(0xFFFF)).astype(np.uint32),
             np.uint32(_DELTA_PAD_OWNER << _DELTA_OWNER_BITS),
         )
-        t = columns_to_device({"dmillis": dmillis.view(np.int32),
-                               "ownctr": ownctr.view(np.int32), "node": node}, device)
-        outs = _merkle_shard_kernel_compact_delta(t["dmillis"], t["ownctr"], t["node"], base, cap)
+        cols = {"dmillis": dmillis.view(np.int32), "ownctr": ownctr.view(np.int32), "node": node}
+        kernel, args = _merkle_shard_kernel_compact_delta, (base, cap)
     else:
-        counts["full"] += 1
-        t = columns_to_device({"k1": k1, "node": node, "owner_ix": oix}, device)
-        outs = _merkle_shard_kernel_compact(t["k1"], t["node"], t["owner_ix"], cap)
+        _count("full")
+        cols = {"k1": k1, "node": node, "owner_ix": oix}
+        kernel, args = _merkle_shard_kernel_compact, (cap,)
+    with _device_work():
+        outs = kernel(*columns_to_device(cols, device).values(), *args)
     return (deltas, digest, good, outs, (k1, node, oix, device, cap))
 
 
@@ -253,26 +263,73 @@ def _decode_compact(packed, xors, count) -> Dict[int, Dict[str, int]]:
     return by_ix
 
 
+@contextmanager
+def _device_work():
+    """The device leg of an engine pass: upload, kernels, pull. Its inputs
+    are host columns that parsed already, so a failure inside (a CUDA
+    error, sticky or not, an out-of-memory, a kernel that did not build or
+    launch) is the device's, never a request's, and leaves as a
+    KernelError: the scheduler fails the batch instead of serving its
+    requests again as singletons on the host."""
+    try:
+        yield
+    except KernelError:
+        raise
+    except Exception as e:
+        raise KernelError(f"evolu_tpu_torch: a relay batch's device work failed: {e!r}") from e
+
+
+def _start_pull(outs):
+    """Queue the copy of the compact outputs to the host behind the
+    dispatch, on the stream that launched it, and record an event after
+    the copy. → (event or None on the CPU, host tensors). Waiting on the
+    event waits for exactly this batch's device work, never for what
+    other threads launched since."""
+    with _device_work():
+        host = [x.to("cpu", non_blocking=True) for x in outs]
+        if not outs[0].is_cuda:
+            return None, host
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(outs[0].device))
+        return event, host
+
+
+def _pull_outputs(event, host):
+    """The pull thread's half of `_start_pull`: wait for the event, then
+    hand the outputs over as numpy arrays."""
+    with _device_work():
+        if event is not None:
+            event.synchronize()
+        return tuple(x.numpy() for x in host)
+
+
 def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
     """Second half: pull the compact outputs in one wave and decode the
-    per-(owner, minute) deltas. If the dispatch produced more segments
-    than the cap, rerun the full-width kernel and decode every row."""
+    per-(owner, minute) deltas. The pull slot may hold a Future of a pull
+    already started on another thread (`start_batch`'s pull thread). If
+    the dispatch produced more segments than the cap, rerun the
+    full-width kernel on the calling thread and decode every row."""
     deltas, digest, good, outs, extra = state
     if outs is None:
         return deltas, digest
-    packed, xors, seg_count, dev_digest = to_host_many(*outs)
+    if hasattr(outs, "result"):
+        packed, xors, seg_count, dev_digest = outs.result()
+    else:
+        with _device_work():
+            packed, xors, seg_count, dev_digest = to_host_many(*outs)
     k1, node, oix, device, cap = extra
     count = int(seg_count[0])
     if count > cap:
-        counts["overflow"] += 1
-        t = columns_to_device({
+        _count("overflow")
+        cols = {
             "millis": (k1 >> np.uint64(16)).astype(np.int64),
             "counter": (k1 & np.uint64(0xFFFF)).astype(np.int32),
             "node": node, "valid": oix >= 0,
             "owner_ix": np.maximum(oix, 0).astype(np.int64),
-        }, device)
-        *segments, dev_digest = to_host_many(*_merkle_shard_kernel(
-            t["millis"], t["counter"], t["node"], t["valid"], t["owner_ix"]))
+        }
+        with _device_work():
+            *segments, dev_digest = to_host_many(*_merkle_shard_kernel(
+                *columns_to_device(cols, device).values()))
         by_ix = decode_owner_minute_deltas(*segments)
     else:
         by_ix = _decode_compact(packed, xors, count)
@@ -322,6 +379,7 @@ class BatchReconciler:
         self.store = store
         self.device = resolve_device(device)
         self._executor = None
+        self._pull_pool = None
 
     def _new_messages(
         self, requests: Sequence[protocol.SyncRequest]
@@ -369,10 +427,8 @@ class BatchReconciler:
         Refuses, before any side effect, what is not ported yet."""
         for r in requests:
             refuse_scoped(r)
-        stores, _ = self._shards()
         strings: Dict[str, str] = {}
-        if all(hasattr(getattr(s, "db", None), "relay_insert_packed") for s in stores):
-            # A native store, or a sharded store of native shards.
+        if self._packed_store():
             trees = self._ingest_packed(requests, strings)
         elif isinstance(self.store, ShardedRelayStore) or getattr(self.store, "db", None) is None:
             # Sharded Python-backend shards, or a generic store with no
@@ -391,6 +447,12 @@ class BatchReconciler:
             return self.store.shards, self.store.shard_index
         return [self.store], (lambda _u: 0)
 
+    def _packed_store(self) -> bool:
+        """A native store, or a sharded store of native shards: every shard
+        has the packed insert, so the packed and streaming ingests apply."""
+        stores, _ = self._shards()
+        return all(hasattr(getattr(s, "db", None), "relay_insert_packed") for s in stores)
+
     def _pool(self, n: int):
         """One worker per storage shard (sized to the store, not to the
         batch, so a small first batch cannot cap later ones)."""
@@ -399,6 +461,15 @@ class BatchReconciler:
 
             self._executor = ThreadPoolExecutor(max_workers=n, thread_name_prefix="evolu-ingest")
         return self._executor
+
+    def _pull_executor(self):
+        """The one thread that waits for each streamed batch's device
+        outputs while the dispatcher lands the batch before it."""
+        if self._pull_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pull_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="evolu-pull")
+        return self._pull_pool
 
     def _map_shards(self, fn, live, n_stores):
         """fn(si) for each live shard, in parallel when a pool exists. Waits
@@ -445,10 +516,13 @@ class BatchReconciler:
             raise commit_err
 
     def close(self) -> None:
-        """Stop the shard ingest's thread pool."""
+        """Stop the shard ingest's and the pull's thread pools."""
         if self._executor is not None:
             self._executor.shutdown(wait=True)
             self._executor = None
+        if self._pull_pool is not None:
+            self._pull_pool.shutdown(wait=True)
+            self._pull_pool = None
 
     def _ingest_packed(self, requests, tree_strings=None) -> Dict[str, dict]:
         """The packed columnar ingest. Per storage shard: pack the shard's
@@ -529,14 +603,196 @@ class BatchReconciler:
                     )
         return trees
 
-    def _refuse_streaming(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            "evolu_tpu_torch: the pipelined streaming ingest is not ported yet; "
-            "run_batch_wire and reconcile_wire take the one-shot ingest")
+    # -- the pipelined streaming reconcile --
+    #
+    # `_ingest_packed` holds each shard transaction open across the device
+    # dispatch, so host and device take turns. The streaming path hashes
+    # the WHOLE batch on the device before the insert knows which rows are
+    # new, and recomputes on the host the deltas of the owners that turn
+    # out to hold rows already stored, from their new rows only: the same
+    # fold the one-shot path runs. The device leg then needs nothing from
+    # the database, so batch k+1's upload, kernels and pull run while batch
+    # k's inserts, trees and commit run on the host (the C calls drop the
+    # GIL).
 
-    # The reference's pipelined streaming reconcile; refused before any
-    # side effect until it is ported.
-    start_batch = finish_batch = reconcile_stream = _refuse_streaming
+    def start_batch(self, requests: Sequence[protocol.SyncRequest]):
+        """Stage a batch: dedup it in request order, pack per shard, parse
+        natively, dispatch the device hash of ALL kept rows, and hand the
+        pull of the compact outputs to the pull thread. No database access
+        happens here. → the state `finish_batch` lands."""
+        for r in requests:
+            refuse_scoped(r)
+        stores, shard_index = self._shards()
+        per_shard: List[List[protocol.SyncRequest]] = [[] for _ in stores]
+        for r in requests:
+            per_shard[shard_index(r.user_id)].append(r)
+
+        seen: set = set()
+        shard_data: Dict[int, tuple] = {}
+        buffers: List[bytes] = []
+        offsets: List[int] = []
+        col_parts = ([], [], [], [])
+        owner_rows: Dict[str, List[np.ndarray]] = {}
+        live: List[int] = []
+        off = 0
+        for si, reqs in enumerate(per_shard):
+            gu: List[str] = []
+            gc: List[int] = []
+            ts_list: List[str] = []
+            contents: List[bytes] = []
+            for r in reqs:
+                # In-batch dedup up front (the one-shot path leaves it to the
+                # primary key), so that was_new False means exactly "already
+                # stored". One owner's rows stay in request order, so the
+                # kept occurrence is the row the primary key would keep.
+                kept = [
+                    m for m in r.messages
+                    if (m.timestamp, r.user_id) not in seen
+                    and not seen.add((m.timestamp, r.user_id))
+                ]
+                if kept:
+                    gu.append(r.user_id)
+                    gc.append(len(kept))
+                    ts_list.extend(m.timestamp for m in kept)
+                    contents.extend(m.content for m in kept)
+            n = len(ts_list)
+            if n == 0:
+                continue
+            live.append(si)
+            ts_packed, content_packed, lens = _pack_rows(ts_list, contents)
+            cols = parse_packed_timestamps(ts_packed, n, with_case=True)
+            pos = 0
+            for u, k in zip(gu, gc):
+                owner_rows.setdefault(u, []).append(np.arange(pos, pos + k) + off)
+                pos += k
+            buffers.append(ts_packed)
+            offsets.append(off)
+            for part, c in zip(col_parts, cols):
+                part.append(c)
+            shard_data[si] = (gu, gc, ts_packed, content_packed, lens)
+            off += n
+
+        packed = _PackedRows(buffers, offsets)
+        dev_state = None
+        if owner_rows:
+            merged = {u: (v[0] if len(v) == 1 else np.concatenate(v)) for u, v in owner_rows.items()}
+            all_m, all_c, all_n, case_ok = (
+                (p[0] if len(p) == 1 else np.concatenate(p)) for p in col_parts
+            )
+            dev_state = deltas_dispatch(
+                merged, all_m, all_c, all_n, case_ok, packed, device=self.device)
+            if dev_state[3] is not None:
+                pull = self._pull_executor().submit(_pull_outputs, *_start_pull(dev_state[3]))
+                dev_state = (*dev_state[:3], pull, dev_state[4])
+        return {
+            "requests": requests, "live": live, "shard_data": shard_data,
+            "dev": dev_state, "packed": packed, "n_total": off,
+            "shard_offsets": dict(zip(live, offsets)),
+        }
+
+    def finish_batch(self, st, wire: bool = False) -> List:
+        """Land a staged batch: per-shard native inserts (in parallel), the
+        pulled deltas with the duplicate owners' recomputed, the tree
+        upserts, and one commit per shard, all rolled back together on a
+        failure. `wire=True` answers in bytes (`_respond_wire`), else with
+        SyncResponse objects (`_respond`)."""
+        stores, shard_index = self._shards()
+        respond = self._respond_wire if wire else self._respond
+        live, shard_data = st["live"], st["shard_data"]
+        trees: Dict[str, dict] = {}
+        strings: Dict[str, str] = {}
+        if not live:
+            return respond(st["requests"], trees, strings)
+
+        def ingest_shard(si: int):
+            gu, gc, ts_packed, content_packed, lens = shard_data[si]
+            return si, stores[si].db.relay_insert_packed(gu, gc, ts_packed, content_packed, lens)
+
+        with self._shard_transactions(stores, live):
+            was_new_by_shard = dict(self._map_shards(ingest_shard, live, len(stores)))
+            deltas_by_owner, _digest = deltas_finish(st["dev"])
+            self._recompute_duplicate_owners(st, was_new_by_shard, deltas_by_owner)
+            tree_rows: List[List[Tuple[str, str]]] = [[] for _ in stores]
+            for o, deltas in deltas_by_owner.items():
+                if not deltas:
+                    continue
+                si = shard_index(o)
+                tree = apply_prefix_xors(stores[si].get_merkle_tree(o), deltas)
+                trees[o] = tree
+                strings[o] = merkle_tree_to_string(tree)
+                tree_rows[si].append((o, strings[o]))
+            for si in live:
+                if tree_rows[si]:
+                    stores[si].db.run_many(
+                        'INSERT OR REPLACE INTO "merkleTree" ("userId", "merkleTree") VALUES (?, ?)',
+                        tree_rows[si],
+                    )
+        return respond(st["requests"], trees, strings)
+
+    def _recompute_duplicate_owners(self, st, was_new_by_shard, deltas_by_owner) -> None:
+        """The device hashed every kept row; an owner some of whose rows were
+        already stored gets its deltas recomputed from its NEW rows only,
+        by the host fold the one-shot path's host owners take, so which
+        minute keys are present comes out the same: a minute whose new
+        hashes XOR to 0 stays (its tree path is made), a minute with only
+        stored rows goes. A steady batch has no such owner and returns
+        after one pass over the flags."""
+        affected: set = set()
+        for si in st["live"]:
+            gu, gc = st["shard_data"][si][:2]
+            was_new = was_new_by_shard[si]
+            pos = 0
+            for u, k in zip(gu, gc):
+                if not was_new[pos : pos + k].all():
+                    affected.add(u)
+                pos += k
+        if not affected:
+            return
+        # An affected owner may span several requests: gather all its new
+        # rows, then fold once.
+        new_rows: Dict[str, List[np.ndarray]] = {}
+        for si in st["live"]:
+            gu, gc = st["shard_data"][si][:2]
+            was_new = was_new_by_shard[si]
+            base = st["shard_offsets"][si]
+            pos = 0
+            for u, k in zip(gu, gc):
+                if u in affected:
+                    new_rows.setdefault(u, []).append(np.nonzero(was_new[pos : pos + k])[0] + (pos + base))
+                pos += k
+        packed = st["packed"]
+        for u in affected:
+            ix = np.concatenate(new_rows[u])
+            deltas_by_owner[u], _d = minute_deltas_host(packed[i] for i in ix)
+
+    def reconcile_stream(
+        self, batches: Sequence[Sequence[protocol.SyncRequest]]
+    ) -> List[List[protocol.SyncResponse]]:
+        """Software-pipelined reconcile over a stream of batches: batch
+        k+1's device leg (upload, kernels, pull) overlaps batch k's host
+        leg (inserts, trees, commit). The end state equals sequential
+        `reconcile` calls. A store without the packed insert takes those
+        sequential calls."""
+        if not self._packed_store():
+            return [self.reconcile(b) for b in batches]
+        out: List[List[protocol.SyncResponse]] = []
+        prev = None
+        for reqs in batches:
+            try:
+                st = self.start_batch(reqs)
+            except BaseException:
+                # A bad batch k+1 must not drop batch k, already dispatched:
+                # sequential reconcile calls would have committed it before
+                # raising.
+                if prev is not None:
+                    out.append(self.finish_batch(prev))
+                raise
+            if prev is not None:
+                out.append(self.finish_batch(prev))
+            prev = st
+        if prev is not None:
+            out.append(self.finish_batch(prev))
+        return out
 
     def _ingest_generic(self, requests, tree_strings=None) -> Dict[str, dict]:
         """Temp-table set-diff, the device Merkle pass over the new rows,
@@ -620,10 +876,14 @@ class BatchReconciler:
 
     def run_batch_wire(self, requests: Sequence[protocol.SyncRequest]) -> List[bytes]:
         """ONE engine/store pass for a live micro-batch → wire bytes per
-        request: `reconcile_wire`, whose `_ingest` picks the one-shot
-        ingest for the store (the reference's packed stores take its
-        streaming ingest here, which gives the same bytes). A failure
-        rolls every shard transaction back before raising."""
+        request (the scheduler's entry point). Stores with the packed
+        insert take `start_batch`/`finish_batch` (in-batch dedup in
+        request order, the optimistic device hash, one insert and tree
+        commit a shard); anything else takes `reconcile_wire`. Either way
+        a failure rolls every shard transaction back before raising: the
+        scheduler's singleton retry depends on that."""
+        if self._packed_store():
+            return self.finish_batch(self.start_batch(requests), wire=True)
         return self.reconcile_wire(requests)
 
     def _respond_wire(

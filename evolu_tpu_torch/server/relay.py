@@ -1,10 +1,22 @@
-"""The relay's store: messages and per-owner Merkle trees in SQLite.
+"""The relay: store, sync pipeline and HTTP endpoint.
 
-The port's copy of the store half of `evolu_tpu.server.relay`. Same
-storage shape and sync pipeline as the reference relay
-(apps/server/src/index.ts:64-75, :204-216), same own-message exclusion
-(`timestamp NOT LIKE '%' || nodeId`, index.ts:100). The relay is
-E2EE-blind: rows are (timestamp, userId, ciphertext).
+The port's copy of `evolu_tpu.server.relay`. Same storage shape and sync
+pipeline as the reference relay (apps/server/src/index.ts:64-75,
+:204-216), same own-message exclusion (`timestamp NOT LIKE '%' ||
+nodeId`, index.ts:100), same 20 MB body limit (index.ts:222) and `GET
+/ping` (index.ts:250-252). The relay is E2EE-blind: rows are (timestamp,
+userId, ciphertext).
+
+`RelayServer` serves POST `/`, GET `/ping`, `/health` and `/stats` on a
+ThreadingHTTPServer; `batching=True` routes sync POSTs through the
+continuous-batching `server.scheduler.SyncScheduler`, whose engine passes
+run on `device` (None = the card). `MultiprocessRelay` pre-forks worker
+processes (`python -m evolu_tpu_torch.server.relay_worker`) that serve the
+per-request host path over one shared file-backed store. The relay tier's
+endpoints (`/metrics`, `/ledger`, `/trace`, `/profile`, `/fleet`,
+`/push/poll`, `/replicate/*`, `/fleet/*`) answer 404, as a reference
+relay does with the feature off, and the options that would turn them on
+raise NotImplementedError before a socket is bound.
 
 `add_messages` inserts with per-row was-new flags (the changes==1
 Merkle gate) and hashes on the host; the batched many-owner path is
@@ -20,6 +32,11 @@ scoped sync is ported: it is never served unscoped.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from evolu_tpu_torch.core.merkle import (
@@ -40,6 +57,14 @@ from evolu_tpu_torch.core.types import NonCanonicalStoreError
 from evolu_tpu_torch.storage.native import open_database
 from evolu_tpu_torch.storage.sqlite import configure_shared_file_db
 from evolu_tpu_torch.sync import protocol
+
+MAX_BODY_BYTES = 20 * 1024 * 1024  # index.ts:222
+
+# The capabilities a port relay echoes by default: the reference's, less
+# `sync-scope-v1` until scoped sync is ported (ROADMAP queue 1 item 7).
+DEFAULT_CAPABILITIES = tuple(c for c in protocol.KNOWN_CAPABILITIES if c != protocol.CAP_SYNC_SCOPE)
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def refuse_scoped(request: protocol.SyncRequest) -> None:
@@ -283,3 +308,431 @@ class ShardedRelayStore:
     def close(self) -> None:
         for s in self.shards:
             s.close()
+
+
+# ---- the HTTP relay ------------------------------------------------------------------
+
+
+class _Counts:
+    """The relay's request counts, in place of the reference's metrics
+    registry: sync POSTs in all and by storage shard, and answers of 400,
+    413 and 500 (`errors`). One a server or worker process."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.requests = 0
+        self.errors = 0
+        self.shard_requests: Dict[int, int] = {}
+
+    def request(self) -> None:
+        with self._lock:
+            self.requests += 1
+
+    def error(self) -> None:
+        with self._lock:
+            self.errors += 1
+
+    def shard(self, index: int) -> None:
+        with self._lock:
+            self.shard_requests[index] = self.shard_requests.get(index, 0) + 1
+
+
+def relay_stats_payload(store, counts: _Counts) -> dict:
+    """The GET /stats JSON: the store's row counts a shard (shared truth in
+    a MultiprocessRelay) with this process's sync requests a shard, and
+    its request and error totals."""
+    shards = store.stats() if hasattr(store, "stats") else []
+    for s in shards:
+        s["requests"] = counts.shard_requests.get(s["index"], 0)
+    return {
+        "shards": shards,
+        "messages": sum(s["messages"] for s in shards),
+        "users": sum(s["users"] for s in shards),
+        "requests_total": counts.requests,
+        "errors_total": counts.errors,
+    }
+
+
+class _Handler(BaseHTTPRequestHandler):
+    store: RelayStore  # injected by RelayServer
+    scheduler = None  # SyncScheduler when the relay batches
+    counts: _Counts
+    # The capabilities this relay echoes (intersected with the request's
+    # advertised set). A request with none gets the v1 wire, byte for byte.
+    capabilities = DEFAULT_CAPABILITIES
+
+    def _negotiate_caps(self, request: protocol.SyncRequest, out: bytes) -> bytes:
+        """Append the negotiated capability fields to an encoded response,
+        after the serve path (proto3 field order is free). Only when the
+        client advertised, so capability-less peers round-trip byte for
+        byte."""
+        caps = tuple(c for c in request.capabilities if c in self.capabilities)
+        if not caps:
+            return out
+        return out + protocol.encode_response_capabilities(caps)
+
+    def log_message(self, format: str, *args) -> None:
+        pass  # quiet: the port has no logger yet (ROADMAP queue 1 item 10)
+
+    def _body_length(self) -> Optional[int]:
+        """Content-Length, or None after answering 400 for one that is not
+        a non-negative integer (a negative one would read unbounded)."""
+        raw = self.headers.get("Content-Length", "0")
+        try:
+            length = int(raw)
+        except (TypeError, ValueError):
+            length = -1
+        if length < 0:
+            self.counts.error()
+            self.send_error(400, "invalid Content-Length")
+            return None
+        return length
+
+    def _respond(self, code: int, body: bytes, content_type: str) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _respond_retry_after(self, retry_after: float) -> None:
+        """503 with Retry-After: the flow-control answer to scheduler
+        backpressure. Clients back off and retry; not an error."""
+        from evolu_tpu_torch.server.scheduler import format_retry_after
+
+        self.send_response(503)
+        self.send_header("Retry-After", format_retry_after(retry_after))
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def _serve_request(self, request: protocol.SyncRequest) -> Optional[bytes]:
+        """Serve one sync request through the scheduler or the per-request
+        path. → response bytes, or None after answering 503 itself."""
+        if request.scope is not None and protocol.CAP_SYNC_SCOPE not in (self.capabilities or ()):
+            # A relay without the scope capability strips the clause and
+            # answers the full serve, never an error.
+            request = dataclasses.replace(request, scope=None)
+        if self.scheduler is not None:
+            from evolu_tpu_torch.server.scheduler import SchedulerQueueFull
+
+            try:
+                return self.scheduler.submit(request)
+            except SchedulerQueueFull as e:
+                self._respond_retry_after(e.retry_after)
+                return None
+        return serve_single_request(self.store, request)
+
+    def do_GET(self) -> None:  # /ping (index.ts:250-252), /health, /stats
+        if self.path == "/ping":
+            body = b"ok"
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif self.path == "/stats":
+            try:
+                body = json.dumps(relay_stats_payload(self.store, self.counts)).encode("utf-8")
+            except Exception as e:  # noqa: BLE001 - a clean 500, not a dropped connection
+                self.counts.error()
+                self.send_error(500, str(e))
+                return
+            self._respond(200, body, "application/json")
+        elif self.path == "/health":
+            # Readiness (/ping is liveness): 503 while a snapshot install is
+            # in progress.
+            try:
+                from evolu_tpu_torch.server.snapshot import install_phase
+
+                phase = install_phase(self.store)
+                serving = phase is None
+                detail = {"status": "serving" if serving else "installing", "install_phase": phase}
+                if self.scheduler is not None:
+                    detail["queue_depth"] = self.scheduler.depth()
+            except Exception as e:  # noqa: BLE001 - the probe gets a clean 500
+                self.counts.error()
+                self.send_error(500, str(e))
+                return
+            self._respond(200 if serving else 503, json.dumps(detail).encode("utf-8"), "application/json")
+        else:
+            self.send_error(404)
+
+    def do_POST(self) -> None:  # POST / (index.ts:224-248)
+        if self.path.startswith(("/replicate/", "/fleet/")):
+            self.send_error(404)  # the relay tier is not ported (ROADMAP queue 1 item 6)
+            return
+        # Counted before any reject, so errors never outnumber requests.
+        self.counts.request()
+        length = self._body_length()
+        if length is None:
+            return
+        if length > MAX_BODY_BYTES:
+            self.counts.error()
+            self.send_error(413)
+            return
+        body = self.rfile.read(length)
+        try:
+            request = protocol.decode_sync_request(body)
+            self.counts.shard(
+                self.store.shard_index(request.user_id) if hasattr(self.store, "shard_index") else 0)
+            out = self._serve_request(request)
+            if out is None:
+                return  # 503 backpressure already answered
+        except Exception as e:  # noqa: BLE001 - index.ts:231-233
+            self.counts.error()
+            self.send_error(500, str(e))
+            return
+        self._respond(200, self._negotiate_caps(request, out), "application/octet-stream")
+
+
+class _RelayHTTPServer(ThreadingHTTPServer):
+    # The reference's deploy allows 25 concurrent connections
+    # (examples/server-nodejs/fly.toml); socketserver's default listen
+    # backlog of 5 resets simultaneous connects well below that.
+    request_queue_size = 128
+
+
+def _env_on(name: str) -> Optional[bool]:
+    """A set environment switch, in both directions; None when unset."""
+    env = os.environ.get(name, "")
+    return env.lower() not in ("0", "false", "no", "off") if env else None
+
+
+def _refuse(what: str, item: int) -> None:
+    raise NotImplementedError(f"evolu_tpu_torch: {what} is not ported yet (ROADMAP queue 1 item {item})")
+
+
+class RelayServer:
+    """ThreadingHTTPServer wrapper; `url` once started.
+
+    `batching=True` (or an explicit `scheduler`) routes sync POSTs through
+    the continuous-batching `SyncScheduler`, whose engine passes run on
+    `device` (None = the card: without one the constructor raises;
+    "cpu" = the plain versions of the kernels). Queue-full answers 503
+    with Retry-After, and `stop()` drains the scheduler before the store
+    closes. Default off: the per-request path, hashed on the host, is the
+    reference relay's shape.
+
+    Refused with NotImplementedError before a socket is bound or a store
+    written, each until its ROADMAP queue-1 item is ported: `peers` /
+    `replication` / `replication_interval_s`, `bootstrap_lag_owners`,
+    `checkpoint_interval_s` / `checkpoint_path`, `write_behind` /
+    `write_behind_log` and `push=True` (item 6),
+    `connection_tier="eventloop"` (item 6), `mesh_engine` / `mesh_ctx`
+    (item 9), and `capabilities` holding `sync-scope-v1` (item 7); also
+    when `EVOLU_WRITE_BEHIND`, `EVOLU_MESH_ENGINE` or `EVOLU_CONN_TIER`
+    turn one of them on. `push=None` means no push hub (the reference's
+    default is on)."""
+
+    def __init__(self, store: Optional[RelayStore] = None, host: str = "127.0.0.1",
+                 port: int = 0, batching: bool = False, scheduler=None,
+                 peers: Optional[Sequence[str]] = None, replication=None,
+                 replication_interval_s: Optional[float] = None,
+                 bootstrap_lag_owners: Optional[int] = None,
+                 checkpoint_interval_s: Optional[float] = None,
+                 checkpoint_path: Optional[str] = None,
+                 capabilities: Optional[Sequence[str]] = None,
+                 write_behind: Optional[bool] = None,
+                 write_behind_log: Optional[str] = None,
+                 mesh_engine: Optional[bool] = None,
+                 mesh_ctx=None,
+                 connection_tier: Optional[str] = None,
+                 push: Optional[bool] = None,
+                 device=None):
+        if peers is not None or replication is not None or replication_interval_s is not None:
+            _refuse("relay replication (peers, replication, replication_interval_s)", 6)
+        if bootstrap_lag_owners is not None:
+            _refuse("snapshot bootstrap (bootstrap_lag_owners)", 6)
+        if checkpoint_interval_s is not None or checkpoint_path is not None:
+            _refuse("periodic checkpoints (checkpoint_interval_s, checkpoint_path)", 6)
+        if write_behind is None:
+            write_behind = _env_on("EVOLU_WRITE_BEHIND")
+        if write_behind or write_behind_log is not None:
+            _refuse("the write-behind storage inversion (write_behind, write_behind_log)", 6)
+        if push:
+            _refuse("push subscriptions (push=True)", 6)
+        if connection_tier is None:
+            connection_tier = os.environ.get("EVOLU_CONN_TIER") or "threaded"
+        if connection_tier == "eventloop":
+            _refuse("the event-loop connection tier (connection_tier='eventloop')", 6)
+        if connection_tier != "threaded":
+            raise ValueError(
+                f"connection_tier must be 'threaded' or 'eventloop', got {connection_tier!r}")
+        if mesh_engine is None and mesh_ctx is None:
+            mesh_engine = _env_on("EVOLU_MESH_ENGINE")
+        if mesh_engine or mesh_ctx is not None:
+            _refuse("the mesh-sharded engine (mesh_engine, mesh_ctx)", 9)
+        self.capabilities = DEFAULT_CAPABILITIES if capabilities is None else tuple(capabilities)
+        if protocol.CAP_SYNC_SCOPE in self.capabilities:
+            _refuse("scoped sync (the sync-scope-v1 capability)", 7)
+        self.connection_tier = connection_tier
+        self.store = store or RelayStore()
+        self.scheduler = scheduler
+        if batching and scheduler is None:
+            from evolu_tpu_torch.server.scheduler import SyncScheduler
+
+            self.scheduler = SyncScheduler(self.store, device=device)
+        self.counts = _Counts()
+        self._handler_cls = type(
+            "BoundHandler", (_Handler,),
+            {"store": self.store, "scheduler": self.scheduler,
+             "capabilities": self.capabilities, "counts": self.counts},
+        )
+        try:
+            self._httpd = _RelayHTTPServer((host, port), self._handler_cls)
+        except BaseException:
+            if self.scheduler is not None and scheduler is None:
+                self.scheduler.stop()
+            raise
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def url(self) -> str:
+        host, port = self._httpd.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def start(self) -> "RelayServer":
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True, name="evolu-relay")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        if self._thread:
+            self._thread.join()
+        if self.scheduler is not None:
+            # Drain BEFORE the store closes, injected or owned alike (stop
+            # is idempotent): queued requests get their responses first.
+            self.scheduler.stop()
+        self._httpd.server_close()
+        self.store.close()
+
+
+def serve(path: str = ":memory:", host: str = "0.0.0.0", port: int = 4000) -> RelayServer:
+    """The `examples/server-nodejs` entry point analog."""
+    server = RelayServer(RelayStore(path), host, port)
+    return server.start()
+
+
+# -- the pre-forked multiprocess relay --
+
+
+def _open_store(path: str, backend: str, shards: int):
+    """The one store-construction rule shared by the relay parent (schema
+    pre-creation) and its workers: they must agree on the layout."""
+    if shards > 1:
+        return ShardedRelayStore(path, backend, shards=shards)
+    return RelayStore(path, backend)
+
+
+def _mp_worker_main(host: str, port: int, path: str, shards: int, backend: str) -> None:
+    """One relay worker process: its own SO_REUSEPORT listening socket on
+    the shared port (the kernel spreads connections over the workers) over
+    the SHARED file-backed store, on the per-request host path (SQLite WAL
+    and busy_timeout make the processes safe)."""
+    import socket
+
+    store = _open_store(path, backend, shards)
+    handler = type("BoundHandler", (_Handler,), {"store": store, "counts": _Counts()})
+
+    class _ReuseportServer(_RelayHTTPServer):
+        def server_bind(self):
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            super().server_bind()
+
+    httpd = _ReuseportServer((host, port), handler)
+    print("READY", flush=True)  # the parent waits for every worker's listen()
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:  # pragma: no cover - the parent terminates us
+        pass
+
+
+class MultiprocessRelay:
+    """Pre-forked relay: N worker PROCESSES accept on one SO_REUSEPORT port
+    and share one file-backed (sharded) store, serving the per-request
+    path on the host. Needs a file path (processes cannot share
+    :memory:)."""
+
+    def __init__(self, path: str, workers: int = 2, shards: int = 8,
+                 backend: str = "auto", host: str = "127.0.0.1", port: int = 0):
+        import socket
+
+        if path == ":memory:":
+            raise ValueError("MultiprocessRelay needs a file-backed store")
+        self.host = host
+        self._path, self._workers, self._shards, self._backend = path, workers, shards, backend
+        self._procs: list = []
+        # Reserve the port in the REUSEPORT group (bound, not listening, so
+        # no connection lands here); workers start in start().
+        self._anchor = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._anchor.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        try:
+            self._anchor.bind((host, port))
+            self.port = self._anchor.getsockname()[1]
+            # One store open here creates the schema before any worker serves.
+            _open_store(path, backend, shards).close()
+        except BaseException:
+            self._anchor.close()
+            raise
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def start(self) -> "MultiprocessRelay":
+        # Plain subprocesses: no fork of this process's state, and no
+        # multiprocessing-spawn re-import of __main__.
+        import select
+        import subprocess
+        import sys
+        import time
+        import urllib.request
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = _REPO_ROOT + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        try:
+            self._procs = [
+                subprocess.Popen(
+                    [sys.executable, "-m", "evolu_tpu_torch.server.relay_worker",
+                     self.host, str(self.port), self._path, str(self._shards), self._backend],
+                    env=env, stdout=subprocess.PIPE, text=True,
+                )
+                for _ in range(self._workers)
+            ]
+            # EVERY worker must report READY (after listen()).
+            waiting = {p.stdout.fileno(): p for p in self._procs}
+            deadline = time.time() + 30
+            while waiting and time.time() < deadline:
+                dead = [p for p in self._procs if p.poll() is not None]
+                if dead:
+                    raise RuntimeError(
+                        f"{len(dead)}/{len(self._procs)} relay workers exited at startup "
+                        f"(rc={[p.returncode for p in dead]})")
+                ready, _, _ = select.select(list(waiting), [], [], 0.1)
+                for fd in ready:
+                    if "READY" in waiting[fd].stdout.readline():
+                        del waiting[fd]
+            if waiting:
+                raise RuntimeError(f"{len(waiting)}/{len(self._procs)} relay workers did not come up")
+            with urllib.request.urlopen(self.url + "/ping", timeout=5):
+                pass
+            return self
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        for p in self._procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in self._procs:
+            try:
+                p.wait(timeout=5)
+            except Exception:  # noqa: BLE001 - wedged: escalate and reap
+                p.kill()
+                try:
+                    p.wait(timeout=5)
+                except Exception:  # noqa: BLE001,S110 - unreapable; the parent's exit collects it
+                    pass
+        self._procs = []
+        self._anchor.close()

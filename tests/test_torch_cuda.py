@@ -624,6 +624,123 @@ def test_native_ingest_on_card_matches_python_store(shards, dev):
         assert sorted(r for s in stores for r in s.db.exec(q)) == python.db.exec(q)
 
 
+@pytest.mark.parametrize("entry", ["reconcile_stream", "run_batch_wire", "reconcile_wire"])
+def test_streaming_ingest_on_card_matches_cpu(entry, dev):
+    """The pipelined streaming ingest (`reconcile_stream`; `run_batch_wire`
+    takes `start_batch`/`finish_batch` on a native store) and the one-shot
+    `_ingest_packed` (`reconcile_wire`) on the card, against the same entry
+    with `device="cpu"`: equal bytes and tables. The pull waits on the
+    batch's own event on the engine's pull thread."""
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.sync import protocol as pp
+
+    batches = _relay_batches()
+    sides = []
+    for d in (None, "cpu"):
+        store = RelayStore(backend="native")
+        engine = pe.BatchReconciler(store, device=d)
+        try:
+            if entry == "reconcile_stream":
+                out = [[pp.encode_sync_response(r) for r in b] for b in engine.reconcile_stream(batches)]
+            else:
+                out = [getattr(engine, entry)(b) for b in batches]
+        finally:
+            engine.close()
+        sides.append((out, [store.db.exec(q) for q in ('SELECT * FROM "message" ORDER BY 1, 2',
+                                                       'SELECT * FROM "merkleTree" ORDER BY 1')]))
+        store.close()
+    assert sides[0] == sides[1]
+
+
+def test_batching_relay_on_card_matches_cpu(dev):
+    """A batching `RelayServer` on the card (`device=None`) and one on the
+    CPU, each fed the same requests over HTTP from 8 threads (one owner a
+    thread): equal responses and tables, every request coalesced, H and X
+    launched."""
+    import threading
+    import urllib.request
+
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync import protocol as pp
+
+    first, again = _relay_batches()[:2]
+    lanes = [[first[o], again[o]] for o in range(8)]
+    sides = []
+    for d in (None, "cpu"):
+        server = RelayServer(RelayStore(backend="native"), batching=True, device=d).start()
+        got = {}
+        before = cuda_hash.timestamp_hash_cuda.launches
+        try:
+            def lane(o):
+                for k, r in enumerate(lanes[o]):
+                    req = urllib.request.Request(server.url, data=pp.encode_sync_request(r))
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        got[(o, k)] = resp.read()
+
+            threads = [threading.Thread(target=lane, args=(o,)) for o in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            counts = dict(server.scheduler.counts)
+            tables = [server.store.db.exec(q) for q in ('SELECT * FROM "message" ORDER BY 1, 2',
+                                                        'SELECT * FROM "merkleTree" ORDER BY 1')]
+        finally:
+            server.stop()
+        sides.append((got, tables, counts["coalesced"], cuda_hash.timestamp_hash_cuda.launches - before))
+    (card, card_tables, card_coalesced, card_h), (cpu, cpu_tables, cpu_coalesced, cpu_h) = sides
+    assert len(card) == 16 and card == cpu and card_tables == cpu_tables
+    assert card_coalesced == cpu_coalesced == 16
+    assert card_h >= 2 and cpu_h == 0
+
+@pytest.mark.parametrize("fault", ["native rerun synchronize", "python synchronize", "native pull event"])
+def test_device_fault_fails_the_batch_on_card(fault, monkeypatch, dev):
+    """A CUDA error that torch raises on a batch's device leg on the card
+    fails every member of the batch as a KernelError: no poisoned-batch
+    singleton retry on the host path, nothing stored. The batch spreads
+    its rows over one minute each, so the compact outputs overflow and the
+    full-width rerun pulls with a device-wide synchronize on the
+    dispatcher thread; the pull thread waits on the batch's event."""
+    import threading
+
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.server.scheduler import SyncScheduler
+
+    def broken(*_a, **_kw):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered (injected)")
+
+    if fault == "native pull event":
+        monkeypatch.setattr(torch.cuda.Event, "synchronize", broken)
+    else:
+        monkeypatch.setattr(torch.cuda, "synchronize", broken)
+    batch = _relay_batches()[3]
+    store = RelayStore(backend="python" if fault.startswith("python") else "native")
+    sched = SyncScheduler(store, max_batch=len(batch), max_wait_s=0.2)
+    errors = {}
+
+    def submit(r):
+        try:
+            sched.submit(r)
+        except Exception as e:  # noqa: BLE001 - the outcome under test
+            errors[r.user_id] = e
+
+    try:
+        threads = [threading.Thread(target=submit, args=(r,)) for r in batch]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        counts = dict(sched.counts)
+    finally:
+        sched.stop()
+    assert len(errors) == len(batch)
+    assert all(isinstance(e, cuda_lib.KernelError) for e in errors.values()), errors
+    assert counts["singles"] == 0 and counts["poison_retries"] == 0 and counts["poisoned_batches"] == 0
+    assert store.db.exec('SELECT * FROM "message"') == [] and store.db.exec('SELECT * FROM "merkleTree"') == []
+    store.close()
+
+
 @pytest.mark.parametrize("winner_cache", [True, False])
 def test_packed_plan_on_card_matches_cpu(winner_cache, dev):
     """A `PackedReceive` from the native decrypt, planned by the worker's

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_touches_no_card():
     assert "evolu_tpu_torch.server.engine" in result["modules"]
     for name in ("api", "api.model", "api.query", "api.hooks", "utils.reload", "runtime.client",
                  "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client",
-                 "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed"):
+                 "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
+                 "server.scheduler", "server.snapshot", "server.relay_worker"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
@@ -139,3 +140,52 @@ def test_native_libraries_load_from_the_port_build_alone():
     assert len(result["mapped"]) == 2
     for path in list(result["paths"].values()) + result["mapped"]:
         assert path.startswith(root), path
+
+
+_WORKER = r"""
+import json, sys, threading, urllib.request
+from evolu_tpu_torch.server import relay_worker
+port, path = sys.argv[1:3]
+sys.argv = ["relay_worker", "127.0.0.1", port, path, "2", "native"]
+threading.Thread(target=relay_worker.main, daemon=True).start()
+from evolu_tpu_torch.core.timestamp import timestamp_to_string
+from evolu_tpu_torch.core.types import Timestamp
+from evolu_tpu_torch.sync import protocol
+msgs = tuple(protocol.EncryptedCrdtMessage(timestamp_to_string(Timestamp(1_700_000_000_000 + i, 0, "a" * 16)), b"c")
+             for i in range(50))
+body = protocol.encode_sync_request(protocol.SyncRequest(msgs, "u", "f" * 16, "{}"))
+url = "http://127.0.0.1:" + port
+for _ in range(200):
+    try:
+        urllib.request.urlopen(url + "/ping", timeout=5).read()
+        break
+    except OSError:
+        import time; time.sleep(0.05)
+out = urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=30).read()
+import torch
+print("RESULT:" + json.dumps({
+    "messages": len(protocol.decode_sync_response(out).messages),
+    "forbidden": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu", "ml_dtypes")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_relay_worker_serves_without_jax_or_the_card(tmp_path):
+    """A `MultiprocessRelay` worker (`python -m
+    evolu_tpu_torch.server.relay_worker`'s `main`) serves a sync POST on the
+    host path: it imports nothing of JAX or `evolu_tpu` and never
+    initializes CUDA."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _WORKER, str(port), str(tmp_path / "relay.db")], cwd=_REPO,
+        capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
+    result = json.loads(line[len("RESULT:"):])
+    assert result == {"messages": 50, "forbidden": [], "cuda_initialized": False}

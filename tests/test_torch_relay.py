@@ -171,9 +171,9 @@ def test_shared_file_store_takes_the_write_lock_at_begin(tmp_path):
 
 
 def test_unported_routes_raise_before_any_side_effect():
-    """Scoped requests, the write-behind mode and the pipelined streaming
-    ingest are refused on a Python and on a native store, before any
-    side effect."""
+    """Scoped requests (on every ingest route, the streaming one included)
+    and the write-behind mode are refused on a Python and on a native
+    store, before any side effect."""
     (o, r), = _owner_rows(8, owners=1).items()
     plain = _requests(pp, [(o, r, "f" * 16, "{}")])[0]
     scoped = pp.SyncRequest(plain.messages, o, "f" * 16, "{}", (pp.CAP_SYNC_SCOPE,),
@@ -183,8 +183,8 @@ def test_unported_routes_raise_before_any_side_effect():
         engine = pe.BatchReconciler(store, device="cpu")
         for call in (lambda: engine.run_batch_wire([plain, scoped]), lambda: engine.reconcile([scoped]),
                      lambda: serve_single_request(store, scoped),
-                     lambda: engine.start_batch([plain]), lambda: engine.finish_batch(None),
-                     lambda: engine.reconcile_stream([[plain]]),
+                     lambda: engine.start_batch([plain, scoped]),
+                     lambda: engine.reconcile_stream([[plain, scoped]]),
                      lambda: pe.BatchReconciler(store, device="cpu", write_behind=object())):
             with pytest.raises(NotImplementedError):
                 call()
@@ -282,3 +282,149 @@ def test_merkle_minute_deltas_matches_jax(pre1970):
         want = jax_to_dict(*jax_fold(millis, counter, node, mask))
     got = minute_deltas_to_dict(*merkle_minute_deltas(millis, counter, node, mask, device="cpu"))
     assert got == want and len(got) > 10
+
+
+# ---- the pipelined streaming ingest (start_batch / finish_batch) ----
+
+
+def _xor_zero_stamps(minute_millis, node="0123456789abcdef"):
+    """Four distinct timestamps in one minute whose hashes XOR to 0 (two
+    pairs with equal XOR, found by a birthday search over counters)."""
+    from evolu_tpu_torch.core.timestamp import timestamp_from_string, timestamp_to_hash
+
+    stamps = [timestamp_to_string(Timestamp(minute_millis + i % 50_000, i // 50_000, node)) for i in range(1500)]
+    h = np.array([timestamp_to_hash(timestamp_from_string(t)) & 0xFFFFFFFF for t in stamps], np.uint64)
+    i, j = np.triu_indices(len(h), 1)
+    x = h[i] ^ h[j]
+    order = np.argsort(x, kind="stable")
+    xs = x[order]
+    for k in np.flatnonzero(xs[1:] == xs[:-1]):
+        a, b = order[k], order[k + 1]
+        quad = {int(i[a]), int(j[a]), int(i[b]), int(j[b])}
+        if len(quad) == 4:
+            return [stamps[q] for q in sorted(quad)]
+    raise AssertionError("no zero-XOR quadruple")
+
+
+def _stream_batches(seed):
+    """`_batches` (in-batch duplicates, rows already stored, one owner
+    twice in a batch, cold syncs), then a batch with a minute whose new
+    hashes XOR to 0: for a new owner (the device deltas) and for an owner
+    that re-sends stored rows beside them (the host recompute)."""
+    batches = _batches(seed)
+    owners = sorted(o for o, *_ in batches[0])
+    zero = _xor_zero_stamps(BASE + 7_200_000 - (BASE % 60_000))
+    stored = [(t, c) for t, c in _owner_rows(seed)[owners[0]][:2]]
+    rows = [(t, bytes([k])) for k, t in enumerate(zero)]
+    batches.append([("xz-new", rows, "f" * 16, "{}"), (owners[0], rows + stored, "f" * 16, "{}"),
+                    ("xz-new", [], "e" * 16, "{}")])
+    return batches
+
+
+def _stores(shards, jax_side):
+    if shards:
+        return (JaxSharded(shards=shards, backend="native") if jax_side
+                else ShardedRelayStore(shards=shards, backend="native"))
+    return JaxStore(backend="native") if jax_side else RelayStore(backend="native")
+
+
+@pytest.mark.parametrize("shards", [None, 3])
+@pytest.mark.parametrize("entry", ["reconcile_stream", "run_batch_wire"])
+def test_streaming_ingest_matches_jax_and_the_one_shot_ingest(entry, shards):
+    """`reconcile_stream` and `run_batch_wire` (which take start_batch /
+    finish_batch on native stores) against the JAX engine's on native and
+    sharded native stores: the same bytes and tables after every batch,
+    and the same as the port's one-shot `_ingest_packed` (`reconcile_wire`)."""
+    batches = _stream_batches(11)
+    jax_store, store, one_shot = _stores(shards, True), _stores(shards, False), _stores(shards, False)
+    jax_engine = JaxReconciler(jax_store, create_mesh(1))
+    engine, one_shot_engine = pe.BatchReconciler(store, device="cpu"), pe.BatchReconciler(one_shot, device="cpu")
+    zero_key = None
+    try:
+        if entry == "reconcile_stream":
+            want = jax_engine.reconcile_stream([_requests(jp, b) for b in batches])
+            got = engine.reconcile_stream([_requests(pp, b) for b in batches])
+            assert [[pp.encode_sync_response(r) for r in g] for g in got] == \
+                [[jp.encode_sync_response(r) for r in w] for w in want]
+            assert [[pp.encode_sync_response(r) for r in g] for g in got] == \
+                [one_shot_engine.reconcile_wire(_requests(pp, b)) for b in batches]
+            assert _dump(store) == _dump(jax_store) == _dump(one_shot)
+        else:
+            for b in batches:
+                got = engine.run_batch_wire(_requests(pp, b))
+                assert got == jax_engine.run_batch_wire(_requests(jp, b))
+                assert got == one_shot_engine.reconcile_wire(_requests(pp, b))
+                assert _dump(store) == _dump(jax_store) == _dump(one_shot)
+        from evolu_tpu_torch.core.merkle import merkle_tree_from_string, minutes_base3
+
+        tree = merkle_tree_from_string(store.get_merkle_tree_string("xz-new"))
+        zero_key = minutes_base3(BASE + 7_200_000 - (BASE % 60_000))
+        node = tree
+        for ch in zero_key:
+            node = node[ch]
+        assert node["hash"] == 0  # the zero-XOR minute is present, its hash 0
+    finally:
+        engine.close(), one_shot_engine.close(), jax_engine.close()
+    assert zero_key is not None
+
+
+def test_streamed_duplicates_take_the_host_recompute():
+    """An owner re-sending stored rows beside new ones in the streaming
+    ingest gets its deltas from the host fold of its new rows; the bytes
+    equal the one-shot ingest's."""
+    calls = []
+    orig = pe.minute_deltas_host
+    store, one_shot = RelayStore(backend="native"), RelayStore(backend="native")
+    engine, one = pe.BatchReconciler(store, device="cpu"), pe.BatchReconciler(one_shot, device="cpu")
+    try:
+        pe.minute_deltas_host = lambda stamps: calls.append(1) or orig(stamps)
+        for b in _stream_batches(12):
+            assert engine.run_batch_wire(_requests(pp, b)) == one.reconcile_wire(_requests(pp, b))
+    finally:
+        pe.minute_deltas_host = orig
+        engine.close(), one.close()
+    assert calls  # the second batch's re-sent rows
+    assert _dump(store) == _dump(one_shot)
+
+
+def test_reconcile_stream_bad_batch_lands_the_prior_batch_as_jax():
+    """A malformed batch k+1 raising in start_batch does not drop batch k,
+    already dispatched: the stream lands it (as sequential reconcile would
+    before raising), and the engine keeps working: on the port as on JAX."""
+    def run(m, store, engine):
+        good = _requests(m, [("uA", _owner_rows(13, owners=1)["owner000"][:20], "f" * 16, "{}")])
+        bad = [m.SyncRequest((m.EncryptedCrdtMessage("not-46-chars", b"c"),), "uB", "f" * 16, "{}")]
+        with pytest.raises(ValueError):
+            engine.reconcile_stream([good, bad])
+        first = sum(s.db.exec('SELECT COUNT(*) FROM "message"')[0][0] for s in store.shards)
+        engine.reconcile(_requests(m, [("uC", _owner_rows(14, owners=1)["owner000"][:5], "f" * 16, "{}")]))
+        return first, _dump(store)
+
+    jax_store, store = JaxSharded(shards=2, backend="native"), ShardedRelayStore(shards=2, backend="native")
+    engine = pe.BatchReconciler(store, device="cpu")
+    want = run(jp, jax_store, JaxReconciler(jax_store, create_mesh(1)))
+    got = run(pp, store, engine)
+    engine.close()
+    assert got == want
+    assert got[0] == min(20, len(_owner_rows(13, owners=1)["owner000"]))
+
+
+def test_streaming_pull_waits_on_its_own_thread():
+    """The pull of a streamed batch runs on the engine's pull thread, and
+    `deltas_finish` takes its Future; `close` stops that thread."""
+    import threading
+
+    store = RelayStore(backend="native")
+    engine = pe.BatchReconciler(store, device="cpu")
+    names = []
+    orig = pe._pull_outputs
+    pe._pull_outputs = lambda *a: names.append(threading.current_thread().name) or orig(*a)
+    try:
+        st = engine.start_batch(_requests(pp, _batches(15)[0]))
+        assert hasattr(st["dev"][3], "result")
+        engine.finish_batch(st, wire=True)
+    finally:
+        pe._pull_outputs = orig
+    assert names and names[0].startswith("evolu-pull")
+    engine.close()
+    assert engine._pull_pool is None

@@ -1,0 +1,443 @@
+"""Port parity: the HTTP relay (`RelayServer`, `_Handler`,
+`MultiprocessRelay`) against the JAX package's.
+
+- POST `/` answers a v1 body, a capability-advertising body and a scoped
+  body (the scope stripped, as a relay without `sync-scope-v1` does) with
+  the JAX relay's bytes, both relays built with the same capability tuple,
+  on the per-request path and batching (`device="cpu"`).
+- `/ping`, `/health` and the store section of `/stats` equal the JAX
+  relay's; a bad Content-Length answers 400, an oversized body 413, and
+  the relay tier's endpoints 404.
+- Every refused option raises NotImplementedError before a socket is
+  bound or the store written.
+- Two port clients converge over real HTTP through a batching port relay
+  with `aead-batch-v1` negotiated.
+- The four workloads of `tests/test_relay_concurrency.py` on a port
+  `MultiprocessRelay`, held against the JAX store's sequential serve.
+
+Tolerance: exact everywhere. Every threaded test runs inside its own
+time limit (`within`)."""
+
+import json
+import socket
+import threading
+import urllib.error
+import urllib.request
+
+import pytest
+
+import evolu_tpu.server.relay as jrelay
+import evolu_tpu.sync.aead as jaead
+import evolu_tpu.sync.protocol as jproto
+import evolu_tpu_torch.server.relay as prelay
+import evolu_tpu_torch.server.scheduler as psched
+import evolu_tpu_torch.sync.protocol as pproto
+from evolu_tpu_torch.core.timestamp import timestamp_to_string
+from evolu_tpu_torch.core.types import Timestamp
+
+from _torch_port_data import within
+
+BASE = 1_700_000_000_000
+FRESH_NODE = "f" * 16
+LIMIT_S = 120
+SCHEMA = {"todo": ("title", "isCompleted")}
+
+
+def _stamps(node, start, n, step=1000):
+    return [timestamp_to_string(Timestamp(BASE + (start + i) * step, 0, node)) for i in range(n)]
+
+
+def _msgs(proto, node, start, n, content=None):
+    return tuple(proto.EncryptedCrdtMessage(t, content or b"ct-%d" % (start + i))
+                 for i, t in enumerate(_stamps(node, start, n)))
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, b""
+
+
+def _post(url, body):
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=body, headers={"Content-Type": "application/octet-stream"}), timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, b""
+
+
+def _raw(url, head):
+    """Send raw request head bytes, → the status code of the answer."""
+    host, port = url[len("http://"):].split(":")
+    with socket.create_connection((host, int(port)), timeout=30) as s:
+        s.sendall(head)
+        line = s.makefile("rb").readline()
+    return int(line.split()[1])
+
+
+def _bodies():
+    """A v1 push, a push advertising capabilities (an unknown one among
+    them), a scoped request, then a cold pull of each kind, as encoded
+    request bytes."""
+    caps = (pproto.CAP_CRDT_TYPES, pproto.CAP_AEAD_BATCH, "zz-unknown-v9", pproto.CAP_SYNC_SCOPE)
+    reqs = [
+        pproto.SyncRequest(_msgs(pproto, "a" * 16, 0, 40), "owner-v1", "a" * 16, "{}"),
+        pproto.SyncRequest(_msgs(pproto, "b" * 16, 0, 40), "owner-caps", "b" * 16, "{}", caps),
+        pproto.SyncRequest(_msgs(pproto, "c" * 16, 0, 40), "owner-scoped", "c" * 16, "{}", caps,
+                           pproto.ScopeClause(watermark_millis=BASE + 20_000)),
+        pproto.SyncRequest((), "owner-v1", FRESH_NODE, "{}"),
+        pproto.SyncRequest((), "owner-caps", FRESH_NODE, "{}", caps),
+        pproto.SyncRequest((), "owner-scoped", FRESH_NODE, "{}", caps,
+                           pproto.ScopeClause(watermark_millis=BASE + 20_000)),
+    ]
+    return [pproto.encode_sync_request(r) for r in reqs]
+
+
+def _store_section(stats):
+    return ([{k: s[k] for k in ("index", "messages", "users")} for s in stats["shards"]],
+            stats["messages"], stats["users"])
+
+
+@pytest.mark.parametrize("batching", [False, True])
+def test_post_and_get_endpoints_match_jax(batching):
+    """The same bodies POSTed to a port and a JAX relay with the same
+    capabilities: byte-identical answers; equal /ping, /health and store
+    section of /stats."""
+    def drive(make):
+        server = make().start()
+        try:
+            out = [_post(server.url, b) for b in _bodies()]
+            out += [_get(server.url + p) for p in ("/ping", "/health")]
+            code, stats = _get(server.url + "/stats")
+            return out, code, json.loads(stats)
+        finally:
+            server.stop()
+
+    caps = prelay.DEFAULT_CAPABILITIES
+    want = within(LIMIT_S, lambda: drive(lambda: jrelay.RelayServer(
+        jrelay.RelayStore(backend="native"), batching=batching, capabilities=caps)))
+    got = within(LIMIT_S, lambda: drive(lambda: prelay.RelayServer(
+        prelay.RelayStore(backend="native"), batching=batching, device="cpu")))
+    assert got[0] == want[0] and got[1] == want[1] == 200
+    assert all(code == 200 for code, _ in got[0])
+    assert _store_section(got[2]) == _store_section(want[2]) == ([{"index": 0, "messages": 120, "users": 3}],
+                                                                 120, 3)
+    assert got[2]["requests_total"] == 6 and got[2]["errors_total"] == 0
+    assert got[2]["shards"][0]["requests"] == 6
+    responses = [pproto.decode_sync_response(b) for _, b in got[0][:6]]
+    assert responses[1].capabilities == (pproto.CAP_CRDT_TYPES, pproto.CAP_AEAD_BATCH)
+    assert responses[0].capabilities == () and responses[3].capabilities == ()
+    # The scope was stripped: the cold pull of the scoped owner gets every row.
+    assert len(responses[5].messages) == 40 and pproto.CAP_SYNC_SCOPE not in responses[5].capabilities
+    health = json.loads(got[0][7][1])
+    assert health == {"status": "serving", "install_phase": None, **({"queue_depth": 0} if batching else {})}
+
+
+def test_errors_and_404s_match_jax():
+    """A bad Content-Length answers 400, an oversized one 413 (the body
+    is never read), unknown and relay-tier endpoints 404; the relay keeps
+    serving. The endpoints a JAX relay also answers 404 are compared."""
+    heads = [b"POST / HTTP/1.1\r\nHost: x\r\nContent-Length: banana\r\n\r\n",
+             b"POST / HTTP/1.1\r\nHost: x\r\nContent-Length: -1\r\n\r\n",
+             b"POST / HTTP/1.1\r\nHost: x\r\nContent-Length: %d\r\n\r\n" % (prelay.MAX_BODY_BYTES + 1),
+             b"GET /nope HTTP/1.1\r\nHost: x\r\n\r\n",
+             b"GET /fleet HTTP/1.1\r\nHost: x\r\n\r\n",
+             b"POST /replicate/summary HTTP/1.1\r\nHost: x\r\nContent-Length: 0\r\n\r\n",
+             b"POST /fleet/reload HTTP/1.1\r\nHost: x\r\nContent-Length: 0\r\n\r\n"]
+
+    def drive(server):
+        server.start()
+        try:
+            codes = [_raw(server.url, h) for h in heads]
+            return codes, _get(server.url + "/ping"), json.loads(_get(server.url + "/stats")[1])
+        finally:
+            server.stop()
+
+    want = within(LIMIT_S, lambda: drive(jrelay.RelayServer(jrelay.RelayStore(backend="native"))))
+    got = within(LIMIT_S, lambda: drive(prelay.RelayServer(prelay.RelayStore(backend="native"))))
+    assert got[0] == want[0] == [400, 400, 413, 404, 404, 404, 404]
+    assert got[1] == want[1] == (200, b"ok")
+    assert got[2]["errors_total"] == 3 and got[2]["requests_total"] == 3
+
+    port = prelay.RelayServer(prelay.RelayStore(backend="native")).start()
+    try:
+        for path in ("/metrics", "/ledger", "/trace", "/trace/" + "0" * 32, "/profile", "/fleet",
+                     "/push/poll?owner=a&node=0000000000000000&cursor=0"):
+            assert _get(port.url + path)[0] == 404, path
+        for path in ("/replicate/summary", "/replicate/pull", "/fleet/forward", "/fleet/reload"):
+            assert _post(port.url + path, b"")[0] == 404, path
+    finally:
+        port.stop()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+REFUSED = {
+    "peers": ({"peers": []}, {}),
+    "replication": ({"replication": object()}, {}),
+    "bootstrap_lag_owners": ({"bootstrap_lag_owners": 1}, {}),
+    "checkpoint_interval_s": ({"checkpoint_interval_s": 5.0}, {}),
+    "write_behind": ({"write_behind": True}, {}),
+    "push": ({"push": True}, {}),
+    "eventloop": ({"connection_tier": "eventloop"}, {}),
+    "mesh_engine": ({"mesh_engine": True}, {}),
+    "mesh_ctx": ({"mesh_ctx": object()}, {}),
+    "scope capability": ({"capabilities": (pproto.CAP_SYNC_SCOPE,)}, {}),
+    "EVOLU_WRITE_BEHIND": ({}, {"EVOLU_WRITE_BEHIND": "1"}),
+    "EVOLU_MESH_ENGINE": ({}, {"EVOLU_MESH_ENGINE": "on"}),
+    "EVOLU_CONN_TIER": ({}, {"EVOLU_CONN_TIER": "eventloop"}),
+    "replication_interval_s": ({"replication_interval_s": 0.1}, {}),
+    "checkpoint_path": ({"checkpoint_path": "relay.ckpt"}, {}),
+    "write_behind_log": ({"write_behind_log": "relay.wal"}, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+@pytest.mark.parametrize("batching", [False, True])
+def test_refused_options_raise_before_a_socket_binds(case, batching, monkeypatch):
+    kwargs, env = REFUSED[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    port = _free_port()
+    store = prelay.RelayStore(backend="native")
+    threads = set(threading.enumerate())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        prelay.RelayServer(store, port=port, batching=batching, device="cpu", **kwargs)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", port))  # nothing holds the port
+    assert not [t for t in threading.enumerate() if t not in threads and t.name.startswith("evolu-")]
+    assert store.db.exec_sql_query('SELECT COUNT(*) AS n FROM "message"')[0]["n"] == 0
+    store.close()
+
+
+def test_env_switched_off_and_defaults_serve(monkeypatch):
+    """A switch set to off is honoured, as in the reference: the relay
+    starts and serves."""
+    monkeypatch.setenv("EVOLU_WRITE_BEHIND", "0")
+    monkeypatch.setenv("EVOLU_MESH_ENGINE", "off")
+    monkeypatch.setenv("EVOLU_CONN_TIER", "threaded")
+    server = prelay.RelayServer(prelay.RelayStore(backend="native"), push=False).start()
+    try:
+        assert _get(server.url + "/ping") == (200, b"ok")
+    finally:
+        server.stop()
+    with pytest.raises(ValueError):
+        prelay.RelayServer(connection_tier="bogus")
+    for kw in ({"write_behind": object()}, {"mesh_engine": True}, {"mesh_ctx": object()}):
+        with pytest.raises(NotImplementedError):
+            psched.SyncScheduler(prelay.RelayStore(backend="native"), device="cpu", **kw)
+
+
+def _converge(clients, n_rows, rounds=12):
+    for _ in range(rounds):
+        for c in clients:
+            c.sync()
+            c.worker.flush()
+            c._transport.flush()
+            c.worker.flush()
+        rows = [c.db.exec('SELECT * FROM "__message" ORDER BY "timestamp"') for c in clients]
+        if len(rows[0]) == n_rows and all(r == rows[0] for r in rows):
+            return True
+    return False
+
+
+def test_two_port_clients_converge_over_http_with_v2_negotiated():
+    from evolu_tpu_torch.runtime.client import create_evolu
+    from evolu_tpu_torch.sync.client import connect
+    from evolu_tpu_torch.utils.config import Config
+
+    def run():
+        server = prelay.RelayServer(prelay.RelayStore(backend="native"), batching=True, device="cpu").start()
+        url = server.url + "/"
+        a = b = None
+
+        def stored():
+            return [bytes(r["content"]) for r in server.store.db.exec_sql_query('SELECT content FROM "message"')]
+
+        try:
+            cfg = Config(sync_url=url, backend="cuda")
+            a = create_evolu(SCHEMA, config=cfg, device="cpu")
+            b = create_evolu(SCHEMA, config=cfg, mnemonic=a.owner.mnemonic, device="cpu")
+            ta, tb = connect(a), connect(b)
+            a.create("todo", {"title": "r1", "isCompleted": False})
+            a.worker.flush(); ta.flush(); a.worker.flush()
+            round1 = stored()
+            for i in range(6):
+                (a if i % 2 else b).create("todo", {"title": f"t{i}", "isCompleted": i % 3 == 0})
+            ok = _converge([a, b], 7 * 4)  # title, isCompleted, createdAt, createdBy
+            rows = [c.query_once('SELECT "title", "isCompleted" FROM "todo" ORDER BY "title"') for c in (a, b)]
+            return (ok, round1, stored(), rows, ta.negotiated_capabilities.get(url, ()),
+                    tb.negotiated_capabilities.get(url, ()), dict(server.scheduler.counts), ta.counts)
+        finally:
+            for c in (a, b):
+                if c is not None:
+                    c.dispose()
+            server.stop()
+
+    ok, round1, contents, rows, caps_a, caps_b, counts, ta_counts = within(LIMIT_S, run)
+    assert ok, "the clients did not converge through the batching relay"
+    assert rows[0] == rows[1] and len(rows[0]) == 7
+    assert round1 and not any(jaead.is_v2_record(c) for c in round1), "round 1 must store OpenPGP only"
+    assert pproto.CAP_AEAD_BATCH in caps_a and pproto.CAP_AEAD_BATCH in caps_b
+    assert any(jaead.is_v2_record(c) for c in contents), "no v2 record after the echo"
+    assert ta_counts.get("v2_push_legs", 0) >= 1
+    assert counts["coalesced"] >= 4 and counts["singles"] == 0 and counts["poisoned_batches"] == 0
+
+
+# ---- the workloads of tests/test_relay_concurrency.py on a port MultiprocessRelay ----
+
+
+def _run_threads(workers):
+    barrier = threading.Barrier(len(workers))
+    errors = []
+
+    def wrap(fn):
+        try:
+            barrier.wait(timeout=30)
+            fn()
+        except Exception as e:  # noqa: BLE001 - collected and re-raised
+            errors.append(e)
+
+    threads = [threading.Thread(target=wrap, args=(fn,)) for fn in workers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=90)
+    assert not any(t.is_alive() for t in threads), "stress thread hung"
+    if errors:
+        raise errors[0]
+
+
+def _post_req(url, req):
+    status, body = _post(url, pproto.encode_sync_request(req))
+    assert status == 200
+    return body
+
+
+def _jax_serve(store, user, node, tree="{}"):
+    return jrelay.serve_single_request(store, jproto.SyncRequest((), user, node, tree))
+
+
+def test_multiprocess_25_concurrent_distinct_owners_match_jax(tmp_path):
+    relay = prelay.MultiprocessRelay(str(tmp_path / "relay.db"), workers=2, shards=4).start()
+    users = [f"user{i:02d}" for i in range(25)]
+    nodes = [f"{i:016x}" for i in range(1, 26)]
+    try:
+        def client(u, node):
+            def run():
+                for rnd in range(3):
+                    _post_req(relay.url, pproto.SyncRequest(_msgs(pproto, node, rnd * 30, 30), u, node, "{}"))
+            return run
+
+        within(LIMIT_S, lambda: _run_threads([client(u, n) for u, n in zip(users, nodes)]))
+        oracle = jrelay.RelayStore(backend="python")
+        for u, node in zip(users, nodes):
+            oracle.add_messages(u, _msgs(jproto, node, 0, 90))
+            got = _post_req(relay.url, pproto.SyncRequest((), u, FRESH_NODE, "{}"))
+            assert got == _jax_serve(oracle, u, FRESH_NODE), u
+        oracle.close()
+    finally:
+        relay.stop()
+
+
+def test_multiprocess_single_owner_duplicates_race_matches_jax(tmp_path):
+    relay = prelay.MultiprocessRelay(str(tmp_path / "relay.db"), workers=2, shards=1).start()
+    user = "hot-owner"
+    shared = _msgs(pproto, "a" * 16, 0, 20)
+    try:
+        def writer(i):
+            node = f"{i + 1:016x}"
+            own = _msgs(pproto, node, 100 + i * 20, 20)
+
+            def run():
+                _post_req(relay.url, pproto.SyncRequest(shared + own, user, node, "{}"))
+                _post_req(relay.url, pproto.SyncRequest(shared, user, node, "{}"))
+            return run
+
+        within(LIMIT_S, lambda: _run_threads([writer(i) for i in range(8)]))
+        oracle = jrelay.RelayStore(backend="python")
+        oracle.add_messages(user, _msgs(jproto, "a" * 16, 0, 20) + tuple(
+            m for i in range(8) for m in _msgs(jproto, f"{i + 1:016x}", 100 + i * 20, 20)))
+        got = _post_req(relay.url, pproto.SyncRequest((), user, FRESH_NODE, "{}"))
+        assert got == _jax_serve(oracle, user, FRESH_NODE)
+        assert len(pproto.decode_sync_response(got).messages) == 180  # duplicates stored once
+        oracle.close()
+    finally:
+        relay.stop()
+
+
+def test_multiprocess_concurrent_clients_tables_match_jax(tmp_path):
+    path = str(tmp_path / "relay.db")
+    relay = prelay.MultiprocessRelay(path, workers=2, shards=4).start()
+
+    def batch(i, rnd, proto):
+        node = f"{i + 1:016x}"
+        return tuple(proto.EncryptedCrdtMessage(
+            timestamp_to_string(Timestamp(BASE + (i * 1000 + rnd * 100 + j) * 1000, 0, node)), b"ct" * 8)
+            for j in range(40))
+
+    try:
+        def client(i):
+            def run():
+                for rnd in range(3):
+                    _post_req(relay.url, pproto.SyncRequest(batch(i, rnd, pproto), f"user{i:02d}",
+                                                            f"{i + 1:016x}", "{}"))
+            return run
+
+        within(LIMIT_S, lambda: _run_threads([client(i) for i in range(12)]))
+    finally:
+        relay.stop()
+    store = prelay.ShardedRelayStore(path, shards=4)
+    oracle = jrelay.ShardedRelayStore(shards=4, backend="python")
+    try:
+        for i in range(12):
+            oracle.add_messages(f"user{i:02d}", tuple(m for rnd in range(3) for m in batch(i, rnd, jproto)))
+        for mine, theirs in zip(store.shards, oracle.shards):
+            for sql in ('SELECT "userId", "timestamp", "content" FROM "message" ORDER BY 1, 2',
+                        'SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1'):
+                assert [tuple(r.values()) for r in mine.db.exec_sql_query(sql)] == \
+                    [tuple(r.values()) for r in theirs.db.exec_sql_query(sql)]
+        assert sum(s["messages"] for s in store.stats()) == 12 * 120
+    finally:
+        store.close()
+        oracle.close()
+
+
+def test_port_clients_converge_through_the_multiprocess_relay(tmp_path):
+    from evolu_tpu_torch.runtime.client import create_evolu
+    from evolu_tpu_torch.sync.client import connect
+    from evolu_tpu_torch.utils.config import Config
+
+    relay = prelay.MultiprocessRelay(str(tmp_path / "relay.db"), workers=2, shards=4).start()
+    a = b = None
+    try:
+        cfg = Config(sync_url=relay.url + "/", backend="cuda")
+        a = create_evolu(SCHEMA, config=cfg, device="cpu")
+        b = create_evolu(SCHEMA, config=cfg, mnemonic=a.owner.mnemonic, device="cpu")
+        connect(a)
+        connect(b)
+        for i in range(20):
+            (a if i % 2 else b).create("todo", {"title": f"t{i}", "isCompleted": False})
+        assert within(LIMIT_S, lambda: _converge([a, b], 20 * 4, rounds=20)), \
+            "replicas did not converge through the multiprocess relay"
+        store = prelay.ShardedRelayStore(str(tmp_path / "relay.db"), shards=4)
+        try:
+            tree = store.get_merkle_tree_string(a.owner.id)
+        finally:
+            store.close()
+        from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+        from evolu_tpu_torch.storage.clock import read_clock
+
+        assert merkle_tree_to_string(read_clock(a.db).merkle_tree) == tree
+    finally:
+        for c in (a, b):
+            if c is not None:
+                c.dispose()
+        relay.stop()
