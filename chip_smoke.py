@@ -2,8 +2,9 @@
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
 LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
-receive, and the relay as a live HTTP server. Needs one NVIDIA Hopper
-card, g++, libsqlite3.so.0 and libcrypto; run from the repo root:
+receive, the relay as a live HTTP server, and the relay tier's
+replication half. Needs one NVIDIA Hopper card, g++, libsqlite3.so.0
+and libcrypto; run from the repo root:
 
     python3 chip_smoke.py
 
@@ -67,7 +68,10 @@ failure ends the run with a traceback and a nonzero code):
               differs. A `backend="cpu"` worker gets the same commands:
               outputs, pushes and every table byte-identical; the cache
               audit after every Receive; any OnError fails. L, H and X
-              must launch per device-planned chunk or batch, S never. Then
+              must launch per device-planned chunk or batch, S never. The
+              oracle worker runs in a process of the spawned pool
+              (`d_oracle`) while the card runs paths B to D, and is held
+              by digest (`d_state`). Then
               D1 and D2's first batch again with `winner_cache=False`
               (winners streamed from SQLite), D2 timed.
 8. path E   — the relay's batched sync pass at BASELINE config 3:
@@ -83,7 +87,9 @@ failure ends the run with a traceback and a nonzero code):
               row its own minute (cap overflow, full-width rerun), one owner
               in upper-case hex (the host fold). After every step the
               responses' bytes, the `message` table and the `merkleTree`
-              table equal the oracle's; the engine's stage times (host clock,
+              table equal the oracle's (E1-E3's by digest: their oracle,
+              `e_oracle`, runs in a process of the pool while the card
+              runs paths B to D); the engine's stage times (host clock,
               device leg synchronized) and route counts are printed; H and X
               launch once a device dispatch, L and S never.
 9. path F   — the client handle with end-to-end encrypted sync: clients
@@ -149,12 +155,34 @@ failure ends the run with a traceback and a nonzero code):
               `aead-batch-v1` negotiated after it, every later Send stored
               as v2 records; everything equals the oracle set's; the crypto
               share beside F2's v1 share.
-12. columns — the reconcile pass from device-resident columns at 1M and
+12. path I  — the relay tier's replication half, every relay a
+              `RelayServer(RelayStore(<file>, backend="native"),
+              batching=True)` on the card serving real HTTP. I1: a fresh
+              relay B with `peers=[A]`, A being H1's relay (1.1M rows, 1k
+              owners), converges on its own gossip loop (default caps);
+              B's tables equal A's, every row pulled (re-pulled messages
+              counted apart), H = X = B's engine passes. I2: a donor D of
+              128,000 rows (each owner's first 128 of E1, by
+              `run_batch_wire`) bootstraps a fresh relay C
+              (`bootstrap_lag_owners=1`) from its snapshot in 4 MiB chunks,
+              verified on the host with no engine pass; 10,000 new messages
+              POSTed to D reach C by gossip; `write_checkpoint(D)` restores
+              into 4 native shards with every tree equal. I3: 3 relays
+              under one `FleetConfig` (R 2) take 128,000 messages over 1k
+              owners (Zipf 1.1, batches of 64, 8 client threads following
+              one 307 each), then a 4th relay joins by `/fleet/reload`
+              under a writer; at each scoped-gossip fixpoint every owner's
+              rows on every placed relay equal a per-request oracle relay's
+              on a Python store; quiet moved owners equal the losing
+              relay; at least one watermark cutover. No failed round,
+              rebalance, poisoned batch, single or reject; H = X = engine
+              passes, L = S = 0.
+13. columns — the reconcile pass from device-resident columns at 1M and
               10M messages (1k owners), per-stage times with CUDA
               events, rows/s and peak device memory; outputs equal to
               the same pass with every kernel swapped for its plain
               version.
-13. timing  — L, X, H and their plain versions timed on the inputs the
+14. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them, X also on the 10M pass's
               minute fold (2^24 rows); S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
@@ -176,8 +204,8 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h}` are the counts themselves (H1, H2
-and H3 each, summed as path H); `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i}` are the counts themselves (H1, H2
+and H3 each, summed as path H; I1, I2 and I3 as path I); `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
 the numbered changes that ported and redesigned each kernel, as
@@ -212,8 +240,9 @@ import urllib.error
 import numpy as np
 
 BASE_MILLIS = 1_700_000_000_000
-# Processes of the spawned pool that runs path A's host oracle and G1's
-# pure decode, off the paths that are timed.
+# Processes of the spawned pool that runs path A's host oracle, path D's
+# and E's oracles (beside paths B-D) and G1's pure decode, off the paths
+# that are timed.
 ORACLE_PROCESSES = 6
 MNEMONIC = "legal winner thank year wave sausage worth useful legal winner thank yellow"
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
@@ -1125,6 +1154,7 @@ def path_c2(torch, kernels, calls):
 # Receives from 2 to 1 (and D_STREAMED_BATCHES below from 2 to 1) when
 # path G was added, to keep the whole script inside its time limit.
 D2_BATCHES, D3_CHURN, D3_STEADY = 3, 1, 1
+D4_SEND, D4_REMOTE = 1000, 200  # D4's local mutations and received messages
 D_TABLES = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",),
             "todoNote": ("text",)}
 D1_BASE = BASE_MILLIS - 1_000_000_000  # a restored device's history, before the live traffic
@@ -1314,76 +1344,109 @@ def d_pushes(worker):
     return [(r.messages, r.clock_timestamp, r.merkle_tree, r.owner, r.previous_diff) for r in worker.pushes]
 
 
-def path_d(torch, kernels):
-    """The client DbWorker on the card (`backend="auto"`, the winner cache,
-    `device=None`) against a `backend="cpu"` worker fed the same commands:
-    D1 one Receive of 2^19 messages in 4 chunks of 2^17; D2 D2_BATCHES
-    Receives of 100k over a steady population; D3 D3_CHURN Receives of 50k
-    over fresh rows each, then D3_STEADY of 50k over the steady population;
-    D4 a Send of 1k, a sweep of 10 subscribed queries, a Sync, and a
-    Receive whose server tree differs. Every other Receive carries the relay's tree after the
-    batch (`server_trees`). Returns (launches, report, the relay's trees
-    after D1 and each D2 batch, D1 and the D2 batches as (base,
-    messages), and the oracle worker's outputs, pushes, tables and tree
-    after them: path G1 replays those receives against that state)."""
-    from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
-    from evolu_tpu_torch.core.timestamp import timestamp_to_string
-    from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
-    from evolu_tpu_torch.runtime import messages as msg
-    from evolu_tpu_torch.storage.clock import read_clock
-    from evolu_tpu_torch.utils.config import Config
-
-    t0 = time.perf_counter()
+def d_inputs():
+    """Path D's receives: D1 (2^19 messages), D2_BATCHES of 100k over a
+    steady population, D3_CHURN of 50k over fresh rows and D3_STEADY over
+    the steady rows, as (base millis, messages), and the relay's tree after
+    each (`server_trees`). The same in the card's process and the oracle's."""
     d1 = d1_history()
     d2 = [config2_batch(b, 100_000) for b in range(D2_BATCHES)]
     # Batch numbers keep rising, so each batch's millis (and the clock) do.
     d3 = [config2_batch(8 + b, 50_000, rotate=True) for b in range(D3_CHURN)]
     d3 += [config2_batch(12 + b, 50_000) for b in range(D3_STEADY)]
     trees = server_trees([d1] + [b for _, b in d2 + d3])
-    print(f"  path D: {len(d1) + sum(len(b) for _, b in d2 + d3)} messages and the relay's trees "
-          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
-    clock = {"now": D1_BASE}
-    chunk = 1 << 17
-    gpu = DWorker("gpu", Config(backend="auto", winner_cache=True, receive_chunk_size=chunk), clock)
-    cpu = DWorker("cpu oracle", Config(backend="cpu", receive_chunk_size=chunk), clock)
+    return d1, d2, d3, trees
+
+
+def d_script(w, clock, d1, d2, d3, trees, after_d2=None):
+    """Drive one DWorker through path D: D1, D2 and D3's Receives, each with
+    the relay's tree after it; then D4: a Send of 1k, a Query of 10
+    subscribed queries, a Sync, a Receive of 200 whose server tree holds
+    one hash the client lacks (in a minute after all of its history), and a
+    Query. `after_d2(w)` runs between D2 and D3. → each phase's Receive
+    routes."""
+    from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
+    from evolu_tpu_torch.runtime import messages as msg
+    from evolu_tpu_torch.storage.clock import read_clock
+
     routes = {"d1": [], "d2": [], "d3": []}
-    reset(kernels)
     # The device's wall clock as each batch arrives: its oldest stamp (a
     # receive of more than 65,535 messages older than `now` overflows the
     # HLC counter, one `now` a command and +1 a message, in the reference
     # too).
     clock["now"] = D1_BASE
-    routes["d1"].append(gpu.receive("d1", d1, trees[0]))
-    cpu.receive("d1", d1, trees[0])
+    routes["d1"].append(w.receive("d1", d1, trees[0]))
     for (base, batch), tree in zip(d2, trees[1:]):
         clock["now"] = base
-        routes["d2"].append(gpu.receive("d2", batch, tree))
-        cpu.receive("d2", batch, tree)
-    # The oracle worker's state after D1 and D2: path G1 replays exactly
-    # these receives through the packed route and is held against it.
-    g1_oracle = {"outputs": d_outputs(cpu), "pushes": d_pushes(cpu), "dump": d_dump(cpu.worker.db),
-                 "tree": merkle_tree_to_string(read_clock(cpu.worker.db).merkle_tree)}
+        routes["d2"].append(w.receive("d2", batch, tree))
+    if after_d2 is not None:
+        after_d2(w)
     for (base, batch), tree in zip(d3, trees[1 + len(d2):]):
         clock["now"] = base
-        routes["d3"].append(gpu.receive("d3", batch, tree))
-        cpu.receive("d3", batch, tree)
+        routes["d3"].append(w.receive("d3", batch, tree))
     clock["now"] = BASE_MILLIS + 5_000_000_000
     queries = tuple(msg.serialize_query(q, p) for q, p in D_QUERIES)
     local = tuple(NewCrdtMessage(*(("todo", f"local{i}", "title", f"mine{i}") if i % 2 else
-                                   ("todoNote", f"local{i}", "text", f"note{i}"))) for i in range(1000))
+                                   ("todoNote", f"local{i}", "text", f"note{i}"))) for i in range(D4_SEND))
     remote = [CrdtMessage(timestamp_to_string(Timestamp(clock["now"] - 30_000 + i, 0, "00000000000000d4")),
-                          "todoCategory", f"row{i}", "name", f"cat{i}") for i in range(200)]
-    for w in (gpu, cpu):
-        w.run("d4", msg.Send(local, ("sent",), queries))
-        w.run("d4", msg.Query(queries))
-        w.run("d4", msg.Sync(queries))
-    # The server holds one hash this client lacks, in a minute after all
-    # of its history: the diff names that minute and the client resends.
+                          "todoCategory", f"row{i}", "name", f"cat{i}") for i in range(D4_REMOTE)]
+    w.run("d4", msg.Send(local, ("sent",), queries))
+    w.run("d4", msg.Query(queries))
+    w.run("d4", msg.Sync(queries))
     server = merkle_tree_to_string(insert_into_merkle_tree(
-        Timestamp(clock["now"] + 120_000, 0, "00000000000000e5"), read_clock(gpu.worker.db).merkle_tree))
-    for w in (gpu, cpu):
-        w.receive("d4", remote, server)
-        w.run("d4", msg.Query(queries))
+        Timestamp(clock["now"] + 120_000, 0, "00000000000000e5"), read_clock(w.worker.db).merkle_tree))
+    w.receive("d4", remote, server)
+    w.run("d4", msg.Query(queries))
+    return routes
+
+
+def d_state(w):
+    """A worker's outputs, pushes, each table's digest and row count, and
+    its Merkle tree: what path D and G1 hold the card worker to."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.storage.clock import read_clock
+
+    return {"outputs": d_outputs(w), "pushes": d_pushes(w),
+            "tables": {t: (digest(rows), len(rows)) for t, rows in d_dump(w.worker.db).items()},
+            "tree": merkle_tree_to_string(read_clock(w.worker.db).merkle_tree)}
+
+
+def d_oracle():
+    """Path D's oracle, run in a process of the spawned pool while the card
+    runs paths B to D: a `backend="cpu"` worker through `d_script`. → its
+    `d_state` after D2 (path G1's oracle) and at the end, and its walls."""
+    from evolu_tpu_torch.utils.config import Config
+
+    d1, d2, d3, trees = d_inputs()
+    clock = {"now": D1_BASE}
+    cpu = DWorker("cpu oracle", Config(backend="cpu", receive_chunk_size=1 << 17), clock)
+    after = {}
+    d_script(cpu, clock, d1, d2, d3, trees, after_d2=lambda w: after.update(d_state(w)))
+    out = {"after_d2": after, "end": d_state(cpu), "walls": dict(cpu.walls)}
+    cpu.stop()
+    return out
+
+
+def path_d(torch, kernels, oracle_job):
+    """The client DbWorker on the card (`backend="auto"`, the winner cache,
+    `device=None`) through `d_script`, against a `backend="cpu"` worker fed
+    the same commands in a process of the pool (`oracle_job`, `d_oracle`):
+    outputs, pushes, every table (by digest) and the tree equal. Returns
+    (launches, report, the relay's trees after D1 and each D2 batch, D1 and
+    the D2 batches as (base, messages), and the oracle's state after D2:
+    path G1 replays those receives against it)."""
+    from evolu_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    d1, d2, d3, trees = d_inputs()
+    print(f"  path D: {len(d1) + sum(len(b) for _, b in d2 + d3)} messages and the relay's trees "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    clock = {"now": D1_BASE}
+    gpu = DWorker("gpu", Config(backend="auto", winner_cache=True, receive_chunk_size=1 << 17), clock)
+    reset(kernels)
+    routes = d_script(gpu, clock, d1, d2, d3, trees)
     launches = read(kernels)
     counts = dict(gpu.cache.counts)
     device_plans = counts.get("cached_plans", 0) + counts.get("stream_plans", 0)
@@ -1393,26 +1456,25 @@ def path_d(torch, kernels):
     if [p[4] is not None for p in pushes] != [False] * (len(pushes) - 1) + [True]:
         raise AssertionError("path D: a request with previous_diff should be the last push, and the only one")
     t0 = time.perf_counter()
-    if d_outputs(gpu) != d_outputs(cpu):
+    oracle = oracle_job.get()
+    waited = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mine, want = d_state(gpu), oracle["end"]
+    if mine["outputs"] != want["outputs"]:
         raise AssertionError("path D: outputs differ from the backend='cpu' oracle")
-    if pushes != d_pushes(cpu):
+    if mine["pushes"] != want["pushes"]:
         raise AssertionError("path D: sync pushes differ from the backend='cpu' oracle")
-    sizes = {}
-    got, want = d_dump(gpu.worker.db), d_dump(cpu.worker.db)
-    for t in want:
-        if got.get(t) != want[t]:
-            raise AssertionError(f"path D: table {t} differs from the backend='cpu' oracle")
-        sizes[t] = len(want[t])
-    if set(got) != set(want):
-        raise AssertionError("path D: the two workers hold different tables")
-    del got, want
-    print(f"  path D: outputs ({len(gpu.outputs)}), pushes ({len(pushes)}) and every table "
-          f"({json.dumps(sizes)} rows) byte-identical to the backend='cpu' oracle "
-          f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    n = {"d1": len(d1), "d2": sum(len(b) for _, b in d2), "d3": sum(len(b) for _, b in d3),
-         "d4": len(local) + len(remote)}
+    bad = sorted(t for t in set(mine["tables"]) | set(want["tables"]) if mine["tables"].get(t) != want["tables"].get(t))
+    if bad or mine["tree"] != want["tree"]:
+        raise AssertionError(f"path D: tables {bad} or the Merkle tree differ from the backend='cpu' oracle")
+    sizes = {t: n for t, (_d, n) in want["tables"].items()}
+    print(f"  path D: outputs ({len(gpu.outputs)}), pushes ({len(pushes)}), every table "
+          f"({json.dumps(sizes)} rows) and the tree byte-identical to the backend='cpu' oracle of the pool "
+          f"(waited {waited:.1f}s for it; compared in {time.perf_counter() - t0:.1f}s)", flush=True)
+    n = {"d1": len(d1), "d2": sum(len(b) for _, b in d2), "d3": sum(len(b) for _, b in d3), "d4": D4_SEND + D4_REMOTE}
+    owalls = oracle["walls"]
     report = {p: {"messages": n[p], "wall_s": round(gpu.walls[p], 4), "msgs_per_s": round(n[p] / gpu.walls[p]),
-                  "oracle_wall_s": round(cpu.walls[p], 4), "oracle_msgs_per_s": round(n[p] / cpu.walls[p])}
+                  "oracle_wall_s": round(owalls[p], 4), "oracle_msgs_per_s": round(n[p] / owalls[p])}
               for p in n}
     for p in routes:
         for key in ("plans", "slots", "ewma", "wall_s"):
@@ -1427,9 +1489,9 @@ def path_d(torch, kernels):
     report["d4"]["commands"] = "Send 1k, Query x10, Sync, Receive 200 with a differing server tree, Query"
     report["cache_counts"] = counts
     report["rows"] = sizes
-    for w in (gpu, cpu):
-        w.stop()
-    return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, g1_oracle
+    report["oracle_in_pool_process"] = True
+    gpu.stop()
+    return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, oracle["after_d2"]
 
 
 # D2 batches of the winner_cache=False rerun: cut from 8 to 2 once path E
@@ -1585,29 +1647,14 @@ class Timed:
             yield self.s
 
 
-def path_e(torch, kernels, captured, keep):
-    """The relay's batched sync pass at config 3 on the card:
-    `BatchReconciler(RelayStore(backend="python"), device=None).run_batch_wire`
-    (the generic ingest) against `serve_single_request` request by request
-    on a second Python `RelayStore` (host hashing). E1 steady state, 1M messages over 1k owners, each
-    request with its post-apply tree; E2 re-delivery, 100k new + 50k
-    stored + 10k in-batch duplicates, half the owners with their tree from
-    before E2; E3 cold sync of 25 owners; E4, on fresh stores, a span of
-    2^32 ms (the 20-B upload), a batch whose every row has its own minute (cap overflow and
-    the full-width rerun), one owner in upper-case hex (the host fold).
-    After every step the responses, the `message` table and the
-    `merkleTree` table equal the oracle's. `captured` gets E1's engine
-    kernel inputs and its calls of H and X; `keep` E1's and E2's requests
-    and responses and the store after E3, which path G2 replays on native
-    stores. Returns (launches, report)."""
-    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
-    from evolu_tpu_torch.ops import merkle_ops
-    from evolu_tpu_torch.server import engine as eng
-    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
-
+def e_requests():
+    """Path E's content pool and its E1, E2 and E3 requests, from seed 17
+    (the same in the card's process and in the oracle's). E1 steady state,
+    1M messages over 1k owners, each request with its post-apply tree; E2
+    re-delivery, 100k new + 50k stored + 10k in-batch duplicates, half the
+    owners with their tree from before E2; E3 cold sync of 25 owners."""
     rng = np.random.default_rng(17)
     pool = [bytes(b) for b in rng.integers(0, 256, (E_POOL, E_CONTENT_BYTES), dtype=np.uint8)]
-    t0 = time.perf_counter()
     owner, millis, counter, node, stamps = e_stamps(0, E_MESSAGES, E_OWNERS, rng)
     by_owner = {}
     for i, o in enumerate(owner.tolist()):
@@ -1616,10 +1663,90 @@ def path_e(torch, kernels, captured, keep):
     trees1 = e_trees({}, owner, millis, counter, node)
     e1 = [e_request(users[o], [stamps[i] for i in ix], [pool[i % E_POOL] for i in ix], trees1[o])
           for o, ix in by_owner.items()]
-    print(f"  path E: E1 {len(stamps)} messages over {len(e1)} owners built in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    # E2: new messages continuing E1's stamps, messages E1 stored, and
+    # duplicates inside the batch, one request an owner.
+    owner2, millis2, counter2, node2, stamps2 = e_stamps(E_MESSAGES, E_MESSAGES // 10, E_OWNERS, rng)
+    new2 = {}
+    for i, o in enumerate(owner2.tolist()):
+        new2.setdefault(o, []).append((stamps2[i], pool[(E_MESSAGES + i) % E_POOL]))
+    old_ix = rng.choice(len(stamps), E_MESSAGES // 20, replace=False)
+    old2 = {}
+    for i in old_ix.tolist():
+        old2.setdefault(int(owner[i]), []).append((stamps[i], pool[i % E_POOL]))
+    dup_ix = rng.choice(len(stamps2), E_MESSAGES // 100, replace=False)
+    dups = {}
+    for i in dup_ix.tolist():
+        dups.setdefault(int(owner2[i]), []).append((stamps2[i], pool[(E_MESSAGES + i) % E_POOL]))
+    trees2 = e_trees(dict(trees1), owner2, millis2, counter2, node2)
+    e2 = []
+    for o in sorted(set(new2) | set(old2)):
+        rows = new2.get(o, []) + old2.get(o, []) + dups.get(o, [])
+        tree = trees1.get(o, {}) if o % 2 == 0 else trees2.get(o, {})  # half: their tree from before E2
+        e2.append(e_request(users[o], [t for t, _ in rows], [c for _, c in rows], tree))
+    # E3: restored devices with empty trees pull their owner's whole history.
+    e3 = [e_request(users[o], [], [], "{}", node="e" * 16) for o in range(25)]
+    return pool, e1, e2, e3
 
-    store, oracle = RelayStore(backend="python"), RelayStore(backend="python")
+
+def digest(obj) -> str:
+    """sha256 of `obj` pickled: equal for equal lists of responses or rows
+    (the same types on both sides)."""
+    import hashlib
+    import pickle
+
+    return hashlib.sha256(pickle.dumps(obj, protocol=4)).hexdigest()
+
+
+def e_oracle():
+    """Path E's per-request oracle for E1, E2 and E3, run in a process of
+    the spawned pool while the card runs paths B to D: `serve_single_request`
+    request by request on a Python `RelayStore` (host hashing). → {step:
+    (responses digest, message table digest, merkleTree table digest,
+    rows, serve wall s)}."""
+    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+
+    _pool, e1, e2, e3 = e_requests()
+    store = RelayStore(backend="python")
+    out = {}
+    for name, requests in (("e1", e1), ("e2", e2), ("e3", e3)):
+        t0 = time.perf_counter()
+        responses = [serve_single_request(store, r) for r in requests]
+        wall = time.perf_counter() - t0
+        msgs, trees = e_dump(store)
+        out[name] = (digest(responses), digest(msgs), digest(trees), len(msgs), wall)
+    store.close()
+    return out
+
+
+def path_e(torch, kernels, captured, keep, oracle_job):
+    """The relay's batched sync pass at config 3 on the card:
+    `BatchReconciler(RelayStore(backend="python"), device=None).run_batch_wire`
+    (the generic ingest) against `serve_single_request` request by request
+    on a second Python `RelayStore` (host hashing). E1, E2 and E3 as
+    `e_requests` makes them, their oracle run by `e_oracle` in a process of
+    the pool (`oracle_job`, started after path A) and held by digest; E4, on
+    fresh stores with a local oracle, a span of 2^32 ms (the 20-B upload), a
+    batch whose every row has its own minute (cap overflow and the
+    full-width rerun), one owner in upper-case hex (the host fold). After
+    every step the responses, the `message` table and the `merkleTree` table
+    equal the oracle's. `captured` gets E1's engine kernel inputs and its
+    calls of H and X; `keep` E1's and E2's requests and responses, the store
+    after E3 and its dump, which paths G2, H and I replay. Returns
+    (launches, report)."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.ops import merkle_ops
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+
+    t0 = time.perf_counter()
+    pool, e1, e2, e3 = e_requests()
+    print(f"  path E: E1 {sum(len(r.messages) for r in e1)} messages over {len(e1)} owners, E2 and E3 "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    oracle_steps = oracle_job.get()
+    print(f"  path E: waited {time.perf_counter() - t0:.1f}s for the E1-E3 oracle of the pool", flush=True)
+
+    store, oracle = RelayStore(backend="python"), None
     rec = eng.BatchReconciler(store)
     stages = Timed(torch, [(eng, "parse_timestamp_strings", "parse", False),
                            (eng, "columns_to_device", "upload", True),
@@ -1658,25 +1785,40 @@ def path_e(torch, kernels, captured, keep):
             got = rec.run_batch_wire(requests)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        want = [serve_single_request(oracle, r) for r in requests]
-        oracle_wall = time.perf_counter() - t1
-        if got != want:
-            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
-            raise AssertionError(f"path E {name}: response {bad} ({requests[bad].user_id}) differs from the oracle")
-        t1 = time.perf_counter()
-        mine, theirs = e_dump(store), e_dump(oracle)
-        if mine[0] != theirs[0]:
+        if name in oracle_steps:  # held by digest against the pool's oracle
+            want_responses, want_msgs, want_trees, _rows, oracle_wall = oracle_steps[name]
+            t1 = time.perf_counter()
+            mine = e_dump(store)
+            theirs = (want_msgs, want_trees)
+            if digest(got) != want_responses:
+                raise AssertionError(f"path E {name}: the responses differ from the oracle's")
+            ours = (digest(mine[0]), digest(mine[1]))
+        else:
+            t1 = time.perf_counter()
+            want = [serve_single_request(oracle, r) for r in requests]
+            oracle_wall = time.perf_counter() - t1
+            if got != want:
+                bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+                raise AssertionError(f"path E {name}: response {bad} ({requests[bad].user_id}) differs from "
+                                     "the oracle")
+            t1 = time.perf_counter()
+            mine, theirs = e_dump(store), e_dump(oracle)
+            ours = mine
+        if ours[0] != theirs[0]:
             raise AssertionError(f"path E {name}: the message table differs from the oracle")
-        if mine[1] != theirs[1]:
+        if ours[1] != theirs[1]:
             raise AssertionError(f"path E {name}: the merkleTree table differs from the oracle")
         rows = len(mine[0])
-        del mine, theirs
+        if name == "e3":
+            keep["store_dump"] = mine  # the store after E3, which paths H and I compare with
+        del mine, theirs, ours
         out = {"requests": len(requests), "messages": n, "wall_s": round(wall, 4),
                "msgs_per_s": round(n / wall) if n else None, "oracle_wall_s": round(oracle_wall, 4),
                "oracle_msgs_per_s": round(n / oracle_wall) if n else None,
                "response_messages": sum(len(protocol_messages(b)) for b in got),
                "stored_rows": rows, "compare_s": round(time.perf_counter() - t1, 3)}
+        if name in oracle_steps:
+            out["oracle_in_pool_process"] = True
         if timed:
             out["stages_s"] = {k: round(v, 4) for k, v in s.items()}
             out["stages_s"]["other"] = round(wall - sum(s.values()), 4)
@@ -1690,37 +1832,12 @@ def path_e(torch, kernels, captured, keep):
     reset(kernels)
     routes0 = dict(eng.counts)
     step("e1", e1, timed=True, record=True)
-
-    # E2: new messages continuing E1's stamps, messages E1 stored, and
-    # duplicates inside the batch, one request an owner.
-    owner2, millis2, counter2, node2, stamps2 = e_stamps(E_MESSAGES, E_MESSAGES // 10, E_OWNERS, rng)
-    new2 = {}
-    for i, o in enumerate(owner2.tolist()):
-        new2.setdefault(o, []).append((stamps2[i], pool[(E_MESSAGES + i) % E_POOL]))
-    old_ix = rng.choice(len(stamps), E_MESSAGES // 20, replace=False)
-    old2 = {}
-    for i in old_ix.tolist():
-        old2.setdefault(int(owner[i]), []).append((stamps[i], pool[i % E_POOL]))
-    dup_ix = rng.choice(len(stamps2), E_MESSAGES // 100, replace=False)
-    dups = {}
-    for i in dup_ix.tolist():
-        dups.setdefault(int(owner2[i]), []).append((stamps2[i], pool[(E_MESSAGES + i) % E_POOL]))
-    trees2 = e_trees(dict(trees1), owner2, millis2, counter2, node2)
-    e2 = []
-    for o in sorted(set(new2) | set(old2)):
-        rows = new2.get(o, []) + old2.get(o, []) + dups.get(o, [])
-        tree = trees1.get(o, {}) if o % 2 == 0 else trees2.get(o, {})  # half: their tree from before E2
-        e2.append(e_request(users[o], [t for t, _ in rows], [c for _, c in rows], tree))
     step("e2", e2, timed=True)
-    del trees1, trees2
-
-    # E3: restored devices with empty trees pull their owner's whole history.
-    step("e3", [e_request(users[o], [], [], "{}", node="e" * 16) for o in range(25)])
+    step("e3", e3)
 
     # E4: the other routes, about 64k rows each, on a fresh pair of stores
     # (their dumps then cost ~0.2 s, not ~5 s).
     keep["store"] = store
-    oracle.close()
     store, oracle = RelayStore(backend="python"), RelayStore(backend="python")
     rec = eng.BatchReconciler(store)
     def e4(tag, millis, node_of):
@@ -2139,86 +2256,134 @@ def f3_board(fs):
     return n, [a.get_query_rows(q), b.get_query_rows(q), tensors]
 
 
-def f_compare(step, gset, oset):
-    """Card set against oracle set: every client's tables, OnQuery patches
-    and the relays' trees and stored (timestamp, owner) columns; every
-    client's tree equal to its relay's. → table sizes."""
+def f_state(fs):
+    """A set's state after a step: each client's tables (digest and rows
+    a table), OnQuery patches and tree with its relay's tree for the
+    client's owner, and the relay's Merkle trees and stored (timestamp,
+    owner) columns (digests) and message count."""
     from evolu_tpu_torch.core.merkle import merkle_tree_to_string
     from evolu_tpu_torch.storage.clock import read_clock
 
+    clients = {key: {"tables": {t: (digest(rows), len(rows)) for t, rows in d_dump(e.db).items()},
+                     "outputs": fs.outputs[key],
+                     "tree": merkle_tree_to_string(read_clock(e.db).merkle_tree),
+                     "relay_tree": fs.store.get_merkle_tree_string(e.owner.id)}
+               for key, e in fs.clients.items()}
+    relay = {what: digest(fs.store.db.exec(sql)) for sql, what in (
+        ('SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1', "Merkle trees"),
+        ('SELECT "userId", "timestamp" FROM "message" ORDER BY 1, 2', "stored (timestamp, owner) columns"))}
+    relay["messages"] = fs.store.db.exec('SELECT COUNT(*) FROM "message"')[0][0]
+    return {"clients": clients, "relay": relay}
+
+
+def f_compare(step, got, want):
+    """The card set's `f_state` against the oracle set's: every client's
+    tables, OnQuery patches and tree, every client's tree equal to its
+    relay's, and the relays' trees and stored (timestamp, owner) columns.
+    → table sizes."""
     sizes = {}
-    for key, ge in gset.clients.items():
-        oe = oset.clients[key]
-        got, want = d_dump(ge.db), d_dump(oe.db)
-        for t in sorted(set(got) | set(want)):
-            if got.get(t) != want.get(t):
+    for key, g in got["clients"].items():
+        w = want["clients"][key]
+        for t in sorted(set(g["tables"]) | set(w["tables"])):
+            if g["tables"].get(t) != w["tables"].get(t):
                 raise AssertionError(f"path F {step}: client {key}'s table {t} differs from the oracle set's")
-        sizes[key] = {t: len(v) for t, v in want.items() if not t.startswith("__crdt_schema")}
-        if gset.outputs[key] != oset.outputs[key]:
+        sizes[key] = {t: n for t, (_d, n) in w["tables"].items() if not t.startswith("__crdt_schema")}
+        if g["outputs"] != w["outputs"]:
             raise AssertionError(f"path F {step}: client {key}'s OnQuery patches differ from the oracle set's")
-        for fs, e in ((gset, ge), (oset, oe)):
-            tree = merkle_tree_to_string(read_clock(e.db).merkle_tree)
-            if tree != fs.store.get_merkle_tree_string(e.owner.id):
-                raise AssertionError(f"path F {step}: client {key}'s tree differs from its relay's ({fs.name})")
-    for sql, what in (('SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1', "Merkle trees"),
-                      ('SELECT "userId", "timestamp" FROM "message" ORDER BY 1, 2', "stored (timestamp, owner) columns")):
-        if gset.store.db.exec(sql) != oset.store.db.exec(sql):
+        for name, state in (("card", g), ("oracle", w)):
+            if state["tree"] != state["relay_tree"]:
+                raise AssertionError(f"path F {step}: client {key}'s tree differs from its relay's ({name})")
+    for what in ("Merkle trees", "stored (timestamp, owner) columns"):
+        if got["relay"][what] != want["relay"][what]:
             raise AssertionError(f"path F {step}: the relays' {what} differ")
-    sizes["relay_messages"] = gset.store.db.exec('SELECT COUNT(*) FROM "message"')[0][0]
+    sizes["relay_messages"] = want["relay"]["messages"]
     return sizes
 
 
-def path_f(torch, kernels, gpu=""):
+F_STEPS = (("f1", lambda fs: f1_todos(fs)), ("f2", lambda fs: f2_config2(fs)), ("f3", lambda fs: f3_board(fs)),
+           ("h3", lambda fs: f2_config2(fs, sends=H3_SENDS)))
+
+
+def f_oracle():
+    """Path F's and H3's oracle sets, run in a process of the spawned pool
+    while the card runs paths B to E: each step's commands on a fresh
+    `FSet("oracle", False)` (H3's on an HTTP relay). → {step: the drive's
+    result, wall, parts, decode and apply routes, and `f_state`}."""
+    from evolu_tpu_torch.storage import apply as papply
+
+    out = {}
+    for step, drive in F_STEPS:
+        fs = FSet("oracle", False, http=step == "h3")
+        try:
+            applied = dict(papply.counts)
+            with fs.active():
+                t0 = time.perf_counter()
+                result = drive(fs)
+                wall = time.perf_counter() - t0
+            fs.check(step)
+            out[step] = {"result": result, "wall": wall, "parts": dict(fs.parts), "decoded": dict(fs.decoded),
+                         "applied": {k: papply.counts[k] - applied[k] for k in applied
+                                     if papply.counts[k] != applied[k]},
+                         "state": f_state(fs)}
+        finally:
+            fs.close()
+    return out
+
+
+def path_f(torch, kernels, oracle_job, gpu=""):
     """The port's client handle with end-to-end encrypted sync on the card:
     F1 (config 1), F2 (config 2, with a restored third device) and F3 (the
-    typed calls), each on a card set and an oracle set given the same
-    commands and compared after the step. The card set's wall is split into
-    encrypt (push), the relay's answer, decrypt (pull), the workers' apply
-    of Sends and Receives, and the rest. `gpu` (the card's nvidia-smi
-    line) ends each printed line. Returns (launches, report)."""
+    typed calls), each on a card set, compared after the step with an
+    oracle set given the same commands in a process of the pool
+    (`oracle_job`, `f_oracle`). The card set's wall is split into encrypt
+    (push), the relay's answer, decrypt (pull), the workers' apply of Sends
+    and Receives, and the rest. `gpu` (the card's nvidia-smi line) ends
+    each printed line. Returns (launches, report)."""
     from evolu_tpu_torch.server import engine as eng
     from evolu_tpu_torch.storage import apply as papply
 
     report = {}
+    t0 = time.perf_counter()
+    oracle = oracle_job.get()
+    print(f"  path F: waited {time.perf_counter() - t0:.1f}s for the oracle sets of the pool", flush=True)
     reset(kernels)
-    for step, drive in (("f1", f1_todos), ("f2", f2_config2), ("f3", f3_board)):
-        sets, results = [FSet("card", True), FSet("oracle", False)], []
+    for step, drive in F_STEPS[:3]:
+        gset, o = FSet("card", True), oracle[step]
         before = read(kernels)
         routes = dict(eng.counts)
         try:
-            for fs in sets:
-                applied = dict(papply.counts)
-                with fs.active():
-                    t0 = time.perf_counter()
-                    results.append(drive(fs))
-                    fs.walls[step] = time.perf_counter() - t0
-                fs.applied = {k: papply.counts[k] - applied[k] for k in applied if papply.counts[k] != applied[k]}
-                fs.check(step)
-            gset, oset = sets
+            applied = dict(papply.counts)
+            with gset.active():
+                t0 = time.perf_counter()
+                result = drive(gset)
+                gset.walls[step] = time.perf_counter() - t0
+            gset.applied = {k: papply.counts[k] - applied[k] for k in applied if papply.counts[k] != applied[k]}
+            gset.check(step)
             launched = {k: v - before[k] for k, v in read(kernels).items()}
-            if results[0][1] != results[1][1]:
+            if result[1] != o["result"][1]:
                 raise AssertionError(f"path F {step}: query rows differ from the oracle set's")
             t0 = time.perf_counter()
-            sizes = f_compare(step, gset, oset)
-            n = results[0][0]
+            sizes = f_compare(step, f_state(gset), o["state"])
+            n = result[0]
             plans = sum(sum(v for k, v in getattr(e.worker._planner, "cache").counts.items()
                             if k in ("cached_plans", "stream_plans")) for e in gset.clients.values())
             relay = {k: eng.counts[k] - routes[k] for k in routes}
             parts = {k: round(v, 4) for k, v in gset.parts.items()}
             parts["rest"] = round(gset.walls[step] - sum(gset.parts.values()), 4)
             out = {"messages": n, "wall_s": round(gset.walls[step], 4), "msgs_per_s": round(n / gset.walls[step]),
-                   "oracle_wall_s": round(oset.walls[step], 4), "oracle_msgs_per_s": round(n / oset.walls[step]),
+                   "oracle_wall_s": round(o["wall"], 4), "oracle_msgs_per_s": round(n / o["wall"]),
+                   "oracle_in_pool_process": True,
                    "split_s": parts, "crypto_share": round((gset.parts["encrypt"] + gset.parts["decrypt"])
                                                            / gset.walls[step], 4),
-                   "oracle_split_s": {k: round(v, 4) for k, v in oset.parts.items()},
+                   "oracle_split_s": {k: round(v, 4) for k, v in o["parts"].items()},
                    "launches": launched, "worker_device_plans": plans, "relay_routes": relay,
-                   "responses_decoded": gset.decoded, "oracle_responses_decoded": oset.decoded,
-                   "apply_routes": gset.applied, "oracle_apply_routes": oset.applied,
+                   "responses_decoded": gset.decoded, "oracle_responses_decoded": o["decoded"],
+                   "apply_routes": gset.applied, "oracle_apply_routes": o["applied"],
                    "transport_counts": {k: dict(e._transport.counts) for k, e in gset.clients.items()},
                    "rows": sizes, "compare_s": round(time.perf_counter() - t0, 3)}
             if step == "f2":
-                out["c_restore_and_initial_sync_s"] = round(results[0][2], 4)
-                out["oracle_c_restore_and_initial_sync_s"] = round(results[1][2], 4)
+                out["c_restore_and_initial_sync_s"] = round(result[2], 4)
+                out["oracle_c_restore_and_initial_sync_s"] = round(o["result"][2], 4)
             report[step] = out
             print(f"  path F {step}: {json.dumps(out)} | {gpu}", flush=True)
             # The relay's device pass launches H and X; the workers' device
@@ -2232,15 +2397,14 @@ def path_f(torch, kernels, gpu=""):
                 raise AssertionError(f"path F {step}: L launched {launched} for {plans} device plans")
             if (step == "f3") != (launched["seg_sum_scan"] > 0):
                 raise AssertionError(f"path F {step}: S launched {launched['seg_sum_scan']} times")
-            if gset.decoded["object"] or not gset.decoded["packed"] or oset.decoded["packed"]:
+            if gset.decoded["object"] or not gset.decoded["packed"] or o["decoded"]["packed"]:
                 raise AssertionError(f"path F {step}: responses decoded {gset.decoded} on the card set "
-                                     f"(every one through the columnar leg), {oset.decoded} on the oracle set")
+                                     f"(every one through the columnar leg), {o['decoded']} on the oracle set")
         finally:
-            for fs in sets:
-                fs.close()
+            gset.close()
     launches = read(kernels)
     print(f"  path F: launches {launches} | {gpu}", flush=True)
-    return launches, report
+    return launches, report, oracle["h3"]
 
 
 # ---- path G: the packed/native receive and the relay's packed ingest ---------------
@@ -2289,7 +2453,6 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     bounce); L twice, H and X once a plan, S never. `batches` are path D's
     D1 and D2 as (base, messages) and `trees` the relay's trees after
     each. Returns (launches, report)."""
-    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
     from evolu_tpu_torch.core.packed import PackedReceive
     from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache
     from evolu_tpu_torch.runtime import worker as worker_mod
@@ -2366,17 +2529,16 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     if plans == 0 or launches != want:
         raise AssertionError(f"path G1: launches {launches}, expected {want}")
     t1 = time.perf_counter()
-    if d_outputs(gpu) != oracle["outputs"] or d_pushes(gpu) != oracle["pushes"]:
+    got = d_state(gpu)
+    if got["outputs"] != oracle["outputs"] or got["pushes"] != oracle["pushes"]:
         raise AssertionError("path G1: outputs or pushes differ from the pure oracle's")
-    got, want_dump = d_dump(gpu.worker.db), oracle["dump"]
-    if got != want_dump:
-        raise AssertionError(f"path G1: tables {sorted(t for t in want_dump if got.get(t) != want_dump[t])} "
+    if got["tables"] != oracle["tables"]:
+        raise AssertionError(f"path G1: tables {sorted(t for t in oracle['tables'] if got['tables'].get(t) != oracle['tables'][t])} "
                              f"differ from the pure oracle's")
-    tree = merkle_tree_to_string(read_clock(gpu.worker.db).merkle_tree)
-    if tree != trees[-1] or tree != oracle["tree"]:
+    if got["tree"] != trees[-1] or got["tree"] != oracle["tree"]:
         raise AssertionError("path G1: the Merkle tree differs from the relay's or the oracle's")
-    rows = {t: len(v) for t, v in want_dump.items()}
-    del got, want_dump
+    rows = {t: n for t, (_d, n) in oracle["tables"].items()}
+    del got
     paths = native_paths_in_port_build()
     print(f"  path G1: outputs, pushes, every table ({json.dumps(rows)} rows) and the Merkle tree "
           f"byte-identical to the pure oracle ({time.perf_counter() - t1:.1f}s); native libraries "
@@ -2570,39 +2732,39 @@ def path_h1(torch, kernels, keep, tmp):
     n = sum(len(r.messages) for r, _ in jobs)
 
     store = RelayStore(os.path.join(tmp, "h1.db"), backend="native")
-    server = RelayServer(store, batching=True).start()
+    # A listener (peers=[]): after H1 it is path I's anti-entropy donor,
+    # kept serving in `keep["h1_server"]`.
+    server = keep["h1_server"] = RelayServer(store, batching=True, peers=[]).start()
     got, lat, errors, sizes, decodes = [None] * len(jobs), [0.0] * len(jobs), [], [], []
     routes0 = dict(eng.counts)
     split = h_stream_split(torch, eng)
     reset(kernels)
-    try:
-        def lane(ix):
-            try:
-                for i in ix:
-                    t1 = time.perf_counter()
-                    got[i] = _http_post(server.url, bodies[i])
-                    lat[i] = time.perf_counter() - t1
-            except Exception as e:  # noqa: BLE001 - raised below
-                errors.append(e)
 
-        orig_run = eng.BatchReconciler.run_batch_wire
+    def lane(ix):
+        try:
+            for i in ix:
+                t1 = time.perf_counter()
+                got[i] = _http_post(server.url, bodies[i])
+                lat[i] = time.perf_counter() - t1
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
 
-        def sized(self, requests):
-            sizes.append(len(requests))
-            return orig_run(self, requests)
+    orig_run = eng.BatchReconciler.run_batch_wire
 
-        with patched(eng.BatchReconciler, "run_batch_wire", sized), split.on() as stages, \
-                durations(protocol, "decode_sync_request", decodes):
-            threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
-            t1 = time.perf_counter()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            wall = time.perf_counter() - t1
-        counts = dict(server.scheduler.counts)
-    finally:
-        server.stop()
+    def sized(self, requests):
+        sizes.append(len(requests))
+        return orig_run(self, requests)
+
+    with patched(eng.BatchReconciler, "run_batch_wire", sized), split.on() as stages, \
+            durations(protocol, "decode_sync_request", decodes):
+        threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t1
+    counts = dict(server.scheduler.counts)
     launches = read(kernels)
     if errors:
         raise AssertionError("path H1: a client's POST failed") from errors[0]
@@ -2610,9 +2772,7 @@ def path_h1(torch, kernels, keep, tmp):
         if got[i] != want:
             raise AssertionError(f"path H1: the response to {r.user_id} differs from path E's")
     t1 = time.perf_counter()
-    store = RelayStore(os.path.join(tmp, "h1.db"), backend="native")
-    mine, theirs = e_dump(store), keep.setdefault("store_dump", e_dump(generic))
-    store.close()
+    mine, theirs = e_dump(server.store), keep.setdefault("store_dump", e_dump(generic))
     if mine[0] != theirs[0] or mine[1] != theirs[1]:
         raise AssertionError("path H1: the message or merkleTree table differs from path E's store")
     del mine
@@ -2705,12 +2865,13 @@ def path_h2(torch, kernels, keep):
     return launches, report
 
 
-def path_h3(torch, kernels, gpu=""):
+def path_h3(torch, kernels, oracle, gpu=""):
     """H3, clients over HTTP with the v2 wire: path F's F2 handles, cut to
     H3_SENDS Sends of 10k with B pulling after each (C restores after half
     of them). The card set's `Evolu(device=None)` clients on the native
     crypto leg POST through the real `_http_post` to a card
-    `RelayServer(batching=True)`; the oracle set's (path F's) to a port
+    `RelayServer(batching=True)`; the oracle set's (path F's, run by
+    `f_oracle` in a process of the pool: `oracle`) to a port
     `RelayServer(batching=False)` on a Python store with `device="cpu"`.
     Round 1 stores only OpenPGP records; after the echo
     `negotiated_capabilities[url]` holds `aead-batch-v1` and every later
@@ -2721,8 +2882,7 @@ def path_h3(torch, kernels, gpu=""):
     from evolu_tpu_torch.sync import aead, protocol
 
     per_send = F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2
-    sets, results, mix = [FSet("card", True, http=True), FSet("oracle", False, http=True)], [], []
-    gset, oset = sets
+    gset, mix = FSet("card", True, http=True), []
     reset(kernels)
     routes = dict(eng.counts)
 
@@ -2733,35 +2893,34 @@ def path_h3(torch, kernels, gpu=""):
                     "negotiated": sorted(gset.clients["A"]._transport.negotiated_capabilities.get(gset.url, ()))})
 
     try:
-        for fs in sets:
-            with fs.active():
-                t0 = time.perf_counter()
-                results.append(f2_config2(fs, sends=H3_SENDS, after_send=stored_mix if fs is gset else None))
-                fs.walls["h3"] = time.perf_counter() - t0
-            fs.check("h3")
+        with gset.active():
+            t0 = time.perf_counter()
+            result = f2_config2(gset, sends=H3_SENDS, after_send=stored_mix)
+            gset.walls["h3"] = time.perf_counter() - t0
+        gset.check("h3")
         launches = read(kernels)
-        if results[0][1] != results[1][1]:
+        if result[1] != oracle["result"][1]:
             raise AssertionError("path H3: query rows differ from the oracle set's")
         t0 = time.perf_counter()
-        sizes = f_compare("h3", gset, oset)
+        sizes = f_compare("h3", f_state(gset), oracle["state"])
         counts = dict(gset.server.scheduler.counts)
     finally:
-        for fs in sets:
-            fs.close()
+        gset.close()
     if mix[0]["v2"] or mix[0]["v1"] != per_send:
         raise AssertionError(f"path H3: round 1 stored {mix[0]}, expected {per_send} OpenPGP records only")
     if protocol.CAP_AEAD_BATCH not in mix[0]["negotiated"]:
         raise AssertionError(f"path H3: A's transport negotiated {mix[0]['negotiated']} after round 1")
     if mix[-1]["v1"] != per_send or mix[-1]["v2"] != (H3_SENDS - 1) * per_send:
         raise AssertionError(f"path H3: the relay holds {mix[-1]}, expected every Send after the echo as v2")
-    n = results[0][0]
+    n = result[0]
     plans = sum(sum(v for k, v in e.worker._planner.cache.counts.items() if k in ("cached_plans", "stream_plans"))
                 for e in gset.clients.values())
     wall = gset.walls["h3"]
     parts = {k: round(v, 4) for k, v in gset.parts.items()}
     parts["rest"] = round(wall - sum(gset.parts.values()), 4)
     out = {"messages": n, "wall_s": round(wall, 4), "msgs_per_s": round(n / wall),
-           "oracle_wall_s": round(oset.walls["h3"], 4), "oracle_msgs_per_s": round(n / oset.walls["h3"]),
+           "oracle_wall_s": round(oracle["wall"], 4), "oracle_msgs_per_s": round(n / oracle["wall"]),
+           "oracle_in_pool_process": True,
            "split_s": parts, "crypto_share": round((gset.parts["encrypt"] + gset.parts["decrypt"]) / wall, 4),
            "f2_v1_crypto_share": F2_V1_CRYPTO_SHARE, "stored_after_send": mix,
            "scheduler_counts": counts, "relay_routes": {k: eng.counts[k] - routes[k] for k in routes},
@@ -2782,22 +2941,600 @@ def path_h3(torch, kernels, gpu=""):
     return launches, out
 
 
-def path_h(torch, kernels, keep, gpu=""):
+def path_h(torch, kernels, keep, tmp, h3_oracle, gpu=""):
     """Path H: H1, H2 and H3, each with its own launch counts (summed as
-    path H). Closes path E's store at the end. → (launches, report)."""
+    path H). Closes path E's store at the end; H1's relay stays up in
+    `keep["h1_server"]` beside path E's store dump, for path I. →
+    (launches, report)."""
     report, per = {}, {}
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            per["h1"], report["h1"] = path_h1(torch, kernels, keep, tmp)
+        per["h1"], report["h1"] = path_h1(torch, kernels, keep, tmp)
         per["h2"], report["h2"] = path_h2(torch, kernels, keep)
         keep.pop("store").close()
-        keep.clear()
-        per["h3"], report["h3"] = path_h3(torch, kernels, gpu)
+        del keep["e1"], keep["e2"]
+        per["h3"], report["h3"] = path_h3(torch, kernels, h3_oracle, gpu)
     finally:
         if "store" in keep:
             keep["store"].close()
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["h1"]}
+    return launches, report
+
+
+# ---- path I: the relay tier's replication half on the card --------------------------
+
+I2_PER_OWNER = 128  # I2's donor: each owner's first 128 messages of E1, 128,000 rows (cut from 1.1M)
+I2_TAIL = 10_000  # I2's handoff: new messages POSTed to the donor after the capture
+I3_RELAYS, I3_R = 3, 2  # benchmarks/fleet_scaling.py:332-339: 3 relays, replication factor 2,
+I3_THREADS, I3_BATCH, I3_ZIPF = 8, 64, 1.1  # 8 client threads, batches of 64, Zipf 1.1 over owners
+I3_MESSAGES = 128_000  # at config 3's 1,000 owners
+I3_JOIN_MESSAGES = 12_800  # the writer's during the join (first half of the owner ids)
+I3_JOIN_DEBOUNCE_S = 2.0  # the joiner's gossip debounce: its snapshot sweep, not a ranged pull, moves owners
+I_WAIT_S = 300.0
+
+
+def wait_until(pred, what, deadline_s=I_WAIT_S):
+    """Poll `pred` (no fixed sleep) until it holds; fail after `deadline_s`."""
+    deadline = time.time() + deadline_s
+    while time.time() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"path I: timed out after {deadline_s:.0f} s waiting for {what}")
+
+
+def engine_passes(before):
+    """Engine passes (reruns included) since the route counts `before`:
+    each launches H and X once."""
+    from evolu_tpu_torch.server import engine as eng
+
+    return sum(eng.counts[k] - before[k] for k in ("delta", "full", "overflow"))
+
+
+def check_i(step, launches, passes, relays):
+    """H and X launched once a pass, L and S never; no scheduler singles,
+    poisoned batches or rejects, no failed gossip round, no failed
+    rebalance on any relay of the step."""
+    expect = {"seg_lex_max_scan": 0, "seg_xor_scan": passes, "timestamp_hash": passes, "seg_sum_scan": 0}
+    if launches != expect or not passes:
+        raise AssertionError(f"path I {step}: launches {launches}, expected {expect}")
+    for r in relays:
+        c = r.scheduler.counts
+        if c["poisoned_batches"] or c["singles"] or c["rejected"]:
+            raise AssertionError(f"path I {step}: scheduler counts {c} at {r.url}")
+        errors = {u: pc["rounds_error"] for u, pc in (r.replication.peer_counts if r.replication else {}).items()
+                  if pc["rounds_error"]}
+        if errors or (r.fleet is not None and r.fleet.counts["rebalance_failures"]):
+            raise AssertionError(f"path I {step}: failed rounds {errors} or rebalances at {r.url}")
+
+
+def post_all(url_of, bodies, threads=8):
+    """POST every body (`url_of(i)` names its relay) from `threads` threads
+    with `sync.client._http_post`; any failure fails the step."""
+    import threading
+
+    from evolu_tpu_torch.sync.client import _http_post
+
+    errors, it, lock = [], iter(range(len(bodies))), threading.Lock()
+
+    def lane():
+        try:
+            while True:
+                with lock:
+                    i = next(it, None)
+                if i is None:
+                    return
+                _http_post(url_of(i), bodies[i])
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    ts = [threading.Thread(target=lane) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError("path I: a POST failed") from errors[0]
+
+
+def path_i1(torch, kernels, keep, tmp):
+    """I1, anti-entropy at full state: a fresh card relay B
+    (`RelayServer(RelayStore(<file>, backend="native"), batching=True,
+    peers=[A])`, bootstrap off, the default pull caps) converges on its own
+    gossip loop to path H1's relay A, 1.1M rows over 1k owners; every
+    pulled message goes through B's scheduler into engine passes on the
+    card. B's tables equal A's (path E's store); every row was pulled, the
+    pulls counted exactly. → (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+
+    donor = keep["h1_server"]
+    want = keep["store_dump"]
+    donor_trees = dict(want[1])
+    keys, sizes = [], []
+    store = RelayStore(os.path.join(tmp, "i1.db"), backend="native")
+    routes0 = dict(eng.counts)
+    orig_run = eng.BatchReconciler.run_batch_wire
+
+    def sized(self, requests):
+        sizes.append(len(requests))
+        return orig_run(self, requests)
+
+    reset(kernels)
+    with patched(eng.BatchReconciler, "run_batch_wire", sized):
+        b = RelayServer(store, batching=True, peers=[donor.url], replication_interval_s=3600)
+        ingest = b.replication._ingest  # records every pulled (owner, timestamp)
+
+        def recorded(requests):
+            keys.extend((r.user_id, m.timestamp) for r in requests for m in r.messages)
+            return ingest(requests)
+
+        b.replication._ingest = recorded
+        t0 = time.perf_counter()
+        try:
+            b.start()
+            wait_until(lambda: dict(store.owner_trees()) == donor_trees, "B's trees to equal A's")
+            wall = time.perf_counter() - t0
+            b.replication.stop()  # the loop's last (hinted, empty) round ends
+            launches = read(kernels)
+            passes = engine_passes(routes0)
+            check_i("I1", launches, passes, [b])
+            peer = dict(b.replication.peer_counts[donor.url])
+            counts = dict(b.scheduler.counts)
+            trips = dict(b.replication.round_trips)
+            t1 = time.perf_counter()
+            mine = e_dump(store)
+        finally:
+            stop_relay(b)
+    if mine != want:
+        raise AssertionError("path I1: B's message or merkleTree table differs from A's")
+    rows, distinct = len(want[0]), len(set(keys))
+    if distinct != rows or len(keys) != peer["messages_pulled"]:
+        raise AssertionError(f"path I1: pulled {len(keys)} messages ({distinct} distinct) counted as "
+                             f"{peer['messages_pulled']}, for {rows} rows")
+    out = {"rows": rows, "owners": len(donor_trees), "wall_s": round(wall, 4),
+           "rows_per_s": round(rows / wall), "rounds_ok": peer["rounds_ok"], "rounds_error": peer["rounds_error"],
+           "pull_round_trips": trips["pull"], "summary_round_trips": trips["summary"],
+           "messages_pulled": peer["messages_pulled"], "messages_pulled_per_s": round(peer["messages_pulled"] / wall),
+           "re_pulled": len(keys) - distinct, "owners_diffed": peer["owners_diffed"],
+           "engine_passes": passes, "pass_requests_max": max(sizes),
+           "pass_requests_mean": round(statistics.mean(sizes), 2), "scheduler_counts": counts,
+           "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0},
+           "compare_s": round(time.perf_counter() - t1, 3)}
+    print(f"  path I1: {json.dumps(out)}", flush=True)
+    if counts["batches"] != len(sizes) or counts["coalesced"] != sum(sizes):
+        raise AssertionError(f"path I1: scheduler counts {counts} for {len(sizes)} engine passes")
+    return launches, out
+
+
+def i_requests(rows, node="f" * 16):
+    """One SyncRequest an owner from (userId, timestamp, content) rows,
+    with the empty client tree."""
+    from evolu_tpu_torch.sync import protocol
+
+    per = {}
+    for uid, ts, content in rows:
+        per.setdefault(uid, []).append(protocol.EncryptedCrdtMessage(ts, bytes(content)))
+    return [protocol.SyncRequest(tuple(m), uid, node, "{}") for uid, m in per.items()]
+
+
+def path_i2(torch, kernels, keep, tmp):
+    """I2, snapshot bootstrap and checkpoint: a card donor D holds each
+    owner's first I2_PER_OWNER messages of E1 (loaded by `run_batch_wire`);
+    a fresh card relay C (`peers=[D]`, `bootstrap_lag_owners=1`) installs
+    D's snapshot in 4 MiB chunks in one round (verify on the host), then
+    I2_TAIL new messages POSTed to D reach C by gossip through C's
+    scheduler; `write_checkpoint(D)` restores into a 4-shard native store
+    with every tree string byte-identical. → (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server import snapshot as snap
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore, ShardedRelayStore
+    from evolu_tpu_torch.server.replicate import ReplicationManager
+    from evolu_tpu_torch.sync import protocol
+
+    taken, rows = {}, []
+    for row in keep["store_dump"][0]:
+        if taken.get(row[0], 0) < I2_PER_OWNER:
+            taken[row[0]] = taken.get(row[0], 0) + 1
+            rows.append(row)
+    load = i_requests(rows)
+    rng = np.random.default_rng(29)
+    contents = [bytes(b) for b in rng.integers(0, 256, (256, E_CONTENT_BYTES), dtype=np.uint8)]
+    # E2's shape, a minute past every stamp of paths E and H: C pulls the tail alone.
+    owner, _m, _c, _n, stamps = e_stamps(E_MESSAGES + E_MESSAGES // 10 + 16 * 60_000, I2_TAIL, E_OWNERS, rng)
+    tail = i_requests([(f"owner{o:04d}", s, contents[i % 256]) for i, (o, s) in enumerate(zip(owner.tolist(), stamps))])
+    walls = {"bootstrap": [], "install_chunk": [], "verify": [], "swap": []}
+    report, relays = {}, []
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    d = RelayServer(RelayStore(os.path.join(tmp, "i2_d.db"), backend="native"), batching=True, peers=[]).start()
+    relays.append(d)
+    try:
+        t0 = time.perf_counter()
+        rec = eng.BatchReconciler(d.store)
+        try:
+            rec.run_batch_wire(load)
+        finally:
+            rec.close()
+        report["load"] = {"rows": len(rows), "owners": len(load), "wall_s": round(time.perf_counter() - t0, 4),
+                          "engine_passes": engine_passes(routes0)}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(durations(ReplicationManager, "_bootstrap", walls["bootstrap"]))
+            for name in ("install_chunk", "verify", "swap"):
+                stack.enter_context(durations(snap.SnapshotInstaller, name, walls[name]))
+            t0 = time.perf_counter()
+            c = RelayServer(RelayStore(os.path.join(tmp, "i2_c.db"), backend="native"), batching=True,
+                            peers=[d.url], bootstrap_lag_owners=1, replication_interval_s=3600).start()
+            relays.append(c)
+            peer = lambda: c.replication.peer_counts.get(d.url, {})  # noqa: E731
+            # The bootstrap round, then the round its hint arms (nothing to pull).
+            wait_until(lambda: peer().get("rounds_ok", 0) >= 2, "C's bootstrap and its follow-up round")
+            boot_wall = time.perf_counter() - t0
+        if peer()["snapshot_bootstraps"] != 1 or peer()["messages_pulled"]:
+            raise AssertionError(f"path I2: C's counts {peer()} after the bootstrap")
+        if e_dump(c.store) != e_dump(d.store):
+            raise AssertionError("path I2: C's tables differ from D's after the bootstrap")
+        stats = c.replication.stats_payload()["peers"][0]
+        report["bootstrap"] = {
+            "wall_s": round(boot_wall, 4), "bootstrap_s": round(sum(walls["bootstrap"]), 4),
+            "install_chunks_s": round(sum(walls["install_chunk"]), 4), "verify_s": round(sum(walls["verify"]), 4),
+            "swap_s": round(sum(walls["swap"]), 4), "verify_us_per_row": round(sum(walls["verify"]) / len(rows) * 1e6, 2),
+            "chunks": stats["snapshot_chunks_fetched"], "bytes": stats["snapshot_bytes_fetched"],
+            "snapshot_bootstraps": stats["snapshot_bootstraps"], "round_trips": dict(c.replication.round_trips),
+            "engine_passes_so_far": engine_passes(routes0)}
+        if report["bootstrap"]["engine_passes_so_far"] != report["load"]["engine_passes"]:
+            raise AssertionError("path I2: the bootstrap ran an engine pass")
+        d_batches, c_batches = d.scheduler.counts["batches"], c.scheduler.counts["batches"]
+        t0 = time.perf_counter()
+        post_all(lambda i: d.url, [protocol.encode_sync_request(r) for r in tail])
+        post_s = time.perf_counter() - t0
+        c.replication.run_once()
+        handoff = time.perf_counter() - t0
+        if peer()["messages_pulled"] != I2_TAIL:
+            raise AssertionError(f"path I2: C pulled {peer()['messages_pulled']} messages of the "
+                                 f"{I2_TAIL}-message tail")
+        if e_dump(c.store) != e_dump(d.store):
+            raise AssertionError("path I2: C's tables differ from D's after the handoff")
+        report["handoff"] = {"messages": I2_TAIL, "requests": len(tail), "post_s": round(post_s, 4),
+                             "wall_s": round(handoff, 4), "messages_pulled": peer()["messages_pulled"],
+                             "d_passes": d.scheduler.counts["batches"] - d_batches,
+                             "c_passes": c.scheduler.counts["batches"] - c_batches}
+        c.replication.stop()  # its loop's hinted round ends before the counts are read
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        check_i("I2", launches, passes, relays)
+        path = os.path.join(tmp, "i2.checkpoint")
+        t0 = time.perf_counter()
+        manifest = snap.write_checkpoint(d.store, path)
+        write_s = time.perf_counter() - t0
+        restored = ShardedRelayStore(os.path.join(tmp, "i2_ck"), backend="native", shards=4)
+        try:
+            t0 = time.perf_counter()
+            snap.restore_checkpoint(restored, path)
+            restore_s = time.perf_counter() - t0
+            if sorted(restored.owner_trees()) != sorted(d.store.owner_trees()):
+                raise AssertionError("path I2: a restored tree string differs from D's")
+            n = sum(s["messages"] for s in restored.stats())
+        finally:
+            restored.close()
+        if n != len(rows) + I2_TAIL or manifest.message_count != n:
+            raise AssertionError(f"path I2: the checkpoint holds {manifest.message_count} rows, restored {n}")
+        report["checkpoint"] = {"rows": n, "bytes": manifest.total_bytes, "chunks": len(manifest.chunk_sizes),
+                                "write_s": round(write_s, 4), "restore_s": round(restore_s, 4), "shards": 4}
+    finally:
+        for r in relays:
+            r.stop()
+    report["engine_passes"] = passes
+    print(f"  path I2: {json.dumps(report)}", flush=True)
+    return launches, report
+
+
+def zipf_counts(owners, total, s, rng):
+    """benchmarks/fleet_scaling.py's owner sizes: Zipf(s) weights, at least
+    one message an owner, summing to `total`, shuffled."""
+    w = [1.0 / (i + 1) ** s for i in range(owners)]
+    z = sum(w)
+    counts = [max(1, int(total * wi / z)) for wi in w]
+    while sum(counts) > total:
+        counts[counts.index(max(counts))] -= 1
+    i = 0
+    while sum(counts) < total:
+        counts[i % owners] += 1
+        i += 1
+    rng.shuffle(counts)
+    return counts
+
+
+def i3_workload(owners, total, seed, t0=0, trees=None):
+    """fleet_scaling.py's workload at path E's message shape: owner k's
+    messages 500 ms apart from `t0`, node k+1, 116-byte contents, in
+    requests of I3_BATCH messages. Each owner's requests keep their HLC
+    order and carry the tree of every message of the owner's device (a
+    device pushing its offline backlog), so an answer carries only what
+    the relay holds past the request; the owners' requests interleave at
+    random. `trees` (the owners' device trees so far, by owner index) is
+    updated. → [(owner, SyncRequest)]."""
+    import random
+
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.sync import protocol
+
+    rng = random.Random(seed)
+    pool = [bytes(b) for b in np.random.default_rng(seed).integers(0, 256, (4096, E_CONTENT_BYTES), dtype=np.uint8)]
+    counts = zipf_counts(owners, total, I3_ZIPF, rng)
+    owner = np.repeat(np.arange(owners), counts)
+    j = np.concatenate([np.arange(n) for n in counts])
+    millis = BASE_MILLIS + 10**10 + (t0 + j) * 500
+    trees = e_trees(trees if trees is not None else {}, owner, millis, np.zeros(len(j), np.int32),
+                    (owner + 1).astype(np.uint64))
+    per_owner, at = [], 0
+    for k, n in enumerate(counts):
+        uid, tree = f"owner{k:04d}", merkle_tree_to_string(trees[k])
+        stamps = [ts_one(int(m), 0, f"{k + 1:016x}") for m in millis[at:at + n].tolist()]
+        per_owner.append([(uid, protocol.SyncRequest(
+            tuple(protocol.EncryptedCrdtMessage(t, pool[(k * 7 + i + x) % 4096])
+                  for x, t in enumerate(stamps[i:i + I3_BATCH])), uid, "00000000000000bb", tree))
+            for i in range(0, n, I3_BATCH)])
+        at += n
+    order = [k for k, reqs in enumerate(per_owner) for _ in reqs]
+    rng.shuffle(order)
+    nxt = [0] * owners
+    out = []
+    for k in order:
+        out.append(per_owner[k][nxt[k]])
+        nxt[k] += 1
+    return out
+
+
+def i3_ingest(requests, urls, threads):
+    """fleet_scaling.py's client: each thread POSTs a request to a random
+    member (or its learned route), follows at most one 307 and caches it,
+    and retries the request until it is ACKed (`_http_post` backs off on
+    503). → (wall_s, 307s followed)."""
+    import random
+    import threading
+
+    from evolu_tpu_torch.sync import protocol
+    from evolu_tpu_torch.sync.client import _http_post
+
+    routes, lock, errors, followed = {}, threading.Lock(), [], [0]
+    it = iter(range(len(requests)))
+    bodies = [protocol.encode_sync_request(r) for _u, r in requests]
+
+    def lane(tid):
+        rng = random.Random(1000 + tid)
+        try:
+            while True:
+                with lock:
+                    i = next(it, None)
+                if i is None:
+                    return
+                uid = requests[i][0]
+                for _attempt in range(20):
+                    url = routes.get(uid) or rng.choice(urls) + "/"
+                    try:
+                        try:
+                            _http_post(url, bodies[i])
+                            break
+                        except urllib.error.HTTPError as e:
+                            loc = e.headers.get("Location") if e.headers else None
+                            if e.code != 307 or not loc:
+                                raise
+                            with lock:
+                                followed[0] += 1
+                            _http_post(loc, bodies[i])  # at most one 307 an attempt
+                            routes[uid] = loc
+                            break
+                    except urllib.error.HTTPError as e:
+                        # A second 307 (the ring moved under the request) or
+                        # 503s past _http_post's backoff (an owner mid-install):
+                        # retry from a random member.
+                        routes.pop(uid, None)
+                        if e.code not in (307, 503):
+                            raise
+                else:
+                    raise AssertionError(f"path I3: the request for {uid} was never ACKed")
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=lane, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError("path I3: a client request failed") from errors[0]
+    return time.perf_counter() - t0, followed[0]
+
+
+def owner_rows(store):
+    """{owner: (tree text, rows)} of a relay store, rows (timestamp,
+    content) in order."""
+    msgs, trees = e_dump(store)
+    out = {uid: [tree, []] for uid, tree in trees}
+    for uid, ts, content in msgs:
+        out.setdefault(uid, ["{}", []])[1].append((ts, bytes(content)))
+    return out
+
+
+def i3_fixpoint(ring, relays, oracle, step, stop=False):
+    """Wait for the scoped-gossip fixpoint under `ring`: every owner's tree
+    on each of its placed relays equal to the oracle's; with `stop`, stop
+    the relays' gossip loops there (rounds in flight end; the counts are
+    final); then hold the rows too. → ({url: owner_rows}, wait s, compare
+    s)."""
+    want_trees = dict(oracle.owner_trees())
+    by_url = {r.url: r for r in relays}
+
+    def reached():
+        trees = {u: dict(r.store.owner_trees()) for u, r in by_url.items()}
+        return all(trees[u].get(uid) == t for uid, t in want_trees.items() for u in ring.placement(uid))
+
+    t0 = time.perf_counter()
+    wait_until(reached, f"the scoped-gossip fixpoint {step}")
+    wait_s = time.perf_counter() - t0
+    if stop:
+        for r in relays:
+            r.replication.stop()
+    t0 = time.perf_counter()
+    want = owner_rows(oracle)
+    held = {u: owner_rows(r.store) for u, r in by_url.items()}
+    for uid, state in want.items():
+        for u in ring.placement(uid):
+            if held[u].get(uid) != state:
+                raise AssertionError(f"path I3 {step}: {uid} at {u} differs from the oracle")
+    return held, round(wait_s, 4), round(time.perf_counter() - t0, 3)
+
+
+def path_i3(torch, kernels, tmp):
+    """I3, the owner-sharded fleet: I3_RELAYS card relays (batching, native
+    file stores) under one FleetConfig (R = I3_R) take I3_MESSAGES messages
+    over 1k owners from I3_THREADS clients (random member, one 307 followed
+    and cached). At the scoped-gossip fixpoint every owner's rows and tree
+    on its primary and each replica equal a single per-request oracle
+    relay's on a Python store that took the same requests. Then a fourth
+    card relay joins by `POST /fleet/reload` (survivors first, then the
+    joiner) while a writer keeps POSTing to the first half of the owners:
+    at the new fixpoint every ACKed write is on every placed relay (the
+    oracle took them too), quiet moved owners' trees equal the losing
+    relay's, and the joiner cut at least one owner over at its watermark.
+    → (launches, report)."""
+    import threading
+
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.fleet import HashRing
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore, serve_single_request
+    from evolu_tpu_torch.utils.config import FleetConfig
+
+    t0 = time.perf_counter()
+    trees = {}
+    work = i3_workload(E_OWNERS, I3_MESSAGES, seed=42, trees=trees)
+    join_work = i3_workload(E_OWNERS // 2, I3_JOIN_MESSAGES, seed=43, t0=10**6, trees=trees)
+    del trees
+    report, relays = {"build_s": round(time.perf_counter() - t0, 3)}, []
+    oracle = RelayStore(backend="python")
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    try:
+        for i in range(I3_RELAYS):
+            relays.append(RelayServer(RelayStore(os.path.join(tmp, f"i3_{i}.db"), backend="native"),
+                                      batching=True, peers=[], replication_interval_s=1.0))
+        cfg = FleetConfig(relays=tuple(r.url for r in relays), replication_factor=I3_R, version=1)
+        for r in relays:
+            r.enable_fleet(cfg)  # before start: the first gossip round is placement-scoped
+        for r in relays:
+            r.start()
+        urls = [r.url for r in relays]
+        wall, followed = i3_ingest(work, urls, I3_THREADS)
+        t0 = time.perf_counter()
+        for _uid, r in work:
+            serve_single_request(oracle, r)
+        oracle_s = time.perf_counter() - t0
+        ring0 = HashRing(cfg)
+        held0, wait0, compare0 = i3_fixpoint(ring0, relays, oracle, "after the ingest")
+        report["ingest"] = {"messages": I3_MESSAGES, "requests": len(work), "wall_s": round(wall, 4),
+                            "msgs_per_s": round(I3_MESSAGES / wall), "requests_per_s": round(len(work) / wall, 1),
+                            "redirects_followed": followed, "oracle_s": round(oracle_s, 4),
+                            "fixpoint_wait_s": wait0, "compare_s": compare0}
+        joiner = RelayServer(RelayStore(os.path.join(tmp, "i3_join.db"), backend="native"), batching=True,
+                             peers=[], replication_interval_s=1.0)
+        relays.append(joiner)
+        cfg2 = FleetConfig(relays=cfg.relays + (joiner.url,), replication_factor=I3_R, version=2)
+        joiner.enable_fleet(cfg2)
+        joiner.replication.debounce_s = I3_JOIN_DEBOUNCE_S
+        joiner.start()
+        writer = {}
+        wt = threading.Thread(target=lambda: writer.update(out=i3_ingest(join_work, urls + [joiner.url], 4)))
+        wt.start()
+        t0 = time.perf_counter()
+        for r in relays:  # survivors first, then the joiner
+            code, body = http_json_post(r.url + "/fleet/reload", cfg2.to_json())
+            if code != 200 or body["ring_version"] != 2:
+                raise AssertionError(f"path I3: reload of {r.url} answered {code} {body}")
+        extra = joiner.fleet.rebalance_once()  # waits out the reload's sweep
+        rebalance_s = time.perf_counter() - t0
+        wt.join()
+        if "out" not in writer:
+            raise AssertionError("path I3: the writer during the join failed")
+        for _uid, r in join_work:
+            serve_single_request(oracle, r)
+        ring = HashRing(cfg2)
+        held, wait1, compare1 = i3_fixpoint(ring, relays, oracle, "after the join", stop=True)
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        check_i("I3", launches, passes, relays)
+        written = {uid for uid, _r in join_work}
+        moved = [uid for uid in held[joiner.url] if joiner.url in ring.placement(uid)]
+        quiet = [uid for uid in moved if uid not in written]
+        for uid in quiet:
+            for u in ring0.placement(uid):
+                if u not in ring.placement(uid) and held[u][uid][0] != held[joiner.url][uid][0]:
+                    raise AssertionError(f"path I3: moved owner {uid}'s tree differs from the losing relay's")
+        fc = joiner.fleet.counts
+        if fc["cutovers_verified"] < 1:
+            raise AssertionError(f"path I3: no owner cut over at its watermark: {fc}")
+        report["join"] = {"messages_during_join": I3_JOIN_MESSAGES, "writer_wall_s": round(writer["out"][0], 4),
+                          "rebalance_s": round(rebalance_s, 4), "second_sweep_owners": extra,
+                          "owners_moved": len(moved), "quiet_owners_moved": len(quiet),
+                          "fixpoint_wait_s": wait1, "compare_s": compare1,
+                          "joiner_counts": {k: fc[k] for k in ("rebalanced_owners", "rebalanced_messages",
+                                                              "cutovers_verified", "cutovers_superset")}}
+        report.update({
+            "engine_passes": passes,
+            "relays": [{"url": r.url, "scheduler": dict(r.scheduler.counts),
+                        "fleet": {k: v for k, v in r.fleet.counts.items() if v},
+                        "rounds_ok": sum(pc["rounds_ok"] for pc in r.replication.peer_counts.values()),
+                        "messages_pulled": sum(pc["messages_pulled"] for pc in r.replication.peer_counts.values()),
+                        "owners_stored": len(held[r.url])} for r in relays],
+            "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}})
+    finally:
+        oracle.close()
+        for r in relays:
+            stop_relay(r)
+    print(f"  path I3: {json.dumps(report)}", flush=True)
+    return launches, report
+
+
+def stop_relay(relay):
+    """Stop a RelayServer, started or not (`stop()` waits for a serving
+    loop that a relay never started does not run)."""
+    if relay._thread is not None:
+        relay.stop()
+        return
+    for part in (relay.replication, relay.scheduler):
+        if part is not None:
+            part.stop()
+    relay._httpd.server_close()
+    relay.store.close()
+
+
+def http_json_post(url, payload):
+    """POST a JSON body → (status, decoded JSON answer)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, {}
+
+
+def path_i(torch, kernels, keep, tmp, gpu=""):
+    """Path I: I1, I2 and I3, each with its own launch counts (summed as
+    path I). Stops H1's relay at the end. → (launches, report)."""
+    report, per = {}, {}
+    try:
+        per["i1"], report["i1"] = path_i1(torch, kernels, keep, tmp)
+    finally:
+        keep.pop("h1_server").stop()
+    per["i2"], report["i2"] = path_i2(torch, kernels, keep, tmp)
+    keep.clear()
+    per["i3"], report["i3"] = path_i3(torch, kernels, tmp)
+    report["launches"] = per
+    launches = {k: sum(p[k] for p in per.values()) for k in per["i1"]}
     return launches, report
 
 
@@ -3194,6 +3931,10 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(ORACLE_PROCESSES)
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
         launches["a"] = path_a(torch, kernels, lww_names, pool)
+    # Paths D's, E's, F's and H3's oracles run in the pool while the card
+    # runs paths B to E.
+    d_oracle_job, e_oracle_job = pool.apply_async(d_oracle), pool.apply_async(e_oracle)
+    f_oracle_job = pool.apply_async(f_oracle)
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
         launches["b"] = path_b(torch, kernels, lww_names)
     captured, c2_calls = {}, {}
@@ -3204,16 +3945,16 @@ def main() -> int:
         launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
         print("  " + json.dumps(report_c2), flush=True)
     with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
-        launches["d"], report_d, trees_d2, batches_d, g1_oracle = path_d(torch, kernels)
+        launches["d"], report_d, trees_d2, batches_d, g1_oracle = path_d(torch, kernels, d_oracle_job)
         print("  " + json.dumps(report_d), flush=True)
     with phase("path D timing: D1 + D2 with winner_cache=False", gpu):
         report_d["d2_winner_cache_off"] = path_d_streamed(trees_d2, batches_d)
         print("  " + json.dumps(report_d["d2_winner_cache_off"]), flush=True)
     captured_e, keep_e = {}, {}
     with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
-        launches["e"], report_e = path_e(torch, kernels, captured_e, keep_e)
+        launches["e"], report_e = path_e(torch, kernels, captured_e, keep_e, e_oracle_job)
     with phase("path F: client handle, encrypted sync through the relay, card set vs oracle set", gpu):
-        launches["f"], report_f = path_f(torch, kernels, gpu=gpu)
+        launches["f"], report_f, h3_oracle = path_f(torch, kernels, f_oracle_job, gpu=gpu)
     with phase("path G1: packed receive, native decrypt to columns into a card DbWorker on the C++ "
                "SQLite layer vs the pure oracle", gpu):
         launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, g1_oracle, pool)
@@ -3226,10 +3967,15 @@ def main() -> int:
         print("  " + json.dumps(report_g2) + f" | {gpu}", flush=True)
     launches["g"] = {k: launches_g1[k] + launches_g2[k] for k in launches_g1}
     report_g = {"g1": report_g1, "g2": report_g2, "launches_g1": launches_g1, "launches_g2": launches_g2}
-    with phase("path H: the relay as a live HTTP server (batching RelayServer, the streaming ingest, "
-               "clients on the v2 wire) vs path E and path F's oracle set", gpu):
-        launches["h"], report_h = path_h(torch, kernels, keep_e, gpu)
-        print("  " + json.dumps(report_h["launches"]) + f" | {gpu}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp_hi:
+        with phase("path H: the relay as a live HTTP server (batching RelayServer, the streaming ingest, "
+                   "clients on the v2 wire) vs path E and path F's oracle set", gpu):
+            launches["h"], report_h = path_h(torch, kernels, keep_e, tmp_hi, h3_oracle, gpu)
+            print("  " + json.dumps(report_h["launches"]) + f" | {gpu}", flush=True)
+        with phase("path I: the relay tier on the card (anti-entropy at full state, snapshot bootstrap and "
+                   "checkpoint, the owner-sharded fleet) vs their oracles", gpu):
+            launches["i"], report_i = path_i(torch, kernels, keep_e, tmp_hi, gpu)
+            print("  " + json.dumps(report_i["launches"]) + f" | {gpu}", flush=True)
     reports, captured_10m = [], {}
     # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
     # The 10M pass runs once (cut from a median of 3 when path G was added).
@@ -3267,7 +4013,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -3278,7 +4024,8 @@ def main() -> int:
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
-                      "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h}))
+                      "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
+                      "relay_tier": report_i}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

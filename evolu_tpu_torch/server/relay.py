@@ -10,13 +10,18 @@ userId, ciphertext).
 `RelayServer` serves POST `/`, GET `/ping`, `/health` and `/stats` on a
 ThreadingHTTPServer; `batching=True` routes sync POSTs through the
 continuous-batching `server.scheduler.SyncScheduler`, whose engine passes
-run on `device` (None = the card). `MultiprocessRelay` pre-forks worker
-processes (`python -m evolu_tpu_torch.server.relay_worker`) that serve the
-per-request host path over one shared file-backed store. The relay tier's
-endpoints (`/metrics`, `/ledger`, `/trace`, `/profile`, `/fleet`,
-`/push/poll`, `/replicate/*`, `/fleet/*`) answer 404, as a reference
-relay does with the feature off, and the options that would turn them on
-raise NotImplementedError before a socket is bound.
+run on `device` (None = the card). `peers` turns on relay↔relay Merkle
+anti-entropy (`server/replicate.py`, POST `/replicate/*`, with snapshot
+bootstrap and checkpoints from `server/snapshot.py`), and `enable_fleet`
+joins an owner-sharded fleet (`server/fleet.py`: GET `/fleet`, POST
+`/fleet/forward` and `/fleet/reload`, 307 / forward routing).
+`MultiprocessRelay` pre-forks worker processes (`python -m
+evolu_tpu_torch.server.relay_worker`) that serve the per-request host path
+over one shared file-backed store. The endpoints of the tiers not ported
+yet (`/metrics`, `/ledger`, `/trace`, `/profile`, `/push/poll`) answer
+404, as do `/replicate/*` and `/fleet*` on a relay without replication or
+a fleet, and the options that would turn the missing tiers on raise
+NotImplementedError before a socket is bound.
 
 `add_messages` inserts with per-row was-new flags (the changes==1
 Merkle gate) and hashes on the host; the batched many-owner path is
@@ -337,25 +342,33 @@ class _Counts:
             self.shard_requests[index] = self.shard_requests.get(index, 0) + 1
 
 
-def relay_stats_payload(store, counts: _Counts) -> dict:
+def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None) -> dict:
     """The GET /stats JSON: the store's row counts a shard (shared truth in
     a MultiprocessRelay) with this process's sync requests a shard, and
-    its request and error totals."""
+    its request and error totals; with replication or a fleet attached,
+    their `replication` and `fleet` sections."""
     shards = store.stats() if hasattr(store, "stats") else []
     for s in shards:
         s["requests"] = counts.shard_requests.get(s["index"], 0)
-    return {
+    payload = {
         "shards": shards,
         "messages": sum(s["messages"] for s in shards),
         "users": sum(s["users"] for s in shards),
         "requests_total": counts.requests,
         "errors_total": counts.errors,
     }
+    if replication is not None:
+        payload["replication"] = replication.stats_payload()
+    if fleet is not None:
+        payload["fleet"] = fleet.stats_payload()
+    return payload
 
 
 class _Handler(BaseHTTPRequestHandler):
     store: RelayStore  # injected by RelayServer
     scheduler = None  # SyncScheduler when the relay batches
+    replication = None  # ReplicationManager when the relay has peers
+    fleet = None  # FleetManager once the relay joined a fleet
     counts: _Counts
     # The capabilities this relay echoes (intersected with the request's
     # advertised set). A request with none gets the v1 wire, byte for byte.
@@ -431,7 +444,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(body)
         elif self.path == "/stats":
             try:
-                body = json.dumps(relay_stats_payload(self.store, self.counts)).encode("utf-8")
+                body = json.dumps(relay_stats_payload(self.store, self.counts, self.replication,
+                                                      self.fleet)).encode("utf-8")
             except Exception as e:  # noqa: BLE001 - a clean 500, not a dropped connection
                 self.counts.error()
                 self.send_error(500, str(e))
@@ -439,13 +453,16 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond(200, body, "application/json")
         elif self.path == "/health":
             # Readiness (/ping is liveness): 503 while a snapshot install is
-            # in progress.
+            # in progress, or, in a fleet, any owner is mid-rebalance.
             try:
-                from evolu_tpu_torch.server.snapshot import install_phase
+                if self.fleet is not None:
+                    serving, detail = self.fleet.health_payload()
+                else:
+                    from evolu_tpu_torch.server.snapshot import install_phase
 
-                phase = install_phase(self.store)
-                serving = phase is None
-                detail = {"status": "serving" if serving else "installing", "install_phase": phase}
+                    phase = install_phase(self.store)
+                    serving = phase is None
+                    detail = {"status": "serving" if serving else "installing", "install_phase": phase}
                 if self.scheduler is not None:
                     detail["queue_depth"] = self.scheduler.depth()
             except Exception as e:  # noqa: BLE001 - the probe gets a clean 500
@@ -453,25 +470,44 @@ class _Handler(BaseHTTPRequestHandler):
                 self.send_error(500, str(e))
                 return
             self._respond(200 if serving else 503, json.dumps(detail).encode("utf-8"), "application/json")
+        elif self.path == "/fleet" and self.fleet is not None:
+            try:
+                body = json.dumps(self.fleet.stats_payload()).encode("utf-8")
+            except Exception as e:  # noqa: BLE001
+                self.counts.error()
+                self.send_error(500, str(e))
+                return
+            self._respond(200, body, "application/json")
         else:
             self.send_error(404)
 
-    def do_POST(self) -> None:  # POST / (index.ts:224-248)
-        if self.path.startswith(("/replicate/", "/fleet/")):
-            self.send_error(404)  # the relay tier is not ported (ROADMAP queue 1 item 6)
-            return
-        # Counted before any reject, so errors never outnumber requests.
-        self.counts.request()
+    def _read_body(self) -> Optional[bytes]:
+        """The request body, or None after answering 400 or 413."""
         length = self._body_length()
         if length is None:
-            return
+            return None
         if length > MAX_BODY_BYTES:
             self.counts.error()
             self.send_error(413)
+            return None
+        return self.rfile.read(length)
+
+    def do_POST(self) -> None:  # POST / (index.ts:224-248)
+        if self.path.startswith("/replicate/"):
+            self._do_replicate()
             return
-        body = self.rfile.read(length)
+        if self.path.startswith("/fleet/"):
+            self._do_fleet()
+            return
+        # Counted before any reject, so errors never outnumber requests.
+        self.counts.request()
+        body = self._read_body()
+        if body is None:
+            return
         try:
             request = protocol.decode_sync_request(body)
+            if self.fleet is not None and not self._route_fleet(request, body):
+                return  # answered: 307, forwarded or 503 not ready
             self.counts.shard(
                 self.store.shard_index(request.user_id) if hasattr(self.store, "shard_index") else 0)
             out = self._serve_request(request)
@@ -481,7 +517,146 @@ class _Handler(BaseHTTPRequestHandler):
             self.counts.error()
             self.send_error(500, str(e))
             return
+        if self.replication is not None and request.messages:
+            # Fresh rows reach peer relays at gossip-debounce latency.
+            self.replication.hint()
         self._respond(200, self._negotiate_caps(request, out), "application/octet-stream")
+
+    def _do_replicate(self) -> None:
+        """POST /replicate/{summary,pull,snapshot,snapshot/chunk}: the peer
+        gossip and bootstrap surface. 404 without replication; a malformed
+        body (and an unknown or expired snapshot id) answers 400, anything
+        else 500."""
+        from evolu_tpu_torch.server import replicate, snapshot
+
+        if self.replication is None or self.path not in (
+                "/replicate/summary", "/replicate/pull", "/replicate/snapshot", "/replicate/snapshot/chunk"):
+            self.send_error(404)
+            return
+        body = self._read_body()
+        if body is None:
+            return
+        try:
+            if self.path == "/replicate/summary":
+                out = replicate.serve_summary(self.store, body, self.replication)
+            elif self.path == "/replicate/pull":
+                out = replicate.serve_pull(self.store, body,
+                                           per_owner=self.replication.pull_messages_per_owner,
+                                           per_response=self.replication.pull_messages_per_response)
+            elif self.path == "/replicate/snapshot":
+                out = snapshot.serve_snapshot(self.store, body, self.replication)
+            else:
+                out = snapshot.serve_snapshot_chunk(self.store, body, self.replication)
+        except ValueError as e:
+            self.counts.error()
+            self.send_error(400, str(e))
+            return
+        except Exception as e:  # noqa: BLE001 - the peer gets a clean 500
+            self.counts.error()
+            self.send_error(500, str(e))
+            return
+        self._respond(200, out, "application/octet-stream")
+
+    # -- fleet routing (server/fleet.py) --
+
+    def _route_fleet(self, request: protocol.SyncRequest, body: bytes) -> bool:
+        """The placement check for one sync POST. True: this relay is placed
+        for the owner and ready, the caller serves. False: already answered
+        with 307 and the authoritative relay's URL, the peer's proxied
+        response, or 503 + Retry-After (owner mid-install, target briefly
+        unreachable)."""
+        import urllib.error
+
+        from evolu_tpu_torch.server.fleet import FleetNotReady
+        from evolu_tpu_torch.sync.client import _http_post
+
+        try:
+            action, target = self.fleet.route(request.user_id)
+        except FleetNotReady as e:
+            self._respond_retry_after(e.retry_after)
+            return False
+        if action == "local":
+            return True
+        if action == "redirect":
+            self.fleet._count("redirects")
+            self.send_response(307)
+            self.send_header("Location", target + "/")
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return False
+        # Forward: the untouched client body in the hop-guarded envelope,
+        # the peer's raw response relayed back.
+        self.fleet._count("forwards")
+        env = protocol.encode_fleet_forward(protocol.FleetForward(body, self.fleet.self_url, 1))
+        try:
+            out = _http_post(target + "/fleet/forward", env, retries=1)
+        except urllib.error.HTTPError as e:
+            self.fleet._count("forward_failures")
+            if e.code in (429, 503):
+                self._respond_retry_after(0.25)  # the peer sheds load: relayed
+                return False
+            # A definitive answer (404: no fleet there, 400, 500) is not
+            # transient: 502, never a retry-forever 503.
+            self.counts.error()
+            self.send_error(502, f"fleet forward target answered {e.code}")
+            return False
+        except Exception:  # noqa: BLE001 - target down mid-window: flow control;
+            self.fleet._count("forward_failures")  # the next route() re-probes
+            self._respond_retry_after(0.25)
+            return False
+        self._respond(200, out, "application/octet-stream")
+        return False
+
+    def _do_fleet(self) -> None:
+        """POST /fleet/{forward,reload}: the hop-guarded peer envelope
+        (ValueError → 400) and the static config push (JSON
+        `FleetConfig.to_json`; a stale version answers 400; with
+        EVOLU_FLEET_RELOAD_TOKEN set, a request without the matching
+        X-Evolu-Fleet-Token header answers 403)."""
+        if self.fleet is None or self.path not in ("/fleet/forward", "/fleet/reload"):
+            self.send_error(404)
+            return
+        body = self._read_body()
+        if body is None:
+            return
+        try:
+            if self.path == "/fleet/forward":
+                env = protocol.decode_fleet_forward(body)
+                if env.hops != 1:
+                    raise ValueError(f"fleet forward from {env.origin!r} carries hops={env.hops}; "
+                                     "only single-hop envelopes are served")
+                request = protocol.decode_sync_request(env.payload)
+                # No route() here: a forwarded request is served where it
+                # lands, even if the rings disagree mid-reload.
+                self.fleet._count("forwarded_served")
+                out = self._serve_request(request)
+                if out is None:
+                    return  # 503 backpressure already answered
+                if self.replication is not None and request.messages:
+                    self.replication.hint()
+                self._respond(200, self._negotiate_caps(request, out), "application/octet-stream")
+                return
+            token = os.environ.get("EVOLU_FLEET_RELOAD_TOKEN")
+            if token:
+                import hmac
+
+                if not hmac.compare_digest(self.headers.get("X-Evolu-Fleet-Token", ""), token):
+                    self.counts.error()
+                    self.send_error(403, "fleet reload token mismatch")
+                    return
+            from evolu_tpu_torch.utils.config import FleetConfig
+
+            cfg = FleetConfig.from_json(json.loads(body.decode("utf-8")))
+            rebalancing = self.fleet.apply_config(cfg)
+            out = json.dumps({"ring_version": self.fleet.config.version,
+                              "rebalancing": rebalancing}).encode("utf-8")
+            self._respond(200, out, "application/json")
+        except ValueError as e:
+            self.counts.error()
+            self.send_error(400, str(e))
+        except Exception as e:  # noqa: BLE001 - a clean 500, like sync
+            self.counts.error()
+            self.send_error(500, str(e))
 
 
 class _RelayHTTPServer(ThreadingHTTPServer):
@@ -497,7 +672,7 @@ def _env_on(name: str) -> Optional[bool]:
     return env.lower() not in ("0", "false", "no", "off") if env else None
 
 
-def _refuse(what: str, item: int) -> None:
+def _refuse(what: str, item) -> None:
     raise NotImplementedError(f"evolu_tpu_torch: {what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
@@ -512,12 +687,24 @@ class RelayServer:
     closes. Default off: the per-request path, hashed on the host, is the
     reference relay's shape.
 
+    `peers=[url, ...]` (or an explicit `replication` manager) turns on
+    relay↔relay Merkle anti-entropy (`server/replicate.py`), gossiping
+    every `replication_interval_s` and earlier after writes;
+    on a batching relay the pulled messages go through the scheduler, so
+    they share the card's engine passes with client traffic. `peers=[]` is
+    a listener: it serves `/replicate/*` and polls nobody. A relay without
+    replication answers 404 there. `bootstrap_lag_owners` arms the snapshot
+    bootstrap (`server/snapshot.py`). `checkpoint_interval_s` writes
+    periodic checkpoints to `checkpoint_path` (default `<store
+    path>.checkpoint`; a `:memory:` store needs one, else ValueError).
+    `bootstrap_lag_owners` and `checkpoint_interval_s` left at None resolve
+    from `utils.config.default_config`. `enable_fleet` joins an
+    owner-sharded fleet (`server/fleet.py`).
+
     Refused with NotImplementedError before a socket is bound or a store
-    written, each until its ROADMAP queue-1 item is ported: `peers` /
-    `replication` / `replication_interval_s`, `bootstrap_lag_owners`,
-    `checkpoint_interval_s` / `checkpoint_path`, `write_behind` /
-    `write_behind_log` and `push=True` (item 6),
-    `connection_tier="eventloop"` (item 6), `mesh_engine` / `mesh_ctx`
+    written, each until its ROADMAP queue-1 item is ported: `write_behind`
+    / `write_behind_log` (item 6c), `push=True` and
+    `connection_tier="eventloop"` (item 6b), `mesh_engine` / `mesh_ctx`
     (item 9), and `capabilities` holding `sync-scope-v1` (item 7); also
     when `EVOLU_WRITE_BEHIND`, `EVOLU_MESH_ENGINE` or `EVOLU_CONN_TIER`
     turn one of them on. `push=None` means no push hub (the reference's
@@ -526,7 +713,7 @@ class RelayServer:
     def __init__(self, store: Optional[RelayStore] = None, host: str = "127.0.0.1",
                  port: int = 0, batching: bool = False, scheduler=None,
                  peers: Optional[Sequence[str]] = None, replication=None,
-                 replication_interval_s: Optional[float] = None,
+                 replication_interval_s: float = 30.0,
                  bootstrap_lag_owners: Optional[int] = None,
                  checkpoint_interval_s: Optional[float] = None,
                  checkpoint_path: Optional[str] = None,
@@ -538,22 +725,16 @@ class RelayServer:
                  connection_tier: Optional[str] = None,
                  push: Optional[bool] = None,
                  device=None):
-        if peers is not None or replication is not None or replication_interval_s is not None:
-            _refuse("relay replication (peers, replication, replication_interval_s)", 6)
-        if bootstrap_lag_owners is not None:
-            _refuse("snapshot bootstrap (bootstrap_lag_owners)", 6)
-        if checkpoint_interval_s is not None or checkpoint_path is not None:
-            _refuse("periodic checkpoints (checkpoint_interval_s, checkpoint_path)", 6)
         if write_behind is None:
             write_behind = _env_on("EVOLU_WRITE_BEHIND")
         if write_behind or write_behind_log is not None:
-            _refuse("the write-behind storage inversion (write_behind, write_behind_log)", 6)
+            _refuse("the write-behind storage inversion (write_behind, write_behind_log)", "6c")
         if push:
-            _refuse("push subscriptions (push=True)", 6)
+            _refuse("push subscriptions (push=True)", "6b")
         if connection_tier is None:
             connection_tier = os.environ.get("EVOLU_CONN_TIER") or "threaded"
         if connection_tier == "eventloop":
-            _refuse("the event-loop connection tier (connection_tier='eventloop')", 6)
+            _refuse("the event-loop connection tier (connection_tier='eventloop')", "6b")
         if connection_tier != "threaded":
             raise ValueError(
                 f"connection_tier must be 'threaded' or 'eventloop', got {connection_tier!r}")
@@ -565,16 +746,40 @@ class RelayServer:
         if protocol.CAP_SYNC_SCOPE in self.capabilities:
             _refuse("scoped sync (the sync-scope-v1 capability)", 7)
         self.connection_tier = connection_tier
+        from evolu_tpu_torch.utils.config import default_config
+
+        if checkpoint_interval_s is None:
+            checkpoint_interval_s = default_config.checkpoint_interval_s
         self.store = store or RelayStore()
+        if checkpoint_interval_s is not None and checkpoint_path is None:
+            store_path = getattr(getattr(self.store, "db", None), "path", None)
+            if not store_path or store_path == ":memory:":
+                raise ValueError("checkpoint_interval_s needs checkpoint_path for non-file-backed stores")
+            checkpoint_path = store_path + ".checkpoint"
         self.scheduler = scheduler
         if batching and scheduler is None:
             from evolu_tpu_torch.server.scheduler import SyncScheduler
 
             self.scheduler = SyncScheduler(self.store, device=device)
+        self.replication = replication
+        if peers is not None and replication is None:
+            from evolu_tpu_torch.server.replicate import ReplicationManager
+
+            self.replication = ReplicationManager(
+                self.store, peers, scheduler=self.scheduler,
+                interval_s=replication_interval_s,
+                bootstrap_lag_owners=bootstrap_lag_owners,
+            )
+        self.checkpointer = None
+        if checkpoint_interval_s is not None:
+            from evolu_tpu_torch.server.snapshot import CheckpointWriter
+
+            self.checkpointer = CheckpointWriter(self.store, checkpoint_path, checkpoint_interval_s)
+        self.fleet = None
         self.counts = _Counts()
         self._handler_cls = type(
             "BoundHandler", (_Handler,),
-            {"store": self.store, "scheduler": self.scheduler,
+            {"store": self.store, "scheduler": self.scheduler, "replication": self.replication,
              "capabilities": self.capabilities, "counts": self.counts},
         )
         try:
@@ -585,6 +790,21 @@ class RelayServer:
             raise
         self._thread: Optional[threading.Thread] = None
 
+    def enable_fleet(self, config, self_url: Optional[str] = None):
+        """Join an owner-sharded fleet (server/fleet.py): install the ring,
+        answer non-placed sync POSTs with 307 or a forward, scope this
+        relay's gossip to placement, and serve `/fleet/reload` and the
+        fleet's `/health` detail. Call it before `start()` when the relay
+        has peers: the loop's first round fires on start and must already
+        be placement-scoped. Every member must hold the same FleetConfig."""
+        from evolu_tpu_torch.server.fleet import FleetManager
+
+        self.fleet = FleetManager(self.store, config, self_url or self.url, replication=self.replication)
+        self._handler_cls.fleet = self.fleet
+        if self.replication is not None:
+            self.replication.fleet = self.fleet
+        return self.fleet
+
     @property
     def url(self) -> str:
         host, port = self._httpd.server_address[:2]
@@ -593,12 +813,26 @@ class RelayServer:
     def start(self) -> "RelayServer":
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True, name="evolu-relay")
         self._thread.start()
+        if self.replication is not None:
+            self.replication.start()
+        if self.checkpointer is not None:
+            self.checkpointer.start()
         return self
 
     def stop(self) -> None:
         self._httpd.shutdown()
         if self._thread:
             self._thread.join()
+        if self.fleet is not None:
+            # Before replication and the store: a rebalance thread may still
+            # be ingesting through the store (stop joins it).
+            self.fleet.stop()
+        if self.checkpointer is not None:
+            self.checkpointer.stop()  # before the store closes
+        if self.replication is not None:
+            # Before the scheduler drains: an in-flight round may still be
+            # submitting pulled messages.
+            self.replication.stop()
         if self.scheduler is not None:
             # Drain BEFORE the store closes, injected or owned alike (stop
             # is idempotent): queued requests get their responses first.

@@ -121,7 +121,7 @@ class SyncScheduler:
         if write_behind is not None:
             raise NotImplementedError(
                 "evolu_tpu_torch: the write-behind engine mode is not ported yet "
-                "(ROADMAP queue 1 item 6)")
+                "(ROADMAP queue 1 item 6c)")
         if mesh_engine or mesh_ctx is not None:
             raise NotImplementedError(
                 "evolu_tpu_torch: the mesh-sharded engine is not ported yet "

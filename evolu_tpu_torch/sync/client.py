@@ -569,6 +569,41 @@ def _http_post(url: str, body: bytes, *, retries: int = BACKOFF_RETRIES,
         attempt += 1
 
 
+def _accepts_headers(fn) -> bool:
+    """Whether an http_post callable takes a `headers` keyword: injected
+    2-argument transports (tests, embedders, fault injectors) keep
+    working without one. Memoized per callable, since a Signature is too
+    heavy to build on every POST."""
+    try:
+        return _ACCEPTS_HEADERS_MEMO[fn]
+    except TypeError:
+        return _accepts_headers_probe(fn)  # unhashable callable
+    except KeyError:
+        pass
+    ok = _accepts_headers_probe(fn)
+    try:
+        if len(_ACCEPTS_HEADERS_MEMO) > 256:  # unbounded-growth guard
+            _ACCEPTS_HEADERS_MEMO.clear()
+        _ACCEPTS_HEADERS_MEMO[fn] = ok
+    except TypeError:
+        pass
+    return ok
+
+
+_ACCEPTS_HEADERS_MEMO: dict = {}
+
+
+def _accepts_headers_probe(fn) -> bool:
+    import inspect
+
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    params = sig.parameters
+    return "headers" in params or any(p.kind == p.VAR_KEYWORD for p in params.values())
+
+
 def _ping_url(sync_url: str) -> str:
     """The relay's health endpoint (index.ts:250-252) lives at /ping on
     the same origin as the sync POST endpoint."""

@@ -1,7 +1,9 @@
-"""Runtime configuration of the client: the fields of
-`evolu_tpu.utils.config.Config` that the handle (`runtime/client.py`),
-the worker and its planner (`runtime/worker.py`) and the sync transport
-(`sync/client.py`) read, with the same defaults.
+"""Runtime configuration: the fields of `evolu_tpu.utils.config.Config`
+that the handle (`runtime/client.py`), the worker and its planner
+(`runtime/worker.py`), the sync transport (`sync/client.py`) and the
+relay tier (`server/replicate.py`, `server/relay.py`) read, with the same
+defaults, the process-wide `default_config` / `set_config`, and the
+fleet's `FleetConfig`.
 
 `backend` picks the merge PLANNER:
 
@@ -70,3 +72,91 @@ class Config:
     # The relay push-subscription leg of `connect`. Not ported: True is
     # refused (`connect` raises NotImplementedError).
     push_subscribe: bool = False
+    # -- relay tier knobs. Live defaults: `RelayServer` and
+    # `server.replicate.ReplicationManager` resolve any constructor
+    # argument left at None from the process `default_config` (call
+    # `set_config` before constructing relays). --
+    # serve_pull budgets: at most this many messages an owner and a
+    # response in one anti-entropy pull answer. None = the server
+    # defaults (`replicate.PULL_MESSAGES_PER_OWNER` / `_PER_RESPONSE`).
+    pull_messages_per_owner: "int | None" = None
+    pull_messages_per_response: "int | None" = None
+    # Snapshot bootstrap trigger (server/snapshot.py): a relay whose store
+    # is empty, or lacks at least this many owners a peer advertises,
+    # installs a full snapshot instead of crawling history through capped
+    # pulls. None disables it (incremental anti-entropy only).
+    bootstrap_lag_owners: "int | None" = None
+    # Periodic local snapshot checkpoints (`RelayServer(
+    # checkpoint_interval_s=...)` → `snapshot.CheckpointWriter`). None
+    # disables them.
+    checkpoint_interval_s: "float | None" = None
+
+
+default_config = Config()
+
+
+def set_config(c: Config) -> None:
+    global default_config
+    default_config = c
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """The shared placement configuration of an owner-sharded relay fleet
+    (server/fleet.py). Every member must hold the same FleetConfig: the
+    owner→relay ring is a pure function of (relays, virtual_nodes,
+    replication_factor, seed). It travels as static config (constructor
+    argument or `POST /fleet/reload`); `version` is a monotonic operator
+    counter so a relay refuses a stale reload racing a newer one."""
+
+    relays: Tuple[str, ...]  # member base URLs (the ring membership)
+    replication_factor: int = 2  # R: replicas (primary included) an owner
+    virtual_nodes: int = 64  # ring points a relay
+    seed: int = 0  # shared hash seed
+    version: int = 0  # monotonic config generation (reload ordering)
+    # A request landing on a non-placed relay: False = 307 to the
+    # authoritative peer (the client follows and caches the route), True =
+    # proxy-forward through `POST /fleet/forward`.
+    forward: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "relays", tuple(u.rstrip("/") for u in self.relays))
+
+    def to_json(self) -> dict:
+        return {
+            "relays": list(self.relays),
+            "replication_factor": self.replication_factor,
+            "virtual_nodes": self.virtual_nodes,
+            "seed": self.seed,
+            "version": self.version,
+            "forward": self.forward,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "FleetConfig":
+        """Decode a `/fleet/reload` body; ValueError on any malformed shape
+        (the relay answers 400)."""
+        try:
+            raw = d["relays"]
+            # A bare string would iterate into one-character "URLs".
+            if isinstance(raw, (str, bytes)) or not isinstance(raw, (list, tuple)):
+                raise ValueError('fleet config "relays" must be a list of URLs')
+            relays = tuple(str(u) for u in raw)
+            if not relays:
+                raise ValueError("fleet config needs at least one relay")
+            if len(relays) > 1024:
+                raise ValueError(f"fleet config lists {len(relays)} relays (max 1024)")
+            vnodes = int(d.get("virtual_nodes", 64))
+            if not 1 <= vnodes <= 4096:
+                # relays x vnodes ring points: an absurd value is a DoS.
+                raise ValueError(f"virtual_nodes={vnodes} outside 1..4096")
+            return cls(
+                relays=relays,
+                replication_factor=int(d.get("replication_factor", 2)),
+                virtual_nodes=vnodes,
+                seed=int(d.get("seed", 0)),
+                version=int(d.get("version", 0)),
+                forward=bool(d.get("forward", False)),
+            )
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"malformed fleet config: {e!r}") from e

@@ -898,3 +898,112 @@ def test_two_clients_sync_on_card_match_cpu(dev):
     want = _handles_through_relay("cpu")
     assert got == want
     assert len(got[0][0]["__message"]) == 5 * 700 * 3 + 600 * 2  # title, done, updatedAt; done, updatedAt
+
+
+def _relay_tables(store):
+    return [store.db.exec(q) for q in ('SELECT * FROM "message" ORDER BY 1, 2',
+                                       'SELECT * FROM "merkleTree" ORDER BY 1')]
+
+
+def _wait(pred, what, deadline_s=120.0):
+    import time
+
+    deadline = time.time() + deadline_s
+    while time.time() < deadline:
+        if pred():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def test_relay_replication_on_card_matches_cpu(dev):
+    """Anti-entropy between relays with the ingest on the card: a listener
+    holding 16 owners' first deliveries (about 12k messages) and a fresh
+    batching relay on the card whose `ReplicationManager.run_once` submits
+    the pulled messages through its card scheduler. Every request is
+    coalesced into engine passes; H and X launch once a pass (reruns
+    included), L and S never; the tables equal a `device="cpu"` pair's."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.server.replicate import ReplicationManager
+
+    first = _relay_batches()[0][:16]
+    fns = (cuda_scan.segmented_max_scan_cuda, cuda_scan.segmented_xor_scan_cuda,
+           cuda_hash.timestamp_hash_cuda, cuda_scan.segmented_sum_scan_cuda)
+    sides = []
+    for d in (None, "cpu"):
+        donor = RelayServer(RelayStore(backend="native"), peers=[], device=d).start()
+        fresh = RelayServer(RelayStore(backend="native"), batching=True, device=d).start()
+        mgr = None
+        try:
+            for r in first:
+                donor.store.add_messages(r.user_id, r.messages)
+            mgr = ReplicationManager(fresh.store, [donor.url], scheduler=fresh.scheduler)
+            before = [f.launches for f in fns]
+            overflow = eng.counts["overflow"]
+            mgr.run_once()
+            launches = [f.launches - n for f, n in zip(fns, before)]
+            counts = dict(fresh.scheduler.counts)
+            tables = (_relay_tables(donor.store), _relay_tables(fresh.store))
+            sides.append((tables, counts, launches, eng.counts["overflow"] - overflow,
+                          mgr.peer_counts[donor.url]["messages_pulled"]))
+        finally:
+            if mgr is not None:
+                mgr.stop()
+            fresh.stop()
+            donor.stop()
+    (card_tables, card_counts, card_launches, card_over, pulled), (cpu_tables, cpu_counts, cpu_launches, _o, _p) = sides
+    assert card_tables[0] == card_tables[1] == cpu_tables[0] == cpu_tables[1]
+    assert pulled == sum(len(r.messages) for r in first)
+    assert card_counts["coalesced"] == cpu_counts["coalesced"] == 16
+    assert card_counts["singles"] == card_counts["poisoned_batches"] == card_counts["rejected"] == 0
+    passes = card_counts["batches"] + card_over
+    assert card_launches == [0, passes, passes, 0] and passes >= 1 and cpu_launches == [0, 0, 0, 0]
+
+
+def test_snapshot_bootstrap_between_card_relays(dev):
+    """A card relay `C(peers=[D], bootstrap_lag_owners=1)` cold-starts from
+    a card donor D in one snapshot: the install and verify run on the host,
+    so H and X do not launch during it. Then 10 new messages POSTed to D
+    reach C by gossip: H and X launch once a pass of D's and C's card
+    schedulers, and C's tables equal D's."""
+    import urllib.request
+
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync import protocol as pp
+
+    first = _relay_batches()[0][:16]
+    h, x = cuda_hash.timestamp_hash_cuda, cuda_scan.segmented_xor_scan_cuda
+    donor = RelayServer(RelayStore(backend="native"), batching=True, peers=[]).start()
+    fresh = None
+    try:
+        for r in first:
+            with urllib.request.urlopen(urllib.request.Request(donor.url, data=pp.encode_sync_request(r)),
+                                        timeout=60):
+                pass
+        before = (h.launches, x.launches)
+        fresh = RelayServer(RelayStore(backend="native"), batching=True, peers=[donor.url],
+                            bootstrap_lag_owners=1, replication_interval_s=3600).start()
+        peer = lambda: fresh.replication.peer_counts.get(donor.url, {})  # noqa: E731
+        # The bootstrap round, then the round its hint arms (nothing to pull).
+        _wait(lambda: peer().get("rounds_ok", 0) >= 2, "the bootstrap and its follow-up round")
+        assert peer()["snapshot_bootstraps"] == 1 and peer()["messages_pulled"] == 0
+        assert (h.launches, x.launches) == before
+        assert _relay_tables(fresh.store) == _relay_tables(donor.store)
+        # The owner's first 10 stamps moved to 2031: new rows past the capture.
+        later = tuple(pp.EncryptedCrdtMessage("2031" + m.timestamp[4:], b"tail%d" % i)
+                      for i, m in enumerate(first[0].messages[:10]))
+        tail = pp.SyncRequest(later, first[0].user_id, "f" * 16, "{}")
+        d_batches, c_batches = donor.scheduler.counts["batches"], fresh.scheduler.counts["batches"]
+        with urllib.request.urlopen(urllib.request.Request(donor.url, data=pp.encode_sync_request(tail)),
+                                    timeout=60):
+            pass
+        fresh.replication.run_once()
+        passes = (donor.scheduler.counts["batches"] - d_batches) + (fresh.scheduler.counts["batches"] - c_batches)
+        assert peer()["messages_pulled"] == 10
+        assert (h.launches - before[0], x.launches - before[1]) == (passes, passes) and passes == 2
+        assert _relay_tables(fresh.store) == _relay_tables(donor.store)
+    finally:
+        if fresh is not None:
+            fresh.stop()
+        donor.stop()

@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_touches_no_card():
     for name in ("api", "api.model", "api.query", "api.hooks", "utils.reload", "runtime.client",
                  "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client",
                  "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
-                 "server.scheduler", "server.snapshot", "server.relay_worker"):
+                 "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
+                 "server.fleet"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
@@ -189,3 +190,50 @@ def test_relay_worker_serves_without_jax_or_the_card(tmp_path):
     line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
     result = json.loads(line[len("RESULT:"):])
     assert result == {"messages": 50, "forbidden": [], "cuda_initialized": False}
+
+
+_TIER = r"""
+import json, sys
+import torch
+from evolu_tpu_torch.core.timestamp import timestamp_to_string
+from evolu_tpu_torch.core.types import Timestamp
+from evolu_tpu_torch.server import snapshot
+from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.utils.config import FleetConfig
+
+msgs = tuple(protocol.EncryptedCrdtMessage(timestamp_to_string(Timestamp(1_700_000_000_000 + i * 500, 0, "1" * 16)),
+                                           b"ct%d" % i) for i in range(30))
+donor = RelayServer(RelayStore(backend="native"), peers=[]).start()
+donor.store.add_messages("alice", msgs)
+fresh = RelayServer(RelayStore(backend="native"), peers=[donor.url], bootstrap_lag_owners=1,
+                    replication_interval_s=3600)
+fresh.replication.run_once()
+fleet = donor.enable_fleet(FleetConfig(relays=(donor.url,), replication_factor=1, version=1))
+path = sys.argv[1]
+snapshot.write_checkpoint(donor.store, path)
+restored = RelayStore(backend="native")
+snapshot.restore_checkpoint(restored, path)
+donor.stop()
+print("RESULT:" + json.dumps({
+    "bootstrapped": fresh.store.get_merkle_tree_string("alice") == restored.get_merkle_tree_string("alice") != "{}",
+    "placed": fleet.placement("alice") == (donor.url,),
+    "forbidden": sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu", "ml_dtypes")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_relay_tier_runs_without_jax_or_the_card(tmp_path):
+    """Replication, a snapshot bootstrap, a checkpoint and a fleet on port
+    relays on the host path import nothing of JAX or `evolu_tpu` and never
+    initialize CUDA."""
+    out = subprocess.run(
+        [sys.executable, "-c", _TIER, str(tmp_path / "relay.checkpoint")], cwd=_REPO,
+        capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
+    result = json.loads(line[len("RESULT:"):])
+    assert result == {"bootstrapped": True, "placed": True, "forbidden": [], "cuda_initialized": False}

@@ -7,9 +7,12 @@
   on the per-request path and batching (`device="cpu"`).
 - `/ping`, `/health` and the store section of `/stats` equal the JAX
   relay's; a bad Content-Length answers 400, an oversized body 413, and
-  the relay tier's endpoints 404.
+  the relay tier's endpoints 404 on a relay without replication or a
+  fleet.
 - Every refused option raises NotImplementedError before a socket is
-  bound or the store written.
+  bound or the store written; the replication half's options (peers,
+  replication, bootstrap_lag_owners, checkpoints) build a relay that
+  serves.
 - Two port clients converge over real HTTP through a batching port relay
   with `aead-batch-v1` negotiated.
 - The four workloads of `tests/test_relay_concurrency.py` on a port
@@ -180,10 +183,6 @@ def _free_port():
 
 
 REFUSED = {
-    "peers": ({"peers": []}, {}),
-    "replication": ({"replication": object()}, {}),
-    "bootstrap_lag_owners": ({"bootstrap_lag_owners": 1}, {}),
-    "checkpoint_interval_s": ({"checkpoint_interval_s": 5.0}, {}),
     "write_behind": ({"write_behind": True}, {}),
     "push": ({"push": True}, {}),
     "eventloop": ({"connection_tier": "eventloop"}, {}),
@@ -193,8 +192,6 @@ REFUSED = {
     "EVOLU_WRITE_BEHIND": ({}, {"EVOLU_WRITE_BEHIND": "1"}),
     "EVOLU_MESH_ENGINE": ({}, {"EVOLU_MESH_ENGINE": "on"}),
     "EVOLU_CONN_TIER": ({}, {"EVOLU_CONN_TIER": "eventloop"}),
-    "replication_interval_s": ({"replication_interval_s": 0.1}, {}),
-    "checkpoint_path": ({"checkpoint_path": "relay.ckpt"}, {}),
     "write_behind_log": ({"write_behind_log": "relay.wal"}, {}),
 }
 
@@ -215,6 +212,43 @@ def test_refused_options_raise_before_a_socket_binds(case, batching, monkeypatch
     assert not [t for t in threading.enumerate() if t not in threads and t.name.startswith("evolu-")]
     assert store.db.exec_sql_query('SELECT COUNT(*) AS n FROM "message"')[0]["n"] == 0
     store.close()
+
+
+# The relay tier's replication half, refused until ported, now accepted.
+ACCEPTED = {
+    "peers": {"peers": []},
+    "replication": {"replication": "manager"},
+    "bootstrap_lag_owners": {"peers": [], "bootstrap_lag_owners": 1},
+    "checkpoint_interval_s": {"checkpoint_interval_s": 3600.0, "checkpoint_path": "ckpt"},
+    "replication_interval_s": {"peers": [], "replication_interval_s": 0.1},
+    "checkpoint_path": {"checkpoint_path": "ckpt"},
+}
+
+
+@pytest.mark.parametrize("case", list(ACCEPTED))
+@pytest.mark.parametrize("batching", [False, True])
+def test_relay_tier_options_are_accepted(case, batching, tmp_path):
+    """The options of the replication half construct a relay that starts,
+    serves /ping and stops, with the replication manager wired to the
+    scheduler when the relay batches."""
+    from evolu_tpu_torch.server.replicate import ReplicationManager
+
+    kwargs = dict(ACCEPTED[case])
+    store = prelay.RelayStore(backend="native")
+    if kwargs.get("replication") == "manager":
+        kwargs["replication"] = ReplicationManager(store, [])
+    if "checkpoint_path" in kwargs:
+        kwargs["checkpoint_path"] = str(tmp_path / kwargs["checkpoint_path"])
+    server = prelay.RelayServer(store, batching=batching, device="cpu", **kwargs).start()
+    try:
+        assert _get(server.url + "/ping") == (200, b"ok")
+        if "peers" in kwargs or "replication" in kwargs:
+            assert server.replication is not None
+            if "peers" in kwargs:
+                assert server.replication.scheduler is server.scheduler
+        assert (server.checkpointer is not None) == ("checkpoint_interval_s" in kwargs)
+    finally:
+        server.stop()
 
 
 def test_env_switched_off_and_defaults_serve(monkeypatch):
