@@ -689,11 +689,22 @@ class DbWorker:
         # just cleared (seq stays monotonic).
         self._change_log.clear()
 
+    def _drop_aead_sessions(self) -> None:
+        """The owner identity changed: drop the cached aead-batch-v1
+        session keys (sync/aead.py). Sessions are keyed by mnemonic, so a
+        stale one never decrypts wrongly; this keeps no keys of a retired
+        identity and gives the next identity to sync a fresh session
+        salt."""
+        from evolu_tpu_torch.sync import aead
+
+        aead.reset_sessions()
+
     def _reset_owner(self) -> None:
         """resetOwner.ts."""
         self._staged_changes.mark_unknown()  # DDL wipe: unattributable
         delete_all_tables(self.db)
         self._drop_winner_cache()
+        self._drop_aead_sessions()
         self._staged_effects.append(self._clear_query_caches)
         self._emit(msg.ReloadAllTabs())
 
@@ -703,6 +714,7 @@ class DbWorker:
         self._staged_changes.mark_unknown()  # DDL wipe: unattributable
         delete_all_tables(self.db)
         self._drop_winner_cache()
+        self._drop_aead_sessions()
         self._staged_effects.append(self._clear_query_caches)
         self.owner = init_db_model(self.db, mnemonic)
         self._emit(msg.ReloadAllTabs())

@@ -298,3 +298,38 @@ def test_unported_routes_raise():
         assert e._transport is None
     finally:
         e.dispose()
+
+
+def test_owner_change_drops_aead_sessions_as_jax():
+    """RestoreOwner and ResetOwner drop the cached aead-batch-v1 sessions
+    in both packages: after every command each package holds as many
+    sessions as the other, and the outputs are equal."""
+    import evolu_tpu.sync.aead as jaead
+
+    import evolu_tpu_torch.sync.aead as paead
+
+    jax = Side(JaxWorker, JaxDb, JaxConfig(backend="cpu"), jmsg, jt)
+    port = Side(DbWorker, PySqliteDatabase, Config(backend="cpu"), pmsg, pt, device="cpu")
+    try:
+        for s in (jax, port):
+            s.worker.start(MNEMONIC)
+            s.worker.flush()
+        held = []
+        for name, args in (("RestoreOwner", (MNEMONIC2,)), ("ResetOwner", ())):
+            for aead in (jaead, paead):
+                for m in (MNEMONIC, MNEMONIC2):
+                    aead.get_session(m, 1)
+            held.append((len(jaead._sessions), len(paead._sessions)))
+            for s in (jax, port):
+                s.post(name, *args)
+                s.worker.flush()
+            held.append((len(jaead._sessions), len(paead._sessions)))
+        assert held == [(2, 2), (0, 0), (2, 2), (0, 0)]
+        got, want = [_norm_output(o) for o in port.outputs], [_norm_output(o) for o in jax.outputs]
+        assert got == want
+        assert [o[0] for o in got] == ["OnInit", "ReloadAllTabs", "ReloadAllTabs"]
+    finally:
+        for s in (jax, port):
+            s.worker.stop()
+        for aead in (jaead, paead):
+            aead.reset_sessions()
