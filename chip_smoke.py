@@ -2,8 +2,9 @@
 """On-card smoke run of evolu_tpu_torch, the PyTorch/CUDA port of the
 LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
-receive, the relay as a live HTTP server, and the relay tier's
-replication half. Needs one NVIDIA Hopper card, g++, libsqlite3.so.0
+receive, the relay as a live HTTP server, the relay tier's replication
+half, and push subscriptions on the event-loop connection tier. Needs one
+NVIDIA Hopper card, g++, libsqlite3.so.0
 and libcrypto; run from the repo root:
 
     python3 chip_smoke.py
@@ -177,14 +178,35 @@ failure ends the run with a traceback and a nonzero code):
               relay; at least one watermark cutover. No failed round,
               rebalance, poisoned batch, single or reject; H = X = engine
               passes, L = S = 0.
-13. columns — the reconcile pass from device-resident columns at 1M and
-              10M messages (1k owners), per-stage times with CUDA
-              events, rows/s and peak device memory; outputs equal to
-              the same pass with every kernel swapped for its plain
-              version.
-14. timing  — L, X, H and their plain versions timed on the inputs the
-              1M columns pass handed them, X also on the 10M pass's
-              minute fold (2^24 rows); S on the inputs path C1's
+13. path J  — push subscriptions and the event-loop connection tier, every
+              relay `RelayServer(RelayStore(<file>, backend="native"),
+              batching=True, connection_tier="eventloop")` on the card
+              (benchmarks/push_subscriptions.py's shape). J1: 10^4 idle
+              long-polls parked by a child process (one owner each; fewer
+              only where the descriptor limit forces it), the relay's
+              subscriptions, threads and RSS at 0, 5,000 and 10,000
+              (threads flat, under 64); 12 rounds of 8 probes parked on a
+              hot owner, a writer's POST and each woken probe's
+              confirmation sync round, against a 1.0 s polling baseline
+              (push p50 at least 5x better). J4, on J1's relay: two
+              `create_evolu` handles with `push_subscribe=True` and no
+              timer; a mutation on one becomes visible on the other
+              through a push wake alone. J2: H1's bodies (not encoded
+              again) from 32 threads to a fresh event-tier relay with the
+              default 8 handler threads: responses equal path E's, tables
+              path E's store's, msgs/s, latency and passes beside H1's.
+              J3: one mutation stream with a woken subscriber at an
+              event-tier and a threaded card relay: every raw response
+              equal with Date masked, both stores and `/stats` push
+              sections equal. H = X = engine passes in every step, L = S
+              = 0.
+14. columns — the reconcile pass from device-resident columns at 1M
+              messages (1k owners; the 10M pass was cut when path J was
+              added), per-stage times with CUDA events, rows/s and peak
+              device memory; outputs equal to the same pass with every
+              kernel swapped for its plain version.
+15. timing  — L, X, H and their plain versions timed on the inputs the
+              1M columns pass handed them; S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
               every input path C2 handed it (checked against its plain
@@ -204,14 +226,14 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i}` are the counts themselves (H1, H2
-and H3 each, summed as path H; I1, I2 and I3 as path I); `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j}` are the counts themselves (H1, H2
+and H3 each, summed as path H; I1, I2 and I3 as path I; J1-J4 as path
+J); `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
 are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
 the numbered changes that ported and redesigned each kernel, as
 PERF.md's kernel table lists them, and `design` names the design; X's
-`at_columns_10m` holds the same numbers at 2^24 rows, X's and H's
-`at_path_e` the same numbers on path E's E1, and H's
+and H's `at_path_e` the same numbers on path E's E1, and H's
 `ops_per_hashed_row` the count from the probe's SASS.
 
 The last two lines are the card's `nvidia-smi` name and power limit
@@ -2776,6 +2798,8 @@ def path_h1(torch, kernels, keep, tmp):
     if mine[0] != theirs[0] or mine[1] != theirs[1]:
         raise AssertionError("path H1: the message or merkleTree table differs from path E's store")
     del mine
+    # Path J's J2 sends the same bodies to an event-tier relay.
+    keep["h1_replay"] = (bodies, [want for _, want in jobs], lanes, n)
     routes = {k: eng.counts[k] - routes0[k] for k in routes0}
     lat_ms = sorted(x * 1e3 for x in lat)
     out = {"requests": len(jobs), "messages": n, "client_threads": H_CLIENTS,
@@ -3524,17 +3548,456 @@ def http_json_post(url, payload):
 
 def path_i(torch, kernels, keep, tmp, gpu=""):
     """Path I: I1, I2 and I3, each with its own launch counts (summed as
-    path I). Stops H1's relay at the end. → (launches, report)."""
+    path I). Stops H1's relay after I1; keeps only what path J needs in
+    `keep` after I2. → (launches, report)."""
     report, per = {}, {}
     try:
         per["i1"], report["i1"] = path_i1(torch, kernels, keep, tmp)
     finally:
         keep.pop("h1_server").stop()
     per["i2"], report["i2"] = path_i2(torch, kernels, keep, tmp)
-    keep.clear()
+    for k in [k for k in keep if k not in ("h1_replay", "store_dump")]:  # path J's J2 needs these two
+        del keep[k]
     per["i3"], report["i3"] = path_i3(torch, kernels, tmp)
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["i1"]}
+    return launches, report
+
+
+# ---- path J: push subscriptions and the event-loop connection tier ------------------
+
+J_IDLE = 10_000  # J1's parked idle long-polls (benchmarks/push_subscriptions.py: n_idle)
+J_PROBES = 8  # probes parked on the hot owner a round (the bench's n_probes)
+J_ROUNDS = 12  # push rounds, then as many polling-baseline rounds (the bench's rounds)
+J_POLL_INTERVAL_S = 1.0  # the polling baseline's interval (the bench's POLL_INTERVAL_S)
+J_IDLE_TIMEOUT_S = 55.0  # the hub's park ceiling: the idle fleet stays parked through J1
+J_FD_MARGIN = 4096  # descriptors a process keeps besides one end of every idle connection
+J_BASE = BASE_MILLIS + 20_000_000_000  # after every stamp of paths A-I
+J_WRITER, J_SUB = "a" * 16, "5" * 16  # the writer's and the subscribers' nodes
+J_SCHEMA = {"todo": ("title", "isCompleted", "createdAt", "updatedAt", "isDeleted", "createdBy")}
+
+# J1's idle fleet: a child process holds the client end of every parked
+# connection (the bench's split across two processes), so the relay's
+# process holds one descriptor a connection. Commands on stdin: "park N"
+# opens connections up to N in all and answers "parked N"; end of input
+# closes them all.
+J_PARKER = r"""
+import socket, sys
+host, port, node, timeout = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+socks = []
+for line in sys.stdin:
+    for k in range(len(socks), int(line.split()[1])):
+        s = socket.create_connection((host, port), timeout=60)
+        s.sendall(("GET /push/poll?owner=idle-%d&node=%s&cursor=0&timeout=%s HTTP/1.0\r\n"
+                   "Content-Length: 0\r\n\r\n" % (k, node, timeout)).encode())
+        socks.append(s)
+    print("parked", len(socks), flush=True)
+for s in socks:
+    s.close()
+"""
+
+
+def j_fd_budget(n_idle):
+    """This process's descriptor limit, raised (soft up to hard) so that it
+    can hold one end of `n_idle` connections; the parker child inherits
+    it. → (idle connections that fit, the limits as read and set)."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    need = n_idle + J_FD_MARGIN
+    top = need if hard == resource.RLIM_INFINITY else min(need, hard)
+    if soft != resource.RLIM_INFINITY and soft < top:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (top, hard))
+    now = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    fits = n_idle if now == resource.RLIM_INFINITY else min(n_idle, now - J_FD_MARGIN)
+    return fits, {"soft": soft, "hard": hard, "soft_set": now, "idle": fits, "cut": fits < n_idle}
+
+
+def proc_status():
+    """This process's OS threads and resident set (KiB), from /proc."""
+    threads = rss_kb = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("Threads:"):
+                threads = int(line.split()[1])
+            elif line.startswith("VmRSS:"):
+                rss_kb = int(line.split()[1])
+    return threads, rss_kb
+
+
+def j_body(owner, node, start, n):
+    """An encoded sync request of `n` messages from `node` for `owner`
+    (none: a pull), stamps unique from J_BASE."""
+    from evolu_tpu_torch.sync import protocol
+
+    msgs = tuple(protocol.EncryptedCrdtMessage(ts_one(J_BASE + (start + i) * 1000, 0, node), b"ct-%d" % (start + i))
+                 for i in range(n))
+    return protocol.encode_sync_request(protocol.SyncRequest(msgs, owner, node, "{}"))
+
+
+def j_raw(method, path, body=b""):
+    return (f"{method} {path} HTTP/1.0\r\nContent-Length: {len(body)}\r\n\r\n").encode() + body
+
+
+def j_exchange(addr, raw, timeout=60.0):
+    """One raw request on its own connection → the full raw response."""
+    import socket
+
+    with socket.create_connection(addr, timeout=timeout) as s:
+        s.sendall(raw)
+        return j_recv_all(s)
+
+
+def j_recv_all(sock):
+    out = bytearray()
+    while chunk := sock.recv(65536):
+        out += chunk
+    return bytes(out)
+
+
+def j_normalize(resp):
+    """A raw response with its Date header masked (the one field two tiers
+    may legitimately differ in)."""
+    return re.sub(rb"\r\nDate: [^\r\n]*", b"\r\nDate: -", resp)
+
+
+def j_park(addr, owner, timeout, cursor=0):
+    import socket
+
+    s = socket.create_connection(addr, timeout=60)
+    s.sendall(j_raw("GET", f"/push/poll?owner={owner}&node={J_SUB}&cursor={cursor}&timeout={timeout}"))
+    return s
+
+
+def j_subscriptions(relay):
+    import urllib.request
+
+    with urllib.request.urlopen(relay.url + "/stats", timeout=60) as r:
+        return json.loads(r.read())["push"]["subscriptions"]
+
+
+def check_j(step, launches, passes):
+    """H and X launched once an engine pass, L and S never."""
+    expect = {"seg_lex_max_scan": 0, "seg_xor_scan": passes, "timestamp_hash": passes, "seg_sum_scan": 0}
+    if launches != expect or not passes:
+        raise AssertionError(f"path J {step}: launches {launches}, expected {expect}")
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def path_j1(torch, kernels, relay):
+    """J1, idle scaling and the push round trip, the shape of
+    benchmarks/push_subscriptions.py: J_IDLE idle long-polls (one owner
+    each) parked on the event-tier card relay by a child process; the
+    relay's `/stats` push subscriptions, OS threads and RSS at 0, half and
+    all of them (threads flat from half to all, under 64). Then J_ROUNDS
+    rounds of J_PROBES probes parked on a hot owner at its current cursor
+    (so each waits for the round's write; the bench's cursor 0 answers at
+    once after its first round), a writer's POST of one message, and each
+    woken probe's confirmation sync round (push latency = POST to the
+    round's answer); then the polling baseline at
+    J_POLL_INTERVAL_S (pollers spread over the interval, latency = POST to
+    the first poll that sees the row). Push p50 must beat it 5x. →
+    (launches, report)."""
+    import selectors
+    import subprocess
+    import threading
+
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.sync import protocol
+    from evolu_tpu_torch.sync.client import _http_post
+
+    n_idle, fds = j_fd_budget(J_IDLE)
+    addr = relay._httpd.server_address[:2]
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    parker = subprocess.Popen([sys.executable, "-c", J_PARKER, addr[0], str(addr[1]), J_SUB, str(J_IDLE_TIMEOUT_S)],
+                              stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        scaling = []
+        t0 = time.perf_counter()
+        for target in (0, n_idle // 2, n_idle):
+            parker.stdin.write(f"park {target}\n")
+            parker.stdin.flush()
+            if parker.stdout.readline().split() != ["parked", str(target)]:
+                raise AssertionError(f"path J1: the parker child did not park {target} connections")
+            wait_until(lambda: j_subscriptions(relay) >= target, f"{target} parked polls")
+            threads, rss_kb = proc_status()
+            scaling.append({"connections": target, "parked": j_subscriptions(relay), "threads": threads,
+                            "python_threads": threading.active_count(), "rss_kb": rss_kb})
+        park_s = time.perf_counter() - t0
+        t_half, t_full = scaling[1]["threads"], scaling[2]["threads"]
+        if t_full > t_half or t_full >= 64:
+            raise AssertionError(f"path J1: threads {t_half} -> {t_full} from {n_idle // 2} to {n_idle} idle polls")
+
+        hot, seq, push_lat = "hot-owner", 0, []
+        for rnd in range(J_ROUNDS):
+            probes = [j_park(addr, hot, 30.0, cursor=seq) for _ in range(J_PROBES)]
+            # The hub's own waiter list for the hot owner: parked, not answered.
+            wait_until(lambda: len(relay.push_hub._waiters.get(hot, ())) == J_PROBES, f"round {rnd}'s probes parked")
+            t1 = time.monotonic()
+            _http_post(relay.url, j_body(hot, J_WRITER, seq, 1))
+            seq += 1
+            sel = selectors.DefaultSelector()
+            for s in probes:
+                sel.register(s, selectors.EVENT_READ)
+            done, deadline = 0, t1 + 30
+            while done < J_PROBES and time.monotonic() < deadline:
+                for key, _ in sel.select(timeout=1.0):
+                    s = key.fileobj
+                    sel.unregister(s)
+                    resp = j_recv_all(s)
+                    if not resp.endswith(b'"wake": true, "cursor": %d}' % seq):
+                        raise AssertionError(f"path J1: round {rnd}: a probe answered {resp[-80:]!r}")
+                    _http_post(relay.url, j_body(hot, J_SUB, 0, 0))  # the confirmation sync round
+                    push_lat.append(time.monotonic() - t1)
+                    s.close()
+                    done += 1
+            sel.close()
+            if done != J_PROBES:
+                raise AssertionError(f"path J1: round {rnd}: {done}/{J_PROBES} probes woke")
+        poll_lat = []
+        for rnd in range(J_ROUNDS):
+            offsets = [(i + 0.5) / J_PROBES * J_POLL_INTERVAL_S for i in range(J_PROBES)]
+            t1 = time.monotonic()
+            _http_post(relay.url, j_body(hot, J_WRITER, seq, 1))
+            seq += 1
+            for off in offsets:
+                time.sleep(max(0.0, (off - (time.monotonic() - t1)) % J_POLL_INTERVAL_S))
+                while len(protocol.decode_sync_response(_http_post(relay.url, j_body(hot, J_SUB, 0, 0))).messages) < seq:
+                    time.sleep(J_POLL_INTERVAL_S)
+                poll_lat.append(time.monotonic() - t1)
+        parked_at_end = j_subscriptions(relay)
+    finally:
+        parker.stdin.close()
+        try:
+            parker.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            parker.kill()
+            parker.wait()
+    launches = read(kernels)
+    passes = engine_passes(routes0)
+    push_ms = {"p50": round(percentile(push_lat, 0.5) * 1e3, 3), "p99": round(percentile(push_lat, 0.99) * 1e3, 3)}
+    poll_ms = {"p50": round(percentile(poll_lat, 0.5) * 1e3, 3), "p99": round(percentile(poll_lat, 0.99) * 1e3, 3),
+               "interval_s": J_POLL_INTERVAL_S}
+    factor = poll_ms["p50"] / max(push_ms["p50"], 1e-9)
+    counts = dict(relay.scheduler.counts)
+    out = {"n_idle": n_idle, "fd_limits": fds, "idle_scaling": scaling, "park_s": round(park_s, 3),
+           "idle_parked_at_end": parked_at_end, "probes": J_PROBES, "rounds": J_ROUNDS,
+           "push_ms": push_ms, "poll_ms": poll_ms, "push_vs_poll_p50_factor": round(factor, 2),
+           "push": relay.push_hub.stats_payload(), "conn": relay._httpd.stats_payload(),
+           "engine_passes": passes, "scheduler_counts": counts,
+           "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}}
+    print(f"  path J1: {json.dumps(out)}", flush=True)
+    if factor < 5.0:
+        raise AssertionError(f"path J1: push p50 only {factor:.2f}x better than {J_POLL_INTERVAL_S} s polling")
+    if counts["poisoned_batches"] or counts["singles"] or counts["rejected"]:
+        raise AssertionError(f"path J1: scheduler counts {counts}")
+    check_j("J1", launches, passes)
+    return launches, out
+
+
+def path_j4(torch, kernels, relay):
+    """J4, the client leg: two `create_evolu` handles (one mnemonic,
+    `Config(push_subscribe=True, sync_interval=None)`, their planners on
+    the card) against J1's relay. After one bind round each, a mutation on
+    A becomes visible in B's query through B's push wake alone: no timer,
+    no sync called on B. → (launches, report)."""
+    from evolu_tpu_torch.api.query import table
+    from evolu_tpu_torch.runtime.client import create_evolu
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.sync.client import connect
+    from evolu_tpu_torch.utils.config import Config
+
+    cfg = Config(sync_url=relay.url, push_subscribe=True, sync_interval=None)
+    wait_until(lambda: relay.push_hub.stats_payload()["subscriptions"] == 0, "J1's idle polls to close")
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    a = create_evolu(J_SCHEMA, config=cfg)
+    b = create_evolu(J_SCHEMA, config=cfg, mnemonic=a.owner.mnemonic)
+    try:
+        ta, tb = connect(a), connect(b)
+        for e, t in ((a, ta), (b, tb)):
+            e.sync(refresh_queries=False)
+            e.worker.flush()
+            t.flush()
+        wait_until(lambda: relay.push_hub.stats_payload()["subscriptions"] == 2, "both handles' polls")
+        b_rounds = tb.counts.get("requests", 0)
+        q = table("todo").select("title").serialize()
+        t0 = time.perf_counter()
+        a.create("todo", {"title": "pushed", "isCompleted": False})
+        rows, deadline = [], time.monotonic() + 60
+        while not rows and time.monotonic() < deadline:
+            rows = b.query_once(q)
+            if not rows:
+                time.sleep(0.001)
+        visible_s = time.perf_counter() - t0
+        b_woken = tb.push_subscriber.wakes
+        a_woken = ta.push_subscriber.wakes
+        b_wake_rounds = tb.counts.get("requests", 0) - b_rounds
+        timers = (getattr(a, "_auto_syncer", None), getattr(b, "_auto_syncer", None))
+    finally:
+        a.dispose()
+        b.dispose()
+    launches = read(kernels)
+    passes = engine_passes(routes0)
+    out = {"mutation_to_visible_ms": round(visible_s * 1e3, 3), "rows_at_b": rows, "b_push_wakes": b_woken,
+           "a_push_wakes": a_woken, "b_sync_rounds_after_bind": b_wake_rounds, "engine_passes": passes}
+    print(f"  path J4: {json.dumps(out)}", flush=True)
+    if rows != [{"title": "pushed"}] or b_woken < 1 or a_woken != 0 or timers != (None, None) or b_wake_rounds < 1:
+        raise AssertionError(f"path J4: B saw {rows} after {b_woken} wakes ({b_wake_rounds} rounds), "
+                             f"A woke {a_woken} times, timers {timers}")
+    check_j("J4", launches, passes)
+    return launches, out
+
+
+def path_j2(torch, kernels, keep, tmp, h1):
+    """J2, H1 on the event-loop tier: path H1's bodies (E1 then E2, 2,000
+    requests, 1,160,000 messages), not encoded again, POSTed from H1's 32
+    client lanes to a fresh event-tier batching card relay with the push
+    hub on and the default `conn_handler_threads`. Every response equals
+    path E's, the tables path E's store's; msgs/s, latency and engine
+    passes beside H1's. → (launches, report)."""
+    import threading
+
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync.client import _http_post
+
+    bodies, want, lanes, n = keep.pop("h1_replay")
+    store = RelayStore(os.path.join(tmp, "j2.db"), backend="native")
+    server = RelayServer(store, batching=True, connection_tier="eventloop").start()
+    got, lat, errors, sizes = [None] * len(bodies), [0.0] * len(bodies), [], []
+    routes0 = dict(eng.counts)
+    orig_run = eng.BatchReconciler.run_batch_wire
+
+    def sized(self, requests):
+        sizes.append(len(requests))
+        return orig_run(self, requests)
+
+    def lane(ix):
+        try:
+            for i in ix:
+                t1 = time.perf_counter()
+                got[i] = _http_post(server.url, bodies[i])
+                lat[i] = time.perf_counter() - t1
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    reset(kernels)
+    try:
+        with patched(eng.BatchReconciler, "run_batch_wire", sized):
+            threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        counts = dict(server.scheduler.counts)
+        conn = server._httpd.stats_payload()
+        push = server.push_hub.stats_payload()
+        if errors:
+            raise AssertionError("path J2: a client's POST failed") from errors[0]
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad:
+            raise AssertionError(f"path J2: {len(bad)} responses differ from path E's (first: request {bad[0]})")
+        t1 = time.perf_counter()
+        if e_dump(store) != keep["store_dump"]:
+            raise AssertionError("path J2: the message or merkleTree table differs from path E's store")
+        compare_s = time.perf_counter() - t1
+    finally:
+        server.stop()
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {"requests": len(bodies), "messages": n, "client_threads": len(lanes),
+           "handler_threads": conn["handler_threads"], "wall_s": round(wall, 4), "msgs_per_s": round(n / wall),
+           "requests_per_s": round(len(bodies) / wall, 1), "latency_ms_p50": round(lat_ms[len(lat_ms) // 2], 3),
+           "latency_ms_p99": round(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))], 3),
+           "engine_passes": len(sizes), "pass_requests_mean": round(statistics.mean(sizes), 2),
+           "pass_requests_max": max(sizes), "scheduler_counts": counts, "conn": conn, "push": push,
+           "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}, "compare_s": round(compare_s, 3),
+           "h1": {k: h1[k] for k in ("msgs_per_s", "requests_per_s", "latency_ms_p50", "latency_ms_p99",
+                                     "engine_passes", "pass_requests_mean", "wall_s")}}
+    print(f"  path J2: {json.dumps(out)}", flush=True)
+    if counts["poisoned_batches"] or counts["singles"] or counts["batches"] != len(sizes) \
+            or counts["coalesced"] != len(bodies) or conn["shed_total"]:
+        raise AssertionError(f"path J2: scheduler counts {counts}, conn {conn} for {len(sizes)} engine passes")
+    check_j("J2", launches, passes)
+    return launches, out
+
+
+def path_j3(torch, kernels, tmp):
+    """J3, byte identity of the tiers on the card: one mutation stream (12
+    writes over 3 owners, a subscriber parked on the first owner and woken,
+    a cold pull, an immediate and a malformed poll) at an event-tier and at
+    a threaded batching card relay, one after the other. Every raw response
+    equal with the Date header masked, both stores' tables and both
+    `/stats` push sections equal. → (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+
+    sides = {}
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    for tier in ("eventloop", "threaded"):
+        relay = RelayServer(RelayStore(os.path.join(tmp, f"j3-{tier}.db"), backend="native"), batching=True,
+                            connection_tier=tier).start()
+        try:
+            addr = relay._httpd.server_address[:2]
+            sub = j_park(addr, "ow-0", 30.0)
+            wait_until(lambda: relay.push_hub.stats_payload()["subscriptions"] == 1, f"the {tier} subscriber")
+            outs = [j_exchange(addr, j_raw("POST", "/", j_body(f"ow-{i % 3}", J_WRITER, i * 10, 3)))
+                    for i in range(12)]
+            outs.append(j_recv_all(sub))
+            sub.close()
+            outs += [j_exchange(addr, j_raw("POST", "/", j_body("ow-0", J_SUB, 0, 0))),
+                     j_exchange(addr, j_raw("GET", f"/push/poll?owner=ow-1&node={J_SUB}&cursor=0&timeout=0")),
+                     j_exchange(addr, j_raw("GET", "/push/poll?owner=ow-1&node=zz&cursor=0")),
+                     j_exchange(addr, j_raw("GET", "/ping"))]
+            sides[tier] = ([j_normalize(o) for o in outs], relay.push_hub.stats_payload(), e_dump(relay.store))
+        finally:
+            relay.stop()
+    launches = read(kernels)
+    passes = engine_passes(routes0)
+    ev, th = sides["eventloop"], sides["threaded"]
+    diverged = [i for i, (a, b) in enumerate(zip(ev[0], th[0])) if a != b]
+    out = {"responses": len(ev[0]), "diverged": diverged, "push": ev[1], "rows": len(ev[2][0]),
+           "owners": len(ev[2][1]), "engine_passes": passes,
+           "woken_poll": ev[0][12].split(b"\r\n\r\n", 1)[1].decode()}
+    print(f"  path J3: {json.dumps(out)}", flush=True)
+    if diverged or ev[1] != th[1] or ev[2] != th[2]:
+        raise AssertionError(f"path J3: responses {diverged} diverged, push sections {ev[1]} / {th[1]}, "
+                             f"stores equal: {ev[2] == th[2]}")
+    if out["woken_poll"] != '{"wake": true, "cursor": 1}' or out["rows"] != 36 or not ev[0][14].startswith(
+            b"HTTP/1.0 200") or not ev[0][15].startswith(b"HTTP/1.0 400"):
+        raise AssertionError(f"path J3: unexpected answers {out}")
+    check_j("J3", launches, passes)
+    return launches, out
+
+
+def path_j(torch, kernels, keep, tmp, h1, gpu=""):
+    """Path J: J1 and J4 on one event-tier card relay, then J2 and J3, each
+    with its own launch counts (summed as path J). → (launches, report)."""
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+
+    report, per = {}, {}
+    relay = RelayServer(RelayStore(os.path.join(tmp, "j1.db"), backend="native"), batching=True,
+                        connection_tier="eventloop").start()
+    try:
+        per["j1"], report["j1"] = path_j1(torch, kernels, relay)
+        per["j4"], report["j4"] = path_j4(torch, kernels, relay)
+    finally:
+        relay.stop()
+    per["j2"], report["j2"] = path_j2(torch, kernels, keep, tmp, h1)
+    keep.clear()
+    per["j3"], report["j3"] = path_j3(torch, kernels, tmp)
+    report["launches"] = per
+    launches = {k: sum(p[k] for p in per.values()) for k in per["j1"]}
     return launches, report
 
 
@@ -3976,28 +4439,26 @@ def main() -> int:
                    "checkpoint, the owner-sharded fleet) vs their oracles", gpu):
             launches["i"], report_i = path_i(torch, kernels, keep_e, tmp_hi, gpu)
             print("  " + json.dumps(report_i["launches"]) + f" | {gpu}", flush=True)
-    reports, captured_10m = [], {}
-    # The 1M pass gives L, H and X their timed inputs; the 10M pass X alone.
-    # The 10M pass runs once (cut from a median of 3 when path G was added).
-    for n, sink, slots, reps in ((1_000_000, captured, ("L", "H", "X"), 3),
-                                 (10_000_000, captured_10m, ("X",), 1)):
-        with phase(f"columns pass {n:,} messages", gpu):
-            decoded, report, (kernel, args) = columns_pass(torch, n, sink, slots, reps=reps)
-            check_against_plain(decoded, plain_reference(torch, kernel, args), f"columns {n}")
-            print("  " + json.dumps(report), flush=True)
-            reports.append(report)
-            del args
-            torch.cuda.empty_cache()
-    x_10m = captured_10m["X"][0]  # the 10M pass's minute fold: 2^24 rows
-    del captured_10m
+        with phase("path J: push subscriptions and the event-loop connection tier (parked long-polls beside "
+                   "engine passes, H1 on the event tier, tier byte identity, the client's push leg)", gpu):
+            launches["j"], report_j = path_j(torch, kernels, keep_e, tmp_hi, report_h["h1"], gpu)
+            print("  " + json.dumps(report_j["launches"]) + f" | {gpu}", flush=True)
+    reports = []
+    # The 1M pass gives L, H and X their timed inputs (the 10M pass was cut
+    # when path J was added).
+    with phase("columns pass 1,000,000 messages", gpu):
+        decoded, report, (kernel, args) = columns_pass(torch, 1_000_000, captured, ("L", "H", "X"), reps=3)
+        check_against_plain(decoded, plain_reference(torch, kernel, args), "columns 1000000")
+        print("  " + json.dumps(report), flush=True)
+        reports.append(report)
+        del args
+        torch.cuda.empty_cache()
     with phase("kernel timing on main-path inputs", gpu):
         table = time_kernels(torch, lwws, captured)
-        x_24 = time_slot_at(torch, "X", *x_10m, "columns pass 10M minute fold")
         s_shapes = time_sum_kernel(torch, captured)
         c2_times = time_path_calls(torch, kernels, c2_calls)
         report_e["engine_kernels"] = engine_kernel_timing(torch, captured_e)
     del captured_e
-    table[1]["at_columns_10m"] = x_24
     table[1]["at_path_e"] = report_e["engine_kernels"]["X_on_e1"]
     table[2]["at_path_e"] = report_e["engine_kernels"]["H_on_e1"]
     table[2]["ops_per_hashed_row"] = h_ops_per_row
@@ -4013,7 +4474,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -4025,7 +4486,7 @@ def main() -> int:
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
-                      "relay_tier": report_i}))
+                      "relay_tier": report_i, "push_tier": report_j}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

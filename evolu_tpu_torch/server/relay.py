@@ -7,21 +7,23 @@ nodeId`, index.ts:100), same 20 MB body limit (index.ts:222) and `GET
 /ping` (index.ts:250-252). The relay is E2EE-blind: rows are (timestamp,
 userId, ciphertext).
 
-`RelayServer` serves POST `/`, GET `/ping`, `/health` and `/stats` on a
-ThreadingHTTPServer; `batching=True` routes sync POSTs through the
-continuous-batching `server.scheduler.SyncScheduler`, whose engine passes
-run on `device` (None = the card). `peers` turns on relay↔relay Merkle
-anti-entropy (`server/replicate.py`, POST `/replicate/*`, with snapshot
-bootstrap and checkpoints from `server/snapshot.py`), and `enable_fleet`
-joins an owner-sharded fleet (`server/fleet.py`: GET `/fleet`, POST
-`/fleet/forward` and `/fleet/reload`, 307 / forward routing).
-`MultiprocessRelay` pre-forks worker processes (`python -m
+`RelayServer` serves POST `/`, GET `/ping`, `/health`, `/stats` and the
+push long-poll GET `/push/poll` (`server/push.py`, on by default), on a
+ThreadingHTTPServer or on the event-loop tier (`server/conn.py`,
+`connection_tier="eventloop"`); `batching=True` routes sync POSTs through
+the continuous-batching `server.scheduler.SyncScheduler`, whose engine
+passes run on `device` (None = the card). `peers` turns on relay↔relay
+Merkle anti-entropy (`server/replicate.py`, POST `/replicate/*`, with
+snapshot bootstrap and checkpoints from `server/snapshot.py`), and
+`enable_fleet` joins an owner-sharded fleet (`server/fleet.py`: GET
+`/fleet`, POST `/fleet/forward` and `/fleet/reload`, 307 / forward
+routing). `MultiprocessRelay` pre-forks worker processes (`python -m
 evolu_tpu_torch.server.relay_worker`) that serve the per-request host path
-over one shared file-backed store. The endpoints of the tiers not ported
-yet (`/metrics`, `/ledger`, `/trace`, `/profile`, `/push/poll`) answer
-404, as do `/replicate/*` and `/fleet*` on a relay without replication or
-a fleet, and the options that would turn the missing tiers on raise
-NotImplementedError before a socket is bound.
+over one shared file-backed store. The endpoints of the observability tier,
+not ported yet (`/metrics`, `/ledger`, `/trace`, `/profile`), answer 404,
+as do `/replicate/*`, `/fleet*` and `/push/poll` on a relay without
+replication, a fleet or a push hub, and the options that would turn the
+missing tiers on raise NotImplementedError before a socket is bound.
 
 `add_messages` inserts with per-row was-new flags (the changes==1
 Merkle gate) and hashes on the host; the batched many-owner path is
@@ -92,6 +94,18 @@ def fetch_response_stream(db, user_id, node_id, server_tree, client_tree) -> byt
     since = timestamp_to_string(create_sync_timestamp(diff))
     stream, _n = db.fetch_relay_messages_wire(user_id, since, node_id)
     return stream
+
+
+def _notify_tags(request: protocol.SyncRequest):
+    """Lane tags for a push wakeup: the scope clause's per-message lane
+    assignment, when the pushing client sent one. None (= wake every
+    waiter) whenever lanes are unknown: v1 pushes, scoped pulls with no
+    pushed rows, untagged rows mixed in."""
+    s = getattr(request, "scope", None)
+    if s is None or not s.push_tags:
+        return None
+    tags = frozenset(s.push_tags)
+    return None if "" in tags else tags
 
 
 def serve_single_request(store, request: protocol.SyncRequest) -> bytes:
@@ -342,11 +356,13 @@ class _Counts:
             self.shard_requests[index] = self.shard_requests.get(index, 0) + 1
 
 
-def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None) -> dict:
+def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
+                        push_hub=None, conn_tier=None) -> dict:
     """The GET /stats JSON: the store's row counts a shard (shared truth in
     a MultiprocessRelay) with this process's sync requests a shard, and
-    its request and error totals; with replication or a fleet attached,
-    their `replication` and `fleet` sections."""
+    its request and error totals; with replication, a fleet, a push hub or
+    the event-loop tier attached, their `replication`, `fleet`, `push` and
+    `conn` sections."""
     shards = store.stats() if hasattr(store, "stats") else []
     for s in shards:
         s["requests"] = counts.shard_requests.get(s["index"], 0)
@@ -361,6 +377,10 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None) ->
         payload["replication"] = replication.stats_payload()
     if fleet is not None:
         payload["fleet"] = fleet.stats_payload()
+    if push_hub is not None:
+        payload["push"] = push_hub.stats_payload()
+    if conn_tier is not None:
+        payload["conn"] = conn_tier.stats_payload()
     return payload
 
 
@@ -369,6 +389,8 @@ class _Handler(BaseHTTPRequestHandler):
     scheduler = None  # SyncScheduler when the relay batches
     replication = None  # ReplicationManager when the relay has peers
     fleet = None  # FleetManager once the relay joined a fleet
+    push_hub = None  # PushHub when push subscriptions are on (server/push.py)
+    conn_tier = None  # EventLoopHTTPServer when that tier serves this relay
     counts: _Counts
     # The capabilities this relay echoes (intersected with the request's
     # advertised set). A request with none gets the v1 wire, byte for byte.
@@ -435,7 +457,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return None
         return serve_single_request(self.store, request)
 
-    def do_GET(self) -> None:  # /ping (index.ts:250-252), /health, /stats
+    def do_GET(self) -> None:  # /ping (index.ts:250-252), /health, /stats, /push/poll
         if self.path == "/ping":
             body = b"ok"
             self.send_response(200)
@@ -445,7 +467,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/stats":
             try:
                 body = json.dumps(relay_stats_payload(self.store, self.counts, self.replication,
-                                                      self.fleet)).encode("utf-8")
+                                                      self.fleet, self.push_hub,
+                                                      self.conn_tier)).encode("utf-8")
             except Exception as e:  # noqa: BLE001 - a clean 500, not a dropped connection
                 self.counts.error()
                 self.send_error(500, str(e))
@@ -478,8 +501,65 @@ class _Handler(BaseHTTPRequestHandler):
                 self.send_error(500, str(e))
                 return
             self._respond(200, body, "application/json")
+        elif self.path.startswith("/push/poll"):
+            self._do_push_poll()
         else:
             self.send_error(404)
+
+    def _do_push_poll(self) -> None:
+        """GET /push/poll: the long-poll subscription leg (server/push.py).
+        On THIS tier the poll parks the handler thread on an Event; the
+        event-loop tier (server/conn.py) intercepts the same path before
+        its handler pool and parks the bare connection instead. This
+        branch is also that tier's byte-identical answer for the shapes it
+        won't answer itself (no hub → 404, malformed query → 400), so its
+        framing and `conn.frame_response` must stay aligned."""
+        import urllib.parse
+
+        from evolu_tpu_torch.server import push as push_mod
+
+        if self.push_hub is None:
+            self.send_error(404)
+            return
+        try:
+            owner, node, cursor, timeout, tags = push_mod.parse_poll_query(
+                urllib.parse.urlsplit(self.path).query)
+        except ValueError as e:
+            self.counts.error()
+            self.send_error(400, str(e))
+            return
+        if self.fleet is not None:
+            # A subscription lives at the owner's PLACED relay, where its
+            # mutations are served and hub-notified. 307 even in forward
+            # mode: proxying a long-poll would pin a handler for the park.
+            from evolu_tpu_torch.server.fleet import FleetNotReady
+
+            try:
+                action, peer = self.fleet.route(owner)
+            except FleetNotReady as e:
+                self._respond_retry_after(e.retry_after)
+                return
+            if action != "local":
+                self.push_hub._count("redirects")
+                self.send_response(307)
+                self.send_header("Location", peer + self.path)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+        try:
+            body = self.push_hub.poll_blocking(owner, node, cursor, timeout, tags=tags)
+        except push_mod.HubFull as e:
+            self._respond_retry_after(e.retry_after)
+            return
+        self._respond(200, body, "application/json")
+
+    def _notify_push(self, request: protocol.SyncRequest) -> None:
+        """Wake parked subscriptions AFTER the serve committed (a woken
+        client's sync round must observe the rows); the timestamps carry
+        the author-node metadata of the hub's own-write exclusion."""
+        if self.push_hub is not None and request.messages:
+            self.push_hub.notify(request.user_id, [m.timestamp for m in request.messages],
+                                 tags=_notify_tags(request))
 
     def _read_body(self) -> Optional[bytes]:
         """The request body, or None after answering 400 or 413."""
@@ -513,6 +593,7 @@ class _Handler(BaseHTTPRequestHandler):
             out = self._serve_request(request)
             if out is None:
                 return  # 503 backpressure already answered
+            self._notify_push(request)
         except Exception as e:  # noqa: BLE001 - index.ts:231-233
             self.counts.error()
             self.send_error(500, str(e))
@@ -632,6 +713,10 @@ class _Handler(BaseHTTPRequestHandler):
                 out = self._serve_request(request)
                 if out is None:
                     return  # 503 backpressure already answered
+                # The forward SERVE is where the owner's rows land, and
+                # where its subscriptions are parked (polls 307 to
+                # placement): notify here, never at the forwarding hop.
+                self._notify_push(request)
                 if self.replication is not None and request.messages:
                     self.replication.hint()
                 self._respond(200, self._negotiate_caps(request, out), "application/octet-stream")
@@ -701,14 +786,19 @@ class RelayServer:
     from `utils.config.default_config`. `enable_fleet` joins an
     owner-sharded fleet (`server/fleet.py`).
 
+    `push` turns on the push hub (`server/push.py`: GET `/push/poll`, woken
+    by every committed sync POST, forward serve and replication ingest);
+    None resolves from `default_config.push_subscriptions`, on by default.
+    `connection_tier` is "threaded" (a ThreadingHTTPServer) or "eventloop"
+    (`server/conn.py`: one loop owns every socket, requests run on a
+    bounded handler pool, long-polls park the bare connection); None
+    resolves from `EVOLU_CONN_TIER`, then `default_config.connection_tier`.
+
     Refused with NotImplementedError before a socket is bound or a store
     written, each until its ROADMAP queue-1 item is ported: `write_behind`
-    / `write_behind_log` (item 6c), `push=True` and
-    `connection_tier="eventloop"` (item 6b), `mesh_engine` / `mesh_ctx`
-    (item 9), and `capabilities` holding `sync-scope-v1` (item 7); also
-    when `EVOLU_WRITE_BEHIND`, `EVOLU_MESH_ENGINE` or `EVOLU_CONN_TIER`
-    turn one of them on. `push=None` means no push hub (the reference's
-    default is on)."""
+    / `write_behind_log` (item 6c), `mesh_engine` / `mesh_ctx` (item 9),
+    and `capabilities` holding `sync-scope-v1` (item 7); also when
+    `EVOLU_WRITE_BEHIND` or `EVOLU_MESH_ENGINE` turn one of them on."""
 
     def __init__(self, store: Optional[RelayStore] = None, host: str = "127.0.0.1",
                  port: int = 0, batching: bool = False, scheduler=None,
@@ -729,13 +819,12 @@ class RelayServer:
             write_behind = _env_on("EVOLU_WRITE_BEHIND")
         if write_behind or write_behind_log is not None:
             _refuse("the write-behind storage inversion (write_behind, write_behind_log)", "6c")
-        if push:
-            _refuse("push subscriptions (push=True)", "6b")
+        from evolu_tpu_torch.utils.config import default_config
+
+        # Constructor argument, then EVOLU_CONN_TIER, then the Config.
         if connection_tier is None:
-            connection_tier = os.environ.get("EVOLU_CONN_TIER") or "threaded"
-        if connection_tier == "eventloop":
-            _refuse("the event-loop connection tier (connection_tier='eventloop')", "6b")
-        if connection_tier != "threaded":
+            connection_tier = os.environ.get("EVOLU_CONN_TIER") or default_config.connection_tier
+        if connection_tier not in ("threaded", "eventloop"):
             raise ValueError(
                 f"connection_tier must be 'threaded' or 'eventloop', got {connection_tier!r}")
         if mesh_engine is None and mesh_ctx is None:
@@ -746,8 +835,6 @@ class RelayServer:
         if protocol.CAP_SYNC_SCOPE in self.capabilities:
             _refuse("scoped sync (the sync-scope-v1 capability)", 7)
         self.connection_tier = connection_tier
-        from evolu_tpu_torch.utils.config import default_config
-
         if checkpoint_interval_s is None:
             checkpoint_interval_s = default_config.checkpoint_interval_s
         self.store = store or RelayStore()
@@ -776,14 +863,41 @@ class RelayServer:
 
             self.checkpointer = CheckpointWriter(self.store, checkpoint_path, checkpoint_interval_s)
         self.fleet = None
+        # Push subscriptions: a new GET endpoint, no effect on any other
+        # response. Both connection tiers serve the same hub.
+        if push is None:
+            push = default_config.push_subscriptions
+        self.push_hub = None
+        if push:
+            from evolu_tpu_torch.server.push import PushHub
+
+            self.push_hub = PushHub(max_subscriptions=default_config.push_max_subscriptions,
+                                    default_timeout_s=default_config.push_poll_timeout_s)
+            if self.replication is not None and self.replication.push_hub is None:
+                # Rows a gossip round lands (a partition healing) wake this
+                # relay's subscribers: they never arrive as a sync POST.
+                self.replication.push_hub = self.push_hub
         self.counts = _Counts()
         self._handler_cls = type(
             "BoundHandler", (_Handler,),
             {"store": self.store, "scheduler": self.scheduler, "replication": self.replication,
-             "capabilities": self.capabilities, "counts": self.counts},
+             "capabilities": self.capabilities, "counts": self.counts, "push_hub": self.push_hub},
         )
         try:
-            self._httpd = _RelayHTTPServer((host, port), self._handler_cls)
+            if connection_tier == "eventloop":
+                from evolu_tpu_torch.server.conn import EventLoopHTTPServer
+
+                self._httpd = EventLoopHTTPServer(
+                    (host, port), self._handler_cls, push_hub=self.push_hub,
+                    handler_threads=default_config.conn_handler_threads,
+                    max_pending=default_config.conn_max_pending,
+                    read_timeout_s=default_config.conn_read_timeout_s,
+                    write_timeout_s=default_config.conn_write_timeout_s,
+                    max_header_bytes=default_config.conn_max_header_bytes,
+                )
+                self._handler_cls.conn_tier = self._httpd
+            else:
+                self._httpd = _RelayHTTPServer((host, port), self._handler_cls)
         except BaseException:
             if self.scheduler is not None and scheduler is None:
                 self.scheduler.stop()
@@ -820,6 +934,11 @@ class RelayServer:
         return self
 
     def stop(self) -> None:
+        if self.push_hub is not None:
+            # BEFORE the HTTP server stops: resolve every parked long-poll
+            # (wake=false) so threaded-tier handler threads unblock and the
+            # event tier flushes the responses in its shutdown window.
+            self.push_hub.close()
         self._httpd.shutdown()
         if self._thread:
             self._thread.join()

@@ -31,8 +31,10 @@ HTTP legs in `round_trips`) in place of the `evolu_repl_*` / `evolu_snap_*`
 metrics, so `stats_payload` answers the reference's keys with
 `convergence_lag_p99_ms` and `install_p99_ms` null until the observability
 item is ported; no trace spans, freshness gauges, ledger terminals or
-logs. `write_behind` and `push_hub` are refused (NotImplementedError) until
-those items are ported.
+logs. `write_behind` is refused (NotImplementedError) until that item is
+ported. With a `push_hub`, every ingest wakes the owner's parked push
+subscriptions (reason "replication"), and a snapshot install wakes them
+all (reason "conservative").
 """
 
 from __future__ import annotations
@@ -180,9 +182,6 @@ class ReplicationManager:
             raise NotImplementedError(
                 "evolu_tpu_torch: the write-behind storage inversion is not ported yet "
                 "(ROADMAP queue 1 item 6c)")
-        if push_hub is not None:
-            raise NotImplementedError(
-                "evolu_tpu_torch: push subscriptions are not ported yet (ROADMAP queue 1 item 6b)")
         cfg = config.default_config
         if pull_messages_per_owner is None:
             pull_messages_per_owner = cfg.pull_messages_per_owner
@@ -193,6 +192,7 @@ class ReplicationManager:
 
         self.store = store
         self.scheduler = scheduler
+        self.push_hub = push_hub
         self.replica_id = replica_id or f"relay-{random.getrandbits(48):012x}"
         self.interval_s = float(interval_s)
         self.debounce_s = float(debounce_s)
@@ -528,6 +528,10 @@ class ReplicationManager:
             raise
         inst.swap()
         self._count(peer.url, "snapshot_bootstraps")
+        if self.push_hub is not None:
+            # A whole-store install changed arbitrarily many owners at once:
+            # per-row attribution is gone, so wake everything.
+            self.push_hub.notify_all(reason="conservative")
         return manifest.message_count
 
     def _ingest(self, requests: List[protocol.SyncRequest]) -> None:
@@ -537,19 +541,43 @@ class ReplicationManager:
         so the dispatcher fuses them, with each other and with live client
         traffic, into engine passes on the card; without one they take the
         per-request path. The first failure is raised after every request
-        has finished."""
+        has finished, and after the push subscribers of the requests that
+        did commit were woken."""
         if not requests:
             return
         if self.scheduler is not None:
             futures = [self._ingest_pool().submit(self.scheduler.submit, r) for r in requests]
-            errors = [e for e in (f.exception() for f in futures) if e is not None]
-            if errors:
-                raise errors[0]
+            first_err: Optional[BaseException] = None
+            served = []
+            for r, f in zip(requests, futures):
+                e = f.exception()
+                if e is None:
+                    served.append(r)
+                first_err = first_err or e
+            self._notify_push(served)
+            if first_err is not None:
+                raise first_err
             return
         from evolu_tpu_torch.server.relay import serve_single_request
 
+        served = []
+        try:
+            for r in requests:
+                serve_single_request(self.store, r)
+                served.append(r)
+        finally:
+            self._notify_push(served)
+
+    def _notify_push(self, requests: List[protocol.SyncRequest]) -> None:
+        """Wake parked push subscriptions for rows replication just landed
+        (AFTER the serve committed them). The pulled messages' plaintext
+        timestamps carry the ORIGINAL author nodes, so the hub's own-write
+        exclusion holds across relays."""
+        if self.push_hub is None:
+            return
         for r in requests:
-            serve_single_request(self.store, r)
+            if r.messages:
+                self.push_hub.notify(r.user_id, [m.timestamp for m in r.messages], reason="replication")
 
     def _ingest_pool(self):
         if self._stopping:

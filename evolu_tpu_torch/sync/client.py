@@ -23,12 +23,18 @@ Departures from `evolu_tpu.sync.client`, all of them routes this
 slice does not port and never replaces:
 
 - Where the reference counts into its metrics registry, traces and
-  logs, the transport keeps plain `counts`; the POST carries no
-  traceparent header (the reference's path for a 2-argument
-  `http_post`).
-- The relay push-subscription leg (`Config.push_subscribe`) and the
-  partial-replication scope clause (`Config.sync_scope`) are refused
-  with NotImplementedError before any thread starts.
+  logs, the transport and the `PushSubscriber` keep plain `counts`; the
+  POST carries no traceparent header (the reference's path for a
+  2-argument `http_post`).
+- The partial-replication scope clause (`Config.sync_scope`) is refused
+  with NotImplementedError before any thread starts, so a push
+  subscription never carries scope-lane tags.
+
+Under `Config.push_subscribe`, `connect` attaches a `PushSubscriber`: a
+thread that long-polls the relay's `GET /push/poll` (server/push.py) for
+the owner and fires a sync round when the relay reports foreign-authored
+rows. It binds from the first successful round, which learns the owner,
+the clock's node id and the relay that actually served.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import threading
 import urllib.error
 import urllib.parse
 import urllib.request
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage, UnknownError
@@ -177,6 +183,10 @@ class SyncTransport:
         self._prober: Optional[threading.Thread] = None
         self._offline = False
         self._pending_reconnect = False  # transport-thread only
+        # The optional push-subscription leg, attached by connect() under
+        # Config.push_subscribe and bound lazily from the first successful
+        # round.
+        self.push_subscriber = None
         self._thread = threading.Thread(target=self._loop, daemon=True, name="evolu-sync")
         self._thread.start()
 
@@ -188,6 +198,8 @@ class SyncTransport:
         self._queue.put(request)
 
     def stop(self) -> None:
+        if self.push_subscriber is not None:
+            self.push_subscriber.stop()
         self._probe_stop.set()
         with self._probe_lock:
             prober = self._prober
@@ -477,6 +489,11 @@ class SyncTransport:
         except _Abort:
             return None
         self._note_online()
+        if self.push_subscriber is not None:
+            # Bind or retarget the push leg with what this round learned:
+            # the owner, the clock's node id (the own-write exclusion key)
+            # and the relay that actually served (after any 307 follow).
+            self.push_subscriber.ensure(owner_id, node_id, url)
         # Push-mix counts AFTER the POST landed: `use_v2` reflects the
         # FINAL body (the failover downgrade is counted in retarget).
         if request.messages:
@@ -617,6 +634,184 @@ def _http_ping(url: str) -> None:
         resp.read()
 
 
+class _NoRedirect(urllib.request.HTTPRedirectHandler):
+    """Surface 3xx as HTTPError instead of following it: the push loop
+    must LEARN the placed relay from a 307's Location (and cache it), not
+    pay a redirect hop on every poll."""
+
+    def redirect_request(self, *a, **k):
+        return None
+
+
+_PUSH_OPENER = urllib.request.build_opener(_NoRedirect)
+
+
+def _push_get(url: str, timeout: float) -> bytes:
+    with _PUSH_OPENER.open(url, timeout=timeout) as resp:
+        return resp.read()
+
+
+class PushSubscriber:
+    """The client half of relay-held push subscriptions (server/push.py):
+    one daemon thread long-polls `GET /push/poll?owner&node&cursor`
+    against the owner's placed relay and fires `on_wake` (typically
+    `evolu.sync`) whenever the relay reports foreign-authored rows. The
+    parked poll replaces the polling interval: mutation→visible becomes
+    the push round trip.
+
+    Robustness mirrors the sync transport's: at most one 307 follow a poll
+    with the learned route cached (dropped on 404, error or connection
+    failure, failing back to the bound URL), bounded exponential backoff
+    with full jitter while the relay is unreachable (offline is a normal
+    state), and cursor resume across reconnects (the hub answers a
+    conservative wake for a cursor its ring outgrew, so a wakeup is never
+    missed). `ensure` is idempotent and re-callable: every successful sync
+    round re-binds the target, so the subscription follows fleet
+    placement as the sync leg does.
+
+    `counts` (polls, wakes, redirects, errors, offline) stand in for the
+    reference's `evolu_push_client_*` metrics; `wakes` is the number of
+    `on_wake` firings."""
+
+    def __init__(self, config: Config, on_wake: Callable[[], None],
+                 http_get: Optional[Callable[[str, float], bytes]] = None,
+                 poll_timeout_s: Optional[float] = None):
+        self.config = config
+        self.on_wake = on_wake
+        self._http_get = http_get or _push_get
+        self._poll_timeout_s = (float(poll_timeout_s) if poll_timeout_s is not None
+                                else float(config.push_poll_timeout_s))
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._owner: Optional[str] = None
+        self._node: Optional[str] = None
+        self._base: Optional[str] = None  # bound by ensure()
+        self._route: Optional[str] = None  # learned via 307
+        self._tags: Optional[Tuple[str, ...]] = None  # scope lanes
+        self.cursor = 0
+        self.wakes = 0
+        self.counts = dict.fromkeys(("polls", "wakes", "redirects", "errors", "offline"), 0)
+
+    def ensure(self, owner_id: str, node: str, url: str,
+               tags: Optional[Tuple[str, ...]] = None) -> None:
+        """Bind (or re-bind) the subscription; starts the loop thread on
+        the first call. Safe from any thread, idempotent. `tags` scopes the
+        subscription to those lanes (None = wake on every foreign
+        write)."""
+        with self._lock:
+            self._owner, self._node = owner_id, node
+            self._base = url.rstrip("/")
+            self._tags = tuple(tags) if tags else None
+            if self._thread is None and not self._stop.is_set():
+                self._thread = threading.Thread(target=self._loop, daemon=True, name="evolu-push")
+                self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            # Bounded: the loop may be parked in a long poll; it is a daemon
+            # thread that only touches the network.
+            t.join(timeout=0.2)
+
+    def _target(self) -> Tuple[str, str, str, Optional[Tuple[str, ...]]]:
+        with self._lock:
+            return (self._route or self._base, self._owner, self._node, self._tags)
+
+    def _backoff(self, delay: float) -> Optional[float]:
+        """Wait `delay` (capped); None once stopped, else the next delay."""
+        if self._stop.wait(min(BACKOFF_MAX_S, delay)):
+            return None
+        return min(BACKOFF_MAX_S, delay * 2)
+
+    def _loop(self) -> None:
+        import json
+        import random
+
+        delay = BACKOFF_BASE_S
+        attempt = 0
+        follows = 0  # consecutive 307s without a successful poll
+        while not self._stop.is_set():
+            base, owner, node, tags = self._target()
+            url = (f"{base}/push/poll?owner={urllib.parse.quote(owner)}"
+                   f"&node={node}&cursor={self.cursor}&timeout={self._poll_timeout_s}")
+            if tags:
+                url += "&tags=" + urllib.parse.quote(",".join(tags))
+            try:
+                raw = self._http_get(url, self._poll_timeout_s + 10.0)
+            except urllib.error.HTTPError as e:
+                if e.code == 307:
+                    location = e.headers.get("Location") if e.headers else None
+                    follows += 1
+                    if location and follows <= 1:
+                        with self._lock:
+                            self._route = urllib.parse.urljoin(base + "/", location).split("/push/", 1)[0]
+                        self.counts["redirects"] += 1
+                        continue
+                    # A SECOND consecutive 307 means the relays' rings
+                    # disagree (mid-rebalance): drop the learned route and
+                    # back off instead of spinning a redirect loop.
+                    with self._lock:
+                        self._route = None
+                    delay = self._backoff(delay)
+                    if delay is None:
+                        return
+                    follows = 0
+                    continue
+                if e.code in (429, 503):
+                    # Flow control (hub full, relay shedding): honor
+                    # Retry-After, degrade toward polling cadence.
+                    ra = _retry_after_seconds(e)
+                    if self._stop.wait(ra if ra is not None else min(BACKOFF_MAX_S, delay)):
+                        return
+                    delay = min(BACKOFF_MAX_S, max(delay * 2, BACKOFF_BASE_S))
+                    continue
+                # Definitive rejection (404: stale route or a push-less
+                # relay; 400): drop the learned route, fail back, back off.
+                with self._lock:
+                    self._route = None
+                self.counts["errors"] += 1
+                delay = self._backoff(delay)
+                if delay is None:
+                    return
+                continue
+            except Exception:  # noqa: BLE001 - offline: backoff with full jitter
+                with self._lock:
+                    self._route = None
+                self.counts["offline"] += 1
+                jittered = min(BACKOFF_MAX_S, BACKOFF_BASE_S * (2 ** attempt))
+                if self._stop.wait(jittered * random.random() + 0.01):
+                    return
+                attempt = min(attempt + 1, 10)
+                continue
+            attempt = 0
+            delay = BACKOFF_BASE_S
+            follows = 0
+            self.counts["polls"] += 1
+            try:
+                body = json.loads(raw)
+                cursor = int(body["cursor"])
+                wake = bool(body["wake"])
+            except (ValueError, KeyError, TypeError):
+                self.counts["errors"] += 1
+                delay = self._backoff(delay)
+                if delay is None:
+                    return
+                continue
+            # ADOPT the relay's cursor, never max() it: cursors are per-hub
+            # sequence numbers, and a relay restart or a retarget
+            # legitimately answers a smaller one.
+            self.cursor = cursor
+            if wake and not self._stop.is_set():
+                self.wakes += 1
+                self.counts["wakes"] += 1
+                try:
+                    self.on_wake()
+                except Exception:  # noqa: BLE001,S110 - the wake hook must never
+                    pass           # kill the subscription loop
+
+
 class PeriodicSyncer:
     """Timer analog of the reference's load/online/focus sync triggers
     (db.ts:390-412): posts a pull-only sync round every `interval`
@@ -648,9 +843,6 @@ def connect(evolu, config: Optional[Config] = None) -> SyncTransport:
     When the config sets `sync_interval`, a periodic pull starts too
     (stopped by `evolu.dispose()`)."""
     cfg = config or evolu.config
-    if cfg.push_subscribe:
-        raise NotImplementedError(
-            "Config.push_subscribe: the relay push leg is not ported yet (the relay tier slice)")
 
     def on_reconnect():
         # The reference's online listener re-syncs immediately
@@ -669,6 +861,17 @@ def connect(evolu, config: Optional[Config] = None) -> SyncTransport:
         on_error=lambda e: evolu._dispatch_output(OnError(e)),
         on_reconnect=on_reconnect,
     )
+    if cfg.push_subscribe:
+        # The push leg: wake-driven sync rounds instead of a timer. A wake
+        # only means "foreign rows may exist"; the round it fires is the
+        # same anti-entropy round a timer would, so a spurious wake costs
+        # one empty round.
+        def on_push_wake():
+            if getattr(evolu, "_disposed", False):
+                return
+            evolu.sync(refresh_queries=False)
+
+        transport.push_subscriber = PushSubscriber(cfg, on_push_wake)
     evolu.attach_transport(transport)
     prev = getattr(evolu, "_auto_syncer", None)
     if prev is not None:

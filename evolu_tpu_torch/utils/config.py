@@ -69,8 +69,10 @@ class Config:
     # this cadence in seconds (backing off 2x a failure up to 30 s); the
     # first success fires the reconnect hook. None disables probing.
     reconnect_probe_interval: "float | None" = 1.0
-    # The relay push-subscription leg of `connect`. Not ported: True is
-    # refused (`connect` raises NotImplementedError).
+    # The client leg of relay push subscriptions (server/push.py):
+    # `connect` attaches a `sync.client.PushSubscriber` that long-polls the
+    # owner's relay and fires a sync round when foreign rows land there —
+    # wake-driven rounds instead of (or on top of) the sync_interval timer.
     push_subscribe: bool = False
     # -- relay tier knobs. Live defaults: `RelayServer` and
     # `server.replicate.ReplicationManager` resolve any constructor
@@ -90,6 +92,29 @@ class Config:
     # checkpoint_interval_s=...)` → `snapshot.CheckpointWriter`). None
     # disables them.
     checkpoint_interval_s: "float | None" = None
+    # Connection tier (server/conn.py): "threaded" = a ThreadingHTTPServer
+    # (one thread a connection, the reference relay's shape); "eventloop" =
+    # one selectors loop owns every socket, complete requests run on a
+    # bounded handler pool, and push long-polls park the bare connection,
+    # so idle subscriptions cost file descriptors, not threads.
+    # EVOLU_CONN_TIER overrides it at the relay.
+    connection_tier: str = "threaded"
+    # Event-tier bounds: the handler pool's size, the in-flight dispatches
+    # past which the loop answers 503 + Retry-After itself, the ABSOLUTE
+    # budget a request must fully arrive within, the no-progress write
+    # budget, and the header cap (431 past it).
+    conn_handler_threads: int = 8
+    conn_max_pending: int = 512
+    conn_read_timeout_s: float = 30.0
+    conn_write_timeout_s: float = 30.0
+    conn_max_header_bytes: int = 16384
+    # Relay-held push subscriptions (server/push.py): GET /push/poll parks
+    # until the owner gets rows authored by another node. On by default at
+    # the relay (a new GET endpoint; no other response changes). The poll
+    # timeout is the relay's default park and the client's request.
+    push_subscriptions: bool = True
+    push_poll_timeout_s: float = 25.0
+    push_max_subscriptions: int = 1 << 17
 
 
 default_config = Config()

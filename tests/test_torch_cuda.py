@@ -1007,3 +1007,76 @@ def test_snapshot_bootstrap_between_card_relays(dev):
         if fresh is not None:
             fresh.stop()
         donor.stop()
+
+
+def _park(server, owner, box, timeout=30):
+    import threading
+    import urllib.request
+
+    url = f"{server.url}/push/poll?owner={owner}&node={'5' * 16}&cursor=0&timeout={timeout}"
+
+    def poll():
+        with urllib.request.urlopen(url, timeout=timeout + 10) as r:
+            box["body"] = r.read()
+
+    th = threading.Thread(target=poll)
+    th.start()
+    _wait(lambda: server.push_hub.stats_payload()["subscriptions"] == 1, "the parked poll", 30)
+    return th
+
+
+def test_push_wake_on_event_tier_card_relay(dev):
+    """An event-tier batching relay on the card (`device=None`) serves a
+    push wake: a long-poll parked as a bare connection wakes on a foreign
+    POST whose one engine pass launches H and X once each, L and S not at
+    all; the answers and tables equal those of the same relay on the CPU."""
+    import urllib.request
+
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync import protocol as pp
+
+    req = _relay_batches()[0][0]
+    kernels = (cuda_scan.segmented_max_scan_cuda, cuda_hash.timestamp_hash_cuda,
+               cuda_scan.segmented_xor_scan_cuda, cuda_scan.segmented_sum_scan_cuda)
+    sides = []
+    for d in (None, "cpu"):
+        server = RelayServer(RelayStore(backend="native"), batching=True, device=d,
+                             connection_tier="eventloop").start()
+        try:
+            box = {}
+            th = _park(server, req.user_id, box)
+            before = [k.launches for k in kernels]
+            with urllib.request.urlopen(urllib.request.Request(server.url, data=pp.encode_sync_request(req)),
+                                        timeout=60) as r:
+                answer = r.read()
+            th.join(30)
+            launches = [k.launches - b for k, b in zip(kernels, before)]
+            passes = server.scheduler.counts["batches"]
+            tables = _relay_tables(server.store)
+            stats = server.push_hub.stats_payload()
+        finally:
+            server.stop()
+        sides.append((answer, box.get("body"), tables, stats, passes, launches))
+    (card, card_body, card_tables, card_stats, card_passes, card_launches), cpu = sides[0], sides[1]
+    assert (card, card_body, card_tables, card_stats) == cpu[:4]
+    assert card_body == b'{"wake": true, "cursor": 1}' and card_stats["wakeups_total"]["write"] == 1
+    assert card_passes == cpu[4] == 1
+    assert card_launches == [0, 1, 1, 0] and cpu[5] == [0, 0, 0, 0]
+
+
+def test_stop_returns_with_a_threaded_long_poll_parked(dev):
+    """`RelayServer.stop()` on a batching card relay of the threaded tier
+    returns within 2 s while a long-poll holds a handler thread: the hub
+    closes first and the poll answers wake=false."""
+    import time
+
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+
+    server = RelayServer(RelayStore(backend="native"), batching=True, connection_tier="threaded").start()
+    box = {}
+    th = _park(server, "owner000", box)
+    t0 = time.monotonic()
+    server.stop()
+    took = time.monotonic() - t0
+    th.join(10)
+    assert took < 2.0 and box["body"] == b'{"wake": false, "cursor": 0}'

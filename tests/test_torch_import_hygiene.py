@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_touches_no_card():
                  "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client",
                  "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
                  "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
-                 "server.fleet"):
+                 "server.fleet", "server.push", "server.conn"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
@@ -237,3 +237,47 @@ def test_relay_tier_runs_without_jax_or_the_card(tmp_path):
     line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
     result = json.loads(line[len("RESULT:"):])
     assert result == {"bootstrapped": True, "placed": True, "forbidden": [], "cuda_initialized": False}
+
+
+_PUSH = r"""
+import json, sys, threading
+import torch
+from evolu_tpu_torch.core.timestamp import timestamp_to_string
+from evolu_tpu_torch.core.types import Timestamp
+from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.sync.client import PushSubscriber, _http_post
+from evolu_tpu_torch.utils.config import Config
+
+relay = RelayServer(RelayStore(backend="native"), connection_tier="eventloop").start()
+woken = threading.Event()
+sub = PushSubscriber(Config(sync_url=relay.url), woken.set, poll_timeout_s=5.0)
+sub.ensure("alice", "5" * 16, relay.url)
+while relay.push_hub.stats_payload()["subscriptions"] != 1:
+    threading.Event().wait(0.01)
+msg = protocol.EncryptedCrdtMessage(timestamp_to_string(Timestamp(1_700_000_000_000, 0, "a" * 16)), b"ct")
+_http_post(relay.url, protocol.encode_sync_request(protocol.SyncRequest((msg,), "alice", "a" * 16, "{}")))
+ok = woken.wait(10)
+sub.stop()
+relay.stop()
+print("RESULT:" + json.dumps({
+    "woken": ok, "cursor": sub.cursor,
+    "forbidden": sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu", "ml_dtypes")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_push_tier_runs_without_jax_or_the_card():
+    """A push wake through an event-tier relay to a `PushSubscriber` on the
+    host path imports nothing of JAX or `evolu_tpu` and never initializes
+    CUDA."""
+    out = subprocess.run(
+        [sys.executable, "-c", _PUSH], cwd=_REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
+    result = json.loads(line[len("RESULT:"):])
+    assert result == {"woken": True, "cursor": 1, "forbidden": [], "cuda_initialized": False}

@@ -7,12 +7,13 @@
   on the per-request path and batching (`device="cpu"`).
 - `/ping`, `/health` and the store section of `/stats` equal the JAX
   relay's; a bad Content-Length answers 400, an oversized body 413, and
-  the relay tier's endpoints 404 on a relay without replication or a
-  fleet.
+  the relay tier's endpoints 404 on a relay without replication, a
+  fleet or a push hub; the observability endpoints 404 on both tiers.
 - Every refused option raises NotImplementedError before a socket is
   bound or the store written; the replication half's options (peers,
-  replication, bootstrap_lag_owners, checkpoints) build a relay that
-  serves.
+  replication, bootstrap_lag_owners, checkpoints) and the push and
+  connection-tier options (push, connection_tier, EVOLU_CONN_TIER) build
+  a relay that serves.
 - Two port clients converge over real HTTP through a batching port relay
   with `aead-batch-v1` negotiated.
 - The four workloads of `tests/test_relay_concurrency.py` on a port
@@ -165,13 +166,21 @@ def test_errors_and_404s_match_jax():
     assert got[1] == want[1] == (200, b"ok")
     assert got[2]["errors_total"] == 3 and got[2]["requests_total"] == 3
 
-    port = prelay.RelayServer(prelay.RelayStore(backend="native")).start()
+    poll = "/push/poll?owner=a&node=0000000000000000&cursor=0&timeout=0"
+    port = prelay.RelayServer(prelay.RelayStore(backend="native"), push=False).start()
     try:
-        for path in ("/metrics", "/ledger", "/trace", "/trace/" + "0" * 32, "/profile", "/fleet",
-                     "/push/poll?owner=a&node=0000000000000000&cursor=0"):
+        for path in ("/metrics", "/ledger", "/trace", "/trace/" + "0" * 32, "/profile", "/fleet", poll):
             assert _get(port.url + path)[0] == 404, path
         for path in ("/replicate/summary", "/replicate/pull", "/fleet/forward", "/fleet/reload"):
             assert _post(port.url + path, b"")[0] == 404, path
+    finally:
+        port.stop()
+    # The default relay has a push hub, as the reference's does: the poll
+    # answers at once with timeout=0.
+    port = prelay.RelayServer(prelay.RelayStore(backend="native")).start()
+    try:
+        assert port.push_hub is not None
+        assert _get(port.url + poll) == (200, b'{"wake": false, "cursor": 0}')
     finally:
         port.stop()
 
@@ -184,14 +193,11 @@ def _free_port():
 
 REFUSED = {
     "write_behind": ({"write_behind": True}, {}),
-    "push": ({"push": True}, {}),
-    "eventloop": ({"connection_tier": "eventloop"}, {}),
     "mesh_engine": ({"mesh_engine": True}, {}),
     "mesh_ctx": ({"mesh_ctx": object()}, {}),
     "scope capability": ({"capabilities": (pproto.CAP_SYNC_SCOPE,)}, {}),
     "EVOLU_WRITE_BEHIND": ({}, {"EVOLU_WRITE_BEHIND": "1"}),
     "EVOLU_MESH_ENGINE": ({}, {"EVOLU_MESH_ENGINE": "on"}),
-    "EVOLU_CONN_TIER": ({}, {"EVOLU_CONN_TIER": "eventloop"}),
     "write_behind_log": ({"write_behind_log": "relay.wal"}, {}),
 }
 
@@ -214,26 +220,33 @@ def test_refused_options_raise_before_a_socket_binds(case, batching, monkeypatch
     store.close()
 
 
-# The relay tier's replication half, refused until ported, now accepted.
+# The relay tier's replication half and the push / connection-tier
+# options, refused until ported, now accepted: (kwargs, environment).
 ACCEPTED = {
-    "peers": {"peers": []},
-    "replication": {"replication": "manager"},
-    "bootstrap_lag_owners": {"peers": [], "bootstrap_lag_owners": 1},
-    "checkpoint_interval_s": {"checkpoint_interval_s": 3600.0, "checkpoint_path": "ckpt"},
-    "replication_interval_s": {"peers": [], "replication_interval_s": 0.1},
-    "checkpoint_path": {"checkpoint_path": "ckpt"},
+    "peers": ({"peers": []}, {}),
+    "replication": ({"replication": "manager"}, {}),
+    "bootstrap_lag_owners": ({"peers": [], "bootstrap_lag_owners": 1}, {}),
+    "checkpoint_interval_s": ({"checkpoint_interval_s": 3600.0, "checkpoint_path": "ckpt"}, {}),
+    "replication_interval_s": ({"peers": [], "replication_interval_s": 0.1}, {}),
+    "checkpoint_path": ({"checkpoint_path": "ckpt"}, {}),
+    "push": ({"push": True}, {}),
+    "eventloop": ({"connection_tier": "eventloop"}, {}),
+    "EVOLU_CONN_TIER": ({}, {"EVOLU_CONN_TIER": "eventloop"}),
 }
 
 
 @pytest.mark.parametrize("case", list(ACCEPTED))
 @pytest.mark.parametrize("batching", [False, True])
-def test_relay_tier_options_are_accepted(case, batching, tmp_path):
-    """The options of the replication half construct a relay that starts,
-    serves /ping and stops, with the replication manager wired to the
-    scheduler when the relay batches."""
+def test_relay_tier_options_are_accepted(case, batching, tmp_path, monkeypatch):
+    """The options of the replication half and of push and the connection
+    tier construct a relay that starts, serves /ping and /push/poll and
+    stops, with the replication manager wired to the scheduler and to the
+    push hub."""
     from evolu_tpu_torch.server.replicate import ReplicationManager
 
-    kwargs = dict(ACCEPTED[case])
+    kwargs, env = dict(ACCEPTED[case][0]), ACCEPTED[case][1]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     store = prelay.RelayStore(backend="native")
     if kwargs.get("replication") == "manager":
         kwargs["replication"] = ReplicationManager(store, [])
@@ -242,8 +255,12 @@ def test_relay_tier_options_are_accepted(case, batching, tmp_path):
     server = prelay.RelayServer(store, batching=batching, device="cpu", **kwargs).start()
     try:
         assert _get(server.url + "/ping") == (200, b"ok")
+        poll = "/push/poll?owner=a&node=0000000000000000&cursor=0&timeout=0"
+        assert _get(server.url + poll) == (200, b'{"wake": false, "cursor": 0}')
+        assert server.connection_tier == ("eventloop" if case in ("eventloop", "EVOLU_CONN_TIER") else "threaded")
         if "peers" in kwargs or "replication" in kwargs:
             assert server.replication is not None
+            assert server.replication.push_hub is server.push_hub
             if "peers" in kwargs:
                 assert server.replication.scheduler is server.scheduler
         assert (server.checkpointer is not None) == ("checkpoint_interval_s" in kwargs)

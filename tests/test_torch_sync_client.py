@@ -538,18 +538,21 @@ def test_reconnect_hook_skips_a_disposed_client():
 
 
 def test_unported_routes_raise_before_any_side_effect():
-    """The push leg and the scope clause are refused before any thread
-    starts; nothing reaches the transport or the relay."""
+    """The scope clause is refused before any thread starts; nothing
+    reaches the transport or the relay. The push leg, ported, is accepted:
+    `connect` attaches a `PushSubscriber` whose thread starts only when a
+    successful round binds it."""
     from evolu_tpu_torch.runtime.client import create_evolu
     from evolu_tpu_torch.utils.config import Config
 
     e = create_evolu(SCHEMA, config=Config(backend="cpu"), device="cpu")
     try:
         threads = threading.active_count()
-        with pytest.raises(NotImplementedError, match="push"):
-            pclient.connect(e, Config(push_subscribe=True))
         with pytest.raises(NotImplementedError, match="scoped-sync"):
             pclient.SyncTransport(Config(sync_scope=object()), on_receive=lambda *a: None)
         assert threading.active_count() == threads and e._transport is None
+        t = pclient.connect(e, Config(push_subscribe=True, sync_url="http://127.0.0.1:9"))
+        assert isinstance(t.push_subscriber, pclient.PushSubscriber)
+        assert t.push_subscriber._thread is None and e._transport is t
     finally:
         e.dispose()

@@ -268,8 +268,8 @@ def _typed_dump(db):
 
 
 def test_unported_routes_raise():
-    """Scoped sync and the relay push leg are refused, never routed
-    elsewhere."""
+    """Scoped sync is refused, never routed elsewhere; the relay push
+    leg, ported, is accepted by `connect`."""
     from evolu_tpu_torch.runtime.client import Evolu
     from evolu_tpu_torch.runtime.worker import select_planner
     from evolu_tpu_torch.sync.client import SyncTransport, connect
@@ -293,9 +293,8 @@ def test_unported_routes_raise():
         SyncTransport(Config(sync_scope=object()), on_receive=lambda *a: None)
     e = Evolu(config=Config(backend="cpu"), mnemonic=MNEMONIC, device="cpu", backend="python")
     try:
-        with pytest.raises(NotImplementedError, match="push"):
-            connect(e, Config(push_subscribe=True))
-        assert e._transport is None
+        t = connect(e, Config(push_subscribe=True, sync_url="http://127.0.0.1:9"))
+        assert t.push_subscriber is not None and e._transport is t
     finally:
         e.dispose()
 
