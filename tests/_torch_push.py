@@ -44,7 +44,6 @@ JAX = types.SimpleNamespace(name="jax", relay=jrelay, push=jpush, conn=jconn, re
                             proto=jproto, config=jconfig, extra={})
 PORT = types.SimpleNamespace(name="port", relay=prelay, push=ppush, conn=pconn, rep=prep, client=pclient,
                              proto=pproto, config=pconfig, extra={"device": "cpu"})
-PKGS = (JAX, PORT)
 
 
 def server(pkg, store=None, **kw):

@@ -13,7 +13,8 @@ the JAX package's.
 - Slow-client hardening, on a port and a JAX event-tier relay with the
   same knobs: a partial header, a partial body and a byte-a-tick trickle
   are closed at the absolute read budget; a 20 KB header answers 431; the
-  dispatch bound answers 503 + Retry-After; a hangup mid-response is
+  dispatch bound and a full hub answer 503 + Retry-After (the latter byte
+  for byte on both tiers of both packages); a hangup mid-response is
   cleaned up; a parked connection cannot buffer without bound; a push poll
   with an absurd Content-Length parks in the loop; hundreds of idle
   long-polls add no thread and all wake.
@@ -400,3 +401,26 @@ def test_stop_returns_promptly_with_a_parked_poll(tier):
     took = time.monotonic() - t0
     th.join(timeout=5)
     assert took < 2.0 and box["body"] == b'{"wake": false, "cursor": 0}'
+
+
+def test_hub_full_answers_503_alike_on_both_tiers_and_jax():
+    """A poll past `push_max_subscriptions` answers 503 + Retry-After: the
+    event tier frames it in the loop, the threaded tier in the handler,
+    and both equal a JAX relay's answer byte for byte (Date masked)."""
+    def episode(pkg, tier):
+        with config(pkg, push_max_subscriptions=1):
+            srv = server(pkg, connection_tier=tier).start()
+        try:
+            s = socket.create_connection(addr(srv), timeout=10)
+            s.sendall(raw_request("GET", f"/push/poll?owner=a&node={NODE_B}&cursor=0&timeout=1"))
+            wait_for(lambda: subscriptions(srv) == 1, "the first poll parked")
+            full = normalize(exchange(addr(srv), raw_request("GET", f"/push/poll?owner=b&node={NODE_B}&cursor=0")))
+            s.close()
+            return full
+        finally:
+            srv.stop()
+
+    answers = [episode(PORT, "eventloop"), episode(PORT, "threaded"), episode(JAX, "eventloop"),
+               episode(JAX, "threaded")]
+    assert answers[0] == answers[1] == answers[2] == answers[3]
+    assert answers[0].startswith(b"HTTP/1.0 503 Service Unavailable\r\n") and b"\r\nRetry-After: 1\r\n" in answers[0]

@@ -23,7 +23,7 @@ from email.message import Message
 
 import pytest
 
-from _torch_push import (JAX, NODE_A, NODE_B, PKGS, PORT, SUB, msgs, push_base, push_stats, server,
+from _torch_push import (JAX, NODE_A, NODE_B, PORT, SUB, msgs, push_base, push_stats, server,
                          subscriptions, sync_body, ts, wait_for)
 from _torch_relay_tier import free_ports
 
