@@ -3688,7 +3688,7 @@ def percentile(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
-def path_j1(torch, kernels, relay):
+def path_j1(torch, kernels, relay, gpu=""):
     """J1, idle scaling and the push round trip, the shape of
     benchmarks/push_subscriptions.py: J_IDLE idle long-polls (one owner
     each) parked on the event-tier card relay by a child process; the
@@ -3791,7 +3791,7 @@ def path_j1(torch, kernels, relay):
            "push": relay.push_hub.stats_payload(), "conn": relay._httpd.stats_payload(),
            "engine_passes": passes, "scheduler_counts": counts,
            "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}}
-    print(f"  path J1: {json.dumps(out)}", flush=True)
+    print(f"  path J1: {json.dumps(out)} | {gpu}", flush=True)
     if factor < 5.0:
         raise AssertionError(f"path J1: push p50 only {factor:.2f}x better than {J_POLL_INTERVAL_S} s polling")
     if counts["poisoned_batches"] or counts["singles"] or counts["rejected"]:
@@ -3800,7 +3800,7 @@ def path_j1(torch, kernels, relay):
     return launches, out
 
 
-def path_j4(torch, kernels, relay):
+def path_j4(torch, kernels, relay, gpu=""):
     """J4, the client leg: two `create_evolu` handles (one mnemonic,
     `Config(push_subscribe=True, sync_interval=None)`, their planners on
     the card) against J1's relay. After one bind round each, a mutation on
@@ -3846,7 +3846,7 @@ def path_j4(torch, kernels, relay):
     passes = engine_passes(routes0)
     out = {"mutation_to_visible_ms": round(visible_s * 1e3, 3), "rows_at_b": rows, "b_push_wakes": b_woken,
            "a_push_wakes": a_woken, "b_sync_rounds_after_bind": b_wake_rounds, "engine_passes": passes}
-    print(f"  path J4: {json.dumps(out)}", flush=True)
+    print(f"  path J4: {json.dumps(out)} | {gpu}", flush=True)
     if rows != [{"title": "pushed"}] or b_woken < 1 or a_woken != 0 or timers != (None, None) or b_wake_rounds < 1:
         raise AssertionError(f"path J4: B saw {rows} after {b_woken} wakes ({b_wake_rounds} rounds), "
                              f"A woke {a_woken} times, timers {timers}")
@@ -3854,7 +3854,7 @@ def path_j4(torch, kernels, relay):
     return launches, out
 
 
-def path_j2(torch, kernels, keep, tmp, h1):
+def path_j2(torch, kernels, keep, tmp, h1, gpu=""):
     """J2, H1 on the event-loop tier: path H1's bodies (E1 then E2, 2,000
     requests, 1,160,000 messages), not encoded again, POSTed from H1's 32
     client lanes to a fresh event-tier batching card relay with the push
@@ -3923,7 +3923,7 @@ def path_j2(torch, kernels, keep, tmp, h1):
            "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}, "compare_s": round(compare_s, 3),
            "h1": {k: h1[k] for k in ("msgs_per_s", "requests_per_s", "latency_ms_p50", "latency_ms_p99",
                                      "engine_passes", "pass_requests_mean", "wall_s")}}
-    print(f"  path J2: {json.dumps(out)}", flush=True)
+    print(f"  path J2: {json.dumps(out)} | {gpu}", flush=True)
     if counts["poisoned_batches"] or counts["singles"] or counts["batches"] != len(sizes) \
             or counts["coalesced"] != len(bodies) or conn["shed_total"]:
         raise AssertionError(f"path J2: scheduler counts {counts}, conn {conn} for {len(sizes)} engine passes")
@@ -3989,11 +3989,11 @@ def path_j(torch, kernels, keep, tmp, h1, gpu=""):
     relay = RelayServer(RelayStore(os.path.join(tmp, "j1.db"), backend="native"), batching=True,
                         connection_tier="eventloop").start()
     try:
-        per["j1"], report["j1"] = path_j1(torch, kernels, relay)
-        per["j4"], report["j4"] = path_j4(torch, kernels, relay)
+        per["j1"], report["j1"] = path_j1(torch, kernels, relay, gpu)
+        per["j4"], report["j4"] = path_j4(torch, kernels, relay, gpu)
     finally:
         relay.stop()
-    per["j2"], report["j2"] = path_j2(torch, kernels, keep, tmp, h1)
+    per["j2"], report["j2"] = path_j2(torch, kernels, keep, tmp, h1, gpu)
     keep.clear()
     per["j3"], report["j3"] = path_j3(torch, kernels, tmp)
     report["launches"] = per
