@@ -3,7 +3,8 @@
 LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
 receive, the relay as a live HTTP server, the relay tier's replication
-half, and push subscriptions on the event-loop connection tier. Needs one
+half, push subscriptions on the event-loop connection tier, and the
+write-behind storage inversion. Needs one
 NVIDIA Hopper card, g++, libsqlite3.so.0
 and libcrypto; run from the repo root:
 
@@ -187,8 +188,8 @@ failure ends the run with a traceback and a nonzero code):
               subscriptions, threads and RSS at 0, 5,000 and 10,000
               (threads flat, under 64); 12 rounds of 8 probes parked on a
               hot owner, a writer's POST and each woken probe's
-              confirmation sync round, against a 1.0 s polling baseline
-              (push p50 at least 5x better). J4, on J1's relay: two
+              confirmation sync round, against 6 rounds of a 1.0 s
+              polling baseline (push p50 at least 5x better). J4, on J1's relay: two
               `create_evolu` handles with `push_subscribe=True` and no
               timer; a mutation on one becomes visible on the other
               through a push wake alone. J2: H1's bodies (not encoded
@@ -200,12 +201,31 @@ failure ends the run with a traceback and a nonzero code):
               equal with Date masked, both stores and `/stats` push
               sections equal. H = X = engine passes in every step, L = S
               = 0.
-14. columns — the reconcile pass from device-resident columns at 1M
+14. path K  — the write-behind storage inversion: serve from in-memory
+              trees, ACK into an fsync'd log, drain to SQLite later. K1:
+              H1's bodies from its 32 lanes to a batching card relay with
+              `write_behind=True` at the Config's defaults (503 +
+              Retry-After when the queue is full, retried by
+              `_http_post`): serve and end-to-end msgs/s (the latter with
+              the flush), p50/p99, passes, 503 answers, the largest
+              backlog and the log's append time, beside H1's; responses
+              equal path E's, tables path E's store's after the flush,
+              /health 200 and an empty log after `stop()`. K2: H2's
+              batches through `run_batch_wire` with a queue over 4 native
+              shards and 4 drain workers, serve ms a batch beside H2's,
+              the flush, responses and drained tables equal path E's. K3:
+              crash and replay through `tests/_torch_write_behind_worker.py`
+              (12 seeded batches of ~8,000 messages served on the card,
+              SIGKILL at a seeded ACK, replay in a fresh process), on 1
+              shard and on 3 with 3 workers: the replayed state equals a
+              synchronous card twin, the replay launches nothing, and its
+              rows/s. H = X = engine dispatches in every step, L = S = 0.
+15. columns — the reconcile pass from device-resident columns at 1M
               messages (1k owners; the 10M pass was cut when path J was
               added), per-stage times with CUDA events, rows/s and peak
               device memory; outputs equal to the same pass with every
               kernel swapped for its plain version.
-15. timing  — L, X, H and their plain versions timed on the inputs the
+16. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them; S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
@@ -2724,7 +2744,18 @@ def h_stream_split(torch, eng):
                          (eng.BatchReconciler, "_respond_wire", "respond", False)])
 
 
-def path_h1(torch, kernels, keep, tmp):
+def h1_bodies():
+    """Path E's E1 and E2 requests encoded as sync POST bodies, in H1's
+    order; made in a process of the spawned pool while the card runs paths
+    B to E (the encoding, 3–5 s, was cut from H1's phase when path K was
+    added)."""
+    from evolu_tpu_torch.sync import protocol
+
+    _pool, e1, e2, _e3 = e_requests()
+    return [protocol.encode_sync_request(r) for r in e1 + e2]
+
+
+def path_h1(torch, kernels, keep, tmp, bodies):
     """H1, the live relay at config 3: path E's E1 requests (1M messages over
     1k owners), then its E2 requests, POSTed over HTTP by `sync.client.
     _http_post` from H_CLIENTS threads, each owning a disjoint slice of
@@ -2732,7 +2763,8 @@ def path_h1(torch, kernels, keep, tmp):
     `RelayServer(RelayStore(<file>, backend="native"), batching=True)` with
     `device=None`: every batch takes `start_batch`/`finish_batch` on the
     card. Every response equals path E's and the tables path E's store (a
-    batch never holds two requests of one owner). → (launches, report)."""
+    batch never holds two requests of one owner). `bodies`: the requests
+    encoded (`h1_bodies`). → (launches, report)."""
     import threading
 
     from evolu_tpu_torch.server import engine as eng
@@ -2741,10 +2773,10 @@ def path_h1(torch, kernels, keep, tmp):
     from evolu_tpu_torch.sync.client import _http_post
 
     (e1, e1_out), (e2, e2_out), generic = keep["e1"], keep["e2"], keep["store"]
-    t0 = time.perf_counter()
     jobs = [(r, out) for reqs, outs in ((e1, e1_out), (e2, e2_out)) for r, out in zip(reqs, outs)]
-    bodies = [protocol.encode_sync_request(r) for r, _ in jobs]
-    encode_s = time.perf_counter() - t0
+    if len(bodies) != len(jobs) or any(protocol.decode_sync_request(bodies[i]) != jobs[i][0]
+                                       for i in range(0, len(jobs), 97)):
+        raise AssertionError("path H1: the pool's bodies are not path E's requests")
     slot = {}
     for i, (r, _) in enumerate(jobs):
         slot.setdefault(r.user_id, len(slot) % H_CLIENTS)
@@ -2811,8 +2843,7 @@ def path_h1(torch, kernels, keep, tmp):
            # The dispatcher's stages by its own wall clock, GIL waits
            # included; the handler threads' decode summed over the threads.
            "stream_split_s": {k: round(v, 4) for k, v in stages.items()},
-           "handler_decode_s_summed": round(sum(decodes), 4),
-           "bodies_encode_s": round(encode_s, 3), "compare_s": round(time.perf_counter() - t1, 3)}
+           "handler_decode_s_summed": round(sum(decodes), 4), "compare_s": round(time.perf_counter() - t1, 3)}
     print(f"  path H1: {json.dumps(out)}", flush=True)
     if counts["poisoned_batches"] or counts["singles"] or counts["batches"] != len(sizes) \
             or counts["coalesced"] != len(jobs):
@@ -2965,17 +2996,18 @@ def path_h3(torch, kernels, oracle, gpu=""):
     return launches, out
 
 
-def path_h(torch, kernels, keep, tmp, h3_oracle, gpu=""):
+def path_h(torch, kernels, keep, tmp, h3_oracle, bodies, gpu=""):
     """Path H: H1, H2 and H3, each with its own launch counts (summed as
     path H). Closes path E's store at the end; H1's relay stays up in
     `keep["h1_server"]` beside path E's store dump, for path I. →
     (launches, report)."""
     report, per = {}, {}
     try:
-        per["h1"], report["h1"] = path_h1(torch, kernels, keep, tmp)
+        per["h1"], report["h1"] = path_h1(torch, kernels, keep, tmp, bodies)
         per["h2"], report["h2"] = path_h2(torch, kernels, keep)
         keep.pop("store").close()
-        del keep["e1"], keep["e2"]
+        # Path K's K2 runs H2's batches again.
+        keep["k_requests"] = (keep.pop("e1")[0], keep.pop("e2")[0])
         per["h3"], report["h3"] = path_h3(torch, kernels, h3_oracle, gpu)
     finally:
         if "store" in keep:
@@ -3548,15 +3580,15 @@ def http_json_post(url, payload):
 
 def path_i(torch, kernels, keep, tmp, gpu=""):
     """Path I: I1, I2 and I3, each with its own launch counts (summed as
-    path I). Stops H1's relay after I1; keeps only what path J needs in
-    `keep` after I2. → (launches, report)."""
+    path I). Stops H1's relay after I1; keeps only what paths J and K need
+    in `keep` after I2. → (launches, report)."""
     report, per = {}, {}
     try:
         per["i1"], report["i1"] = path_i1(torch, kernels, keep, tmp)
     finally:
         keep.pop("h1_server").stop()
     per["i2"], report["i2"] = path_i2(torch, kernels, keep, tmp)
-    for k in [k for k in keep if k not in ("h1_replay", "store_dump")]:  # path J's J2 needs these two
+    for k in [k for k in keep if k not in ("h1_replay", "store_dump", "k_requests")]:  # for J2, K1 and K2
         del keep[k]
     per["i3"], report["i3"] = path_i3(torch, kernels, tmp)
     report["launches"] = per
@@ -3568,7 +3600,8 @@ def path_i(torch, kernels, keep, tmp, gpu=""):
 
 J_IDLE = 10_000  # J1's parked idle long-polls (benchmarks/push_subscriptions.py: n_idle)
 J_PROBES = 8  # probes parked on the hot owner a round (the bench's n_probes)
-J_ROUNDS = 12  # push rounds, then as many polling-baseline rounds (the bench's rounds)
+J_ROUNDS = 12  # push rounds (the bench's rounds)
+J_POLL_ROUNDS = 6  # polling-baseline rounds (12 in the bench; cut when path K was added)
 J_POLL_INTERVAL_S = 1.0  # the polling baseline's interval (the bench's POLL_INTERVAL_S)
 J_IDLE_TIMEOUT_S = 55.0  # the hub's park ceiling: the idle fleet stays parked through J1
 J_FD_MARGIN = 4096  # descriptors a process keeps besides one end of every idle connection
@@ -3698,7 +3731,7 @@ def path_j1(torch, kernels, relay, gpu=""):
     (so each waits for the round's write; the bench's cursor 0 answers at
     once after its first round), a writer's POST of one message, and each
     woken probe's confirmation sync round (push latency = POST to the
-    round's answer); then the polling baseline at
+    round's answer); then J_POLL_ROUNDS rounds of the polling baseline at
     J_POLL_INTERVAL_S (pollers spread over the interval, latency = POST to
     the first poll that sees the row). Push p50 must beat it 5x. →
     (launches, report)."""
@@ -3760,7 +3793,7 @@ def path_j1(torch, kernels, relay, gpu=""):
             if done != J_PROBES:
                 raise AssertionError(f"path J1: round {rnd}: {done}/{J_PROBES} probes woke")
         poll_lat = []
-        for rnd in range(J_ROUNDS):
+        for rnd in range(J_POLL_ROUNDS):
             offsets = [(i + 0.5) / J_PROBES * J_POLL_INTERVAL_S for i in range(J_PROBES)]
             t1 = time.monotonic()
             _http_post(relay.url, j_body(hot, J_WRITER, seq, 1))
@@ -3787,6 +3820,7 @@ def path_j1(torch, kernels, relay, gpu=""):
     counts = dict(relay.scheduler.counts)
     out = {"n_idle": n_idle, "fd_limits": fds, "idle_scaling": scaling, "park_s": round(park_s, 3),
            "idle_parked_at_end": parked_at_end, "probes": J_PROBES, "rounds": J_ROUNDS,
+           "poll_rounds": J_POLL_ROUNDS,
            "push_ms": push_ms, "poll_ms": poll_ms, "push_vs_poll_p50_factor": round(factor, 2),
            "push": relay.push_hub.stats_payload(), "conn": relay._httpd.stats_payload(),
            "engine_passes": passes, "scheduler_counts": counts,
@@ -3867,7 +3901,7 @@ def path_j2(torch, kernels, keep, tmp, h1, gpu=""):
     from evolu_tpu_torch.server.relay import RelayServer, RelayStore
     from evolu_tpu_torch.sync.client import _http_post
 
-    bodies, want, lanes, n = keep.pop("h1_replay")
+    bodies, want, lanes, n = keep["h1_replay"]
     store = RelayStore(os.path.join(tmp, "j2.db"), backend="native")
     server = RelayServer(store, batching=True, connection_tier="eventloop").start()
     got, lat, errors, sizes = [None] * len(bodies), [0.0] * len(bodies), [], []
@@ -3994,10 +4028,272 @@ def path_j(torch, kernels, keep, tmp, h1, gpu=""):
     finally:
         relay.stop()
     per["j2"], report["j2"] = path_j2(torch, kernels, keep, tmp, h1, gpu)
-    keep.clear()
     per["j3"], report["j3"] = path_j3(torch, kernels, tmp)
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["j1"]}
+    return launches, report
+
+
+# ---- path K: the write-behind storage inversion on the card ------------------------
+
+K2_MAX_ROWS = 1 << 22  # K2's queue bound: `run_batch_wire` alone has no 503 path, so E1 must fit
+K3_BATCHES = 12  # the reference torture's 12 seeded batches
+K3_SIZE = (64, 64, 500)  # owners, most owners a batch, most new messages an owner: ~8,000 messages a batch
+# The reference torture's drain stall. Most of these batches redeliver rows of some owner, and the
+# respond then waits on that owner's shard drain (the exact re-read), so a kill finds little queued:
+# on 3 shards, what the last batch left on the other shards.
+K3_DRAIN_DELAY_S = 0.15
+# (shards, drain workers, seed): one shard, then 3 shards with 3 workers. Both seeds (of the reference
+# tortures) kill after the 7th ACK (batch 6), two batches past the checkpoint of batch 4.
+K3_RUNS = ((1, 0, 71), (3, 3, 7))
+
+
+def k_dump(store):
+    """Path E's `e_dump` over every shard of a store, merged in its order."""
+    parts = [e_dump(s) for s in (getattr(store, "shards", None) or [store])]
+    if len(parts) == 1:
+        return parts[0]
+    return sorted(r for p in parts for r in p[0]), sorted(r for p in parts for r in p[1])
+
+
+def check_k(step, launches, passes):
+    """H and X launched once an engine dispatch, L and S never."""
+    expect = {"seg_lex_max_scan": 0, "seg_xor_scan": passes, "timestamp_hash": passes, "seg_sum_scan": 0}
+    if launches != expect or not passes:
+        raise AssertionError(f"path K {step}: launches {launches}, expected {expect}")
+
+
+def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
+    """K1, H1 with write-behind on: path H1's bodies (2,000 requests,
+    1,160,000 messages) from H1's 32 client lanes to
+    `RelayServer(RelayStore(<file>, backend="native"), batching=True,
+    write_behind=True)` on the card at the Config's defaults (fsync on,
+    2^20 rows, drain batches of 2^16, one drain worker). A full queue
+    answers 503 + Retry-After, which `_http_post` retries. Every response
+    equals path E's; after `flush()` the tables equal path E's store;
+    `/health` answers 200, and after `stop()` the log is its magic alone.
+    → (launches, report)."""
+    import threading
+    import urllib.request
+
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.storage import write_behind as wbm
+    from evolu_tpu_torch.sync.client import _http_post
+
+    bodies, want, lanes, n = keep["h1_replay"]
+    path = os.path.join(tmp, "k1.db")
+    server = RelayServer(RelayStore(path, backend="native"), batching=True, write_behind=True).start()
+    wb = server.write_behind
+    got, lat, errors, sizes, stalled, appends, backlog = [None] * len(bodies), [0.0] * len(bodies), [], [], [], [], [0]
+    routes0, deferred0 = dict(eng.counts), dict(eng.deferred_counts)
+    orig_run = eng.BatchReconciler.run_batch_wire
+
+    def sized(self, requests):
+        sizes.append(len(requests))
+        try:
+            return orig_run(self, requests)
+        except wbm.WriteBehindFull:
+            stalled.append(len(requests))
+            raise
+        finally:
+            backlog[0] = max(backlog[0], wb.backlog()[1])
+
+    def lane(ix):
+        try:
+            for i in ix:
+                t1 = time.perf_counter()
+                got[i] = _http_post(server.url, bodies[i])
+                lat[i] = time.perf_counter() - t1
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    reset(kernels)
+    try:
+        with patched(eng.BatchReconciler, "run_batch_wire", sized), durations(wb, "_log_append", appends):
+            threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            wb.flush()
+            flush_s = time.perf_counter() - t0
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        counts, wb_counts = dict(server.scheduler.counts), dict(wb.counts)
+        deferred = {k: eng.deferred_counts[k] - deferred0[k] for k in deferred0}
+        if errors:
+            raise AssertionError("path K1: a client's POST failed") from errors[0]
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad:
+            raise AssertionError(f"path K1: {len(bad)} responses differ from path E's (first: request {bad[0]})")
+        with urllib.request.urlopen(server.url + "/health", timeout=60) as r:
+            health = (r.status, json.loads(r.read()))
+        t1 = time.perf_counter()
+        if k_dump(server.store) != keep["store_dump"]:
+            raise AssertionError("path K1: after the flush the tables differ from path E's store")
+        compare_s = time.perf_counter() - t1
+    finally:
+        server.stop()
+    with open(path + ".wblog", "rb") as f:
+        log_after_stop = f.read()
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {"requests": len(bodies), "messages": n, "client_threads": len(lanes),
+           "serve_wall_s": round(wall, 4), "serve_msgs_per_s": round(n / wall),
+           "requests_per_s": round(len(bodies) / wall, 1), "latency_ms_p50": round(lat_ms[len(lat_ms) // 2], 3),
+           "latency_ms_p99": round(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))], 3),
+           "engine_passes": len(sizes), "stalled_passes": len(stalled),
+           "backpressure_503": sum(stalled) + counts["rejected"], "backlog_rows_max": backlog[0],
+           "log_appends": len(appends), "log_append_s": round(sum(appends), 4),
+           "flush_s": round(flush_s, 4), "end_to_end_msgs_per_s": round(n / (wall + flush_s)),
+           "health": health[0], "queue_counts": wb_counts, "deferred_counts": deferred,
+           "scheduler_counts": counts,
+           "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}, "compare_s": round(compare_s, 3),
+           "h1": {k: h1[k] for k in ("msgs_per_s", "requests_per_s", "latency_ms_p50", "latency_ms_p99",
+                                     "engine_passes", "wall_s")}}
+    print(f"  path K1: {json.dumps(out)} | {gpu}", flush=True)
+    if counts["poisoned_batches"] or counts["singles"] or counts["batches"] != len(sizes) - len(stalled) \
+            or counts["coalesced"] != len(bodies):
+        raise AssertionError(f"path K1: scheduler counts {counts} for {len(sizes)} engine passes")
+    if health[0] != 200 or health[1]["write_behind"]["backlog_rows"] or log_after_stop != wbm.LOG_MAGIC:
+        raise AssertionError(f"path K1: /health {health}, {len(log_after_stop)} log bytes after stop()")
+    if wb_counts["queued"] != wb_counts["drained"] or wb_counts["drain_failures"] \
+            or deferred["passes"] != len(sizes):
+        raise AssertionError(f"path K1: queue counts {wb_counts}, {deferred} for {len(sizes)} passes")
+    check_k("K1", launches, passes)
+    return launches, out
+
+
+def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
+    """K2, H2 with write-behind on: E1 in H2's 8 batches of 125 owners, then
+    E2, through `run_batch_wire` with a `WriteBehindQueue` (its log beside
+    the shards, 4 drain workers) over a 4-shard native file
+    `ShardedRelayStore`. Serve ms of each batch beside H2's, then the
+    flush; the responses equal path E's, the drained tables path E's
+    store's. → (launches, report)."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+
+    e1, e2 = keep["k_requests"]
+    want = keep["h1_replay"][1]
+    per = len(e1) // H2_BATCHES
+    batches = [e1[i * per:(i + 1) * per] for i in range(H2_BATCHES - 1)] + [e1[(H2_BATCHES - 1) * per:], e2]
+    n = sum(len(r.messages) for b in batches for r in b)
+    path = os.path.join(tmp, "k2.db")
+    store = ShardedRelayStore(path, backend="native", shards=4)
+    wb = WriteBehindQueue(store, log_path=path + ".wblog", max_rows=K2_MAX_ROWS, drain_workers=4)
+    rec = eng.BatchReconciler(store, write_behind=wb)
+    routes0, deferred0 = eng.counts.copy(), eng.deferred_counts["passes"]
+    reset(kernels)
+    got, per_batch = [], []
+    try:
+        t0 = time.perf_counter()
+        for b in batches:
+            t1 = time.perf_counter()
+            got += rec.run_batch_wire(b)
+            per_batch.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wb.flush()
+        flush_s = time.perf_counter() - t0
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad or len(got) != len(want):
+            raise AssertionError(f"path K2: {len(bad)} responses differ from path E's")
+        if k_dump(store) != keep["store_dump"]:
+            raise AssertionError("path K2: the drained tables differ from path E's store")
+        wb_counts = dict(wb.counts)
+        deferred = eng.deferred_counts["passes"] - deferred0
+    finally:
+        wb.close()
+        rec.close()
+        store.close()
+    h2_rbw = h2["run_batch_wire"]["per_batch_ms"]
+    out = {"batches": len(batches), "messages": n, "shards": 4, "drain_workers": 4,
+           "serve_wall_s": round(wall, 4), "serve_msgs_per_s": round(n / wall),
+           "per_batch_ms": [round(x * 1e3, 2) for x in per_batch], "flush_s": round(flush_s, 4),
+           "end_to_end_msgs_per_s": round(n / (wall + flush_s)), "queue_counts": wb_counts,
+           "deferred_passes": deferred, "h2_run_batch_wire": {"msgs_per_s": h2["run_batch_wire"]["msgs_per_s"],
+                                 "per_batch_ms": [round(a + b, 2) for a, b in zip(h2_rbw["dispatch"],
+                                                                                    h2_rbw["host_leg"])]}}
+    print(f"  path K2: {json.dumps(out)} | {gpu}", flush=True)
+    if wb_counts["queued"] != wb_counts["drained"] or wb_counts["drain_failures"] or wb_counts["stalls"] \
+            or deferred != len(batches):
+        raise AssertionError(f"path K2: queue counts {wb_counts}, {deferred} deferred passes")
+    check_k("K2", launches, passes)
+    return launches, out
+
+
+def path_k3(torch, kernels, tmp, gpu=""):
+    """K3, crash and replay on the card, through `tests/
+    _torch_write_behind_worker.py` (the port's copy of the reference
+    torture's worker): a child serves K3_BATCHES seeded batches of ~8,000
+    messages on the card with the drain slowed and a checkpoint every 4th
+    batch, the parent SIGKILLs it at a seeded ACK count, and a fresh
+    process replays the log (the host fold: no kernel) and flushes. Its
+    state crc must equal a synchronous card twin's of the ACKed prefix (or
+    prefix+1, or a record prefix of the next batch on 3 shards). In the
+    serving child H = X = its engine dispatches up to the last ACK; the
+    parent's launches are its twins'. The two runs go side by side, each
+    in its own thread. → (launches, report)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from evolu_tpu_torch.server import engine as eng
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_write_behind_worker as worker
+
+    def run(shards, workers, seed):
+        d = os.path.join(tmp, f"k3-{shards}")
+        os.makedirs(d, exist_ok=True)
+        t0 = time.perf_counter()
+        got = worker.torture(os.path.join(d, "victim.db"), seed, K3_BATCHES, K3_DRAIN_DELAY_S, shards, workers,
+                             device="cuda", size=K3_SIZE, twin_device="cuda")
+        return got, time.perf_counter() - t0
+
+    out = {}
+    routes0 = dict(eng.counts)
+    reset(kernels)
+    with ThreadPoolExecutor(len(K3_RUNS)) as pool:
+        runs = [pool.submit(run, *r) for r in K3_RUNS]
+        results = [f.result() for f in runs]
+    for (shards, workers, seed), (got, wall) in zip(K3_RUNS, results):
+        fin, child = got["finish"], got["child"]
+        h, x, lex, s = (int(v) for v in child["launches"].split(","))
+        rows, replay_s = int(fin["rows"]), float(fin["replay_s"])
+        step = {"shards": shards, "drain_workers": workers, "seed": seed, "acked_batches": got["acked"] + 1,
+                "acked_messages": got["messages"], "crc": got["crc"], "accepted": sorted(got["accepted"]),
+                "replayed_records": int(fin["records"]), "replayed_rows": rows, "replay_s": replay_s,
+                "replay_rows_per_s": round(rows / replay_s) if replay_s else None,
+                "replay_launches": int(fin["launches"]), "child_passes": int(child["passes"]),
+                "child_launches_hxls": [h, x, lex, s], "wall_s": round(wall, 3)}
+        out[f"shards_{shards}"] = step
+        print(f"  path K3: {json.dumps(step)} | {gpu}", flush=True)
+        if got["crc"] not in got["accepted"]:
+            raise AssertionError(f"path K3: the replayed state {got['crc']} matches no twin {got['accepted']}")
+        if step["replay_launches"] or [h, x, lex, s] != [step["child_passes"]] * 2 + [0, 0] or not h:
+            raise AssertionError(f"path K3: replay launches {step['replay_launches']}, serving child "
+                                 f"H, X, L, S {[h, x, lex, s]} for {step['child_passes']} passes")
+    launches = read(kernels)
+    check_k("K3 twins", launches, engine_passes(routes0))
+    return launches, out
+
+
+def path_k(torch, kernels, keep, tmp, h1, h2, gpu=""):
+    """Path K: K1, K2 and K3, each with its own launch counts (summed as path
+    K). → (launches, report)."""
+    report, per = {}, {}
+    per["k1"], report["k1"] = path_k1(torch, kernels, keep, tmp, h1, gpu)
+    per["k2"], report["k2"] = path_k2(torch, kernels, keep, tmp, h2, gpu)
+    keep.clear()
+    per["k3"], report["k3"] = path_k3(torch, kernels, tmp, gpu)
+    report["launches"] = per
+    launches = {k: sum(p[k] for p in per.values()) for k in per["k1"]}
     return launches, report
 
 
@@ -4394,10 +4690,10 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(ORACLE_PROCESSES)
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
         launches["a"] = path_a(torch, kernels, lww_names, pool)
-    # Paths D's, E's, F's and H3's oracles run in the pool while the card
-    # runs paths B to E.
+    # Paths D's, E's, F's and H3's oracles, and H1's bodies, are made in the
+    # pool while the card runs paths B to E.
     d_oracle_job, e_oracle_job = pool.apply_async(d_oracle), pool.apply_async(e_oracle)
-    f_oracle_job = pool.apply_async(f_oracle)
+    f_oracle_job, h1_bodies_job = pool.apply_async(f_oracle), pool.apply_async(h1_bodies)
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
         launches["b"] = path_b(torch, kernels, lww_names)
     captured, c2_calls = {}, {}
@@ -4423,6 +4719,7 @@ def main() -> int:
         launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, g1_oracle, pool)
         del batches_d, g1_oracle
         print("  " + json.dumps(report_g1) + f" | {gpu}", flush=True)
+    bodies_h1 = h1_bodies_job.get()
     pool.terminate()
     pool.join()
     with phase("path G2: the relay's packed ingest on native stores vs path E's generic ingest", gpu):
@@ -4433,7 +4730,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp_hi:
         with phase("path H: the relay as a live HTTP server (batching RelayServer, the streaming ingest, "
                    "clients on the v2 wire) vs path E and path F's oracle set", gpu):
-            launches["h"], report_h = path_h(torch, kernels, keep_e, tmp_hi, h3_oracle, gpu)
+            launches["h"], report_h = path_h(torch, kernels, keep_e, tmp_hi, h3_oracle, bodies_h1, gpu)
+            del bodies_h1
             print("  " + json.dumps(report_h["launches"]) + f" | {gpu}", flush=True)
         with phase("path I: the relay tier on the card (anti-entropy at full state, snapshot bootstrap and "
                    "checkpoint, the owner-sharded fleet) vs their oracles", gpu):
@@ -4443,6 +4741,10 @@ def main() -> int:
                    "engine passes, H1 on the event tier, tier byte identity, the client's push leg)", gpu):
             launches["j"], report_j = path_j(torch, kernels, keep_e, tmp_hi, report_h["h1"], gpu)
             print("  " + json.dumps(report_j["launches"]) + f" | {gpu}", flush=True)
+        with phase("path K: the write-behind storage inversion (H1 and H2 with write-behind on, crash and "
+                   "replay) vs path E and synchronous twins", gpu):
+            launches["k"], report_k = path_k(torch, kernels, keep_e, tmp_hi, report_h["h1"], report_h["h2"], gpu)
+            print("  " + json.dumps(report_k["launches"]) + f" | {gpu}", flush=True)
     reports = []
     # The 1M pass gives L, H and X their timed inputs (the 10M pass was cut
     # when path J was added).
@@ -4474,7 +4776,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -4486,7 +4788,7 @@ def main() -> int:
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
-                      "relay_tier": report_i, "push_tier": report_j}))
+                      "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k}))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,13 +19,19 @@ and:
 3. applies the deltas to each owner's sparse tree, persists, and
    answers each request with the standard diff response.
 
+With a write-behind queue attached (`write_behind=`, storage/
+write_behind.py) `run_batch_wire` defers step 3's persistence: the pass
+folds the deltas onto the queue's in-memory trees, ACKs the packed rows
+into the queue's fsync'd log, and answers from memory
+(`_finish_batch_deferred`); drain workers materialize SQLite later.
+
 The JAX package shards owners over a device mesh and XOR-all-reduces
 the digest; one card is one shard, so the all-reduce is the identity.
 Every entry point runs on the card unless the caller passes
 `device="cpu"`; without a card it raises.
 
 Not ported yet, and refused with NotImplementedError before any side
-effect rather than rerouted: the write-behind mode and scoped requests.
+effect rather than rerouted: scoped requests, in either mode.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 
 from evolu_tpu_torch.core.merkle import (
     apply_prefix_xors,
+    diff_merkle_trees,
     merkle_tree_from_string,
     merkle_tree_to_string,
     minute_deltas_host,
@@ -58,16 +65,19 @@ from evolu_tpu_torch.sync import protocol
 # Dispatches by route, in place of the reference's metrics: `delta` and
 # `full` count the 16-B and 20-B compact uploads, `overflow` the
 # full-width reruns after a cap overflow, `host_owners` the owners whose
-# non-canonical hex case sent them to the host fold. Every engine of the
-# process counts here, from whichever thread dispatches: `_count` takes
-# the lock.
+# non-canonical hex case sent them to the host fold. `deferred_counts`:
+# the write-behind passes, and the rows their in-batch dedup dropped (the
+# reference's `store.duplicate` ledger terminal for them). Every engine of
+# the process counts here, from whichever thread dispatches: `_count`
+# takes the lock.
 counts = {"delta": 0, "full": 0, "overflow": 0, "host_owners": 0}
+deferred_counts = {"passes": 0, "store_duplicate": 0}
 _counts_lock = threading.Lock()
 
 
-def _count(key: str, n: int = 1) -> None:
+def _count(key: str, n: int = 1, table=counts) -> None:
     with _counts_lock:
-        counts[key] += n
+        table[key] += n
 
 
 def _merkle_shard_kernel(millis, counter, node, valid, owner_ix):
@@ -370,13 +380,12 @@ class _PackedRows:
 class BatchReconciler:
     """Reconcile a batch of SyncRequests against one RelayStore or a
     ShardedRelayStore, the Merkle leg on `device` (None = the card; raises
-    without one)."""
+    without one). `write_behind`, a `storage.write_behind.WriteBehindQueue`
+    over the same store, turns on the deferred serve of `run_batch_wire`."""
 
     def __init__(self, store, device=None, write_behind=None):
-        if write_behind is not None:
-            raise NotImplementedError(
-                "evolu_tpu_torch: the write-behind engine mode is not ported yet")
         self.store = store
+        self.write_behind = write_behind
         self.device = resolve_device(device)
         self._executor = None
         self._pull_pool = None
@@ -876,15 +885,146 @@ class BatchReconciler:
 
     def run_batch_wire(self, requests: Sequence[protocol.SyncRequest]) -> List[bytes]:
         """ONE engine/store pass for a live micro-batch → wire bytes per
-        request (the scheduler's entry point). Stores with the packed
-        insert take `start_batch`/`finish_batch` (in-batch dedup in
-        request order, the optimistic device hash, one insert and tree
+        request (the scheduler's entry point). With a write-behind queue
+        attached the pass defers SQLite (`_finish_batch_deferred`): serve
+        from in-memory trees, ACK into the durable log, answer; a
+        `WriteBehindFull` raised before the ACK leaves no state anywhere
+        (the scheduler answers 503 + Retry-After). Otherwise stores with
+        the packed insert take `start_batch`/`finish_batch` (in-batch dedup
+        in request order, the optimistic device hash, one insert and tree
         commit a shard); anything else takes `reconcile_wire`. Either way
         a failure rolls every shard transaction back before raising: the
         scheduler's singleton retry depends on that."""
+        if self.write_behind is not None and hasattr(self.store, "get_merkle_tree_string"):
+            return self._finish_batch_deferred(self.start_batch(requests))
         if self._packed_store():
             return self.finish_batch(self.start_batch(requests), wire=True)
         return self.reconcile_wire(requests)
+
+    # -- the write-behind serve: the in-memory trees are the truth --
+
+    def _finish_batch_deferred(self, st) -> List[bytes]:
+        """Land a staged batch WITHOUT touching the btree: fold the device
+        deltas onto the queue's per-owner trees (optimistically: every
+        in-batch-deduped row XORs, and rows already stored are corrected
+        exactly at drain time), append the packed row buffers and the tree
+        strings to the durable log (the ACK point), and answer from the
+        in-memory trees. Nothing is installed if the append raises."""
+        from evolu_tpu_torch.storage.write_behind import IngestRecord
+
+        wb = self.write_behind
+        requests = st["requests"]
+        live, shard_data = st["live"], st["shard_data"]
+        trees: Dict[str, dict] = {}
+        strings: Dict[str, str] = {}
+        _count("passes", table=deferred_counts)
+        if not live:
+            return self._respond_deferred(requests, trees, strings)
+        deltas_by_owner, _digest = deltas_finish(st["dev"])
+        for o, deltas in deltas_by_owner.items():
+            if not deltas:
+                continue
+            cached = wb.serving_tree(o)
+            if cached is not None:
+                base_tree = cached[0]
+            else:
+                # Only the owner's SHARD lock: the other shards' drains run on.
+                with wb.owner_lock(o):
+                    raw = self.store.get_merkle_tree_string(o)
+                base_tree = merkle_tree_from_string(raw)
+            trees[o] = apply_prefix_xors(base_tree, deltas)
+            strings[o] = merkle_tree_to_string(trees[o])
+        records = []
+        for si in live:
+            gu, gc, ts_packed, content_packed, lens = shard_data[si]
+            seen_o: set = set()
+            tree_rows = []
+            for o in gu:
+                if o in strings and o not in seen_o:
+                    seen_o.add(o)
+                    tree_rows.append((o, strings[o]))
+            records.append(IngestRecord(gu, gc, ts_packed, content_packed, lens, tree_rows))
+        wb.append_batch(records, {o: (trees[o], strings[o]) for o in strings})
+        # The queue counted its rows; the rows the in-batch dedup dropped
+        # never reach it and end here, as duplicates. Nothing is counted if
+        # the append raised.
+        kept = sum(sum(shard_data[si][1]) for si in live)
+        _count("store_duplicate", sum(len(r.messages) for r in requests) - kept, deferred_counts)
+        return self._respond_deferred(requests, trees, strings)
+
+    def _resolve_tree_deferred(self, user_id: str, trees, tree_strings):
+        """`_resolve_tree` against the write-behind truth: this batch's
+        freshly folded tree, else the queue's serving tree (the owner has
+        undrained history), else the stored string (SQLite is current)."""
+        tree = trees.get(user_id)
+        if tree is not None:
+            return tree, tree_strings[user_id]
+        cached = self.write_behind.serving_tree(user_id)
+        if cached is not None:
+            tree, raw = cached
+        else:
+            with self.write_behind.owner_lock(user_id):
+                raw = self.store.get_merkle_tree_string(user_id)
+            tree = merkle_tree_from_string(raw)
+        trees[user_id] = tree
+        tree_strings[user_id] = raw
+        return tree, raw
+
+    def _respond_deferred(self, requests, trees, strings) -> List[bytes]:
+        """Bytes-mode respond of the deferred path. Trees that agree after
+        the push answer tree-only from memory, with no SQLite. A non-empty
+        diff needs stored messages: wait on the owner's drain watermark,
+        re-read the owner's EXACT committed tree, and serve the stream under
+        the owner's shard lock.
+
+        The exact re-read matters beyond precision: a duplicate-carrying
+        push folds an already-stored row's hash onto a base that holds it
+        (XOR-cancel), so the optimistic tree claims the row is missing.
+        Serving it would make the client re-send the row every round, each
+        redelivery cancelling it again: a retry livelock. After the flush
+        SQLite holds the drain-corrected tree, so the served tree converges.
+        Shards that cannot serve the stream degrade to the batched object
+        respond, also after the flush."""
+        wb = self.write_behind
+        shards, shard_ix = self._shards()
+        out: List[Optional[bytes]] = []
+        fallback: List[Tuple[int, protocol.SyncRequest]] = []
+        for i, r in enumerate(requests):
+            tree, raw = self._resolve_tree_deferred(r.user_id, trees, strings)
+            client_tree = merkle_tree_from_string(r.merkle_tree)
+            if diff_merkle_trees(tree, client_tree) is None:
+                out.append(protocol._string(2, raw))
+                continue
+            wb.flush_owner(r.user_id)
+            with wb.owner_lock(r.user_id):
+                raw = self.store.get_merkle_tree_string(r.user_id)
+            tree = merkle_tree_from_string(raw)
+            trees[r.user_id] = tree
+            strings[r.user_id] = raw
+            if diff_merkle_trees(tree, client_tree) is None:
+                # The divergence was the duplicate-cancel artifact.
+                out.append(protocol._string(2, raw))
+                continue
+            db = getattr(shards[shard_ix(r.user_id)], "db", None)
+            if db is None or not hasattr(db, "fetch_relay_messages_wire"):
+                fallback.append((i, r))
+                out.append(None)
+                continue
+            try:
+                with wb.owner_lock(r.user_id):
+                    stream = fetch_response_stream(db, r.user_id, r.node_id, tree, client_tree)
+            except NonCanonicalStoreError:
+                fallback.append((i, r))
+                out.append(None)
+                continue
+            out.append(stream + protocol._string(2, raw))
+        if fallback:
+            # The one deferred-mode site that needs the whole-store lock.
+            with wb.db_lock:
+                resps = self._respond([r for _i, r in fallback], trees, strings)
+            for (i, _r), resp in zip(fallback, resps):
+                out[i] = protocol.encode_sync_response(resp)
+        return out
 
     def _respond_wire(
         self, requests, trees: Dict[str, dict],

@@ -23,8 +23,8 @@ into a fleet that partitions owners across relays:
   after the capture heal through scoped gossip.
 
 Departures from the reference: plain per-object `counts` in place of the
-`evolu_fleet_*` metrics, no ledger terminals or logs; `write_behind` is
-refused until it is ported.
+`evolu_fleet_*` metrics, no ledger terminals or logs. With a
+`write_behind` queue an owner move installs behind its `drain_barrier()`.
 
 `python -m evolu_tpu_torch.server.fleet` runs one fleet relay process,
 batching on the card with `--batching`.
@@ -36,6 +36,7 @@ import bisect
 import hashlib
 import threading
 import time
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from evolu_tpu_torch.sync import protocol
@@ -123,11 +124,8 @@ class FleetManager:
 
         from evolu_tpu_torch.sync.client import _http_post
 
-        if write_behind is not None:
-            raise NotImplementedError(
-                "evolu_tpu_torch: the write-behind storage inversion is not ported yet "
-                "(ROADMAP queue 1 item 6c)")
         self.store = store
+        self.write_behind = write_behind
         self.self_url = self_url.rstrip("/")
         self.replication = replication
         self._post = http_post or functools.partial(_http_post, retries=0)
@@ -343,7 +341,11 @@ class FleetManager:
                 return 0
             self._installing.update(gained)
         try:
-            installed_msgs, shipped_trees = self._install_from_snapshot(peer_url, set(gained))
+            # With write-behind on, the install sees and writes committed
+            # state only, and no serve folds onto a pre-install tree.
+            barrier = self.write_behind.drain_barrier() if self.write_behind is not None else nullcontext()
+            with barrier:
+                installed_msgs, shipped_trees = self._install_from_snapshot(peer_url, set(gained))
         except BaseException:
             # A prefix landed through the idempotent XOR gate: safe. Unmark;
             # scoped gossip pulls the rest.

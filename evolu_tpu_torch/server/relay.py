@@ -17,7 +17,10 @@ Merkle anti-entropy (`server/replicate.py`, POST `/replicate/*`, with
 snapshot bootstrap and checkpoints from `server/snapshot.py`), and
 `enable_fleet` joins an owner-sharded fleet (`server/fleet.py`: GET
 `/fleet`, POST `/fleet/forward` and `/fleet/reload`, 307 / forward
-routing). `MultiprocessRelay` pre-forks worker processes (`python -m
+routing). `write_behind=True` turns on the write-behind storage inversion
+(`storage/write_behind.py`: batches answer from in-memory trees, ACK into
+an fsync'd record log, and drain workers materialize SQLite later).
+`MultiprocessRelay` pre-forks worker processes (`python -m
 evolu_tpu_torch.server.relay_worker`) that serve the per-request host path
 over one shared file-backed store. The endpoints of the observability tier,
 not ported yet (`/metrics`, `/ledger`, `/trace`, `/profile`), answer 404,
@@ -43,6 +46,7 @@ import dataclasses
 import json
 import os
 import threading
+from contextlib import nullcontext
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -357,12 +361,12 @@ class _Counts:
 
 
 def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
-                        push_hub=None, conn_tier=None) -> dict:
+                        push_hub=None, conn_tier=None, write_behind=None) -> dict:
     """The GET /stats JSON: the store's row counts a shard (shared truth in
     a MultiprocessRelay) with this process's sync requests a shard, and
-    its request and error totals; with replication, a fleet, a push hub or
-    the event-loop tier attached, their `replication`, `fleet`, `push` and
-    `conn` sections."""
+    its request and error totals; with replication, a fleet, a push hub,
+    the event-loop tier or a write-behind queue attached, their
+    `replication`, `fleet`, `push`, `conn` and `write_behind` sections."""
     shards = store.stats() if hasattr(store, "stats") else []
     for s in shards:
         s["requests"] = counts.shard_requests.get(s["index"], 0)
@@ -381,6 +385,8 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
         payload["push"] = push_hub.stats_payload()
     if conn_tier is not None:
         payload["conn"] = conn_tier.stats_payload()
+    if write_behind is not None:
+        payload["write_behind"] = write_behind.stats_payload()
     return payload
 
 
@@ -391,6 +397,7 @@ class _Handler(BaseHTTPRequestHandler):
     fleet = None  # FleetManager once the relay joined a fleet
     push_hub = None  # PushHub when push subscriptions are on (server/push.py)
     conn_tier = None  # EventLoopHTTPServer when that tier serves this relay
+    write_behind = None  # WriteBehindQueue when the storage inversion is on
     counts: _Counts
     # The capabilities this relay echoes (intersected with the request's
     # advertised set). A request with none gets the v1 wire, byte for byte.
@@ -468,7 +475,7 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 body = json.dumps(relay_stats_payload(self.store, self.counts, self.replication,
                                                       self.fleet, self.push_hub,
-                                                      self.conn_tier)).encode("utf-8")
+                                                      self.conn_tier, self.write_behind)).encode("utf-8")
             except Exception as e:  # noqa: BLE001 - a clean 500, not a dropped connection
                 self.counts.error()
                 self.send_error(500, str(e))
@@ -488,6 +495,15 @@ class _Handler(BaseHTTPRequestHandler):
                     detail = {"status": "serving" if serving else "installing", "install_phase": phase}
                 if self.scheduler is not None:
                     detail["queue_depth"] = self.scheduler.depth()
+                if self.write_behind is not None:
+                    # A queue at its admission bound, or a drain failing
+                    # again and again (every flush-needing serve would hang
+                    # on it), is not ready: failover should route elsewhere.
+                    wbd = self.write_behind.health_payload()
+                    detail["write_behind"] = wbd
+                    if wbd["saturated"] or wbd["failing"]:
+                        serving = False
+                        detail["status"] = "backlogged" if wbd["saturated"] else "drain-failing"
             except Exception as e:  # noqa: BLE001 - the probe gets a clean 500
                 self.counts.error()
                 self.send_error(500, str(e))
@@ -617,17 +633,22 @@ class _Handler(BaseHTTPRequestHandler):
         body = self._read_body()
         if body is None:
             return
+        # Every /replicate serve reads the store: with write-behind on it
+        # drains first and holds the drain lock, so peers and snapshot
+        # pullers only ever see committed state.
+        barrier = self.write_behind.drain_barrier() if self.write_behind is not None else nullcontext()
         try:
-            if self.path == "/replicate/summary":
-                out = replicate.serve_summary(self.store, body, self.replication)
-            elif self.path == "/replicate/pull":
-                out = replicate.serve_pull(self.store, body,
-                                           per_owner=self.replication.pull_messages_per_owner,
-                                           per_response=self.replication.pull_messages_per_response)
-            elif self.path == "/replicate/snapshot":
-                out = snapshot.serve_snapshot(self.store, body, self.replication)
-            else:
-                out = snapshot.serve_snapshot_chunk(self.store, body, self.replication)
+            with barrier:
+                if self.path == "/replicate/summary":
+                    out = replicate.serve_summary(self.store, body, self.replication)
+                elif self.path == "/replicate/pull":
+                    out = replicate.serve_pull(self.store, body,
+                                               per_owner=self.replication.pull_messages_per_owner,
+                                               per_response=self.replication.pull_messages_per_response)
+                elif self.path == "/replicate/snapshot":
+                    out = snapshot.serve_snapshot(self.store, body, self.replication)
+                else:
+                    out = snapshot.serve_snapshot_chunk(self.store, body, self.replication)
         except ValueError as e:
             self.counts.error()
             self.send_error(400, str(e))
@@ -757,6 +778,28 @@ def _env_on(name: str) -> Optional[bool]:
     return env.lower() not in ("0", "false", "no", "off") if env else None
 
 
+def _write_behind_queue(store, log_path: Optional[str], cfg):
+    """The relay's write-behind queue: its log at `log_path`, else beside
+    the (first shard's) store file; the drain workers and process mode from
+    EVOLU_WB_DRAIN_WORKERS / EVOLU_WB_DRAIN_PROCESS (a set variable wins in
+    both directions), else the Config."""
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+
+    if log_path is None:
+        shards = getattr(store, "shards", None)
+        base = getattr(getattr(shards[0] if shards else store, "db", None), "path", None)
+        if base and base != ":memory:":
+            log_path = base + ".wblog"
+    env_workers = os.environ.get("EVOLU_WB_DRAIN_WORKERS", "")
+    drain_process = _env_on("EVOLU_WB_DRAIN_PROCESS")
+    return WriteBehindQueue(
+        store, log_path=log_path, max_rows=cfg.write_behind_max_rows,
+        drain_batch_rows=cfg.write_behind_drain_rows,
+        drain_workers=int(env_workers) if env_workers else cfg.wb_drain_workers,
+        drain_process=cfg.wb_drain_process if drain_process is None else drain_process,
+    )
+
+
 def _refuse(what: str, item) -> None:
     raise NotImplementedError(f"evolu_tpu_torch: {what} is not ported yet (ROADMAP queue 1 item {item})")
 
@@ -794,11 +837,20 @@ class RelayServer:
     bounded handler pool, long-polls park the bare connection); None
     resolves from `EVOLU_CONN_TIER`, then `default_config.connection_tier`.
 
+    `write_behind` turns on the write-behind storage inversion (a
+    `storage.write_behind.WriteBehindQueue` as `self.write_behind`); None
+    resolves from `EVOLU_WRITE_BEHIND` (a set variable wins in both
+    directions), then `default_config.write_behind`. It implies batching.
+    Its log is `write_behind_log`, by default `<store path>.wblog` (none for
+    a `:memory:` store); `EVOLU_WB_DRAIN_WORKERS` and
+    `EVOLU_WB_DRAIN_PROCESS`, else the Config, set the drain workers and
+    the process drain. /health answers 503 "backlogged" or "drain-failing",
+    and `stop()` drains the queue before the store closes.
+
     Refused with NotImplementedError before a socket is bound or a store
-    written, each until its ROADMAP queue-1 item is ported: `write_behind`
-    / `write_behind_log` (item 6c), `mesh_engine` / `mesh_ctx` (item 9),
-    and `capabilities` holding `sync-scope-v1` (item 7); also when
-    `EVOLU_WRITE_BEHIND` or `EVOLU_MESH_ENGINE` turn one of them on."""
+    written, each until its ROADMAP queue-1 item is ported: `mesh_engine` /
+    `mesh_ctx` (item 9), and `capabilities` holding `sync-scope-v1` (item
+    7); also when `EVOLU_MESH_ENGINE` turns the mesh engine on."""
 
     def __init__(self, store: Optional[RelayStore] = None, host: str = "127.0.0.1",
                  port: int = 0, batching: bool = False, scheduler=None,
@@ -815,10 +867,6 @@ class RelayServer:
                  connection_tier: Optional[str] = None,
                  push: Optional[bool] = None,
                  device=None):
-        if write_behind is None:
-            write_behind = _env_on("EVOLU_WRITE_BEHIND")
-        if write_behind or write_behind_log is not None:
-            _refuse("the write-behind storage inversion (write_behind, write_behind_log)", "6c")
         from evolu_tpu_torch.utils.config import default_config
 
         # Constructor argument, then EVOLU_CONN_TIER, then the Config.
@@ -843,11 +891,25 @@ class RelayServer:
             if not store_path or store_path == ":memory:":
                 raise ValueError("checkpoint_interval_s needs checkpoint_path for non-file-backed stores")
             checkpoint_path = store_path + ".checkpoint"
+        # Constructor argument, then EVOLU_WRITE_BEHIND, then the Config.
+        if write_behind is None:
+            write_behind = _env_on("EVOLU_WRITE_BEHIND")
+        if write_behind is None:
+            write_behind = default_config.write_behind
+        self.write_behind = None
+        if write_behind:
+            self.write_behind = _write_behind_queue(self.store, write_behind_log, default_config)
+            batching = True
         self.scheduler = scheduler
         if batching and scheduler is None:
             from evolu_tpu_torch.server.scheduler import SyncScheduler
 
-            self.scheduler = SyncScheduler(self.store, device=device)
+            try:
+                self.scheduler = SyncScheduler(self.store, device=device, write_behind=self.write_behind)
+            except BaseException:
+                if self.write_behind is not None:
+                    self.write_behind.close()
+                raise
         self.replication = replication
         if peers is not None and replication is None:
             from evolu_tpu_torch.server.replicate import ReplicationManager
@@ -856,12 +918,15 @@ class RelayServer:
                 self.store, peers, scheduler=self.scheduler,
                 interval_s=replication_interval_s,
                 bootstrap_lag_owners=bootstrap_lag_owners,
+                write_behind=self.write_behind,
             )
         self.checkpointer = None
         if checkpoint_interval_s is not None:
             from evolu_tpu_torch.server.snapshot import CheckpointWriter
 
-            self.checkpointer = CheckpointWriter(self.store, checkpoint_path, checkpoint_interval_s)
+            self.checkpointer = CheckpointWriter(
+                self.store, checkpoint_path, checkpoint_interval_s,
+                barrier=self.write_behind.drain_barrier if self.write_behind is not None else None)
         self.fleet = None
         # Push subscriptions: a new GET endpoint, no effect on any other
         # response. Both connection tiers serve the same hub.
@@ -881,7 +946,8 @@ class RelayServer:
         self._handler_cls = type(
             "BoundHandler", (_Handler,),
             {"store": self.store, "scheduler": self.scheduler, "replication": self.replication,
-             "capabilities": self.capabilities, "counts": self.counts, "push_hub": self.push_hub},
+             "capabilities": self.capabilities, "counts": self.counts, "push_hub": self.push_hub,
+             "write_behind": self.write_behind},
         )
         try:
             if connection_tier == "eventloop":
@@ -901,6 +967,8 @@ class RelayServer:
         except BaseException:
             if self.scheduler is not None and scheduler is None:
                 self.scheduler.stop()
+            if self.write_behind is not None:
+                self.write_behind.close()
             raise
         self._thread: Optional[threading.Thread] = None
 
@@ -913,7 +981,8 @@ class RelayServer:
         be placement-scoped. Every member must hold the same FleetConfig."""
         from evolu_tpu_torch.server.fleet import FleetManager
 
-        self.fleet = FleetManager(self.store, config, self_url or self.url, replication=self.replication)
+        self.fleet = FleetManager(self.store, config, self_url or self.url, replication=self.replication,
+                                  write_behind=self.write_behind)
         self._handler_cls.fleet = self.fleet
         if self.replication is not None:
             self.replication.fleet = self.fleet
@@ -956,6 +1025,11 @@ class RelayServer:
             # Drain BEFORE the store closes, injected or owned alike (stop
             # is idempotent): queued requests get their responses first.
             self.scheduler.stop()
+        if self.write_behind is not None:
+            # After the scheduler's last batches appended their records,
+            # before the store closes: a clean shutdown drains everything
+            # and leaves an empty log.
+            self.write_behind.close()
         self._httpd.server_close()
         self.store.close()
 

@@ -31,8 +31,9 @@ HTTP legs in `round_trips`) in place of the `evolu_repl_*` / `evolu_snap_*`
 metrics, so `stats_payload` answers the reference's keys with
 `convergence_lag_p99_ms` and `install_p99_ms` null until the observability
 item is ported; no trace spans, freshness gauges, ledger terminals or
-logs. `write_behind` is refused (NotImplementedError) until that item is
-ported. With a `push_hub`, every ingest wakes the owner's parked push
+logs. With a `write_behind` queue (storage/write_behind.py) a round
+flushes it before it advertises (a drain failure is the round's failure),
+and a snapshot bootstrap runs behind its `drain_barrier()`. With a `push_hub`, every ingest wakes the owner's parked push
 subscriptions (reason "replication"), and a snapshot install wakes them
 all (reason "conservative").
 """
@@ -178,10 +179,6 @@ class ReplicationManager:
         from evolu_tpu_torch.sync.client import BACKOFF_BASE_S, _http_post
         from evolu_tpu_torch.utils import config
 
-        if write_behind is not None:
-            raise NotImplementedError(
-                "evolu_tpu_torch: the write-behind storage inversion is not ported yet "
-                "(ROADMAP queue 1 item 6c)")
         cfg = config.default_config
         if pull_messages_per_owner is None:
             pull_messages_per_owner = cfg.pull_messages_per_owner
@@ -192,6 +189,7 @@ class ReplicationManager:
 
         self.store = store
         self.scheduler = scheduler
+        self.write_behind = write_behind
         self.push_hub = push_hub
         self.replica_id = replica_id or f"relay-{random.getrandbits(48):012x}"
         self.interval_s = float(interval_s)
@@ -362,6 +360,9 @@ class ReplicationManager:
     def _round(self, peer: _Peer) -> None:
         self._finish_pending_swap_once()
         try:
+            if self.write_behind is not None:
+                # Advertise only committed state.
+                self.write_behind.flush()
             pulled = self._gossip(peer)
         except _ManagerStopping:
             return  # tearing down, not a peer failure
@@ -462,7 +463,19 @@ class ReplicationManager:
         verify → swap. The chunk watermark lives in the store, so an
         interrupted fetch resumes from the last committed chunk; a donor
         that no longer serves the snapshot (400 on the chunk leg) drops the
-        install and the next round starts fresh."""
+        install and the next round starts fresh.
+
+        With a write-behind queue the whole bootstrap runs behind its
+        `drain_barrier()`: the swap replaces shard contents, and a record
+        ACKed against the pre-swap tree would later drain its stale tree
+        over the installed one. The barrier also drops the serve-time
+        trees, so a concurrent serve's base-tree read waits for the swap."""
+        if self.write_behind is not None:
+            with self.write_behind.drain_barrier():
+                return self._bootstrap_locked(peer)
+        return self._bootstrap_locked(peer)
+
+    def _bootstrap_locked(self, peer: _Peer) -> int:
         import urllib.error
 
         from evolu_tpu_torch.server import snapshot as snap

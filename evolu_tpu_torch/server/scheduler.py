@@ -32,6 +32,12 @@ Robustness contract:
   singleton retry, so a fault of the card never hides behind the
   per-request path's host hashing. So does a failure to build the
   engine, which is not remembered: the next batch tries again.
+- with a write-behind queue (`write_behind=`), a `WriteBehindFull` from the
+  engine pass (raised before the log ACK, so nothing was served or
+  persisted) is flow control, not poison: every member of the batch gets
+  `SchedulerQueueFull` (503 + Retry-After), with no singleton retry; and
+  the per-request path runs behind the queue's `drain_barrier()`, so it
+  reads and writes committed state.
 - `stop()` serves everything already queued in full-size batches, then
   rejects new submits.
 
@@ -58,6 +64,14 @@ class SchedulerQueueFull(Exception):
     def __init__(self, retry_after: float):
         super().__init__(f"sync scheduler queue full; retry after {retry_after}s")
         self.retry_after = retry_after
+
+
+def _write_behind_full_type():
+    """The write-behind backpressure exception, imported when an except
+    clause evaluates it: the scheduler imports no storage module up front."""
+    from evolu_tpu_torch.storage.write_behind import WriteBehindFull
+
+    return WriteBehindFull
 
 
 class _Pending:
@@ -118,10 +132,6 @@ class SyncScheduler:
         mesh_ctx=None,
         mesh_engine: bool = False,
     ):
-        if write_behind is not None:
-            raise NotImplementedError(
-                "evolu_tpu_torch: the write-behind engine mode is not ported yet "
-                "(ROADMAP queue 1 item 6c)")
         if mesh_engine or mesh_ctx is not None:
             raise NotImplementedError(
                 "evolu_tpu_torch: the mesh-sharded engine is not ported yet "
@@ -135,6 +145,7 @@ class SyncScheduler:
         self.submit_timeout_s = float(submit_timeout_s)
         self._engine = engine
         self._own_engine = engine is None
+        self._write_behind = write_behind
         self.counts = dict.fromkeys(
             ("batches", "coalesced", "singles", "poison_retries", "poisoned_batches", "rejected"), 0)
         self._cv = threading.Condition()
@@ -255,6 +266,12 @@ class SyncScheduler:
             return
         try:
             outs = engine.run_batch_wire([p.request for p in batch])
+        except _write_behind_full_type() as e:
+            # Write-behind backpressure: nothing was served or persisted.
+            # Flow control, not poison: every member answers 503.
+            for p in batch:
+                p.fail(SchedulerQueueFull(e.retry_after))
+            return
         except KernelError as e:
             # A fault of the card or a kernel, not of a request: every
             # member fails (the handler answers 500); a singleton retry on
@@ -288,16 +305,22 @@ class SyncScheduler:
         if self._engine is None:
             from evolu_tpu_torch.server.engine import BatchReconciler
 
-            self._engine = BatchReconciler(self.store, device=self.device)
+            self._engine = BatchReconciler(self.store, device=self.device,
+                                           write_behind=self._write_behind)
         return self._engine
 
     def _serve_single(self, request: protocol.SyncRequest) -> bytes:
         """The per-request path, the recipe the non-batching relay runs:
         the fused wire serve, or the object path (where non-canonical
         shapes reach the host oracle before any side effect). Only ever
-        called on the dispatcher thread."""
+        called on the dispatcher thread. With write-behind on it runs
+        behind the drain barrier: every ACKed row is committed first, and
+        the drains wait until it is done."""
         from evolu_tpu_torch.server import relay
 
+        if self._write_behind is not None:
+            with self._write_behind.drain_barrier():
+                return relay.serve_single_request(self.store, request)
         return relay.serve_single_request(self.store, request)
 
     def stop(self) -> None:

@@ -92,6 +92,25 @@ class Config:
     # checkpoint_interval_s=...)` → `snapshot.CheckpointWriter`). None
     # disables them.
     checkpoint_interval_s: "float | None" = None
+    # The write-behind storage inversion (storage/write_behind.py): the
+    # relay serves from in-memory trees folded from the card's deltas,
+    # ACKs each batch into an fsync'd record log, and drain workers
+    # materialize SQLite later. Off by default; EVOLU_WRITE_BEHIND
+    # overrides it at the relay (a set variable wins in both directions).
+    write_behind: bool = False
+    # Admission bound of the queue in rows: past it a batch answers 503 +
+    # Retry-After, never drops.
+    write_behind_max_rows: int = 1 << 20
+    # Rows a drain transaction commits at most.
+    write_behind_drain_rows: int = 1 << 16
+    # Drain workers (0 = one a storage shard; clamped to the shard count).
+    # EVOLU_WB_DRAIN_WORKERS overrides it at the relay.
+    wb_drain_workers: int = 0
+    # Each drain worker hands its shard transactions to a child process
+    # (storage/_wb_shard_proc.py); honoured only for pure-Python
+    # file-backed shards, else the queue drains on threads and says so in
+    # `drain_mode`. EVOLU_WB_DRAIN_PROCESS overrides it at the relay.
+    wb_drain_process: bool = False
     # Connection tier (server/conn.py): "threaded" = a ThreadingHTTPServer
     # (one thread a connection, the reference relay's shape); "eventloop" =
     # one selectors loop owns every socket, complete requests run on a

@@ -1080,3 +1080,110 @@ def test_stop_returns_with_a_threaded_long_poll_parked(dev):
     took = time.monotonic() - t0
     th.join(10)
     assert took < 2.0 and box["body"] == b'{"wake": false, "cursor": 0}'
+
+
+def _wb_dump(store):
+    stores = store.shards if hasattr(store, "shards") else [store]
+    return [sorted(r for s in stores for r in s.db.exec(q))
+            for q in ('SELECT * FROM "message"', 'SELECT * FROM "merkleTree"')]
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_deferred_pass_on_card_matches_synchronous(shards, dev):
+    """The write-behind serve (`run_batch_wire` with a `WriteBehindQueue`) on
+    the card against the synchronous pass on the card over the same
+    batches: equal bytes, equal tables after `flush()`; H and X launch once
+    an engine dispatch (twice for the cap overflow's rerun, never for a
+    batch without rows), L and S never."""
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.server.relay import RelayStore, ShardedRelayStore
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+
+    def store():
+        return RelayStore(backend="native") if shards == 1 else ShardedRelayStore(shards=shards, backend="native")
+
+    batches = _relay_batches()
+    wb_store, sync_store = store(), store()
+    wb = WriteBehindQueue(wb_store)
+    deferred = pe.BatchReconciler(wb_store, write_behind=wb)
+    synchronous = pe.BatchReconciler(sync_store)
+    kernels = (cuda_hash.timestamp_hash_cuda, cuda_scan.segmented_xor_scan_cuda,
+               cuda_scan.segmented_max_scan_cuda, cuda_scan.segmented_sum_scan_cuda)
+    try:
+        for b in batches:
+            before, passes = dict(pe.counts), pe.deferred_counts["passes"]
+            launched = [k.launches for k in kernels]
+            out = deferred.run_batch_wire(b)
+            dispatches = sum(pe.counts[k] - before[k] for k in ("delta", "full", "overflow"))
+            assert [k.launches - n for k, n in zip(kernels, launched)] == [dispatches, dispatches, 0, 0]
+            assert dispatches == (0 if not any(r.messages for r in b) else 1 + pe.counts["overflow"] - before["overflow"])
+            assert pe.deferred_counts["passes"] - passes == 1
+            assert out == synchronous.run_batch_wire(b)
+        wb.flush()
+        assert _wb_dump(wb_store) == _wb_dump(sync_store)
+        assert wb.counts["queued"] == wb.counts["drained"] == wb.counts["inserted"] + wb.counts["duplicate"]
+    finally:
+        wb.close()
+        deferred.close()
+        synchronous.close()
+        wb_store.close()
+        sync_store.close()
+
+
+def test_drain_and_dispatcher_never_deadlock_under_the_barrier(dev):
+    """A batching card relay with write-behind on 4 native shards: 8 client
+    threads push and pull while another thread takes `drain_barrier()`
+    again and again (as checkpoints and replication serves do) and the
+    drain is slowed. Everything finishes inside its time limit, and the
+    drained tables equal a synchronous relay's on the card."""
+    import threading
+    import time
+
+    from evolu_tpu_torch.server.relay import RelayServer, ShardedRelayStore
+    from evolu_tpu_torch.sync.client import _http_post
+    from evolu_tpu_torch.sync import protocol as pp
+
+    first, again, cold = _relay_batches()[:3]
+    lanes = [[first[o], again[o], cold[o % len(cold)]] for o in range(8)]
+    sides = []
+    for wb_on in (True, False):
+        server = RelayServer(ShardedRelayStore(shards=4, backend="native"), batching=True,
+                             write_behind=wb_on).start()
+        if wb_on:
+            server.write_behind._drain_delay_s = 0.01
+        stop, barriers, errors = threading.Event(), [0], []
+
+        def barrier_loop():
+            while not stop.is_set():
+                with server.write_behind.drain_barrier():
+                    barriers[0] += 1
+                time.sleep(0.002)
+
+        def lane(o):
+            try:
+                for r in lanes[o]:
+                    _http_post(server.url, pp.encode_sync_request(r))
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=lane, args=(o,), daemon=True) for o in range(8)]
+        if wb_on:
+            threads.append(threading.Thread(target=barrier_loop, daemon=True))
+        try:
+            for t in threads:
+                t.start()
+            for t in threads[:8]:
+                t.join(120)
+            stop.set()
+            for t in threads[8:]:
+                t.join(60)
+            assert not any(t.is_alive() for t in threads), "a lane or the barrier thread hung"
+            assert not errors, errors
+            if wb_on:
+                assert barriers[0] > 0
+                server.write_behind.flush(timeout=60)
+            sides.append(_wb_dump(server.store))
+        finally:
+            stop.set()
+            server.stop()
+    assert sides[0] == sides[1]

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_touches_no_card():
                  "sync.crypto", "sync._evp_cfb", "sync.aead", "sync._evp_gcm", "sync.client",
                  "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
                  "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
-                 "server.fleet", "server.push", "server.conn"):
+                 "server.fleet", "server.push", "server.conn", "storage.write_behind",
+                 "storage._wb_shard_proc"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
@@ -281,3 +282,61 @@ def test_push_tier_runs_without_jax_or_the_card():
     line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
     result = json.loads(line[len("RESULT:"):])
     assert result == {"woken": True, "cursor": 1, "forbidden": [], "cuda_initialized": False}
+
+
+_WB_CHILD = r"""
+import json, runpy, sys
+sys.argv = ["_wb_shard_proc"] + sys.argv[1:]
+try:
+    runpy.run_module("evolu_tpu_torch.storage._wb_shard_proc", run_name="__main__")
+finally:
+    import torch
+    sys.stderr.write("RESULT:" + json.dumps({
+        "forbidden": sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu", "ml_dtypes")),
+        "cuda_initialized": torch.cuda.is_initialized(),
+    }) + "\n")
+"""
+
+
+def test_write_behind_drain_child_runs_without_jax_or_the_card(tmp_path):
+    """The write-behind queue spawns its process drain as `python -m
+    evolu_tpu_torch.storage._wb_shard_proc`, and that child commits a shard
+    batch importing nothing of JAX or `evolu_tpu`, CUDA untouched."""
+    import struct
+
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+    from evolu_tpu_torch.sync import protocol
+
+    path = str(tmp_path / "relay.db")
+    store = ShardedRelayStore(path, backend="python", shards=2)
+    wb = WriteBehindQueue(store, log_path=path + ".wblog", drain_process=True)
+    engine = BatchReconciler(store, device="cpu", write_behind=wb)
+    ts = [timestamp_to_string(Timestamp(1_700_000_000_000 + i * 1000, 0, "a" * 16)) for i in range(4)]
+    engine.run_batch_wire([protocol.SyncRequest(
+        tuple(protocol.EncryptedCrdtMessage(t, b"ct") for t in ts), o, "a" * 16, "{}") for o in ("u0", "u1", "u2")])
+    wb.flush()
+    argv = [p.args for p in wb._procs.values()]
+    wb.close()
+    engine.close()
+    store.close()
+    assert wb.drain_mode == "process" and argv
+    assert all(a[1:3] == ["-m", "evolu_tpu_torch.storage._wb_shard_proc"] for a in argv)
+
+    header = json.dumps({"si": 0, "exact": True, "taint": [],
+                         "ops": [{"u": "fresh", "k": 1, "lens": [2], "tree": None}]}).encode()
+    blob = ts[0].encode() + b"ct"
+    frame = struct.pack("<I", len(header)) + header + struct.pack("<I", len(blob)) + blob
+    out = subprocess.run(
+        [sys.executable, "-c", _WB_CHILD, *argv[0][3:]], cwd=_REPO, input=frame, capture_output=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    (n,) = struct.unpack("<I", out.stdout[:4])
+    assert json.loads(out.stdout[4 : 4 + n]) == {"ok": True, "tainted": [], "counts": [[1, 0]]}
+    line = next(l for l in out.stderr.decode().splitlines() if l.startswith("RESULT:"))
+    assert json.loads(line[len("RESULT:"):]) == {"forbidden": [], "cuda_initialized": False}

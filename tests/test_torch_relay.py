@@ -171,9 +171,11 @@ def test_shared_file_store_takes_the_write_lock_at_begin(tmp_path):
 
 
 def test_unported_routes_raise_before_any_side_effect():
-    """Scoped requests (on every ingest route, the streaming one included)
-    and the write-behind mode are refused on a Python and on a native
+    """Scoped requests (on every ingest route, the streaming one and the
+    write-behind serve included) are refused on a Python and on a native
     store, before any side effect."""
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+
     (o, r), = _owner_rows(8, owners=1).items()
     plain = _requests(pp, [(o, r, "f" * 16, "{}")])[0]
     scoped = pp.SyncRequest(plain.messages, o, "f" * 16, "{}", (pp.CAP_SYNC_SCOPE,),
@@ -181,13 +183,17 @@ def test_unported_routes_raise_before_any_side_effect():
     for backend in ("python", "native"):
         store = RelayStore(backend=backend)
         engine = pe.BatchReconciler(store, device="cpu")
+        wb = WriteBehindQueue(store)
+        deferred = pe.BatchReconciler(store, device="cpu", write_behind=wb)
         for call in (lambda: engine.run_batch_wire([plain, scoped]), lambda: engine.reconcile([scoped]),
                      lambda: serve_single_request(store, scoped),
                      lambda: engine.start_batch([plain, scoped]),
                      lambda: engine.reconcile_stream([[plain, scoped]]),
-                     lambda: pe.BatchReconciler(store, device="cpu", write_behind=object())):
+                     lambda: deferred.run_batch_wire([plain, scoped])):
             with pytest.raises(NotImplementedError):
                 call()
+        wb.close()
+        assert wb.counts["queued"] == 0
         assert _dump(store) == [[], []]
 
 

@@ -11,9 +11,10 @@
   fleet or a push hub; the observability endpoints 404 on both tiers.
 - Every refused option raises NotImplementedError before a socket is
   bound or the store written; the replication half's options (peers,
-  replication, bootstrap_lag_owners, checkpoints) and the push and
-  connection-tier options (push, connection_tier, EVOLU_CONN_TIER) build
-  a relay that serves.
+  replication, bootstrap_lag_owners, checkpoints), the push and
+  connection-tier options (push, connection_tier, EVOLU_CONN_TIER) and the
+  write-behind options (write_behind, EVOLU_WRITE_BEHIND, Config.
+  write_behind with write_behind_log) build a relay that serves.
 - Two port clients converge over real HTTP through a batching port relay
   with `aead-batch-v1` negotiated.
 - The four workloads of `tests/test_relay_concurrency.py` on a port
@@ -192,13 +193,10 @@ def _free_port():
 
 
 REFUSED = {
-    "write_behind": ({"write_behind": True}, {}),
     "mesh_engine": ({"mesh_engine": True}, {}),
     "mesh_ctx": ({"mesh_ctx": object()}, {}),
     "scope capability": ({"capabilities": (pproto.CAP_SYNC_SCOPE,)}, {}),
-    "EVOLU_WRITE_BEHIND": ({}, {"EVOLU_WRITE_BEHIND": "1"}),
     "EVOLU_MESH_ENGINE": ({}, {"EVOLU_MESH_ENGINE": "on"}),
-    "write_behind_log": ({"write_behind_log": "relay.wal"}, {}),
 }
 
 
@@ -268,6 +266,53 @@ def test_relay_tier_options_are_accepted(case, batching, tmp_path, monkeypatch):
         server.stop()
 
 
+# The write-behind options, refused until ported, now build a queue:
+# (kwargs, environment, Config.write_behind). The `write_behind_log` case
+# turns write-behind on through the Config.
+WRITE_BEHIND = {
+    "write_behind": ({"write_behind": True}, {}, False),
+    "EVOLU_WRITE_BEHIND": ({}, {"EVOLU_WRITE_BEHIND": "1"}, False),
+    "write_behind_log": ({"write_behind_log": "relay.wal"}, {}, True),
+}
+
+
+@pytest.mark.parametrize("case", list(WRITE_BEHIND))
+@pytest.mark.parametrize("batching", [False, True])
+def test_write_behind_options_build_a_queue(case, batching, tmp_path, monkeypatch):
+    """Each way of turning write-behind on builds a queue and a scheduler
+    over it; a POST answers the JAX relay's bytes, `/stats` has the
+    `write_behind` section, and `stop()` drains and leaves an empty log."""
+    from evolu_tpu_torch.storage.write_behind import LOG_MAGIC, WriteBehindQueue
+    from evolu_tpu_torch.utils import config
+
+    kwargs, env, cfg_on = dict(WRITE_BEHIND[case][0]), WRITE_BEHIND[case][1], WRITE_BEHIND[case][2]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if cfg_on:
+        monkeypatch.setattr(config, "default_config", config.Config(write_behind=True))
+    path = str(tmp_path / "relay.db")
+    log = str(tmp_path / kwargs["write_behind_log"]) if "write_behind_log" in kwargs else path + ".wblog"
+    if "write_behind_log" in kwargs:
+        kwargs["write_behind_log"] = log
+    server = prelay.RelayServer(prelay.RelayStore(path, backend="native"), batching=batching, device="cpu",
+                                **kwargs).start()
+    jax_store = jrelay.RelayStore()
+    try:
+        assert isinstance(server.write_behind, WriteBehindQueue) and server.write_behind.log_path == log
+        assert server.scheduler is not None and server.scheduler._write_behind is server.write_behind
+        req = pproto.SyncRequest(_msgs(pproto, "a" * 16, 0, 12), "uW", "a" * 16, "{}")
+        jreq = jproto.SyncRequest(_msgs(jproto, "a" * 16, 0, 12), "uW", "a" * 16, "{}")
+        assert _post(server.url + "/", pproto.encode_sync_request(req)) == (200, jax_store.sync_wire(jreq))
+        status, body = _get(server.url + "/stats")
+        section = json.loads(body)["write_behind"]
+        assert status == 200 and section["enqueued_rows"] == 12 and section["drain_mode"] == "thread"
+    finally:
+        server.stop()
+        jax_store.close()
+    with open(log, "rb") as f:
+        assert f.read() == LOG_MAGIC
+
+
 def test_env_switched_off_and_defaults_serve(monkeypatch):
     """A switch set to off is honoured, as in the reference: the relay
     starts and serves."""
@@ -281,9 +326,28 @@ def test_env_switched_off_and_defaults_serve(monkeypatch):
         server.stop()
     with pytest.raises(ValueError):
         prelay.RelayServer(connection_tier="bogus")
-    for kw in ({"write_behind": object()}, {"mesh_engine": True}, {"mesh_ctx": object()}):
+    for kw in ({"mesh_engine": True}, {"mesh_ctx": object()}):
         with pytest.raises(NotImplementedError):
             psched.SyncScheduler(prelay.RelayStore(backend="native"), device="cpu", **kw)
+    # A scoped request under write-behind still raises before any state
+    # change (scoped sync is not ported); a relay strips the clause first.
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+
+    store = prelay.RelayStore(backend="native")
+    wb = WriteBehindQueue(store)
+    sched = psched.SyncScheduler(store, device="cpu", write_behind=wb)
+    scoped = pproto.SyncRequest(_msgs(pproto, "a" * 16, 0, 3), "uS", "a" * 16, "{}", (pproto.CAP_SYNC_SCOPE,),
+                                pproto.ScopeClause(watermark_millis=BASE))
+    try:
+        with pytest.raises(NotImplementedError):
+            sched.submit(scoped)
+        wb.flush()
+        assert wb.counts["queued"] == 0 and wb.backlog() == (0, 0)
+        assert store.db.exec_sql_query('SELECT COUNT(*) AS n FROM "message"')[0]["n"] == 0
+    finally:
+        sched.stop()
+        wb.close()
+        store.close()
 
 
 def _converge(clients, n_rows, rounds=12):
