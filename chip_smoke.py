@@ -217,9 +217,12 @@ failure ends the run with a traceback and a nonzero code):
               crash and replay through `tests/_torch_write_behind_worker.py`
               (12 seeded batches of ~8,000 messages served on the card,
               SIGKILL at a seeded ACK, replay in a fresh process), on 1
-              shard and on 3 with 3 workers: the replayed state equals a
-              synchronous card twin, the replay launches nothing, and its
-              rows/s. H = X = engine dispatches in every step, L = S = 0.
+              shard and on 3 with 3 workers, batches with no redelivered
+              rows so the kill finds a backlog: the replayed state equals
+              a synchronous card twin, the replay finds rows and launches
+              nothing, and its rows/s; K3's counts are the serving
+              children's. H = X = engine dispatches in every step, L = S
+              = 0.
 15. columns — the reconcile pass from device-resident columns at 1M
               messages (1k owners; the 10M pass was cut when path J was
               added), per-stage times with CUDA events, rows/s and peak
@@ -246,10 +249,11 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j}` are the counts themselves (H1, H2
-and H3 each, summed as path H; I1, I2 and I3 as path I; J1-J4 as path
-J); `ms`, `device_ms`, `plain_ms`, `bound_ms` and `max_abs_err`
-are at the input named by `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k}` are the counts themselves (H1,
+H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1-J4 as path
+J; K1, K2 and K3's serving children as path K); `ms`, `device_ms`,
+`plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
+`timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
 the numbered changes that ported and redesigned each kernel, as
 PERF.md's kernel table lists them, and `design` names the design; X's
@@ -1904,7 +1908,7 @@ def path_e(torch, kernels, captured, keep, oracle_job):
     if any(carried[k] for k in ("e1", "e4_span_2_32", "e4_cap_overflow", "e4_upper_case_hex")) \
             or not (carried["e2"] and carried["e3"]):
         raise AssertionError(f"path E: response messages {carried}: only E2's stale trees and E3 should carry any")
-    routes = {k: v - routes0[k] for k, v in eng.counts.items()}
+    routes = {k: eng.counts[k] - routes0[k] for k in ROUTES}
     report["route_counts"] = routes
     dispatches = routes["delta"] + routes["full"] + routes["overflow"]
     print(f"  path E: launches {launches}; route counts {json.dumps(routes)}", flush=True)
@@ -2694,7 +2698,7 @@ def path_g2(torch, kernels, keep):
     report["compare_s"] = round(time.perf_counter() - t0, 3)
     native.close()
     launches = read(kernels)
-    routes = {k: v - routes0[k] for k, v in eng.counts.items()}
+    routes = {k: eng.counts[k] - routes0[k] for k in ROUTES}
     report["route_counts"] = routes
     print(f"  path G2: launches {launches}; route counts {json.dumps(routes)}", flush=True)
     if routes != {"delta": 3, "full": 0, "overflow": 0, "host_owners": 0}:
@@ -3037,6 +3041,10 @@ def wait_until(pred, what, deadline_s=I_WAIT_S):
             return
         time.sleep(0.05)
     raise AssertionError(f"path I: timed out after {deadline_s:.0f} s waiting for {what}")
+
+
+# The engine's route counts: its `counts` also holds the write-behind ones.
+ROUTES = ("delta", "full", "overflow", "host_owners")
 
 
 def engine_passes(before):
@@ -3954,7 +3962,7 @@ def path_j2(torch, kernels, keep, tmp, h1, gpu=""):
            "latency_ms_p99": round(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))], 3),
            "engine_passes": len(sizes), "pass_requests_mean": round(statistics.mean(sizes), 2),
            "pass_requests_max": max(sizes), "scheduler_counts": counts, "conn": conn, "push": push,
-           "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}, "compare_s": round(compare_s, 3),
+           "route_counts": {k: eng.counts[k] - routes0[k] for k in ROUTES}, "compare_s": round(compare_s, 3),
            "h1": {k: h1[k] for k in ("msgs_per_s", "requests_per_s", "latency_ms_p50", "latency_ms_p99",
                                      "engine_passes", "pass_requests_mean", "wall_s")}}
     print(f"  path J2: {json.dumps(out)} | {gpu}", flush=True)
@@ -4039,10 +4047,12 @@ def path_j(torch, kernels, keep, tmp, h1, gpu=""):
 K2_MAX_ROWS = 1 << 22  # K2's queue bound: `run_batch_wire` alone has no 503 path, so E1 must fit
 K3_BATCHES = 12  # the reference torture's 12 seeded batches
 K3_SIZE = (64, 64, 500)  # owners, most owners a batch, most new messages an owner: ~8,000 messages a batch
-# The reference torture's drain stall. Most of these batches redeliver rows of some owner, and the
-# respond then waits on that owner's shard drain (the exact re-read), so a kill finds little queued:
-# on 3 shards, what the last batch left on the other shards.
-K3_DRAIN_DELAY_S = 0.15
+# K3's batches redeliver no earlier rows (the worker's `resend=0`): a redelivery makes the respond
+# wait for its owner's shard to drain (the exact re-read), and nearly every batch of 64 owners holds
+# one, so the queue would be empty at every ACK. With none, the drain stalled a second before each
+# commit leaves the batches since the last one queued, and the SIGKILL finds them for the replay.
+K3_RESEND = 0.0
+K3_DRAIN_DELAY_S = 1.0
 # (shards, drain workers, seed): one shard, then 3 shards with 3 workers. Both seeds (of the reference
 # tortures) kill after the 7th ACK (batch 6), two batches past the checkpoint of batch 4.
 K3_RUNS = ((1, 0, 71), (3, 3, 7))
@@ -4086,7 +4096,7 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
     server = RelayServer(RelayStore(path, backend="native"), batching=True, write_behind=True).start()
     wb = server.write_behind
     got, lat, errors, sizes, stalled, appends, backlog = [None] * len(bodies), [0.0] * len(bodies), [], [], [], [], [0]
-    routes0, deferred0 = dict(eng.counts), dict(eng.deferred_counts)
+    routes0 = dict(eng.counts)
     orig_run = eng.BatchReconciler.run_batch_wire
 
     def sized(self, requests):
@@ -4124,7 +4134,7 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
         launches = read(kernels)
         passes = engine_passes(routes0)
         counts, wb_counts = dict(server.scheduler.counts), dict(wb.counts)
-        deferred = {k: eng.deferred_counts[k] - deferred0[k] for k in deferred0}
+        deferred = {k: eng.counts[k] - routes0[k] for k in ("deferred_passes", "store_duplicate")}
         if errors:
             raise AssertionError("path K1: a client's POST failed") from errors[0]
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
@@ -4149,9 +4159,9 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
            "backpressure_503": sum(stalled) + counts["rejected"], "backlog_rows_max": backlog[0],
            "log_appends": len(appends), "log_append_s": round(sum(appends), 4),
            "flush_s": round(flush_s, 4), "end_to_end_msgs_per_s": round(n / (wall + flush_s)),
-           "health": health[0], "queue_counts": wb_counts, "deferred_counts": deferred,
+           "health": health[0], "queue_counts": wb_counts, "deferred": deferred,
            "scheduler_counts": counts,
-           "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}, "compare_s": round(compare_s, 3),
+           "route_counts": {k: eng.counts[k] - routes0[k] for k in ROUTES}, "compare_s": round(compare_s, 3),
            "h1": {k: h1[k] for k in ("msgs_per_s", "requests_per_s", "latency_ms_p50", "latency_ms_p99",
                                      "engine_passes", "wall_s")}}
     print(f"  path K1: {json.dumps(out)} | {gpu}", flush=True)
@@ -4161,7 +4171,7 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
     if health[0] != 200 or health[1]["write_behind"]["backlog_rows"] or log_after_stop != wbm.LOG_MAGIC:
         raise AssertionError(f"path K1: /health {health}, {len(log_after_stop)} log bytes after stop()")
     if wb_counts["queued"] != wb_counts["drained"] or wb_counts["drain_failures"] \
-            or deferred["passes"] != len(sizes):
+            or deferred["deferred_passes"] != len(sizes):
         raise AssertionError(f"path K1: queue counts {wb_counts}, {deferred} for {len(sizes)} passes")
     check_k("K1", launches, passes)
     return launches, out
@@ -4187,7 +4197,7 @@ def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
     store = ShardedRelayStore(path, backend="native", shards=4)
     wb = WriteBehindQueue(store, log_path=path + ".wblog", max_rows=K2_MAX_ROWS, drain_workers=4)
     rec = eng.BatchReconciler(store, write_behind=wb)
-    routes0, deferred0 = eng.counts.copy(), eng.deferred_counts["passes"]
+    routes0 = dict(eng.counts)
     reset(kernels)
     got, per_batch = [], []
     try:
@@ -4208,7 +4218,7 @@ def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
         if k_dump(store) != keep["store_dump"]:
             raise AssertionError("path K2: the drained tables differ from path E's store")
         wb_counts = dict(wb.counts)
-        deferred = eng.deferred_counts["passes"] - deferred0
+        deferred = eng.counts["deferred_passes"] - routes0["deferred_passes"]
     finally:
         wb.close()
         rec.close()
@@ -4237,10 +4247,13 @@ def path_k3(torch, kernels, tmp, gpu=""):
     batch, the parent SIGKILLs it at a seeded ACK count, and a fresh
     process replays the log (the host fold: no kernel) and flushes. Its
     state crc must equal a synchronous card twin's of the ACKed prefix (or
-    prefix+1, or a record prefix of the next batch on 3 shards). In the
-    serving child H = X = its engine dispatches up to the last ACK; the
-    parent's launches are its twins'. The two runs go side by side, each
-    in its own thread. → (launches, report)."""
+    prefix+1, or a record prefix of the next batch on 3 shards), and the
+    replay must have found rows. K3's launches are the serving children's
+    up to their last ACK (each counted from 0 in a fresh process), where
+    H = X = the child's engine dispatches; the parent's counts move only
+    with its twins (the oracle), which are checked apart and not counted.
+    The two runs go side by side, each in its own thread.
+    → (launches, report)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from evolu_tpu_torch.server import engine as eng
@@ -4253,7 +4266,7 @@ def path_k3(torch, kernels, tmp, gpu=""):
         os.makedirs(d, exist_ok=True)
         t0 = time.perf_counter()
         got = worker.torture(os.path.join(d, "victim.db"), seed, K3_BATCHES, K3_DRAIN_DELAY_S, shards, workers,
-                             device="cuda", size=K3_SIZE, twin_device="cuda")
+                             device="cuda", size=K3_SIZE, twin_device="cuda", resend=K3_RESEND)
         return got, time.perf_counter() - t0
 
     out = {}
@@ -4262,6 +4275,10 @@ def path_k3(torch, kernels, tmp, gpu=""):
     with ThreadPoolExecutor(len(K3_RUNS)) as pool:
         runs = [pool.submit(run, *r) for r in K3_RUNS]
         results = [f.result() for f in runs]
+    # The parent's counts are the twins' (the oracle), apart from K3's own.
+    check_k("K3's twins", read(kernels), engine_passes(routes0))
+    hxls = ("timestamp_hash", "seg_xor_scan", "seg_lex_max_scan", "seg_sum_scan")  # the child's order
+    launches = dict.fromkeys(hxls, 0)
     for (shards, workers, seed), (got, wall) in zip(K3_RUNS, results):
         fin, child = got["finish"], got["child"]
         h, x, lex, s = (int(v) for v in child["launches"].split(","))
@@ -4276,11 +4293,13 @@ def path_k3(torch, kernels, tmp, gpu=""):
         print(f"  path K3: {json.dumps(step)} | {gpu}", flush=True)
         if got["crc"] not in got["accepted"]:
             raise AssertionError(f"path K3: the replayed state {got['crc']} matches no twin {got['accepted']}")
+        if not rows:
+            raise AssertionError(f"path K3: the SIGKILL left nothing to replay on {shards} shard(s)")
         if step["replay_launches"] or [h, x, lex, s] != [step["child_passes"]] * 2 + [0, 0] or not h:
             raise AssertionError(f"path K3: replay launches {step['replay_launches']}, serving child "
                                  f"H, X, L, S {[h, x, lex, s]} for {step['child_passes']} passes")
-    launches = read(kernels)
-    check_k("K3 twins", launches, engine_passes(routes0))
+        for name, n in zip(hxls, (h, x, lex, s)):
+            launches[name] += n
     return launches, out
 
 

@@ -65,19 +65,18 @@ from evolu_tpu_torch.sync import protocol
 # Dispatches by route, in place of the reference's metrics: `delta` and
 # `full` count the 16-B and 20-B compact uploads, `overflow` the
 # full-width reruns after a cap overflow, `host_owners` the owners whose
-# non-canonical hex case sent them to the host fold. `deferred_counts`:
-# the write-behind passes, and the rows their in-batch dedup dropped (the
-# reference's `store.duplicate` ledger terminal for them). Every engine of
-# the process counts here, from whichever thread dispatches: `_count`
-# takes the lock.
-counts = {"delta": 0, "full": 0, "overflow": 0, "host_owners": 0}
-deferred_counts = {"passes": 0, "store_duplicate": 0}
+# non-canonical hex case sent them to the host fold; `deferred_passes`
+# the write-behind passes, and `store_duplicate` the rows their in-batch
+# dedup dropped (the reference's `store.duplicate` ledger terminal for
+# them). Every engine of the process counts here, from whichever thread
+# dispatches: `_count` takes the lock.
+counts = {"delta": 0, "full": 0, "overflow": 0, "host_owners": 0, "deferred_passes": 0, "store_duplicate": 0}
 _counts_lock = threading.Lock()
 
 
-def _count(key: str, n: int = 1, table=counts) -> None:
+def _count(key: str, n: int = 1) -> None:
     with _counts_lock:
-        table[key] += n
+        counts[key] += n
 
 
 def _merkle_shard_kernel(millis, counter, node, valid, owner_ix):
@@ -917,7 +916,7 @@ class BatchReconciler:
         live, shard_data = st["live"], st["shard_data"]
         trees: Dict[str, dict] = {}
         strings: Dict[str, str] = {}
-        _count("passes", table=deferred_counts)
+        _count("deferred_passes")
         if not live:
             return self._respond_deferred(requests, trees, strings)
         deltas_by_owner, _digest = deltas_finish(st["dev"])
@@ -949,7 +948,7 @@ class BatchReconciler:
         # never reach it and end here, as duplicates. Nothing is counted if
         # the append raised.
         kept = sum(sum(shard_data[si][1]) for si in live)
-        _count("store_duplicate", sum(len(r.messages) for r in requests) - kept, deferred_counts)
+        _count("store_duplicate", sum(len(r.messages) for r in requests) - kept)
         return self._respond_deferred(requests, trees, strings)
 
     def _resolve_tree_deferred(self, user_id: str, trees, tree_strings):

@@ -27,7 +27,7 @@ replay_s=<seconds> launches=<kernel launches in this process>`.
 3, 8) give the reference worker's batches exactly, and with them a drain
 batch commits at most 8 rows (2^16 with a size given). `batches_pickle`
 names a file where the parent (`torture`) pickled the same batches, so
-they are drawn once."""
+they are drawn once, with `torture`'s `resend`."""
 
 import os
 import sys
@@ -38,14 +38,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BASE = 1700000000000
 WORKER = os.path.abspath(__file__)
+RESEND = 0.3  # the reference worker's chance that an owner's request redelivers earlier rows
 
 
-def seeded_batches(seed: int, n_batches: int, owners: int = 5, max_owners: int = 3, max_msgs: int = 8):
+def seeded_batches(seed: int, n_batches: int, owners: int = 5, max_owners: int = 3, max_msgs: int = 8,
+                   resend: float = RESEND):
     """Deterministic request batches, drawn as the reference worker draws
-    them: distinct owners a batch, now and then a redelivery of an owner's
-    earlier rows, canonical timestamps, and each client's in-sync post-push
-    tree (from an embedded host-fold store), so fresh pushes never force a
-    serve-side flush."""
+    them: distinct owners a batch, with chance `resend` a redelivery of an
+    owner's earlier rows, canonical timestamps, and each client's in-sync
+    post-push tree (from an embedded host-fold store), so fresh pushes
+    never force a serve-side flush. A redelivery does: its owner's tree
+    XOR-cancels, so the respond waits for the owner's shard to drain and
+    re-reads it. With `resend=0` nothing waits on the drain."""
     import random
 
     from evolu_tpu_torch.core.merkle import merkle_tree_to_string
@@ -64,7 +68,7 @@ def seeded_batches(seed: int, n_batches: int, owners: int = 5, max_owners: int =
         reqs = []
         for o in rng.sample(names, rng.randrange(1, max_owners + 1)):
             msgs = []
-            if history[o] and rng.random() < 0.3:
+            if history[o] and rng.random() < resend:
                 msgs.extend(rng.sample(history[o], min(3, len(history[o]))))
             for j in range(rng.randrange(1, max_msgs + 1)):
                 ts = timestamp_to_string(Timestamp(BASE + (b * 1000 + j) * 60000, rng.randrange(4), nodes[o]))
@@ -158,7 +162,7 @@ def main() -> None:
 
 def torture(db_path: str, seed: int, n_batches: int = 12, drain_delay: float = 0.15, shards: int = 1,
             workers: int = 0, device: str = "cpu", size=(), twin_device: str = "cpu",
-            env=None, timeout_s: float = 300.0) -> dict:
+            env=None, timeout_s: float = 300.0, resend: float = RESEND) -> dict:
     """One crash-and-replay episode: spawn an `ingest` worker, SIGKILL it at
     a seeded ACK count (after a seeded pause), replay in a fresh `finish`
     process, and compute one synchronous twin's crcs of the ACKed prefix,
@@ -171,9 +175,11 @@ def torture(db_path: str, seed: int, n_batches: int = 12, drain_delay: float = 0
     import random
     import subprocess
 
+    if resend != RESEND and not size:
+        raise ValueError("a resend chance other than the reference's needs a size: the child reads the batches")
     rng = random.Random(seed)
     env = {**os.environ, **(env or {})}
-    batches = seeded_batches(seed, n_batches, *size)
+    batches = seeded_batches(seed, n_batches, *size, resend=resend)
     argv = [sys.executable, WORKER, "ingest", db_path, str(seed), str(n_batches), str(drain_delay),
             str(shards), str(workers), device, *[str(x) for x in size]]
     if size:

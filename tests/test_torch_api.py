@@ -10,6 +10,7 @@ same value or raise the same error type. Tolerance: exact everywhere."""
 import datetime
 
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.api as japi
 import evolu_tpu.api.model as jmodel

@@ -10,6 +10,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from evolu_tpu.core.merkle import merkle_tree_to_string as jax_tree_string
 from evolu_tpu.core.types import TableDefinition as JaxTable

@@ -21,6 +21,7 @@ import threading
 
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from _torch_port_data import within
 

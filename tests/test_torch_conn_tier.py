@@ -30,6 +30,7 @@ import time
 import urllib.request
 
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from _torch_push import (FRESH, JAX, NODE_A, NODE_B, PORT, addr, config, dump_store, exchange, msgs,
                          normalize, raw_request, server, subscriptions, sync_body, wait_for)

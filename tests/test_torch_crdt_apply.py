@@ -17,6 +17,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 import torch
 
 from evolu_tpu.core import crdt_types as jct

@@ -9,6 +9,7 @@ the decoded deltas and digest equal on every route."""
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from evolu_tpu.core.merkle import minute_deltas_host
 from evolu_tpu.core.timestamp import Timestamp, timestamp_to_string

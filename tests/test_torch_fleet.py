@@ -32,6 +32,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from _torch_port_data import within
 from _torch_relay_tier import (

@@ -10,6 +10,7 @@ import zlib
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 import torch
 
 from evolu_tpu.ops import merge as jm

@@ -7,6 +7,7 @@ decoded {owner: {minute_key: delta}} dicts must be equal."""
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 import torch
 
 from evolu_tpu.core.merkle import minute_deltas_host

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from evolu_tpu.core.timestamp import Timestamp, timestamp_to_string
 from evolu_tpu.core.types import CrdtMessage as JaxMessage

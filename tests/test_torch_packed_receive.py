@@ -22,6 +22,7 @@ included. Every output is integer, bytes or SQLite text: exact."""
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.runtime.messages as jmsg
 import evolu_tpu.sync.protocol as jp

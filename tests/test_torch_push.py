@@ -22,6 +22,7 @@ import urllib.request
 from email.message import Message
 
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 from _torch_push import (JAX, NODE_A, NODE_B, PORT, SUB, msgs, push_base, push_stats, server,
                          subscriptions, sync_body, ts, wait_for)

@@ -6,6 +6,7 @@ the port's single shard; per-owner results and the digest must not."""
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 import torch
 
 from evolu_tpu.parallel import create_mesh

@@ -8,6 +8,7 @@ and `merkleTree` tables equal, row for row."""
 
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.sync.protocol as jp
 import evolu_tpu_torch.sync.protocol as pp

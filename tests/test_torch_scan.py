@@ -5,6 +5,7 @@ mode. Exact equality: integer work."""
 import jax
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 import torch
 
 from evolu_tpu.ops.merge import _segmented_max_scan_reference

@@ -21,6 +21,7 @@ import urllib.request
 from types import SimpleNamespace
 
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.server.engine as jengine
 import evolu_tpu.server.relay as jrelay

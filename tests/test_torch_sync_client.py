@@ -28,6 +28,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.core.types as jt
 import evolu_tpu.sync.aead as jaead

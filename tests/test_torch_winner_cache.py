@@ -12,6 +12,7 @@ import functools
 
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.core.types as jt
 from evolu_tpu.core.merkle import merkle_tree_to_string as jax_tree_string

@@ -10,6 +10,7 @@ must be equal."""
 
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.core.types as jt
 import evolu_tpu.runtime.messages as jmsg

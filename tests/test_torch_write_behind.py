@@ -11,7 +11,7 @@ test's own checks. Then the two sides must agree on:
   `flush()`, health and stats fields;
 - the bytes of every record appended to a queue, in order;
 - the counts: the port's queue counts (and the engine's
-  `deferred_counts["store_duplicate"]`) against the JAX ledger's totals
+  `counts["store_duplicate"]`) against the JAX ledger's totals
   over the episode, as posted from its write-behind module and its
   deferred pass (`wb.queued`, `wb.drained`, `wb.dropped`, `store.inserted`,
   `store.duplicate`, `ingress.replay`).
@@ -37,6 +37,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's native libraries and ledger)
 
 import evolu_tpu.core.types as jtypes
 import evolu_tpu.server.engine as jengine
@@ -117,13 +118,13 @@ def _jax_counts():
 
 @contextmanager
 def _port_counts(queues):
-    before = pengine.deferred_counts["store_duplicate"]
+    before = pengine.counts["store_duplicate"]
     got = collections.Counter()
     yield got
     for q in queues:
         for k in _STATIONS.values():
             got[k] += q.counts[k]
-    got["duplicate"] += pengine.deferred_counts["store_duplicate"] - before
+    got["duplicate"] += pengine.counts["store_duplicate"] - before
 
 
 def _run(kit, episode, *args):
@@ -1042,6 +1043,22 @@ def test_crash_and_replay_through_the_port_worker(tmp_path, shards, workers, see
     the replay launched no kernel."""
     got = pworker.torture(str(tmp_path / "victim.db"), seed, shards=shards, workers=workers)
     assert got["crc"] in got["accepted"], got
+    assert got["finish"]["launches"] == "0"
+
+
+@pytest.mark.parametrize("shards, workers, seed", [(1, 0, 71), (3, 3, 7)])
+def test_crash_without_redeliveries_replays_a_backlog(tmp_path, shards, workers, seed):
+    """`chip_smoke.py` K3's batches on the CPU (its seeds and sizes: 12
+    batches of ~8,000 messages over 64 owners): batches that redeliver no
+    rows (`resend=0`) never make the respond wait for a drain, so with the
+    drain stalled the SIGKILL leaves ACKed rows queued, and the replay
+    lands them: rows replayed, the state a synchronous twin's. With the
+    reference worker's redeliveries the same kill on one shard finds the
+    queue empty."""
+    got = pworker.torture(str(tmp_path / "victim.db"), seed, drain_delay=2.0, shards=shards, workers=workers,
+                          size=(64, 64, 500), resend=0.0)
+    assert got["crc"] in got["accepted"], got
+    assert int(got["finish"]["records"]) > 0 and int(got["finish"]["rows"]) > 0, got["finish"]
     assert got["finish"]["launches"] == "0"
 
 
