@@ -170,7 +170,7 @@ failure ends the run with a traceback and a nonzero code):
               verified on the host with no engine pass; 10,000 new messages
               POSTed to D reach C by gossip; `write_checkpoint(D)` restores
               into 4 native shards with every tree equal. I3: 3 relays
-              under one `FleetConfig` (R 2) take 64,000 messages over 1k
+              under one `FleetConfig` (R 2) take 32,000 messages over 1k
               owners (Zipf 1.1, batches of 64, 8 client threads following
               one 307 each), then a 4th relay joins by `/fleet/reload`
               under a writer; at each scoped-gossip fixpoint every owner's
@@ -3027,8 +3027,9 @@ I2_PER_OWNER = 128  # I2's donor: each owner's first 128 messages of E1, 128,000
 I2_TAIL = 10_000  # I2's handoff: new messages POSTed to the donor after the capture
 I3_RELAYS, I3_R = 3, 2  # benchmarks/fleet_scaling.py:332-339: 3 relays, replication factor 2,
 I3_THREADS, I3_BATCH, I3_ZIPF = 8, 64, 1.1  # 8 client threads, batches of 64, Zipf 1.1 over owners
-I3_MESSAGES = 64_000  # at config 3's 1,000 owners (128,000 until a run of the script passed 650 s)
-I3_JOIN_MESSAGES = 12_800  # the writer's during the join (first half of the owner ids)
+# I3's depth, cut from 128,000 and 12,800 when runs of the script passed 650 s with path K's crash episodes.
+I3_MESSAGES = 32_000  # at config 3's 1,000 owners
+I3_JOIN_MESSAGES = 6_400  # the writer's during the join (first half of the owner ids)
 I3_JOIN_DEBOUNCE_S = 2.0  # the joiner's gossip debounce: its snapshot sweep, not a ranged pull, moves owners
 I_WAIT_S = 300.0
 
