@@ -3,8 +3,9 @@
 LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
 receive, the relay as a live HTTP server, the relay tier's replication
-half, push subscriptions on the event-loop connection tier, and the
-write-behind storage inversion. Needs one
+half, push subscriptions on the event-loop connection tier, the
+write-behind storage inversion, and scoped sync (partial replication).
+Needs one
 NVIDIA Hopper card, g++, libsqlite3.so.0
 and libcrypto; run from the repo root:
 
@@ -73,9 +74,9 @@ failure ends the run with a traceback and a nonzero code):
               must launch per device-planned chunk or batch, S never. The
               oracle worker runs in a process of the spawned pool
               (`d_oracle`) while the card runs paths B to D, and is held
-              by digest (`d_state`). Then
-              D1 and D2's first batch again with `winner_cache=False`
-              (winners streamed from SQLite), D2 timed.
+              by digest (`d_state`). (Its timing phase, D1 and D2's first
+              batch again with `winner_cache=False`, was cut when path P
+              was added; the card tests drive that route.)
 8. path E   — the relay's batched sync pass at BASELINE config 3:
               `BatchReconciler(RelayStore(backend="python")).run_batch_wire`
               (the generic ingest) on the card against
@@ -169,8 +170,11 @@ failure ends the run with a traceback and a nonzero code):
               (`bootstrap_lag_owners=1`) from its snapshot in 4 MiB chunks,
               verified on the host with no engine pass; 10,000 new messages
               POSTed to D reach C by gossip; `write_checkpoint(D)` restores
-              into 4 native shards with every tree equal. I3: 3 relays
-              under one `FleetConfig` (R 2) take 32,000 messages over 1k
+              into 4 native shards with every tree equal. I3: 3 relays,
+              each in a process of its own (`i3_member`, as
+              benchmarks/fleet_scaling.py runs them; one interpreter until
+              path P was added), under one `FleetConfig` (R 2) take 32,000
+              messages over 1k
               owners (Zipf 1.1, batches of 64, 8 client threads following
               one 307 each), then a 4th relay joins by `/fleet/reload`
               under a writer; at each scoped-gossip fixpoint every owner's
@@ -188,7 +192,7 @@ failure ends the run with a traceback and a nonzero code):
               subscriptions, threads and RSS at 0, 5,000 and 10,000
               (threads flat, under 64); 12 rounds of 8 probes parked on a
               hot owner, a writer's POST and each woken probe's
-              confirmation sync round, against 6 rounds of a 1.0 s
+              confirmation sync round, against 3 rounds of a 1.0 s
               polling baseline (push p50 at least 5x better). J4, on J1's relay: two
               `create_evolu` handles with `push_subscribe=True` and no
               timer; a mutation on one becomes visible on the other
@@ -216,19 +220,44 @@ failure ends the run with a traceback and a nonzero code):
               the flush, responses and drained tables equal path E's. K3:
               crash and replay through `tests/_torch_write_behind_worker.py`
               (12 seeded batches of ~8,000 messages served on the card,
-              SIGKILL at a seeded ACK, replay in a fresh process), on 1
-              shard and on 3 with 3 workers, batches with no redelivered
+              SIGKILL at a seeded ACK, replay in a fresh process), on 3
+              shards with 3 workers, batches with no redelivered
               rows so the kill finds a backlog: the replayed state equals
               a synchronous card twin, the replay finds rows and launches
               nothing, and its rows/s; K3's counts are the serving
               children's. H = X = engine dispatches in every step, L = S
               = 0.
-15. columns — the reconcile pass from device-resident columns at 1M
+15. path P  — scoped sync (partial replication), every relay a batching card
+              `RelayServer` on a native file store advertising
+              sync-scope-v1. P1: 16 owners x 65,536 rows (E1's contents)
+              ingested by the one-shot packed ingest, lanes recorded by
+              `record_push_lanes` (10 an owner, 1/64 untagged, one owner in
+              upper-case hex), a native file store made in the pool
+              (`p_seed`); 16 fresh scoped pullers (half the history,
+              one lane) and 2 fresh full pullers converge over HTTP: each
+              crc carry equals its owed set's (a plain statement of the
+              membership rule), 2 answers equal `scoped_response` on the
+              CPU, and the scoped serve's split, rounds, bytes and rows/s
+              are printed. P2: three `create_evolu`-shaped handles of one
+              owner on the card set (W scoped to both tables, R to `todo`
+              from W's 5th Send, F unscoped; 25,300 messages), held by
+              digest against an oracle set run in the pool: R's `todo`
+              rows equal its slice, its deferred frontier is F's 1,000
+              untagged `todoCategory` rows and 300 untagged `note` rows, a
+              `note` query on R answers `ScopeDeferred` with exactly those
+              300 rows, and after `WidenSyncScope(full=True)` R equals F. P3: a scoped `/replicate/snapshot` of 4 of P1's
+              owners installs exactly their owed slices with host-fold
+              trees, beside an unscoped capture; no launch. P4: the fold
+              on 2^20 canonical stamps with a 10% mask (parse, upload, H
+              and X by profiler, pull, dict) beside H's and X's bound, and
+              the host fold at 2^17 rows. H = X = the device scoped folds
+              in P1.
+16. columns — the reconcile pass from device-resident columns at 1M
               messages (1k owners; the 10M pass was cut when path J was
               added), per-stage times with CUDA events, rows/s and peak
               device memory; outputs equal to the same pass with every
               kernel swapped for its plain version.
-16. timing  — L, X, H and their plain versions timed on the inputs the
+17. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them; S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
@@ -249,9 +278,9 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k}` are the counts themselves (H1,
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,p}` are the counts themselves (H1,
 H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1-J4 as path
-J; K1, K2 and K3's serving children as path K); `ms`, `device_ms`,
+J; K1, K2 and K3's serving children as path K; P1-P4 as path P); `ms`, `device_ms`,
 `plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
 `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
@@ -1197,8 +1226,8 @@ def path_c2(torch, kernels, calls):
 # Receives of D2 and D3, cut from 8 and 4 + 2 to keep the whole script well
 # inside its time limit once path F was added.
 # D2 cut from 5 to 3 Receives, D3's churn from 2 to 1 and its steady
-# Receives from 2 to 1 (and D_STREAMED_BATCHES below from 2 to 1) when
-# path G was added, to keep the whole script inside its time limit.
+# Receives from 2 to 1 when path G was added, to keep the whole script
+# inside its time limit.
 D2_BATCHES, D3_CHURN, D3_STEADY = 3, 1, 1
 D4_SEND, D4_REMOTE = 1000, 200  # D4's local mutations and received messages
 D_TABLES = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",),
@@ -1538,39 +1567,6 @@ def path_d(torch, kernels, oracle_job):
     report["oracle_in_pool_process"] = True
     gpu.stop()
     return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, oracle["after_d2"]
-
-
-# D2 batches of the winner_cache=False rerun: cut from 8 to 2 once path E
-# was added and to 1 once path G was, to keep the whole script well inside
-# its time limit.
-D_STREAMED_BATCHES = 1
-
-
-def path_d_streamed(trees, batches):
-    """D1 and D2's first D_STREAMED_BATCHES batches again on a fresh worker
-    with `winner_cache=False`: every device-planned batch streams its
-    winners from SQLite (`plan_batch_device_full`), the comparison of
-    benchmarks/winner_cache.py. D2 is timed; `batches` are path D's D1
-    and D2 as (base, messages) and `trees` the relay's trees after each,
-    so no receive leaves a diff."""
-    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
-    from evolu_tpu_torch.storage.clock import read_clock
-    from evolu_tpu_torch.utils.config import Config
-
-    trees = trees[:1 + D_STREAMED_BATCHES]
-    clock = {"now": D1_BASE}
-    w = DWorker("streamed", Config(backend="auto", winner_cache=False, receive_chunk_size=1 << 17), clock)
-    w.receive("d1", batches[0][1], trees[0])
-    walls, n = [], 0
-    for (base, batch), tree in zip(batches[1:], trees[1:]):
-        clock["now"] = base
-        walls.append(w.receive("d2", batch, tree)["wall_s"])
-        n += len(batch)
-    if merkle_tree_to_string(read_clock(w.worker.db).merkle_tree) != trees[-1] or w.pushes:
-        raise AssertionError("path D: the streamed worker's Merkle tree after D2 differs from the relay's")
-    w.stop()
-    return {"d1_wall_s": round(w.walls["d1"], 4), "d2_wall_s": round(sum(walls), 4),
-            "d2_msgs_per_s": round(n / sum(walls)), "d2_batch_s": [round(t, 4) for t in walls]}
 
 
 E_MESSAGES = 1_000_000  # BASELINE config 3: 1M messages over 1k owners
@@ -1951,11 +1947,12 @@ def pure_transport():
     from evolu_tpu_torch.sync import protocol
 
     class PureTransport(sync_client.SyncTransport):
-        def _encode_push(self, request, node_id, caps, use_v2):
+        def _encode_push(self, request, node_id, caps, use_v2, scope_clause=None):
             encrypted = sync_client.encrypt_messages_pure(request.messages, request.owner.mnemonic)
             body = protocol.encode_sync_request(
                 protocol.SyncRequest(encrypted, request.owner.id, node_id, request.merkle_tree))
-            return body + protocol.encode_request_capabilities(caps) if caps else body
+            body = body + protocol.encode_request_capabilities(caps) if caps else body
+            return body + protocol.encode_request_scope(scope_clause)
 
         def _decode_response(self, response_bytes, mnemonic):
             response = protocol.decode_sync_response(response_bytes)
@@ -1979,7 +1976,7 @@ class FSet:
     node ids, `now` and `now_iso` come from this set's own counters and
     scripted clock."""
 
-    def __init__(self, name, on_card, http=False):
+    def __init__(self, name, on_card, http=False, path=":memory:"):
         from evolu_tpu_torch.server.engine import BatchReconciler
         from evolu_tpu_torch.server.relay import RelayServer, RelayStore, serve_single_request
         from evolu_tpu_torch.sync import protocol
@@ -1991,7 +1988,7 @@ class FSet:
         if http:
             # Path H3: the clients POST over HTTP to a port relay, a batching
             # one on the card for the card set.
-            self.server = RelayServer(RelayStore(backend=self.backend), batching=on_card,
+            self.server = RelayServer(RelayStore(path, backend=self.backend), batching=on_card,
                                       device=self.device).start()
             self.store, self.url = self.server.store, self.server.url + "/"
         else:
@@ -2041,10 +2038,10 @@ class FSet:
                 self.parts[part] += time.perf_counter() - t0
         return run
 
-    def client(self, key, schema, mnemonic, hooks=False):
+    def client(self, key, schema, mnemonic, hooks=False, scope=None):
         """A client on this set (create_hooks, or `Evolu` with the schema as
         create_evolu sets it), wired to the relay with a transport, its
-        clock scripted, its outputs kept. The transport's push encode and
+        clock scripted, its outputs kept; `scope` is its `Config.sync_scope`. The transport's push encode and
         response decode are timed into `parts` ("encrypt", "decrypt"), and
         each response counted by its decode route in `decoded`."""
         from evolu_tpu_torch.api.hooks import create_hooks
@@ -2055,7 +2052,8 @@ class FSet:
         from evolu_tpu_torch.sync.client import SyncTransport, _http_post
         from evolu_tpu_torch.utils.config import Config
 
-        cfg = Config(backend="auto" if self.on_card else "cpu", **({"sync_url": self.url} if self.url else {}))
+        cfg = Config(backend="auto" if self.on_card else "cpu", sync_scope=scope,
+                     **({"sync_url": self.url} if self.url else {}))
         kw = dict(config=cfg, mnemonic=mnemonic, device=self.device, backend=self.backend)
         if hooks:
             made = create_hooks(schema, **kw)
@@ -2471,12 +2469,13 @@ def native_paths_in_port_build():
 def pure_decrypt(pool, contents, mnemonic):
     """The pure OpenPGP loop (`decrypt_messages_pure`) over `contents` in
     the processes of `pool`, contiguous slices in order: the G1 oracle's
-    decode, off the path the card side is timed on."""
+    decode, run while the card side is timed. → an AsyncResult of the
+    slices' message tuples."""
     from evolu_tpu_torch.sync.client import decrypt_messages_pure
 
     size = -(-len(contents) // ORACLE_PROCESSES)
     slices = [(contents[i:i + size], mnemonic) for i in range(0, len(contents), size)]
-    return tuple(itertools.chain.from_iterable(pool.starmap(decrypt_messages_pure, slices)))
+    return pool.starmap_async(decrypt_messages_pure, slices)
 
 
 def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
@@ -2491,7 +2490,8 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     C call to a PackedReceive; None fails the run) and hands it to a
     `DbWorker(device=None)` on `CppSqliteDatabase` with the winner cache.
     The oracle decodes the same bytes with the pure loops (in the
-    processes of `pool`), which must give exactly the messages and trees
+    processes of `pool`, while the card side runs), which must give
+    exactly the messages and trees
     path D's `backend="cpu"` worker on `PySqliteDatabase` received for D1
     and D2, with the same clock; that worker's outputs, pushes, tables and
     tree after them (`oracle`, taken in path D) are the oracle's. They
@@ -2536,6 +2536,17 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
           f"served as {len(bodies)} responses ({sum(len(b[3]) for b in bodies)} bytes) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
+    # The oracle's pure decode of every response starts in the pool now and
+    # runs while the card side below is timed (it took 15-17 s after it
+    # until path P was added).
+    t1 = time.perf_counter()
+    oracle_jobs = []
+    for ph, _base, _n, body in bodies:
+        response = protocol.decode_sync_response(body)
+        oracle_jobs.append((ph, response.merkle_tree, pure_decrypt(pool, response.messages, MNEMONIC)))
+    del response
+    oracle_submit_s = time.perf_counter() - t1
+
     split = Timed(torch, [(PackedReceive, "parse_timestamps", "hlc_fold", False),
                           (worker_mod, "receive_timestamps_batch_packed", "hlc_fold", False),
                           (DeviceWinnerCache, "plan_packed", "plan", False),
@@ -2555,16 +2566,15 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     launches = read(kernels)
     apply_routes = {k: papply.counts[k] - applied[k] for k in applied}
     parts = {k: round(v, 4) for k, v in parts.items()}
-    oracle_decrypt = {"d1": 0.0, "d2": 0.0}
-    for (ph, _base, _n, body), (_b, batch), tree in zip(bodies, batches, trees):
+    oracle_wait = {"d1": 0.0, "d2": 0.0}
+    for (ph, served_tree, job), (_b, batch), tree in zip(oracle_jobs, batches, trees):
         t1 = time.perf_counter()
-        response = protocol.decode_sync_response(body)
-        messages = pure_decrypt(pool, response.messages, MNEMONIC)
-        oracle_decrypt[ph] += time.perf_counter() - t1
-        if messages != tuple(batch) or response.merkle_tree != tree:
+        messages = tuple(itertools.chain.from_iterable(job.get()))
+        oracle_wait[ph] += time.perf_counter() - t1
+        if messages != tuple(batch) or served_tree != tree:
             raise AssertionError("path G1: the pure decode of a response differs from what path D's "
                                  "oracle worker received")
-    del messages, response
+    del messages, oracle_jobs
     plans = sum(sum(r["plans"].values()) for ph in routes for r in routes[ph])
     print(f"  path G1: launches {launches}; device plans {plans}; apply routes {json.dumps(apply_routes)}",
           flush=True)
@@ -2597,7 +2607,7 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
                       "receive_wall_s": round(gpu.walls[ph], 4), "msgs_per_s": round(n / wall),
                       "receive_msgs_per_s": round(n / gpu.walls[ph]),
                       "path_d_object_route_msgs_per_s": report_d[ph]["msgs_per_s"],
-                      f"oracle_decrypt_{ORACLE_PROCESSES}_processes_s": round(oracle_decrypt[ph], 4),
+                      f"oracle_decrypt_{ORACLE_PROCESSES}_processes_wait_s": round(oracle_wait[ph], 4),
                       "oracle_wall_s_in_path_d": report_d[ph]["oracle_wall_s"],
                       "plans_per_receive": [r["plans"] for r in routes[ph]]}
     total = sum(decrypt_s.values()) + sum(gpu.walls[ph] for ph in ("d1", "d2"))
@@ -2606,6 +2616,7 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     import sqlite3
 
     report.update({"split_s": split_s, "apply_routes": apply_routes, "launches": launches,
+                   "oracle_decode_submit_s": round(oracle_submit_s, 4),
                    "cache_counts": dict(gpu.cache.counts), "rows": rows, "native_libraries": paths,
                    "sqlite_versions": {"native": gpu.worker.db.exec("SELECT sqlite_version()")[0][0],
                                        "python": sqlite3.sqlite_version}})
@@ -3423,28 +3434,28 @@ def owner_rows(store):
     return out
 
 
-def i3_fixpoint(ring, relays, oracle, step, stop=False):
+def i3_fixpoint(ring, members, oracle, step, stop=False):
     """Wait for the scoped-gossip fixpoint under `ring`: every owner's tree
-    on each of its placed relays equal to the oracle's; with `stop`, stop
-    the relays' gossip loops there (rounds in flight end; the counts are
+    on each of its placed members equal to the oracle's; with `stop`, stop
+    the members' gossip loops there (rounds in flight end; the counts are
     final); then hold the rows too. → ({url: owner_rows}, wait s, compare
     s)."""
     want_trees = dict(oracle.owner_trees())
-    by_url = {r.url: r for r in relays}
+    by_url = {m.url: m for m in members}
 
     def reached():
-        trees = {u: dict(r.store.owner_trees()) for u, r in by_url.items()}
+        trees = {u: m.call("trees") for u, m in by_url.items()}
         return all(trees[u].get(uid) == t for uid, t in want_trees.items() for u in ring.placement(uid))
 
     t0 = time.perf_counter()
     wait_until(reached, f"the scoped-gossip fixpoint {step}")
     wait_s = time.perf_counter() - t0
     if stop:
-        for r in relays:
-            r.replication.stop()
+        for m in members:
+            m.call("stop_gossip")
     t0 = time.perf_counter()
     want = owner_rows(oracle)
-    held = {u: owner_rows(r.store) for u, r in by_url.items()}
+    held = {u: m.call("rows") for u, m in by_url.items()}
     for uid, state in want.items():
         for u in ring.placement(uid):
             if held[u].get(uid) != state:
@@ -3452,72 +3463,182 @@ def i3_fixpoint(ring, relays, oracle, step, stop=False):
     return held, round(wait_s, 4), round(time.perf_counter() - t0, 3)
 
 
-def path_i3(torch, kernels, tmp):
+I3_MEMBER_DEVICE = None  # the members' engine device (None = the card)
+
+
+def i3_member(conn, path, debounce_s, device):
+    """One I3 fleet member in a process of its own: a batching
+    `RelayServer` on a native file store (gossip every 1.0 s), driven over
+    `conn`. It answers its URL, then joins the fleet config it is sent and
+    starts; then it answers "trees", "rows", "rebalance" (the sweep a
+    reload started), "stop_gossip", "counts" (its kernel launches, counted
+    from 0 in this process, its engine passes, and its scheduler's,
+    replication's and fleet's counts) and "stop". Each answer is ("ok",
+    value) or ("error", repr)."""
+    try:
+        from evolu_tpu_torch.ops import cuda_hash, cuda_scan
+        from evolu_tpu_torch.server import engine as eng
+        from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+        from evolu_tpu_torch.utils.config import FleetConfig
+
+        relay = RelayServer(RelayStore(path, backend="native"), batching=True, peers=[],
+                            replication_interval_s=1.0, device=device)
+        if debounce_s is not None:
+            relay.replication.debounce_s = debounce_s
+        counters = {"seg_lex_max_scan": cuda_scan.segmented_max_scan_cuda,
+                    "seg_xor_scan": cuda_scan.segmented_xor_scan_cuda,
+                    "timestamp_hash": cuda_hash.timestamp_hash_cuda,
+                    "seg_sum_scan": cuda_scan.segmented_sum_scan_cuda}
+        routes0 = dict(eng.counts)
+    except BaseException as e:  # noqa: BLE001 - answered to the parent
+        conn.send(("error", repr(e)))
+        return
+    conn.send(("ok", relay.url))
+    while True:
+        cmd, arg = conn.recv()
+        try:
+            if cmd == "join":
+                relay.enable_fleet(FleetConfig.from_json(arg))  # before start: gossip is placement-scoped
+                relay.start()
+                out = None
+            elif cmd == "trees":
+                out = dict(relay.store.owner_trees())
+            elif cmd == "rows":
+                out = owner_rows(relay.store)
+            elif cmd == "rebalance":
+                out = relay.fleet.rebalance_once()
+            elif cmd == "stop_gossip":
+                relay.replication.stop()
+                out = None
+            elif cmd == "counts":
+                pcs = relay.replication.peer_counts.values()
+                out = {"launches": {k: f.launches for k, f in counters.items()},
+                       "passes": sum(eng.counts[k] - routes0[k] for k in ("delta", "full", "overflow")),
+                       "routes": {k: eng.counts[k] - routes0[k] for k in ROUTES},
+                       "scheduler": dict(relay.scheduler.counts), "fleet": dict(relay.fleet.counts),
+                       "rounds_ok": sum(pc["rounds_ok"] for pc in pcs),
+                       "rounds_error": sum(pc["rounds_error"] for pc in pcs),
+                       "messages_pulled": sum(pc["messages_pulled"] for pc in pcs)}
+            elif cmd == "stop":
+                stop_relay(relay)
+                conn.send(("ok", None))
+                return
+            else:
+                raise ValueError(f"unknown command {cmd!r}")
+        except BaseException as e:  # noqa: BLE001 - answered to the parent
+            conn.send(("error", repr(e)))
+            continue
+        conn.send(("ok", out))
+
+
+class I3Member:
+    """The parent's handle of an `i3_member` process (spawned)."""
+
+    def __init__(self, ctx, path, debounce_s=None):
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=i3_member, args=(child, path, debounce_s, I3_MEMBER_DEVICE), daemon=True)
+        self.proc.start()
+        child.close()
+        self.url = None
+
+    def _answer(self, what, timeout):
+        if not self.conn.poll(timeout):
+            raise AssertionError(f"path I3: member {self.url} did not answer {what} in {timeout:.0f} s")
+        kind, value = self.conn.recv()
+        if kind != "ok":
+            raise AssertionError(f"path I3: member {self.url} failed {what}: {value}")
+        return value
+
+    def ready(self):
+        self.url = self._answer("its start", I_WAIT_S)
+
+    def call(self, cmd, arg=None, timeout=I_WAIT_S):
+        self.conn.send((cmd, arg))
+        return self._answer(cmd, timeout)
+
+    def close(self):
+        try:
+            if self.proc.is_alive() and self.url is not None:
+                self.call("stop", timeout=120)
+        finally:
+            self.proc.join(30)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+
+
+def i3_spawn(tmp):
+    """Start I3's members (I3_RELAYS, then the joiner), each in a spawned
+    process of its own; they start while path I2 runs. → (members, joiner)."""
+    ctx = multiprocessing.get_context("spawn")
+    members = [I3Member(ctx, os.path.join(tmp, f"i3_{i}.db")) for i in range(I3_RELAYS)]
+    return members, I3Member(ctx, os.path.join(tmp, "i3_join.db"), I3_JOIN_DEBOUNCE_S)
+
+
+def path_i3(torch, kernels, tmp, spawned):
     """I3, the owner-sharded fleet: I3_RELAYS card relays (batching, native
-    file stores) under one FleetConfig (R = I3_R) take I3_MESSAGES messages
-    over 1k owners from I3_THREADS clients (random member, one 307 followed
-    and cached). At the scoped-gossip fixpoint every owner's rows and tree
-    on its primary and each replica equal a single per-request oracle
-    relay's on a Python store that took the same requests. Then a fourth
-    card relay joins by `POST /fleet/reload` (survivors first, then the
-    joiner) while a writer keeps POSTing to the first half of the owners:
-    at the new fixpoint every ACKed write is on every placed relay (the
-    oracle took them too), quiet moved owners' trees equal the losing
-    relay's, and the joiner cut at least one owner over at its watermark.
-    → (launches, report)."""
+    file stores), each in a process of its own (`i3_member`), under one
+    FleetConfig (R = I3_R) take I3_MESSAGES messages over 1k owners from
+    I3_THREADS clients (random member, one 307 followed and cached). At the
+    scoped-gossip fixpoint every owner's rows and tree on its primary and
+    each replica equal a single per-request oracle relay's on a Python
+    store that took the same requests. Then a fourth card relay joins by
+    `POST /fleet/reload` (survivors first, then the joiner) while a writer
+    keeps POSTing to the first half of the owners: at the new fixpoint
+    every ACKed write is on every placed relay (the oracle took them too),
+    quiet moved owners' trees equal the losing relay's, and the joiner cut
+    at least one owner over at its watermark. I3's launches are the
+    members' (each counted from 0 in its process), H = X = their engine
+    passes; the parent launches nothing. `spawned` is `i3_spawn`'s
+    (members, joiner), closed here. → (launches, report)."""
     import threading
 
-    from evolu_tpu_torch.server import engine as eng
     from evolu_tpu_torch.server.fleet import HashRing
-    from evolu_tpu_torch.server.relay import RelayServer, RelayStore, serve_single_request
+    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
     from evolu_tpu_torch.utils.config import FleetConfig
 
-    t0 = time.perf_counter()
-    trees = {}
-    work = i3_workload(E_OWNERS, I3_MESSAGES, seed=42, trees=trees)
-    join_work = i3_workload(E_OWNERS // 2, I3_JOIN_MESSAGES, seed=43, t0=10**6, trees=trees)
-    del trees
-    report, relays = {"build_s": round(time.perf_counter() - t0, 3)}, []
+    members, joiner = spawned
     oracle = RelayStore(backend="python")
-    routes0 = dict(eng.counts)
+    report = {}
     reset(kernels)
     try:
-        for i in range(I3_RELAYS):
-            relays.append(RelayServer(RelayStore(os.path.join(tmp, f"i3_{i}.db"), backend="native"),
-                                      batching=True, peers=[], replication_interval_s=1.0))
-        cfg = FleetConfig(relays=tuple(r.url for r in relays), replication_factor=I3_R, version=1)
-        for r in relays:
-            r.enable_fleet(cfg)  # before start: the first gossip round is placement-scoped
-        for r in relays:
-            r.start()
-        urls = [r.url for r in relays]
+        t0 = time.perf_counter()
+        trees = {}
+        work = i3_workload(E_OWNERS, I3_MESSAGES, seed=42, trees=trees)
+        join_work = i3_workload(E_OWNERS // 2, I3_JOIN_MESSAGES, seed=43, t0=10**6, trees=trees)
+        del trees
+        report["build_s"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        for m in members + [joiner]:
+            m.ready()
+        report["members_start_s"] = round(time.perf_counter() - t0, 3)
+        cfg = FleetConfig(relays=tuple(m.url for m in members), replication_factor=I3_R, version=1)
+        for m in members:
+            m.call("join", cfg.to_json())
+        urls = [m.url for m in members]
         wall, followed = i3_ingest(work, urls, I3_THREADS)
         t0 = time.perf_counter()
         for _uid, r in work:
             serve_single_request(oracle, r)
         oracle_s = time.perf_counter() - t0
         ring0 = HashRing(cfg)
-        held0, wait0, compare0 = i3_fixpoint(ring0, relays, oracle, "after the ingest")
+        held0, wait0, compare0 = i3_fixpoint(ring0, members, oracle, "after the ingest")
         report["ingest"] = {"messages": I3_MESSAGES, "requests": len(work), "wall_s": round(wall, 4),
                             "msgs_per_s": round(I3_MESSAGES / wall), "requests_per_s": round(len(work) / wall, 1),
                             "redirects_followed": followed, "oracle_s": round(oracle_s, 4),
                             "fixpoint_wait_s": wait0, "compare_s": compare0}
-        joiner = RelayServer(RelayStore(os.path.join(tmp, "i3_join.db"), backend="native"), batching=True,
-                             peers=[], replication_interval_s=1.0)
-        relays.append(joiner)
         cfg2 = FleetConfig(relays=cfg.relays + (joiner.url,), replication_factor=I3_R, version=2)
-        joiner.enable_fleet(cfg2)
-        joiner.replication.debounce_s = I3_JOIN_DEBOUNCE_S
-        joiner.start()
+        joiner.call("join", cfg2.to_json())
+        everyone = members + [joiner]
         writer = {}
         wt = threading.Thread(target=lambda: writer.update(out=i3_ingest(join_work, urls + [joiner.url], 4)))
         wt.start()
         t0 = time.perf_counter()
-        for r in relays:  # survivors first, then the joiner
-            code, body = http_json_post(r.url + "/fleet/reload", cfg2.to_json())
+        for m in everyone:  # survivors first, then the joiner
+            code, body = http_json_post(m.url + "/fleet/reload", cfg2.to_json())
             if code != 200 or body["ring_version"] != 2:
-                raise AssertionError(f"path I3: reload of {r.url} answered {code} {body}")
-        extra = joiner.fleet.rebalance_once()  # waits out the reload's sweep
+                raise AssertionError(f"path I3: reload of {m.url} answered {code} {body}")
+        extra = joiner.call("rebalance")  # waits out the reload's sweep
         rebalance_s = time.perf_counter() - t0
         wt.join()
         if "out" not in writer:
@@ -3525,10 +3646,18 @@ def path_i3(torch, kernels, tmp):
         for _uid, r in join_work:
             serve_single_request(oracle, r)
         ring = HashRing(cfg2)
-        held, wait1, compare1 = i3_fixpoint(ring, relays, oracle, "after the join", stop=True)
-        launches = read(kernels)
-        passes = engine_passes(routes0)
-        check_i("I3", launches, passes, relays)
+        held, wait1, compare1 = i3_fixpoint(ring, everyone, oracle, "after the join", stop=True)
+        counts = {m.url: m.call("counts") for m in everyone}
+        launches = {k: sum(c["launches"][k] for c in counts.values()) for k in read(kernels)}
+        passes = sum(c["passes"] for c in counts.values())
+        expect = {"seg_lex_max_scan": 0, "seg_xor_scan": passes, "timestamp_hash": passes, "seg_sum_scan": 0}
+        if launches != expect or not passes or any(read(kernels).values()):
+            raise AssertionError(f"path I3: the members launched {launches} for {passes} passes, the parent "
+                                 f"{read(kernels)}")
+        for u, c in counts.items():
+            s, f = c["scheduler"], c["fleet"]
+            if s["poisoned_batches"] or s["singles"] or s["rejected"] or c["rounds_error"] or f["rebalance_failures"]:
+                raise AssertionError(f"path I3: counts at {u}: {c}")
         written = {uid for uid, _r in join_work}
         moved = [uid for uid in held[joiner.url] if joiner.url in ring.placement(uid)]
         quiet = [uid for uid in moved if uid not in written]
@@ -3536,7 +3665,7 @@ def path_i3(torch, kernels, tmp):
             for u in ring0.placement(uid):
                 if u not in ring.placement(uid) and held[u][uid][0] != held[joiner.url][uid][0]:
                     raise AssertionError(f"path I3: moved owner {uid}'s tree differs from the losing relay's")
-        fc = joiner.fleet.counts
+        fc = counts[joiner.url]["fleet"]
         if fc["cutovers_verified"] < 1:
             raise AssertionError(f"path I3: no owner cut over at its watermark: {fc}")
         report["join"] = {"messages_during_join": I3_JOIN_MESSAGES, "writer_wall_s": round(writer["out"][0], 4),
@@ -3547,16 +3676,14 @@ def path_i3(torch, kernels, tmp):
                                                               "cutovers_verified", "cutovers_superset")}}
         report.update({
             "engine_passes": passes,
-            "relays": [{"url": r.url, "scheduler": dict(r.scheduler.counts),
-                        "fleet": {k: v for k, v in r.fleet.counts.items() if v},
-                        "rounds_ok": sum(pc["rounds_ok"] for pc in r.replication.peer_counts.values()),
-                        "messages_pulled": sum(pc["messages_pulled"] for pc in r.replication.peer_counts.values()),
-                        "owners_stored": len(held[r.url])} for r in relays],
-            "route_counts": {k: eng.counts[k] - routes0[k] for k in routes0}})
+            "relays": [{"url": u, "scheduler": c["scheduler"], "fleet": {k: v for k, v in c["fleet"].items() if v},
+                        "rounds_ok": c["rounds_ok"], "messages_pulled": c["messages_pulled"],
+                        "owners_stored": len(held[u]), "launches": c["launches"]} for u, c in counts.items()],
+            "route_counts": {k: sum(c["routes"][k] for c in counts.values()) for k in ROUTES}})
     finally:
         oracle.close()
-        for r in relays:
-            stop_relay(r)
+        for m in members + [joiner]:
+            m.close()
     print(f"  path I3: {json.dumps(report)}", flush=True)
     return launches, report
 
@@ -3596,10 +3723,17 @@ def path_i(torch, kernels, keep, tmp, gpu=""):
         per["i1"], report["i1"] = path_i1(torch, kernels, keep, tmp)
     finally:
         keep.pop("h1_server").stop()
-    per["i2"], report["i2"] = path_i2(torch, kernels, keep, tmp)
+    # I3's members start (each its own process and CUDA context) while I2 runs.
+    spawned = i3_spawn(tmp)
+    try:
+        per["i2"], report["i2"] = path_i2(torch, kernels, keep, tmp)
+    except BaseException:
+        for m in spawned[0] + [spawned[1]]:
+            m.close()
+        raise
     for k in [k for k in keep if k not in ("h1_replay", "store_dump", "k_requests")]:  # for J2, K1 and K2
         del keep[k]
-    per["i3"], report["i3"] = path_i3(torch, kernels, tmp)
+    per["i3"], report["i3"] = path_i3(torch, kernels, tmp, spawned)
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["i1"]}
     return launches, report
@@ -3610,7 +3744,7 @@ def path_i(torch, kernels, keep, tmp, gpu=""):
 J_IDLE = 10_000  # J1's parked idle long-polls (benchmarks/push_subscriptions.py: n_idle)
 J_PROBES = 8  # probes parked on the hot owner a round (the bench's n_probes)
 J_ROUNDS = 12  # push rounds (the bench's rounds)
-J_POLL_ROUNDS = 6  # polling-baseline rounds (12 in the bench; cut when path K was added)
+J_POLL_ROUNDS = 3  # polling-baseline rounds (12 in the bench; 6 when path K was added, 3 with path P)
 J_POLL_INTERVAL_S = 1.0  # the polling baseline's interval (the bench's POLL_INTERVAL_S)
 J_IDLE_TIMEOUT_S = 55.0  # the hub's park ceiling: the idle fleet stays parked through J1
 J_FD_MARGIN = 4096  # descriptors a process keeps besides one end of every idle connection
@@ -4054,9 +4188,10 @@ K3_SIZE = (64, 64, 500)  # owners, most owners a batch, most new messages an own
 # commit leaves the batches since the last one queued, and the SIGKILL finds them for the replay.
 K3_RESEND = 0.0
 K3_DRAIN_DELAY_S = 1.0
-# (shards, drain workers, seed): one shard, then 3 shards with 3 workers. Both seeds (of the reference
-# tortures) kill after the 7th ACK (batch 6), two batches past the checkpoint of batch 4.
-K3_RUNS = ((1, 0, 71), (3, 3, 7))
+# (shards, drain workers, seed): 3 shards with 3 workers (the one-shard episode, seed 71, was cut
+# when path P was added). The seed (of the reference tortures) kills after the 7th ACK (batch 6),
+# two batches past the checkpoint of batch 4.
+K3_RUNS = ((3, 3, 7),)
 
 
 def k_dump(store):
@@ -4315,6 +4450,614 @@ def path_k(torch, kernels, keep, tmp, h1, h2, gpu=""):
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["k1"]}
     return launches, report
+
+
+# ---- path P: scoped sync (partial replication) --------------------------------------
+
+# benchmarks/partial_sync.py's shape (10 equal HMAC lanes an owner, a one-lane
+# slice, feed-authored rows tagged as the author's scoped push tags them) at
+# the depth of a long-lived account.
+P_OWNERS, P_PER_OWNER, P_LANES = 16, 1 << 16, 10
+P_UNTAGGED_EVERY = 64  # 1/64 of an owner's rows pushed untagged: lane unknown, served to every scope
+P_UPPER_OWNER = 15  # its node hex is upper case: its scoped fold takes the host route
+P_FULL_OWNERS = (0, 1)  # also pulled by full (unscoped) pullers
+P_BYTE_OWNERS = (2, 3)  # HTTP answer held against `scoped_response(device="cpu")`
+P3_OWNERS = 4
+P_BASE = BASE_MILLIS + 30_000_000_000  # after every stamp of paths A-K
+P_STEP_MS = 4_000  # an owner's rows 4 s apart: 65,536 rows over 73 hours
+P_WATERMARK = P_BASE + (P_PER_OWNER // 2) * P_STEP_MS  # the middle of each history
+P_PULL_NODE = "9999aaaabbbbcccc"
+P_MAX_ROUNDS = 20
+P4_ROWS, P4_HOST_ROWS = 1 << 20, 1 << 17
+# P2: W's 10 Sends then 2 more, each 1,000 todo messages (200 creates of 4 and
+# 100 updates of 2) and 1,000 todoCategory messages (300 creates of 3 and 50
+# updates of 2); F's 1,000 untagged todoCategory messages (200 creates of 3 and
+# 200 updates of 2) and 300 untagged note messages (100 creates of 3). The
+# scripted clock moves a minute a Send (F_ROUND_MS). `note` is a lower-case
+# table, so a query of it on R answers ScopeDeferred; `todoCategory` never
+# does (mixed-case names, ROADMAP queue 3 item 9).
+P2_SENDS, P2_MORE = 10, 2
+P2_TODOS, P2_TODO_UPDATES, P2_CATS, P2_CAT_UPDATES = 200, 100, 300, 50
+P2_F_CATS, P2_F_UPDATES, P2_F_NOTES = 200, 200, 100
+P2_SCHEMA = {**F_TODO, "note": ("body",)}
+P2_BASE = P_BASE + 40_000_000_000
+P2_WATERMARK = P2_BASE + 5 * F_ROUND_MS  # the millis of W's 5th Send
+
+
+def p_mnemonic(o):
+    return f"path p owner {o} mnemonic"
+
+
+def p_node(o):
+    node = f"{0xfeed0000 + o:016x}"
+    return node.upper() if o == P_UPPER_OWNER else node
+
+
+def p_iso(millis):
+    """JS `toISOString` of int64 millis (after 1970), vectorized."""
+    return [s + "Z" for s in np.datetime_as_string(np.asarray(millis, dtype="datetime64[ms]"), unit="ms")]
+
+
+def p_history(o, contents):
+    """Owner `o`'s history: (timestamp strings, contents, lane tags). Row j
+    sits in lane j % 10; every 64th row has no tag."""
+    from evolu_tpu_torch.sync.scope import derive_scope_tag
+
+    node = p_node(o)
+    tags = [derive_scope_tag(p_mnemonic(o), f"table{t}") for t in range(P_LANES)]
+    iso = p_iso(P_BASE + np.arange(P_PER_OWNER, dtype=np.int64) * P_STEP_MS)
+    stamps = [f"{iso[j]}-{j % 7:04X}-{node}" for j in range(P_PER_OWNER)]
+    lanes = ["" if j % P_UNTAGGED_EVERY == P_UNTAGGED_EVERY - 1 else tags[j % P_LANES] for j in range(P_PER_OWNER)]
+    rows = [contents[(o * P_PER_OWNER + j) % len(contents)] for j in range(P_PER_OWNER)]
+    return stamps, rows, lanes
+
+
+def p_owed(stamps, rows, lanes, lane):
+    """The rows a scoped puller that authored nothing is owed, stated
+    plainly: past the watermark (raw-string order, node case as stored),
+    and in the lane requested or in no known lane."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+
+    wm = timestamp_to_string(Timestamp(P_WATERMARK, 0, "0" * 16))
+    return [(t, c) for t, c, g in zip(stamps, rows, lanes) if t >= wm and g in ("", lane)]
+
+
+def p_crc(pairs):
+    import zlib
+
+    crc = 0
+    for t, c in sorted(pairs):
+        crc = zlib.crc32(c, zlib.crc32(t.encode(), crc))
+    return crc
+
+
+def p_pull(url, owner, clause, keep_first=None):
+    """A fresh puller converges from an empty tree over HTTP with the real
+    codec: → (rounds, served (timestamp, content) pairs, request + response
+    bytes). `keep_first` gets the first round's request and answer."""
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, merkle_tree_to_string, minute_deltas_host
+    from evolu_tpu_torch.sync import protocol
+    from evolu_tpu_torch.sync.client import _http_post
+
+    caps = (protocol.CAP_SYNC_SCOPE,) if clause is not None else ()
+    tree, served, n_bytes = {}, [], 0
+    for rounds in range(1, P_MAX_ROUNDS + 1):
+        req = protocol.SyncRequest((), owner, P_PULL_NODE, merkle_tree_to_string(tree), caps, clause)
+        body = protocol.encode_sync_request(req)
+        out = _http_post(url, body, retries=0)
+        if keep_first is not None and rounds == 1:
+            keep_first.append((req, out))
+        n_bytes += len(body) + len(out)
+        msgs = protocol.decode_sync_response(out).messages
+        if not msgs:
+            return rounds, served, n_bytes
+        served += [(m.timestamp, bytes(m.content)) for m in msgs]
+        tree = apply_prefix_xors(tree, minute_deltas_host(m.timestamp for m in msgs)[0])
+    raise AssertionError(f"path P1: a puller of {owner} did not converge in {P_MAX_ROUNDS} rounds")
+
+
+def check_p(step, launches, expect):
+    if launches != expect:
+        raise AssertionError(f"path P {step}: launches {launches}, expected {expect}")
+
+
+def p_data():
+    """P1's data: the owners, each owner's history (`p_history`), its lane-0
+    tag and its owed set for a lane-0 puller."""
+    from evolu_tpu_torch.sync.scope import derive_scope_tag
+
+    rng = np.random.default_rng(131)
+    contents = [bytes(b) for b in rng.integers(0, 256, (E_POOL, E_CONTENT_BYTES), dtype=np.uint8)]
+    owners = [f"p-owner-{o:02d}" for o in range(P_OWNERS)]
+    hist = [p_history(o, contents) for o in range(P_OWNERS)]
+    lane0 = [derive_scope_tag(p_mnemonic(o), "table0") for o in range(P_OWNERS)]
+    owed = {owners[o]: p_owed(*hist[o], lane0[o]) for o in range(P_OWNERS)}
+    return owners, hist, lane0, owed
+
+
+def p_seed(path):
+    """P1's store, made in a process of the spawned pool while the card runs
+    paths B to E (set-up, as path E's oracle is): the 16 histories through
+    the one-shot packed ingest (the native insert) of a
+    `BatchReconciler(..., device="cpu")` into a native file store at
+    `path`, then their lanes by `record_push_lanes`. → the two walls."""
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.server.scope import record_push_lanes
+
+    owners, hist, _lane0, _owed = p_data()
+    store = RelayStore(path, backend="native")
+    try:
+        engine = BatchReconciler(store, device="cpu")
+        try:
+            t0 = time.perf_counter()
+            engine.reconcile_wire([e_request(owners[o], hist[o][0], hist[o][1], "{}", node=p_node(o))
+                                   for o in range(P_OWNERS)])
+            ingest_s = time.perf_counter() - t0
+        finally:
+            engine.close()
+        t0 = time.perf_counter()
+        for o in range(P_OWNERS):
+            record_push_lanes(store.db, owners[o], hist[o][0], hist[o][2], node_id=p_node(o))
+        lanes_s = time.perf_counter() - t0
+    finally:
+        store.close()
+    return {"seed_ingest_s_in_pool": round(ingest_s, 4), "seed_lanes_s_in_pool": round(lanes_s, 4)}
+
+
+def path_p1(torch, kernels, seed, gpu=""):
+    """P1, thin clients pulling a slice from deep histories: 16 owners x
+    65,536 rows (E1's 116-byte contents) in a native file store with their
+    lanes (10 an owner, 1/64 untagged, one owner with upper-case node hex),
+    made by `p_seed` in the pool (`seed` is its (path, report)), behind a
+    batching card `RelayServer` that advertises sync-scope-v1 (and serves
+    /replicate/* for P3). 16 fresh scoped pullers (watermark = the middle
+    of the history, one lane) and 2 fresh full pullers converge over HTTP;
+    each puller's crc carry equals the crc of its owed set, and for 2
+    owners the first answer's bytes equal `scoped_response(device="cpu")`
+    on the same store. H = X = the device scoped folds. → (launches,
+    report, relay, owed), the relay left running for P3."""
+    import threading
+
+    from evolu_tpu_torch.server import scope
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync import protocol
+
+    t0 = time.perf_counter()
+    owners, hist, lane0, owed = p_data()
+    data_s = time.perf_counter() - t0
+    path, seed_report = seed
+    store = RelayStore(path, backend="native")
+    scope.tree_cache.reset()
+    reset(kernels)
+    relay = RelayServer(store, batching=True, peers=[]).start()
+    split = {k: [] for k in ("candidate_select", "excluded_set", "mask", "fold", "diff", "serve_select", "filter")}
+    counts0 = dict(scope.counts)
+    report = {"rows": P_OWNERS * P_PER_OWNER, "owners": P_OWNERS, "lanes": P_LANES,
+              "watermark_millis": P_WATERMARK, "data_s": round(data_s, 4), **seed_report}
+    firsts = {o: [] for o in P_BYTE_OWNERS}
+    results, errors = {}, []
+
+    def puller(key, o, clause):
+        try:
+            results[key] = p_pull(relay.url, owners[o], clause, firsts.get(o) if key[0] == "scoped" else None)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    with contextlib.ExitStack() as stack:
+        for attr, key in (("_candidates", "candidate_select"), ("excluded_timestamps", "excluded_set"),
+                          ("_slice_mask", "mask"), ("scoped_minute_deltas", "fold"),
+                          ("diff_merkle_trees", "diff"), ("_rows_since", "serve_select"),
+                          ("_filter_rows", "filter")):
+            stack.enter_context(durations(scope, attr, split[key]))
+        for kind, clause_of, which in (
+                ("scoped", lambda o: protocol.ScopeClause(P_WATERMARK, (lane0[o],), ()), range(P_OWNERS)),
+                ("full", lambda o: None, P_FULL_OWNERS)):
+            threads = [threading.Thread(target=puller, args=((kind, o), o, clause_of(o))) for o in which]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            report[kind] = {"wall_s": round(time.perf_counter() - t0, 4), "pullers": len(threads)}
+            if errors:
+                raise AssertionError(f"path P1: a {kind} puller failed") from errors[0]
+    launches = read(kernels)
+    counts = {k: scope.counts[k] - counts0[k] for k in counts0}
+    for kind in ("scoped", "full"):
+        res = [v for k, v in results.items() if k[0] == kind]
+        rows = sum(len(r[1]) for r in res)
+        n_bytes = sum(r[2] for r in res)
+        report[kind].update({"rounds": sum(r[0] for r in res), "rows_served": rows, "bytes": n_bytes,
+                             "bytes_per_served_row": round(n_bytes / max(rows, 1), 2),
+                             "rows_per_s": round(rows / report[kind]["wall_s"])})
+    report["scoped_split_s"] = {k: round(sum(v), 4) for k, v in split.items()}
+    report["scope_counts"] = counts
+    for (kind, o), (_rounds, served, _b) in results.items():
+        want = owed[owners[o]] if kind == "scoped" else list(zip(hist[o][0], hist[o][1]))
+        if len(served) != len(want) or p_crc(served) != p_crc(want):
+            raise AssertionError(f"path P1: the {kind} puller of {owners[o]} was served {len(served)} rows "
+                                 f"(crc {p_crc(served)}), owed {len(want)} (crc {p_crc(want)})")
+    report["owed_rows_scoped"] = sum(len(v) for v in owed.values())
+    t0 = time.perf_counter()
+    for o in P_BYTE_OWNERS:
+        (req, got), = firsts[o]
+        scope.tree_cache.reset()
+        want = protocol.encode_sync_response(scope.scoped_response(store, req, device="cpu")) + \
+            protocol.encode_response_capabilities((protocol.CAP_SYNC_SCOPE,))
+        if got != want:
+            raise AssertionError(f"path P1: the HTTP answer for {owners[o]} differs from scoped_response on the CPU")
+    report["byte_check_s"] = round(time.perf_counter() - t0, 4)
+    sched = dict(relay.scheduler.counts)
+    report["scheduler_counts"] = sched
+    if sched["poisoned_batches"] or sched["singles"] or sched["rejected"]:
+        raise AssertionError(f"path P1: scheduler counts {sched}")
+    canonical = P_OWNERS - 1
+    if counts["fold_device"] != canonical or counts["fold_host"] != 1 or counts["tree_cache_misses"] != P_OWNERS:
+        raise AssertionError(f"path P1: scope counts {counts}: expected {canonical} device folds, 1 host fold "
+                             f"(the upper-case owner) and {P_OWNERS} misses")
+    folds = counts["fold_device"]
+    check_p("P1", launches, {"seg_lex_max_scan": 0, "seg_xor_scan": folds, "timestamp_hash": folds,
+                             "seg_sum_scan": 0})
+    report["launches"] = launches
+    print(f"  path P1: {json.dumps(report)} | {gpu}", flush=True)
+    return launches, report, relay, {o: owed[owners[o]] for o in range(P3_OWNERS)}, owners, lane0
+
+
+def path_p3(torch, kernels, relay, owed, owners, lane0, gpu=""):
+    """P3, a scoped snapshot bootstrap: POST `/replicate/snapshot` to P1's
+    relay with P1's watermark and one lane for 4 owners, fetch the chunks
+    and install them into a fresh native store. The installed rows equal
+    each owner's owed slice (crc), the installed trees the host fold of the
+    slice; beside an unscoped capture of the same owners. No launch.
+    → (launches, report)."""
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, merkle_tree_to_string, minute_deltas_host
+    from evolu_tpu_torch.server import snapshot
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.sync import protocol
+    from evolu_tpu_torch.sync.client import _http_post
+
+    def fetch(req, with_chunks=True):
+        t0 = time.perf_counter()
+        manifest = protocol.decode_snapshot_manifest(_http_post(relay.url + "/replicate/snapshot",
+                                                                protocol.encode_snapshot_request(req), retries=0))
+        capture_s = time.perf_counter() - t0
+        if not with_chunks:
+            return manifest, [], capture_s, 0.0
+        chunks = [protocol.decode_snapshot_chunk(_http_post(
+            relay.url + "/replicate/snapshot/chunk",
+            protocol.encode_snapshot_chunk_request(protocol.SnapshotChunkRequest(manifest.snapshot_id, i, "p3")),
+            retries=0)).payload for i in range(len(manifest.chunk_sizes))]
+        return manifest, chunks, capture_s, time.perf_counter() - t0 - capture_s
+
+    picked = tuple(owners[:P3_OWNERS])
+    # One lane for all 4 owners: each owner's own lane-0 tag (the request names
+    # opaque tags; other owners' rows of that tag are simply in no known lane).
+    tags = tuple(lane0[:P3_OWNERS])
+    reset(kernels)
+    counts0 = dict(snapshot.counts)
+    manifest, chunks, capture_s, chunks_s = fetch(protocol.SnapshotRequest("p3", 0, picked, P_WATERMARK, tags))
+    dest = RelayStore(backend="native")
+    try:
+        t0 = time.perf_counter()
+        snapshot.install_stream(dest, manifest, chunks)
+        install_s = time.perf_counter() - t0
+        for o, uid in enumerate(picked):
+            rows = [(m.timestamp, bytes(m.content)) for m in dest.replica_messages(uid, "")]
+            want = owed[o]
+            if len(rows) != len(want) or p_crc(rows) != p_crc(want):
+                raise AssertionError(f"path P3: {uid}'s installed rows differ from its owed slice")
+            tree = merkle_tree_to_string(apply_prefix_xors({}, minute_deltas_host(t for t, _c in want)[0]))
+            if dest.get_merkle_tree_string(uid) != tree:
+                raise AssertionError(f"path P3: {uid}'s installed tree differs from the host fold of its slice")
+    finally:
+        dest.close()
+    full_manifest, _none, full_capture_s, _ = fetch(protocol.SnapshotRequest("p3u", 0, picked), with_chunks=False)
+    launches = read(kernels)
+    report = {"owners": P3_OWNERS, "scoped_rows": manifest.message_count, "scoped_bytes": manifest.total_bytes,
+              "chunks": len(chunks), "capture_s": round(capture_s, 4), "chunk_fetch_s": round(chunks_s, 4),
+              "install_s": round(install_s, 4), "unscoped_rows": full_manifest.message_count,
+              "unscoped_bytes": full_manifest.total_bytes, "unscoped_capture_s": round(full_capture_s, 4),
+              "scoped_captures": snapshot.counts["scoped_captures"] - counts0["scoped_captures"],
+              "launches": launches}
+    print(f"  path P3: {json.dumps(report)} | {gpu}", flush=True)
+    if report["scoped_captures"] != 1 or report["scoped_rows"] != sum(len(v) for v in owed.values()):
+        raise AssertionError(f"path P3: {report}")
+    check_p("P3", launches, dict.fromkeys(launches, 0))
+    return launches, report
+
+
+def p2_drive(fs):
+    """P2's commands on one set (`FSet(..., http=True)`): W (scope: both
+    tables, so its pushes carry lane tags), R (scope: `todo` from the
+    millis of W's 5th Send) and F (unscoped) of one owner; W and R first
+    pull once on the empty relay, so sync-scope-v1 is negotiated before
+    any row moves. W's updates after the watermark touch only rows created
+    before it, each once, and F's updates only categories W does not
+    update after it: a row R holds is never re-delivered as a loser when
+    the widening's full pulls re-serve it (ROADMAP queue 3 item 2).
+    → {step: observations}."""
+    from evolu_tpu_torch.runtime import messages as msg
+    from evolu_tpu_torch.sync.scope import SyncScope
+
+    w = fs.client("W", P2_SCHEMA, MNEMONIC, scope=SyncScope(tables=("todo", "todoCategory")))
+    r = fs.client("R", P2_SCHEMA, MNEMONIC, scope=SyncScope(P2_WATERMARK, ("todo",)))
+    f = fs.client("F", P2_SCHEMA, MNEMONIC)
+    for e in (w, r):
+        fs.pull(e)
+    todos, cats, out = [], [], {}
+    pre_todos = pre_cats = 0
+
+    def send(s):
+        nonlocal pre_todos, pre_cats
+        fs.clock["now"] += F_ROUND_MS
+        post = fs.clock["now"] >= P2_WATERMARK
+        if not post:
+            pre_todos, pre_cats = len(todos) + P2_TODOS, len(cats) + P2_CATS
+        with w.batching():
+            new_todos = [w.create("todo", {"title": f"t{s}-{i}", "isCompleted": 0}) for i in range(P2_TODOS)]
+            new_cats = [w.create("todoCategory", {"name": f"c{s}-{i}"}) for i in range(P2_CATS)]
+            for i in range(P2_TODO_UPDATES):
+                k = (s - 4) * P2_TODO_UPDATES + i if post else (i * 7 + s) % (len(todos) + P2_TODOS)
+                w.update("todo", (todos + new_todos)[k], {"title": f"u{s}-{i}"})
+            for i in range(P2_CAT_UPDATES):
+                k = (s - 4) * P2_CAT_UPDATES + i if post else (i * 7 + s) % (len(cats) + P2_CATS)
+                w.update("todoCategory", (cats + new_cats)[k], {"name": f"v{s}-{i}"})
+        todos.extend(new_todos)
+        cats.extend(new_cats)
+        fs.settle(w)
+
+    def quiet(*clients):
+        for _ in range(2):
+            for e in clients:
+                fs.clock["now"] += F_ROUND_MS
+                fs.pull(e)
+
+    t0 = time.perf_counter()
+    for s in range(P2_SENDS):
+        send(s)
+    out["w_sends_s"] = time.perf_counter() - t0
+    if (pre_todos, pre_cats) != (4 * P2_TODOS, 4 * P2_CATS):
+        raise AssertionError(f"path P2: {pre_todos} todos and {pre_cats} categories before the watermark")
+    fs.clock["now"] += F_ROUND_MS
+    fs.pull(f)
+    with f.batching():
+        for i in range(P2_F_CATS):
+            f.create("todoCategory", {"name": f"f{i}"})
+        for i in range(P2_F_UPDATES):
+            f.update("todoCategory", cats[(P2_SENDS - 4 + P2_MORE) * P2_CAT_UPDATES + i], {"name": f"g{i}"})
+        for i in range(P2_F_NOTES):
+            f.create("note", {"body": f"n{i}"})
+    fs.settle(f)
+    t0 = time.perf_counter()
+    quiet(r, f)
+    out["r_f_quiet_s"] = time.perf_counter() - t0
+    wm = ts_one(P2_WATERMARK, 0, "0" * 16)
+    log = w.db.exec_sql_query('SELECT "timestamp", "row", "column", "value" FROM "__message" '
+                              'WHERE "table" = ? AND "timestamp" >= ? ORDER BY "timestamp"', ("todo", wm))
+    slice_rows = {}
+    for m in log:
+        slice_rows.setdefault(m["row"], {})[m["column"]] = m["value"]
+    held = {row["id"]: {k: v for k, v in row.items() if k != "id" and v is not None}
+            for row in r.db.exec_sql_query('SELECT * FROM "todo"')}
+    out["r_before_widen"] = {"frontier": r.worker._deferred_frontier(), "todo_equals_slice": held == slice_rows,
+                             "todo_rows": len(held)}
+    for table in ("todoCategory", "note"):
+        n = len(fs.errors)
+        rows = r.query_once(f'SELECT * FROM "{table}"')
+        r.worker.flush()
+        errors = fs.errors[n:]  # the answer under test, taken off the set's error channel
+        del fs.errors[n:]
+        out["r_before_widen"][f"{table}_query"] = {
+            "rows": len(rows), "errors": [(type(e).__name__, getattr(e, "tables", None), getattr(e, "deferred_rows", None))
+                                          for e in errors]}
+    out["state_before_widen"] = f_state(fs)
+    out["response_bytes_before_widen"] = {k: e._transport.counts.get("response_bytes", 0)
+                                          for k, e in fs.clients.items()}
+    for s in range(P2_SENDS, P2_SENDS + P2_MORE):
+        send(s)
+    r.worker.post(msg.WidenSyncScope(full=True))
+    r.worker.flush()
+    t0 = time.perf_counter()
+    quiet(w, r, f)
+    out["widen_quiet_s"] = time.perf_counter() - t0
+    tables = ("__message", *P2_SCHEMA)
+    out["r_equals_f"] = all(r.db.exec(f'SELECT * FROM "{t}" ORDER BY 1, 2') ==
+                            f.db.exec(f'SELECT * FROM "{t}" ORDER BY 1, 2') for t in tables)
+    out["r_scope_counts"] = dict(r.worker.scope_counts)
+    out["r_scope_after"] = r.worker.config.sync_scope
+    out["transports"] = {k: {c: e._transport.counts.get(c, 0) for c in ("requests", "response_bytes",
+                                                                        "request_bytes", "response_messages")}
+                         for k, e in fs.clients.items()}
+    out["messages"] = ((P2_SENDS + P2_MORE) * (P2_TODOS * 4 + P2_TODO_UPDATES * 2 + P2_CATS * 3 + P2_CAT_UPDATES * 2)
+                       + P2_F_CATS * 3 + P2_F_UPDATES * 2 + P2_F_NOTES * 3)
+    out["state_after"] = f_state(fs)
+    return out
+
+
+def p2_oracle():
+    """P2's oracle set, run in a process of the spawned pool while the card
+    runs paths B to E: `p2_drive` on `FSet("oracle", False, http=True)`
+    (a per-request relay on the CPU, `backend="cpu"` clients on
+    `device="cpu"`, the pure crypto loops), its clock at P2's base."""
+    fs = FSet("oracle", False, http=True)
+    fs.clock["now"] = P2_BASE
+    try:
+        with fs.active():
+            t0 = time.perf_counter()
+            out = p2_drive(fs)
+            out["wall"] = time.perf_counter() - t0
+        fs.check("p2 oracle")
+        return out
+    finally:
+        fs.close()
+
+
+def path_p2(torch, kernels, tmp, oracle, gpu=""):
+    """P2, scoped handles through the client API on the card set (a batching
+    card relay on a native file store, `backend="auto"` clients with the
+    winner cache on the card, the native crypto leg, encrypted sync over
+    HTTP), held against the oracle set's `p2_drive` by digest before and
+    after the widening. R's `todo` rows equal its slice, its frontier is
+    exactly F's 1,000 untagged `todoCategory` rows and 300 `note` rows, a
+    `note` query on R answers `ScopeDeferred` with those 300 rows (the
+    `todoCategory` query answers its empty rows, as the oracle's does),
+    and after the widening R equals F. → (launches, report)."""
+    fs = FSet("card", True, http=True, path=os.path.join(tmp, "p2.db"))
+    fs.clock["now"] = P2_BASE
+    reset(kernels)
+    try:
+        with fs.active():
+            t0 = time.perf_counter()
+            got = p2_drive(fs)
+            wall = time.perf_counter() - t0
+        fs.check("p2")
+        launches = read(kernels)
+        plans = sum(sum(v for k, v in e.worker._planner.cache.counts.items() if k in ("cached_plans", "stream_plans"))
+                    for e in fs.clients.values())
+        # Before the widening W has not pulled F's rows and R holds a slice,
+        # so only the sets are held equal; after it every client is synced.
+        for part in ("clients", "relay"):
+            if got["state_before_widen"][part] != oracle["state_before_widen"][part]:
+                raise AssertionError(f"path P2: before the widening the {part} differ from the oracle set's")
+        sizes = f_compare("P2 after the widening", got["state_after"], oracle["state_after"])
+    finally:
+        fs.close()
+    before = got["r_before_widen"]
+    report = {"messages": got["messages"], "wall_s": round(wall, 4), "msgs_per_s": round(got["messages"] / wall),
+              "oracle_wall_s": round(oracle["wall"], 4), "oracle_msgs_per_s": round(got["messages"] / oracle["wall"]),
+              "w_sends_s": round(got["w_sends_s"], 4), "r_f_quiet_s": round(got["r_f_quiet_s"], 4),
+              "widen_quiet_s": round(got["widen_quiet_s"], 4), "r_before_widen": before,
+              "r_scope_counts": got["r_scope_counts"], "transports": got["transports"],
+              "response_bytes_before_widen": got["response_bytes_before_widen"],
+              "worker_device_plans": plans, "rows": sizes, "launches": launches}
+    print(f"  path P2: {json.dumps(report, default=str)} | {gpu}", flush=True)
+    for key in ("r_before_widen", "r_equals_f", "r_scope_counts"):
+        if got[key] != oracle[key]:
+            raise AssertionError(f"path P2: {key} {got[key]} differs from the oracle set's {oracle[key]}")
+    notes = P2_F_NOTES * 3
+    if before["frontier"] != {"todoCategory": P2_F_CATS * 3 + P2_F_UPDATES * 2, "note": notes} \
+            or not before["todo_equals_slice"] \
+            or before["note_query"] != {"rows": 0, "errors": [("ScopeDeferred", ("note",), notes)]}:
+        raise AssertionError(f"path P2: R before the widening {before}")
+    if not got["r_equals_f"] or got["r_scope_after"] is not None or not got["r_scope_counts"]["widen_materialized"]:
+        raise AssertionError("path P2: after the widening R does not equal F")
+    if launches["timestamp_hash"] != launches["seg_xor_scan"] or launches["timestamp_hash"] < plans \
+            or plans == 0 or launches["seg_lex_max_scan"] < 2 * plans or launches["seg_sum_scan"]:
+        raise AssertionError(f"path P2: launches {launches} for {plans} device plans")
+    return launches, report
+
+
+def p4_kernel_ms(torch, fn):
+    """Device ms of kernels H and X alone in one call of `fn`, from
+    torch.profiler's kernel records (by kernel name; the sort and the
+    elementwise kernels beside them excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        spans = {"H": 0.0, "X": 0.0}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if "ts_hash_kernel" in e.name:
+                    spans["H"] += e.time_range.elapsed_us()
+                elif "lookback_scan" in e.name:
+                    spans["X"] += e.time_range.elapsed_us()
+        if spans["H"] and spans["X"]:
+            return {k: round(v / 5 / 1e3, 5) for k, v in spans.items()}
+        time.sleep(1.0)
+    return {"H": None, "X": None}
+
+
+def path_p4(torch, kernels, gpu=""):
+    """P4, the fold itself: `scoped_minute_deltas` on 2^20 canonical
+    timestamps with a 10% mask on the card, split into parse, upload, H and
+    X (profiler kernel time), pull and dict, beside the two kernels' bound
+    at that size; the host fold timed at 2^17 rows, its deltas equal to the
+    card's on those rows. → (launches, report)."""
+    from evolu_tpu_torch.core.merkle import minute_deltas_host
+    from evolu_tpu_torch.ops import merkle_ops as mo
+    from evolu_tpu_torch.server import scope
+
+    rng = np.random.default_rng(141)
+    millis = P_BASE + np.sort(rng.integers(0, 10 * 86_400_000, P4_ROWS))
+    nodes = rng.integers(0, 2**63, P4_ROWS)
+    iso = p_iso(millis)
+    stamps = [f"{iso[i]}-{i % 65536:04X}-{int(d):016x}" for i, d in enumerate(nodes.tolist())]
+    mask = rng.random(P4_ROWS) < 0.1
+    # The split of the one call, host clock: parse, upload, the kernels'
+    # launch (host time: `minute_deltas_core` queues them), the pull (waits
+    # for the device, then copies) and the dict. Its device inputs are kept
+    # for the kernel timing below.
+    split = {k: [] for k in ("parse", "upload", "launch", "pull", "dict")}
+    inputs = []
+    core = mo.minute_deltas_core
+
+    def kept(*a):
+        inputs.append(a)
+        return core(*a)
+
+    reset(kernels)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(mo, "minute_deltas_core", kept))
+        for obj, attr, key in ((scope, "parse_timestamp_strings", "parse"), (mo, "columns_to_device", "upload"),
+                               (mo, "minute_deltas_core", "launch"), (mo, "to_host_many", "pull"),
+                               (scope, "minute_deltas_to_dict", "dict")):
+            stack.enter_context(durations(obj, attr, split[key]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = scope.scoped_minute_deltas(stamps, mask)
+        wall = time.perf_counter() - t0
+    # This call is the path's launch; the timing below launches the same
+    # kernels again and is not counted.
+    launches = read(kernels)
+    check_p("P4", launches, {"seg_lex_max_scan": 0, "seg_xor_scan": 1, "timestamp_hash": 1, "seg_sum_scan": 0})
+    run = functools.partial(core, *inputs[0])
+    split = {f"{k}_s": round(sum(v), 5) for k, v in split.items()}
+    split["device_leg_ms"] = round(cuda_ms(run, reps=5, inner=3), 5)
+    kernel_ms = p4_kernel_ms(torch, run)
+    # Bound: H (columns form) reads 8 + 4 + 8 B and writes 4 B a row and
+    # hashes every row; X reads 1 + 4 B and writes 4 B a row.
+    h_bytes, x_bytes = P4_ROWS * 24, P4_ROWS * 9
+    h_bound = max(h_bytes / MEM_BYTES_PER_S, h_ops_per_row * P4_ROWS / INT32_OPS_PER_S) * 1e3
+    x_bound = x_bytes / MEM_BYTES_PER_S * 1e3
+    sub = slice(0, P4_HOST_ROWS)
+    t0 = time.perf_counter()
+    host_deltas, _ = minute_deltas_host(t for t, k in zip(stamps[sub], mask[sub]) if k)
+    host_s = time.perf_counter() - t0
+    if scope.scoped_minute_deltas(stamps[sub], mask[sub]) != host_deltas:
+        raise AssertionError("path P4: the card fold and the host fold differ on 2^17 rows")
+    report = {"rows": P4_ROWS, "masked": int(mask.sum()), "wall_s": round(wall, 5),
+              "split_s": split, "kernel_device_ms": kernel_ms,
+              "bound_ms": {"H": round(h_bound, 5), "X": round(x_bound, 5)},
+              "bound_by": {"H": "operations" if h_ops_per_row * P4_ROWS / INT32_OPS_PER_S > h_bytes / MEM_BYTES_PER_S
+                           else "bytes", "X": "bytes"},
+              "host_fold": {"rows": P4_HOST_ROWS, "s": round(host_s, 5), "rows_per_s": round(P4_HOST_ROWS / host_s)},
+              "launches": launches}
+    print(f"  path P4: {json.dumps(report)} | {gpu}", flush=True)
+    return launches, report
+
+
+def path_p(torch, kernels, tmp, p2_oracle_out, seed, gpu=""):
+    """Path P: P1 to P4, each with its own launch counts (summed as path
+    P); `seed` is P1's store from the pool (`p_seed`). → (launches,
+    report)."""
+    report, per = {}, {}
+    per["p1"], report["p1"], relay, owed, owners, lane0 = path_p1(torch, kernels, seed, gpu)
+    try:
+        per["p3"], report["p3"] = path_p3(torch, kernels, relay, owed, owners, lane0, gpu)
+    finally:
+        relay.stop()
+    per["p2"], report["p2"] = path_p2(torch, kernels, tmp, p2_oracle_out, gpu)
+    per["p4"], report["p4"] = path_p4(torch, kernels, gpu)
+    report["launches"] = per
+    return {k: sum(p[k] for p in per.values()) for k in per["p1"]}, report
 
 
 def engine_kernel_timing(torch, captured):
@@ -4714,6 +5457,10 @@ def main() -> int:
     # pool while the card runs paths B to E.
     d_oracle_job, e_oracle_job = pool.apply_async(d_oracle), pool.apply_async(e_oracle)
     f_oracle_job, h1_bodies_job = pool.apply_async(f_oracle), pool.apply_async(h1_bodies)
+    # Path P's oracle set and P1's 1M-row store are made in the pool too.
+    p_dir = tempfile.TemporaryDirectory()
+    p_store = os.path.join(p_dir.name, "p1.db")
+    p2_oracle_job, p_seed_job = pool.apply_async(p2_oracle), pool.apply_async(p_seed, (p_store,))
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
         launches["b"] = path_b(torch, kernels, lww_names)
     captured, c2_calls = {}, {}
@@ -4726,9 +5473,6 @@ def main() -> int:
     with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
         launches["d"], report_d, trees_d2, batches_d, g1_oracle = path_d(torch, kernels, d_oracle_job)
         print("  " + json.dumps(report_d), flush=True)
-    with phase("path D timing: D1 + D2 with winner_cache=False", gpu):
-        report_d["d2_winner_cache_off"] = path_d_streamed(trees_d2, batches_d)
-        print("  " + json.dumps(report_d["d2_winner_cache_off"]), flush=True)
     captured_e, keep_e = {}, {}
     with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
         launches["e"], report_e = path_e(torch, kernels, captured_e, keep_e, e_oracle_job)
@@ -4740,6 +5484,7 @@ def main() -> int:
         del batches_d, g1_oracle
         print("  " + json.dumps(report_g1) + f" | {gpu}", flush=True)
     bodies_h1 = h1_bodies_job.get()
+    p2_oracle_out, p_seed_out = p2_oracle_job.get(), p_seed_job.get()
     pool.terminate()
     pool.join()
     with phase("path G2: the relay's packed ingest on native stores vs path E's generic ingest", gpu):
@@ -4765,11 +5510,20 @@ def main() -> int:
                    "replay) vs path E and synchronous twins", gpu):
             launches["k"], report_k = path_k(torch, kernels, keep_e, tmp_hi, report_h["h1"], report_h["h2"], gpu)
             print("  " + json.dumps(report_k["launches"]) + f" | {gpu}", flush=True)
+        with phase("path P: scoped sync (partial replication: thin pullers of a one-lane slice from deep "
+                   "histories, scoped handles with the deferred frontier and the widening, a scoped snapshot "
+                   "bootstrap, the scoped fold) vs owed sets and an oracle set", gpu):
+            try:
+                launches["p"], report_p = path_p(torch, kernels, tmp_hi, p2_oracle_out, (p_store, p_seed_out), gpu)
+            finally:
+                p_dir.cleanup()
+            del p2_oracle_out
+            print("  " + json.dumps(report_p["launches"]) + f" | {gpu}", flush=True)
     reports = []
     # The 1M pass gives L, H and X their timed inputs (the 10M pass was cut
-    # when path J was added).
+    # when path J was added, two of its three reps when path P was).
     with phase("columns pass 1,000,000 messages", gpu):
-        decoded, report, (kernel, args) = columns_pass(torch, 1_000_000, captured, ("L", "H", "X"), reps=3)
+        decoded, report, (kernel, args) = columns_pass(torch, 1_000_000, captured, ("L", "H", "X"), reps=1)
         check_against_plain(decoded, plain_reference(torch, kernel, args), "columns 1000000")
         print("  " + json.dumps(report), flush=True)
         reports.append(report)
@@ -4796,7 +5550,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "p"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -4808,7 +5562,8 @@ def main() -> int:
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
-                      "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k}))
+                      "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k,
+                      "scoped_sync": report_p}, default=str))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -143,6 +144,23 @@ def load():
             build_info["seconds"] = time.perf_counter() - t0
             build_info["path"] = str(so)
         return _lib
+
+
+@contextmanager
+def device_work(what: str):
+    """The device leg of a caller's work: upload, kernels, pull. Its
+    inputs are host columns that parsed already, so a failure inside (a
+    CUDA error, sticky or not, an out-of-memory, a kernel that did not
+    build or launch) is the device's, never the input's, and leaves as a
+    KernelError: the relay's scheduler then fails the batch instead of
+    serving its requests again as singletons on the host, and nothing
+    falls back to a host route."""
+    try:
+        yield
+    except KernelError:
+        raise
+    except Exception as e:
+        raise KernelError(f"evolu_tpu_torch: {what}'s device work failed: {e!r}") from e
 
 
 def check(rc: int, what: str) -> None:

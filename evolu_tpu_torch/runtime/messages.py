@@ -96,10 +96,13 @@ class RestoreOwner:
 
 @dataclass(frozen=True)
 class WidenSyncScope:
-    """Escalate the partial-replication scope: lower the watermark
-    and/or add tables to the filter; `full=True` drops scoping
-    entirely. The port's worker does not serve it yet (scoped sync is a
-    later slice) and answers OnError(NotImplementedError)."""
+    """Escalate the partial-replication scope (`sync/scope.py`): lower
+    the watermark and/or add tables to the filter; `full=True` drops
+    scoping entirely. The worker re-materializes every table brought into
+    scope from the local `__message` log in LWW order and clears its
+    deferred frontier; the missing history of the wider slice then arrives
+    by ordinary anti-entropy. Narrowing answers OnError(ValueError), as
+    `SyncScope.widen` raises."""
 
     watermark_millis: "int | None" = None
     tables: tuple = ()

@@ -23,14 +23,25 @@ Batches the packed route cannot take bounce to the object path exactly
 where the reference's do. On the C++ backend the query sweep reads each
 result as packed bytes and skips unchanged ones without a parse.
 
-Not ported yet, and refused rather than routed elsewhere: partial
-replication (`Config.sync_scope`, `WidenSyncScope`), the multi-device
-hot-owner route, and the metrics, flight recorder and tracing seams.
+Partial replication (`Config.sync_scope`, `sync/scope.py`): a scope
+with tables materializes only its tables. Out-of-scope messages of a
+Receive land in the log and the Merkle tree only
+(`apply_messages_log_only`, on the host) and are counted in the
+`__scope_deferred` frontier; a query that reads such a table answers
+`OnError(ScopeDeferred)`, and `WidenSyncScope` re-materializes the tables
+it brings into scope from the local log. `scope_counts` tallies what the
+reference posts to its `evolu_scope_*` metrics: deferred messages,
+re-materialized messages and deferred queries.
+
+Not ported yet, and refused rather than routed elsewhere: the
+multi-device hot-owner route, and the metrics, flight recorder and
+tracing seams.
 """
 
 from __future__ import annotations
 
 import queue
+import re
 import threading
 import time
 from contextlib import nullcontext
@@ -55,8 +66,10 @@ from evolu_tpu_torch.runtime.jsonpatch import create_patch
 from evolu_tpu_torch.runtime.synclock import SyncLock, get_sync_lock
 from evolu_tpu_torch.storage.apply import (
     _notify_plan_failure,
+    _upsert_sql,
     apply_messages,
     apply_messages_chunked,
+    apply_messages_log_only,
     fetch_existing_winners,
     plan_batch,
 )
@@ -66,6 +79,7 @@ from evolu_tpu_torch.storage.deps import query_dependencies
 from evolu_tpu_torch.storage.schema import delete_all_tables, init_db_model, update_db_schema
 from evolu_tpu_torch.storage.sqlite import PySqliteDatabase
 from evolu_tpu_torch.sync.protocol import assert_wire_encodable
+from evolu_tpu_torch.sync.scope import ScopeDeferred
 from evolu_tpu_torch.utils.config import Config
 
 
@@ -172,10 +186,6 @@ class DbWorker:
     ):
         self.db = db
         self.config = config or Config()
-        if self.config.sync_scope is not None:
-            raise NotImplementedError(
-                "Config.sync_scope: partial replication is not ported yet (the scoped-sync slice)"
-            )
         self.on_output = on_output or (lambda _o: None)
         self.post_sync = post_sync or (lambda _r: None)
         self.now = now
@@ -211,6 +221,7 @@ class DbWorker:
         self._queue: "queue.Queue[object]" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._stop = object()
+        self.scope_counts = {"deferred": 0, "widen_materialized": 0, "query_deferred": 0}
 
     # -- lifecycle --
 
@@ -304,9 +315,7 @@ class DbWorker:
                 elif isinstance(command, msg.RestoreOwner):
                     self._restore_owner(command.mnemonic)
                 elif isinstance(command, msg.WidenSyncScope):
-                    raise NotImplementedError(
-                        "WidenSyncScope: partial replication is not ported yet (the scoped-sync slice)"
-                    )
+                    self._widen_scope(command)
                 else:
                     raise ValueError(f"unknown command: {command!r}")
         except Exception as e:  # noqa: BLE001 - the Either-left channel
@@ -501,6 +510,20 @@ class DbWorker:
                 for ts in ts_strings:
                     t = receive_timestamp(t, timestamp_from_string(ts), now, self.config.max_drift)
             messages = command.messages if packed else list(command.messages)
+            deferred: List[CrdtMessage] = []
+            scope = self.config.sync_scope
+            if scope is not None and scope.tables:
+                # Only in-scope tables materialize; out-of-scope messages
+                # still land in the log and the tree (the log-only apply
+                # below), so anti-entropy never sees the difference. The
+                # packed slab cannot split by table: it bounces to the
+                # object path before any side effect.
+                if packed:
+                    messages = list(messages.to_messages())
+                in_scope: List[CrdtMessage] = []
+                for m in messages:
+                    (in_scope if scope.table_in_scope(m.table) else deferred).append(m)
+                messages = in_scope
             chunk = self.config.receive_chunk_size
             if chunk and len(messages) > chunk:
                 # Huge history (a restored device's initial sync): apply
@@ -522,10 +545,16 @@ class DbWorker:
                     planner=self._planner, on_chunk=persist,
                     changes=self._staged_changes_or_none(), device=self.device,
                 )
+                # persist() wrote the clock with this tree already.
+                if deferred:
+                    tree = self._apply_deferred(tree, deferred)
+                    update_clock(self.db, CrdtClock(t, tree))
                 clock = CrdtClock(t, tree)
             else:
                 tree = apply_messages(self.db, clock.merkle_tree, messages, planner=self._planner,
                                       changes=self._staged_changes_or_none(), device=self.device)
+                if deferred:
+                    tree = self._apply_deferred(tree, deferred)
                 clock = CrdtClock(t, tree)
                 update_clock(self.db, clock)
                 self._emit(msg.OnReceive())
@@ -552,6 +581,138 @@ class DbWorker:
             owner=self.owner,
             previous_diff=diff,
         ))
+
+    # -- partial replication (sync/scope.py) --
+
+    _SCOPE_DEFERRED_DDL = (
+        'CREATE TABLE IF NOT EXISTS "__scope_deferred" '
+        '("table" TEXT PRIMARY KEY, "rows" INTEGER NOT NULL) WITHOUT ROWID'
+    )
+
+    def _apply_deferred(self, tree: dict, deferred: List[CrdtMessage]) -> dict:
+        """The out-of-scope leg of a scoped receive: log and Merkle tree
+        only (`apply_messages_log_only`), no app-table rows, with the
+        skipped materialization counted in the `__scope_deferred` frontier
+        so a query of one of these tables can answer a typed deferral."""
+        # The frontier must count exactly what the log holds: anti-entropy
+        # re-serves whole minutes, so rows the log already has are screened
+        # out before counting (the insert below does nothing for them).
+        seen: set = set()
+        stamps = [m.timestamp for m in deferred]
+        for i in range(0, len(stamps), 500):
+            chunk = stamps[i:i + 500]
+            rows = self.db.exec_sql_query(
+                f'SELECT "timestamp" FROM "__message" WHERE "timestamp" IN ({",".join("?" * len(chunk))})',
+                tuple(chunk),
+            )
+            seen.update(r["timestamp"] for r in rows)
+        tree = apply_messages_log_only(self.db, tree, deferred, changes=self._staged_changes_or_none())
+        cache = getattr(self._planner, "cache", None)
+        if cache is not None:
+            # These cells' MAX(timestamp) just moved by a plan the device
+            # cache never saw: invalidate, or the next plan reads stale
+            # winners.
+            cache.invalidate({(m.table, m.row, m.column) for m in deferred})
+        counts: Dict[str, int] = {}
+        for m in deferred:
+            if m.timestamp not in seen:
+                counts[m.table] = counts.get(m.table, 0) + 1
+        self.db.exec(self._SCOPE_DEFERRED_DDL)
+        for tbl, n in counts.items():
+            self.db.run(
+                'INSERT INTO "__scope_deferred" ("table", "rows") VALUES (?, ?) '
+                'ON CONFLICT("table") DO UPDATE SET "rows" = "rows" + ?',
+                (tbl, n, n),
+            )
+        self.scope_counts["deferred"] += sum(counts.values())
+        return tree
+
+    def _deferred_frontier(self) -> Dict[str, int]:
+        """table → deferred message count; {} when nothing is deferred
+        (also before the side table first exists)."""
+        exists = self.db.exec_sql_query(
+            "SELECT name FROM sqlite_master WHERE type='table' AND name='__scope_deferred'")
+        if not exists:
+            return {}
+        rows = self.db.exec_sql_query('SELECT "table", "rows" FROM "__scope_deferred" WHERE "rows" > 0')
+        return {r["table"]: r["rows"] for r in rows}
+
+    def _widen_scope(self, command: msg.WidenSyncScope) -> None:
+        """Relax the scope, re-materialize every table it brings into scope
+        from the LOCAL log in LWW order, and clear its frontier rows.
+        History the relay withheld arrives by the next ordinary
+        anti-entropy round: the relay's scoped subtree widens with the
+        clause. Narrowing raises (`SyncScope.widen`)."""
+        scope = self.config.sync_scope
+        if scope is None:
+            return  # a full replica already
+        if command.full:
+            new = None
+        else:
+            new = scope.widen(command.watermark_millis, tuple(command.tables))
+            if new.is_noop:
+                new = None
+        n_remat = 0
+        for tbl in sorted(self._deferred_frontier()):
+            if new is None or new.table_in_scope(tbl):
+                n_remat += self._rematerialize_table(tbl)
+                self.db.run('DELETE FROM "__scope_deferred" WHERE "table" = ?', (tbl,))
+        self.config.sync_scope = new
+        if n_remat:
+            # Whole tables appeared at once: no batch describes them.
+            self._staged_changes.mark_unknown()
+            self.scope_counts["widen_materialized"] += n_remat
+        self._emit(msg.OnReceive())
+
+    def _rematerialize_table(self, table: str) -> int:
+        """Replay one table's app rows from the `__message` log: the LWW
+        winner of each (row, column) upserted (ascending timestamps, last
+        write wins, as if every batch had applied unscoped), typed cells
+        rebuilt by the order-free full-state fold. → messages replayed."""
+        from evolu_tpu_torch.core.crdt_types import load_schema, rebuild_state
+
+        rows = self.db.exec_sql_query(
+            'SELECT "timestamp", "row", "column", "value" FROM "__message" '
+            'WHERE "table" = ? ORDER BY "timestamp"',
+            (table,),
+        )
+        if not rows:
+            return 0
+        schema = load_schema(self.db)
+        winners: Dict[tuple, dict] = {}
+        has_typed = False
+        for r in rows:
+            if schema and schema.is_typed(table, r["column"]):
+                has_typed = True
+                continue
+            winners[(r["row"], r["column"])] = r
+        for r in winners.values():
+            self.db.run(_upsert_sql(table, r["column"]), (r["row"], r["value"], r["value"]))
+        if has_typed:
+            # Typed folds were skipped at defer time, and the incremental
+            # path cannot replay them (its dedup screen reads __message,
+            # where every one of these ops lives already).
+            rebuild_state(self.db, schema, device=self.device)
+        cache = getattr(self._planner, "cache", None)
+        if cache is not None:
+            cache.invalidate({(table, r["row"], r["column"]) for r in rows})
+        return len(rows)
+
+    def _deferred_hits(self, deferred_tables: Dict[str, int], q: str, sql: str, parameters,
+                       build_deps: bool) -> List[str]:
+        """The deferred tables query `q` reads: from its dependency set, or,
+        where the EXPLAIN walk gave up, from a word scan of its text
+        (over-matching defers a query it need not, which widening
+        recovers; under-matching would answer rows a full replica would
+        not)."""
+        deps = self._query_deps.get(q)
+        if deps is None:
+            deps = query_dependencies(self.db, sql, parameters)
+            if build_deps:
+                self._query_deps[q] = deps
+        if deps.tables is not None:
+            return [t for t in deps.tables if t in deferred_tables]
+        return [t for t in deferred_tables if re.search(r"\b" + re.escape(t) + r"\b", sql)]
 
     def _query_skips(self, q: str, memo: Dict[int, object]) -> bool:
         """The changed-set gate for one query: True when nothing written
@@ -597,6 +758,12 @@ class DbWorker:
         baseline (first run, or LRU-evicted) emits a root-replace patch,
         which converges a subscriber from any state."""
         patches = []
+        # A query that reads a table with deferred (log-only) rows answers
+        # a typed deferral, never silently empty rows. One frontier read a
+        # sweep; {} without a table filter.
+        scope = self.config.sync_scope
+        deferred_tables = self._deferred_frontier() if scope is not None and scope.tables else {}
+        deferred_hits: set = set()
         raw_capable = hasattr(self.db, "exec_sql_query_packed_raw")
         if raw_capable:
             from evolu_tpu_torch.storage.native import unpack_changed_rows, unpack_packed_rows
@@ -610,6 +777,11 @@ class DbWorker:
             if gate and self._query_skips(q, memo):
                 continue  # no read, no compare, no patch
             sql, parameters = msg.deserialize_query(q)
+            if deferred_tables:
+                hit = self._deferred_hits(deferred_tables, q, sql, parameters, build_deps)
+                if hit:
+                    deferred_hits.update(hit)
+                    continue
             if build_deps and q not in self._query_deps:
                 # Never raises: the statement's own errors surface from
                 # the execution below.
@@ -645,6 +817,10 @@ class DbWorker:
                 self._staged_raw[q] = entry
             if ops:
                 patches.append((q, ops))
+        if deferred_hits:
+            tables = tuple(sorted(deferred_hits))
+            self._emit(msg.OnError(ScopeDeferred(tables, sum(deferred_tables[t] for t in tables))))
+            self.scope_counts["query_deferred"] += len(deferred_hits)
         if patches or on_complete_ids:
             self._emit(msg.OnQuery(tuple(patches), tuple(on_complete_ids)))
 

@@ -30,8 +30,11 @@ the digest; one card is one shard, so the all-reduce is the identity.
 Every entry point runs on the card unless the caller passes
 `device="cpu"`; without a card it raises.
 
-Not ported yet, and refused with NotImplementedError before any side
-effect rather than rerouted: scoped requests, in either mode.
+A scoped request (a `ScopeClause`) ingests like any other; only its
+answer differs: `server/scope.scoped_response` serves it from the scoped
+Merkle subtree, folded on the engine's device, never on the fused wire
+stream. Under write-behind that answer reads SQLite, so it waits for the
+owner's drain first.
 """
 
 from __future__ import annotations
@@ -55,11 +58,12 @@ from evolu_tpu_torch.core.murmur import to_int32
 from evolu_tpu_torch.core.types import NonCanonicalStoreError
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
-from evolu_tpu_torch.ops.cuda_lib import KernelError
+from evolu_tpu_torch.ops.cuda_lib import device_work
 from evolu_tpu_torch.ops.encode import pack_ts_keys, unpack_ts_keys
 from evolu_tpu_torch.ops.host_parse import parse_packed_timestamps, parse_timestamp_strings
 from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas, owner_minute_segments
-from evolu_tpu_torch.server.relay import ShardedRelayStore, fetch_response_stream, refuse_scoped
+from evolu_tpu_torch.server import scope
+from evolu_tpu_torch.server.relay import ShardedRelayStore, fetch_response_stream
 from evolu_tpu_torch.sync import protocol
 
 # Dispatches by route, in place of the reference's metrics: `delta` and
@@ -249,7 +253,7 @@ def deltas_dispatch(
         _count("full")
         cols = {"k1": k1, "node": node, "owner_ix": oix}
         kernel, args = _merkle_shard_kernel_compact, (cap,)
-    with _device_work():
+    with device_work("a relay batch"):
         outs = kernel(*columns_to_device(cols, device).values(), *args)
     return (deltas, digest, good, outs, (k1, node, oix, device, cap))
 
@@ -272,29 +276,13 @@ def _decode_compact(packed, xors, count) -> Dict[int, Dict[str, int]]:
     return by_ix
 
 
-@contextmanager
-def _device_work():
-    """The device leg of an engine pass: upload, kernels, pull. Its inputs
-    are host columns that parsed already, so a failure inside (a CUDA
-    error, sticky or not, an out-of-memory, a kernel that did not build or
-    launch) is the device's, never a request's, and leaves as a
-    KernelError: the scheduler fails the batch instead of serving its
-    requests again as singletons on the host."""
-    try:
-        yield
-    except KernelError:
-        raise
-    except Exception as e:
-        raise KernelError(f"evolu_tpu_torch: a relay batch's device work failed: {e!r}") from e
-
-
 def _start_pull(outs):
     """Queue the copy of the compact outputs to the host behind the
     dispatch, on the stream that launched it, and record an event after
     the copy. → (event or None on the CPU, host tensors). Waiting on the
     event waits for exactly this batch's device work, never for what
     other threads launched since."""
-    with _device_work():
+    with device_work("a relay batch"):
         host = [x.to("cpu", non_blocking=True) for x in outs]
         if not outs[0].is_cuda:
             return None, host
@@ -306,7 +294,7 @@ def _start_pull(outs):
 def _pull_outputs(event, host):
     """The pull thread's half of `_start_pull`: wait for the event, then
     hand the outputs over as numpy arrays."""
-    with _device_work():
+    with device_work("a relay batch"):
         if event is not None:
             event.synchronize()
         return tuple(x.numpy() for x in host)
@@ -324,7 +312,7 @@ def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
     if hasattr(outs, "result"):
         packed, xors, seg_count, dev_digest = outs.result()
     else:
-        with _device_work():
+        with device_work("a relay batch"):
             packed, xors, seg_count, dev_digest = to_host_many(*outs)
     k1, node, oix, device, cap = extra
     count = int(seg_count[0])
@@ -336,7 +324,7 @@ def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
             "node": node, "valid": oix >= 0,
             "owner_ix": np.maximum(oix, 0).astype(np.int64),
         }
-        with _device_work():
+        with device_work("a relay batch"):
             *segments, dev_digest = to_host_many(*_merkle_shard_kernel(
                 *columns_to_device(cols, device).values()))
         by_ix = decode_owner_minute_deltas(*segments)
@@ -431,10 +419,7 @@ class BatchReconciler:
         return self._respond(requests, trees, strings)
 
     def _ingest(self, requests):
-        """The batched ingest, routed by store shape → (trees, strings).
-        Refuses, before any side effect, what is not ported yet."""
-        for r in requests:
-            refuse_scoped(r)
+        """The batched ingest, routed by store shape → (trees, strings)."""
         strings: Dict[str, str] = {}
         if self._packed_store():
             trees = self._ingest_packed(requests, strings)
@@ -628,8 +613,6 @@ class BatchReconciler:
         natively, dispatch the device hash of ALL kept rows, and hand the
         pull of the compact outputs to the pull thread. No database access
         happens here. → the state `finish_batch` lands."""
-        for r in requests:
-            refuse_scoped(r)
         stores, shard_index = self._shards()
         per_shard: List[List[protocol.SyncRequest]] = [[] for _ in stores]
         for r in requests:
@@ -870,6 +853,11 @@ class BatchReconciler:
         responses = []
         tree_strings = dict(tree_strings or {})
         for r in requests:
+            if r.scope is not None:
+                # The batch's ingest landed its rows in the full tree; only
+                # the answer comes from the scoped subtree.
+                responses.append(scope.scoped_response(self.store, r, device=self.device))
+                continue
             tree, ts = self._resolve_tree(r.user_id, trees, tree_strings)
             client_tree = merkle_tree_from_string(r.merkle_tree)
             messages = self.store.get_messages(r.user_id, r.node_id, tree, client_tree)
@@ -989,6 +977,15 @@ class BatchReconciler:
         out: List[Optional[bytes]] = []
         fallback: List[Tuple[int, protocol.SyncRequest]] = []
         for i, r in enumerate(requests):
+            if r.scope is not None:
+                # A scoped answer reads stored rows and lanes: SQLite must
+                # be current for this owner first, and the serve runs under
+                # the owner's shard lock against committed state.
+                wb.flush_owner(r.user_id)
+                with wb.owner_lock(r.user_id):
+                    out.append(protocol.encode_sync_response(
+                        scope.scoped_response(self.store, r, device=self.device)))
+                continue
             tree, raw = self._resolve_tree_deferred(r.user_id, trees, strings)
             client_tree = merkle_tree_from_string(r.merkle_tree)
             if diff_merkle_trees(tree, client_tree) is None:
@@ -1039,6 +1036,12 @@ class BatchReconciler:
         out: List[Optional[bytes]] = []
         fallback: List[Tuple[int, protocol.SyncRequest]] = []
         for i, r in enumerate(requests):
+            if r.scope is not None:
+                # Never the fused stream: its per-row lane filter cannot
+                # ride it.
+                out.append(protocol.encode_sync_response(
+                    scope.scoped_response(self.store, r, device=self.device)))
+                continue
             tree, raw = self._resolve_tree(r.user_id, trees, tree_strings)
             db = getattr(shards[shard_ix(r.user_id)], "db", None)
             if db is None or not hasattr(db, "fetch_relay_messages_wire"):

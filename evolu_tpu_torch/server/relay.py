@@ -36,8 +36,10 @@ card.
 The store opens `storage.native.open_database(path, backend)`: the C++
 host layer for "native" (and for "auto" when it builds), whose one-call
 insert, reads and response stream the engine's packed ingest uses, or
-`PySqliteDatabase` for "python". A scoped request is refused until
-scoped sync is ported: it is never served unscoped.
+`PySqliteDatabase` for "python". A scoped request (a `ScopeClause`,
+negotiated through `sync-scope-v1`) ingests as any other and is answered
+from its scoped Merkle subtree (`server/scope.py`), whose fold runs on the
+relay's `device`.
 """
 
 from __future__ import annotations
@@ -71,19 +73,10 @@ from evolu_tpu_torch.sync import protocol
 
 MAX_BODY_BYTES = 20 * 1024 * 1024  # index.ts:222
 
-# The capabilities a port relay echoes by default: the reference's, less
-# `sync-scope-v1` until scoped sync is ported (ROADMAP queue 1 item 7).
-DEFAULT_CAPABILITIES = tuple(c for c in protocol.KNOWN_CAPABILITIES if c != protocol.CAP_SYNC_SCOPE)
+# The capabilities a port relay echoes by default: the reference's.
+DEFAULT_CAPABILITIES = protocol.KNOWN_CAPABILITIES
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def refuse_scoped(request: protocol.SyncRequest) -> None:
-    """Raise for a scoped request: scoped sync is not ported yet, and a
-    scoped request must never be served unscoped."""
-    if request.scope is not None:
-        raise NotImplementedError(
-            "evolu_tpu_torch: scoped sync (sync-scope-v1) is not ported yet")
 
 
 def fetch_response_stream(db, user_id, node_id, server_tree, client_tree) -> bytes:
@@ -112,11 +105,17 @@ def _notify_tags(request: protocol.SyncRequest):
     return None if "" in tags else tags
 
 
-def serve_single_request(store, request: protocol.SyncRequest) -> bytes:
+def serve_single_request(store, request: protocol.SyncRequest, device=None) -> bytes:
     """The per-request serve: the store's fused wire path where it has
     one, else the object pipeline and the encoder. The batched engine's
-    responses are byte-identical to this."""
-    refuse_scoped(request)
+    responses are byte-identical to this. A scoped request ingests through
+    `store.add_messages` and is answered by `scope.serve_scoped`, never on
+    the fused wire path (its per-row lane filter cannot ride it); its fold
+    runs on `device` (None = the card)."""
+    if request.scope is not None:
+        from evolu_tpu_torch.server import scope
+
+        return scope.serve_scoped(store, request, device=device)
     out = store.sync_wire(request) if hasattr(store, "sync_wire") else None
     if out is None:
         out = protocol.encode_sync_response(store.sync(request))
@@ -398,6 +397,7 @@ class _Handler(BaseHTTPRequestHandler):
     push_hub = None  # PushHub when push subscriptions are on (server/push.py)
     conn_tier = None  # EventLoopHTTPServer when that tier serves this relay
     write_behind = None  # WriteBehindQueue when the storage inversion is on
+    device = None  # where the per-request path folds scoped trees (None = the card)
     counts: _Counts
     # The capabilities this relay echoes (intersected with the request's
     # advertised set). A request with none gets the v1 wire, byte for byte.
@@ -462,7 +462,7 @@ class _Handler(BaseHTTPRequestHandler):
             except SchedulerQueueFull as e:
                 self._respond_retry_after(e.retry_after)
                 return None
-        return serve_single_request(self.store, request)
+        return serve_single_request(self.store, request, device=self.device)
 
     def do_GET(self) -> None:  # /ping (index.ts:250-252), /health, /stats, /push/poll
         if self.path == "/ping":
@@ -847,10 +847,14 @@ class RelayServer:
     the process drain. /health answers 503 "backlogged" or "drain-failing",
     and `stop()` drains the queue before the store closes.
 
+    `capabilities` (default: the reference's `protocol.KNOWN_CAPABILITIES`)
+    is what the relay echoes; with `sync-scope-v1` among them a scoped
+    request is served its slice (`server/scope.py`, the fold on `device`),
+    without it the clause is stripped and the full serve answers.
+
     Refused with NotImplementedError before a socket is bound or a store
-    written, each until its ROADMAP queue-1 item is ported: `mesh_engine` /
-    `mesh_ctx` (item 9), and `capabilities` holding `sync-scope-v1` (item
-    7); also when `EVOLU_MESH_ENGINE` turns the mesh engine on."""
+    written, until ROADMAP queue-1 item 9 is ported: `mesh_engine` /
+    `mesh_ctx`, also when `EVOLU_MESH_ENGINE` turns the mesh engine on."""
 
     def __init__(self, store: Optional[RelayStore] = None, host: str = "127.0.0.1",
                  port: int = 0, batching: bool = False, scheduler=None,
@@ -880,8 +884,6 @@ class RelayServer:
         if mesh_engine or mesh_ctx is not None:
             _refuse("the mesh-sharded engine (mesh_engine, mesh_ctx)", 9)
         self.capabilities = DEFAULT_CAPABILITIES if capabilities is None else tuple(capabilities)
-        if protocol.CAP_SYNC_SCOPE in self.capabilities:
-            _refuse("scoped sync (the sync-scope-v1 capability)", 7)
         self.connection_tier = connection_tier
         if checkpoint_interval_s is None:
             checkpoint_interval_s = default_config.checkpoint_interval_s
@@ -947,7 +949,7 @@ class RelayServer:
             "BoundHandler", (_Handler,),
             {"store": self.store, "scheduler": self.scheduler, "replication": self.replication,
              "capabilities": self.capabilities, "counts": self.counts, "push_hub": self.push_hub,
-             "write_behind": self.write_behind},
+             "write_behind": self.write_behind, "device": device},
         )
         try:
             if connection_tier == "eventloop":
@@ -1051,15 +1053,16 @@ def _open_store(path: str, backend: str, shards: int):
     return RelayStore(path, backend)
 
 
-def _mp_worker_main(host: str, port: int, path: str, shards: int, backend: str) -> None:
+def _mp_worker_main(host: str, port: int, path: str, shards: int, backend: str, device=None) -> None:
     """One relay worker process: its own SO_REUSEPORT listening socket on
     the shared port (the kernel spreads connections over the workers) over
     the SHARED file-backed store, on the per-request host path (SQLite WAL
-    and busy_timeout make the processes safe)."""
+    and busy_timeout make the processes safe). Only a scoped fold touches
+    `device` (None = the card), resolved when the fold runs."""
     import socket
 
     store = _open_store(path, backend, shards)
-    handler = type("BoundHandler", (_Handler,), {"store": store, "counts": _Counts()})
+    handler = type("BoundHandler", (_Handler,), {"store": store, "counts": _Counts(), "device": device})
 
     class _ReuseportServer(_RelayHTTPServer):
         def server_bind(self):
@@ -1077,17 +1080,18 @@ def _mp_worker_main(host: str, port: int, path: str, shards: int, backend: str) 
 class MultiprocessRelay:
     """Pre-forked relay: N worker PROCESSES accept on one SO_REUSEPORT port
     and share one file-backed (sharded) store, serving the per-request
-    path on the host. Needs a file path (processes cannot share
-    :memory:)."""
+    path on the host; a worker's scoped folds run on `device` (None = the
+    card). Needs a file path (processes cannot share :memory:)."""
 
     def __init__(self, path: str, workers: int = 2, shards: int = 8,
-                 backend: str = "auto", host: str = "127.0.0.1", port: int = 0):
+                 backend: str = "auto", host: str = "127.0.0.1", port: int = 0, device=None):
         import socket
 
         if path == ":memory:":
             raise ValueError("MultiprocessRelay needs a file-backed store")
         self.host = host
         self._path, self._workers, self._shards, self._backend = path, workers, shards, backend
+        self._device = device
         self._procs: list = []
         # Reserve the port in the REUSEPORT group (bound, not listening, so
         # no connection lands here); workers start in start().
@@ -1121,7 +1125,8 @@ class MultiprocessRelay:
             self._procs = [
                 subprocess.Popen(
                     [sys.executable, "-m", "evolu_tpu_torch.server.relay_worker",
-                     self.host, str(self.port), self._path, str(self._shards), self._backend],
+                     self.host, str(self.port), self._path, str(self._shards), self._backend,
+                     *(() if self._device is None else (str(self._device),))],
                     env=env, stdout=subprocess.PIPE, text=True,
                 )
                 for _ in range(self._workers)

@@ -1,10 +1,10 @@
 """Worker-process entry point of `relay.MultiprocessRelay`:
 
-    python -m evolu_tpu_torch.server.relay_worker HOST PORT PATH SHARDS BACKEND
+    python -m evolu_tpu_torch.server.relay_worker HOST PORT PATH SHARDS BACKEND [DEVICE]
 
 Its own module, so `-m` does not re-execute relay.py under runpy. A
-worker serves the per-request path on the host and never touches the
-card."""
+worker serves the per-request path on the host; only its scoped folds run
+on DEVICE (left out = the card)."""
 
 import sys
 
@@ -12,8 +12,8 @@ from evolu_tpu_torch.server.relay import _mp_worker_main
 
 
 def main() -> None:
-    host, port, path, shards, backend = sys.argv[1:6]
-    _mp_worker_main(host, int(port), path, int(shards), backend)
+    host, port, path, shards, backend, *device = sys.argv[1:7]
+    _mp_worker_main(host, int(port), path, int(shards), backend, device[0] if device else None)
 
 
 if __name__ == "__main__":

@@ -320,8 +320,8 @@ class SyncScheduler:
 
         if self._write_behind is not None:
             with self._write_behind.drain_barrier():
-                return relay.serve_single_request(self.store, request)
-        return relay.serve_single_request(self.store, request)
+                return relay.serve_single_request(self.store, request, device=self.device)
+        return relay.serve_single_request(self.store, request, device=self.device)
 
     def stop(self) -> None:
         """Drain, then shut down (idempotent): everything already queued

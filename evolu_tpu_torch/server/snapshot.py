@@ -30,11 +30,15 @@ ships a state snapshot instead and hands off to gossip at its watermark:
   `restore_checkpoint` reuse the capture and the install;
   `CheckpointWriter` runs them periodically.
 
+A scoped snapshot (a `SnapshotRequest` watermark or lane tags, for a
+thin client's bootstrap) keeps only the slice's rows and ships each
+owner's tree recomputed from them on the host (`_scope_stream`): its
+trees describe the slice, never the owner's full history, so it must
+never seed a full replica.
+
 Departures from the reference: the module keeps plain process-wide
 `counts` in place of its `evolu_snap_*` metrics (the install-time
-quantile is not kept), and posts no conservation-ledger terminals. A
-scoped snapshot (a watermark or tags, for thin-client bootstrap) raises
-NotImplementedError until scoped sync is ported.
+quantile is not kept), and posts no conservation-ledger terminals.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import time
 import uuid
 import zlib
 from contextlib import contextmanager
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from evolu_tpu_torch.core.merkle import (
     apply_prefix_xors,
@@ -84,7 +88,7 @@ _TREE_SCHEMA = (
 # evolu_snap_* counters: the donor side (captures, manifests and chunks
 # served) and the checkpoints written and failed. `_count` takes the lock.
 counts = dict.fromkeys((
-    "captures", "capture_rows", "capture_bytes", "manifests_served", "chunks_served",
+    "captures", "scoped_captures", "capture_rows", "capture_bytes", "manifests_served", "chunks_served",
     "chunk_bytes_served", "checkpoints", "checkpoint_failures"), 0)
 _counts_lock = threading.Lock()
 
@@ -241,6 +245,37 @@ def _filter_stream(stream: bytes, owners) -> bytes:
     return b"".join(out)
 
 
+def _scope_stream(store, stream: bytes, watermark_millis: int, tags: Tuple[str, ...]) -> bytes:
+    """Re-frame a captured stream down to a SLICE: keep the message rows
+    the scope filter matches (`server/scope.py`'s membership: past the
+    watermark, lane not provably excluded) and REGENERATE every shipped
+    owner's tree record from exactly the kept rows with the host fold, so
+    the installer's recompute-from-rows check passes unchanged."""
+    from evolu_tpu_torch.server import scope
+
+    filters: Dict[str, Callable[[str, str], bool]] = {}  # an owner's slice filter, on its shard
+    out: List[bytes] = []
+    kept_ts: Dict[str, List[str]] = {}
+    pos, end = 0, len(stream)
+    while pos < end:
+        rec, nxt = _next_record(stream, pos)
+        if rec[0] == "M":
+            _kind, ts, uid, _content = rec
+            keep = filters.get(uid)
+            if keep is None:
+                shard = store.shard_of(uid) if hasattr(store, "shard_of") else _shards_of(store)[0]
+                keep = filters[uid] = scope.scoped_snapshot_filter(shard.db, None, watermark_millis, tags)
+            if keep(uid, ts):
+                out.append(stream[pos:nxt])
+                kept_ts.setdefault(uid, []).append(ts)
+        # "T" records are dropped: regenerated from the kept rows below.
+        pos = nxt
+    for uid in sorted(kept_ts):
+        deltas, _digest = minute_deltas_host(kept_ts[uid])
+        out.append(_frame_tree(uid, merkle_tree_to_string(apply_prefix_xors({}, deltas))))
+    return b"".join(out)
+
+
 def capture_snapshot(
     store, chunk_bytes: int = SNAPSHOT_CHUNK_BYTES,
     snapshot_id: Optional[str] = None,
@@ -251,13 +286,9 @@ def capture_snapshot(
     """→ (manifest, chunks). Consistent per shard (one transaction each):
     an owner lives wholly in one shard, so its rows and tree agree, which
     is what the install verifies. `owners` scopes the snapshot to those
-    owners (fleet rebalance); None = the whole store. A slice
-    (`watermark_millis` / `tags`) raises NotImplementedError: scoped sync
-    is not ported."""
-    if watermark_millis or tags:
-        raise NotImplementedError(
-            "evolu_tpu_torch: scoped snapshots (watermark_millis, tags) are not ported yet "
-            "(ROADMAP queue 1 item 7)")
+    owners (fleet rebalance); None = the whole store. `watermark_millis` /
+    `tags` scope it to a slice (`_scope_stream`): its trees ship recomputed
+    over the slice."""
     parts: List[bytes] = []
     for shard in _shards_of(store):
         db = shard.db
@@ -266,6 +297,9 @@ def capture_snapshot(
     stream = b"".join(parts)
     if owners is not None:
         stream = _filter_stream(stream, owners)
+    if watermark_millis or tags:
+        stream = _scope_stream(store, stream, watermark_millis, tuple(tags))
+        _count("scoped_captures")
     chunks, message_count, tree_recs = _scan_stream(stream, chunk_bytes)
     owner_digests: List[Tuple[str, int, int]] = []
     for uid, tree in tree_recs:

@@ -53,9 +53,11 @@ from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, quote_ident
 # Batches by route: `packed` planned and applied columnar, `object` on
 # the object path, `packed_bounces` packed batches materialized for the
 # object path (of them `typed_bounces` for a typed cell), `sequential`
-# and `native_sequential` the two sequential loops.
+# and `native_sequential` the two sequential loops, `log_only` the
+# out-of-scope batches of a scoped client; `deferred_mat` counts their
+# messages (the reference's `apply.deferred_mat` ledger terminal).
 counts = {"packed": 0, "object": 0, "packed_bounces": 0, "typed_bounces": 0,
-          "sequential": 0, "native_sequential": 0}
+          "sequential": 0, "native_sequential": 0, "log_only": 0, "deferred_mat": 0}
 
 _SELECT_WINNER = (
     'SELECT "timestamp" FROM "__message" '
@@ -281,6 +283,35 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
             [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages],
         )
     return apply_prefix_xors(merkle_tree, deltas)
+
+
+def apply_messages_log_only(
+    db: PySqliteDatabase,
+    merkle_tree: dict,
+    messages: Sequence[CrdtMessage],
+    changes=None,
+) -> dict:
+    """Partial replication (`sync/scope.py`): land a batch in the
+    __message log and the Merkle tree WITHOUT materializing app-table rows,
+    the apply route of out-of-scope tables on a scoped client. The log rows
+    and tree deltas are a full apply's; only the upsert is skipped, and the
+    skipped messages are counted (`counts["deferred_mat"]`). A later widen
+    re-materializes them from the log in LWW order (`runtime/worker.py`).
+    The fold is the host fold: out-of-scope batches launch nothing."""
+    if not len(messages):
+        return merkle_tree
+    with db.transaction():
+        # Recorded although nothing materializes: a query that reads a
+        # deferred table must re-run and meet the typed deferral.
+        record_batch(changes, messages)
+        existing = fetch_existing_winners(db, {(m.table, m.row, m.column) for m in messages})
+        xor_mask, _upserts = plan_batch(messages, existing)
+        deltas, _ = minute_deltas_host(m.timestamp for i, m in enumerate(messages) if xor_mask[i])
+        db.run_many(_INSERT_MESSAGE, [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages])
+        tree = apply_prefix_xors(merkle_tree, deltas)
+    counts["log_only"] += 1
+    counts["deferred_mat"] += len(messages)
+    return tree
 
 
 class ChunkedApplyError(Exception):

@@ -26,9 +26,12 @@ slice does not port and never replaces:
   logs, the transport and the `PushSubscriber` keep plain `counts`; the
   POST carries no traceparent header (the reference's path for a
   2-argument `http_post`).
-- The partial-replication scope clause (`Config.sync_scope`) is refused
-  with NotImplementedError before any thread starts, so a push
-  subscription never carries scope-lane tags.
+
+Under `Config.sync_scope` (`sync/scope.py`) a round carries the scope
+clause (SyncRequest field 6), with a lane tag for each pushed message,
+once the relay it posts to has echoed `sync-scope-v1`; a failover target
+that did not is sent the round again without it, and the push
+subscription carries the scope's lane tags.
 
 Under `Config.push_subscribe`, `connect` attaches a `PushSubscriber`: a
 thread that long-polls the relay's `GET /push/poll` (server/push.py) for
@@ -137,8 +140,9 @@ class SyncTransport:
 
     `counts` tallies what the reference sends to its metrics registry:
     requests, responses and their messages and bytes, v2 push legs,
-    v1 fallbacks by reason, redirects, route and capability
-    invalidations, HTTP errors and offline rounds.
+    v1 fallbacks by reason, scope-clause downgrades on failover,
+    redirects, route and capability invalidations, HTTP errors and
+    offline rounds.
     """
 
     def __init__(
@@ -151,9 +155,6 @@ class SyncTransport:
         http_probe: Optional[Callable[[str], None]] = None,
         on_reconnect: Optional[Callable[[], None]] = None,
     ):
-        if getattr(config, "sync_scope", None) is not None:
-            raise NotImplementedError(
-                "Config.sync_scope: partial replication is not ported yet (the scoped-sync slice)")
         self.config = config
         self.on_receive = on_receive
         self.sync_lock = sync_lock or SyncLock()
@@ -334,6 +335,17 @@ class SyncTransport:
             and protocol.CAP_AEAD_BATCH in self.negotiated_capabilities.get(url, ())
         )
 
+    def _scope_negotiated(self, url: str, caps) -> bool:
+        """The scope clause's emission gate (the aead gate's twin): we
+        advertise sync-scope-v1 AND the last response from `url` echoed
+        it. A relay that does not is never sent a clause; it answers the
+        full serve, and the worker's materialization filter still
+        applies."""
+        return (
+            protocol.CAP_SYNC_SCOPE in caps
+            and protocol.CAP_SYNC_SCOPE in self.negotiated_capabilities.get(url, ())
+        )
+
     def _drop_negotiated(self, url: str) -> None:
         """Invalidate the cached capability set alongside a route
         invalidation: a failover replica must be treated as
@@ -342,14 +354,15 @@ class SyncTransport:
             self._count("capability_invalidations")
 
     def _encode_push(self, request: SyncRequestInput, node_id: str,
-                     caps, use_v2: bool) -> bytes:
+                     caps, use_v2: bool, scope_clause=None) -> bytes:
         """One request body. v1: the fused C wire path (byte-identical
         to `encode_sync_request` over `encrypt_messages`), the pure
         per-message OpenPGP loop behind it. v2 (negotiated only): one
         session key and one GCM record a message
         (`encode_push_request_aead`), the pure aead loop behind it.
         Capabilities append identically on every path; absent caps =
-        the v1 wire byte for byte."""
+        the v1 wire byte for byte. `scope_clause` (negotiated only)
+        appends as field 6 the same way; None = the unscoped wire."""
         body = None
         if use_v2 and request.messages:
             session = aead.get_session(request.owner.mnemonic, records=len(request.messages))
@@ -374,6 +387,8 @@ class SyncTransport:
             )
         if caps:
             body = body + protocol.encode_request_capabilities(caps)
+        if scope_clause is not None:
+            body = body + protocol.encode_request_scope(scope_clause)
         return body
 
     def _decode_response(self, response_bytes: bytes, mnemonic: str):
@@ -401,9 +416,17 @@ class SyncTransport:
         base = self.config.sync_url
         url = self._routes.get(owner_id, base)
         use_v2 = self._aead_negotiated(url, caps)
+        scope = getattr(self.config, "sync_scope", None)
+        clause = None
+        if scope is not None and not scope.is_noop and self._scope_negotiated(url, caps):
+            # The clause rides only a negotiated wire. Its push lanes name
+            # each pushed message's table, out-of-scope tables too: the
+            # relay's lanes must stay true for other scoped clients.
+            clause = scope.wire_clause(request.owner.mnemonic,
+                                       push_tables=tuple(m.table for m in request.messages))
         try:
             node_id = timestamp_from_string(request.clock_timestamp).node
-            body = self._encode_push(request, node_id, caps, use_v2)
+            body = self._encode_push(request, node_id, caps, use_v2, scope_clause=clause)
         except Exception as e:  # noqa: BLE001
             self.on_error(UnknownError(e))
             return None
@@ -420,20 +443,30 @@ class SyncTransport:
             """Move this round to another relay. If the body was a v2
             envelope but the new target is not negotiated for it,
             re-emit the round as v1 — a failover replica must NEVER
-            receive v2 records it didn't advertise for."""
-            nonlocal url, body, use_v2, downgraded
+            receive v2 records it didn't advertise for. Likewise a scope
+            clause: a target that did not advertise sync-scope-v1 gets
+            the round unscoped (the full serve; the worker still
+            filters)."""
+            nonlocal url, body, use_v2, downgraded, clause
             url = new_url
-            if not (use_v2 and not self._aead_negotiated(new_url, caps)):
+            need_v1 = use_v2 and not self._aead_negotiated(new_url, caps)
+            drop_scope = clause is not None and not self._scope_negotiated(new_url, caps)
+            if not (need_v1 or drop_scope):
                 return
-            use_v2 = False
-            downgraded = True
+            if need_v1:
+                use_v2 = False
+                downgraded = True
+            if drop_scope:
+                clause = None
+                self._count("scope_downgrades_failover")
             try:
-                body = self._encode_push(request, node_id, caps, use_v2)
+                body = self._encode_push(request, node_id, caps, use_v2, scope_clause=clause)
             except Exception as e:  # noqa: BLE001 - encode must never
                 # kill the transport thread; surface and end the round
                 self.on_error(UnknownError(e))
                 raise _Abort() from e
-            self._count("v1_fallback_failover")
+            if need_v1:
+                self._count("v1_fallback_failover")
 
         followed = False
         try:
@@ -492,8 +525,16 @@ class SyncTransport:
         if self.push_subscriber is not None:
             # Bind or retarget the push leg with what this round learned:
             # the owner, the clock's node id (the own-write exclusion key)
-            # and the relay that actually served (after any 307 follow).
-            self.push_subscriber.ensure(owner_id, node_id, url)
+            # and the relay that actually served (after any 307 follow). A
+            # scoped client's subscription carries its lane tags, so the
+            # hub skips wakes its filter cannot see, under the clause's
+            # own emission gate.
+            sub_tags = None
+            if scope is not None and scope.tables and self._scope_negotiated(url, caps):
+                from evolu_tpu_torch.sync.scope import derive_scope_tag
+
+                sub_tags = tuple(derive_scope_tag(request.owner.mnemonic, t) for t in scope.tables)
+            self.push_subscriber.ensure(owner_id, node_id, url, tags=sub_tags)
         # Push-mix counts AFTER the POST landed: `use_v2` reflects the
         # FINAL body (the failover downgrade is counted in retarget).
         if request.messages:

@@ -243,8 +243,8 @@ def decode_encrypted_message(data: bytes) -> EncryptedCrdtMessage:
 #
 # Capabilities are advisory names, answered by a relay with the
 # intersection of the request's and its own; the scope clause asks for a
-# partial serve (a relay of the port refuses it until scoped sync is
-# ported, never serving it unscoped).
+# partial serve (`server/scope.py`), which a relay without `sync-scope-v1`
+# strips, answering the full serve.
 
 CAP_CRDT_TYPES = "crdt-types-v1"
 CAP_CRDT_LIST = "crdt-list-v1"

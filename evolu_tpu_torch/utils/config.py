@@ -53,7 +53,8 @@ class Config:
     # Bound on the worker's per-query caches (least recently executed
     # evicted first). None = unbounded.
     query_cache_max: "int | None" = 32768
-    # Partial replication scope. Only None (a full replica) is ported.
+    # Partial replication scope (a `sync.scope.SyncScope`); None = a full
+    # replica.
     sync_scope: "object | None" = None
     # Periodic pull interval in seconds for `sync.client.connect` (None =
     # only explicit `sync()` calls).

@@ -504,8 +504,10 @@ def test_handle_matches_jax(name, monkeypatch, tmp_path):
 
 def test_unported_routes_raise_before_any_side_effect(tmp_path):
     """A bad backend name is a ValueError, and a native backend that does
-    not build raises its log, both before the database file exists; a
-    scoped-sync widening is refused, never routed elsewhere."""
+    not build raises its log, both before the database file exists. A
+    scoped-sync widening, refused until scoped sync was ported, answers as
+    on the JAX handle: a narrowing is a ValueError that leaves the scope
+    and the log untouched, a full widening drops the scope."""
     from evolu_tpu_torch.runtime import messages
     from evolu_tpu_torch.runtime.client import Evolu
     from evolu_tpu_torch.utils import native_loader
@@ -524,14 +526,27 @@ def test_unported_routes_raise_before_any_side_effect(tmp_path):
         if saved is not None:
             native_loader._cache["libevolu_host.so"] = saved
     assert not path.exists()
-    e = Evolu(mnemonic=MNEMONIC, device="cpu", backend="python")
-    try:
-        e.worker.post(messages.WidenSyncScope(full=True))
-        e.worker.flush()
-        assert isinstance(e.get_error(), NotImplementedError)
-        assert e.db.exec('SELECT COUNT(*) FROM "__message"') == [(0,)]
-    finally:
-        e.dispose()
+    from evolu_tpu.runtime import messages as jmessages
+    from evolu_tpu.runtime.client import Evolu as JaxEvolu
+    from evolu_tpu.sync.scope import SyncScope as JaxScope
+    from evolu_tpu.utils.config import Config as JaxConfig
+    from evolu_tpu_torch.sync.scope import SyncScope
+    from evolu_tpu_torch.utils.config import Config
+
+    seen = []
+    for e, msgs in ((JaxEvolu(config=JaxConfig(sync_scope=JaxScope(100, ("todo",))), mnemonic=MNEMONIC), jmessages),
+                    (Evolu(config=Config(sync_scope=SyncScope(100, ("todo",))), mnemonic=MNEMONIC, device="cpu",
+                           backend="python"), messages)):
+        try:
+            e.worker.post(msgs.WidenSyncScope(watermark_millis=200))
+            e.worker.flush()
+            narrowed = (_err(e.get_error()), e.worker.config.sync_scope.watermark_millis)
+            e.worker.post(msgs.WidenSyncScope(full=True))
+            e.worker.flush()
+            seen.append((narrowed, e.worker.config.sync_scope, e.db.exec('SELECT COUNT(*) FROM "__message"')))
+        finally:
+            e.dispose()
+    assert seen[1] == seen[0] == ((("ValueError", "widen() cannot raise the watermark"), 100), None, [(0,)])
 
 
 def test_entry_points_default_to_the_card():

@@ -7,6 +7,8 @@ Imports neither jax nor `evolu_tpu`, so it runs on the GPU machine:
 Without a card every test skips with a reason (the CUDA kernels have no
 CPU mode); the decision is made inside the fixture, at run time."""
 
+import urllib.request
+
 import numpy as np
 import pytest
 import torch
@@ -1187,3 +1189,200 @@ def test_drain_and_dispatcher_never_deadlock_under_the_barrier(dev):
             stop.set()
             server.stop()
     assert sides[0] == sides[1]
+
+
+def _scope_stamps(n, seed):
+    """`n` canonical timestamp strings over a few hours, unique."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+
+    rng = np.random.default_rng(seed)
+    millis = 1_700_000_000_000 + np.sort(rng.integers(0, 4 * 3_600_000, n))
+    return [timestamp_to_string(Timestamp(int(m), i % 65536, f"{int(rng.integers(0, 2**63)):016x}"))
+            for i, m in enumerate(millis)]
+
+
+@pytest.mark.parametrize("n", [1024, 1 << 16, 1 << 20])
+def test_scoped_fold_on_card_matches_host_and_cpu(n, dev):
+    """`scoped_minute_deltas` with a 10% slice mask on the card equals the
+    host fold and the `device="cpu"` fold; H and X launch once a device
+    fold, and nothing launches on the host route (a batch below the
+    threshold, and a batch with upper-case node hex)."""
+    from evolu_tpu_torch.core.merkle import minute_deltas_host
+    from evolu_tpu_torch.server import scope
+
+    ts = _scope_stamps(n, n)
+    mask = np.random.default_rng(n + 1).random(n) < 0.1
+    kernels = (cuda_hash.timestamp_hash_cuda, cuda_scan.segmented_xor_scan_cuda,
+               cuda_scan.segmented_max_scan_cuda, cuda_scan.segmented_sum_scan_cuda)
+    before, counts = [k.launches for k in kernels], dict(scope.counts)
+    got = scope.scoped_minute_deltas(ts, mask)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0]
+    assert scope.counts["fold_device"] - counts["fold_device"] == 1
+    want, _ = minute_deltas_host(t for t, keep in zip(ts, mask) if keep)
+    assert got == want == scope.scoped_minute_deltas(ts, mask, device="cpu")
+    before = [k.launches for k in kernels]
+    scope.scoped_minute_deltas(ts[:scope.SCOPE_DEVICE_FOLD_MIN - 1], mask[:scope.SCOPE_DEVICE_FOLD_MIN - 1])
+    upper = [t[:30] + t[30:].upper() for t in ts[:2048]]
+    assert scope.scoped_minute_deltas(upper, mask[:2048]) == minute_deltas_host(
+        t for t, keep in zip(upper, mask[:2048]) if keep)[0]
+    assert [k.launches for k in kernels] == before
+
+
+def _scoped_requests(seed, owners=16, per=600):
+    """Per owner: a tagged push of two lanes from its own node, then a
+    pull of one lane past a watermark from a fresh node, and the same pull
+    with the tree it was answered is left to the caller."""
+    from evolu_tpu_torch.sync import protocol as pp
+
+    base = 1_700_000_000_000
+    stamps = _scope_stamps(owners * per, seed)
+    pushes, pulls = [], []
+    for o in range(owners):
+        own = [s[:30] + f"{o:016x}" for s in stamps[o * per:(o + 1) * per]]
+        msgs = tuple(pp.EncryptedCrdtMessage(s, b"c%d" % i) for i, s in enumerate(own))
+        clause = pp.ScopeClause(0, ("a" * 16,), tuple(("a" * 16, "b" * 16)[i % 2] for i in range(per)))
+        pushes.append(pp.SyncRequest(msgs, f"owner{o:03d}", f"{o:016x}", "{}", (pp.CAP_SYNC_SCOPE,), clause))
+        pulls.append(pp.SyncRequest((), f"owner{o:03d}", "f" * 16, "{}", (pp.CAP_SYNC_SCOPE,),
+                                    pp.ScopeClause(base + 3_600_000, ("a" * 16,), ())))
+    return pushes, pulls
+
+
+def test_scoped_respond_under_write_behind_on_card_matches_synchronous(dev):
+    """Scoped pushes and pulls through `run_batch_wire` with a
+    `WriteBehindQueue` on the card answer the synchronous card engine's
+    bytes (the scoped respond waits for its owner's drain), and the drained
+    tables and lanes are equal."""
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.server import scope
+    from evolu_tpu_torch.server.relay import RelayStore
+    from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
+
+    pushes, pulls = _scoped_requests(31)
+    out = []
+    for wb_on in (True, False):
+        scope.tree_cache.reset()
+        store = RelayStore(backend="native")
+        wb = WriteBehindQueue(store) if wb_on else None
+        eng = pe.BatchReconciler(store, write_behind=wb)
+        try:
+            answers = [eng.run_batch_wire(pushes[:8] + pulls[8:]), eng.run_batch_wire(pushes[8:] + pulls[:8])]
+            if wb is not None:
+                wb.flush()
+            out.append((answers, _wb_dump(store), store.db.exec('SELECT * FROM "scopeLane" ORDER BY 1, 2')))
+        finally:
+            if wb is not None:
+                wb.close()
+            eng.close()
+            store.close()
+    assert out[0] == out[1]
+    assert len(out[0][2]) == 16 * 600
+
+
+def test_multiprocess_scoped_post_on_card_matches_cpu(tmp_path, dev):
+    """A `MultiprocessRelay` on the default device (the card) answers a
+    scoped pull of 1,100 canonical candidates (a device fold) with the
+    bytes of one whose workers fold on "cpu"."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+    from evolu_tpu_torch.server.relay import MultiprocessRelay
+    from evolu_tpu_torch.sync import protocol as pp
+
+    base, user, node = 1_700_000_000_000, "scoped-owner", "a" * 16
+    push = pp.SyncRequest(tuple(pp.EncryptedCrdtMessage(timestamp_to_string(Timestamp(base + i * 1000, 0, node)),
+                                                        b"ct-%d" % i) for i in range(1200)), user, node, "{}")
+    pull = pp.SyncRequest((), user, "f" * 16, "{}", (pp.CAP_SYNC_SCOPE,), pp.ScopeClause(base + 100 * 1000))
+    answers = []
+    for device in (None, "cpu"):
+        relay = MultiprocessRelay(str(tmp_path / f"relay-{device}.db"), workers=2, shards=4, device=device).start()
+        try:
+            for req in (push, pull):
+                with urllib.request.urlopen(urllib.request.Request(
+                        relay.url, data=pp.encode_sync_request(req),
+                        headers={"Content-Type": "application/octet-stream"}), timeout=60) as r:
+                    body = r.read()
+            answers.append(body)
+        finally:
+            relay.stop()
+    assert answers[0] == answers[1]
+    assert len(pp.decode_sync_response(answers[0]).messages) == 1100
+
+
+def test_scoped_card_worker_after_a_deferred_batch_matches_cpu(dev):
+    """A scoped `DbWorker` on the card (`backend="cuda"`, the winner cache
+    on) against a scoped `backend="cpu"` worker: a steady population in
+    both tables from local writes, a Receive that defers a newer foreign
+    write to a cached out-of-scope cell, then in-scope Receives and a
+    widening. Equal outputs, pushes, tables and frontiers; the cache audit
+    passes after every batch (the deferred leg invalidated the cell)."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, TableDefinition, Timestamp
+    from evolu_tpu_torch.runtime import messages as msg
+    from evolu_tpu_torch.runtime.worker import DbWorker
+    from evolu_tpu_torch.storage import PySqliteDatabase
+    from evolu_tpu_torch.sync.scope import SyncScope
+    from evolu_tpu_torch.utils.config import Config
+    import evolu_tpu_torch.core.timestamp as ts_mod
+
+    now = 1_700_000_000_000
+    mnemonic = "legal winner thank year wave sausage worth useful legal winner thank yellow"
+    sides = []
+    for backend in ("cuda", "cpu"):
+        outs, pushes = [], []
+        ticks = iter(range(now, now + 10**9, 1000))
+        w = DbWorker(PySqliteDatabase(), Config(backend=backend, receive_chunk_size=500,
+                                                sync_scope=SyncScope(tables=("todo",))),
+                     on_output=outs.append, post_sync=pushes.append, now=lambda t=ticks: next(t))
+        sides.append((w, outs, pushes))
+    node = ts_mod.create_node_id
+    ts_mod.create_node_id = lambda: "0f1e2d3c4b5a6978"
+    try:
+        for w, _, _ in sides:
+            w.start(mnemonic)
+    finally:
+        ts_mod.create_node_id = node
+    rng = np.random.default_rng(5)
+
+    def remote(n, base, span):
+        out, used = [], set()
+        while len(out) < n:
+            ts = timestamp_to_string(Timestamp(base + int(rng.integers(0, span)), 0, f"{int(rng.integers(1, 9)):016x}"))
+            if ts not in used:
+                used.add(ts)
+                table = ("todo", "todoCategory")[int(rng.integers(0, 2))]
+                out.append(CrdtMessage(ts, table, f"r{int(rng.integers(0, 40))}", ("title", "name")[table != "todo"],
+                                       f"v{len(out)}"))
+        return tuple(out)
+
+    q = (msg.serialize_query('SELECT * FROM "todo" ORDER BY "id"'),
+         msg.serialize_query('SELECT * FROM "todoCategory" ORDER BY "id"'))
+    script = [msg.UpdateDbSchema((TableDefinition.of("todo", ("title",)),
+                                  TableDefinition.of("todoCategory", ("name",))))]
+    script += [msg.Send((NewCrdtMessage("todoCategory", "r1", "name", f"m{k}"),
+                         NewCrdtMessage("todo", "r1", "title", f"t{k}")), (), q) for k in range(6)]
+    script += [msg.Receive((CrdtMessage(timestamp_to_string(Timestamp(now + 40_000, 0, "0000000000000001")),
+                                        "todoCategory", "r1", "name", "theirs"),
+                            CrdtMessage(timestamp_to_string(Timestamp(now + 41_000, 0, "0000000000000001")),
+                                        "todo", "r1", "title", "theirs")), "{}", None)]
+    script += [msg.Receive(remote(1500, now + 2_000, 50_000), "{}", None), msg.Query(q),
+               msg.WidenSyncScope(tables=("todoCategory",)),
+               msg.Send((NewCrdtMessage("todoCategory", "r1", "name", "again"),), (), q),
+               msg.Receive(remote(1500, now + 2_000, 50_000), "{}", None), msg.Query(q)]
+    audits = []
+    try:
+        for command in script:
+            for w, _, _ in sides:
+                w.post(command)
+                w.flush()
+            audits.append(sides[0][0].verify_winner_cache())
+            assert sides[0][0]._deferred_frontier() == sides[1][0]._deferred_frontier()
+        names = ("__message", "__clock", "todo", "todoCategory", "__scope_deferred")
+        tables = [{t: w.db.exec(f'SELECT * FROM "{t}" ORDER BY 1') for t in names} for w, _, _ in sides]
+        assert tables[0] == tables[1]
+        assert [(type(o).__name__, getattr(o, "queries_patches", None)) for o in sides[0][1]] == \
+            [(type(o).__name__, getattr(o, "queries_patches", None)) for o in sides[1][1]]
+        assert [(r.messages, r.merkle_tree) for r in sides[0][2]] == [(r.messages, r.merkle_tree) for r in sides[1][2]]
+        assert sides[0][0]._planner.cache.counts["invalidated_cells"] > 0 and max(audits) > 0
+    finally:
+        for w, _, _ in sides:
+            w.stop()

@@ -52,10 +52,24 @@ def test_port_imports_no_jax_and_touches_no_card():
                  "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
                  "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
                  "server.fleet", "server.push", "server.conn", "storage.write_behind",
-                 "storage._wb_shard_proc"):
+                 "storage._wb_shard_proc", "sync.scope", "server.scope"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
+
+
+def test_scoped_fold_has_no_host_fallback():
+    """The scope modules catch nothing: a device fault in the scoped fold
+    leaves as the `KernelError` of `ops.cuda_lib.device_work`, never as a
+    quiet host fold (the reference wraps its device route in `except
+    Exception: pass`)."""
+    for rel in ("evolu_tpu_torch/server/scope.py", "evolu_tpu_torch/sync/scope.py"):
+        tree = ast.parse(pathlib.Path(_REPO, rel).read_text())
+        assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    tree = ast.parse(pathlib.Path(_REPO, "evolu_tpu_torch/server/scope.py").read_text())
+    fold = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "scoped_minute_deltas")
+    calls = {getattr(c.func, "id", None) for c in ast.walk(fold) if isinstance(c, ast.Call)}
+    assert {"device_work", "merkle_minute_deltas", "resolve_device", "minute_deltas_host"} <= calls
 
 
 def test_cryptography_only_behind_module_not_found():

@@ -171,31 +171,91 @@ def test_shared_file_store_takes_the_write_lock_at_begin(tmp_path):
     assert _dump(again) == _dump(store)
 
 
+def _lanes(store):
+    names = store.db.exec("SELECT name FROM sqlite_schema WHERE name='scopeLane'")
+    return store.db.exec('SELECT * FROM "scopeLane" ORDER BY 1, 2') if names else []
+
+
+def _scoped_pair(m, o, rows):
+    """A v1 push of an owner's rows, then a scoped request from another
+    node in the same batch: its own rows, tagged into two lanes, and a pull
+    of one lane past the middle of the owner's history."""
+    own = [(timestamp_to_string(Timestamp(BASE + 7_000 * i, 0, "e" * 16)), b"own-%d" % i) for i in range(6)]
+    plain = m.SyncRequest(tuple(m.EncryptedCrdtMessage(t, c) for t, c in rows), o, "f" * 16, "{}")
+    clause = m.ScopeClause(watermark_millis=BASE + 300_000, tags=("a" * 16,),
+                           push_tags=("a" * 16, "b" * 16) * 3)
+    scoped = m.SyncRequest(tuple(m.EncryptedCrdtMessage(t, c) for t, c in own), o, "e" * 16, "{}",
+                           (m.CAP_SYNC_SCOPE,), clause)
+    return plain, scoped
+
+
+SCOPED_CALLS = ("run_batch_wire", "reconcile", "serve_single_request", "start_batch", "reconcile_stream",
+                "write_behind")
+
+
+def _scoped_call(m, store, engine, wb, call, plain, scoped, serve):
+    """One of the six routes a scoped request takes: → the encoded answers
+    (every response of the call), or the name of the exception it raised."""
+    try:
+        if call == "run_batch_wire":
+            return engine.run_batch_wire([plain, scoped])
+        if call == "reconcile":
+            return [m.encode_sync_response(r) for r in engine.reconcile([scoped])]
+        if call == "serve_single_request":
+            return [serve(store, scoped)]
+        if call == "start_batch":
+            return engine.finish_batch(engine.start_batch([plain, scoped]), wire=True)
+        if call == "reconcile_stream":
+            return [m.encode_sync_response(r) for b in engine.reconcile_stream([[plain, scoped]]) for r in b]
+        out = engine.run_batch_wire([plain, scoped])
+        wb.flush()
+        return out
+    except Exception as e:  # noqa: BLE001 - the outcome is the observation
+        return type(e).__name__
+
+
 def test_unported_routes_raise_before_any_side_effect():
-    """Scoped requests (on every ingest route, the streaming one and the
-    write-behind serve included) are refused on a Python and on a native
-    store, before any side effect."""
+    """Scoped requests, refused until scoped sync was ported, are served on
+    every route: the batched wire pass, `reconcile`, the per-request serve,
+    the streaming ingest (`start_batch` / `finish_batch`, and
+    `reconcile_stream`) and the write-behind serve. Each of the six calls
+    answers what the JAX `BatchReconciler` (or the JAX per-request serve)
+    answers on a python and on a native store, byte for byte, and leaves
+    equal `message`, `merkleTree` and `scopeLane` tables."""
+    from evolu_tpu.storage.write_behind import WriteBehindQueue as JaxWriteBehind
+    from evolu_tpu_torch.server import scope as pscope
+    from evolu_tpu.server import scope as jscope
     from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
 
     (o, r), = _owner_rows(8, owners=1).items()
-    plain = _requests(pp, [(o, r, "f" * 16, "{}")])[0]
-    scoped = pp.SyncRequest(plain.messages, o, "f" * 16, "{}", (pp.CAP_SYNC_SCOPE,),
-                            pp.ScopeClause(watermark_millis=BASE))
+    outcomes = []
     for backend in ("python", "native"):
-        store = RelayStore(backend=backend)
-        engine = pe.BatchReconciler(store, device="cpu")
-        wb = WriteBehindQueue(store)
-        deferred = pe.BatchReconciler(store, device="cpu", write_behind=wb)
-        for call in (lambda: engine.run_batch_wire([plain, scoped]), lambda: engine.reconcile([scoped]),
-                     lambda: serve_single_request(store, scoped),
-                     lambda: engine.start_batch([plain, scoped]),
-                     lambda: engine.reconcile_stream([[plain, scoped]]),
-                     lambda: deferred.run_batch_wire([plain, scoped])):
-            with pytest.raises(NotImplementedError):
-                call()
-        wb.close()
-        assert wb.counts["queued"] == 0
-        assert _dump(store) == [[], []]
+        for call in SCOPED_CALLS:
+            jscope.tree_cache.reset()
+            pscope.tree_cache.reset()
+            jax_store, store = JaxStore(backend=backend), RelayStore(backend=backend)
+            jwb = JaxWriteBehind(jax_store) if call == "write_behind" else None
+            wb = WriteBehindQueue(store) if call == "write_behind" else None
+            try:
+                want = _scoped_call(jp, jax_store, JaxReconciler(jax_store, create_mesh(1), write_behind=jwb), jwb,
+                                    call, *_scoped_pair(jp, o, r), jax_serve)
+                got = _scoped_call(pp, store, pe.BatchReconciler(store, device="cpu", write_behind=wb), wb,
+                                   call, *_scoped_pair(pp, o, r), serve_single_request)
+                assert got == want, (backend, call)
+                assert _dump(store) == _dump(jax_store), (backend, call)
+                assert _lanes(store) == _lanes(jax_store), (backend, call)
+                outcomes.append((backend, call, got))
+            finally:
+                for q in (wb, jwb):
+                    if q is not None:
+                        q.close()
+    served = [(b, c) for b, c, g in outcomes if isinstance(g, list)]
+    assert len(served) >= 10, outcomes  # every route serves on the native store
+    # The slice: past the watermark, lanes a or unknown, never the requester's own rows.
+    answers = [pp.decode_sync_response(g[-1]).messages for _b, _c, g in outcomes if isinstance(g, list)]
+    assert sum(map(len, answers)) > 0
+    assert all(m.timestamp >= "2023-11-14T22:18:20.000Z" and not m.timestamp.endswith("e" * 16)
+               for a in answers for m in a)
 
 
 def test_entry_points_default_to_the_card():

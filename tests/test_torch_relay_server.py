@@ -2,15 +2,18 @@
 `MultiprocessRelay`) against the JAX package's.
 
 - POST `/` answers a v1 body, a capability-advertising body and a scoped
-  body (the scope stripped, as a relay without `sync-scope-v1` does) with
-  the JAX relay's bytes, both relays built with the same capability tuple,
-  on the per-request path and batching (`device="cpu"`).
+  body (served its slice: both relays advertise `sync-scope-v1`, the
+  reference's default) with the JAX relay's bytes, both relays built with
+  the same capability tuple, on the per-request path and batching
+  (`device="cpu"`); a relay with `sync-scope-v1` answers scoped POSTs
+  (lane pushes, lane and watermark pulls, own-row trees) as a JAX relay
+  does, and one without it strips the clause as the JAX relay does.
 - `/ping`, `/health` and the store section of `/stats` equal the JAX
   relay's; a bad Content-Length answers 400, an oversized body 413, and
   the relay tier's endpoints 404 on a relay without replication, a
   fleet or a push hub; the observability endpoints 404 on both tiers.
-- Every refused option raises NotImplementedError before a socket is
-  bound or the store written; the replication half's options (peers,
+- Every refused option (the mesh engine's) raises NotImplementedError
+  before a socket is bound or the store written; the replication half's options (peers,
   replication, bootstrap_lag_owners, checkpoints), the push and
   connection-tier options (push, connection_tier, EVOLU_CONN_TIER) and the
   write-behind options (write_behind, EVOLU_WRITE_BEHIND, Config.
@@ -134,10 +137,12 @@ def test_post_and_get_endpoints_match_jax(batching):
     assert got[2]["requests_total"] == 6 and got[2]["errors_total"] == 0
     assert got[2]["shards"][0]["requests"] == 6
     responses = [pproto.decode_sync_response(b) for _, b in got[0][:6]]
-    assert responses[1].capabilities == (pproto.CAP_CRDT_TYPES, pproto.CAP_AEAD_BATCH)
+    assert responses[1].capabilities == (pproto.CAP_CRDT_TYPES, pproto.CAP_AEAD_BATCH, pproto.CAP_SYNC_SCOPE)
     assert responses[0].capabilities == () and responses[3].capabilities == ()
-    # The scope was stripped: the cold pull of the scoped owner gets every row.
-    assert len(responses[5].messages) == 40 and pproto.CAP_SYNC_SCOPE not in responses[5].capabilities
+    # The reference's capability echo: the cold pull of the scoped owner gets
+    # its slice, the 20 rows at or past the watermark.
+    assert caps == pproto.KNOWN_CAPABILITIES
+    assert len(responses[5].messages) == 20 and pproto.CAP_SYNC_SCOPE in responses[5].capabilities
     health = json.loads(got[0][7][1])
     assert health == {"status": "serving", "install_phase": None, **({"queue_depth": 0} if batching else {})}
 
@@ -196,7 +201,6 @@ def _free_port():
 REFUSED = {
     "mesh_engine": ({"mesh_engine": True}, {}),
     "mesh_ctx": ({"mesh_ctx": object()}, {}),
-    "scope capability": ({"capabilities": (pproto.CAP_SYNC_SCOPE,)}, {}),
     "EVOLU_MESH_ENGINE": ({}, {"EVOLU_MESH_ENGINE": "on"}),
 }
 
@@ -217,6 +221,66 @@ def test_refused_options_raise_before_a_socket_binds(case, batching, monkeypatch
     assert not [t for t in threading.enumerate() if t not in threads and t.name.startswith("evolu-")]
     assert store.db.exec_sql_query('SELECT COUNT(*) AS n FROM "message"')[0]["n"] == 0
     store.close()
+
+
+def _scoped_bodies():
+    """Scoped POSTs: a tagged push of two lanes (rows authored by the
+    pusher), a v1 push with no lanes, a pull of one lane from another node,
+    a watermark pull, the pusher's own pull (its rows stay in its tree), and
+    the lane pull again with the tree it was answered (nothing more)."""
+    caps = (pproto.CAP_SYNC_SCOPE,)
+    lane_a, lane_b = "a" * 16, "b" * 16
+    push = pproto.SyncRequest(_msgs(pproto, "c" * 16, 0, 12), "owner-s", "c" * 16, "{}", caps,
+                              pproto.ScopeClause(0, (lane_a,), (lane_a, lane_b) * 6))
+    v1 = pproto.SyncRequest(_msgs(pproto, "d" * 16, 20, 6), "owner-s", "d" * 16, "{}")
+    lane = pproto.ScopeClause(0, (lane_a,), ())
+    return [push, v1,
+            pproto.SyncRequest((), "owner-s", FRESH_NODE, "{}", caps, lane),
+            pproto.SyncRequest((), "owner-s", FRESH_NODE, "{}", caps, pproto.ScopeClause(BASE + 6_000, (), ())),
+            pproto.SyncRequest((), "owner-s", "c" * 16, "{}", caps, lane)]
+
+
+@pytest.mark.parametrize("batching", [False, True])
+def test_scope_capability_serves_scoped_posts_as_jax(batching):
+    """A relay with `sync-scope-v1` (refused until scoped sync was ported)
+    answers scoped POSTs with the JAX relay's bytes, records the same lanes
+    and ends with the same tables; the slice converges (a pull with the
+    tree it was answered gets nothing more). A relay built without the
+    capability strips the clause and answers the full serve, as the JAX
+    one does."""
+    from evolu_tpu.server import scope as jscope
+    from evolu_tpu_torch.server import scope as pscope
+
+    def drive(make, scope_mod, caps):
+        scope_mod.tree_cache.reset()
+        server = make(caps).start()
+        try:
+            out = [_post(server.url, pproto.encode_sync_request(r)) for r in _scoped_bodies()]
+            lane_pull = pproto.decode_sync_response(out[2][1])
+            again = pproto.SyncRequest((), "owner-s", FRESH_NODE, lane_pull.merkle_tree, (pproto.CAP_SYNC_SCOPE,),
+                                       pproto.ScopeClause(0, ("a" * 16,), ()))
+            out.append(_post(server.url, pproto.encode_sync_request(again)))
+            db = server.store.db
+            lanes = (db.exec('SELECT * FROM "scopeLane" ORDER BY 1, 2')
+                     if db.exec("SELECT name FROM sqlite_schema WHERE name='scopeLane'") else None)
+            return out, lanes, db.exec('SELECT * FROM "message" ORDER BY 1, 2')
+        finally:
+            server.stop()
+
+    for caps in (pproto.KNOWN_CAPABILITIES, ()):
+        want = within(LIMIT_S, lambda: drive(lambda c: jrelay.RelayServer(
+            jrelay.RelayStore(backend="native"), batching=batching, capabilities=c), jscope, caps))
+        got = within(LIMIT_S, lambda: drive(lambda c: prelay.RelayServer(
+            prelay.RelayStore(backend="native"), batching=batching, capabilities=c, device="cpu"), pscope, caps))
+        assert got == want
+        assert all(code == 200 for code, _ in got[0])
+        answers = [pproto.decode_sync_response(b).messages for _, b in got[0]]
+        if caps:
+            # Lane a and the unknown-lane v1 rows; lane b withheld.
+            assert len(answers[2]) == 6 + 6 and len(answers[3]) == 18 - 6 and answers[5] == ()
+            assert len(answers[4]) == 6 and len(got[1]) == 12  # the pusher is served the v1 rows only
+        else:
+            assert len(answers[2]) == 18 and got[1] is None  # the full serve, no lanes recorded
 
 
 # The relay tier's replication half and the push / connection-tier
@@ -330,25 +394,41 @@ def test_env_switched_off_and_defaults_serve(monkeypatch):
     for kw in ({"mesh_engine": True}, {"mesh_ctx": object()}):
         with pytest.raises(NotImplementedError):
             psched.SyncScheduler(prelay.RelayStore(backend="native"), device="cpu", **kw)
-    # A scoped request under write-behind still raises before any state
-    # change (scoped sync is not ported); a relay strips the clause first.
+    # A scoped request under write-behind (refused until scoped sync was
+    # ported) is served by the scheduler after its owner's drain, as the
+    # JAX scheduler serves it: same bytes, same tables and lanes.
+    from evolu_tpu.server.scheduler import SyncScheduler as JaxScheduler
+    from evolu_tpu.storage.write_behind import WriteBehindQueue as JaxWriteBehind
     from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
 
+    def scoped_reqs(proto):
+        push = proto.SyncRequest(_msgs(proto, "a" * 16, 0, 3), "uS", "a" * 16, "{}", (proto.CAP_SYNC_SCOPE,),
+                                 proto.ScopeClause(watermark_millis=BASE, tags=("t" * 16,), push_tags=("t" * 16,) * 3))
+        pull = proto.SyncRequest((), "uS", FRESH_NODE, "{}", (proto.CAP_SYNC_SCOPE,),
+                                 proto.ScopeClause(watermark_millis=BASE + 1000, tags=("t" * 16,)))
+        return [push, pull]
+
+    def serve(store, wb, sched):
+        try:
+            out = [sched.submit(r) for r in scoped_reqs(pproto if isinstance(wb, WriteBehindQueue) else jproto)]
+            wb.flush()
+            return (out, wb.counts["queued"] if hasattr(wb, "counts") else None,
+                    store.db.exec('SELECT * FROM "message" ORDER BY 1, 2'),
+                    store.db.exec('SELECT * FROM "scopeLane" ORDER BY 1, 2'))
+        finally:
+            sched.stop()
+            wb.close()
+            store.close()
+
+    jstore = jrelay.RelayStore(backend="native")
+    jwb = JaxWriteBehind(jstore)
+    want = serve(jstore, jwb, JaxScheduler(jstore, write_behind=jwb))
     store = prelay.RelayStore(backend="native")
     wb = WriteBehindQueue(store)
-    sched = psched.SyncScheduler(store, device="cpu", write_behind=wb)
-    scoped = pproto.SyncRequest(_msgs(pproto, "a" * 16, 0, 3), "uS", "a" * 16, "{}", (pproto.CAP_SYNC_SCOPE,),
-                                pproto.ScopeClause(watermark_millis=BASE))
-    try:
-        with pytest.raises(NotImplementedError):
-            sched.submit(scoped)
-        wb.flush()
-        assert wb.counts["queued"] == 0 and wb.backlog() == (0, 0)
-        assert store.db.exec_sql_query('SELECT COUNT(*) AS n FROM "message"')[0]["n"] == 0
-    finally:
-        sched.stop()
-        wb.close()
-        store.close()
+    got = serve(store, wb, psched.SyncScheduler(store, device="cpu", write_behind=wb))
+    assert got[0] == want[0] and got[2:] == want[2:]
+    assert got[1] == 3 and len(got[2]) == 3 and len(got[3]) == 3
+    assert len(pproto.decode_sync_response(got[0][1]).messages) == 2  # past the watermark, lane t
 
 
 def _converge(clients, n_rows, rounds=12):
@@ -524,6 +604,39 @@ def test_multiprocess_concurrent_clients_tables_match_jax(tmp_path):
     finally:
         store.close()
         oracle.close()
+
+
+@pytest.mark.parametrize("device", ["cpu", None], ids=["cpu", "default"])
+def test_multiprocess_scoped_post_folds_on_its_device(tmp_path, device):
+    """A `MultiprocessRelay` worker folds a scoped pull's 1,100 canonical
+    candidates (past `SCOPE_DEVICE_FOLD_MIN`, so kernels H and X) on the
+    relay's `device`: "cpu" answers the JAX relay's bytes. The default is
+    the card, so on a host without one the fold raises and the POST
+    answers 500 (no fold falls back to the CPU); with a card it answers the
+    JAX bytes too."""
+    import torch
+
+    user, node = "scoped-owner", "a" * 16
+    clause = lambda proto: proto.ScopeClause(watermark_millis=BASE + 100 * 1000)  # noqa: E731
+    pull = lambda proto: proto.SyncRequest((), user, FRESH_NODE, "{}", (proto.CAP_SYNC_SCOPE,), clause(proto))  # noqa: E731
+    relay = prelay.MultiprocessRelay(str(tmp_path / "relay.db"), workers=2, shards=4, device=device).start()
+    try:
+        _post_req(relay.url, pproto.SyncRequest(_msgs(pproto, node, 0, 1200), user, node, "{}"))
+        status, got = within(LIMIT_S, lambda: _post(relay.url, pproto.encode_sync_request(pull(pproto))))
+    finally:
+        relay.stop()
+    oracle = jrelay.RelayStore(backend="python")
+    try:
+        oracle.add_messages(user, _msgs(jproto, node, 0, 1200))
+        want = jrelay.serve_single_request(oracle, pull(jproto)) + \
+            jproto.encode_response_capabilities((jproto.CAP_SYNC_SCOPE,))
+    finally:
+        oracle.close()
+    if device is None and not torch.cuda.is_available():
+        assert status == 500
+    else:
+        assert status == 200 and got == want
+        assert len(pproto.decode_sync_response(got).messages) == 1100
 
 
 def test_port_clients_converge_through_the_multiprocess_relay(tmp_path):

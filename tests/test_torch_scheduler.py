@@ -417,9 +417,9 @@ def test_singleton_never_inside_an_open_engine_pass(monkeypatch):
         orig_serve = pkg.relay.serve_single_request
         overlap = []
 
-        def spying_serve(store_, request):
+        def spying_serve(store_, request, **kw):
             overlap.append(in_pass.is_set())
-            return orig_serve(store_, request)
+            return orig_serve(store_, request, **kw)
 
         monkeypatch.setattr(pkg.relay, "serve_single_request", spying_serve)
         sched = pkg.scheduler(store, engine=eng, max_batch=4, max_wait_s=0.0)

@@ -31,7 +31,7 @@ from _torch_jax_state import jax_process_state  # noqa: F401  (the JAX package's
 
 from _torch_port_data import within
 from _torch_relay_tier import (
-    JAX, LIMIT_S, PKGS, PORT, decode_both, fast_post, hostile_cases, msgs, seed, server, state, stop_all,
+    BASE, JAX, LIMIT_S, MINUTE, PKGS, PORT, decode_both, fast_post, hostile_cases, msgs, seed, server, state, stop_all,
     store, wait_for,
 )
 
@@ -650,22 +650,64 @@ def test_snapshot_stats_surface_matches_jax_keys():
     assert snap["captures"] >= 1 and snap["chunks_served"] >= 1 and snap["capture_rows"] >= 30
 
 
+def _scoped_donor(pkg):
+    """Two owners over two minutes, with lanes recorded for owner000's rows
+    (alternating lanes "lane-a" and "lane-b", as a scoped push records
+    them); owner001's rows have no lane."""
+    from importlib import import_module
+
+    st = store(pkg)
+    seed(pkg, st, owners=2, per_minute=6, minutes=2)
+    scope = import_module(pkg.relay.__name__.rsplit(".", 1)[0] + ".scope")
+    scope.record_push_lanes(st.db, "owner000", [m.timestamp for m in st.replica_messages("owner000", "")],
+                            ["lane-a", "lane-b"] * 6)
+    return st
+
+
 def test_scoped_snapshot_is_refused():
-    """A scoped capture (watermark or tags) raises NotImplementedError, and
-    a scoped manifest request answers 500, never an unscoped snapshot."""
-    st = store(PORT)
-    seed(PORT, st, owners=2, per_minute=3, minutes=1)
-    for kw in ({"watermark_millis": 5}, {"tags": ("lane",)}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            PORT.snap.capture_snapshot(st, **kw)
-    donor = server(PORT, st, peers=[]).start()
-    try:
-        body = PORT.proto.encode_snapshot_request(PORT.proto.SnapshotRequest("r", 0, (), 5))
-        with pytest.raises(urllib.error.HTTPError) as e:
-            fast_post(PORT)(donor.url + "/replicate/snapshot", body)
-        assert e.value.code == 500
-    finally:
-        donor.stop()
+    """A scoped capture (a watermark, lane tags, or both), refused until
+    scoped sync was ported, equals the JAX package's byte for byte, with
+    each owner's tree regenerated from the kept rows, and installs into a
+    fresh store as the JAX one does. A scoped `/replicate/snapshot`
+    answers the JAX donor's manifest (up to the snapshot id) and chunks;
+    the capture counts as scoped."""
+    wm = BASE + MINUTE + 1_000
+    for kw in ({"watermark_millis": wm}, {"tags": ("lane-a",)}, {"watermark_millis": wm, "tags": ("lane-a",)}):
+        got, want = ([pkg.snap.capture_snapshot(_scoped_donor(pkg), snapshot_id="s", **kw) for pkg in (PORT, JAX)])
+        assert PORT.proto.encode_snapshot_manifest(got[0]) == JAX.proto.encode_snapshot_manifest(want[0]), kw
+        assert got[1] == want[1], kw
+        installed = []
+        for pkg, (manifest, chunks) in ((PORT, got), (JAX, want)):
+            dest = store(pkg)
+            pkg.snap.install_stream(dest, manifest, chunks)
+            installed.append(state(dest))
+        assert installed[0] == installed[1]
+        kept = {u: [t for t, _c in rows] for u, (_tree, rows) in installed[0].items()}
+        if "watermark_millis" in kw:
+            assert all(t >= "2023-11-14T22:14:21" for ts in kept.values() for t in ts)
+        if "tags" in kw:  # owner000's lane-b rows withheld; owner001's unknown lanes served
+            assert len(kept["owner000"]) < len(kept["owner001"])
+
+    def drive(pkg):
+        before = dict(PORT.snap.counts)
+        donor = server(pkg, _scoped_donor(pkg), peers=[]).start()
+        try:
+            post = fast_post(pkg)
+            req = pkg.proto.SnapshotRequest("r", 0, (), wm, ("lane-a",))
+            manifest = pkg.proto.decode_snapshot_manifest(post(donor.url + "/replicate/snapshot",
+                                                               pkg.proto.encode_snapshot_request(req)))
+            chunks = [pkg.proto.decode_snapshot_chunk(post(
+                donor.url + "/replicate/snapshot/chunk",
+                pkg.proto.encode_snapshot_chunk_request(pkg.proto.SnapshotChunkRequest(manifest.snapshot_id, i, "r"))
+            )).payload for i in range(len(manifest.chunk_sizes))]
+            manifest = pkg.proto.encode_snapshot_manifest(dataclasses.replace(manifest, snapshot_id=""))
+            return manifest, chunks, PORT.snap.counts["scoped_captures"] - before["scoped_captures"]
+        finally:
+            donor.stop()
+
+    want, got = within(LIMIT_S, lambda: drive(JAX)), within(LIMIT_S, lambda: drive(PORT))
+    assert got[:2] == want[:2] and PORT.proto.decode_snapshot_manifest(got[0]).message_count > 0
+    assert got[2] == 1 and want[2] == 0  # the port's donor captured once, scoped
 
 
 @pytest.mark.parametrize("donor_pkg,puller_pkg", [(JAX, PORT), (PORT, JAX)], ids=["jax_donor", "port_donor"])

@@ -539,19 +539,47 @@ def test_reconnect_hook_skips_a_disposed_client():
 
 
 def test_unported_routes_raise_before_any_side_effect():
-    """The scope clause is refused before any thread starts; nothing
-    reaches the transport or the relay. The push leg, ported, is accepted:
-    `connect` attaches a `PushSubscriber` whose thread starts only when a
-    successful round binds it."""
+    """The scope clause, refused until scoped sync was ported, rides the
+    wire as on the JAX transport: the first round to a relay (nothing
+    negotiated) carries none, a round after the relay echoed
+    `sync-scope-v1` carries the clause with a lane tag for each pushed
+    message, equal to the JAX transport's; a relay that stops echoing it
+    gets none again. The push leg, ported, is accepted: `connect` attaches
+    a `PushSubscriber` whose thread starts only when a successful round
+    binds it."""
+    from evolu_tpu.sync.scope import SyncScope as JaxScope
+    from evolu_tpu.utils.config import Config as JConfig
     from evolu_tpu_torch.runtime.client import create_evolu
+    from evolu_tpu_torch.sync.scope import SyncScope
     from evolu_tpu_torch.utils.config import Config
 
+    def rounds(tmod, proto, cfg, types, req_cls):
+        echoes = [(proto.CAP_SYNC_SCOPE,), (proto.CAP_SYNC_SCOPE,), (), ()]
+        seen = []
+
+        def post(url, body):
+            r = proto.decode_sync_request(body)
+            seen.append((r.capabilities, r.scope))
+            return proto.encode_sync_response(proto.SyncResponse((), "{}", echoes[len(seen) - 1]))
+
+        t = tmod.SyncTransport(cfg, on_receive=lambda *a: None, http_post=post)
+        msgs = tuple(types.CrdtMessage(TS, table, "r1", "c", 1) for table in ("todo", "note", "todo"))
+        for _ in range(4):
+            within(LIMIT_S, lambda: (t.request_sync(req_cls(msgs, TS, "{}", types.Owner("o", MNEMONIC))), t.flush()))
+        t.stop()
+        return [(caps, None if sc is None else (sc.watermark_millis, sc.tags, sc.push_tags)) for caps, sc in seen]
+
+    want = rounds(jclient, jproto, JConfig(sync_scope=JaxScope(7, ("todo",)), reconnect_probe_interval=None), jt,
+                  JRequest)
+    got = rounds(pclient, pproto, Config(sync_scope=SyncScope(7, ("todo",)), reconnect_probe_interval=None), pt,
+                 PRequest)
+    assert got == want
+    clauses = [c for _caps, c in got]
+    assert clauses[0] is None and clauses[1] == clauses[2] is not None and clauses[3] is None
+    todo, note = clauses[1][2][0], clauses[1][2][1]
+    assert clauses[1] == (7, (todo,), (todo, note, todo)) and todo != note
     e = create_evolu(SCHEMA, config=Config(backend="cpu"), device="cpu")
     try:
-        threads = threading.active_count()
-        with pytest.raises(NotImplementedError, match="scoped-sync"):
-            pclient.SyncTransport(Config(sync_scope=object()), on_receive=lambda *a: None)
-        assert threading.active_count() == threads and e._transport is None
         t = pclient.connect(e, Config(push_subscribe=True, sync_url="http://127.0.0.1:9"))
         assert isinstance(t.push_subscriber, pclient.PushSubscriber)
         assert t.push_subscriber._thread is None and e._transport is t

@@ -269,35 +269,154 @@ def _typed_dump(db):
 
 
 def test_unported_routes_raise():
-    """Scoped sync is refused, never routed elsewhere; the relay push
-    leg, ported, is accepted by `connect`."""
+    """Scoped sync, refused until it was ported, is accepted as the JAX
+    package accepts it: a scoped `DbWorker` starts, a `WidenSyncScope`
+    on a full replica answers nothing, and on a scoped one it widens; a
+    scoped `SyncTransport` constructs. Still refused: an unknown planner
+    backend. The relay push leg, ported, is
+    accepted by `connect`."""
+    from evolu_tpu.sync.client import SyncTransport as JaxTransport
+    from evolu_tpu.sync.scope import SyncScope as JaxScope
     from evolu_tpu_torch.runtime.client import Evolu
     from evolu_tpu_torch.runtime.worker import select_planner
     from evolu_tpu_torch.sync.client import SyncTransport, connect
+    from evolu_tpu_torch.sync.scope import SyncScope
 
-    with pytest.raises(NotImplementedError, match="scoped-sync"):
-        DbWorker(PySqliteDatabase(), Config(sync_scope=object()), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         select_planner(Config(backend="tpu"), device="cpu")
-    outputs = []
-    w = DbWorker(PySqliteDatabase(), Config(), on_output=outputs.append, device="cpu")
-    w.start(MNEMONIC)
-    try:
-        w.post(pmsg.WidenSyncScope(full=True))
-        w.flush()
-    finally:
-        w.stop()
-    errors = [o.error for o in outputs if isinstance(o, pmsg.OnError)]
-    assert [type(e) for e in errors] == [NotImplementedError]
-    assert "scoped-sync" in str(errors[0])
-    with pytest.raises(NotImplementedError, match="scoped-sync"):
-        SyncTransport(Config(sync_scope=object()), on_receive=lambda *a: None)
+    runs = []
+    for widen in (pmsg.WidenSyncScope(full=True), pmsg.WidenSyncScope(watermark_millis=0, tables=("todoCategory",))):
+        for scoped in (False, True):
+            pair = []
+            for side in (Side(JaxWorker, JaxDb, JaxConfig(sync_scope=JaxScope(tables=("todo",)) if scoped else None),
+                              jmsg, jt),
+                         Side(DbWorker, PySqliteDatabase, Config(sync_scope=SyncScope(tables=("todo",)) if scoped
+                                                                 else None), pmsg, pt, device="cpu")):
+                side.worker.start(MNEMONIC)
+                try:
+                    side.post("WidenSyncScope", widen.watermark_millis, widen.tables, widen.full)
+                    side.worker.flush()
+                finally:
+                    side.worker.stop()
+                scope = side.worker.config.sync_scope
+                pair.append(([_norm_output(o) for o in side.outputs], None if scope is None else scope.tables))
+            assert pair[1] == pair[0]
+            runs.append(pair[1])
+    assert [r[1] for r in runs] == [None, None, None, ("todo", "todoCategory")]
+    assert runs[1][0][-1] == ("OnReceive",) and runs[0][0] == [runs[0][0][0]]  # only a scoped worker widens
+    for transport in (SyncTransport(Config(sync_scope=SyncScope(tables=("todo",))), on_receive=lambda *a: None),
+                      JaxTransport(JaxConfig(sync_scope=JaxScope(tables=("todo",))), on_receive=lambda *a: None)):
+        assert transport.config.sync_scope.tables == ("todo",)
+        transport.stop()
     e = Evolu(config=Config(backend="cpu"), mnemonic=MNEMONIC, device="cpu", backend="python")
     try:
         t = connect(e, Config(push_subscribe=True, sync_url="http://127.0.0.1:9"))
         assert t.push_subscriber is not None and e._transport is t
     finally:
         e.dispose()
+
+
+def _scoped_script(jax, port):
+    """A scoped worker's stream (scope: the `todo` table): local writes to
+    both tables put cells of both in the winner cache; a Receive then
+    defers a newer foreign write to a cached `todoCategory` cell (the
+    cache must drop that slot), queries answer `ScopeDeferred` for the
+    deferred table, chunked receives split each chunk, a re-delivery does
+    not inflate the frontier, and a widening re-materializes the table
+    from the log before more writes land in it."""
+    rng = np.random.default_rng(13)
+    sides = (jax, port)
+    q_todo = jmsg.serialize_query('SELECT * FROM "todo" ORDER BY "id"')
+    q_cat = jmsg.serialize_query('SELECT "id", "name" FROM "todoCategory" ORDER BY "id"')
+    q_join = jmsg.serialize_query('SELECT t."id", c."name" FROM "todo" t JOIN "todoCategory" c ON 1 ORDER BY 1, 2')
+    queries = (q_todo, q_cat, q_join)
+
+    def each(fn):
+        for s in sides:
+            fn(s)
+
+    def receive(tuples, tree="{}"):
+        each(lambda s: s.post("Receive", s.messages(tuples), tree, None))
+
+    def send(tuples):
+        each(lambda s: s.post("Send", s.new_messages(tuples), (), queries))
+
+    frontiers = []
+
+    def check_cache():
+        for s in sides:
+            s.worker.flush()
+        assert port.worker.verify_winner_cache() == jax.worker.verify_winner_cache()
+        frontiers.append(port.worker._deferred_frontier())
+        assert frontiers[-1] == jax.worker._deferred_frontier()
+
+    each(lambda s: s.post("UpdateDbSchema", s.tables(SCHEMA)))
+    for k in range(6):  # a steady population: the cache settles on these cells
+        send([("todoCategory", "row1", "name", f"mine{k}"), ("todo", "row1", "title", f"local{k}")])
+    for s in sides:
+        s.worker.flush()
+    cache = getattr(port.worker._planner, "cache", None)
+    cached_before = cache is not None and ("todoCategory", "row1", "name") in cache._slots
+    newer = timestamp_to_string(Timestamp(NOW + 40_000, 0, "00000000000000a1"))
+    receive([(newer, "todoCategory", "row1", "name", "theirs"),
+             (timestamp_to_string(Timestamp(NOW + 41_000, 0, "00000000000000a1")), "todo", "row1", "title", "t")])
+    check_cache()
+    receive(_remote(rng, 30))
+    each(lambda s: s.post("Query", queries))
+    chunked = _remote(rng, 160, n_rows=30)
+    receive(chunked)
+    receive(chunked[::3])                      # re-delivery: the frontier stays exact
+    check_cache()
+    each(lambda s: s.post("Query", queries))
+    each(lambda s: s.post("WidenSyncScope", None, ("todoCategory",)))
+    each(lambda s: s.post("Query", queries))
+    send([("todoCategory", "row1", "name", "again"), ("todoCategory", "row2", "name", "new")])
+    receive(_remote(rng, 60, base=NOW + 5_000, span=40_000))
+    check_cache()
+    each(lambda s: s.post("Query", queries))
+    return frontiers, cached_before
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_scoped_worker_matches_jax(pair):
+    """The scoped stream on the JAX and the port worker, for each backend
+    pair: equal outputs (`ScopeDeferred` by tables and rows), pushes, table
+    dumps (`__scope_deferred` included), winner-cache slots, and the
+    cache's audit against SQLite after every deferred batch."""
+    from evolu_tpu.sync.scope import SyncScope as JaxScope
+    from evolu_tpu_torch.sync.scope import SyncScope
+
+    jcfg, pcfg = PAIRS[pair]
+    jax = Side(JaxWorker, JaxDb, JaxConfig(receive_chunk_size=50, sync_scope=JaxScope(tables=("todo",)), **jcfg),
+               jmsg, jt)
+    port = Side(DbWorker, PySqliteDatabase, Config(receive_chunk_size=50, sync_scope=SyncScope(tables=("todo",)),
+                                                   **pcfg), pmsg, pt, device="cpu")
+    try:
+        for s in (jax, port):
+            s.worker.start(MNEMONIC)
+        frontiers, cached_before = _scoped_script(jax, port)
+        for s in (jax, port):
+            s.worker.flush()
+        got, want = [_norm_output(o) for o in port.outputs], [_norm_output(o) for o in jax.outputs]
+        assert got == want
+        # The foreign write and the remote todoCategory rows, re-delivery not counted.
+        assert frontiers[0] == {"todoCategory": 1}
+        assert frontiers[0]["todoCategory"] < frontiers[1]["todoCategory"] and frontiers[2] == {}
+        assert [_norm_push(r) for r in port.pushes] == [_norm_push(r) for r in jax.pushes]
+        assert _dump(port.db) == _dump(jax.db)
+        assert port.worker.config.sync_scope.tables == ("todo", "todoCategory")
+        assert port.worker._deferred_frontier() == jax.worker._deferred_frontier() == {}
+        assert port.worker.scope_counts["widen_materialized"] > 0
+        pc, jc = (getattr(s.worker._planner, "cache", None) for s in (port, jax))
+        assert (pc is None) == (jc is None) == (pcfg["backend"] == "cpu")
+        if pc is not None:
+            assert pc._slots == jc._slots and pc._free == jc._free
+            if pair == "device planner always":
+                # The deferred foreign write dropped the cached todoCategory slot.
+                assert cached_before and pc.counts["invalidated_cells"] > 0
+    finally:
+        for s in (jax, port):
+            s.worker.stop()
 
 
 def test_owner_change_drops_aead_sessions_as_jax():
