@@ -4,7 +4,8 @@ LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
 receive, the relay as a live HTTP server, the relay tier's replication
 half, push subscriptions on the event-loop connection tier, the
-write-behind storage inversion, and scoped sync (partial replication).
+write-behind storage inversion, scoped sync (partial replication), and
+the sort-free scatter-argmax merge plan with its router.
 Needs one
 NVIDIA Hopper card, g++, libsqlite3.so.0
 and libcrypto; run from the repo root:
@@ -163,8 +164,10 @@ failure ends the run with a traceback and a nonzero code):
               batching=True)` on the card serving real HTTP. I1: a fresh
               relay B with `peers=[A]`, A being H1's relay (1.1M rows, 1k
               owners), converges on its own gossip loop (default caps);
-              B's tables equal A's, every row pulled (re-pulled messages
-              counted apart), H = X = B's engine passes. I2: a donor D of
+              B's trees and rows an owner equal A's, the pulled keys are
+              exactly A's rows (re-pulled messages counted apart; the
+              full-table compare was cut when path M was added), H = X =
+              B's engine passes. I2: a donor D of
               128,000 rows (each owner's first 128 of E1, by
               `run_batch_wire`) bootstraps a fresh relay C
               (`bootstrap_lag_owners=1`) from its snapshot in 4 MiB chunks,
@@ -196,11 +199,10 @@ failure ends the run with a traceback and a nonzero code):
               polling baseline (push p50 at least 5x better). J4, on J1's relay: two
               `create_evolu` handles with `push_subscribe=True` and no
               timer; a mutation on one becomes visible on the other
-              through a push wake alone. J2: H1's bodies (not encoded
-              again) from 32 threads to a fresh event-tier relay with the
-              default 8 handler threads: responses equal path E's, tables
-              path E's store's, msgs/s, latency and passes beside H1's.
-              J3: one mutation stream with a woken subscriber at an
+              through a push wake alone. (J2, H1's bodies at a fresh
+              event-tier relay, was cut when path M was added; J3 and the
+              card tests drive the event tier's engine passes.) J3: one
+              mutation stream with a woken subscriber at an
               event-tier and a threaded card relay: every raw response
               equal with Date masked, both stores and `/stats` push
               sections equal. H = X = engine passes in every step, L = S
@@ -252,12 +254,33 @@ failure ends the run with a traceback and a nonzero code):
               and X by profiler, pull, dict) beside H's and X's bound, and
               the host fold at 2^17 rows. H = X = the device scoped folds
               in P1.
-16. columns — the reconcile pass from device-resident columns at 1M
+16. path M  — the sort-free scatter-argmax LWW plan (ops/scatter_merge.py)
+              and its router, spread over the run to reuse other paths'
+              inputs. M1, right after path A: path A's owners through
+              `reconcile_owner_batches` with the plan pinned to "scatter"
+              (one scatter shard kernel: H and X once, L never); every
+              owner's masks, upserts and deltas and the digest equal path
+              A's sort results. M3, after G1: a card `DbWorker` with
+              `backend="cuda"`, no winner cache and `merge_plan="scatter"`
+              replays D1 and D2; outputs, pushes, tables and tree equal
+              path D's oracle after D2, every chunk a scatter plan (H and X
+              once each, L never). M2, after the columns pass, on its 2^20
+              config-3 rows: `scatter_plan_masks` against the sort plan's
+              `plan_merge_sorted_flags`, and `_shard_kernel_scatter` against
+              `_shard_kernel` (each pair checked equal first), CUDA events in
+              turns and profiler device time, beside the scatter plan's byte
+              bound. M4: the router's edges on the card against the host
+              `plan_batch` and the CPU port: a repeated (cell, timestamp) row
+              routes to sort, a cell id of 2^25 or more to sort (full plan)
+              and wide (shard router), millis ≥ 2^47 with nodes ≥ 2^63 to
+              scatter, and `plan_batch_device` on both routes. Routes are
+              read from `scatter_merge.counts`.
+17. columns — the reconcile pass from device-resident columns at 1M
               messages (1k owners; the 10M pass was cut when path J was
               added), per-stage times with CUDA events, rows/s and peak
               device memory; outputs equal to the same pass with every
               kernel swapped for its plain version.
-17. timing  — L, X, H and their plain versions timed on the inputs the
+18. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them; S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
@@ -278,9 +301,10 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,p}` are the counts themselves (H1,
-H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1-J4 as path
-J; K1, K2 and K3's serving children as path K; P1-P4 as path P); `ms`, `device_ms`,
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,p,m}` are the counts themselves (H1,
+H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1, J3 and J4 as path
+J; K1, K2 and K3's serving children as path K; P1-P4 as path P; M1, M3 and
+M4 as path M, M2 being timing); `ms`, `device_ms`,
 `plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
 `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
@@ -296,6 +320,7 @@ kernel table as JSON.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import importlib
@@ -803,7 +828,8 @@ def owner_oracle(msgs, winners):
 
 def path_a(torch, kernels, need, pool):
     """`reconcile_owner_batches` on config 3 against the host oracle,
-    owner by owner in the processes of `pool`."""
+    owner by owner in the processes of `pool`. → (launches, what path M1
+    replays: the batches, winners, results, digest, wall and routes)."""
     from evolu_tpu_torch.parallel import reconcile_owner_batches
 
     t0 = time.perf_counter()
@@ -811,13 +837,14 @@ def path_a(torch, kernels, need, pool):
     n_msgs = sum(len(v) for v in batches.values())
     print(f"  path A: {n_msgs} messages, {len(batches)} owners built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    before = route_counts()
     reset(kernels)
     t0 = time.perf_counter()
     results, digest = reconcile_owner_batches(batches, winners)
     wall = time.perf_counter() - t0
-    launches = read(kernels)
+    launches, routes = read(kernels), routes_since(before)
     print(f"  path A: reconcile_owner_batches {wall:.3f}s ({n_msgs / wall:,.0f} msgs/s "
-          f"end to end incl. host columnarization); launches {launches}", flush=True)
+          f"end to end incl. host columnarization); launches {launches}; routes {json.dumps(routes)}", flush=True)
     check_launched("path A", launches, need)
     t0 = time.perf_counter()
     want_digest = 0
@@ -832,7 +859,8 @@ def path_a(torch, kernels, need, pool):
         raise AssertionError(f"path A: digest {digest:#x} != oracle {want_digest:#x}")
     print(f"  path A: every owner and digest {digest:#010x} equal the host oracle "
           f"({time.perf_counter() - t0:.1f}s in {ORACLE_PROCESSES} processes)", flush=True)
-    return launches
+    return launches, {"batches": batches, "winners": winners, "results": results, "digest": digest,
+                      "wall": wall, "messages": n_msgs, "routes": routes}
 
 
 def path_b(torch, kernels, need):
@@ -2845,7 +2873,7 @@ def path_h1(torch, kernels, keep, tmp, bodies):
     if mine[0] != theirs[0] or mine[1] != theirs[1]:
         raise AssertionError("path H1: the message or merkleTree table differs from path E's store")
     del mine
-    # Path J's J2 sends the same bodies to an event-tier relay.
+    # Path K's K1 sends the same bodies to a write-behind relay.
     keep["h1_replay"] = (bodies, [want for _, want in jobs], lanes, n)
     routes = {k: eng.counts[k] - routes0[k] for k in routes0}
     lat_ms = sorted(x * 1e3 for x in lat)
@@ -3119,8 +3147,10 @@ def path_i1(torch, kernels, keep, tmp):
     peers=[A])`, bootstrap off, the default pull caps) converges on its own
     gossip loop to path H1's relay A, 1.1M rows over 1k owners; every
     pulled message goes through B's scheduler into engine passes on the
-    card. B's tables equal A's (path E's store); every row was pulled, the
-    pulls counted exactly. → (launches, report)."""
+    card. B's Merkle trees equal A's (path E's store) and so do its rows an
+    owner (the full-table compare was cut when path M was added); every
+    row was pulled, each exactly once apart from the counted re-pulls, and
+    the pulls counted exactly. → (launches, report)."""
     from evolu_tpu_torch.server import engine as eng
     from evolu_tpu_torch.server.relay import RelayServer, RelayStore
 
@@ -3159,12 +3189,17 @@ def path_i1(torch, kernels, keep, tmp):
             counts = dict(b.scheduler.counts)
             trips = dict(b.replication.round_trips)
             t1 = time.perf_counter()
-            mine = e_dump(store)
+            mine = dict(store.db.exec('SELECT "userId", COUNT(*) FROM "message" GROUP BY 1'))
+            want_counts = collections.Counter(owner for owner, _, _ in want[0])
         finally:
             stop_relay(b)
-    if mine != want:
-        raise AssertionError("path I1: B's message or merkleTree table differs from A's")
-    rows, distinct = len(want[0]), len(set(keys))
+    if mine != want_counts:
+        raise AssertionError(f"path I1: B's rows an owner differ from A's: {len(mine)} owners against "
+                             f"{len(want_counts)}")
+    pulled = set(keys)
+    rows, distinct = len(want[0]), len(pulled)
+    if pulled != {(owner, ts) for owner, ts, _ in want[0]}:
+        raise AssertionError("path I1: the pulled (owner, timestamp) keys differ from A's rows")
     if distinct != rows or len(keys) != peer["messages_pulled"]:
         raise AssertionError(f"path I1: pulled {len(keys)} messages ({distinct} distinct) counted as "
                              f"{peer['messages_pulled']}, for {rows} rows")
@@ -3731,7 +3766,7 @@ def path_i(torch, kernels, keep, tmp, gpu=""):
         for m in spawned[0] + [spawned[1]]:
             m.close()
         raise
-    for k in [k for k in keep if k not in ("h1_replay", "store_dump", "k_requests")]:  # for J2, K1 and K2
+    for k in [k for k in keep if k not in ("h1_replay", "store_dump", "k_requests")]:  # for K1 and K2
         del keep[k]
     per["i3"], report["i3"] = path_i3(torch, kernels, tmp, spawned)
     report["launches"] = per
@@ -4031,83 +4066,6 @@ def path_j4(torch, kernels, relay, gpu=""):
     return launches, out
 
 
-def path_j2(torch, kernels, keep, tmp, h1, gpu=""):
-    """J2, H1 on the event-loop tier: path H1's bodies (E1 then E2, 2,000
-    requests, 1,160,000 messages), not encoded again, POSTed from H1's 32
-    client lanes to a fresh event-tier batching card relay with the push
-    hub on and the default `conn_handler_threads`. Every response equals
-    path E's, the tables path E's store's; msgs/s, latency and engine
-    passes beside H1's. → (launches, report)."""
-    import threading
-
-    from evolu_tpu_torch.server import engine as eng
-    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
-    from evolu_tpu_torch.sync.client import _http_post
-
-    bodies, want, lanes, n = keep["h1_replay"]
-    store = RelayStore(os.path.join(tmp, "j2.db"), backend="native")
-    server = RelayServer(store, batching=True, connection_tier="eventloop").start()
-    got, lat, errors, sizes = [None] * len(bodies), [0.0] * len(bodies), [], []
-    routes0 = dict(eng.counts)
-    orig_run = eng.BatchReconciler.run_batch_wire
-
-    def sized(self, requests):
-        sizes.append(len(requests))
-        return orig_run(self, requests)
-
-    def lane(ix):
-        try:
-            for i in ix:
-                t1 = time.perf_counter()
-                got[i] = _http_post(server.url, bodies[i])
-                lat[i] = time.perf_counter() - t1
-        except Exception as e:  # noqa: BLE001 - raised below
-            errors.append(e)
-
-    reset(kernels)
-    try:
-        with patched(eng.BatchReconciler, "run_batch_wire", sized):
-            threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
-            t0 = time.perf_counter()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            wall = time.perf_counter() - t0
-        launches = read(kernels)
-        passes = engine_passes(routes0)
-        counts = dict(server.scheduler.counts)
-        conn = server._httpd.stats_payload()
-        push = server.push_hub.stats_payload()
-        if errors:
-            raise AssertionError("path J2: a client's POST failed") from errors[0]
-        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
-        if bad:
-            raise AssertionError(f"path J2: {len(bad)} responses differ from path E's (first: request {bad[0]})")
-        t1 = time.perf_counter()
-        if e_dump(store) != keep["store_dump"]:
-            raise AssertionError("path J2: the message or merkleTree table differs from path E's store")
-        compare_s = time.perf_counter() - t1
-    finally:
-        server.stop()
-    lat_ms = sorted(x * 1e3 for x in lat)
-    out = {"requests": len(bodies), "messages": n, "client_threads": len(lanes),
-           "handler_threads": conn["handler_threads"], "wall_s": round(wall, 4), "msgs_per_s": round(n / wall),
-           "requests_per_s": round(len(bodies) / wall, 1), "latency_ms_p50": round(lat_ms[len(lat_ms) // 2], 3),
-           "latency_ms_p99": round(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))], 3),
-           "engine_passes": len(sizes), "pass_requests_mean": round(statistics.mean(sizes), 2),
-           "pass_requests_max": max(sizes), "scheduler_counts": counts, "conn": conn, "push": push,
-           "route_counts": {k: eng.counts[k] - routes0[k] for k in ROUTES}, "compare_s": round(compare_s, 3),
-           "h1": {k: h1[k] for k in ("msgs_per_s", "requests_per_s", "latency_ms_p50", "latency_ms_p99",
-                                     "engine_passes", "pass_requests_mean", "wall_s")}}
-    print(f"  path J2: {json.dumps(out)} | {gpu}", flush=True)
-    if counts["poisoned_batches"] or counts["singles"] or counts["batches"] != len(sizes) \
-            or counts["coalesced"] != len(bodies) or conn["shed_total"]:
-        raise AssertionError(f"path J2: scheduler counts {counts}, conn {conn} for {len(sizes)} engine passes")
-    check_j("J2", launches, passes)
-    return launches, out
-
-
 def path_j3(torch, kernels, tmp):
     """J3, byte identity of the tiers on the card: one mutation stream (12
     writes over 3 owners, a subscriber parked on the first owner and woken,
@@ -4157,9 +4115,9 @@ def path_j3(torch, kernels, tmp):
     return launches, out
 
 
-def path_j(torch, kernels, keep, tmp, h1, gpu=""):
-    """Path J: J1 and J4 on one event-tier card relay, then J2 and J3, each
-    with its own launch counts (summed as path J). → (launches, report)."""
+def path_j(torch, kernels, tmp, gpu=""):
+    """Path J: J1 and J4 on one event-tier card relay, then J3, each with
+    its own launch counts (summed as path J). → (launches, report)."""
     from evolu_tpu_torch.server.relay import RelayServer, RelayStore
 
     report, per = {}, {}
@@ -4170,7 +4128,6 @@ def path_j(torch, kernels, keep, tmp, h1, gpu=""):
         per["j4"], report["j4"] = path_j4(torch, kernels, relay, gpu)
     finally:
         relay.stop()
-    per["j2"], report["j2"] = path_j2(torch, kernels, keep, tmp, h1, gpu)
     per["j3"], report["j3"] = path_j3(torch, kernels, tmp)
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["j1"]}
@@ -5060,6 +5017,314 @@ def path_p(torch, kernels, tmp, p2_oracle_out, seed, gpu=""):
     return {k: sum(p[k] for p in per.values()) for k in per["p1"]}, report
 
 
+# ---- path M: the scatter-argmax LWW plan ---------------------------------------------
+
+
+M3_CHUNK = 1 << 17  # M3's receive_chunk_size, path D's: D1 arrives in 4 chunks
+M4_MESSAGES = 20_000  # each router edge's batch
+
+
+def route_counts():
+    """A copy of `scatter_merge.counts` (the planners' and the shard
+    router's routes)."""
+    from evolu_tpu_torch.ops import scatter_merge
+
+    return {kind: dict(c) for kind, c in scatter_merge.counts.items()}
+
+
+def routes_since(before):
+    """The routes taken since `before` (a `route_counts()`), zeros left out."""
+    return {kind: {k: v - before[kind][k] for k, v in c.items() if v != before[kind][k]}
+            for kind, c in route_counts().items()}
+
+
+@contextlib.contextmanager
+def plan_pinned(path):
+    """The process-wide LWW plan pinned to `path`, "auto" again after."""
+    from evolu_tpu_torch.ops import scatter_merge
+
+    scatter_merge.set_plan_path(path)
+    try:
+        yield
+    finally:
+        scatter_merge.set_plan_path("auto")
+
+
+def check_m(step, launches, want, routes, want_routes):
+    if launches != want:
+        raise AssertionError(f"path {step}: launches {launches}, expected {want}")
+    if routes != want_routes:
+        raise AssertionError(f"path {step}: routes {routes}, expected {want_routes}")
+
+
+def path_m1(torch, kernels, a, gpu=""):
+    """M1: path A's 1M messages over 1k owners through
+    `reconcile_owner_batches` on the card with the plan pinned to
+    "scatter": one scatter shard kernel (H and X once, L never), and every
+    owner's xor mask, upserts and deltas and the digest equal to path A's
+    sort results, which path A held against the host oracle."""
+    from evolu_tpu_torch.parallel import reconcile_owner_batches
+
+    before = route_counts()
+    reset(kernels)
+    with plan_pinned("scatter"):
+        t0 = time.perf_counter()
+        results, digest = reconcile_owner_batches(a["batches"], a["winners"])
+        wall = time.perf_counter() - t0
+    launches, routes = read(kernels), routes_since(before)
+    check_m("M1", launches, {"seg_lex_max_scan": 0, "seg_xor_scan": 1, "timestamp_hash": 1, "seg_sum_scan": 0},
+            routes, {"merge_plan": {}, "reconcile_kernel": {"scatter": 1}})
+    if results.keys() != a["results"].keys() or digest != a["digest"]:
+        raise AssertionError(f"path M1: owners or digest {digest:#x} differ from path A's ({a['digest']:#x})")
+    bad = [o for o in results if results[o] != a["results"][o]]
+    if bad:
+        raise AssertionError(f"path M1: {len(bad)} owners differ from path A's sort plan, e.g. {bad[0]}")
+    report = {"messages": a["messages"], "owners": len(results), "wall_s": round(wall, 4),
+              "msgs_per_s": round(a["messages"] / wall), "path_a_wall_s": round(a["wall"], 4),
+              "path_a_msgs_per_s": round(a["messages"] / a["wall"]), "path_a_routes": a["routes"],
+              "routes": routes, "launches": launches}
+    print(f"  path M1: every owner and digest {digest:#010x} equal path A's sort plan; {json.dumps(report)} | {gpu}",
+          flush=True)
+    return launches, report
+
+
+def path_m3(torch, kernels, trees, batches, oracle, gpu=""):
+    """M3: a card `DbWorker` with `backend="cuda"`, no winner cache and
+    `merge_plan="scatter"` replays path D's D1 (in 4 chunks) and D2
+    Receives; its outputs, pushes, tables and tree equal path D's
+    `backend="cpu"` oracle after D2 (the digests path D and G1 hold).
+    Every chunk and batch is a scatter plan: H and X once each, L never."""
+    from evolu_tpu_torch.utils.config import Config
+
+    clock = {"now": D1_BASE}
+    before = route_counts()
+    # The worker's planner sets the process-wide plan from its config;
+    # "auto" again after, for the paths that follow.
+    with plan_pinned("scatter"):
+        w = DWorker("m3", Config(backend="cuda", winner_cache=False, merge_plan="scatter",
+                                 receive_chunk_size=M3_CHUNK), clock)
+        try:
+            reset(kernels)
+            for i, ((base, batch), tree) in enumerate(zip(batches, trees)):
+                clock["now"] = base
+                w.receive("d1" if i == 0 else "d2", batch, tree)
+            launches, routes = read(kernels), routes_since(before)
+            t0 = time.perf_counter()
+            got = d_state(w)
+        finally:
+            w.stop()
+    plans = sum(-(-len(b) // M3_CHUNK) for _, b in batches)  # a plan a chunk
+    check_m("M3", launches, {"seg_lex_max_scan": 0, "seg_xor_scan": plans, "timestamp_hash": plans,
+                             "seg_sum_scan": 0}, routes, {"merge_plan": {"scatter": plans}, "reconcile_kernel": {}})
+    if got["outputs"] != oracle["outputs"] or got["pushes"] != oracle["pushes"]:
+        raise AssertionError("path M3: outputs or pushes differ from path D's backend='cpu' oracle")
+    if got["tables"] != oracle["tables"] or got["tree"] != oracle["tree"]:
+        raise AssertionError("path M3: tables or the Merkle tree differ from path D's backend='cpu' oracle")
+    n = {"d1": len(batches[0][1]), "d2": sum(len(b) for _, b in batches[1:])}
+    report = {p: {"messages": n[p], "wall_s": round(w.walls[p], 4), "msgs_per_s": round(n[p] / w.walls[p])}
+              for p in n}
+    report.update({"routes": routes, "launches": launches, "compare_s": round(time.perf_counter() - t0, 4)})
+    print(f"  path M3: outputs, pushes, every table and the tree equal path D's backend='cpu' oracle after D2; "
+          f"{json.dumps(report)} | {gpu}", flush=True)
+    return launches, report
+
+
+def m2_bytes_bound_ms(n):
+    """The scatter plan's least time at n rows: cell_id (4 B), k1, k2,
+    ex_k1, ex_k2 (8 B each) read once, the two bool masks written once."""
+    return n * (4 + 4 * 8 + 2) / MEM_BYTES_PER_S * 1e3
+
+
+def kernel_breakdown(torch, fn, reps=10, top=8):
+    """Device time a call of `fn` by CUDA kernel name (torch.profiler,
+    mean over `reps` calls), the `top` largest, in µs: where a plan's time
+    goes. {} when the profiler recorded nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:80]] += e.time_range.elapsed_us() / reps
+    return {name: round(us, 2) for name, us in by_name.most_common(top)}
+
+
+def path_m2(torch, args, columns_report, gpu=""):
+    """M2: the two LWW plans on the 1M columns pass's config-3 device
+    columns (2^20 rows): `scatter_plan_masks` against the sort plan's
+    masks in sorted order (`plan_merge_sorted_flags`: the key, `torch.sort`,
+    2 gathers, `masks_from_sorted_flags`), and `_shard_kernel_scatter`
+    against `_shard_kernel`, after checking that each pair plans alike.
+    CUDA events (median of 7 x 10 back-to-back calls) in turns (sort,
+    scatter, scatter, sort) and torch.profiler device time, beside the
+    scatter plan's byte bound; each plan's device time by kernel."""
+    from evolu_tpu_torch.ops import merge as pm
+    from evolu_tpu_torch.ops import scatter_merge as psm
+    from evolu_tpu_torch.ops import to_host_many
+    from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas
+    from evolu_tpu_torch.parallel import reconcile as pr
+
+    cell_id, k1, k2, ex_k1, ex_k2, _owner_ix = args
+    n = int(cell_id.shape[0])
+    host_cell, host_k1, host_k2 = to_host_many(cell_id, k1, k2)
+    with plan_pinned("scatter"):
+        table = psm.scatter_table_for(host_cell, host_k1.view(np.uint64), host_k2.view(np.uint64))
+    if table is None:
+        raise AssertionError("path M2: the router refused the config-3 columns")
+    plans = {"sort": functools.partial(pm.plan_merge_sorted_flags, cell_id, k1, k2, ex_k1, ex_k2),
+             "scatter": functools.partial(psm.scatter_plan_masks, cell_id, k1, k2, ex_k1, ex_k2, table)}
+    shards = {"sort": functools.partial(pr._shard_kernel, *args),
+              "scatter": functools.partial(pr.scatter_shard_kernel(table), *args)}
+    xor_s, upsert_s, i_s = to_host_many(*plans["sort"]()[:3])
+    sorted_masks = pm.unpermute_masks(xor_s, upsert_s, i_s)
+    scatter_masks = to_host_many(*plans["scatter"]())
+    if not all(np.array_equal(a, b) for a, b in zip(sorted_masks, scatter_masks)):
+        raise AssertionError("path M2: the scatter plan's masks differ from the sort plan's")
+    decoded = {}
+    for name, fn in shards.items():
+        xor_s, upsert_s, i_s, *segs, digest = to_host_many(*fn())
+        decoded[name] = (*pm.unpermute_masks(xor_s, upsert_s, i_s), decode_owner_minute_deltas(*segs),
+                         int(digest.view(np.uint32)[0]))
+    check_against_plain(decoded["scatter"], decoded["sort"], "path M2 shard kernels (scatter vs sort)")
+    report = {"rows": n, "table_size": table, "bound_ms": round(m2_bytes_bound_ms(n), 5), "bound_by": "bytes"}
+    for label, fns in (("plan", plans), ("shard_kernel", shards)):
+        turns = {"sort": [], "scatter": []}
+        for name in ("sort", "scatter", "scatter", "sort"):
+            turns[name].append(cuda_ms(fns[name]))
+        for name, fn in fns.items():
+            report[f"{label}_{name}"] = {"ms_turns": [round(t, 5) for t in turns[name]],
+                                         **device_ms(torch, [fn])}
+    for name, fn in plans.items():
+        report[f"plan_{name}"]["kernels_us"] = kernel_breakdown(torch, fn)
+    stages = columns_report["stage_ms"]
+    report["columns_pass_key_sort_plus_plan_compare_ms"] = round(stages["key_sort"] + stages["plan_compare"], 4)
+    print(f"  path M2: {json.dumps(report)} | {gpu}", flush=True)
+    return report
+
+
+def m4_messages(seed, n, millis=BASE_MILLIS, big_node=False):
+    """n todo messages with unique timestamps over 2,000 cells, and stored
+    winners for about half the cells from the same window."""
+    from evolu_tpu_torch.core.types import CrdtMessage
+
+    rng = np.random.default_rng(seed)
+    node = rng.integers(1 << 63 if big_node else 1, 2**64 if big_node else 2**63, n, dtype=np.uint64)
+    stamps = ts_strings(millis + np.arange(n, dtype=np.int64) * 7 + rng.integers(0, 7, n),
+                        rng.integers(0, 4, n), node)
+    cells = rng.integers(0, 2000, n)
+    cols = ("title", "isCompleted")
+    msgs = [CrdtMessage(s, "todo", f"m4row{c >> 1}", cols[c & 1], f"v{i}")
+            for i, (s, c) in enumerate(zip(stamps, cells.tolist()))]
+    w_stamps = ts_strings(millis + rng.integers(0, 7 * n, 1000), rng.integers(0, 4, 1000),
+                          rng.integers(1, 2**63, 1000, dtype=np.uint64))
+    winners = {("todo", f"m4row{c >> 1}", cols[c & 1]): s for c, s in zip(range(0, 2000, 2), w_stamps)}
+    return msgs, winners
+
+
+def path_m4(torch, kernels, gpu=""):
+    """M4: the router's edges on the card, each plan held against the host
+    `plan_batch` (and the host Merkle fold) and the port on the CPU:
+    a batch that repeats one (cell, timestamp) row routes to sort; a cell
+    id ≥ 2^25 routes the full plan to sort and the shard router to wide;
+    millis ≥ 2^47 (k1 ≥ 2^63) with nodes ≥ 2^63 routes to scatter; and
+    `plan_batch_device` on both routes. The scatter path is pinned in
+    each case, so only the router's own rules decide."""
+    from evolu_tpu_torch.core.merkle import minute_deltas_host
+    from evolu_tpu_torch.ops import merge as pm
+    from evolu_tpu_torch.ops import to_host_many
+    from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas
+    from evolu_tpu_torch.parallel import reconcile as pr
+    from evolu_tpu_torch.storage.apply import plan_batch
+
+    def host(msgs, winners):
+        xor, upserts = plan_batch(msgs, winners)
+        return xor, sorted(map(repr, upserts)), minute_deltas_host(m.timestamp for f, m in zip(xor, msgs) if f)[0]
+
+    def full(msgs, winners, device=None):
+        xor, upserts, deltas = pm.plan_batch_device_full(msgs, winners, device=device)
+        return list(xor), sorted(map(repr, upserts)), dict(deltas)
+
+    def held(step, got, want, cpu):
+        if got != want or got != cpu:
+            raise AssertionError(f"path M4 {step}: the card's plan differs from the host oracle's or the CPU port's")
+
+    report, t0 = {}, time.perf_counter()
+    before = route_counts()
+    reset(kernels)
+    with plan_pinned("scatter"):
+        msgs, winners = m4_messages(41, M4_MESSAGES)
+        dup = msgs + [msgs[17]]
+        mark = route_counts()
+        got = full(dup, winners)
+        report["repeated_row"] = routes_since(mark)
+        held("repeated row", got, host(dup, winners), full(dup, winners, "cpu"))
+
+        cell_ids, k1, k2, ex_k1, ex_k2, *_ = pm.messages_to_columns(msgs, winners)
+        wide = cell_ids + np.int32(1 << 25)
+        mark = route_counts()
+        xor, upsert_mask, deltas = pm.plan_packed_device_full(wide, k1, k2, ex_k1, ex_k2, len(msgs))
+        report["cell_2_25_full_plan"] = routes_since(mark)
+        cpu = pm.plan_packed_device_full(wide, k1, k2, ex_k1, ex_k2, len(msgs), device="cpu")
+        want = host(msgs, winners)
+        held("cell id >= 2^25 (full plan)",
+             (xor.tolist(), sorted(repr(m) for m, u in zip(msgs, upsert_mask) if u), deltas), want,
+             (cpu[0].tolist(), sorted(repr(m) for m, u in zip(msgs, cpu[1]) if u), cpu[2]))
+        cols, index, _ = pr.build_owner_columns({"m4": msgs}, {"m4": winners})
+        real = cols["cell_id"] != int(pm._PAD_CELL)
+        cols["cell_id"][real] += np.int32(1 << 25)
+        mark = route_counts()
+
+        def shard(device):
+            xor_s, upsert_s, i_s, *segs, _digest = to_host_many(*pr.reconcile_columns(cols, device))
+            xor_m, upsert_m = pm.unpermute_masks(xor_s, upsert_s, i_s)
+            pos = index["m4"][0]
+            return (xor_m[pos].tolist(), sorted(repr(m) for m, u in zip(msgs, upsert_m[pos]) if u),
+                    decode_owner_minute_deltas(*segs).get(0, {}))
+
+        got = shard(None)
+        report["cell_2_25_shard_router"] = routes_since(mark)
+        held("cell id >= 2^25 (shard router)", got, want, shard("cpu"))
+
+        big, big_winners = m4_messages(43, M4_MESSAGES, millis=(1 << 47) + 1_000, big_node=True)
+        mark = route_counts()
+        got = full(big, big_winners)
+        report["k1_and_node_past_2_63"] = routes_since(mark)
+        held("millis >= 2^47, nodes >= 2^63", got, host(big, big_winners), full(big, big_winners, "cpu"))
+
+    for path in ("sort", "scatter"):
+        with plan_pinned(path):
+            mark = route_counts()
+            xor, upserts = pm.plan_batch_device(msgs, winners)
+            report[f"plan_batch_device_{path}"] = routes_since(mark)
+            cx, cu = pm.plan_batch_device(msgs, winners, device="cpu")
+            held(f"plan_batch_device ({path})", (xor, sorted(map(repr, upserts))),
+                 host(msgs, winners)[:2], (cx, sorted(map(repr, cu))))
+    launches, routes = read(kernels), routes_since(before)
+    want_routes = {"repeated_row": {"merge_plan": {"sort": 1}, "reconcile_kernel": {}},
+                   "cell_2_25_full_plan": {"merge_plan": {"sort": 1}, "reconcile_kernel": {}},
+                   "cell_2_25_shard_router": {"merge_plan": {}, "reconcile_kernel": {"wide": 1}},
+                   "k1_and_node_past_2_63": {"merge_plan": {"scatter": 1}, "reconcile_kernel": {}},
+                   "plan_batch_device_sort": {"merge_plan": {"sort": 1}, "reconcile_kernel": {}},
+                   "plan_batch_device_scatter": {"merge_plan": {"scatter": 1}, "reconcile_kernel": {}}}
+    bad = {k: report[k] for k in want_routes if report[k] != want_routes[k]}
+    if bad:
+        raise AssertionError(f"path M4: routes {bad}, expected {want_routes}")
+    # On the card: H and X once a full plan or shard pass (4), L twice a sort
+    # plan (the repeated row, both cell ≥ 2^25 cases, plan_batch_device's sort).
+    want = {"seg_lex_max_scan": 8, "seg_xor_scan": 4, "timestamp_hash": 4, "seg_sum_scan": 0}
+    if launches != want:
+        raise AssertionError(f"path M4: launches {launches}, expected {want}")
+    report.update({"routes": routes, "launches": launches, "wall_s": round(time.perf_counter() - t0, 4)})
+    print(f"  path M4: every edge routed as stated and equal to the host oracle and the CPU port; "
+          f"{json.dumps(report)} | {gpu}", flush=True)
+    return launches, report
+
+
 def engine_kernel_timing(torch, captured):
     """The three engine kernels on E1's columns: device ms (CUDA events
     around 10 back-to-back calls; and the profiler's kernel time), bytes
@@ -5391,6 +5656,7 @@ def native_build():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5452,7 +5718,11 @@ def main() -> int:
     # Daemonic workers: an exception that ends the run ends them too.
     pool = multiprocessing.get_context("spawn").Pool(ORACLE_PROCESSES)
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
-        launches["a"] = path_a(torch, kernels, lww_names, pool)
+        launches["a"], path_a_run = path_a(torch, kernels, lww_names, pool)
+    launches_m, report_m = {}, {}
+    with phase("path M1: path A's owners through the scatter plan vs path A's sort plan", gpu):
+        launches_m["m1"], report_m["m1"] = path_m1(torch, kernels, path_a_run, gpu)
+        del path_a_run
     # Paths D's, E's, F's and H3's oracles, and H1's bodies, are made in the
     # pool while the card runs paths B to E.
     d_oracle_job, e_oracle_job = pool.apply_async(d_oracle), pool.apply_async(e_oracle)
@@ -5481,8 +5751,11 @@ def main() -> int:
     with phase("path G1: packed receive, native decrypt to columns into a card DbWorker on the C++ "
                "SQLite layer vs the pure oracle", gpu):
         launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, g1_oracle, pool)
-        del batches_d, g1_oracle
         print("  " + json.dumps(report_g1) + f" | {gpu}", flush=True)
+    with phase("path M3: a card DbWorker on the scatter plan replays D1 and D2 vs path D's oracle", gpu):
+        launches_m["m3"], report_m["m3"] = path_m3(torch, kernels, trees_d2, batches_d, g1_oracle, gpu)
+        report_m["m3"]["path_d_msgs_per_s"] = {p: report_d[p]["msgs_per_s"] for p in ("d1", "d2")}
+        del batches_d, g1_oracle
     bodies_h1 = h1_bodies_job.get()
     p2_oracle_out, p_seed_out = p2_oracle_job.get(), p_seed_job.get()
     pool.terminate()
@@ -5503,8 +5776,8 @@ def main() -> int:
             launches["i"], report_i = path_i(torch, kernels, keep_e, tmp_hi, gpu)
             print("  " + json.dumps(report_i["launches"]) + f" | {gpu}", flush=True)
         with phase("path J: push subscriptions and the event-loop connection tier (parked long-polls beside "
-                   "engine passes, H1 on the event tier, tier byte identity, the client's push leg)", gpu):
-            launches["j"], report_j = path_j(torch, kernels, keep_e, tmp_hi, report_h["h1"], gpu)
+                   "engine passes, tier byte identity, the client's push leg)", gpu):
+            launches["j"], report_j = path_j(torch, kernels, tmp_hi, gpu)
             print("  " + json.dumps(report_j["launches"]) + f" | {gpu}", flush=True)
         with phase("path K: the write-behind storage inversion (H1 and H2 with write-behind on, crash and "
                    "replay) vs path E and synchronous twins", gpu):
@@ -5527,8 +5800,14 @@ def main() -> int:
         check_against_plain(decoded, plain_reference(torch, kernel, args), "columns 1000000")
         print("  " + json.dumps(report), flush=True)
         reports.append(report)
+    with phase("path M2: the scatter plan vs the sort plan at 2^20 rows (the columns pass's inputs)", gpu):
+        report_m["m2"] = path_m2(torch, args, report, gpu)
         del args
         torch.cuda.empty_cache()
+    with phase("path M4: the merge-plan router's edges on the card vs the host oracle and the CPU port", gpu):
+        launches_m["m4"], report_m["m4"] = path_m4(torch, kernels, gpu)
+    launches["m"] = {k: sum(p[k] for p in launches_m.values()) for k in launches_m["m1"]}
+    report_m["launches"] = launches_m
     with phase("kernel timing on main-path inputs", gpu):
         table = time_kernels(torch, lwws, captured)
         s_shapes = time_sum_kernel(torch, captured)
@@ -5550,7 +5829,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "p"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "p", "m"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -5560,10 +5839,11 @@ def main() -> int:
         row["path_c2_bound_ms"] = c2_times[row["name"]]["bound_ms"]
         row["host_us"] = c2_times[row["name"]]["host_us"]
         row["host_us_rows"] = c2_times[row["name"]]["host_us_rows"]
+    print(f"chip_smoke: every phase ok in {time.perf_counter() - t_start:.1f}s | {gpu}", flush=True)
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
                       "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k,
-                      "scoped_sync": report_p}, default=str))
+                      "scoped_sync": report_p, "merge_plan": report_m}, default=str))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,12 @@ columnar pass, with exactly the sequential loop's semantics:
 HLC keys are (k1, k2) u64 pairs (int64 bit patterns), compared
 lexicographically and unsigned; (0, 0) is the "no stored winner"
 sentinel. Batches pad to power-of-two buckets like the JAX package's.
+
+`_run_full_plan` and `plan_batch_device` route each batch between this
+sort plan and the sort-free scatter-argmax plan (`ops/scatter_merge.py`)
+on the host columns, by `Config.merge_plan` / EVOLU_MERGE_PLAN, the
+table bound and the duplicate screen; both give the same plan wherever
+the scatter plan is admitted.
 """
 
 from __future__ import annotations
@@ -152,6 +158,20 @@ def plan_merge_sorted_flags(cell_id, k1, k2, ex_k1, ex_k2, extras=()):
     return xor_sorted, upsert_sorted, i_s, s1, s2, extras_sorted
 
 
+def plan_merge_core(cell_id, k1, k2, ex_k1, ex_k2):
+    """Original-order planner: `plan_merge_sorted_flags` plus a restoring
+    scatter by `i_s` on the device. → (xor_mask, upsert_mask) bools in
+    batch order, on the columns' device; the mask-only planner's sort
+    route."""
+    xor_s, upsert_s, i_s, _, _, _ = plan_merge_sorted_flags(cell_id, k1, k2, ex_k1, ex_k2)
+    order = i_s.to(torch.int64)
+    xor_mask = torch.empty_like(xor_s)
+    upsert_mask = torch.empty_like(upsert_s)
+    xor_mask[order] = xor_s
+    upsert_mask[order] = upsert_s
+    return xor_mask, upsert_mask
+
+
 def unpermute_masks(xor_sorted, upsert_sorted, i_s):
     """Host side: sorted-order masks + permutation → batch order (numpy)."""
     xor_sorted, upsert_sorted, i_s = (np.asarray(x) for x in (xor_sorted, upsert_sorted, i_s))
@@ -263,6 +283,49 @@ def pad_columns(arrays, n: int, pad_cell: bool = True):
     return out, size
 
 
+def plan_batch_device(
+    messages: Sequence[CrdtMessage],
+    existing_winners: Dict[Tuple[str, str, str], str],
+    device=None,
+):
+    """The host `storage.apply.plan_batch` with the decision masks
+    computed on `device` (None = the card): the same `(xor_mask: list of
+    bool, upserts)` contract. A batch with non-canonical hex case takes
+    the host oracle before anything touches the device."""
+    n = len(messages)
+    if n == 0:
+        return [], []
+    plan = _plan_batch_device_timed(messages, existing_winners, resolve_device(device))
+    if plan is None:
+        return _host_fallback(messages, existing_winners)
+    return plan
+
+
+def _plan_batch_device_timed(messages, existing_winners, device):
+    """pad → the scatter plan's masks or `plan_merge_core` → one-wave
+    pull. None on non-canonical hex case."""
+    from evolu_tpu_torch.ops.scatter_merge import count, scatter_plan_masks, scatter_table_for
+
+    n = len(messages)
+    cell_ids, k1, k2, ex_k1, ex_k2, *rest = messages_to_columns(messages, existing_winners)
+    if not rest[-1]:  # canonical flag
+        return None
+    table_size = scatter_table_for(cell_ids, k1, k2, device)
+    (cell_ids, k1, k2, ex_k1, ex_k2), _ = pad_columns([cell_ids, k1, k2, ex_k1, ex_k2], n)
+    cols = columns_to_device(
+        {"cell_id": cell_ids, "k1": k1, "k2": k2, "ex_k1": ex_k1, "ex_k2": ex_k2}, device
+    )
+    args = (cols["cell_id"], cols["k1"], cols["k2"], cols["ex_k1"], cols["ex_k2"])
+    if table_size is not None:
+        count("merge_plan", "scatter")
+        masks = scatter_plan_masks(*args, table_size)
+    else:
+        count("merge_plan", "sort")
+        masks = plan_merge_core(*args)
+    xor_mask, upsert_mask = to_host_many(*masks)
+    return xor_mask[:n].tolist(), select_messages(messages, upsert_mask[:n])
+
+
 def _host_fallback(messages, existing_winners, with_deltas=False):
     """Non-canonical hex case in the batch or its stored winners: the
     device order and hash would diverge from the reference's raw-string
@@ -294,16 +357,48 @@ def plan_full_kernel(cell_id, k1, k2, ex_k1, ex_k2):
     return xor_s, upsert_s, i_s, minute_sorted, seg_end, seg_xor, valid_sorted
 
 
-def _run_full_plan(cell_ids, k1, k2, ex_k1, ex_k2, n: int, device):
-    """pad → `plan_full_kernel` → one-wave pull → unpermute → delta
-    decode. → (xor_mask, upsert_mask, deltas), masks in batch order."""
-    from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas
+def plan_full_kernel_scatter(cell_id, k1, k2, ex_k1, ex_k2, table_size: int):
+    """The sort-free twin of `plan_full_kernel` (ops/scatter_merge.py):
+    the masks come from the scatter-argmax plan in ORIGINAL batch order
+    (i_s is the identity), and kernel H and the minute fold (kernel X)
+    run over the original-order columns; the fold's own tile sort does
+    the grouping, and every decoder XOR-merges repeated keys. Same
+    7-output contract; wherever the router admits a batch, the decoded
+    plan equals the sort plan's."""
+    from evolu_tpu_torch.ops.merkle_ops import owner_minute_segments
+    from evolu_tpu_torch.ops.scatter_merge import scatter_plan_masks
 
+    xor_m, upsert_m = scatter_plan_masks(cell_id, k1, k2, ex_k1, ex_k2, table_size)
+    i_s = torch.arange(cell_id.shape[0], dtype=torch.int32, device=cell_id.device)
+    millis, _ = unpack_ts_keys(k1)
+    hashes, _ = masked_key_hashes(k1, k2, xor_m)
+    _, minute_sorted, seg_end, seg_xor, valid_sorted = owner_minute_segments(
+        torch.zeros_like(millis, dtype=torch.int32), millis, hashes, xor_m
+    )
+    return xor_m, upsert_m, i_s, minute_sorted, seg_end, seg_xor, valid_sorted
+
+
+def _run_full_plan(cell_ids, k1, k2, ex_k1, ex_k2, n: int, device):
+    """route → pad → `plan_full_kernel_scatter` or `plan_full_kernel` →
+    one-wave pull → unpermute → delta decode. → (xor_mask, upsert_mask,
+    deltas), masks in batch order."""
+    from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas
+    from evolu_tpu_torch.ops.scatter_merge import count, scatter_table_for
+
+    # Admission and table sizing before the padding (pad rows use the
+    # dump slot, never the table).
+    table_size = scatter_table_for(cell_ids, k1, k2, device)
     (cell_ids, k1, k2, ex_k1, ex_k2), size = pad_columns([cell_ids, k1, k2, ex_k1, ex_k2], n)
     cols = columns_to_device(
         {"cell_id": cell_ids, "k1": k1, "k2": k2, "ex_k1": ex_k1, "ex_k2": ex_k2}, device
     )
-    outs = plan_full_kernel(cols["cell_id"], cols["k1"], cols["k2"], cols["ex_k1"], cols["ex_k2"])
+    args = (cols["cell_id"], cols["k1"], cols["k2"], cols["ex_k1"], cols["ex_k2"])
+    if table_size is not None:
+        count("merge_plan", "scatter")
+        outs = plan_full_kernel_scatter(*args, table_size)
+    else:
+        count("merge_plan", "sort")
+        outs = plan_full_kernel(*args)
     xor_s, upsert_s, i_s, minute_sorted, seg_end, seg_xor, valid = to_host_many(*outs)
     xor_mask, upsert_mask = unpermute_masks(xor_s, upsert_s, i_s)
     deltas = decode_owner_minute_deltas(

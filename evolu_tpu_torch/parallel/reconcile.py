@@ -11,10 +11,15 @@ the 9-output contract of the shard kernel stays as it is:
 
 Cell ids are interned per owner then offset by a running base, so cell
 ids are unique across owners and cell segmentation keeps owners apart.
+
+`shard_kernel_for` routes a batch on its host columns between the
+sort-free scatter plan (`_shard_kernel_scatter`, ops/scatter_merge.py),
+the packed-owner sort kernel and the wide-id sort kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -105,22 +110,62 @@ def _shard_kernel_wide(cell_id, k1, k2, ex_k1, ex_k2, owner_ix):
     return (xor_s, upsert_s, i_s, *segments, digest)
 
 
-def shard_kernel_for(cols: Dict[str, np.ndarray]):
-    """Host-side routing on the numpy columns: the packed-owner kernel
-    needs every real cell id < 2^25 and every owner index < 4095."""
+def _shard_kernel_scatter(cell_id, k1, k2, ex_k1, ex_k2, owner_ix, table_size):
+    """The sort-free shard kernel (ops/scatter_merge.py): the masks come
+    from the scatter-argmax plan in ORIGINAL order (i_s is the identity),
+    and kernel H and the (owner, minute) fold (kernel X) run over the
+    original-order columns; the fold's own tile sort groups them and
+    every decoder XOR-merges repeated keys, so host-level plans, deltas
+    and the digest equal the sort kernels' wherever the router admits a
+    batch. Cell ids are unique across owners (the layout's running base),
+    as `_shard_kernel_wide` assumes too. Same 9-output contract."""
+    from evolu_tpu_torch.ops.scatter_merge import scatter_plan_masks
+
+    xor_m, upsert_m = scatter_plan_masks(cell_id, k1, k2, ex_k1, ex_k2, table_size)
+    i_s = torch.arange(cell_id.shape[0], dtype=torch.int32, device=cell_id.device)
+    segments, digest = _hash_and_fold(owner_ix, k1, k2, xor_m)
+    return (xor_m, upsert_m, i_s, *segments, digest)
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_shard_kernel(table_size: int):
+    """The scatter shard kernel bound to one table bucket (one callable a
+    bucket, so a route compares by identity)."""
+    kernel = functools.partial(_shard_kernel_scatter, table_size=table_size)
+    kernel.__name__ = f"_shard_kernel_scatter_{table_size}"
+    return kernel
+
+
+def shard_kernel_for(cols: Dict[str, np.ndarray], device=None):
+    """Host-side routing on the numpy columns, for a pass on `device`
+    (None = the card): the scatter plan when the configured path and its
+    admission allow it (cell ids < 2^25, no duplicate row); else the
+    packed-owner kernel, which needs every real cell id < 2^25 and every
+    owner index < 4095; else the wide kernel. Counted in
+    `scatter_merge.counts["reconcile_kernel"]`."""
+    from evolu_tpu_torch.ops.scatter_merge import count, table_size_for, use_scatter_plan
+
     real = cols["cell_id"] != int(_PAD_CELL)
     cell_max = int(cols["cell_id"].max(initial=0, where=real))
     owner_max = int(cols["owner_ix"].max(initial=0))
+    if "k1" in cols and use_scatter_plan(cols["cell_id"], cols["k1"], cols["k2"], device,
+                                         cell_max=cell_max):
+        count("reconcile_kernel", "scatter")
+        return scatter_shard_kernel(table_size_for(cell_max))
     if cell_max < (1 << _CELL_BITS) and owner_max < _PAD_OWNER:
+        count("reconcile_kernel", "packed")
         return _shard_kernel
+    count("reconcile_kernel", "wide")
     return _shard_kernel_wide
 
 
 def reconcile_columns(cols: Dict[str, np.ndarray], device=None):
     """Run the shard kernel on flat padded numpy columns. → the 9 outputs
-    as tensors on `device`; masks are in sorted order and
-    `unpermute_masks` restores batch order on the host."""
-    kernel = shard_kernel_for(cols)
+    as tensors on `device`; masks are in sorted order (batch order on the
+    scatter route) and `unpermute_masks` restores batch order on the
+    host."""
+    device = resolve_device(device)
+    kernel = shard_kernel_for(cols, device)
     t = columns_to_device({k: cols[k] for k in COLUMN_NAMES}, device)
     return kernel(*(t[k] for k in COLUMN_NAMES))
 

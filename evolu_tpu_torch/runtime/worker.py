@@ -96,7 +96,8 @@ def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device
     "cpu"; for "auto" the host oracle below `min_device_batch` and the
     device planner at or above it; for "cuda" the device planner always.
     `device` (None = CUDA, which raises without a card) is where the
-    device planner runs.
+    device planner runs. Every backend but "cpu" sets the process-wide
+    LWW plan formulation from `config.merge_plan`, as the reference does.
 
     With `db` and `config.winner_cache`, device-planned batches take
     their stored winners from the device-resident cache: the returned
@@ -110,7 +111,9 @@ def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device
         return plan_batch
 
     from evolu_tpu_torch.ops.merge import plan_batch_device_full
+    from evolu_tpu_torch.ops.scatter_merge import set_plan_path
 
+    set_plan_path(config.merge_plan)
     device = resolve_device(device)
     threshold = 0 if config.backend == "cuda" else config.min_device_batch
     cache = None

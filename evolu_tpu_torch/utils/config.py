@@ -18,12 +18,18 @@ WHERE the device planner runs is a separate argument, `device=` of
 `runtime.worker.DbWorker` and `select_planner`: None means the CUDA card
 (it raises without one), "cpu" runs the plain PyTorch version of every
 kernel.
+
+`merge_plan` picks the LWW plan formulation of the device planner and the
+fleet reconcile (`ops/scatter_merge.py`); `EVOLU_MERGE_PLAN` overrides it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Tuple, Union
+
+# The LWW plan formulations `Config.merge_plan` and EVOLU_MERGE_PLAN take.
+MERGE_PLANS = ("auto", "sort", "scatter")
 
 
 @dataclass
@@ -40,6 +46,13 @@ class Config:
     # whole-batch transactions always.
     receive_chunk_size: "int | None" = 1 << 20
     min_device_batch: int = 1024  # "auto": below this the host oracle plans
+    # LWW plan formulation (ops/scatter_merge.py): "sort" = the sort+scan
+    # pipeline (one int64 sort, kernel L twice), "scatter" = the dense
+    # scatter-argmax plan (no sort, no L), "auto" = by the device the plan
+    # runs on: scatter on the CPU, as the reference's CPU backend does;
+    # sort on CUDA, as the reference does on any accelerator, until chip
+    # runs of both plans decide otherwise. EVOLU_MERGE_PLAN overrides.
+    merge_plan: str = "auto"
     # Keep each cell's stored winner in device memory across batches
     # (ops/winner_cache.py) instead of streaming it from SQLite per
     # batch. Ignored for backend "cpu".
@@ -135,6 +148,10 @@ class Config:
     push_subscriptions: bool = True
     push_poll_timeout_s: float = 25.0
     push_max_subscriptions: int = 1 << 17
+
+    def __post_init__(self):
+        if self.merge_plan not in MERGE_PLANS:
+            raise ValueError(f"merge_plan must be one of {MERGE_PLANS}, got {self.merge_plan!r}")
 
 
 default_config = Config()

@@ -1386,3 +1386,171 @@ def test_scoped_card_worker_after_a_deferred_batch_matches_cpu(dev):
     finally:
         for w, _, _ in sides:
             w.stop()
+
+
+# ---- the scatter-argmax LWW plan on the card ------------------------------------
+
+
+def _plan_columns(seed, n, cells, kind, size):
+    """Planner columns padded to `size` with the padding cell: "random",
+    "tie heavy" (equal millis, counters and few nodes) or "u64 edges" (k1
+    and nodes at and past 2^63, real rows with all-zero keys). About 60%
+    of cells have a stored winner; 10% of rows equal theirs. Duplicate
+    (cell, k1, k2) rows are dropped, as the router requires."""
+    rng = np.random.default_rng(seed)
+    cell_id = rng.integers(0, cells, n).astype(np.int32)
+    if kind == "tie heavy":
+        k1 = ((1_700_000_000_000 + rng.integers(0, 3, n)).astype(np.uint64) << np.uint64(16)) \
+            | rng.integers(0, 2, n).astype(np.uint64)
+        k2 = rng.integers(1, 5, n).astype(np.uint64)
+    else:
+        k1 = ((1_700_000_000_000 + rng.integers(0, 86_400_000, n)).astype(np.uint64) << np.uint64(16)) \
+            | rng.integers(0, 256, n).astype(np.uint64)
+        k2 = rng.integers(1, 2**63, n).astype(np.uint64)
+    if kind == "u64 edges":
+        hi = np.uint64(1) << np.uint64(63)
+        k1[rng.random(n) < 0.4] |= hi
+        k2[rng.random(n) < 0.4] |= hi
+        zero = rng.random(n) < 0.02
+        k1[zero] = 0
+        k2[zero] = 0
+    has = rng.random(cells) < 0.6
+    w1 = k1[rng.integers(0, n, cells)]
+    w2 = rng.integers(0, 2**64, cells, dtype=np.uint64)
+    ex_k1 = np.where(has, w1, 0)[cell_id].astype(np.uint64)
+    ex_k2 = np.where(has, w2, 0)[cell_id].astype(np.uint64)
+    eq = (rng.random(n) < 0.1) & has[cell_id]
+    k1 = np.where(eq, ex_k1, k1)
+    k2 = np.where(eq, ex_k2, k2)
+    key = np.stack([cell_id.astype(np.uint64), k1, k2], axis=1)
+    _, first = np.unique(key, axis=0, return_index=True)
+    keep = np.sort(first)
+    cols = [cell_id[keep], k1[keep], k2[keep], ex_k1[keep], ex_k2[keep]]
+    pad = size - len(keep)
+    return [np.concatenate([c, np.full(pad, 0x7FFFFFFF if j == 0 else 0, c.dtype)])
+            for j, c in enumerate(cols)]
+
+
+def _plan_tensors(cols, device):
+    from evolu_tpu_torch.ops import columns_to_device
+
+    names = ("cell_id", "k1", "k2", "ex_k1", "ex_k2")
+    t = columns_to_device(dict(zip(names, cols)), device)
+    return [t[k] for k in names]
+
+
+_LWW_COUNTERS = {"L": cuda_scan.segmented_max_scan_cuda, "H": cuda_hash.timestamp_hash_cuda,
+                 "X": cuda_scan.segmented_xor_scan_cuda, "S": cuda_scan.segmented_sum_scan_cuda}
+
+
+def _launches():
+    return {k: c.launches for k, c in _LWW_COUNTERS.items()}
+
+
+@pytest.mark.parametrize("kind", ["random", "tie heavy", "u64 edges"])
+@pytest.mark.parametrize("cells,n,size", [(48, 3000, 4096), ((1 << 22) - 1, 200_000, 1 << 18)])
+def test_scatter_plan_on_card_matches_cpu_and_the_sort_route(kind, cells, n, size, dev):
+    """`scatter_plan_masks` on the card equals its `device="cpu"` result
+    and the card's sort route (`plan_merge_core`), with pad rows, at a
+    64-slot table and at one of 2^22 slots."""
+    from evolu_tpu_torch.ops import merge as pm
+    from evolu_tpu_torch.ops import scatter_merge as psm
+
+    cols = _plan_columns(cells, n, cells, kind, size)
+    real = cols[0] != 0x7FFFFFFF
+    table = psm.table_size_for(int(cols[0][real].max()))
+    assert table == (64 if cells < 64 else 1 << 22)
+    assert not psm.batch_has_duplicate_keys(cols[0], cols[1], cols[2]) and not real.all()
+    card = [m.cpu().numpy() for m in psm.scatter_plan_masks(*_plan_tensors(cols, "cuda"), table)]
+    cpu = [m.numpy() for m in psm.scatter_plan_masks(*_plan_tensors(cols, "cpu"), table)]
+    sort = [m.cpu().numpy() for m in pm.plan_merge_core(*_plan_tensors(cols, "cuda"))]
+    for got in (cpu, sort):
+        assert np.array_equal(card[0], got[0]) and np.array_equal(card[1], got[1])
+    assert card[0].any() and card[1].any() and not card[0][~real].any() and not card[1][~real].any()
+
+
+def test_scatter_shard_kernel_on_card_matches_cpu_and_the_packed_kernel(dev):
+    """The fleet reconcile's scatter kernel on the card: its decoded plan,
+    deltas and digest equal its `device="cpu"` result and the packed sort
+    kernel's; it launches H and X once each and L never."""
+    from evolu_tpu_torch.ops import columns_to_device
+    from evolu_tpu_torch.ops import merge as pm
+    from evolu_tpu_torch.ops import scatter_merge as psm
+    from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas
+    from evolu_tpu_torch.parallel import reconcile as pr
+
+    cols = dict(zip(("cell_id", "k1", "k2", "ex_k1", "ex_k2"), _plan_columns(3, 60_000, 16_000, "u64 edges", 1 << 16)))
+    real = cols["cell_id"] != 0x7FFFFFFF
+    cols["owner_ix"] = np.where(real, cols["cell_id"] % 97, 0).astype(np.int64)
+    table = psm.table_size_for(int(cols["cell_id"][real].max()))
+    psm.set_plan_path("scatter")
+    try:
+        assert pr.shard_kernel_for(cols, "cuda") is pr.scatter_shard_kernel(table)
+    finally:
+        psm.set_plan_path("auto")
+
+    def decoded(kernel, device):
+        t = columns_to_device(cols, device)
+        xor_s, upsert_s, i_s, *segs, digest = (o.cpu().numpy() for o in kernel(*(t[k] for k in pr.COLUMN_NAMES)))
+        return (*pm.unpermute_masks(xor_s, upsert_s, i_s), decode_owner_minute_deltas(*segs),
+                int(digest.view(np.uint32)[0]))
+
+    before = _launches()
+    card = decoded(pr.scatter_shard_kernel(table), "cuda")
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    assert launched == {"L": 0, "H": 1, "X": 1, "S": 0}, launched
+    for other in (decoded(pr.scatter_shard_kernel(table), "cpu"), decoded(pr._shard_kernel, "cuda")):
+        assert np.array_equal(card[0], other[0]) and np.array_equal(card[1], other[1])
+        assert card[2] == other[2] and card[3] == other[3]
+
+
+def _planner_messages(seed, n=5000, rows=600, dup=False):
+    """CrdtMessages over todo cells with stored winners; timestamps unique
+    per message unless `dup`, which re-delivers one message."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, Timestamp
+
+    rng = np.random.default_rng(seed)
+    msgs, used = [], set()
+    while len(msgs) < n:
+        ts = timestamp_to_string(Timestamp(1_700_000_000_000 + int(rng.integers(0, 10**8)), int(rng.integers(0, 4)),
+                                           f"{int(rng.integers(0, 2**64, dtype=np.uint64)):016x}"))
+        if ts not in used:
+            used.add(ts)
+            msgs.append(CrdtMessage(ts, "todo", f"r{int(rng.integers(0, rows))}",
+                                    ("title", "done")[int(rng.integers(0, 2))], f"v{len(msgs)}"))
+    if dup:
+        msgs.append(msgs[7])
+    winners = {(m.table, m.row, m.column): m.timestamp for m in msgs[::9]}
+    return msgs, winners
+
+
+@pytest.mark.parametrize("path,dup,route", [("scatter", False, "scatter"), ("sort", False, "sort"),
+                                            ("scatter", True, "sort")])
+def test_planners_on_card_route_and_match_cpu(path, dup, route, dev):
+    """`plan_batch_device` and `plan_batch_device_full` on the card, pinned
+    to each route (a re-delivered message keeps the sort plan), equal the
+    host oracle and their `device="cpu"` results; the scatter route
+    launches H and X once a full plan, L never."""
+    from evolu_tpu_torch.ops import merge as pm
+    from evolu_tpu_torch.ops import scatter_merge as psm
+    from evolu_tpu_torch.storage.apply import plan_batch
+
+    msgs, winners = _planner_messages(11, dup=dup)
+    hx, hu = plan_batch(msgs, winners)
+    psm.set_plan_path(path)
+    try:
+        before, plans = _launches(), dict(psm.counts["merge_plan"])
+        card = pm.plan_batch_device(msgs, winners)
+        full = pm.plan_batch_device_full(msgs, winners)
+        launched = {k: v - before[k] for k, v in _launches().items()}
+        assert psm.counts["merge_plan"][route] == plans[route] + 2
+        want = {"L": 0, "H": 1, "X": 1, "S": 0} if route == "scatter" else {"L": 4, "H": 1, "X": 1, "S": 0}
+        assert launched == want, launched
+        cpu = pm.plan_batch_device(msgs, winners, device="cpu")
+        cpu_full = pm.plan_batch_device_full(msgs, winners, device="cpu")
+    finally:
+        psm.set_plan_path("auto")
+    assert card[0] == cpu[0] == full[0] == hx
+    assert card[1] == cpu[1] == full[1] and sorted(map(repr, card[1])) == sorted(map(repr, hu))
+    assert full[2] == cpu_full[2]

@@ -52,7 +52,7 @@ def test_port_imports_no_jax_and_touches_no_card():
                  "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
                  "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
                  "server.fleet", "server.push", "server.conn", "storage.write_behind",
-                 "storage._wb_shard_proc", "sync.scope", "server.scope"):
+                 "storage._wb_shard_proc", "sync.scope", "server.scope", "ops.scatter_merge"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
