@@ -4,8 +4,10 @@ LWW reconcile pass, the typed-CRDT apply, the client worker, the relay
 engine, the client handle with its encrypted sync, and the packed/native
 receive, the relay as a live HTTP server, the relay tier's replication
 half, push subscriptions on the event-loop connection tier, the
-write-behind storage inversion, scoped sync (partial replication), and
-the sort-free scatter-argmax merge plan with its router.
+write-behind storage inversion, scoped sync (partial replication), the
+sort-free scatter-argmax merge plan with its router, and the owner mesh
+(the sharded reconcile, engine and winner cache, the hot-owner split and
+the multi-process pod pass) on shards sharing the card.
 Needs one
 NVIDIA Hopper card, g++, libsqlite3.so.0
 and libcrypto; run from the repo root:
@@ -209,13 +211,14 @@ failure ends the run with a traceback and a nonzero code):
               = 0.
 14. path K  — the write-behind storage inversion: serve from in-memory
               trees, ACK into an fsync'd log, drain to SQLite later. K1:
-              H1's bodies from its 32 lanes to a batching card relay with
-              `write_behind=True` at the Config's defaults (503 +
-              Retry-After when the queue is full, retried by
-              `_http_post`): serve and end-to-end msgs/s (the latter with
-              the flush), p50/p99, passes, 503 answers, the largest
-              backlog and the log's append time, beside H1's; responses
-              equal path E's, tables path E's store's after the flush,
+              the bodies of H1's first 128 owners (256 of its 2,000,
+              cut when path N was added) from its 32 lanes to a batching
+              card relay with `write_behind=True` at the Config's
+              defaults (503 + Retry-After when the queue is full, retried
+              by `_http_post`): serve and end-to-end msgs/s, p50/p99,
+              passes, 503 answers, the largest backlog and the log's
+              append time, beside H1's; responses equal path E's, tables
+              path E's store's rows of those owners after the flush,
               /health 200 and an empty log after `stop()`. K2: H2's
               batches through `run_batch_wire` with a queue over 4 native
               shards and 4 drain workers, serve ms a batch beside H2's,
@@ -262,9 +265,9 @@ failure ends the run with a traceback and a nonzero code):
               owner's masks, upserts and deltas and the digest equal path
               A's sort results. M3, after G1: a card `DbWorker` with
               `backend="cuda"`, no winner cache and `merge_plan="scatter"`
-              replays D1 and D2; outputs, pushes, tables and tree equal
-              path D's oracle after D2, every chunk a scatter plan (H and X
-              once each, L never). M2, after the columns pass, on its 2^20
+              replays D1 (D2 was cut when path N was added); outputs,
+              pushes, tables and tree equal path D's oracle after D1, every
+              chunk a scatter plan (H and X once each, L never). M2, after the columns pass, on its 2^20
               config-3 rows: `scatter_plan_masks` against the sort plan's
               `plan_merge_sorted_flags`, and `_shard_kernel_scatter` against
               `_shard_kernel` (each pair checked equal first), CUDA events in
@@ -275,12 +278,41 @@ failure ends the run with a traceback and a nonzero code):
               and wide (shard router), millis ≥ 2^47 with nodes ≥ 2^63 to
               scatter, and `plan_batch_device` on both routes. Routes are
               read from `scatter_merge.counts`.
-17. columns — the reconcile pass from device-resident columns at 1M
+17. path N  — the owner mesh: MeshContexts of 8 shards sharing cuda:0
+              (the analog of the reference's 8-device virtual mesh), each
+              step held against a result an earlier path checked. N2,
+              after M1: path A's owners through `reconcile_owner_batches`
+              on 8 shards equal path A's. N4, after M3: a card `DbWorker`
+              with `mesh_engine` and `hot_owner_min_batch` = 2^17 replays D1
+              (each chunk `reconcile_hot_owner`) and D2 (the
+              `MeshShardedWinnerCache`, its gate off, audited after every
+              Receive) to path D's oracle state after D2. N3, after G2: E1
+              and E2 through the mesh engine's `run_batch_wire` on a 4-shard
+              native file store, bytes, trees and row counts equal path E's; a batch
+              whose one owner holds over half the rows (the row split) and
+              E4's cap-overflow shape, each equal to a 1-shard engine's. N6:
+              E2's first 256 requests at a mesh relay (`mesh_engine`) and one
+              `EVOLU_MESH_ENGINE` turns on, each answering the bytes of a
+              relay without a mesh, `/stats` `mesh` with 8 devices and a
+              dispatch a pass. N1, after N5: config 5's layout (2^22 messages,
+              cut from 10M; 1k owners, owner % 8) through `reconcile_columns_sharded`
+              against one 1-shard pass (masks at the rows' original
+              positions, digest), each shard's rows and padding, device ms
+              (profiler) and CUDA-events ms in turns, the card to itself.
+              N5, after M4: config 5's pod (500 owners x 400, wire; the
+              requests built in the oracle pool) across two processes
+              spawned before M4 in one gloo group (`file://` store), 4
+              shards each, against a 1-process `reconcile_pod` run after
+              they end: equal digests, the union of the
+              answers byte-equal, each store holding its own owners. L, H
+              and X launch once a shard a pass (L twice); the pod's launches
+              are its processes'.
+18. columns — the reconcile pass from device-resident columns at 1M
               messages (1k owners; the 10M pass was cut when path J was
               added), per-stage times with CUDA events, rows/s and peak
               device memory; outputs equal to the same pass with every
               kernel swapped for its plain version.
-18. timing  — L, X, H and their plain versions timed on the inputs the
+19. timing  — L, X, H and their plain versions timed on the inputs the
               1M columns pass handed them; S on the inputs path C1's
               counter and tensor-sum folds handed it, beside
               `torch.cumsum` on the same column; then every kernel on
@@ -301,10 +333,11 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,p,m}` are the counts themselves (H1,
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,p,m,n}` are the counts themselves (H1,
 H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1, J3 and J4 as path
-J; K1, K2 and K3's serving children as path K; P1-P4 as path P; M1, M3 and
-M4 as path M, M2 being timing); `ms`, `device_ms`,
+J; K2 and K3's serving children as path K; P1-P4 as path P; M1, M3 and
+M4 as path M, M2 being timing; N1-N6 as path N, N5's from its two pod
+processes, each step's mesh runs only); `ms`, `device_ms`,
 `plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
 `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
@@ -1321,7 +1354,7 @@ class DWorker:
     """One port `DbWorker` of path D with its outputs, pushes and a
     scripted wall clock that both workers read the same way."""
 
-    def __init__(self, name, config, clock, device=None, db=None):
+    def __init__(self, name, config, clock, device=None, db=None, mesh_ctx=None):
         from evolu_tpu_torch.core import timestamp as ts_mod
         from evolu_tpu_torch.core.types import TableDefinition
         from evolu_tpu_torch.runtime import messages as msg
@@ -1330,7 +1363,8 @@ class DWorker:
 
         self.name, self.outputs, self.pushes, self.walls = name, [], [], {}
         self.worker = DbWorker(db or PySqliteDatabase(), config, on_output=self.outputs.append,
-                               post_sync=self.pushes.append, now=lambda: clock["now"], device=device)
+                               post_sync=self.pushes.append, now=lambda: clock["now"], device=device,
+                               mesh_ctx=mesh_ctx)
         # init_db_model seeds __clock with a random node id: one for all.
         with patched(ts_mod, "create_node_id", lambda: "0f1e2d3c4b5a6978"):
             self.worker.start(MNEMONIC)
@@ -1461,13 +1495,13 @@ def d_inputs():
     return d1, d2, d3, trees
 
 
-def d_script(w, clock, d1, d2, d3, trees, after_d2=None):
+def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2=None):
     """Drive one DWorker through path D: D1, D2 and D3's Receives, each with
     the relay's tree after it; then D4: a Send of 1k, a Query of 10
     subscribed queries, a Sync, a Receive of 200 whose server tree holds
     one hash the client lacks (in a minute after all of its history), and a
-    Query. `after_d2(w)` runs between D2 and D3. → each phase's Receive
-    routes."""
+    Query. `after_d1(w)` runs between D1 and D2, `after_d2(w)` between D2
+    and D3. → each phase's Receive routes."""
     from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
     from evolu_tpu_torch.core.timestamp import timestamp_to_string
     from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
@@ -1481,6 +1515,8 @@ def d_script(w, clock, d1, d2, d3, trees, after_d2=None):
     # too).
     clock["now"] = D1_BASE
     routes["d1"].append(w.receive("d1", d1, trees[0]))
+    if after_d1 is not None:
+        after_d1(w)
     for (base, batch), tree in zip(d2, trees[1:]):
         clock["now"] = base
         routes["d2"].append(w.receive("d2", batch, tree))
@@ -1519,15 +1555,17 @@ def d_state(w):
 def d_oracle():
     """Path D's oracle, run in a process of the spawned pool while the card
     runs paths B to D: a `backend="cpu"` worker through `d_script`. → its
-    `d_state` after D2 (path G1's oracle) and at the end, and its walls."""
+    `d_state` after D1 (path M3's oracle), after D2 (paths G1's and N4's)
+    and at the end, and its walls."""
     from evolu_tpu_torch.utils.config import Config
 
     d1, d2, d3, trees = d_inputs()
     clock = {"now": D1_BASE}
     cpu = DWorker("cpu oracle", Config(backend="cpu", receive_chunk_size=1 << 17), clock)
-    after = {}
-    d_script(cpu, clock, d1, d2, d3, trees, after_d2=lambda w: after.update(d_state(w)))
-    out = {"after_d2": after, "end": d_state(cpu), "walls": dict(cpu.walls)}
+    after_d1, after_d2 = {}, {}
+    d_script(cpu, clock, d1, d2, d3, trees, after_d1=lambda w: after_d1.update(d_state(w)),
+             after_d2=lambda w: after_d2.update(d_state(w)))
+    out = {"after_d1": after_d1, "after_d2": after_d2, "end": d_state(cpu), "walls": dict(cpu.walls)}
     cpu.stop()
     return out
 
@@ -1538,8 +1576,9 @@ def path_d(torch, kernels, oracle_job):
     the same commands in a process of the pool (`oracle_job`, `d_oracle`):
     outputs, pushes, every table (by digest) and the tree equal. Returns
     (launches, report, the relay's trees after D1 and each D2 batch, D1 and
-    the D2 batches as (base, messages), and the oracle's state after D2:
-    path G1 replays those receives against it)."""
+    the D2 batches as (base, messages), and the oracle's states after D1
+    and after D2: path M3 replays D1 against the first, paths G1 and N4 D1
+    and D2 against the second)."""
     from evolu_tpu_torch.utils.config import Config
 
     t0 = time.perf_counter()
@@ -1594,7 +1633,7 @@ def path_d(torch, kernels, oracle_job):
     report["rows"] = sizes
     report["oracle_in_pool_process"] = True
     gpu.stop()
-    return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, oracle["after_d2"]
+    return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, (oracle["after_d1"], oracle["after_d2"])
 
 
 E_MESSAGES = 1_000_000  # BASELINE config 3: 1M messages over 1k owners
@@ -2751,6 +2790,7 @@ def path_g2(torch, kernels, keep):
 # ---- path H: the relay as a live server ----------------------------------------------
 
 H_CLIENTS = 32  # H1's client threads, each with a disjoint slice of owners
+K1_OWNERS = 128  # path K1 replays these first owners of H1 (256 of its 2,000 bodies)
 H2_BATCHES = 8  # E1 split into batches of 125 owners for the pipeline
 H3_SENDS = 5  # F2 cut to 5 Sends of 10k for the HTTP clients
 F2_V1_CRYPTO_SHARE = "13.5-15.6%"  # path F's F2 on the v1 wire (PERF.md section 5)
@@ -2873,8 +2913,15 @@ def path_h1(torch, kernels, keep, tmp, bodies):
     if mine[0] != theirs[0] or mine[1] != theirs[1]:
         raise AssertionError("path H1: the message or merkleTree table differs from path E's store")
     del mine
-    # Path K's K1 sends the same bodies to a write-behind relay.
-    keep["h1_replay"] = (bodies, [want for _, want in jobs], lanes, n)
+    # Path K's K2 holds its responses to these; K1 sends the first
+    # K1_OWNERS owners' bodies (in H1's lanes) to a write-behind relay.
+    keep["h1_wants"] = [want for _, want in jobs]
+    k1_owners = set(list(slot)[:K1_OWNERS])
+    k1_ix = [i for i, (r, _) in enumerate(jobs) if r.user_id in k1_owners]
+    renum = {i: j for j, i in enumerate(k1_ix)}
+    keep["k1_replay"] = ([bodies[i] for i in k1_ix], [jobs[i][1] for i in k1_ix],
+                         [[renum[i] for i in lane if i in renum] for lane in lanes],
+                         sum(len(jobs[i][0].messages) for i in k1_ix), k1_owners)
     routes = {k: eng.counts[k] - routes0[k] for k in routes0}
     lat_ms = sorted(x * 1e3 for x in lat)
     out = {"requests": len(jobs), "messages": n, "client_threads": H_CLIENTS,
@@ -3766,7 +3813,7 @@ def path_i(torch, kernels, keep, tmp, gpu=""):
         for m in spawned[0] + [spawned[1]]:
             m.close()
         raise
-    for k in [k for k in keep if k not in ("h1_replay", "store_dump", "k_requests")]:  # for K1 and K2
+    for k in [k for k in keep if k not in ("h1_wants", "k1_replay", "store_dump", "k_requests")]:  # for K1, K2
         del keep[k]
     per["i3"], report["i3"] = path_i3(torch, kernels, tmp, spawned)
     report["launches"] = per
@@ -4167,14 +4214,15 @@ def check_k(step, launches, passes):
 
 
 def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
-    """K1, H1 with write-behind on: path H1's bodies (2,000 requests,
-    1,160,000 messages) from H1's 32 client lanes to
-    `RelayServer(RelayStore(<file>, backend="native"), batching=True,
-    write_behind=True)` on the card at the Config's defaults (fsync on,
-    2^20 rows, drain batches of 2^16, one drain worker). A full queue
-    answers 503 + Retry-After, which `_http_post` retries. Every response
-    equals path E's; after `flush()` the tables equal path E's store;
-    `/health` answers 200, and after `stop()` the log is its magic alone.
+    """K1, H1 with write-behind on: the bodies of H1's first K1_OWNERS
+    owners (their E1 and E2 requests, 256 requests, ~148,000 messages),
+    each from its H1 client lane (32 lanes), to `RelayServer(RelayStore(
+    <file>, backend="native"), batching=True, write_behind=True)` on the
+    card at the Config's defaults (fsync on, 2^20 rows, drain batches of
+    2^16, one drain worker). A full queue answers 503 + Retry-After, which
+    `_http_post` retries. Every response equals path E's; after `flush()`
+    the tables equal path E's store's rows of these owners; `/health`
+    answers 200, and after `stop()` the log is its magic alone.
     → (launches, report)."""
     import threading
     import urllib.request
@@ -4184,7 +4232,7 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
     from evolu_tpu_torch.storage import write_behind as wbm
     from evolu_tpu_torch.sync.client import _http_post
 
-    bodies, want, lanes, n = keep["h1_replay"]
+    bodies, want, lanes, n, owners = keep.pop("k1_replay")
     path = os.path.join(tmp, "k1.db")
     server = RelayServer(RelayStore(path, backend="native"), batching=True, write_behind=True).start()
     wb = server.write_behind
@@ -4236,15 +4284,17 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
         with urllib.request.urlopen(server.url + "/health", timeout=60) as r:
             health = (r.status, json.loads(r.read()))
         t1 = time.perf_counter()
-        if k_dump(server.store) != keep["store_dump"]:
-            raise AssertionError("path K1: after the flush the tables differ from path E's store")
+        theirs = tuple([row for row in rows if row[0] in owners] for rows in keep["store_dump"])
+        if k_dump(server.store) != theirs:
+            raise AssertionError("path K1: after the flush the tables differ from path E's store's rows of "
+                                 "these owners")
         compare_s = time.perf_counter() - t1
     finally:
         server.stop()
     with open(path + ".wblog", "rb") as f:
         log_after_stop = f.read()
     lat_ms = sorted(x * 1e3 for x in lat)
-    out = {"requests": len(bodies), "messages": n, "client_threads": len(lanes),
+    out = {"requests": len(bodies), "owners": len(owners), "messages": n, "client_threads": len(lanes),
            "serve_wall_s": round(wall, 4), "serve_msgs_per_s": round(n / wall),
            "requests_per_s": round(len(bodies) / wall, 1), "latency_ms_p50": round(lat_ms[len(lat_ms) // 2], 3),
            "latency_ms_p99": round(lat_ms[min(len(lat_ms) - 1, int(len(lat_ms) * 0.99))], 3),
@@ -4282,7 +4332,7 @@ def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
     from evolu_tpu_torch.storage.write_behind import WriteBehindQueue
 
     e1, e2 = keep["k_requests"]
-    want = keep["h1_replay"][1]
+    want = keep["h1_wants"]
     per = len(e1) // H2_BATCHES
     batches = [e1[i * per:(i + 1) * per] for i in range(H2_BATCHES - 1)] + [e1[(H2_BATCHES - 1) * per:], e2]
     n = sum(len(r.messages) for b in batches for r in b)
@@ -4397,15 +4447,15 @@ def path_k3(torch, kernels, tmp, gpu=""):
 
 
 def path_k(torch, kernels, keep, tmp, h1, h2, gpu=""):
-    """Path K: K1, K2 and K3, each with its own launch counts (summed as path
-    K). → (launches, report)."""
+    """Path K: K1, K2 and K3, each with its own launch counts (summed as
+    path K). → (launches, report)."""
     report, per = {}, {}
     per["k1"], report["k1"] = path_k1(torch, kernels, keep, tmp, h1, gpu)
     per["k2"], report["k2"] = path_k2(torch, kernels, keep, tmp, h2, gpu)
     keep.clear()
     per["k3"], report["k3"] = path_k3(torch, kernels, tmp, gpu)
     report["launches"] = per
-    launches = {k: sum(p[k] for p in per.values()) for k in per["k1"]}
+    launches = {k: sum(p[k] for p in per.values()) for k in per["k2"]}
     return launches, report
 
 
@@ -5090,10 +5140,10 @@ def path_m1(torch, kernels, a, gpu=""):
 
 def path_m3(torch, kernels, trees, batches, oracle, gpu=""):
     """M3: a card `DbWorker` with `backend="cuda"`, no winner cache and
-    `merge_plan="scatter"` replays path D's D1 (in 4 chunks) and D2
-    Receives; its outputs, pushes, tables and tree equal path D's
-    `backend="cpu"` oracle after D2 (the digests path D and G1 hold).
-    Every chunk and batch is a scatter plan: H and X once each, L never."""
+    `merge_plan="scatter"` replays path D's D1 (in 4 chunks); its outputs,
+    pushes, tables and tree equal path D's `backend="cpu"` oracle after D1.
+    Every chunk is a scatter plan: H and X once each, L never. (D2's three
+    Receives were cut when path N was added; path N4 replays them.)"""
     from evolu_tpu_torch.utils.config import Config
 
     clock = {"now": D1_BASE}
@@ -5105,26 +5155,25 @@ def path_m3(torch, kernels, trees, batches, oracle, gpu=""):
                                  receive_chunk_size=M3_CHUNK), clock)
         try:
             reset(kernels)
-            for i, ((base, batch), tree) in enumerate(zip(batches, trees)):
-                clock["now"] = base
-                w.receive("d1" if i == 0 else "d2", batch, tree)
+            clock["now"] = batches[0][0]
+            w.receive("d1", batches[0][1], trees[0])
             launches, routes = read(kernels), routes_since(before)
             t0 = time.perf_counter()
             got = d_state(w)
         finally:
             w.stop()
-    plans = sum(-(-len(b) // M3_CHUNK) for _, b in batches)  # a plan a chunk
+    plans = -(-len(batches[0][1]) // M3_CHUNK)  # a plan a chunk
     check_m("M3", launches, {"seg_lex_max_scan": 0, "seg_xor_scan": plans, "timestamp_hash": plans,
                              "seg_sum_scan": 0}, routes, {"merge_plan": {"scatter": plans}, "reconcile_kernel": {}})
     if got["outputs"] != oracle["outputs"] or got["pushes"] != oracle["pushes"]:
-        raise AssertionError("path M3: outputs or pushes differ from path D's backend='cpu' oracle")
+        raise AssertionError("path M3: outputs or pushes differ from path D's backend='cpu' oracle after D1")
     if got["tables"] != oracle["tables"] or got["tree"] != oracle["tree"]:
-        raise AssertionError("path M3: tables or the Merkle tree differ from path D's backend='cpu' oracle")
-    n = {"d1": len(batches[0][1]), "d2": sum(len(b) for _, b in batches[1:])}
+        raise AssertionError("path M3: tables or the Merkle tree differ from path D's backend='cpu' oracle after D1")
+    n = {"d1": len(batches[0][1])}
     report = {p: {"messages": n[p], "wall_s": round(w.walls[p], 4), "msgs_per_s": round(n[p] / w.walls[p])}
               for p in n}
     report.update({"routes": routes, "launches": launches, "compare_s": round(time.perf_counter() - t0, 4)})
-    print(f"  path M3: outputs, pushes, every table and the tree equal path D's backend='cpu' oracle after D2; "
+    print(f"  path M3: outputs, pushes, every table and the tree equal path D's backend='cpu' oracle after D1; "
           f"{json.dumps(report)} | {gpu}", flush=True)
     return launches, report
 
@@ -5236,9 +5285,10 @@ def path_m4(torch, kernels, gpu=""):
     each case, so only the router's own rules decide."""
     from evolu_tpu_torch.core.merkle import minute_deltas_host
     from evolu_tpu_torch.ops import merge as pm
-    from evolu_tpu_torch.ops import to_host_many
+    from evolu_tpu_torch.ops import resolve_device
     from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas
     from evolu_tpu_torch.parallel import reconcile as pr
+    from evolu_tpu_torch.parallel.mesh import single_mesh
     from evolu_tpu_torch.storage.apply import plan_batch
 
     def host(msgs, winners):
@@ -5280,7 +5330,8 @@ def path_m4(torch, kernels, gpu=""):
         mark = route_counts()
 
         def shard(device):
-            xor_s, upsert_s, i_s, *segs, _digest = to_host_many(*pr.reconcile_columns(cols, device))
+            mesh = single_mesh(resolve_device(device))
+            xor_s, upsert_s, i_s, *segs, _digest = pr.reconcile_columns_sharded(mesh, cols)
             xor_m, upsert_m = pm.unpermute_masks(xor_s, upsert_s, i_s)
             pos = index["m4"][0]
             return (xor_m[pos].tolist(), sorted(repr(m) for m, u in zip(msgs, upsert_m[pos]) if u),
@@ -5323,6 +5374,585 @@ def path_m4(torch, kernels, gpu=""):
     print(f"  path M4: every edge routed as stated and equal to the host oracle and the CPU port; "
           f"{json.dumps(report)} | {gpu}", flush=True)
     return launches, report
+
+
+# ---- path N: the owner mesh on one card ---------------------------------------------
+
+N_SHARDS = 8  # shards sharing cuda:0: the analog of the reference's 8-device virtual CPU mesh
+# Config 5's layout (benchmarks/config5_mesh.py:23-42) at 10M messages, cut to 2^22 for path N's
+# wall (N1 took 18.4 s at 10M in PR 15's first chip call).
+N1_MESSAGES = 1 << 22
+N3_HOT = (16, 24_000, 1_000)  # owners, the hot owner's rows, each other owner's rows
+N4_HOT_MIN = 1 << 17  # D1's chunk size: every D1 chunk takes the hot-owner route
+N5_OWNERS, N5_PER = 500, 400  # config 5's pod pass (benchmarks/config5_mesh.py:99-101): 200,000 rows
+N5_JOIN_S = 120.0  # the pod processes' own limit
+N5_MEMBER_DEVICE = "cuda:0"  # the pod processes' shards' device
+N6_REQUESTS = 256  # E2's first requests, POSTed to each N6 relay
+N_LWW = ("seg_lex_max_scan", "timestamp_hash", "seg_xor_scan", "seg_sum_scan")
+
+
+def card_mesh(n=N_SHARDS):
+    """A MeshContext of `n` shards sharing cuda:0."""
+    from evolu_tpu_torch.parallel.mesh import MeshContext, create_mesh
+
+    return MeshContext(create_mesh(devices=["cuda:0"] * n))
+
+
+def lww(n_l, n_h, n_x):
+    """Launches of L, H and X (S never, on the LWW path)."""
+    return dict(zip(N_LWW, (n_l, n_h, n_x, 0)))
+
+
+def check_n(step, launches, want):
+    if launches != want:
+        raise AssertionError(f"path {step}: launches {launches}, expected {want}")
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def n1_layout(cols, n, n_dev):
+    """bench.shard_layout's layout of the first n (real) rows of `cols`:
+    owner o on shard o % n_dev, each shard padded with the planner's padding
+    cell to the bucket of the largest load. → (columns, each original row's
+    layout position, loads, shard size)."""
+    from evolu_tpu_torch.ops import bucket_size
+
+    shard_of = cols["owner_ix"][:n] % n_dev
+    order = np.argsort(shard_of, kind="stable")
+    loads = np.bincount(shard_of, minlength=n_dev)
+    size = bucket_size(int(loads.max()))
+    starts = np.zeros(n_dev, np.int64)
+    starts[1:] = np.cumsum(loads)[:-1]
+    positions = np.empty(n, np.int64)
+    positions[order] = np.arange(n) - np.repeat(starts, loads) + np.repeat(np.arange(n_dev) * size, loads)
+    out = {}
+    for k, v in cols.items():
+        dst = np.full(n_dev * size, 0x7FFFFFFF, v.dtype) if k == "cell_id" else np.zeros(n_dev * size, v.dtype)
+        dst[positions] = v[:n]
+        out[k] = dst
+    return out, positions, loads.tolist(), size
+
+
+def path_n1(torch, kernels, gpu=""):
+    """N1, config 5's layout: N1_MESSAGES messages over 1k owners
+    (`build_columns`) laid out over 8 shards of cuda:0 (owner % 8, as the
+    reference's benchmark) through `reconcile_columns_sharded`, against one
+    1-shard pass over the same rows: the masks in the rows' original
+    positions and the digest equal; L 16, H 8, X 8. Each shard's rows and
+    padding; the two passes' kernels on resident columns by torch.profiler
+    and CUDA events (in turns); each pass's wall with upload and pull, two
+    of each in turns (8, 1, 1, 8; the first of each is the checked one)."""
+    from evolu_tpu_torch.ops import columns_to_device
+    from evolu_tpu_torch.ops.merge import unpermute_masks
+    from evolu_tpu_torch.parallel import reconcile as pr
+    from evolu_tpu_torch.parallel.mesh import create_mesh
+
+    n = N1_MESSAGES
+    t0 = time.perf_counter()
+    cols1 = build_columns(n)
+    cols8, positions, loads, size = n1_layout(cols1, n, N_SHARDS)
+    build_s = time.perf_counter() - t0
+    mesh8, mesh1 = create_mesh(devices=["cuda:0"] * N_SHARDS), create_mesh(devices=["cuda:0"])
+    reset(kernels)
+    t0 = time.perf_counter()
+    out8 = pr.reconcile_columns_sharded(mesh8, cols8)
+    wall8 = time.perf_counter() - t0
+    launches = read(kernels)
+    check_n("N1", launches, lww(2 * N_SHARDS, N_SHARDS, N_SHARDS))
+    t0 = time.perf_counter()
+    out1 = pr.reconcile_columns_sharded(mesh1, cols1)
+    wall1 = [time.perf_counter() - t0]
+    wall8 = [wall8]
+    for mesh, walls, cols in ((mesh1, wall1, cols1), (mesh8, wall8, cols8)):  # a second pair, in turns
+        t0 = time.perf_counter()
+        pr.reconcile_columns_sharded(mesh, cols)
+        walls.append(time.perf_counter() - t0)
+    x8, u8 = unpermute_masks(out8[0], out8[1], out8[2], block_size=size)
+    x1, u1 = unpermute_masks(out1[0], out1[1], out1[2])
+    if not (np.array_equal(x8[positions], x1[:n]) and np.array_equal(u8[positions], u1[:n])):
+        raise AssertionError("path N1: the 8-shard masks differ from the 1-shard pass's")
+    digest = out8[-1]
+    if digest != out1[-1]:
+        raise AssertionError(f"path N1: digest {digest:#x} != the 1-shard pass's {out1[-1]:#x}")
+    del out8, out1, x8, u8, x1, u1, positions
+    # The kernels alone, on columns already on the card.
+    kernel8, kernel1 = pr.shard_kernel_for(cols8, "cuda"), pr.shard_kernel_for(cols1, "cuda")
+    t8 = [columns_to_device({k: cols8[k][i * size:(i + 1) * size] for k in pr.COLUMN_NAMES}, "cuda")
+          for i in range(N_SHARDS)]
+    t1 = columns_to_device({k: cols1[k] for k in pr.COLUMN_NAMES}, "cuda")
+    del cols1, cols8
+
+    def run8():
+        return [kernel8(*(t[k] for k in pr.COLUMN_NAMES)) for t in t8]
+
+    def run1():
+        return kernel1(*(t1[k] for k in pr.COLUMN_NAMES))
+
+    report = {"messages": n, "shards": N_SHARDS, "shard_rows": loads, "shard_size": size,
+              "padding_rows": [size - x for x in loads], "rows_padded_8": N_SHARDS * size,
+              "rows_padded_1": int(t1["cell_id"].shape[0]), "kernel": kernel8.__name__,
+              "build_s": round(build_s, 3), "wall_s_8": [round(w, 4) for w in wall8],
+              "wall_s_1": [round(w, 4) for w in wall1], "msgs_per_s_8": round(n / min(wall8)),
+              "msgs_per_s_1": round(n / min(wall1)),
+              "device_ms_8": device_ms(torch, [run8], reps=3), "device_ms_1": device_ms(torch, [run1], reps=3),
+              "events_ms": {"8": [], "1": []}, "launches": launches}
+    for turn in ("8", "1", "1", "8"):
+        report["events_ms"][turn].append(round(cuda_ms(run8 if turn == "8" else run1, 3, 2), 4))
+    del t8, t1
+    torch.cuda.empty_cache()
+    print(f"  path N1: the masks in the rows' original positions and the digest {digest:#010x} equal the 1-shard "
+          f"pass's; {json.dumps(report)} | {gpu}", flush=True)
+    return launches, report
+
+
+def path_n2(torch, kernels, a, gpu=""):
+    """N2: path A's 1M messages over 1k owners through
+    `reconcile_owner_batches(mesh_ctx=8 shards of cuda:0)`: every owner's
+    (xor_mask, upserts, deltas) and the digest equal path A's card results,
+    which path A held against the host oracle; L 16, H 8, X 8."""
+    from evolu_tpu_torch.parallel import reconcile_owner_batches
+
+    ctx = card_mesh()
+    reset(kernels)
+    t0 = time.perf_counter()
+    results, digest = reconcile_owner_batches(a["batches"], a["winners"], mesh_ctx=ctx)
+    wall = time.perf_counter() - t0
+    launches = read(kernels)
+    check_n("N2", launches, lww(2 * N_SHARDS, N_SHARDS, N_SHARDS))
+    if results.keys() != a["results"].keys() or digest != a["digest"]:
+        raise AssertionError(f"path N2: owners or digest {digest:#x} differ from path A's ({a['digest']:#x})")
+    bad = [o for o in results if results[o] != a["results"][o]]
+    if bad:
+        raise AssertionError(f"path N2: {len(bad)} owners differ from path A's, e.g. {bad[0]}")
+    report = {"messages": a["messages"], "owners": len(results), "wall_s": round(wall, 4),
+              "msgs_per_s": round(a["messages"] / wall), "path_a_wall_s": round(a["wall"], 4),
+              "path_a_msgs_per_s": round(a["messages"] / a["wall"]), "shard_rows": ctx.last_loads,
+              "mesh_counts": ctx.counts, "launches": launches}
+    print(f"  path N2: every owner and digest {digest:#010x} equal path A's; {json.dumps(report)} | {gpu}",
+          flush=True)
+    return launches, report
+
+
+def n3_batches():
+    """N3's extra batches: one owner holding over half the rows (the
+    hot-owner row split), and E4's cap-overflow shape (every row its own
+    minute, 64 owners)."""
+    owners, hot, per = N3_HOT
+    base = BASE_MILLIS + 60 * 10**9
+    hot_batch, pos = [], 0
+    for o in range(owners):
+        k = hot if o == 0 else per
+        stamps = [ts_one(base + (pos + i) // 16, (pos + i) % 16, f"{o + 1:016x}") for i in range(k)]
+        pos += k
+        hot_batch.append(e_request(f"nhot{o:02d}", stamps, [b"n3-%d" % i for i in range(k)], e_tree({}, stamps)))
+    per_owner = {}
+    for i in range(E4_ROWS):
+        per_owner.setdefault(i % 64, []).append(ts_one(base + 10**9 + i * 60_000, i % 16, f"{i % 64:016x}"))
+    overflow = [e_request(f"nmin{o:02d}", s, [b"n3"] * len(s), e_tree({}, s)) for o, s in per_owner.items()]
+    return hot_batch, overflow
+
+
+def n3_store_digest(store):
+    """A store's digest as N3 holds it: every owner's stored Merkle tree
+    and its count of message rows. `store` is a sharded store, or a dump
+    (`e_dump`) of one. The trees hash every stored timestamp; the rows
+    themselves are written by the insert paths G2 and K2 hold row for
+    row."""
+    if isinstance(store, tuple):
+        messages, trees = store
+        counts = {}
+        for row in messages:
+            counts[row[0]] = counts.get(row[0], 0) + 1
+        return sorted(map(tuple, trees)), counts
+    trees, counts = [], {}
+    for s in store.shards:
+        trees += s.db.exec('SELECT "userId", "merkleTree" FROM "merkleTree"')
+        counts.update(s.db.exec('SELECT "userId", count(*) FROM "message" GROUP BY 1'))
+    return sorted(map(tuple, trees)), counts
+
+
+def path_n3(torch, kernels, keep, tmp, report_g2, gpu=""):
+    """N3, the engine on the mesh: E1 then E2 through
+    `BatchReconciler(ShardedRelayStore(<file>, 4 native shards),
+    mesh_ctx=8 shards of cuda:0).run_batch_wire` (the streaming ingest):
+    every response's bytes equal path E's, and the store's digest (every
+    owner's tree and row count) path E's store's; H = X = 8 a pass. Then, on fresh stores against a 1-shard engine, a
+    batch with one owner holding over half the rows (the hot-owner row
+    split: `owner_delta_partials` rises) and E4's cap-overflow shape (the
+    full-width rerun on every shard): equal bytes and tables."""
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+
+    (e1, e1_out), (e2, e2_out) = keep["e1"], keep["e2"]
+    ctx = card_mesh()
+    store = ShardedRelayStore(os.path.join(tmp, "n3.db"), backend="native", shards=4)
+    rec = eng.BatchReconciler(store, mesh_ctx=ctx)
+    report, total = {}, {}
+    try:
+        for name, requests, want in (("e1", e1, e1_out), ("e2", e2, e2_out)):
+            routes0 = dict(eng.counts)
+            reset(kernels)
+            t0 = time.perf_counter()
+            got = rec.run_batch_wire(requests)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, passes = read(kernels), engine_passes(routes0)
+            check_n(f"N3 {name}", launches, lww(0, N_SHARDS * passes, N_SHARDS * passes))
+            add_launches(total, launches)
+            if got != want:
+                bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+                raise AssertionError(f"path N3 {name}: response {bad} differs from path E's")
+            n = sum(len(r.messages) for r in requests)
+            report[name] = {"messages": n, "wall_s": round(wall, 4), "msgs_per_s": round(n / wall),
+                            "passes": passes, "shard_rows": ctx.last_loads,
+                            "path_g2_msgs_per_s": report_g2.get(name, {}).get("msgs_per_s")}
+        t0 = time.perf_counter()
+        if n3_store_digest(store) != n3_store_digest(keep["store_dump"]):
+            raise AssertionError("path N3: the 4-shard store's trees or message counts after E2 differ from path "
+                                 "E's store")
+        report["compare_s"] = round(time.perf_counter() - t0, 3)
+    finally:
+        rec.close()
+        store.close()
+    hot, overflow = n3_batches()
+    for name, batch in (("hot_owner", hot), ("cap_overflow", overflow)):
+        stores = [ShardedRelayStore(backend="native", shards=4) for _ in range(2)]
+        sharded, single = eng.BatchReconciler(stores[0], mesh_ctx=ctx), eng.BatchReconciler(stores[1])
+        try:
+            partials = ctx.counts["xdev_reduce"]["owner_delta_partials"]
+            routes0 = dict(eng.counts)
+            reset(kernels)
+            t0 = time.perf_counter()
+            got = sharded.run_batch_wire(batch)
+            wall = time.perf_counter() - t0
+            launches, passes = read(kernels), engine_passes(routes0)
+            overflowed = eng.counts["overflow"] - routes0["overflow"]
+            split = ctx.counts["xdev_reduce"]["owner_delta_partials"] - partials
+            check_n(f"N3 {name}", launches, lww(0, N_SHARDS * passes, N_SHARDS * passes))
+            add_launches(total, launches)
+            if got != single.run_batch_wire(batch) or k_dump(stores[0]) != k_dump(stores[1]):
+                raise AssertionError(f"path N3 {name}: bytes or tables differ from a 1-shard engine's")
+            if (name == "hot_owner" and split < 1) or (name == "cap_overflow" and overflowed != 1):
+                raise AssertionError(f"path N3 {name}: {split} split owners, {overflowed} overflow reruns")
+            report[name] = {"messages": sum(len(r.messages) for r in batch), "wall_s": round(wall, 4),
+                            "owner_delta_partials": split, "overflow_reruns": overflowed,
+                            "shard_rows": ctx.last_loads}
+        finally:
+            for x in (sharded, single, *stores):
+                x.close()
+    report["mesh_counts"] = ctx.counts
+    report["launches"] = total
+    print(f"  path N3: E1 and E2 bytes, trees and row counts equal path E's, the hot owner's and the overflow's a 1-shard "
+          f"engine's; {json.dumps(report)} | {gpu}", flush=True)
+    return total, report
+
+
+def path_n4(torch, kernels, trees, batches, oracle, report_d, gpu=""):
+    """N4, the client worker on the mesh: path D's D1 (2^19 in 4 chunks)
+    and D2 (3 x 100k) into `DbWorker(device=None, mesh_ctx=8 shards of
+    cuda:0)` with `Config(mesh_engine=True, hot_owner_min_batch=2^17)`:
+    D1's chunks take `reconcile_hot_owner`, D2 `MeshShardedWinnerCache`
+    with its gate off (every batch a sharded cached plan; audited after
+    every Receive); the state equals path D's oracle after D2."""
+    from evolu_tpu_torch.parallel import hot_owner
+    from evolu_tpu_torch.utils.config import Config
+
+    ctx = card_mesh()
+    clock = {"now": D1_BASE}
+    hot_calls = []
+    orig = hot_owner.reconcile_hot_owner
+    w = DWorker("n4", Config(backend="auto", mesh_engine=True, hot_owner_min_batch=N4_HOT_MIN,
+                             receive_chunk_size=N4_HOT_MIN), clock, mesh_ctx=ctx)
+    try:
+        cache = w.cache
+        if type(cache).__name__ != "MeshShardedWinnerCache":
+            raise AssertionError(f"path N4: the planner's cache is {type(cache).__name__}")
+        # The gate off pins the cached route: D2's first batches are all
+        # first contact (D1's hot chunks bypassed the cache), which the
+        # adaptive gate streams on one device.
+        cache.adaptive = False
+        routes = []
+        reset(kernels)
+        with patched(hot_owner, "reconcile_hot_owner", lambda *a: hot_calls.append(len(a[1])) or orig(*a)):
+            for i, ((base, batch), tree) in enumerate(zip(batches, trees)):
+                clock["now"] = base
+                routes.append(w.receive("d1" if i == 0 else "d2", batch, tree))
+        launches = read(kernels)
+        got = d_state(w)
+        slots = cache.shard_slot_counts()
+    finally:
+        w.stop()
+    d1_chunks = -(-len(batches[0][1]) // N4_HOT_MIN)
+    cached, streamed = cache.counts.get("cached_plans", 0), cache.counts.get("stream_plans", 0)
+    if hot_calls != [N4_HOT_MIN] * d1_chunks or cached != len(batches) - 1:
+        raise AssertionError(f"path N4: hot-owner chunks {hot_calls}, {cached} sharded cached plans")
+    sharded = d1_chunks + cached  # each on 8 shards; a streamed plan runs on one
+    check_n("N4", launches, lww(2 * (N_SHARDS * sharded + streamed), N_SHARDS * sharded + streamed,
+                                N_SHARDS * sharded + streamed))
+    if got != oracle:
+        raise AssertionError("path N4: outputs, pushes, tables or the tree differ from path D's oracle after D2")
+    n = {"d1": len(batches[0][1]), "d2": sum(len(b) for _, b in batches[1:])}
+    report = {p: {"messages": n[p], "wall_s": round(w.walls[p], 4), "msgs_per_s": round(n[p] / w.walls[p]),
+                  "path_d_msgs_per_s": report_d[p]["msgs_per_s"]} for p in n}
+    report.update({"hot_owner_chunks": hot_calls, "cache": type(cache).__name__, "cache_counts": dict(cache.counts),
+                   "shard_slot_counts": slots, "routes": routes, "mesh_counts": ctx.counts, "launches": launches})
+    print(f"  path N4: the state equals path D's oracle after D2; {json.dumps(report, default=str)} | {gpu}",
+          flush=True)
+    return launches, report
+
+
+def n5_requests():
+    """Config 5's pod batch (`benchmarks/pod_requests.build_pod_requests(
+    owners=500, per=400, factor=977, stride_ms=1000, payload=b"c" * 64)`)
+    with the port's protocol. → (requests, the host fold's digest)."""
+    from evolu_tpu_torch.core.merkle import apply_prefix_xors, merkle_tree_to_string, minute_deltas_host
+    from evolu_tpu_torch.sync import protocol
+
+    requests, expect = [], 0
+    for o in range(N5_OWNERS):
+        ts = [ts_one(BASE_MILLIS + (o * 977 + i) * 1000, i % 4, f"{o + 1:016x}") for i in range(N5_PER)]
+        deltas, d = minute_deltas_host(iter(ts))
+        expect ^= d
+        requests.append(protocol.SyncRequest(
+            tuple(protocol.EncryptedCrdtMessage(t, b"c" * 64 + b"-%d" % o) for t in ts), f"owner{o}", "f" * 16,
+            merkle_tree_to_string(apply_prefix_xors({}, deltas))))
+    return requests, expect & 0xFFFFFFFF
+
+
+def n5_write_requests(path):
+    """`n5_requests` pickled to `path` (made in a process of the spawned
+    pool while the card runs paths B to N4; the pod processes and the
+    parent load it)."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump(n5_requests(), f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def n5_load_requests(path):
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def n5_member(rank, init, path, out_path, device, requests_path):
+    """One process of N5's pod (spawned): joins the gloo group through the
+    `file://` store `init` with 4 shards of `device`, loads the pod's
+    requests (`n5_write_requests`), runs `reconcile_pod` (wire) on a
+    native 4-shard file store of its own with every kernel's count set to
+    0 just before, and pickles its answers, digest, owners, walls and
+    kernel launches to `out_path`."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from evolu_tpu_torch.ops import cuda_hash, cuda_scan
+    from evolu_tpu_torch.parallel.multihost import initialize_multihost
+    from evolu_tpu_torch.server.engine import reconcile_pod
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+
+    fns = (cuda_scan.segmented_max_scan_cuda, cuda_hash.timestamp_hash_cuda, cuda_scan.segmented_xor_scan_cuda,
+           cuda_scan.segmented_sum_scan_cuda)
+    t0 = time.perf_counter()
+    mesh = initialize_multihost(f"file://{init}", 2, rank, devices=[device] * 4, timeout_s=N5_JOIN_S)
+    requests, expect = n5_load_requests(requests_path)
+    store = ShardedRelayStore(path, backend="native", shards=4)
+    start_s = time.perf_counter() - t0
+    try:
+        for f in fns:
+            f.launches = 0
+        t0 = time.perf_counter()
+        responses, digest = reconcile_pod(mesh, store, requests, wire=True)
+        wall = time.perf_counter() - t0
+        launches = dict(zip(N_LWW, (f.launches for f in fns)))
+        owners = store.user_ids()
+    finally:
+        store.close()
+    dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump({"answers": {i: r for i, r in enumerate(responses) if r is not None}, "digest": digest,
+                     "expect": expect, "owners": owners, "wall_s": wall, "start_s": start_s,
+                     "launches": launches, "mesh": [(str(s.device), s.rank) for s in mesh.shards]}, f)
+
+
+def n5_spawn(tmp, requests_path):
+    """Start N5's two pod processes (spawned: the parent holds a CUDA
+    context). → (processes, their result paths, the requests' path)."""
+    ctx = multiprocessing.get_context("spawn")
+    outs = [os.path.join(tmp, f"n5_{r}.pkl") for r in range(2)]
+    procs = [ctx.Process(target=n5_member, args=(r, os.path.join(tmp, "n5.gloo"), os.path.join(tmp, f"n5_{r}.db"),
+                                                 outs[r], N5_MEMBER_DEVICE, requests_path), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs, outs, requests_path
+
+
+def path_n5(torch, kernels, spawned, tmp, gpu=""):
+    """N5, config 5's pod across two processes on one card, each in a gloo
+    group through a `file://` store with 4 shards of cuda:0, running
+    `reconcile_pod` on a native 4-shard store of its own (`n5_member`,
+    started before path M4). Both digests equal, and equal a 1-process port
+    `reconcile_pod` on 8 shards and the host fold; every request answered
+    once, the union byte-equal to the 1-process answers; each store holds
+    only its process's owners. The 1-process pass runs after the pod
+    processes ended, so neither shares the card with the other. The
+    launches are the pod processes' (H = X = 4 each)."""
+    import pickle
+
+    from evolu_tpu_torch.parallel.mesh import create_mesh
+    from evolu_tpu_torch.server.engine import owner_process, reconcile_pod
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+
+    procs, outs, requests_path = spawned
+    t0 = time.perf_counter()
+    deadline = time.perf_counter() + N5_JOIN_S
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 1.0))
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if codes != [0, 0]:
+        raise AssertionError(f"path N5: the pod processes ended {codes}")
+    wait_s = time.perf_counter() - t0
+    requests, expect = n5_load_requests(requests_path)
+    store = ShardedRelayStore(os.path.join(tmp, "n5_one.db"), backend="native", shards=4)
+    try:
+        t1 = time.perf_counter()
+        want, digest = reconcile_pod(create_mesh(devices=["cuda:0"] * N_SHARDS), store, requests, wire=True)
+        one_wall = time.perf_counter() - t1
+    finally:
+        store.close()
+    members = []
+    for path in outs:
+        with open(path, "rb") as f:
+            members.append(pickle.load(f))
+    union = {}
+    for m in members:
+        for i, body in m["answers"].items():
+            if i in union:
+                raise AssertionError(f"path N5: request {i} answered twice")
+            union[i] = body
+    if sorted(union) != list(range(len(requests))) or [union[i] for i in range(len(requests))] != want:
+        raise AssertionError("path N5: the two processes' answers differ from the 1-process pod pass's")
+    if not (members[0]["digest"] == members[1]["digest"] == digest == expect):
+        raise AssertionError(f"path N5: digests {[m['digest'] for m in members]}, 1-process {digest:#x}, "
+                             f"host {expect:#x}")
+    for r, m in enumerate(members):
+        mine = sorted(q.user_id for q in requests if owner_process(q.user_id, 2) == r)
+        if sorted(m["owners"]) != mine:
+            raise AssertionError(f"path N5: process {r}'s store holds {len(m['owners'])} owners, not its {len(mine)}")
+        check_n(f"N5 process {r}", m["launches"], lww(0, 4, 4))
+    launches = {k: sum(m["launches"][k] for m in members) for k in N_LWW}
+    report = {"owners": N5_OWNERS, "rows": N5_OWNERS * N5_PER, "digest": f"{digest:#010x}",
+              "process_walls_s": [round(m["wall_s"], 4) for m in members],
+              "process_start_s": [round(m["start_s"], 3) for m in members],
+              "process_owners": [len(m["owners"]) for m in members], "one_process_wall_s": round(one_wall, 4),
+              "wait_s": round(wait_s, 3), "mesh": members[0]["mesh"], "launches": launches}
+    print(f"  path N5: both processes' digests equal the 1-process pass's and the host fold's; the union of their "
+          f"answers equals the 1-process answers; {json.dumps(report)} | {gpu}", flush=True)
+    return launches, report
+
+
+def n6_post(url, bodies, threads=8):
+    """POST every body from `threads` threads; → the answers in order."""
+    import threading
+
+    from evolu_tpu_torch.sync.client import _http_post
+
+    out, errors, it, lock = [None] * len(bodies), [], iter(range(len(bodies))), threading.Lock()
+
+    def lane():
+        try:
+            while True:
+                with lock:
+                    i = next(it, None)
+                if i is None:
+                    return
+                out[i] = _http_post(url, bodies[i])
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    ts = [threading.Thread(target=lane) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise AssertionError("path N6: a POST failed") from errors[0]
+    return out
+
+
+def path_n6(torch, kernels, keep, gpu=""):
+    """N6, the live relay: E2's first N6_REQUESTS requests POSTed to a
+    batching card relay without a mesh, then to `RelayServer(store,
+    mesh_ctx=8 shards of cuda:0, mesh_engine=True)` and to a relay that
+    `EVOLU_MESH_ENGINE=on` turns on (its context the process-wide one, made
+    first over 8 shards of cuda:0), each on a fresh native store: equal
+    bytes; `/stats` carries the `mesh` section with devices 8 and
+    `dispatches_total` equal to the engine passes."""
+    import urllib.request
+
+    from evolu_tpu_torch.parallel.mesh import get_mesh_context
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.sync import protocol
+
+    requests = keep["e2"][0][:N6_REQUESTS]
+    bodies = [protocol.encode_sync_request(r) for r in requests]
+    n = sum(len(r.messages) for r in requests)
+    ref = RelayServer(RelayStore(backend="native"), batching=True).start()
+    try:
+        t0 = time.perf_counter()
+        want = n6_post(ref.url, bodies)
+        report = {"no_mesh": {"requests": len(bodies), "messages": n, "wall_s": round(time.perf_counter() - t0, 4)}}
+    finally:
+        stop_relay(ref)
+    process_ctx = get_mesh_context(devices=["cuda:0"] * N_SHARDS)
+    total = {}
+    for mode in ("mesh_engine", "EVOLU_MESH_ENGINE"):
+        ctx = card_mesh() if mode == "mesh_engine" else process_ctx
+        old = os.environ.get("EVOLU_MESH_ENGINE")
+        if mode == "EVOLU_MESH_ENGINE":
+            os.environ["EVOLU_MESH_ENGINE"] = "on"
+        try:
+            kw = {"mesh_ctx": ctx, "mesh_engine": True} if mode == "mesh_engine" else {}
+            relay = RelayServer(RelayStore(backend="native"), **kw).start()
+        finally:
+            if old is None:
+                os.environ.pop("EVOLU_MESH_ENGINE", None)
+            else:
+                os.environ["EVOLU_MESH_ENGINE"] = old
+        try:
+            dispatches0 = ctx.counts["dispatches"]
+            reset(kernels)
+            t0 = time.perf_counter()
+            got = n6_post(relay.url, bodies)
+            wall = time.perf_counter() - t0
+            launches = read(kernels)
+            with urllib.request.urlopen(relay.url + "/stats", timeout=60) as r:
+                mesh = json.loads(r.read())["mesh"]
+            passes, resolved = relay.scheduler.counts["batches"], relay.scheduler.mesh_ctx
+        finally:
+            stop_relay(relay)
+        add_launches(total, launches)
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"path N6 {mode}: answer {bad} differs from the relay without a mesh")
+        if resolved is not ctx or mesh["devices"] != N_SHARDS or mesh["dispatches_total"] - dispatches0 != passes:
+            raise AssertionError(f"path N6 {mode}: /stats mesh {mesh} for {passes} engine passes")
+        check_n(f"N6 {mode}", launches, lww(0, N_SHARDS * passes, N_SHARDS * passes))
+        report[mode] = {"requests": len(bodies), "messages": n, "wall_s": round(wall, 4),
+                        "msgs_per_s": round(n / wall), "passes": passes, "stats_mesh": mesh}
+    report["launches"] = total
+    print(f"  path N6: both mesh relays answer the bytes of the relay without a mesh; {json.dumps(report)} | {gpu}",
+          flush=True)
+    return total, report
 
 
 def engine_kernel_timing(torch, captured):
@@ -5722,6 +6352,9 @@ def main() -> int:
     launches_m, report_m = {}, {}
     with phase("path M1: path A's owners through the scatter plan vs path A's sort plan", gpu):
         launches_m["m1"], report_m["m1"] = path_m1(torch, kernels, path_a_run, gpu)
+    launches_n, report_n = {}, {}
+    with phase("path N2: path A's owners through reconcile_owner_batches on 8 shards of the card vs path A", gpu):
+        launches_n["n2"], report_n["n2"] = path_n2(torch, kernels, path_a_run, gpu)
         del path_a_run
     # Paths D's, E's, F's and H3's oracles, and H1's bodies, are made in the
     # pool while the card runs paths B to E.
@@ -5731,6 +6364,10 @@ def main() -> int:
     p_dir = tempfile.TemporaryDirectory()
     p_store = os.path.join(p_dir.name, "p1.db")
     p2_oracle_job, p_seed_job = pool.apply_async(p2_oracle), pool.apply_async(p_seed, (p_store,))
+    # Path N5's pod requests too (pickled for the pod processes).
+    n5_dir = tempfile.TemporaryDirectory()
+    n5_requests_path = os.path.join(n5_dir.name, "n5_requests.pkl")
+    n5_requests_job = pool.apply_async(n5_write_requests, (n5_requests_path,))
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
         launches["b"] = path_b(torch, kernels, lww_names)
     captured, c2_calls = {}, {}
@@ -5741,7 +6378,7 @@ def main() -> int:
         launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
         print("  " + json.dumps(report_c2), flush=True)
     with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
-        launches["d"], report_d, trees_d2, batches_d, g1_oracle = path_d(torch, kernels, d_oracle_job)
+        launches["d"], report_d, trees_d2, batches_d, (m3_oracle, g1_oracle) = path_d(torch, kernels, d_oracle_job)
         print("  " + json.dumps(report_d), flush=True)
     captured_e, keep_e = {}, {}
     with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
@@ -5753,17 +6390,28 @@ def main() -> int:
         launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, g1_oracle, pool)
         print("  " + json.dumps(report_g1) + f" | {gpu}", flush=True)
     with phase("path M3: a card DbWorker on the scatter plan replays D1 and D2 vs path D's oracle", gpu):
-        launches_m["m3"], report_m["m3"] = path_m3(torch, kernels, trees_d2, batches_d, g1_oracle, gpu)
-        report_m["m3"]["path_d_msgs_per_s"] = {p: report_d[p]["msgs_per_s"] for p in ("d1", "d2")}
-        del batches_d, g1_oracle
+        launches_m["m3"], report_m["m3"] = path_m3(torch, kernels, trees_d2, batches_d, m3_oracle, gpu)
+        report_m["m3"]["path_d_msgs_per_s"] = {"d1": report_d["d1"]["msgs_per_s"]}
+    with phase("path N4: a card DbWorker on 8 shards (the hot-owner route, the sharded winner cache) replays D1 "
+               "and D2 vs path D's oracle", gpu):
+        launches_n["n4"], report_n["n4"] = path_n4(torch, kernels, trees_d2, batches_d, g1_oracle, report_d, gpu)
+        del batches_d, g1_oracle, m3_oracle
     bodies_h1 = h1_bodies_job.get()
     p2_oracle_out, p_seed_out = p2_oracle_job.get(), p_seed_job.get()
+    n5_requests_job.get()
     pool.terminate()
     pool.join()
     with phase("path G2: the relay's packed ingest on native stores vs path E's generic ingest", gpu):
         launches_g2, report_g2 = path_g2(torch, kernels, keep_e)
         print("  " + json.dumps(report_g2) + f" | {gpu}", flush=True)
     launches["g"] = {k: launches_g1[k] + launches_g2[k] for k in launches_g1}
+    with tempfile.TemporaryDirectory() as tmp_n:
+        with phase("path N3: the relay engine on 8 shards of the card (E1, E2, a hot owner, a cap overflow) vs "
+                   "path E and a 1-shard engine", gpu):
+            launches_n["n3"], report_n["n3"] = path_n3(torch, kernels, keep_e, tmp_n, report_g2, gpu)
+    with phase("path N6: live relays with the mesh engine (mesh_engine, EVOLU_MESH_ENGINE) vs a relay without "
+               "a mesh", gpu):
+        launches_n["n6"], report_n["n6"] = path_n6(torch, kernels, keep_e, gpu)
     report_g = {"g1": report_g1, "g2": report_g2, "launches_g1": launches_g1, "launches_g2": launches_g2}
     with tempfile.TemporaryDirectory() as tmp_hi:
         with phase("path H: the relay as a live HTTP server (batching RelayServer, the streaming ingest, "
@@ -5804,10 +6452,33 @@ def main() -> int:
         report_m["m2"] = path_m2(torch, args, report, gpu)
         del args
         torch.cuda.empty_cache()
-    with phase("path M4: the merge-plan router's edges on the card vs the host oracle and the CPU port", gpu):
-        launches_m["m4"], report_m["m4"] = path_m4(torch, kernels, gpu)
-    launches["m"] = {k: sum(p[k] for p in launches_m.values()) for k in launches_m["m1"]}
-    report_m["launches"] = launches_m
+    with tempfile.TemporaryDirectory() as tmp_n:
+        # N5's pod processes start here, after the timed M2, and start up
+        # while M4 runs; N1 runs after they ended, with the card to itself.
+        spawned_n5 = n5_spawn(tmp_n, n5_requests_path)
+        try:
+            with phase("path M4: the merge-plan router's edges on the card vs the host oracle and the CPU port",
+                       gpu):
+                launches_m["m4"], report_m["m4"] = path_m4(torch, kernels, gpu)
+            launches["m"] = {k: sum(p[k] for p in launches_m.values()) for k in launches_m["m1"]}
+            report_m["launches"] = launches_m
+            with phase("path N5: config 5's pod pass across two processes (gloo, 4 shards each) vs one process",
+                       gpu):
+                launches_n["n5"], report_n["n5"] = path_n5(torch, kernels, spawned_n5, tmp_n, gpu)
+        finally:
+            for p in spawned_n5[0]:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            n5_dir.cleanup()
+    with phase("path N1: config 5's layout at 2^22 messages (cut from 10M) on 8 shards of the card vs one shard",
+               gpu):
+        launches_n["n1"], report_n["n1"] = path_n1(torch, kernels, gpu)
+    launches["n"] = {k: sum(p[k] for p in launches_n.values()) for k in N_LWW}
+    report_n["launches"] = launches_n
+    for k in kernels:
+        if k["slot"] in "LHX" and not launches["n"][k["name"]]:
+            raise AssertionError(f"path N: {k['name']} never launched on the mesh")
     with phase("kernel timing on main-path inputs", gpu):
         table = time_kernels(torch, lwws, captured)
         s_shapes = time_sum_kernel(torch, captured)
@@ -5829,7 +6500,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "p", "m"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "p", "m", "n"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -5843,7 +6514,7 @@ def main() -> int:
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
                       "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k,
-                      "scoped_sync": report_p, "merge_plan": report_m}, default=str))
+                      "scoped_sync": report_p, "merge_plan": report_m, "mesh": report_n}, default=str))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

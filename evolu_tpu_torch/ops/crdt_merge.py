@@ -158,7 +158,8 @@ def counter_shard_sums_core(owner_ix, cell_id, delta):
     (`pack_owner_cell_key`, lo_bits=0), then kernel S runs per (owner,
     cell) segment. → (grp, seg_end, pos_sum, neg_sum): the per-cell
     totals sit at the seg-end rows. n ≤ 2^24, owners < 4095, cells <
-    2^25 (one card holds one shard, so segments are complete)."""
+    2^25 (the call runs on one device's columns, so segments are
+    complete)."""
     from evolu_tpu_torch.parallel.reconcile import pack_owner_cell_key
 
     n = cell_id.shape[0]

@@ -172,10 +172,15 @@ def plan_merge_core(cell_id, k1, k2, ex_k1, ex_k2):
     return xor_mask, upsert_mask
 
 
-def unpermute_masks(xor_sorted, upsert_sorted, i_s):
-    """Host side: sorted-order masks + permutation → batch order (numpy)."""
+def unpermute_masks(xor_sorted, upsert_sorted, i_s, block_size: int = 0):
+    """Host side: sorted-order masks + permutation → batch order (numpy).
+    With `block_size` > 0 the arrays are per-shard blocks joined in shard
+    order, each block's `i_s` local to its shard; each block unpermutes
+    within its own span."""
     xor_sorted, upsert_sorted, i_s = (np.asarray(x) for x in (xor_sorted, upsert_sorted, i_s))
     i_s = i_s.astype(np.int64)
+    if block_size:
+        i_s = i_s + (np.arange(len(i_s), dtype=np.int64) // block_size) * block_size
     xor_mask = np.empty_like(xor_sorted)
     upsert_mask = np.empty_like(upsert_sorted)
     xor_mask[i_s] = xor_sorted

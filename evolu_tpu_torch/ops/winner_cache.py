@@ -54,9 +54,11 @@ import torch
 from evolu_tpu_torch.core.types import CrdtMessage
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
+from evolu_tpu_torch.ops.cuda_lib import device_work
 from evolu_tpu_torch.ops.encode import pack_ts_key_host, unpack_ts_keys
 from evolu_tpu_torch.ops.host_parse import intern_cells, parse_timestamp_strings
 from evolu_tpu_torch.ops.merge import (
+    _PAD_CELL,
     PlannedBatch,
     _host_fallback,
     pad_columns,
@@ -190,9 +192,12 @@ class DeviceWinnerCache:
         version = self._read_data_version()
         if version != self._data_version:
             self._data_version = version
-            if self._slots or self._free:
+            if self._has_slot_state():
                 self.counts["foreign_write_drops"] += 1
                 self.reset()
+
+    def _has_slot_state(self) -> bool:
+        return bool(self._slots or self._free)
 
     # -- slot management --
 
@@ -217,8 +222,14 @@ class DeviceWinnerCache:
         if not canonical:
             self.counts["noncanonical_seeds"] += 1
             return False
+        self.counts["seeded_cells"] += len(new_cells)
+        self._assign_and_write_seeds(new_cells, v1, v2)
+        return True
+
+    def _assign_and_write_seeds(self, new_cells: List[Cell], v1: np.ndarray, v2: np.ndarray) -> None:
+        """Give each new cell a slot (freed slots first) and write its
+        seed winner keys there."""
         n = len(new_cells)
-        self.counts["seeded_cells"] += n
         reused = min(len(self._free), n)
         self._grow_to(self._next_slot + n - reused)
         idx = np.empty(n, np.int64)
@@ -231,7 +242,6 @@ class DeviceWinnerCache:
             idx[j] = self._slots[c] = slot
         cols = columns_to_device({"idx": idx, "k1": v1, "k2": v2}, self.device)
         seed_slots(self._w1, self._w2, cols["idx"], cols["k1"], cols["k2"])
-        return True
 
     def _enforce_capacity(self, cells, new_cells):
         """The `max_slots` cap, between the gate and seeding: if this
@@ -449,6 +459,13 @@ class DeviceWinnerCache:
 
     # -- the invariant audit --
 
+    def _gather_slot_values(self, slots: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The keys of `slots`, gathered on the card and pulled in one
+        wave, as np.uint64."""
+        idx = torch.from_numpy(slots).to(self.device)
+        w1, w2 = to_host_many(self._w1[idx], self._w2[idx])
+        return w1.view(np.uint64), w2.view(np.uint64)
+
     def verify_against_db(self, sample: "int | None" = None) -> int:
         """Every live slot's (k1, k2) must equal SQLite's MAX(timestamp)
         for its cell, read back from the slot arrays themselves. Streaming
@@ -468,11 +485,7 @@ class DeviceWinnerCache:
                 "non-canonical stored winner occupies a cache slot "
                 "(the host-fallback invalidation contract is broken)"
             )
-        # Gather only the audited slots on the card; pull both in one wave.
-        idx = torch.from_numpy(
-            np.fromiter((self._slots[c] for c in cells), np.int64, len(cells))
-        ).to(self.device)
-        w1, w2 = (a.view(np.uint64) for a in to_host_many(self._w1[idx], self._w2[idx]))
+        w1, w2 = self._gather_slot_values(np.fromiter((self._slots[c] for c in cells), np.int64, len(cells)))
         bad = []
         for j, c in enumerate(cells):
             if w1[j] != v1[j] or w2[j] != v2[j]:
@@ -482,3 +495,188 @@ class DeviceWinnerCache:
         if bad:
             raise AssertionError(f"winner cache != MAX(timestamp) for {len(bad)}+ cells: {bad}")
         return len(cells)
+
+
+class MeshShardedWinnerCache(DeviceWinnerCache):
+    """The winner store sharded over a mesh (`parallel.mesh.MeshContext`):
+    one pair of slot tensors a shard, each on its shard's device, each
+    `capacity` slots plus its own dump row. A cell lives on a stable shard
+    (`owner_shard` of its interned key), and a batch's plan runs on every
+    shard at once: each shard gathers, plans, hashes, folds and scatters
+    the cells it owns from its own slots (kernel L twice, H and X a
+    shard), and the per-shard (minute, xor) partials XOR-merge in the
+    host decoder, the cross-shard reduction of the Merkle deltas.
+
+    Coherence is the base contract, per shard: every live slot equals
+    SQLite's MAX(timestamp) for its cell (`verify_against_db` audits
+    through per-shard gathers), and the invalidation, reset and
+    foreign-write hooks are the base's. Slot ids are `local * n_shards +
+    shard`, so growing the per-shard capacity never rewrites an assigned
+    id. Pad rows target each shard's dump row. `device` defaults to the
+    mesh's first shard (the streamed route and host fallbacks run there)."""
+
+    def __init__(
+        self,
+        db,
+        mesh_ctx=None,
+        capacity: int = 1 << 12,
+        adaptive: bool = True,
+        max_slots: "int | None" = 1 << 22,
+        device=None,
+    ):
+        from evolu_tpu_torch.parallel.mesh import MeshContext
+
+        self.ctx = mesh_ctx if mesh_ctx is not None else MeshContext()
+        self.n_shards = self.ctx.n_shards
+        self._free_by_shard: List[List[int]] = [[] for _ in range(self.n_shards)]
+        self._next_by_shard: List[int] = [0] * self.n_shards
+        super().__init__(db, capacity=capacity, adaptive=adaptive, max_slots=max_slots,
+                         device=self.ctx.mesh.devices[0] if device is None else device)
+
+    # -- placement --
+
+    def _cell_shard(self, cell: Cell) -> int:
+        from evolu_tpu_torch.parallel.mesh import owner_shard
+
+        return owner_shard("\x00".join(cell), self.n_shards)
+
+    def shard_slot_counts(self) -> List[int]:
+        """Live slots a shard."""
+        counts = [0] * self.n_shards
+        for slot in self._slots.values():
+            counts[slot % self.n_shards] += 1
+        return counts
+
+    # -- slot arrays --
+
+    def _alloc_slot_arrays(self) -> None:
+        devices = self.ctx.mesh.devices
+        self._w1 = [torch.zeros(self.capacity + 1, dtype=torch.int64, device=d) for d in devices]
+        self._w2 = [torch.zeros(self.capacity + 1, dtype=torch.int64, device=d) for d in devices]
+
+    def slot_values(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Both slot arrays on the host as (n_shards, capacity) np.uint64,
+        the dump rows cut."""
+        cap = self.capacity
+        flat = to_host_many(*(w[:cap] for w in self._w1), *(w[:cap] for w in self._w2))
+        ns = self.n_shards
+        return (np.stack(flat[:ns]).view(np.uint64), np.stack(flat[ns:]).view(np.uint64))
+
+    def _has_slot_state(self) -> bool:
+        return bool(self._slots) or any(self._free_by_shard)
+
+    def _grow_to(self, needed: int) -> None:
+        """Grow the per-shard capacity by doubling."""
+        new_cap = self.capacity
+        while new_cap < needed:
+            new_cap *= 2
+        if new_cap != self.capacity:
+            self._w1 = [grow_slots(w, new_cap) for w in self._w1]
+            self._w2 = [grow_slots(w, new_cap) for w in self._w2]
+            self.capacity = new_cap
+            self.counts["grows"] += 1
+
+    def _assign_and_write_seeds(self, new_cells: List[Cell], v1: np.ndarray, v2: np.ndarray) -> None:
+        """Per-shard slots: each new cell takes a freed slot of its shard,
+        else the shard's next one, and each shard writes its seeds into its
+        own slot tensors."""
+        ns = self.n_shards
+        by_shard: List[List[int]] = [[] for _ in range(ns)]
+        for j, c in enumerate(new_cells):
+            by_shard[self._cell_shard(c)].append(j)
+        need = self.capacity
+        for si, js in enumerate(by_shard):
+            need = max(need, self._next_by_shard[si] + max(len(js) - len(self._free_by_shard[si]), 0))
+        self._grow_to(need)
+        for si, js in enumerate(by_shard):
+            if not js:
+                continue
+            idx = np.empty(len(js), np.int64)
+            for k, j in enumerate(js):
+                if self._free_by_shard[si]:
+                    local = self._free_by_shard[si].pop()
+                else:
+                    local = self._next_by_shard[si]
+                    self._next_by_shard[si] += 1
+                self._slots[new_cells[j]] = local * ns + si
+                idx[k] = local
+            cols = columns_to_device({"idx": idx, "k1": v1[js], "k2": v2[js]}, self.ctx.mesh.devices[si])
+            seed_slots(self._w1[si], self._w2[si], cols["idx"], cols["k1"], cols["k2"])
+
+    def invalidate(self, cells) -> None:
+        for c in cells:
+            slot = self._slots.pop(c, None)
+            if slot is not None:
+                self._free_by_shard[slot % self.n_shards].append(slot // self.n_shards)
+                self.counts["invalidated_cells"] += 1
+
+    def reset(self) -> None:
+        super().reset()
+        self._free_by_shard = [[] for _ in range(self.n_shards)]
+        self._next_by_shard = [0] * self.n_shards
+
+    # -- the sharded plan pass --
+
+    def _run_cached_plan(self, cell_ids, slots, millis, counter, node, n):
+        """Route each row to the shard holding its cell's slot (same-cell
+        rows co-locate, and the stable routing keeps them in batch order
+        within a shard: the planner's idx tiebreak), pad every shard to
+        one power-of-two bucket, run `cached_plan` on every shard, pull
+        all shards in one wave, unpermute per shard block and map back
+        through the routing. → (xor_mask, upsert_mask, deltas) in batch
+        order, equal to the one-device cache's."""
+        k1 = pack_ts_key_host(millis, counter)
+        ns = self.n_shards
+        shard = (slots % ns).astype(np.int64)
+        local = (slots // ns).astype(np.int64)
+        loads = np.bincount(shard, minlength=ns)
+        size = bucket_size(max(int(loads.max(initial=0)), 1))
+        total = ns * size
+        cell_p = np.full(total, int(_PAD_CELL), np.int32)
+        slots_p = np.zeros(total, np.int64)
+        k1_p = np.zeros(total, np.uint64)
+        k2_p = np.zeros(total, np.uint64)
+        order = np.argsort(shard, kind="stable")
+        offs = np.zeros(ns + 1, np.int64)
+        offs[1:] = np.cumsum(loads)
+        pos_in_shard = np.empty(n, np.int64)
+        pos_in_shard[order] = np.arange(n, dtype=np.int64) - offs[shard[order]]
+        dest = shard * size + pos_in_shard
+        cell_p[dest] = cell_ids
+        slots_p[dest] = local
+        k1_p[dest] = k1
+        k2_p[dest] = node
+        self.ctx.record_occupancy(loads.tolist(), size)
+        self.ctx.record_xdev_reduce("winner_minute_partials")
+        outs = []
+        with device_work("a sharded winner-cache plan"):
+            for si, dev in enumerate(self.ctx.mesh.devices):
+                sl = slice(si * size, (si + 1) * size)
+                cols = columns_to_device({"cell_id": cell_p[sl], "slots": slots_p[sl], "k1": k1_p[sl],
+                                          "k2": k2_p[sl]}, dev)
+                outs.append(cached_plan(self._w1[si], self._w2[si], cols["slots"], cols["cell_id"],
+                                        cols["k1"], cols["k2"]))
+            flat = to_host_many(*(x for o in outs for x in o))
+        xor_s, upsert_s, i_s, minute_sorted, seg_end, seg_xor, valid = (
+            np.concatenate(flat[k::7]) for k in range(7))
+        xor_flat, upsert_flat = unpermute_masks(xor_s, upsert_s, i_s, block_size=size)
+        deltas = decode_owner_minute_deltas(
+            np.zeros(total, np.int32), minute_sorted, seg_end, seg_xor, valid
+        ).get(0, {})
+        return xor_flat[dest], upsert_flat[dest], deltas
+
+    def _gather_slot_values(self, slots: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The base audit's gather, shard by shard (slot id = local *
+        n_shards + shard), pulled in one wave."""
+        ns = self.n_shards
+        rows = [np.nonzero(slots % ns == si)[0] for si in range(ns)]
+        gathers = []
+        for si, dev in enumerate(self.ctx.mesh.devices):
+            idx = torch.from_numpy(slots[rows[si]] // ns).to(dev)
+            gathers += [self._w1[si][idx], self._w2[si][idx]]
+        pulled = to_host_many(*gathers)
+        w1, w2 = np.empty(len(slots), np.uint64), np.empty(len(slots), np.uint64)
+        for si in range(ns):
+            w1[rows[si]] = pulled[2 * si].view(np.uint64)
+            w2[rows[si]] = pulled[2 * si + 1].view(np.uint64)
+        return w1, w2

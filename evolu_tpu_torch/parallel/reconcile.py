@@ -1,10 +1,12 @@
 """Multi-owner reconcile — the LWW reconcile pass for a fleet of owners.
 
-One dispatch plans every owner's LWW merges and per-(owner, minute)
-Merkle XOR deltas and reduces the batch digest. The JAX package shards
-owners over a device mesh and XOR-all-reduces the per-shard digests;
-here one card holds one shard, so the all-reduce is the identity and
-the 9-output contract of the shard kernel stays as it is:
+One pass plans every owner's LWW merges and per-(owner, minute) Merkle
+XOR deltas and reduces the batch digest. Owners are assigned to the
+shards of a mesh (`parallel/mesh.py`; never split), each shard runs the
+shard kernel on its own slice on its own device, and the only
+cross-shard value is the digest: the shards' digests XOR on the host,
+and across processes through one gloo all_gather (`xor_allreduce`). A
+shard kernel keeps the 9-output contract:
 
     (xor_sorted, upsert_sorted, i_s, owner_sorted, minute_sorted,
      seg_end, seg_xor, valid_sorted, digest)
@@ -20,7 +22,7 @@ the packed-owner sort kernel and the wide-id sort kernel.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,7 @@ import torch
 from evolu_tpu_torch.core.types import CrdtMessage
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
+from evolu_tpu_torch.ops.cuda_lib import device_work
 from evolu_tpu_torch.ops.encode import unpack_ts_keys
 from evolu_tpu_torch.ops.merge import (
     _PAD_CELL,
@@ -39,6 +42,13 @@ from evolu_tpu_torch.ops.merge import (
     winner_flags,
 )
 from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas, owner_minute_segments
+from evolu_tpu_torch.parallel.mesh import (
+    Mesh,
+    assign_owners_to_shards,
+    put_sharded,
+    require_single_process,
+    single_mesh,
+)
 
 # Packed-owner sort key: owner(12) | cell(25) | idx(24) | flags(2) = 63
 # bits. Owner value 4095 is the padding sentinel (sorts last), so real
@@ -159,27 +169,110 @@ def shard_kernel_for(cols: Dict[str, np.ndarray], device=None):
     return _shard_kernel_wide
 
 
-def reconcile_columns(cols: Dict[str, np.ndarray], device=None):
-    """Run the shard kernel on flat padded numpy columns. → the 9 outputs
-    as tensors on `device`; masks are in sorted order (batch order on the
-    scatter route) and `unpermute_masks` restores batch order on the
-    host."""
-    device = resolve_device(device)
-    kernel = shard_kernel_for(cols, device)
-    t = columns_to_device({k: cols[k] for k in COLUMN_NAMES}, device)
-    return kernel(*(t[k] for k in COLUMN_NAMES))
+def xor_allreduce(digests, mesh: Optional[Mesh] = None) -> int:
+    """XOR-combine per-shard digests across the mesh → the batch digest
+    as an unsigned 32-bit int. Within a process the shards' digests are
+    host numbers already (pulled with their outputs); across processes
+    (a mesh whose shards live on several ranks) each process's XOR rides
+    one `all_gather` of an int64 CPU tensor over a gloo group, then a
+    local XOR. NCCL has no XOR reduction; XOR is associative and
+    commutative, so the reduction is exact in any order."""
+    local = 0
+    for d in digests:
+        local ^= int(d) & 0xFFFFFFFF
+    if mesh is None or not mesh.is_multiprocess():
+        return local
+    import torch.distributed as dist
+
+    from evolu_tpu_torch.parallel.multihost import digest_group
+
+    group = digest_group()
+    out = [torch.zeros(1, dtype=torch.int64) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, torch.tensor([local], dtype=torch.int64), group=group)
+    total = 0
+    for x in out:
+        total ^= int(x[0])
+    return total
+
+
+def dispatch_columns_sharded(mesh: Mesh, cols: Dict[str, np.ndarray], kernel=None,
+                             names=COLUMN_NAMES, run=None, what: str = "a sharded reconcile pass"):
+    """Launch one shard's work on each of this process's shards: shard i
+    takes rows [i*S, (i+1)*S) of the flat global columns `names` (shards
+    sharing a device run in shard order on its current stream).
+    `run(part, device)` launches a shard from its host slices (a dict in
+    `names` order); by default they go straight to the shard's device and
+    the shard kernel runs on them, routed once on the whole layout
+    (`shard_kernel_for`), so every shard runs the same one. → per-shard
+    output tuples, None for other processes' shards."""
+    if run is None:
+        if kernel is None:
+            kernel = shard_kernel_for(cols, mesh.devices[0])
+
+        def run(part, device):
+            t = columns_to_device(part, device)
+            return kernel(*(t[k] for k in names))
+    outs: List[Optional[tuple]] = [None] * mesh.size
+    with device_work(what):
+        for i, part in enumerate(zip(*(put_sharded(cols[k], mesh) for k in names))):
+            if part[0] is not None:
+                outs[i] = run(dict(zip(names, part)), mesh.devices[i])
+    return outs
+
+
+def pull_shards(outs) -> List[tuple]:
+    """The local shards' outputs in one pull wave, each output joined in
+    shard order → one tuple of flat numpy arrays."""
+    local = [o for o in outs if o is not None]
+    if not local:
+        return []
+    width = len(local[0])
+    with device_work("a sharded pass's pull"):
+        flat = to_host_many(*(x for o in local for x in o))
+    return [np.concatenate([flat[j * width + k] for j in range(len(local))]) for k in range(width)]
+
+
+def reconcile_columns_sharded(mesh: Mesh, cols: Dict[str, np.ndarray]):
+    """The sharded kernel on flat global columns (length D*S, owners laid
+    out shard-contiguously). → (xor_sorted, upsert_sorted, i_s,
+    owner_sorted, minute_sorted, seg_end, seg_xor, seg_valid, digest):
+    numpy arrays of this process's shards joined in shard order (the
+    whole layout in one process), masks in per-shard sorted order
+    (`unpermute_masks(..., block_size=S)` restores batch order), and the
+    whole batch's digest, all-reduced over every process's shards."""
+    pulled = pull_shards(dispatch_columns_sharded(mesh, cols))
+    if not pulled:
+        return (*(np.zeros(0) for _ in range(8)), xor_allreduce((), mesh))
+    *arrays, digests = pulled
+    return (*arrays, xor_allreduce(digests.view(np.uint32).tolist(), mesh))
+
+
+def _layout_mesh(mesh, mesh_ctx, device):
+    if mesh is None:
+        mesh = mesh_ctx.mesh if mesh_ctx is not None else single_mesh(resolve_device(device))
+    return mesh
 
 
 def build_owner_columns(
     owner_batches: Dict[str, Sequence[CrdtMessage]],
     existing_winners: Dict[str, Dict[Tuple[str, str, str], str]],
+    mesh: Optional[Mesh] = None,
+    mesh_ctx=None,
 ):
-    """Host-side layout: per-owner columnarization → flat padded columns
-    (owners contiguous, one shard) + the index to scatter results back.
+    """Host-side layout: per-owner columnarization → shard assignment →
+    flat padded global columns (D shards of S rows, S the power-of-two
+    bucket of the largest shard load) + the index to scatter results
+    back. Owners go to shards by greedy LPT, or with `mesh_ctx` by its
+    stable placement (`assign_stable`; the context records the per-shard
+    rows and the digest reduce). `mesh` None is one shard (the context's
+    mesh with a context).
 
     Returns (cols, index, host_owners): `host_owners` are owners whose
     batch or stored winners use non-canonical hex case; they stay out of
     the layout and are planned on the host, owner by owner."""
+    if mesh is None and mesh_ctx is not None:
+        mesh = mesh_ctx.mesh
+    n_shards = 1 if mesh is None else mesh.size
     per_owner = {}
     host_owners = []
     cell_base = 0
@@ -192,8 +285,20 @@ def build_owner_columns(
             continue
         per_owner[o] = (cell_ids + cell_base, k1, k2, ex_k1, ex_k2)
         cell_base += len(msgs)  # intern ids are < len(msgs)
+    owner_ix = {o: i for i, o in enumerate(per_owner)}
 
-    total = bucket_size(max(sum(len(owner_batches[o]) for o in per_owner), 1))
+    sizes = {o: len(owner_batches[o]) for o in per_owner}
+    if mesh_ctx is not None:
+        shards = mesh_ctx.assign_stable(sizes)
+    else:
+        shards = assign_owners_to_shards(sizes, n_shards)
+    loads = [sum(sizes[o] for o in s) for s in shards]
+    shard_size = bucket_size(max(max(loads, default=0), 1))
+    if mesh_ctx is not None:
+        mesh_ctx.record_occupancy(loads, shard_size)
+        mesh_ctx.record_xdev_reduce("digest")
+
+    total = n_shards * shard_size
     out = {
         "cell_id": np.full(total, int(_PAD_CELL), np.int32),
         "k1": np.zeros(total, np.uint64),
@@ -203,15 +308,17 @@ def build_owner_columns(
         "owner_ix": np.zeros(total, np.int64),
     }
     index: Dict[str, Tuple[np.ndarray, int]] = {}
-    pos = 0
-    for o_ix, (o, (cell_ids, k1, k2, ex_k1, ex_k2)) in enumerate(per_owner.items()):
-        sl = slice(pos, pos + len(cell_ids))
-        out["cell_id"][sl] = cell_ids
-        out["k1"][sl], out["k2"][sl] = k1, k2
-        out["ex_k1"][sl], out["ex_k2"][sl] = ex_k1, ex_k2
-        out["owner_ix"][sl] = o_ix
-        index[o] = (np.arange(sl.start, sl.stop), o_ix)
-        pos = sl.stop
+    for si, shard in enumerate(shards):
+        pos = si * shard_size
+        for o in shard:
+            cell_ids, k1, k2, ex_k1, ex_k2 = per_owner[o]
+            sl = slice(pos, pos + len(cell_ids))
+            out["cell_id"][sl] = cell_ids
+            out["k1"][sl], out["k2"][sl] = k1, k2
+            out["ex_k1"][sl], out["ex_k2"][sl] = ex_k1, ex_k2
+            out["owner_ix"][sl] = owner_ix[o]
+            index[o] = (np.arange(sl.start, sl.stop), owner_ix[o])
+            pos = sl.stop
     return out, index, host_owners
 
 
@@ -219,8 +326,12 @@ def reconcile_owner_batches(
     owner_batches: Dict[str, Sequence[CrdtMessage]],
     existing_winners: Dict[str, Dict[Tuple[str, str, str], str]],
     device=None,
+    mesh: Optional[Mesh] = None,
+    mesh_ctx=None,
 ):
-    """Full multi-owner reconcile: one device pass for all owners.
+    """Full multi-owner reconcile: one device pass for all owners, each
+    shard of `mesh` (default: the context's mesh, else one shard on
+    `device`, None = the card) planning the owners laid out on it.
 
     Returns ({owner: (xor_mask, upserts, minute_deltas)}, digest) with
     the per-owner contract of the single-owner planner
@@ -228,18 +339,19 @@ def reconcile_owner_batches(
     caller can apply results to per-owner SQLite stores and trees."""
     if not owner_batches:
         return {}, 0
-    device = resolve_device(device)
-    cols, index, host_owners = build_owner_columns(owner_batches, existing_winners)
+    require_single_process("reconcile_owner_batches")
+    mesh = _layout_mesh(mesh, mesh_ctx, device)
+    cols, index, host_owners = build_owner_columns(owner_batches, existing_winners, mesh, mesh_ctx)
     results = {}
     digest = 0
     if index:
         (xor_s, upsert_s, i_s, owner_sorted, minute_sorted, seg_end, seg_xor, seg_valid,
-         dev_digest) = to_host_many(*reconcile_columns(cols, device))
-        xor_mask, upsert_mask = unpermute_masks(xor_s, upsert_s, i_s)
+         digest) = reconcile_columns_sharded(mesh, cols)
+        shard_size = len(cols["cell_id"]) // mesh.size
+        xor_mask, upsert_mask = unpermute_masks(xor_s, upsert_s, i_s, block_size=shard_size)
         deltas_by_ix = decode_owner_minute_deltas(
             owner_sorted, minute_sorted, seg_end, seg_xor, seg_valid
         )
-        digest = int(dev_digest.view(np.uint32)[0])
         for owner, (positions, o_ix) in index.items():
             results[owner] = (
                 xor_mask[positions].tolist(),

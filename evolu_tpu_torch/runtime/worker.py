@@ -33,9 +33,13 @@ it brings into scope from the local log. `scope_counts` tallies what the
 reference posts to its `evolu_scope_*` metrics: deferred messages,
 re-materialized messages and deferred queries.
 
-Not ported yet, and refused rather than routed elsewhere: the
-multi-device hot-owner route, and the metrics, flight recorder and
-tracing seams.
+On a mesh of two or more shards (`mesh_ctx`, or every card of a
+multi-card host) a batch of at least `Config.hot_owner_min_batch`
+messages shards by cell ranges (`parallel/hot_owner.py`), and with
+`Config.mesh_engine` the winner cache shards its slots over the mesh
+(`MeshShardedWinnerCache`).
+
+Not ported yet: the metrics, flight recorder and tracing seams.
 """
 
 from __future__ import annotations
@@ -91,20 +95,28 @@ _MISSING = object()  # pop sentinel: a cached [] must still count
 _BACKENDS = ("cpu", "auto", "cuda")
 
 
-def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device=None) -> Callable:
+def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device=None,
+                   mesh_ctx=None) -> Callable:
     """The merge planner for `config.backend`: the host oracle for
     "cpu"; for "auto" the host oracle below `min_device_batch` and the
-    device planner at or above it; for "cuda" the device planner always.
-    `device` (None = CUDA, which raises without a card) is where the
-    device planner runs. Every backend but "cpu" sets the process-wide
-    LWW plan formulation from `config.merge_plan`, as the reference does.
+    device planner at or above it; for "cuda" the device planner always;
+    and the cell-range-sharded hot-owner plan (`parallel/hot_owner.py`)
+    for batches of at least `config.hot_owner_min_batch` on a mesh of two
+    or more shards. `device` (None = CUDA, which raises without a card) is
+    where the device planner runs; `mesh_ctx` (a `parallel.mesh.
+    MeshContext`) is the worker's mesh, by default the process-wide one
+    on a host with two or more cards, else none (one shard: no hot route,
+    no sharded cache). Every backend but "cpu" sets the process-wide LWW
+    plan formulation from `config.merge_plan`, as the reference does.
 
     With `db` and `config.winner_cache`, device-planned batches take
-    their stored winners from the device-resident cache: the returned
-    planner then owns winner fetching (`fetches_winners = False`,
-    `on_transaction_failed`, `.cache`), and any batch planned outside
-    the cache (host oracle, or a caller that handed explicit winners)
-    invalidates its touched cells, keeping cache == SQLite."""
+    their stored winners from the device-resident cache
+    (`MeshShardedWinnerCache` under `config.mesh_engine` on a mesh of two
+    or more shards, else `DeviceWinnerCache`): the returned planner then
+    owns winner fetching (`fetches_winners = False`,
+    `on_transaction_failed`, `.cache`), and any batch planned outside the
+    cache (host oracle, hot owner, or a caller that handed explicit
+    winners) invalidates its touched cells, keeping cache == SQLite."""
     if config.backend not in _BACKENDS:
         raise ValueError(f"Config.backend must be one of {_BACKENDS}, got {config.backend!r}")
     if config.backend == "cpu":
@@ -116,15 +128,25 @@ def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device
     set_plan_path(config.merge_plan)
     device = resolve_device(device)
     threshold = 0 if config.backend == "cuda" else config.min_device_batch
+    hot_min = config.hot_owner_min_batch
+    mesh_ctx = _worker_mesh(config, device, mesh_ctx)
+    multi = _multi_device(mesh_ctx)
     cache = None
     if db is not None and config.winner_cache:
-        from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache
+        if config.mesh_engine and multi:
+            from evolu_tpu_torch.ops.winner_cache import MeshShardedWinnerCache
 
-        cache = DeviceWinnerCache(db, device=device)
+            cache = MeshShardedWinnerCache(db, mesh_ctx=mesh_ctx, device=device)
+        else:
+            from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache
+
+            cache = DeviceWinnerCache(db, device=device)
 
     def planner(batch, existing):
+        hot_route = hot_min is not None and len(batch) >= hot_min and multi
+        touched = None
         if cache is not None:
-            if len(batch) >= threshold and not existing:
+            if not hot_route and len(batch) >= threshold and not existing:
                 return cache.plan_batch(batch)  # the standard device route
             # A route outside the cache plans this batch: it needs the
             # real stored winners, and afterwards the cache entries of
@@ -132,16 +154,28 @@ def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device
             touched = {(m.table, m.row, m.column) for m in batch}
             if not existing:
                 existing = fetch_existing_winners(db, touched)
+        cols = None
+        if hot_route:
+            plan, cols = _plan_hot_owner(batch, existing, mesh_ctx.mesh)
+            if plan is not None:
+                if touched is not None:
+                    cache.invalidate(touched)
+                return plan
+        if touched is not None:
             cache.invalidate(touched)
         if len(batch) >= threshold:
-            return plan_batch_device_full(batch, existing, device=device)
+            # `cols` reuses the hot route's columns when it declined the
+            # batch (non-canonical hex case).
+            return plan_batch_device_full(batch, existing, cols=cols, device=device)
         return plan_batch(batch, existing)
 
     def plan_packed(pb):
         """The packed twin of `planner` for a PackedReceive. None =
         materialize and take the object path (which owns invalidation
-        for those shapes): small batches take the host oracle there."""
-        if len(pb) < threshold:
+        for those shapes): small batches take the host oracle there, and
+        hot-owner batches their sharded route."""
+        n = len(pb)
+        if n < threshold or (hot_min is not None and n >= hot_min and multi):
             return None
         if cache is not None:
             return cache.plan_packed(pb)
@@ -150,11 +184,53 @@ def select_planner(config: Config, db: Optional[PySqliteDatabase] = None, device
         return _plan_packed_streamed_nocache(db, pb, device)
 
     planner.plan_packed = plan_packed
+    planner.mesh_ctx = mesh_ctx
     if cache is not None:
         planner.fetches_winners = False
         planner.on_transaction_failed = cache.on_transaction_failed
         planner.cache = cache
     return planner
+
+
+def _worker_mesh(config: Config, device, mesh_ctx):
+    """The worker's mesh context: the caller's; else, for a CUDA planner
+    on a host with two or more cards, the process-wide one
+    (`get_mesh_context(config.mesh_devices)`); else None, one shard."""
+    if mesh_ctx is not None:
+        return mesh_ctx
+    import torch
+
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        from evolu_tpu_torch.parallel.mesh import get_mesh_context
+
+        return get_mesh_context(config.mesh_devices)
+    return None
+
+
+def _multi_device(mesh_ctx) -> bool:
+    """The resolved mesh has at least two shards."""
+    return mesh_ctx is not None and mesh_ctx.n_shards >= 2
+
+
+def _plan_hot_owner(batch, existing, mesh):
+    """One client is one owner; a batch of at least hot_owner_min_batch
+    shards by cell-id ranges over the mesh (per-cell LWW merges are
+    independent). → (plan, cols): the planner result, or plan None when
+    the batch has non-canonical hex case (the device order and hash do
+    not hold there, and `plan_batch_device_full`'s own fallback takes
+    over); `cols` carries the columns for reuse either way."""
+    from evolu_tpu_torch.ops.merge import PlannedBatch, messages_to_columns, select_messages
+    from evolu_tpu_torch.parallel.hot_owner import reconcile_hot_owner
+
+    cols = messages_to_columns(batch, existing)
+    cell_id, k1, k2, ex_k1, ex_k2, millis, counter, node, canonical = cols
+    if not canonical:
+        return None, cols
+    xor_mask, upsert_mask, deltas, _digest = reconcile_hot_owner(
+        mesh, cell_id, k1, k2, ex_k1, ex_k2, millis, counter, node
+    )
+    return PlannedBatch(xor_mask.tolist(), select_messages(batch, upsert_mask), deltas,
+                        upsert_mask), cols
 
 
 def _plan_packed_streamed_nocache(db, pb, device):
@@ -175,7 +251,8 @@ class DbWorker:
     """The engine. Post commands with `post`; outputs arrive on the
     `on_output` callback from the worker thread (or synchronously from
     `start` for `OnInit`). `device` is where the device planner and the
-    typed folds run (None = CUDA)."""
+    typed folds run (None = CUDA); `mesh_ctx` is the planner's mesh
+    (`select_planner`)."""
 
     def __init__(
         self,
@@ -186,6 +263,7 @@ class DbWorker:
         now: Callable[[], int] = _now_millis,
         sync_lock: Optional[SyncLock] = None,
         device=None,
+        mesh_ctx=None,
     ):
         self.db = db
         self.config = config or Config()
@@ -215,7 +293,7 @@ class DbWorker:
         self._query_lru: Dict[str, None] = {}
         self._change_log: List[tuple] = []
         self._change_seq: int = 0
-        self._planner = select_planner(self.config, self.db, device)
+        self._planner = select_planner(self.config, self.db, device, mesh_ctx)
         self._staged_effects: List = []
         self._staged_cache: Dict[str, List[dict]] = {}
         self._staged_raw: Dict[str, tuple] = {}

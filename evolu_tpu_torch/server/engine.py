@@ -1,6 +1,6 @@
 """Batch reconcile engine — many owners' sync rounds in one device pass.
 
-The port's copy of `evolu_tpu.server.engine` on one card. The reference
+The port's copy of `evolu_tpu.server.engine`. The reference
 relay handles one user per HTTP request, inserting and hashing message
 by message (apps/server/src/index.ts:148-159). This engine takes a
 whole batch of SyncRequests (config 3: 1M messages across 1k owners),
@@ -25,10 +25,16 @@ folds the deltas onto the queue's in-memory trees, ACKs the packed rows
 into the queue's fsync'd log, and answers from memory
 (`_finish_batch_deferred`); drain workers materialize SQLite later.
 
-The JAX package shards owners over a device mesh and XOR-all-reduces
-the digest; one card is one shard, so the all-reduce is the identity.
-Every entry point runs on the card unless the caller passes
-`device="cpu"`; without a card it raises.
+With a `MeshContext` (`mesh_ctx=`, the mesh-sharded engine) every pass
+runs over the context's shards: owners placed stably, a hot owner split
+row-wise into units of at most ceil(rows / n), each shard compacting its
+own segments to its own cap, the shards' digests XOR-reduced on the host
+(`parallel.reconcile.xor_allreduce`). Without one a pass has one shard.
+`reconcile_pod` runs the whole server across processes: each process
+stores and answers its own owners, runs the kernels of its own shards,
+and the digest is all-reduced over a gloo group. Every entry point runs
+on the card unless the caller passes `device="cpu"` (or CPU shards);
+without a card it raises.
 
 A scoped request (a `ScopeClause`) ingests like any other; only its
 answer differs: `server/scope.scoped_response` serves it from the scoped
@@ -62,6 +68,17 @@ from evolu_tpu_torch.ops.cuda_lib import device_work
 from evolu_tpu_torch.ops.encode import pack_ts_keys, unpack_ts_keys
 from evolu_tpu_torch.ops.host_parse import parse_packed_timestamps, parse_timestamp_strings
 from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas, owner_minute_segments
+from evolu_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshContext,
+    assign_owners_to_shards,
+    owner_shard,
+    process_count,
+    process_index,
+    require_single_process,
+    single_mesh,
+)
+from evolu_tpu_torch.parallel.reconcile import dispatch_columns_sharded, xor_allreduce
 from evolu_tpu_torch.server import scope
 from evolu_tpu_torch.server.relay import ShardedRelayStore, fetch_response_stream
 from evolu_tpu_torch.sync import protocol
@@ -143,15 +160,15 @@ def _merkle_shard_kernel_compact_delta(dmillis, ownctr, node, base, cap):
 
 
 def owner_minute_deltas(
-    owner_rows: Dict[str, Sequence[str]], device=None
+    owner_rows: Dict[str, Sequence[str]], device=None, mesh=None, ctx=None
 ) -> Tuple[Dict[str, Dict[str, int]], int]:
     """Device pass: {owner: [timestamp strings]} → per-owner {minute-key:
     xor delta} plus the batch digest.
 
     The device hash renders the node hex lower case; the reference hashes
-    the parsed node verbatim, so owners whose rows carry non-canonical
-    hex case take the host fold (one vectorized parse gives the per-row
-    case flags); the other owners stay on the card."""
+    the parsed node verbatim, so owners whose rows carry non-canonical hex
+    case take the host fold (one vectorized parse gives the per-row case
+    flags); the other owners stay on the card."""
     owners = list(owner_rows)
     flat = [ts for o in owners for ts in owner_rows[o]]
     all_m, all_c, all_n, case_ok = parse_timestamp_strings(flat, with_case=True)
@@ -161,7 +178,8 @@ def owner_minute_deltas(
         k = len(owner_rows[o])
         owner_index[o] = np.arange(pos, pos + k)
         pos += k
-    return deltas_from_columns(owner_index, all_m, all_c, all_n, case_ok, flat, device=device)
+    return deltas_from_columns(owner_index, all_m, all_c, all_n, case_ok, flat, device=device,
+                               mesh=mesh, ctx=ctx)
 
 
 def deltas_from_columns(
@@ -172,13 +190,16 @@ def deltas_from_columns(
     case_ok: np.ndarray,
     ts_strings: Sequence[str],
     device=None,
+    mesh=None,
+    ctx=None,
 ) -> Tuple[Dict[str, Dict[str, int]], int]:
     """Device Merkle pass over parsed columns: `owner_index` maps owner →
     row indices to hash. Owners touching any non-canonical row take the
     host fold (`ts_strings` gives it the raw strings); the rest ride one
-    dispatch."""
+    sharded dispatch."""
     return deltas_finish(
-        deltas_dispatch(owner_index, all_m, all_c, all_n, case_ok, ts_strings, device=device)
+        deltas_dispatch(owner_index, all_m, all_c, all_n, case_ok, ts_strings, device=device,
+                        mesh=mesh, ctx=ctx)
     )
 
 
@@ -190,11 +211,24 @@ def deltas_dispatch(
     case_ok: np.ndarray,
     ts_strings: Sequence[str],
     device=None,
+    mesh=None,
+    ctx=None,
 ):
     """First half of `deltas_from_columns`: host folds, host packing, the
-    upload and the kernel launches (asynchronous on a card). Returns an
-    opaque state for `deltas_finish`."""
-    device = resolve_device(device)
+    upload and each shard's kernel launches (asynchronous on a card).
+    Returns an opaque state for `deltas_finish`.
+
+    The pass runs over `mesh` (default: `ctx`'s mesh, else one shard on
+    `device`). An owner bigger than an even shard's share (ceil(rows / n))
+    splits row-wise into (owner, j) units: hashing needs no cell locality,
+    and the decoders XOR-merge repeated (owner, minute) keys. Units go to
+    shards by `ctx.assign_stable` (the mesh engine's stable placement,
+    which records each shard's rows and the `digest` and
+    `owner_delta_partials` reduces), else by LPT. Each shard compacts its
+    segments to its own cap, bucket_size(max(shard_size // 8, 64))."""
+    if mesh is None:
+        mesh = ctx.mesh if ctx is not None else single_mesh(resolve_device(device))
+    require_single_process("engine.deltas_from_columns", mesh)
     owners = list(owner_index)
     deltas: Dict[str, Dict[str, int]] = {o: {} for o in owners}
     digest = 0
@@ -209,22 +243,52 @@ def deltas_dispatch(
     if not good:
         return (deltas, digest, good, None, None)
 
-    # One shard: the good owners' rows, owner after owner, padded to a
-    # bucket. Row order within the shard changes no output.
-    ix = np.concatenate([owner_index[o] for o in good])
-    n = len(ix)
-    total = bucket_size(max(n, 1))
+    owner_ix = {o: i for i, o in enumerate(good)}
+    n_good_rows = sum(len(owner_index[o]) for o in good)
+    target = max(1, -(-n_good_rows // mesh.size))  # ceil
+    units: Dict[Tuple[str, int], np.ndarray] = {}
+    for o in good:
+        ix = owner_index[o]
+        if len(ix) <= target:
+            units[(o, 0)] = ix
+        else:
+            for j, start in enumerate(range(0, len(ix), target)):
+                units[(o, j)] = ix[start : start + target]
+    unit_sizes = {u: len(ix) for u, ix in units.items()}
+    if ctx is not None:
+        shards = ctx.assign_stable(unit_sizes)
+    else:
+        shards = assign_owners_to_shards(unit_sizes, mesh.size)
+    loads = [sum(unit_sizes[u] for u in s) for s in shards]
+    shard_size = bucket_size(max(max(loads, default=0), 1))
+    total = mesh.size * shard_size
+    if ctx is not None:
+        ctx.record_occupancy(loads, shard_size)
+        ctx.record_xdev_reduce("digest")
+        homes: Dict[str, set] = {}
+        for si, s in enumerate(shards):
+            for o, _j in s:
+                homes.setdefault(o, set()).add(si)
+        for o, sis in homes.items():
+            if len(sis) > 1:
+                ctx.record_xdev_reduce("owner_delta_partials")
+
     k1 = np.zeros(total, np.uint64)
     node = np.zeros(total, np.uint64)
     oix = np.full(total, -1, np.int32)
-    # A pre-1970 millis wraps to u64 here and unpacks as ~2^48 - |millis|,
-    # on every route, as in the JAX engine.
-    k1[:n] = (all_m[ix].astype(np.uint64) << np.uint64(16)) | all_c[ix].astype(np.uint64)
-    node[:n] = all_n[ix]
-    oix[:n] = np.repeat(np.arange(len(good), dtype=np.int32),
-                        [len(owner_index[o]) for o in good])
+    for si, shard in enumerate(shards):
+        pos = si * shard_size
+        for u in shard:
+            ix = units[u]
+            sl = slice(pos, pos + len(ix))
+            # A pre-1970 millis wraps to u64 here and unpacks as ~2^48 -
+            # |millis|, on every route, as in the JAX engine.
+            k1[sl] = (all_m[ix].astype(np.uint64) << np.uint64(16)) | all_c[ix].astype(np.uint64)
+            node[sl] = all_n[ix]
+            oix[sl] = owner_ix[u[0]]
+            pos = sl.stop
 
-    cap = bucket_size(max(total // 8, 64))
+    cap = bucket_size(max(shard_size // 8, 64))
     real = oix >= 0
     millis = (k1 >> np.uint64(16)).astype(np.int64)
     real_millis = millis[real]
@@ -253,15 +317,24 @@ def deltas_dispatch(
         _count("full")
         cols = {"k1": k1, "node": node, "owner_ix": oix}
         kernel, args = _merkle_shard_kernel_compact, (cap,)
-    with device_work("a relay batch"):
-        outs = kernel(*columns_to_device(cols, device).values(), *args)
-    return (deltas, digest, good, outs, (k1, node, oix, device, cap))
+    outs = _launch_shards(mesh, cols, lambda t: kernel(*t.values(), *args))
+    return (deltas, digest, good, outs, (k1, node, oix, mesh, cap))
 
 
-def _decode_compact(packed, xors, count) -> Dict[int, Dict[str, int]]:
+def _launch_shards(mesh, cols, run):
+    """`run(columns on a shard's device)` on each of this process's shards'
+    slice of the flat `cols` (`dispatch_columns_sharded`). → per-shard
+    output tuples, None for other processes' shards."""
+    return dispatch_columns_sharded(mesh, cols, names=tuple(cols), what="a relay batch",
+                                    run=lambda part, dev: run(columns_to_device(part, dev)))
+
+
+def _decode_compact(packed, xors, count, by_ix=None) -> Dict[int, Dict[str, int]]:
     """The compact outputs' first `count` entries → {owner_ix:
-    {base3-minute-key: signed-int32 delta}}, one key render a minute."""
-    by_ix: Dict[int, Dict[str, int]] = {}
+    {base3-minute-key: signed-int32 delta}}, one key render a minute,
+    XOR-merged into `by_ix` (one shard's partials onto the others')."""
+    if by_ix is None:
+        by_ix = {}
     key_cache: Dict[int, str] = {}
     for p, x in zip(packed[:count].tolist(), xors[:count].tolist()):
         o_ix = p >> 32
@@ -277,46 +350,48 @@ def _decode_compact(packed, xors, count) -> Dict[int, Dict[str, int]]:
 
 
 def _start_pull(outs):
-    """Queue the copy of the compact outputs to the host behind the
-    dispatch, on the stream that launched it, and record an event after
-    the copy. → (event or None on the CPU, host tensors). Waiting on the
-    event waits for exactly this batch's device work, never for what
-    other threads launched since."""
+    """Queue the copy of every shard's compact outputs to the host behind
+    its dispatch, on the stream that launched it, and record an event on
+    each device's stream after its copies. → (events, per-shard host
+    tensors). Waiting on the events waits for exactly this batch's device
+    work, never for what other threads launched since."""
     with device_work("a relay batch"):
-        host = [x.to("cpu", non_blocking=True) for x in outs]
-        if not outs[0].is_cuda:
-            return None, host
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(outs[0].device))
-        return event, host
+        host = [[x.to("cpu", non_blocking=True) for x in o] for o in outs]
+        events = []
+        for dev in dict.fromkeys(o[0].device for o in outs if o[0].is_cuda):
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+        return events, host
 
 
-def _pull_outputs(event, host):
-    """The pull thread's half of `_start_pull`: wait for the event, then
-    hand the outputs over as numpy arrays."""
+def _pull_outputs(events, host):
+    """The pull thread's half of `_start_pull`: wait for the events, then
+    hand each shard's outputs over as numpy arrays."""
     with device_work("a relay batch"):
-        if event is not None:
+        for event in events:
             event.synchronize()
-        return tuple(x.numpy() for x in host)
+        return [tuple(x.numpy() for x in o) for o in host]
 
 
 def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
-    """Second half: pull the compact outputs in one wave and decode the
-    per-(owner, minute) deltas. The pull slot may hold a Future of a pull
-    already started on another thread (`start_batch`'s pull thread). If
-    the dispatch produced more segments than the cap, rerun the
-    full-width kernel on the calling thread and decode every row."""
+    """Second half: pull every shard's compact outputs in one wave and
+    decode the per-(owner, minute) deltas, XOR-merging the shards'
+    partials. The pull slot may hold a Future of a pull already started on
+    another thread (`start_batch`'s pull thread). If any shard produced
+    more segments than the cap, rerun the full-width kernel on every shard
+    on the calling thread and decode every row."""
     deltas, digest, good, outs, extra = state
     if outs is None:
         return deltas, digest
     if hasattr(outs, "result"):
-        packed, xors, seg_count, dev_digest = outs.result()
+        pulled = outs.result()
     else:
         with device_work("a relay batch"):
-            packed, xors, seg_count, dev_digest = to_host_many(*outs)
-    k1, node, oix, device, cap = extra
-    count = int(seg_count[0])
-    if count > cap:
+            flat = to_host_many(*(x for o in outs for x in o))
+        pulled = [flat[i : i + 4] for i in range(0, len(flat), 4)]
+    k1, node, oix, mesh, cap = extra
+    if any(int(seg_count[0]) > cap for _, _, seg_count, _ in pulled):
         _count("overflow")
         cols = {
             "millis": (k1 >> np.uint64(16)).astype(np.int64),
@@ -324,15 +399,19 @@ def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
             "node": node, "valid": oix >= 0,
             "owner_ix": np.maximum(oix, 0).astype(np.int64),
         }
+        reruns = _launch_shards(mesh, cols, lambda t: _merkle_shard_kernel(*t.values()))
         with device_work("a relay batch"):
-            *segments, dev_digest = to_host_many(*_merkle_shard_kernel(
-                *columns_to_device(cols, device).values()))
+            flat = to_host_many(*(x for o in reruns for x in o))
+        *segments, digests = (np.concatenate(flat[k::6]) for k in range(6))
         by_ix = decode_owner_minute_deltas(*segments)
     else:
-        by_ix = _decode_compact(packed, xors, count)
+        by_ix: Dict[int, Dict[str, int]] = {}
+        for packed, xors, seg_count, _ in pulled:
+            _decode_compact(packed, xors, int(seg_count[0]), by_ix)
+        digests = np.concatenate([p[3] for p in pulled])
     for o_ix, d in by_ix.items():
         deltas[good[o_ix]] = d
-    return deltas, digest ^ int(dev_digest.view(np.uint32)[0])
+    return deltas, digest ^ xor_allreduce(digests.view(np.uint32).tolist())
 
 
 def _pack_rows(ts_list, contents):
@@ -368,12 +447,22 @@ class BatchReconciler:
     """Reconcile a batch of SyncRequests against one RelayStore or a
     ShardedRelayStore, the Merkle leg on `device` (None = the card; raises
     without one). `write_behind`, a `storage.write_behind.WriteBehindQueue`
-    over the same store, turns on the deferred serve of `run_batch_wire`."""
+    over the same store, turns on the deferred serve of `run_batch_wire`.
 
-    def __init__(self, store, device=None, write_behind=None):
+    `mesh_ctx` (a `parallel.mesh.MeshContext`) is the mesh-sharded engine:
+    every pass (one-shot, streaming, write-behind) lays its rows out over
+    the context's shards by stable placement, and `device` defaults to the
+    mesh's first shard (where scoped folds run). Without one the pass has
+    one shard on `device`."""
+
+    def __init__(self, store, device=None, write_behind=None, mesh_ctx=None):
         self.store = store
         self.write_behind = write_behind
+        self.mesh_ctx = mesh_ctx
+        if device is None and mesh_ctx is not None:
+            device = mesh_ctx.mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh_ctx.mesh if mesh_ctx is not None else single_mesh(self.device)
         self._executor = None
         self._pull_pool = None
 
@@ -575,7 +664,7 @@ class BatchReconciler:
             )
             deltas_by_owner, _digest = deltas_from_columns(
                 merged, all_m, all_c, all_n, case_ok, _PackedRows(buffers, offsets),
-                device=self.device,
+                mesh=self.mesh, ctx=self.mesh_ctx,
             )
             tree_rows: List[List[Tuple[str, str]]] = [[] for _ in stores]
             for o, deltas in deltas_by_owner.items():
@@ -671,7 +760,7 @@ class BatchReconciler:
                 (p[0] if len(p) == 1 else np.concatenate(p)) for p in col_parts
             )
             dev_state = deltas_dispatch(
-                merged, all_m, all_c, all_n, case_ok, packed, device=self.device)
+                merged, all_m, all_c, all_n, case_ok, packed, mesh=self.mesh, ctx=self.mesh_ctx)
             if dev_state[3] is not None:
                 pull = self._pull_executor().submit(_pull_outputs, *_start_pull(dev_state[3]))
                 dev_state = (*dev_state[:3], pull, dev_state[4])
@@ -701,7 +790,7 @@ class BatchReconciler:
 
         with self._shard_transactions(stores, live):
             was_new_by_shard = dict(self._map_shards(ingest_shard, live, len(stores)))
-            deltas_by_owner, _digest = deltas_finish(st["dev"])
+            deltas_by_owner, st["digest"] = deltas_finish(st["dev"])
             self._recompute_duplicate_owners(st, was_new_by_shard, deltas_by_owner)
             tree_rows: List[List[Tuple[str, str]]] = [[] for _ in stores]
             for o, deltas in deltas_by_owner.items():
@@ -792,7 +881,7 @@ class BatchReconciler:
         deltas_by_owner, _digest = (
             owner_minute_deltas(
                 {o: [m.timestamp for m in ms] for o, ms in new_by_owner.items()},
-                device=self.device,
+                mesh=self.mesh, ctx=self.mesh_ctx,
             )
             if new_by_owner
             else ({}, 0)
@@ -1061,3 +1150,62 @@ class BatchReconciler:
             for (i, _r), resp in zip(fallback, resps):
                 out[i] = protocol.encode_sync_response(resp)
         return out
+
+
+# -- the pod pass --
+#
+# `reconcile_pod` runs the whole server across the processes of a
+# `torch.distributed` group: storage is partitioned by a stable owner →
+# process hash (an owner's history always lives on one process), each
+# process runs the streaming engine pass over its own owners on its own
+# shards, and the digest is XOR-all-reduced over a gloo group, so every
+# process sees the whole batch's digest. No rows and no deltas cross
+# processes.
+
+
+def owner_process(user_id: str, nproc: int) -> int:
+    """Stable owner → process assignment (`parallel.mesh.owner_shard`, the
+    crc32 of `ShardedRelayStore.shard_index`): storage ownership must
+    survive across batches, so it cannot depend on a batch's load."""
+    return owner_shard(user_id, nproc)
+
+
+def reconcile_pod(mesh, store, requests: Sequence[protocol.SyncRequest],
+                  wire: bool = False) -> Tuple[List, int]:
+    """One pod pass. Call on every process of the group with the same
+    `requests` (the ingest broadcasts a batch; each process answers for
+    the owners it stores) and the same global `mesh`
+    (`multihost.initialize_multihost`). → (responses, digest):
+    `responses` aligns with `requests`, None for requests another process
+    owns; the digest is the XOR over every device-hashed row of the batch
+    (after the in-batch dedup, before the store's), the same on every
+    process.
+
+    Each process runs `BatchReconciler`'s streaming pass
+    (`start_batch` / `finish_batch`) over the requests of the owners it
+    stores, on a mesh of its own shards of `mesh`, on a store with the
+    native packed insert: in-batch dedup in request order, primary-key
+    dedup through per-row was-new flags, owners with any stored duplicate
+    (or non-canonical hex case) re-folded on the host from their new rows
+    only. `wire=True` answers in bytes. One process gives the plain
+    engine's answers."""
+    nproc, pid = process_count(), process_index()
+    local = mesh.local_indices()
+    if not local:
+        raise ValueError(f"process {pid} hosts no shard of {mesh!r}")
+    mine = [i for i, r in enumerate(requests) if owner_process(r.user_id, nproc) == pid]
+    eng = BatchReconciler(store, mesh_ctx=MeshContext(Mesh([mesh.shards[i] for i in local])))
+    try:
+        if not eng._packed_store():
+            raise ValueError("reconcile_pod needs a store with the native packed insert")
+        st = eng.start_batch([requests[i] for i in mine])
+        answers = eng.finish_batch(st, wire=wire)
+    finally:
+        eng.close()
+    # The pass's digest holds the host-folded (non-canonical) owners' too;
+    # the pod's digest is the device-hashed rows' alone.
+    device_digest = st["digest"] ^ st["dev"][1] if st["dev"] is not None else 0
+    responses: List = [None] * len(requests)
+    for i, answer in zip(mine, answers):
+        responses[i] = answer
+    return responses, xor_allreduce([device_digest], mesh)

@@ -359,13 +359,35 @@ class _Counts:
             self.shard_requests[index] = self.shard_requests.get(index, 0) + 1
 
 
+def mesh_stats_payload(ctx=None) -> dict:
+    """The `mesh` section of GET /stats, read from a
+    `parallel.mesh.MeshContext`'s counts (the JAX package reads its
+    `evolu_mesh_*` metrics): shards, sharded dispatches, cross-shard
+    reduces by kind, and the number of per-shard occupancy and padding
+    observations. Their quantiles are null until the port has metrics
+    (ROADMAP queue 1 item 10). Without a context (the mesh engine has not
+    run a batch yet) the counts are zero and `devices` is null."""
+    from evolu_tpu_torch.parallel.mesh import XDEV_KINDS
+
+    c = ctx.counts if ctx is not None else None
+    return {
+        "devices": ctx.n_shards if ctx is not None else None,
+        "dispatches_total": c["dispatches"] if c else 0,
+        "xdev_reduce_total": {k: (c["xdev_reduce"][k] if c else 0) for k in XDEV_KINDS},
+        "shard_rows": {"count": c["shard_rows"] if c else 0, "p50": None, "p99": None},
+        "padding_waste_rows": {"count": c["padding_waste_rows"] if c else 0, "p50": None, "p99": None},
+    }
+
+
 def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
-                        push_hub=None, conn_tier=None, write_behind=None) -> dict:
+                        push_hub=None, conn_tier=None, write_behind=None,
+                        mesh_engine: bool = False, mesh_ctx=None) -> dict:
     """The GET /stats JSON: the store's row counts a shard (shared truth in
     a MultiprocessRelay) with this process's sync requests a shard, and
     its request and error totals; with replication, a fleet, a push hub,
-    the event-loop tier or a write-behind queue attached, their
-    `replication`, `fleet`, `push`, `conn` and `write_behind` sections."""
+    the event-loop tier, a write-behind queue or the mesh engine attached,
+    their `replication`, `fleet`, `push`, `conn`, `write_behind` and
+    `mesh` sections."""
     shards = store.stats() if hasattr(store, "stats") else []
     for s in shards:
         s["requests"] = counts.shard_requests.get(s["index"], 0)
@@ -386,12 +408,15 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
         payload["conn"] = conn_tier.stats_payload()
     if write_behind is not None:
         payload["write_behind"] = write_behind.stats_payload()
+    if mesh_engine:
+        payload["mesh"] = mesh_stats_payload(mesh_ctx)
     return payload
 
 
 class _Handler(BaseHTTPRequestHandler):
     store: RelayStore  # injected by RelayServer
     scheduler = None  # SyncScheduler when the relay batches
+    mesh_engine = False  # the mesh-sharded engine: adds the /stats mesh section
     replication = None  # ReplicationManager when the relay has peers
     fleet = None  # FleetManager once the relay joined a fleet
     push_hub = None  # PushHub when push subscriptions are on (server/push.py)
@@ -473,9 +498,15 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(body)
         elif self.path == "/stats":
             try:
+                mesh_ctx = None
+                if self.mesh_engine:
+                    from evolu_tpu_torch.parallel.mesh import current_mesh_context
+
+                    mesh_ctx = self.scheduler.mesh_ctx or current_mesh_context()
                 body = json.dumps(relay_stats_payload(self.store, self.counts, self.replication,
                                                       self.fleet, self.push_hub,
-                                                      self.conn_tier, self.write_behind)).encode("utf-8")
+                                                      self.conn_tier, self.write_behind,
+                                                      self.mesh_engine, mesh_ctx)).encode("utf-8")
             except Exception as e:  # noqa: BLE001 - a clean 500, not a dropped connection
                 self.counts.error()
                 self.send_error(500, str(e))
@@ -800,10 +831,6 @@ def _write_behind_queue(store, log_path: Optional[str], cfg):
     )
 
 
-def _refuse(what: str, item) -> None:
-    raise NotImplementedError(f"evolu_tpu_torch: {what} is not ported yet (ROADMAP queue 1 item {item})")
-
-
 class RelayServer:
     """ThreadingHTTPServer wrapper; `url` once started.
 
@@ -852,9 +879,12 @@ class RelayServer:
     request is served its slice (`server/scope.py`, the fold on `device`),
     without it the clause is stripped and the full serve answers.
 
-    Refused with NotImplementedError before a socket is bound or a store
-    written, until ROADMAP queue-1 item 9 is ported: `mesh_engine` /
-    `mesh_ctx`, also when `EVOLU_MESH_ENGINE` turns the mesh engine on."""
+    `mesh_engine` (or an explicit `mesh_ctx`, a `parallel.mesh.MeshContext`)
+    turns on the mesh-sharded engine: every engine pass lays its owners
+    out over the mesh's shards by stable placement; None resolves from
+    `EVOLU_MESH_ENGINE` (a set variable wins in both directions), then
+    `default_config.mesh_engine`. It implies batching, and `/stats` gains
+    a `mesh` section."""
 
     def __init__(self, store: Optional[RelayStore] = None, host: str = "127.0.0.1",
                  port: int = 0, batching: bool = False, scheduler=None,
@@ -879,10 +909,17 @@ class RelayServer:
         if connection_tier not in ("threaded", "eventloop"):
             raise ValueError(
                 f"connection_tier must be 'threaded' or 'eventloop', got {connection_tier!r}")
+        # Constructor argument, then EVOLU_MESH_ENGINE (a set variable wins
+        # in both directions), then the Config. The mesh engine is a
+        # property of the engine pass, so it implies batching; its context
+        # is resolved on the scheduler's dispatcher thread.
         if mesh_engine is None and mesh_ctx is None:
             mesh_engine = _env_on("EVOLU_MESH_ENGINE")
-        if mesh_engine or mesh_ctx is not None:
-            _refuse("the mesh-sharded engine (mesh_engine, mesh_ctx)", 9)
+            if mesh_engine is None:
+                mesh_engine = default_config.mesh_engine
+        self.mesh_engine = bool(mesh_engine) or mesh_ctx is not None
+        if self.mesh_engine:
+            batching = True
         self.capabilities = DEFAULT_CAPABILITIES if capabilities is None else tuple(capabilities)
         self.connection_tier = connection_tier
         if checkpoint_interval_s is None:
@@ -907,7 +944,8 @@ class RelayServer:
             from evolu_tpu_torch.server.scheduler import SyncScheduler
 
             try:
-                self.scheduler = SyncScheduler(self.store, device=device, write_behind=self.write_behind)
+                self.scheduler = SyncScheduler(self.store, device=device, write_behind=self.write_behind,
+                                               mesh_ctx=mesh_ctx, mesh_engine=self.mesh_engine)
             except BaseException:
                 if self.write_behind is not None:
                     self.write_behind.close()
@@ -949,7 +987,7 @@ class RelayServer:
             "BoundHandler", (_Handler,),
             {"store": self.store, "scheduler": self.scheduler, "replication": self.replication,
              "capabilities": self.capabilities, "counts": self.counts, "push_hub": self.push_hub,
-             "write_behind": self.write_behind, "device": device},
+             "write_behind": self.write_behind, "device": device, "mesh_engine": self.mesh_engine},
         )
         try:
             if connection_tier == "eventloop":

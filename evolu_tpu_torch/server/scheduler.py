@@ -112,7 +112,11 @@ def _batchable(request: protocol.SyncRequest) -> bool:
 class SyncScheduler:
     """Admission and dispatch between relay handler threads and one
     `BatchReconciler` on `device` (None = the card; raises here without
-    one; "cpu" runs the plain versions of the kernels).
+    one; "cpu" runs the plain versions of the kernels). `mesh_ctx` (a
+    `parallel.mesh.MeshContext`) makes it the mesh-sharded engine;
+    `mesh_engine=True` without one resolves the process-wide context
+    (`get_mesh_context(default_config.mesh_devices)`: every visible card,
+    or for a CPU scheduler one CPU shard) at the first batch.
 
     `submit(request)` blocks the calling thread until its wire response
     (the encoded SyncResponse, byte-identical to `serve_single_request`)
@@ -132,10 +136,12 @@ class SyncScheduler:
         mesh_ctx=None,
         mesh_engine: bool = False,
     ):
-        if mesh_engine or mesh_ctx is not None:
-            raise NotImplementedError(
-                "evolu_tpu_torch: the mesh-sharded engine is not ported yet "
-                "(ROADMAP queue 1 item 9)")
+        # The mesh-sharded engine: an explicit MeshContext, or mesh_engine
+        # to resolve the process-wide one lazily on the dispatcher thread
+        # (`_ensure_engine`), so every scheduler of the process shares one
+        # placement.
+        self._mesh_ctx = mesh_ctx
+        self._mesh_engine = bool(mesh_engine) or mesh_ctx is not None
         self.store = store
         self.device = engine.device if engine is not None else resolve_device(device)
         self.max_batch = max(1, int(max_batch))
@@ -305,9 +311,20 @@ class SyncScheduler:
         if self._engine is None:
             from evolu_tpu_torch.server.engine import BatchReconciler
 
+            if self._mesh_engine and self._mesh_ctx is None:
+                from evolu_tpu_torch.parallel.mesh import get_mesh_context
+                from evolu_tpu_torch.utils.config import default_config
+
+                self._mesh_ctx = get_mesh_context(default_config.mesh_devices, device=self.device)
             self._engine = BatchReconciler(self.store, device=self.device,
-                                           write_behind=self._write_behind)
+                                           write_behind=self._write_behind, mesh_ctx=self._mesh_ctx)
         return self._engine
+
+    @property
+    def mesh_ctx(self):
+        """The engine's MeshContext (None until a mesh engine's first batch
+        resolves the process-wide one, and without the mesh engine)."""
+        return self._mesh_ctx
 
     def _serve_single(self, request: protocol.SyncRequest) -> bytes:
         """The per-request path, the recipe the non-batching relay runs:

@@ -46,6 +46,10 @@ class Config:
     # whole-batch transactions always.
     receive_chunk_size: "int | None" = 1 << 20
     min_device_batch: int = 1024  # "auto": below this the host oracle plans
+    # A batch of at least this many messages shards by cell ranges over
+    # the worker's mesh (parallel/hot_owner.py) instead of planning on one
+    # device; only with a mesh of two or more shards. None disables.
+    hot_owner_min_batch: "int | None" = 1 << 18
     # LWW plan formulation (ops/scatter_merge.py): "sort" = the sort+scan
     # pipeline (one int64 sort, kernel L twice), "scatter" = the dense
     # scatter-argmax plan (no sort, no L), "auto" = by the device the plan
@@ -57,6 +61,15 @@ class Config:
     # (ops/winner_cache.py) instead of streaming it from SQLite per
     # batch. Ignored for backend "cpu".
     winner_cache: bool = True
+    # The mesh-sharded engine (parallel/mesh.py `MeshContext`): each pass
+    # lays owners out over the mesh's shards by stable placement (crc32)
+    # instead of per-batch LPT, and the worker's winner cache shards its
+    # slots (`MeshShardedWinnerCache`). EVOLU_MESH_ENGINE overrides at the
+    # relay.
+    mesh_engine: bool = False
+    # Cap the mesh at this many devices (None = every visible card). The
+    # placement hash is over the capped size.
+    mesh_devices: "int | None" = None
     # Values beyond the reference wire's string|int32 (doubles, int64)
     # ride extension fields 6 and 7; False refuses to author them.
     wire_extensions: bool = True

@@ -1554,3 +1554,128 @@ def test_planners_on_card_route_and_match_cpu(path, dup, route, dev):
     assert card[0] == cpu[0] == full[0] == hx
     assert card[1] == cpu[1] == full[1] and sorted(map(repr, card[1])) == sorted(map(repr, hu))
     assert full[2] == cpu_full[2]
+
+
+# -- the owner mesh on the card: shards sharing cuda:0 against one shard --
+
+
+def _fleet_messages(seed, owners=24, per=400):
+    """{owner: CrdtMessages} with cell contention and one owner in
+    upper-case hex (the host quarantine), and stored winners."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import CrdtMessage, Timestamp
+
+    rng = np.random.default_rng(seed)
+    batches, winners = {}, {}
+    for o in range(owners):
+        node = f"{int(rng.integers(0, 2**64, dtype=np.uint64)):016x}"
+        node = node.upper() if o == 5 else node
+        msgs = [CrdtMessage(timestamp_to_string(Timestamp(1_700_000_000_000 + o * 7 + i * 61, i % 3, node)), "todo",
+                            f"r{int(rng.integers(0, 40))}", "title", f"v{o}-{i}")
+                for i in range(int(rng.integers(per // 4, per)))]
+        batches[f"owner{o:03d}"] = msgs
+        winners[f"owner{o:03d}"] = {(m.table, m.row, m.column): m.timestamp for m in msgs[::11]}
+    return batches, winners
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_reconcile_on_card_matches_one_shard_and_cpu(n_shards, dev):
+    """`reconcile_owner_batches` over n shards sharing cuda:0 equals the
+    one-shard card pass and the 8-CPU-shard pass, owner by owner and in its
+    digest; the sort route launches L twice, H and X once a shard."""
+    from evolu_tpu_torch.parallel.mesh import MeshContext, create_mesh
+    from evolu_tpu_torch.parallel.reconcile import reconcile_owner_batches
+
+    batches, winners = _fleet_messages(31)
+    before = _launches()
+    got = reconcile_owner_batches(batches, winners, mesh_ctx=MeshContext(create_mesh(devices=["cuda:0"] * n_shards)))
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    assert launched == {"L": 2 * n_shards, "H": n_shards, "X": n_shards, "S": 0}, launched
+    one = reconcile_owner_batches(batches, winners)
+    cpu = reconcile_owner_batches(batches, winners, mesh=create_mesh(devices=["cpu"] * 8))
+    assert got[1] == one[1] == cpu[1]
+    for o in batches:
+        assert got[0][o][0] == one[0][o][0] == cpu[0][o][0], o
+        assert got[0][o][1] == one[0][o][1] == cpu[0][o][1], o
+        assert got[0][o][2] == one[0][o][2] == cpu[0][o][2], o
+
+
+def test_sharded_engine_on_card_matches_one_shard(dev):
+    """The mesh engine on 8 shards of cuda:0 (4 native storage shards)
+    against the one-shard card engine over the relay batches (cap
+    overflow and the 20-B upload included): equal bytes and tables; H and
+    X launch 8 times a dispatch (16 with the overflow's rerun)."""
+    from evolu_tpu_torch.parallel.mesh import MeshContext, create_mesh
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+
+    ctx = MeshContext(create_mesh(devices=["cuda:0"] * 8))
+    stores = [ShardedRelayStore(shards=4, backend="native") for _ in range(2)]
+    sharded, single = pe.BatchReconciler(stores[0], mesh_ctx=ctx), pe.BatchReconciler(stores[1])
+    try:
+        for b in _relay_batches():
+            before, launched = dict(pe.counts), _launches()
+            out = sharded.run_batch_wire(b)
+            d = {k: v - launched[k] for k, v in _launches().items()}
+            passes = sum(pe.counts[k] - before[k] for k in ("delta", "full", "overflow"))
+            assert d == {"L": 0, "H": 8 * passes, "X": 8 * passes, "S": 0}, d
+            assert out == single.run_batch_wire(b)
+        assert _wb_dump(stores[0]) == _wb_dump(stores[1])
+        assert ctx.counts["dispatches"] >= 4 and ctx.counts["xdev_reduce"]["digest"] == ctx.counts["dispatches"]
+    finally:
+        for x in (sharded, single, *stores):
+            x.close()
+
+
+def test_sharded_winner_cache_on_card_matches_cpu(dev):
+    """`MeshShardedWinnerCache` on 8 shards of cuda:0 against the same cache
+    on 8 CPU shards and the one-device card cache: equal tables, trees,
+    slots and slot arrays; the audit holds on every shard."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+    from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache, MeshShardedWinnerCache
+    from evolu_tpu_torch.parallel.mesh import MeshContext, create_mesh
+    from evolu_tpu_torch.storage import PySqliteDatabase, apply_messages, init_db_model
+
+    dbs = [PySqliteDatabase() for _ in range(3)]
+    for db in dbs:
+        init_db_model(db, "legal winner thank year wave sausage worth useful legal winner thank yellow")
+        db.exec('CREATE TABLE "todo" ("id" TEXT PRIMARY KEY, "title" BLOB, "done" BLOB)')
+    caches = [MeshShardedWinnerCache(dbs[0], mesh_ctx=MeshContext(create_mesh(devices=["cuda:0"] * 8)),
+                                     capacity=64, adaptive=False),
+              MeshShardedWinnerCache(dbs[1], mesh_ctx=MeshContext(create_mesh(devices=["cpu"] * 8)),
+                                     capacity=64, adaptive=False),
+              DeviceWinnerCache(dbs[2], adaptive=False)]
+    trees = [{}, {}, {}]
+    try:
+        for batch in _cache_batches(41, n_batches=4, n=2000):
+            before = _launches()
+            for i, (db, cache) in enumerate(zip(dbs, caches)):
+                trees[i] = apply_messages(db, trees[i], tuple(batch), planner=cache.plan_batch)
+                if i == 0:
+                    d = {k: v - before[k] for k, v in _launches().items()}
+                    assert d == {"L": 16, "H": 8, "X": 8, "S": 0}, d
+            dumps = [db.exec('SELECT * FROM "__message" ORDER BY 1') + db.exec('SELECT * FROM "todo" ORDER BY 1')
+                     for db in dbs]
+            assert dumps[0] == dumps[1] == dumps[2]
+            assert merkle_tree_to_string(trees[0]) == merkle_tree_to_string(trees[1]) == merkle_tree_to_string(trees[2])
+            assert caches[0]._slots == caches[1]._slots
+            assert all(np.array_equal(a, b) for a, b in zip(caches[0].slot_values(), caches[1].slot_values()))
+            assert caches[0].verify_against_db() == len(caches[0]._slots) > 0
+    finally:
+        for db in dbs:
+            db.close()
+
+
+def test_mesh_over_every_card(dev):
+    """A mesh of one shard a card against one shard: needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs at least 2 cards for a mesh of cards; this machine has {torch.cuda.device_count()}")
+    from evolu_tpu_torch.parallel.mesh import MeshContext
+    from evolu_tpu_torch.parallel.reconcile import reconcile_owner_batches
+
+    batches, winners = _fleet_messages(37)
+    ctx = MeshContext()
+    assert ctx.n_shards == torch.cuda.device_count()
+    got = reconcile_owner_batches(batches, winners, mesh_ctx=ctx)
+    one = reconcile_owner_batches(batches, winners)
+    assert got[1] == one[1] and all(got[0][o][0] == one[0][o][0] and got[0][o][2] == one[0][o][2] for o in batches)

@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_touches_no_card():
                  "utils.native_loader", "storage.native", "sync.native_crypto", "core.packed",
                  "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
                  "server.fleet", "server.push", "server.conn", "storage.write_behind",
-                 "storage._wb_shard_proc", "sync.scope", "server.scope", "ops.scatter_merge"):
+                 "storage._wb_shard_proc", "sync.scope", "server.scope", "ops.scatter_merge",
+                 "parallel.mesh", "parallel.hot_owner", "parallel.multihost"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
@@ -70,6 +71,20 @@ def test_scoped_fold_has_no_host_fallback():
     fold = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "scoped_minute_deltas")
     calls = {getattr(c.func, "id", None) for c in ast.walk(fold) if isinstance(c, ast.Call)}
     assert {"device_work", "merkle_minute_deltas", "resolve_device", "minute_deltas_host"} <= calls
+
+
+def test_mesh_path_has_no_host_fallback():
+    """The mesh modules catch nothing: a shard's device fault leaves as the
+    `KernelError` of `ops.cuda_lib.device_work`, and `create_mesh()`
+    without a card raises rather than building CPU shards."""
+    for rel in ("parallel/mesh.py", "parallel/reconcile.py", "parallel/hot_owner.py",
+                "parallel/multihost.py"):
+        tree = ast.parse(pathlib.Path(_REPO, "evolu_tpu_torch", rel).read_text())
+        assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    tree = ast.parse(pathlib.Path(_REPO, "evolu_tpu_torch/parallel/reconcile.py").read_text())
+    for name in ("dispatch_columns_sharded", "pull_shards"):
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+        assert "device_work" in {getattr(c.func, "id", None) for c in ast.walk(fn) if isinstance(c, ast.Call)}
 
 
 def test_cryptography_only_behind_module_not_found():

@@ -12,8 +12,8 @@
   relay's; a bad Content-Length answers 400, an oversized body 413, and
   the relay tier's endpoints 404 on a relay without replication, a
   fleet or a push hub; the observability endpoints 404 on both tiers.
-- Every refused option (the mesh engine's) raises NotImplementedError
-  before a socket is bound or the store written; the replication half's options (peers,
+- Each mesh-engine option (mesh_engine, mesh_ctx, EVOLU_MESH_ENGINE)
+  builds a batching relay that serves the JAX relay's bytes; the replication half's options (peers,
   replication, bootstrap_lag_owners, checkpoints), the push and
   connection-tier options (push, connection_tier, EVOLU_CONN_TIER) and the
   write-behind options (write_behind, EVOLU_WRITE_BEHIND, Config.
@@ -192,35 +192,59 @@ def test_errors_and_404s_match_jax():
         port.stop()
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+MESH_OPTIONS = ("mesh_engine", "mesh_ctx", "EVOLU_MESH_ENGINE")
 
 
-REFUSED = {
-    "mesh_engine": ({"mesh_engine": True}, {}),
-    "mesh_ctx": ({"mesh_ctx": object()}, {}),
-    "EVOLU_MESH_ENGINE": ({}, {"EVOLU_MESH_ENGINE": "on"}),
-}
+def _mesh_option(case, make_ctx):
+    """→ (constructor kwargs, env) for one way of turning the mesh engine on."""
+    if case == "mesh_engine":
+        return {"mesh_engine": True}, {}
+    if case == "mesh_ctx":
+        return {"mesh_ctx": make_ctx()}, {}
+    return {}, {"EVOLU_MESH_ENGINE": "on"}
 
 
-@pytest.mark.parametrize("case", list(REFUSED))
+@pytest.mark.parametrize("case", MESH_OPTIONS)
 @pytest.mark.parametrize("batching", [False, True])
-def test_refused_options_raise_before_a_socket_binds(case, batching, monkeypatch):
-    kwargs, env = REFUSED[case]
+def test_mesh_options_serve_as_jax(case, batching, monkeypatch):
+    """Each way of turning on the mesh-sharded engine (the argument, an
+    explicit context of 8 CPU shards against the JAX package's 8-device
+    mesh, the environment switch) builds a batching relay on both sides
+    that answers the same POSTs with the JAX relay's bytes and carries
+    the /stats `mesh` section."""
+    from evolu_tpu.parallel.mesh import MeshContext as JaxMeshContext
+
+    from evolu_tpu_torch.parallel.mesh import MeshContext
+
+    def drive(make):
+        server = make().start()
+        try:
+            assert server.mesh_engine is True and server.scheduler is not None
+            out = [_post(server.url, b) for b in _bodies()]
+            code, stats = _get(server.url + "/stats")
+            return out, code, json.loads(stats)
+        finally:
+            server.stop()
+
+    caps = prelay.DEFAULT_CAPABILITIES
+    jkw, env = _mesh_option(case, JaxMeshContext)
+    pkw, _ = _mesh_option(case, lambda: MeshContext(devices=["cpu"] * 8))
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    port = _free_port()
-    store = prelay.RelayStore(backend="native")
-    threads = set(threading.enumerate())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        prelay.RelayServer(store, port=port, batching=batching, device="cpu", **kwargs)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", port))  # nothing holds the port
-    assert not [t for t in threading.enumerate() if t not in threads and t.name.startswith("evolu-")]
-    assert store.db.exec_sql_query('SELECT COUNT(*) AS n FROM "message"')[0]["n"] == 0
-    store.close()
+    want = within(LIMIT_S, lambda: drive(lambda: jrelay.RelayServer(
+        jrelay.RelayStore(backend="native"), batching=batching, capabilities=caps, **jkw)))
+    got = within(LIMIT_S, lambda: drive(lambda: prelay.RelayServer(
+        prelay.RelayStore(backend="native"), batching=batching, device="cpu", **pkw)))
+    assert got[0] == want[0]
+    assert all(code == 200 for code, _ in got[0])
+    assert got[1] == want[1] == 200
+    assert _store_section(got[2]) == _store_section(want[2])
+    mesh = got[2]["mesh"]
+    assert set(mesh) == set(want[2]["mesh"])
+    assert set(mesh["xdev_reduce_total"]) == set(want[2]["mesh"]["xdev_reduce_total"])
+    assert mesh["dispatches_total"] > 0 and mesh["xdev_reduce_total"]["digest"] > 0
+    if case == "mesh_ctx":
+        assert mesh["devices"] == 8
 
 
 def _scoped_bodies():
@@ -380,7 +404,7 @@ def test_write_behind_options_build_a_queue(case, batching, tmp_path, monkeypatc
 
 def test_env_switched_off_and_defaults_serve(monkeypatch):
     """A switch set to off is honoured, as in the reference: the relay
-    starts and serves."""
+    starts and serves; a scheduler with the mesh engine serves too."""
     monkeypatch.setenv("EVOLU_WRITE_BEHIND", "0")
     monkeypatch.setenv("EVOLU_MESH_ENGINE", "off")
     monkeypatch.setenv("EVOLU_CONN_TIER", "threaded")
@@ -391,9 +415,19 @@ def test_env_switched_off_and_defaults_serve(monkeypatch):
         server.stop()
     with pytest.raises(ValueError):
         prelay.RelayServer(connection_tier="bogus")
-    for kw in ({"mesh_engine": True}, {"mesh_ctx": object()}):
-        with pytest.raises(NotImplementedError):
-            psched.SyncScheduler(prelay.RelayStore(backend="native"), device="cpu", **kw)
+    # The mesh engine (refused until the mesh was ported) serves: a context
+    # of CPU shards, or `mesh_engine` resolving the process-wide one.
+    from evolu_tpu_torch.parallel.mesh import MeshContext, create_mesh
+
+    req = pproto.SyncRequest(_msgs(pproto, "a" * 16, 0, 5), "uM", "a" * 16, "{}")
+    want = prelay.serve_single_request(prelay.RelayStore(backend="native"), req, device="cpu")
+    for kw in ({"mesh_engine": True}, {"mesh_ctx": MeshContext(create_mesh(devices=["cpu"] * 2))}):
+        sched = psched.SyncScheduler(prelay.RelayStore(backend="native"), device="cpu", **kw)
+        try:
+            assert sched.submit(req) == want and sched.mesh_ctx is not None
+        finally:
+            sched.stop()
+            sched.store.close()
     # A scoped request under write-behind (refused until scoped sync was
     # ported) is served by the scheduler after its owner's drain, as the
     # JAX scheduler serves it: same bytes, same tables and lanes.
