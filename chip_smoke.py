@@ -178,8 +178,8 @@ failure ends the run with a traceback and a nonzero code):
               into 4 native shards with every tree equal. I3: 3 relays,
               each in a process of its own (`i3_member`, as
               benchmarks/fleet_scaling.py runs them; one interpreter until
-              path P was added), under one `FleetConfig` (R 2) take 32,000
-              messages over 1k
+              path P was added), under one `FleetConfig` (R 2) take 16,000
+              messages (32,000 until path O was added) over 1k
               owners (Zipf 1.1, batches of 64, 8 client threads following
               one 307 each), then a 4th relay joins by `/fleet/reload`
               under a writer; at each scoped-gossip fixpoint every owner's
@@ -232,6 +232,36 @@ failure ends the run with a traceback and a nonzero code):
               nothing, and its rows/s; K3's counts are the serving
               children's. H = X = engine dispatches in every step, L = S
               = 0.
+14b. path O — observability on the main path (`evolu_tpu_torch.obs`, the
+              logger's spans, the relay's /metrics, /stats, /trace and
+              /profile), right after path K. O1: path A's columns pass at
+              config 3, 1M messages (2^20 rows), through the port's entry
+              (`shard_kernel_for`, `dispatch_columns_sharded`,
+              `pull_shards` under a `kernel:reconcile` span and a sampled
+              root span), after a warm-up, eight times, obs off and on in
+              turns ("on": metrics, the stage anatomy, tracing at 100% and
+              record_function annotations): masks, the (owner, minute)
+              segments the deltas decode from and the digest equal (the
+              decode itself, 2.5 s a run, is path A's and the columns
+              pass's), the same launches of L, X and H and the same pull
+              waves; each stage's CUDA-events ms and the overhead (on - off
+              over off) by stage and for the pass; then the bare key sort,
+              the compact-delta encode and the pull rate that price
+              `COST_LAWS["cuda"]`. O2: K1's 256 requests (H1's first 128
+              owners' bodies) from its 32 lanes to a batching card relay on
+              a native file store with every plane on (no write-behind),
+              one request carrying a known traceparent, while GET
+              /profile?ms=1000 captures the traffic (the device profiler
+              prepared first on the main thread): responses equal path
+              E's; /metrics parses as Prometheus 0.0.4 and its request,
+              message and coalesced counters equal the traffic; /stats has
+              one latency observation a request and the device_dispatch,
+              pull_wave and host_apply stages; /trace/<id> has the relay's
+              span and the engine.batch span that links it, with a
+              kernel:merkle span under that; the profile's device lane holds
+              CUDA kernel events of `lookback_scan` (seg_scan.cu) and
+              `ts_hash_kernel` (ts_hash.cu), and a document without a device
+              lane fails. H = X = O2's passes and O1's 8, L = O1's 16.
 15. path P  — scoped sync (partial replication), every relay a batching card
               `RelayServer` on a native file store advertising
               sync-scope-v1. P1: 16 owners x 65,536 rows (E1's contents)
@@ -284,9 +314,10 @@ failure ends the run with a traceback and a nonzero code):
               after M1: path A's owners through `reconcile_owner_batches`
               on 8 shards equal path A's. N4, after M3: a card `DbWorker`
               with `mesh_engine` and `hot_owner_min_batch` = 2^17 replays D1
-              (each chunk `reconcile_hot_owner`) and D2 (the
-              `MeshShardedWinnerCache`, its gate off, audited after every
-              Receive) to path D's oracle state after D2. N3, after G2: E1
+              (each chunk `reconcile_hot_owner`) and D2's first batch (the
+              `MeshShardedWinnerCache`, its gate off, audited after the
+              Receive; D2's other two batches were cut when path O was
+              added) to path D's oracle state after that Receive. N3, after G2: E1
               and E2 through the mesh engine's `run_batch_wire` on a 4-shard
               native file store, bytes, trees and row counts equal path E's; a batch
               whose one owner holds over half the rows (the row split) and
@@ -333,9 +364,9 @@ failure ends the run with a traceback and a nonzero code):
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,p,m,n}` are the counts themselves (H1,
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,o,p,m,n}` are the counts themselves (H1,
 H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1, J3 and J4 as path
-J; K2 and K3's serving children as path K; P1-P4 as path P; M1, M3 and
+J; K2 and K3's serving children as path K; O1 and O2 as path O; P1-P4 as path P; M1, M3 and
 M4 as path M, M2 being timing; N1-N6 as path N, N5's from its two pod
 processes, each step's mesh runs only); `ms`, `device_ms`,
 `plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
@@ -1495,13 +1526,14 @@ def d_inputs():
     return d1, d2, d3, trees
 
 
-def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2=None):
+def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2=None, after_d2_first=None):
     """Drive one DWorker through path D: D1, D2 and D3's Receives, each with
     the relay's tree after it; then D4: a Send of 1k, a Query of 10
     subscribed queries, a Sync, a Receive of 200 whose server tree holds
     one hash the client lacks (in a minute after all of its history), and a
-    Query. `after_d1(w)` runs between D1 and D2, `after_d2(w)` between D2
-    and D3. → each phase's Receive routes."""
+    Query. `after_d1(w)` runs between D1 and D2, `after_d2_first(w)` after
+    D2's first Receive, `after_d2(w)` between D2 and D3. → each phase's
+    Receive routes."""
     from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
     from evolu_tpu_torch.core.timestamp import timestamp_to_string
     from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
@@ -1517,9 +1549,11 @@ def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2=None):
     routes["d1"].append(w.receive("d1", d1, trees[0]))
     if after_d1 is not None:
         after_d1(w)
-    for (base, batch), tree in zip(d2, trees[1:]):
+    for i, ((base, batch), tree) in enumerate(zip(d2, trees[1:])):
         clock["now"] = base
         routes["d2"].append(w.receive("d2", batch, tree))
+        if i == 0 and after_d2_first is not None:
+            after_d2_first(w)
     if after_d2 is not None:
         after_d2(w)
     for (base, batch), tree in zip(d3, trees[1 + len(d2):]):
@@ -1555,17 +1589,19 @@ def d_state(w):
 def d_oracle():
     """Path D's oracle, run in a process of the spawned pool while the card
     runs paths B to D: a `backend="cpu"` worker through `d_script`. → its
-    `d_state` after D1 (path M3's oracle), after D2 (paths G1's and N4's)
-    and at the end, and its walls."""
+    `d_state` after D1 (path M3's oracle), after D2's first Receive (path
+    N4's), after D2 (path G1's) and at the end, and its walls."""
     from evolu_tpu_torch.utils.config import Config
 
     d1, d2, d3, trees = d_inputs()
     clock = {"now": D1_BASE}
     cpu = DWorker("cpu oracle", Config(backend="cpu", receive_chunk_size=1 << 17), clock)
-    after_d1, after_d2 = {}, {}
+    after_d1, after_d2, after_d2_first = {}, {}, {}
     d_script(cpu, clock, d1, d2, d3, trees, after_d1=lambda w: after_d1.update(d_state(w)),
-             after_d2=lambda w: after_d2.update(d_state(w)))
-    out = {"after_d1": after_d1, "after_d2": after_d2, "end": d_state(cpu), "walls": dict(cpu.walls)}
+             after_d2=lambda w: after_d2.update(d_state(w)),
+             after_d2_first=lambda w: after_d2_first.update(d_state(w)))
+    out = {"after_d1": after_d1, "after_d2": after_d2, "after_d2_first": after_d2_first,
+           "end": d_state(cpu), "walls": dict(cpu.walls)}
     cpu.stop()
     return out
 
@@ -1576,9 +1612,10 @@ def path_d(torch, kernels, oracle_job):
     the same commands in a process of the pool (`oracle_job`, `d_oracle`):
     outputs, pushes, every table (by digest) and the tree equal. Returns
     (launches, report, the relay's trees after D1 and each D2 batch, D1 and
-    the D2 batches as (base, messages), and the oracle's states after D1
-    and after D2: path M3 replays D1 against the first, paths G1 and N4 D1
-    and D2 against the second)."""
+    the D2 batches as (base, messages), and the oracle's states after D1,
+    after D2 and after D2's first Receive: path M3 replays D1 against the
+    first, path G1 D1 and D2 against the second, path N4 D1 and D2's first
+    batch against the third)."""
     from evolu_tpu_torch.utils.config import Config
 
     t0 = time.perf_counter()
@@ -1633,7 +1670,8 @@ def path_d(torch, kernels, oracle_job):
     report["rows"] = sizes
     report["oracle_in_pool_process"] = True
     gpu.stop()
-    return launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2, (oracle["after_d1"], oracle["after_d2"])
+    return (launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2,
+            (oracle["after_d1"], oracle["after_d2"], oracle["after_d2_first"]))
 
 
 E_MESSAGES = 1_000_000  # BASELINE config 3: 1M messages over 1k owners
@@ -3113,8 +3151,9 @@ I2_PER_OWNER = 128  # I2's donor: each owner's first 128 messages of E1, 128,000
 I2_TAIL = 10_000  # I2's handoff: new messages POSTed to the donor after the capture
 I3_RELAYS, I3_R = 3, 2  # benchmarks/fleet_scaling.py:332-339: 3 relays, replication factor 2,
 I3_THREADS, I3_BATCH, I3_ZIPF = 8, 64, 1.1  # 8 client threads, batches of 64, Zipf 1.1 over owners
-# I3's depth, cut from 128,000 and 12,800 when runs of the script passed 650 s with path K's crash episodes.
-I3_MESSAGES = 32_000  # at config 3's 1,000 owners
+# I3's depth, cut from 128,000 and 12,800 when runs of the script passed 650 s with path K's crash episodes;
+# its ingest cut again from 32,000 to 16,000 to make room for path O.
+I3_MESSAGES = 16_000  # at config 3's 1,000 owners
 I3_JOIN_MESSAGES = 6_400  # the writer's during the join (first half of the owner ids)
 I3_JOIN_DEBOUNCE_S = 2.0  # the joiner's gossip debounce: its snapshot sweep, not a ranged pull, moves owners
 I_WAIT_S = 300.0
@@ -4191,7 +4230,7 @@ K3_SIZE = (64, 64, 500)  # owners, most owners a batch, most new messages an own
 # one, so the queue would be empty at every ACK. With none, the drain stalled a second before each
 # commit leaves the batches since the last one queued, and the SIGKILL finds them for the replay.
 K3_RESEND = 0.0
-K3_DRAIN_DELAY_S = 1.0
+K3_DRAIN_DELAY_S = 0.5  # cut from a second to make room for path O
 # (shards, drain workers, seed): 3 shards with 3 workers (the one-shard episode, seed 71, was cut
 # when path P was added). The seed (of the reference tortures) kills after the 7th ACK (batch 6),
 # two batches past the checkpoint of batch 4.
@@ -4232,7 +4271,7 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
     from evolu_tpu_torch.storage import write_behind as wbm
     from evolu_tpu_torch.sync.client import _http_post
 
-    bodies, want, lanes, n, owners = keep.pop("k1_replay")
+    bodies, want, lanes, n, owners = keep["k1_replay"]  # path O2 replays it too
     path = os.path.join(tmp, "k1.db")
     server = RelayServer(RelayStore(path, backend="native"), batching=True, write_behind=True).start()
     wb = server.write_behind
@@ -4452,10 +4491,375 @@ def path_k(torch, kernels, keep, tmp, h1, h2, gpu=""):
     report, per = {}, {}
     per["k1"], report["k1"] = path_k1(torch, kernels, keep, tmp, h1, gpu)
     per["k2"], report["k2"] = path_k2(torch, kernels, keep, tmp, h2, gpu)
+    replay = keep["k1_replay"]
     keep.clear()
+    keep["k1_replay"] = replay  # for path O2
     per["k3"], report["k3"] = path_k3(torch, kernels, tmp, gpu)
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["k2"]}
+    return launches, report
+
+
+# ---- path O: observability on the reconcile pass and the live relay ----------------
+
+O_REPS = ("off", "on") * 4  # O1's interleaved runs, after one untimed warm-up run
+O_PROFILE_MS = 1000.0  # O2's /profile window, opened as its lanes start
+O_TRACE_ID = "0af7651916cd43dd8448eb211c80319c"
+O_STAGES = ("key_sort", "plan_compare", "hash_render", "minute_fold")
+# A Prometheus 0.0.4 sample line: name, optional {label="value",...}, value.
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*",?)*\})? '
+    r'([-+]?(?:[0-9.]+(?:[eE][-+]?[0-9]+)?|Inf|NaN))$')
+
+
+def obs_planes(on: bool) -> None:
+    """Every observability plane on or off: the metrics registry (and the
+    stage anatomy, which follows it), tracing at 100% sampling, and the
+    logger's record_function annotations."""
+    from evolu_tpu_torch.obs import metrics, trace
+    from evolu_tpu_torch.utils import log as log_mod
+
+    metrics.set_enabled(on)
+    trace.set_enabled(on)
+    trace.set_sample_rate(1.0)
+    log_mod.enable_trace_annotations(on)
+
+
+def parse_prometheus(text):
+    """Prometheus text format 0.0.4, strictly: every line a HELP or TYPE
+    comment or a sample; → {(name, labels text): value}."""
+    out = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            if not re.match(r"^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]*( .*)?$", line):
+                raise AssertionError(f"path O2: /metrics comment line not 0.0.4: {line[:120]!r}")
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if not m:
+            raise AssertionError(f"path O2: /metrics sample line not 0.0.4: {line[:120]!r}")
+        out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def median_events_ms(torch, fn, reps=5):
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def path_o1(torch, kernels, gpu=""):
+    """O1: path A's columns pass at 1M messages, obs off / on / off / on.
+    → (launches, report)."""
+    from evolu_tpu_torch.obs import metrics, trace
+    from evolu_tpu_torch.ops import bucket_size, columns_to_device
+    from evolu_tpu_torch.ops import merge as pm
+    from evolu_tpu_torch.ops import merkle_ops as mo
+    from evolu_tpu_torch.ops.merge import unpermute_masks
+    from evolu_tpu_torch.parallel import reconcile as pr
+    from evolu_tpu_torch.parallel.mesh import single_mesh
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.utils.log import logger, span
+
+    n = 1_000_000
+    cols = build_columns(n)
+    mesh = single_mesh(torch.device("cuda"))
+    rows = len(cols["cell_id"])
+    ev = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev[name] = e
+
+    def spy(orig, before, after):
+        def run(*a, **kw):
+            if before and before not in ev:
+                mark(before)
+            out = orig(*a, **kw)
+            if after and after not in ev:
+                mark(after)
+            return out
+        return run
+
+    waves = []
+
+    def counted(*xs):
+        waves.append(1)
+        return orig_pull(*xs)
+
+    orig_pull = pr.to_host_many
+    runs, outputs = [], []
+    logger.clear()
+    obs_planes(False)
+    pr.reconcile_columns_sharded(mesh, cols)  # warm-up: the sort's and the scans' first-call allocations
+    try:
+        for i, mode in enumerate(O_REPS):
+            obs_planes(mode == "on")
+            ev.clear()
+            waves.clear()
+            reset(kernels)
+            torch.cuda.synchronize()
+            root = trace.start_span("o1.columns_pass", attrs={"messages": n})
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(patched(pm, "segmented_max_scan", spy(pm.segmented_max_scan, "key_sort_end", None)))
+                stack.enter_context(patched(pr, "masked_key_hashes",
+                                            spy(pr.masked_key_hashes, "plan_compare_end", "hash_render_end")))
+                stack.enter_context(patched(pr, "to_host_many", counted))
+                stack.enter_context(trace.use(root.context))
+                t0 = time.perf_counter()
+                with span("kernel:reconcile", "o1.columns_pass", n=n):
+                    kernel = pr.shard_kernel_for(cols, mesh.devices[0])
+
+                    def timed(*a):
+                        mark("start")
+                        out = kernel(*a)
+                        mark("minute_fold_end")
+                        return out
+
+                    outs = pr.dispatch_columns_sharded(mesh, cols, kernel=timed)
+                    torch.cuda.synchronize()
+                    t_pull = time.perf_counter()
+                    pulled = pr.pull_shards(outs)
+                    pull_s = time.perf_counter() - t_pull
+                *arrays, digests = pulled
+                digest = pr.xor_allreduce(digests.view(np.uint32).tolist(), mesh)
+                xor_mask, upsert_mask = unpermute_masks(*arrays[:3])
+                wall = time.perf_counter() - t0
+            root.end()
+            launches = read(kernels)
+            order = ["start", "key_sort_end", "plan_compare_end", "hash_render_end", "minute_fold_end"]
+            stages = {nm: ev[a].elapsed_time(ev[b]) for nm, a, b in zip(O_STAGES, order, order[1:])}
+            runs.append({"mode": mode, "stage_ms": stages, "pass_s": wall, "pull_s": pull_s,
+                         "pull_bytes": int(sum(a.nbytes for a in pulled)), "waves": len(waves),
+                         "launches": launches})
+            outputs.append((arrays, digest, xor_mask, upsert_mask))
+            del outs, pulled
+        on_spans = [s for s in trace.recorder.dump() if s.name.startswith("kernel:reconcile")]
+        kernel_spans = metrics.registry.get_histogram("evolu_kernel_span_ms", target="kernel:reconcile")
+    finally:
+        obs_planes(True)
+        from evolu_tpu_torch.utils import log as log_mod
+
+        log_mod.enable_trace_annotations(False)
+    base = outputs[0]
+    for i, (arrays, digest, xm, um) in enumerate(outputs[1:], 1):
+        if digest != base[1] or not all(np.array_equal(a, b) for a, b in zip(arrays, base[0])) \
+                or not np.array_equal(xm, base[2]) or not np.array_equal(um, base[3]):
+            raise AssertionError(f"path O1: run {i} ({O_REPS[i]}) differs from run 0 (off) in masks, "
+                                 "segments or digest")
+    if any(r["launches"] != runs[0]["launches"] or r["waves"] != runs[0]["waves"] for r in runs):
+        raise AssertionError(f"path O1: launches or pull waves differ between runs: "
+                             f"{[(r['mode'], r['launches'], r['waves']) for r in runs]}")
+    want = {"seg_lex_max_scan": 2, "timestamp_hash": 1, "seg_xor_scan": 1, "seg_sum_scan": 0}
+    if runs[0]["launches"] != want:
+        raise AssertionError(f"path O1: launches {runs[0]['launches']}, expected {want} a pass")
+    n_on = O_REPS.count("on")
+    if len(on_spans) != n_on or kernel_spans is None or kernel_spans[3] != n_on:
+        raise AssertionError(f"path O1: the on runs recorded {len(on_spans)} trace spans, "
+                             f"{kernel_spans and kernel_spans[3]} span observations ({n_on} each expected)")
+
+    def mean(mode, key):
+        return statistics.mean(r[key] if key in r else r["stage_ms"][key] for r in runs if r["mode"] == mode)
+
+    overhead = {k: (mean("on", k) - mean("off", k)) / mean("off", k) for k in O_STAGES + ("pass_s",)}
+    spread = {k: (max(r["stage_ms"][k] for r in runs if r["mode"] == "off")
+                  - min(r["stage_ms"][k] for r in runs if r["mode"] == "off")) / mean("off", k) for k in O_STAGES}
+
+    # The cost laws' other terms, on the same inputs with obs off.
+    t = columns_to_device(cols, "cuda")
+    args = [t[k] for k in pr.COLUMN_NAMES]
+    a_, b_ = pm.winner_flags(*args[1:5])
+    idx = torch.arange(rows, dtype=torch.int64, device=args[0].device)
+    key = pr.pack_owner_cell_key(args[5], args[0], idx, lo_bits=2,
+                                 lo=(b_.to(torch.int64) << 1) | a_.to(torch.int64))
+    sort_ms = median_events_ms(torch, lambda: torch.sort(key))
+    segs = pr._shard_kernel(*args)[3:8]
+    cap = bucket_size(max(rows // 8, 64))
+    compact_ms = median_events_ms(torch, lambda: eng.compact_segments(*segs, cap))
+    del t, args, key, segs, idx, a_, b_
+    torch.cuda.empty_cache()
+    off_stage = {k: statistics.median(r["stage_ms"][k] for r in runs if r["mode"] == "off") for k in O_STAGES}
+    per_1m = 1e6 / rows
+    pull_mb_s = statistics.median(r["pull_bytes"] / r["pull_s"] / 1e6 for r in runs if r["mode"] == "off")
+    laws = {
+        "sort_key_ms_per_1m": sort_ms * per_1m,
+        "sort_payload_ms_per_1m": max(off_stage["key_sort"] - sort_ms, 0.0) / 2 * per_1m,
+        "plan_scan_pair_ms_per_1m": off_stage["plan_compare"] * per_1m,
+        "hash_render_ms_per_1m": off_stage["hash_render"] * per_1m,
+        "minute_fold_ms_per_1m": off_stage["minute_fold"] * per_1m,
+        "delta_encode_ms_per_1m": compact_ms * per_1m,
+        "pull_mb_per_s": pull_mb_s,
+    }
+    report = {
+        "messages": n, "rows_padded": rows, "kernel": kernel.__name__, "runs": [
+            {**r, "stage_ms": {k: round(v, 4) for k, v in r["stage_ms"].items()}, "pass_s": round(r["pass_s"], 4),
+             "pull_s": round(r["pull_s"], 5)} for r in runs],
+        "stage_ms_off": {k: round(v, 4) for k, v in off_stage.items()},
+        "overhead_on_vs_off": {k: round(v, 5) for k, v in overhead.items()},
+        "off_spread": {k: round(v, 5) for k, v in spread.items()},
+        "bare_key_sort_ms": round(sort_ms, 4), "compact_delta_ms": round(compact_ms, 4),
+        "cost_laws_measured": {k: round(v, 4) for k, v in laws.items()},
+    }
+    print(f"  path O1: {json.dumps(report)} | {gpu}", flush=True)
+    total = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    return total, report
+
+
+def path_o2(torch, kernels, keep, tmp, gpu=""):
+    """O2: K1's replay at a batching card relay with every plane on, under a
+    /profile capture. → (launches, report)."""
+    import threading
+    import urllib.request
+
+    from evolu_tpu_torch.obs import anatomy, metrics
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore, prepare_device_profiler
+    from evolu_tpu_torch.sync.client import _http_post
+    from evolu_tpu_torch.utils.log import logger
+
+    bodies, want, lanes, n, owners = keep.pop("k1_replay")
+    t0 = time.perf_counter()
+    if not prepare_device_profiler():  # on this, the main thread: /profile's handler thread captures
+        raise AssertionError("path O2: the device profiler cannot be prepared")
+    prepare_s = time.perf_counter() - t0
+    traced = lanes[0][0]
+    parent = f"00-{O_TRACE_ID}-b7ad6b7169203331-01"
+    logger.clear()
+    obs_planes(True)
+    from evolu_tpu_torch.utils import log as log_mod
+
+    log_mod.enable_trace_annotations(False)  # /profile turns them on for its window
+    server = RelayServer(RelayStore(os.path.join(tmp, "o2.db"), backend="native"), batching=True).start()
+    got, errors, sizes, prof = [None] * len(bodies), [], [], {}
+    routes0 = dict(eng.counts)
+    orig_run = eng.BatchReconciler.run_batch_wire
+
+    def sized(self, requests):
+        sizes.append(len(requests))
+        return orig_run(self, requests)
+
+    def lane(ix):
+        try:
+            for i in ix:
+                hdrs = {"traceparent": parent} if i == traced else None
+                got[i] = _http_post(server.url, bodies[i], headers=hdrs)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    def profile():
+        try:
+            with urllib.request.urlopen(server.url + f"/profile?ms={O_PROFILE_MS}", timeout=300) as r:
+                prof["doc"] = json.loads(r.read())
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    def get(path):
+        with urllib.request.urlopen(server.url + path, timeout=60) as r:
+            return r.read()
+
+    reset(kernels)
+    try:
+        with patched(eng.BatchReconciler, "run_batch_wire", sized):
+            threads = [threading.Thread(target=profile)] + [threading.Thread(target=lane, args=(ix,))
+                                                            for ix in lanes]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads[1:]:
+                t.join()
+            wall = time.perf_counter() - t0
+            threads[0].join()
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        counts = dict(server.scheduler.counts)
+        t1 = time.perf_counter()
+        text = get("/metrics").decode("utf-8")
+        stats = json.loads(get("/stats"))
+        req_trace = json.loads(get(f"/trace/{O_TRACE_ID}"))
+        batch_spans = [s for s in req_trace["spans"] if s["name"] == "engine.batch"]
+        batch_trace = json.loads(get(f"/trace/{batch_spans[0]['trace_id']}")) if batch_spans else {"spans": []}
+        fetch_s = time.perf_counter() - t1
+        platform = anatomy.get_platform()
+    finally:
+        server.stop()
+    if errors:
+        raise AssertionError("path O2: a client's POST or the /profile GET failed") from errors[0]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"path O2: {len(bad)} responses differ from path E's (first: request {bad[0]})")
+    parsed = parse_prometheus(text)
+    msgs = sum(v for (name, _), v in parsed.items()
+               if name in ("evolu_crypto_v1_relay_messages_total", "evolu_crypto_v2_relay_messages_total"))
+    counters = {"requests": parsed.get(("evolu_relay_requests_total", '{endpoint="/"}')),
+                "messages": msgs, "coalesced": parsed.get(("evolu_sched_coalesced_requests_total", "")),
+                "batches": parsed.get(("evolu_sched_batches_total", "")),
+                "latency_count": parsed.get(("evolu_relay_request_ms_count", ""))}
+    if counters != {"requests": len(bodies), "messages": n, "coalesced": len(bodies), "batches": len(sizes),
+                    "latency_count": len(bodies)}:
+        raise AssertionError(f"path O2: /metrics counters {counters}, driven: {len(bodies)} requests, {n} "
+                             f"messages, {len(sizes)} passes")
+    stages = stats.get("stages", {}).get("stages", {})
+    if stats.get("latency_ms", {}).get("count") != len(bodies) \
+            or not all(stages.get(k, {}).get("count") for k in ("device_dispatch", "pull_wave", "host_apply")):
+        raise AssertionError(f"path O2: /stats latency_ms {stats.get('latency_ms')}, stages {sorted(stages)}")
+    relay_spans = [s for s in req_trace["spans"] if s["name"] == "relay.sync" and s["trace_id"] == O_TRACE_ID]
+    linked = [s for s in batch_spans if any(link[0] == O_TRACE_ID for link in s["links"])]
+    merkle = [s for s in batch_trace["spans"] if s["name"].startswith("kernel:merkle")
+              and linked and s["parent_id"] == linked[0]["span_id"]]
+    if not (relay_spans and linked and merkle):
+        raise AssertionError(f"path O2: /trace/{O_TRACE_ID}: relay.sync {len(relay_spans)}, linking engine.batch "
+                             f"{len(linked)}, kernel:merkle under it {len(merkle)}")
+    doc = prof.get("doc") or {}
+    meta = doc.get("metadata", {})
+    device_kernels = sorted({e["name"] for e in doc.get("traceEvents", []) if e.get("cat") == "kernel"})
+    lane_ok = meta.get("device_lane") is True and any("lookback_scan" in k for k in device_kernels) \
+        and any("ts_hash_kernel" in k for k in device_kernels)
+    if not lane_ok:
+        raise AssertionError(f"path O2: the /profile document has no device lane with the port's kernels: "
+                             f"metadata {meta}, kernel events {device_kernels[:10]}")
+    fams = sorted({name for (name, _) in parsed})
+    hist = stages.get("device_dispatch", {}), stages.get("host_apply", {})
+    rows_applied = metrics.get_counter("evolu_stage_rows_total", stage="host_apply")
+    secs_applied = metrics.get_counter("evolu_stage_seconds_total", stage="host_apply")
+    out = {"requests": len(bodies), "owners": len(owners), "messages": n, "client_threads": len(lanes),
+           "serve_wall_s": round(wall, 4), "msgs_per_s": round(n / wall), "engine_passes": len(sizes),
+           "scheduler_counts": counts, "metrics_counters": counters, "metrics_families": len(fams),
+           "latency_ms": stats["latency_ms"], "platform": platform,
+           "stages": {k: stages[k] for k in ("device_dispatch", "pull_wave", "host_apply")},
+           "host_apply_rows_per_s": round(rows_applied / secs_applied) if secs_applied else None,
+           "device_dispatch_fixed_ms": hist[0].get("fixed_ms"),
+           "trace": {"request_spans": sorted({s["name"] for s in req_trace["spans"]}),
+                     "batch_spans": sorted({s["name"] for s in batch_trace["spans"]})},
+           "profile": {"device_kernels": device_kernels[:8], "events": len(doc.get("traceEvents", [])),
+                       "wall_ms": meta.get("wall_ms"), "start_ms": meta.get("start_ms"),
+                       "stop_ms": meta.get("stop_ms"), "export_ms": meta.get("export_ms"),
+                       "host_span_events": meta.get("host_span_events"),
+                       "trace_span_events": meta.get("trace_span_events")},
+           "profiler_prepare_s": round(prepare_s, 3), "fetch_s": round(fetch_s, 3)}
+    print(f"  path O2: {json.dumps(out, default=str)} | {gpu}", flush=True)
+    expect = {"seg_lex_max_scan": 0, "seg_xor_scan": passes, "timestamp_hash": passes, "seg_sum_scan": 0}
+    if launches != expect or passes < len(sizes) or not passes:  # an overflow rerun dispatches again
+        raise AssertionError(f"path O2: launches {launches} for {passes} engine dispatches, expected {expect}")
+    return launches, out
+
+
+def path_o(torch, kernels, keep, tmp, gpu=""):
+    """Path O: O1 and O2, each with its own launch counts (summed as path
+    O). → (launches, report)."""
+    report, per = {}, {}
+    per["o1"], report["o1"] = path_o1(torch, kernels, gpu)
+    per["o2"], report["o2"] = path_o2(torch, kernels, keep, tmp, gpu)
+    report["launches"] = per
+    launches = {k: sum(p[k] for p in per.values()) for k in per["o1"]}
     return launches, report
 
 
@@ -5652,11 +6056,13 @@ def path_n3(torch, kernels, keep, tmp, report_g2, gpu=""):
 
 def path_n4(torch, kernels, trees, batches, oracle, report_d, gpu=""):
     """N4, the client worker on the mesh: path D's D1 (2^19 in 4 chunks)
-    and D2 (3 x 100k) into `DbWorker(device=None, mesh_ctx=8 shards of
-    cuda:0)` with `Config(mesh_engine=True, hot_owner_min_batch=2^17)`:
-    D1's chunks take `reconcile_hot_owner`, D2 `MeshShardedWinnerCache`
-    with its gate off (every batch a sharded cached plan; audited after
-    every Receive); the state equals path D's oracle after D2."""
+    and D2's first batch (100k; D2's other two were cut to make room for
+    path O) into `DbWorker(device=None, mesh_ctx=8 shards of cuda:0)` with
+    `Config(mesh_engine=True, hot_owner_min_batch=2^17)`: D1's chunks take
+    `reconcile_hot_owner`, the D2 batch `MeshShardedWinnerCache` with its
+    gate off (a sharded cached plan); the state equals path D's oracle
+    after D2's first Receive. `trees` and `batches` are D1's and that
+    batch's."""
     from evolu_tpu_torch.parallel import hot_owner
     from evolu_tpu_torch.utils.config import Config
 
@@ -5693,13 +6099,15 @@ def path_n4(torch, kernels, trees, batches, oracle, report_d, gpu=""):
     check_n("N4", launches, lww(2 * (N_SHARDS * sharded + streamed), N_SHARDS * sharded + streamed,
                                 N_SHARDS * sharded + streamed))
     if got != oracle:
-        raise AssertionError("path N4: outputs, pushes, tables or the tree differ from path D's oracle after D2")
+        raise AssertionError("path N4: outputs, pushes, tables or the tree differ from path D's oracle after "
+                             "D2's first Receive")
     n = {"d1": len(batches[0][1]), "d2": sum(len(b) for _, b in batches[1:])}
     report = {p: {"messages": n[p], "wall_s": round(w.walls[p], 4), "msgs_per_s": round(n[p] / w.walls[p]),
                   "path_d_msgs_per_s": report_d[p]["msgs_per_s"]} for p in n}
     report.update({"hot_owner_chunks": hot_calls, "cache": type(cache).__name__, "cache_counts": dict(cache.counts),
                    "shard_slot_counts": slots, "routes": routes, "mesh_counts": ctx.counts, "launches": launches})
-    print(f"  path N4: the state equals path D's oracle after D2; {json.dumps(report, default=str)} | {gpu}",
+    print(f"  path N4: the state equals path D's oracle after D2's first Receive; "
+          f"{json.dumps(report, default=str)} | {gpu}",
           flush=True)
     return launches, report
 
@@ -6378,7 +6786,8 @@ def main() -> int:
         launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
         print("  " + json.dumps(report_c2), flush=True)
     with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
-        launches["d"], report_d, trees_d2, batches_d, (m3_oracle, g1_oracle) = path_d(torch, kernels, d_oracle_job)
+        launches["d"], report_d, trees_d2, batches_d, (m3_oracle, g1_oracle, n4_oracle) = path_d(
+            torch, kernels, d_oracle_job)
         print("  " + json.dumps(report_d), flush=True)
     captured_e, keep_e = {}, {}
     with phase("path E: relay engine at config 3 (1M messages, 1k owners) vs per-request serve", gpu):
@@ -6394,8 +6803,9 @@ def main() -> int:
         report_m["m3"]["path_d_msgs_per_s"] = {"d1": report_d["d1"]["msgs_per_s"]}
     with phase("path N4: a card DbWorker on 8 shards (the hot-owner route, the sharded winner cache) replays D1 "
                "and D2 vs path D's oracle", gpu):
-        launches_n["n4"], report_n["n4"] = path_n4(torch, kernels, trees_d2, batches_d, g1_oracle, report_d, gpu)
-        del batches_d, g1_oracle, m3_oracle
+        launches_n["n4"], report_n["n4"] = path_n4(torch, kernels, trees_d2[:2], batches_d[:2], n4_oracle,
+                                                   report_d, gpu)
+        del batches_d, g1_oracle, m3_oracle, n4_oracle
     bodies_h1 = h1_bodies_job.get()
     p2_oracle_out, p_seed_out = p2_oracle_job.get(), p_seed_job.get()
     n5_requests_job.get()
@@ -6431,6 +6841,10 @@ def main() -> int:
                    "replay) vs path E and synchronous twins", gpu):
             launches["k"], report_k = path_k(torch, kernels, keep_e, tmp_hi, report_h["h1"], report_h["h2"], gpu)
             print("  " + json.dumps(report_k["launches"]) + f" | {gpu}", flush=True)
+        with phase("path O: observability on the reconcile pass (obs off / on, 1M messages) and on the live relay "
+                   "(/metrics, /stats, /trace, /profile with the device lane)", gpu):
+            launches["o"], report_o = path_o(torch, kernels, keep_e, tmp_hi, gpu)
+            print("  " + json.dumps(report_o["launches"]) + f" | {gpu}", flush=True)
         with phase("path P: scoped sync (partial replication: thin pullers of a one-lane slice from deep "
                    "histories, scoped handles with the deferred frontier and the widening, a scoped snapshot "
                    "bootstrap, the scoped fold) vs owed sets and an oracle set", gpu):
@@ -6500,7 +6914,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "p", "m", "n"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "o", "p", "m", "n"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -6514,7 +6928,8 @@ def main() -> int:
     print(json.dumps({"columns": reports, "typed": {"c1": report_c1, "c2": report_c2}, "client": report_d,
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
                       "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k,
-                      "scoped_sync": report_p, "merge_plan": report_m, "mesh": report_n}, default=str))
+                      "observability": report_o, "scoped_sync": report_p, "merge_plan": report_m,
+                      "mesh": report_n}, default=str))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

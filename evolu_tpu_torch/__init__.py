@@ -19,6 +19,17 @@ jax nor `evolu_tpu`; it keeps its own copies of the host helpers it
 needs, under the same module names.
 """
 
-from evolu_tpu_torch.ops import resolve_device
+# The reference package's version: the relay's `evolu_build_info` reports it.
+__version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "__version__"]
+
+
+def __getattr__(name):
+    # Lazy, so that importing a host-only module (`obs`, `utils.log`) loads
+    # no torch.
+    if name == "resolve_device":
+        from evolu_tpu_torch.ops import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,10 +19,14 @@ bit.
 
 from __future__ import annotations
 
+import time
 from typing import Dict
 
 import numpy as np
 import torch
+
+from evolu_tpu_torch.obs import anatomy as _anatomy
+from evolu_tpu_torch.obs import metrics as _metrics
 
 # Columns whose numpy form is np.uint64 (int64 bit patterns on device).
 U64_COLUMNS = frozenset({"k1", "k2", "ex_k1", "ex_k2", "node"})
@@ -57,12 +61,33 @@ def wrap_int32(x: torch.Tensor) -> torch.Tensor:
 
 def to_host_many(*xs):
     """One synchronize, then one `.cpu()` wave for every output. Tensors
-    become numpy arrays; anything else passes through."""
+    become numpy arrays; anything else passes through.
+
+    Instrumented like the reference's: pull bytes, the wave-size
+    histogram and pull seconds, and one `pull_wave` stage record a wave.
+    The instrumentation is host-side, after the pull materialized — it
+    reads `.nbytes` off the returned numpy arrays and costs a few dict
+    ops per WAVE (tests/test_torch_obs_liveness.py)."""
+    t0 = time.perf_counter()
     if any(isinstance(x, torch.Tensor) and x.is_cuda for x in xs):
         torch.cuda.synchronize()
-    return tuple(
+    out = tuple(
         x.cpu().numpy() if isinstance(x, torch.Tensor) else x for x in xs
     )
+    record_pull_wave(time.perf_counter() - t0, out)
+    return out
+
+
+def record_pull_wave(seconds: float, arrays) -> None:
+    """One pull wave's telemetry: its bytes, the wave-size histogram, its
+    seconds, and a `pull_wave` stage record."""
+    if _metrics.registry.enabled:
+        wave_bytes = sum(int(getattr(a, "nbytes", 0)) for a in arrays)
+        _metrics.inc("evolu_pull_bytes_total", wave_bytes)
+        _metrics.inc("evolu_pull_seconds_total", seconds)
+        _metrics.observe("evolu_pull_wave_bytes", wave_bytes,
+                         buckets=_metrics.SIZE_BUCKETS)
+        _anatomy.record_stage("pull_wave", seconds, nbytes=wave_bytes)
 
 
 def bucket_size(n: int, multiple: int = 64) -> int:

@@ -191,6 +191,13 @@ _stream_states = {}  # (kind, device index, stream handle) -> state
 _stream_states_lock = threading.Lock()
 
 
+def stream_state_count() -> int:
+    """How many per-(kind, device, stream) kernel states exist: what the
+    kernels keep per launch shape (`server.engine.observe_jit_caches`)."""
+    with _stream_states_lock:
+        return len(_stream_states)
+
+
 def stream_state(kind: str, t, update, *args):
     """(view, stream) for one launch on `t`'s device and current stream.
     `update(state or None, device, *args)` returns the `kind` scratch state,

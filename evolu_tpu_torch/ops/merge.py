@@ -29,10 +29,12 @@ import numpy as np
 import torch
 
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import metrics
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many, u64_order
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
 from evolu_tpu_torch.ops.cuda_scan import segmented_max_scan
 from evolu_tpu_torch.ops.encode import pack_ts_key_host, unpack_ts_keys
+from evolu_tpu_torch.utils.log import log
 
 _PAD_CELL = np.int32(0x7FFFFFFF)
 
@@ -340,6 +342,9 @@ def _host_fallback(messages, existing_winners, with_deltas=False):
     from evolu_tpu_torch.core.merkle import minute_deltas_host
     from evolu_tpu_torch.storage.apply import plan_batch
 
+    metrics.inc("evolu_merge_host_fallbacks_total")
+    metrics.inc("evolu_merge_host_fallback_messages_total", len(messages))
+    log("kernel:merge", "non-canonical hex case: host-planner fallback", n=len(messages))
     xor_mask, upserts = plan_batch(messages, existing_winners)
     if not with_deltas:
         return xor_mask, upserts

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import metrics
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
 from evolu_tpu_torch.ops.cuda_lib import device_work
@@ -110,6 +111,24 @@ def grow_slots(w, new_cap: int):
     return out
 
 
+# `counts` key → its `evolu_winner_cache_*` metric and labels.
+_TALLY_METRICS = {
+    "foreign_write_drops": ("evolu_winner_cache_foreign_write_drops_total", {}),
+    "grows": ("evolu_winner_cache_grows_total", {}),
+    "noncanonical_seeds": ("evolu_winner_cache_noncanonical_seeds_total", {}),
+    "seeded_cells": ("evolu_winner_cache_seeded_cells_total", {}),
+    "evictions": ("evolu_winner_cache_evictions_total", {}),
+    "invalidated_cells": ("evolu_winner_cache_invalidated_cells_total", {}),
+    "resets": ("evolu_winner_cache_resets_total", {}),
+    "switches_to_cached": ("evolu_winner_cache_mode_switches_total", {"to": "cached"}),
+    "switches_to_stream": ("evolu_winner_cache_mode_switches_total", {"to": "stream"}),
+    "hits": ("evolu_winner_cache_hits_total", {}),
+    "misses": ("evolu_winner_cache_misses_total", {}),
+    "streamed_cells": ("evolu_winner_cache_streamed_cells_total", {}),
+    "host_fallbacks": ("evolu_winner_cache_host_fallbacks_total", {}),
+}
+
+
 class DeviceWinnerCache:
     """Keeps the (k1, k2) winner keys of each cell in device memory
     across batches. `plan_batch` has the planner contract of
@@ -163,7 +182,7 @@ class DeviceWinnerCache:
         # 1.0 rates are the workload's signal and must reach the EWMA.
         self._skip_ewma_once = False
         self._ewma_suppressed = False
-        # What the reference counts as evolu_winner_cache_* metrics, the
+        # The evolu_winner_cache_* events (`_tally` records both), the
         # batches planned on each route (`<route>_plans`), and the route
         # of the last batch ("cached", "stream" or "host").
         self.counts: Counter = Counter()
@@ -193,7 +212,7 @@ class DeviceWinnerCache:
         if version != self._data_version:
             self._data_version = version
             if self._has_slot_state():
-                self.counts["foreign_write_drops"] += 1
+                self._tally("foreign_write_drops")
                 self.reset()
 
     def _has_slot_state(self) -> bool:
@@ -209,7 +228,7 @@ class DeviceWinnerCache:
             self._w1 = grow_slots(self._w1, new_cap)
             self._w2 = grow_slots(self._w2, new_cap)
             self.capacity = new_cap
-            self.counts["grows"] += 1
+            self._tally("grows")
 
     def _seed_new_cells(self, new_cells: List[Cell]) -> bool:
         """Assign slots to first-seen cells (freed slots first) and load
@@ -220,9 +239,9 @@ class DeviceWinnerCache:
         winners = fetch_existing_winners(self._db, new_cells)
         v1, v2, canonical = winner_key_columns(new_cells, winners)
         if not canonical:
-            self.counts["noncanonical_seeds"] += 1
+            self._tally("noncanonical_seeds")
             return False
-        self.counts["seeded_cells"] += len(new_cells)
+        self._tally("seeded_cells", len(new_cells))
         self._assign_and_write_seeds(new_cells, v1, v2)
         return True
 
@@ -253,7 +272,7 @@ class DeviceWinnerCache:
             return new_cells
         if len(self._slots) + len(new_cells) <= self.max_slots:
             return new_cells
-        self.counts["evictions"] += 1
+        self._tally("evictions")
         self.reset()
         if len(cells) > self.max_slots:
             return None
@@ -264,10 +283,10 @@ class DeviceWinnerCache:
             slot = self._slots.pop(c, None)
             if slot is not None:
                 self._free.append(slot)
-                self.counts["invalidated_cells"] += 1
+                self._tally("invalidated_cells")
 
     def reset(self) -> None:
-        self.counts["resets"] += 1
+        self._tally("resets")
         self._slots.clear()
         self._free.clear()
         self._next_slot = 0
@@ -319,7 +338,7 @@ class DeviceWinnerCache:
             # Churn subsided: warm the cache back up this batch.
             self._streaming = False
             self._known = set()
-            self.counts["switches_to_cached"] += 1
+            self._tally("switches_to_cached")
             return "cached", [c for c in cells if c not in self._slots]
         if self._seed_ewma > self.seed_hi:
             # Seeding dominates: drop the cache (it stops being
@@ -328,9 +347,18 @@ class DeviceWinnerCache:
             self._known = set(self._slots)
             self._known.update(cells)
             self.reset()  # arms no EWMA skip: _streaming is set
-            self.counts["switches_to_stream"] += 1
+            self._tally("switches_to_stream")
             return "stream", new_cells
         return "cached", new_cells
+
+    def _tally(self, key: str, n: int = 1) -> None:
+        """Count an event in `counts` and in its `evolu_winner_cache_*`
+        metric family (the reference's names)."""
+        self.counts[key] += n
+        name, labels = _TALLY_METRICS[key]
+        metrics.inc(name, n, **labels)
+        if key == "grows":
+            metrics.set_gauge("evolu_winner_cache_capacity_slots", self.capacity)
 
     def _took(self, route: str) -> None:
         self.last_route = route
@@ -360,8 +388,8 @@ class DeviceWinnerCache:
             return self._plan_streamed(messages, cells, cell_ids, millis, counter, node)
         if new_cells and not self._seed_new_cells(new_cells):
             return self._host_fallback(messages, cells)
-        self.counts["hits"] += len(cells) - len(new_cells)
-        self.counts["misses"] += len(new_cells)
+        self._tally("hits", len(cells) - len(new_cells))
+        self._tally("misses", len(new_cells))
         self._took("cached")
         slot_of = np.fromiter((self._slots[c] for c in cells), np.int64, len(cells))
         xor_mask, upsert_mask, deltas = self._run_cached_plan(
@@ -419,14 +447,14 @@ class DeviceWinnerCache:
             plan = plan_packed_streamed(self._db, pb, millis, counter, node, cells, touched_ids,
                                         self.device)
             if plan is not None:
-                self.counts["streamed_cells"] += len(cells)
+                self._tally("streamed_cells", len(cells))
                 self._took("stream")
             return plan
         if new_cells and not self._seed_new_cells(new_cells):
             self._skip_ewma_once = True
             return None  # non-canonical stored winner: the object path
-        self.counts["hits"] += len(cells) - len(new_cells)
-        self.counts["misses"] += len(new_cells)
+        self._tally("hits", len(cells) - len(new_cells))
+        self._tally("misses", len(new_cells))
         self._took("cached")
         slot_arr = np.zeros(len(pb.cells), np.int64)
         slot_arr[touched_ids] = [self._slots[c] for c in cells]
@@ -441,7 +469,7 @@ class DeviceWinnerCache:
         ex1_u, ex2_u, canonical = winner_key_columns(cells, winners)
         if not canonical:
             return self._host_fallback(messages, cells)
-        self.counts["streamed_cells"] += len(cells)
+        self._tally("streamed_cells", len(cells))
         self._took("stream")
         cols = (cell_ids, pack_ts_key_host(millis, counter), node, ex1_u[cell_ids],
                 ex2_u[cell_ids], millis, counter, node, True)
@@ -451,7 +479,7 @@ class DeviceWinnerCache:
         """Non-canonical hex case: invalidate every touched cell (their
         SQLite winners may now be non-canonical, which the numeric cache
         cannot hold), then plan on the host."""
-        self.counts["host_fallbacks"] += 1
+        self._tally("host_fallbacks")
         self._took("host")
         self.invalidate(cells)
         existing = fetch_existing_winners(self._db, cells)
@@ -574,7 +602,7 @@ class MeshShardedWinnerCache(DeviceWinnerCache):
             self._w1 = [grow_slots(w, new_cap) for w in self._w1]
             self._w2 = [grow_slots(w, new_cap) for w in self._w2]
             self.capacity = new_cap
-            self.counts["grows"] += 1
+            self._tally("grows")
 
     def _assign_and_write_seeds(self, new_cells: List[Cell], v1: np.ndarray, v2: np.ndarray) -> None:
         """Per-shard slots: each new cell takes a freed slot of its shard,
@@ -608,7 +636,7 @@ class MeshShardedWinnerCache(DeviceWinnerCache):
             slot = self._slots.pop(c, None)
             if slot is not None:
                 self._free_by_shard[slot % self.n_shards].append(slot // self.n_shards)
-                self.counts["invalidated_cells"] += 1
+                self._tally("invalidated_cells")
 
     def reset(self) -> None:
         super().reset()

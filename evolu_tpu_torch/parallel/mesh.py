@@ -18,8 +18,10 @@ plus the rank of the process that hosts it:
 - the only cross-shard value is the batch digest, XOR-reduced on the host
   and across processes (`parallel.reconcile.xor_allreduce`).
 
-The JAX package's `evolu_mesh_*` telemetry is plain `counts` on the
-`MeshContext`.
+A `MeshContext` records the reference's `evolu_mesh_*` family (the
+devices gauge, the `shard_rows` and `padding_waste_rows` histograms, the
+dispatch and cross-shard reduce counters) and keeps plain `counts` of
+the same events beside it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Dict, Hashable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from evolu_tpu_torch.obs import anatomy, metrics
 
 OWNERS_AXIS = "owners"
 
@@ -104,12 +108,23 @@ def create_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     if n_devices is not None:
         devices = devices[:n_devices]
     rank = process_index()
-    return Mesh([Shard(torch.device(d), rank) for d in devices])
+    mesh = Mesh([Shard(torch.device(d), rank) for d in devices])
+    _set_platform(mesh)
+    return mesh
+
+
+def _set_platform(mesh: Mesh) -> None:
+    """Push the platform into the stage-anatomy plane, which prices its
+    floors from COST_LAWS by platform and never asks torch itself:
+    "cuda" for a mesh on the card, "cpu" otherwise."""
+    anatomy.set_platform("cuda" if mesh.shards[0].device.type == "cuda" else "cpu")
 
 
 def single_mesh(device) -> Mesh:
     """The one-shard mesh on `device` (a resolved torch.device)."""
-    return Mesh([Shard(torch.device(device), process_index())])
+    mesh = Mesh([Shard(torch.device(device), process_index())])
+    _set_platform(mesh)
+    return mesh
 
 
 def put_sharded(arr: np.ndarray, mesh: Mesh) -> List[Optional[np.ndarray]]:
@@ -154,7 +169,8 @@ class MeshContext:
     passes, the sharded winner cache, a scheduler serving several relays),
     so they all place an owner on the same shard.
 
-    `counts` holds what the JAX package records as `evolu_mesh_*`:
+    It records the `evolu_mesh_*` family as the reference does, and
+    `counts` holds the same events for this context alone:
     `dispatches`, `xdev_reduce` by kind, and the number of per-shard
     observations of `shard_rows` / `padding_waste_rows` (their sums too;
     `last_loads` is the newest dispatch's per-shard rows)."""
@@ -172,6 +188,7 @@ class MeshContext:
             "padding_waste_rows_sum": 0,
         }
         self.last_loads: List[int] = []
+        metrics.set_gauge("evolu_mesh_devices", self.n_shards)
 
     def place(self, owner_id) -> int:
         return owner_shard(owner_id, self.n_shards)
@@ -201,12 +218,20 @@ class MeshContext:
             c["padding_waste_rows"] += len(loads)
             c["padding_waste_rows_sum"] += sum(max(shard_size - x, 0) for x in loads)
             self.last_loads = loads
+        for load in loads:
+            metrics.observe("evolu_mesh_shard_rows", load,
+                            buckets=metrics.COUNT_BUCKETS)
+            metrics.observe("evolu_mesh_padding_waste_rows",
+                            max(shard_size - load, 0),
+                            buckets=metrics.COUNT_BUCKETS)
+        metrics.inc("evolu_mesh_dispatches_total")
 
     def record_xdev_reduce(self, kind: str) -> None:
         """One cross-shard reduction: the digest of a sharded dispatch, or
         a host XOR-merge of per-owner delta partials that spanned shards."""
         with self._lock:
             self.counts["xdev_reduce"][kind] += 1
+        metrics.inc("evolu_mesh_xdev_reduce_total", kind=kind)
 
 
 _process_ctx: Optional[MeshContext] = None

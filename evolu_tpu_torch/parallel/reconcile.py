@@ -17,6 +17,10 @@ ids are unique across owners and cell segmentation keeps owners apart.
 `shard_kernel_for` routes a batch on its host columns between the
 sort-free scatter plan (`_shard_kernel_scatter`, ops/scatter_merge.py),
 the packed-owner sort kernel and the wide-id sort kernel.
+
+The `evolu_reconcile_*` metrics (kernel variant, batch rows and owners,
+shard rows, host-owner fallbacks) and the `kernel:reconcile` span are
+recorded as in the reference, once a batch, from host values in hand.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import metrics
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
 from evolu_tpu_torch.ops.cuda_lib import device_work
@@ -49,6 +54,7 @@ from evolu_tpu_torch.parallel.mesh import (
     require_single_process,
     single_mesh,
 )
+from evolu_tpu_torch.utils.log import log, span
 
 # Packed-owner sort key: owner(12) | cell(25) | idx(24) | flags(2) = 63
 # bits. Owner value 4095 is the padding sentinel (sorts last), so real
@@ -152,6 +158,7 @@ def shard_kernel_for(cols: Dict[str, np.ndarray], device=None):
     admission allow it (cell ids < 2^25, no duplicate row); else the
     packed-owner kernel, which needs every real cell id < 2^25 and every
     owner index < 4095; else the wide kernel. Counted in
+    `evolu_reconcile_kernel_total{variant}` and
     `scatter_merge.counts["reconcile_kernel"]`."""
     from evolu_tpu_torch.ops.scatter_merge import count, table_size_for, use_scatter_plan
 
@@ -161,11 +168,14 @@ def shard_kernel_for(cols: Dict[str, np.ndarray], device=None):
     if "k1" in cols and use_scatter_plan(cols["cell_id"], cols["k1"], cols["k2"], device,
                                          cell_max=cell_max):
         count("reconcile_kernel", "scatter")
+        metrics.inc("evolu_reconcile_kernel_total", variant="scatter")
         return scatter_shard_kernel(table_size_for(cell_max))
     if cell_max < (1 << _CELL_BITS) and owner_max < _PAD_OWNER:
         count("reconcile_kernel", "packed")
+        metrics.inc("evolu_reconcile_kernel_total", variant="packed")
         return _shard_kernel
     count("reconcile_kernel", "wide")
+    metrics.inc("evolu_reconcile_kernel_total", variant="wide")
     return _shard_kernel_wide
 
 
@@ -293,6 +303,8 @@ def build_owner_columns(
     else:
         shards = assign_owners_to_shards(sizes, n_shards)
     loads = [sum(sizes[o] for o in s) for s in shards]
+    for load in loads:
+        metrics.observe("evolu_reconcile_shard_rows", load, buckets=metrics.COUNT_BUCKETS)
     shard_size = bucket_size(max(max(loads, default=0), 1))
     if mesh_ctx is not None:
         mesh_ctx.record_occupancy(loads, shard_size)
@@ -341,6 +353,16 @@ def reconcile_owner_batches(
         return {}, 0
     require_single_process("reconcile_owner_batches")
     mesh = _layout_mesh(mesh, mesh_ctx, device)
+    n_msgs = sum(len(v) for v in owner_batches.values())
+    metrics.observe("evolu_reconcile_batch_rows", n_msgs, buckets=metrics.COUNT_BUCKETS)
+    metrics.observe("evolu_reconcile_batch_owners", len(owner_batches),
+                    buckets=metrics.COUNT_BUCKETS)
+    with span("kernel:reconcile", "reconcile_owner_batches", owners=len(owner_batches),
+              n=n_msgs):
+        return _reconcile_owner_batches_timed(owner_batches, existing_winners, mesh, mesh_ctx)
+
+
+def _reconcile_owner_batches_timed(owner_batches, existing_winners, mesh, mesh_ctx):
     cols, index, host_owners = build_owner_columns(owner_batches, existing_winners, mesh, mesh_ctx)
     results = {}
     digest = 0
@@ -358,7 +380,10 @@ def reconcile_owner_batches(
                 select_messages(owner_batches[owner], upsert_mask[positions]),
                 deltas_by_ix.get(o_ix, {}),
             )
+    metrics.inc("evolu_reconcile_host_owner_fallbacks_total", len(host_owners))
     for owner in host_owners:
+        log("kernel:reconcile", "non-canonical hex case: host-planner fallback",
+            owner=owner, n=len(owner_batches[owner]))
         plan, owner_digest = _host_owner_plan(
             owner_batches[owner], existing_winners.get(owner, {})
         )

@@ -155,7 +155,9 @@ class SyncRequestInput:
     owner: Owner
     previous_diff: Optional[int] = None
     # Distributed-trace context of the mutation that produced this
-    # round, in-process only; always None in the port until tracing is
-    # ported. compare=False: two identical rounds carry different trace
-    # ids by design.
+    # round (obs.trace.SpanContext), or None for pull-only rounds and
+    # untraced embedders. Carried in-process only: on the wire the
+    # context rides the HTTP traceparent header, never the body.
+    # compare=False: two identical rounds carry different trace ids by
+    # design.
     trace: Optional[object] = field(default=None, compare=False)

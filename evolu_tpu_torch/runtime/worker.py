@@ -63,6 +63,7 @@ from evolu_tpu_torch.core.timestamp import (
     timestamp_to_string,
 )
 from evolu_tpu_torch.core.types import CrdtClock, CrdtMessage, Owner, SyncError, TimestampParseError
+from evolu_tpu_torch.obs import flight, metrics, trace
 from evolu_tpu_torch.ops import resolve_device
 from evolu_tpu_torch.ops.host_parse import parse_timestamp_strings
 from evolu_tpu_torch.runtime import messages as msg
@@ -85,6 +86,7 @@ from evolu_tpu_torch.storage.sqlite import PySqliteDatabase
 from evolu_tpu_torch.sync.protocol import assert_wire_encodable
 from evolu_tpu_torch.sync.scope import ScopeDeferred
 from evolu_tpu_torch.utils.config import Config
+from evolu_tpu_torch.utils.log import logger
 
 
 def _now_millis() -> int:
@@ -308,7 +310,9 @@ class DbWorker:
 
     def start(self, mnemonic: Optional[str] = None) -> Owner:
         """Init: bootstrap the db model in one transaction, emit OnInit
-        with the owner, and start the worker thread."""
+        with the owner, and start the worker thread. Applies the config's
+        log setting to the module logger (setConfig, db.worker.ts:103)."""
+        logger.configure(self.config.log)
         with self.db.transaction():
             self.owner = init_db_model(self.db, mnemonic)
         self.on_output(msg.OnInit(self.owner))
@@ -365,11 +369,25 @@ class DbWorker:
     def handle(self, command: object) -> None:
         """Dispatch one command inside one transaction; errors roll back
         and surface as OnError."""
+        t0 = time.perf_counter()
         self._staged_effects = []
         self._staged_cache = {}
         self._staged_raw = {}
         self._staged_changes = ChangedSet()
         self._staged_seen = set()
+        metrics.inc("evolu_worker_commands_total", command=type(command).__name__)
+        try:
+            self._handle_inner(command)
+        finally:
+            if isinstance(command, (msg.Send, msg.Receive, msg.Query)):
+                # The mutation→notify latency: local mutations notify
+                # within their Send, remote ones in a Receive and the
+                # Query sweep after it.
+                metrics.observe("evolu_query_notify_latency_ms",
+                                (time.perf_counter() - t0) * 1e3,
+                                command=type(command).__name__)
+
+    def _handle_inner(self, command: object) -> None:
         try:
             txn = nullcontext() if self._manages_own_transactions(command) else self.db.transaction()
             with txn:
@@ -400,6 +418,11 @@ class DbWorker:
                 else:
                     raise ValueError(f"unknown command: {command!r}")
         except Exception as e:  # noqa: BLE001 - the Either-left channel
+            # The flight recorder's dump rides the exception across the
+            # worker boundary: OnError subscribers see the last N
+            # structured events, not a bare traceback.
+            flight.attach(e)
+            metrics.inc("evolu_worker_errors_total", command=type(command).__name__)
             if isinstance(command, (msg.Send, msg.Receive, msg.ResetOwner, msg.RestoreOwner)):
                 # The transaction rolled back, but the winner cache may
                 # have advanced at plan time inside it (e.g. the apply
@@ -432,6 +455,8 @@ class DbWorker:
         self.queries_rows_cache.update(self._staged_cache)
         self.queries_raw_cache.update(self._staged_raw)
         self._enforce_query_cache_cap()
+        if self._staged_seen or isinstance(command, msg.EvictQueries):
+            metrics.set_gauge("evolu_query_subscriptions", len(self.queries_rows_cache))
         self._flush_staged_effects()
 
     # -- incremental-invalidation bookkeeping --
@@ -529,28 +554,34 @@ class DbWorker:
 
     def _send(self, command: msg.Send) -> None:
         """send.ts: stamp → apply → persist clock → push → re-query, with
-        one wall-clock sample per command."""
+        one wall-clock sample per command. The mutation mints the
+        distributed trace's root span: its context rides the staged
+        SyncRequestInput into the sync transport, and from there the HTTP
+        traceparent header."""
         # Refuse wire-unencodable values before they enter the log: a
         # committed value the encoder cannot express would wedge every
         # later resend batch.
         for m in command.messages:
             assert_wire_encodable(m.value, self.config.wire_extensions)
-        clock = read_clock(self.db)
-        t = clock.timestamp
-        now = self.now()
-        stamped: List[CrdtMessage] = []
-        for m in command.messages:
-            t = send_timestamp(t, now, self.config.max_drift)
-            stamped.append(CrdtMessage(timestamp_to_string(t), m.table, m.row, m.column, m.value))
-        tree = apply_messages(self.db, clock.merkle_tree, stamped, planner=self._planner,
-                              changes=self._staged_changes_or_none(), device=self.device)
-        update_clock(self.db, CrdtClock(t, tree))
-        self._push(msg.SyncRequestInput(
-            messages=tuple(stamped),
-            clock_timestamp=timestamp_to_string(t),
-            merkle_tree=merkle_tree_to_string(tree),
-            owner=self.owner,
-        ))
+        mspan = trace.start_span("client.mutate", attrs={"messages": len(command.messages)})
+        with mspan, trace.use(mspan.context):
+            clock = read_clock(self.db)
+            t = clock.timestamp
+            now = self.now()
+            stamped: List[CrdtMessage] = []
+            for m in command.messages:
+                t = send_timestamp(t, now, self.config.max_drift)
+                stamped.append(CrdtMessage(timestamp_to_string(t), m.table, m.row, m.column, m.value))
+            tree = apply_messages(self.db, clock.merkle_tree, stamped, planner=self._planner,
+                                  changes=self._staged_changes_or_none(), device=self.device)
+            update_clock(self.db, CrdtClock(t, tree))
+            self._push(msg.SyncRequestInput(
+                messages=tuple(stamped),
+                clock_timestamp=timestamp_to_string(t),
+                merkle_tree=merkle_tree_to_string(tree),
+                owner=self.owner,
+                trace=mspan.context,
+            ))
         self._query(command.queries, command.on_complete_ids)
 
     def _receive(self, command: msg.Receive) -> None:

@@ -41,11 +41,18 @@ answer differs: `server/scope.scoped_response` serves it from the scoped
 Merkle subtree, folded on the engine's device, never on the fused wire
 stream. Under write-behind that answer reads SQLite, so it waits for the
 owner's drain first.
+
+Observability as the reference's: `kernel:merkle` spans around each
+pass (they nest under the scheduler's `engine.batch` span), the
+`device_dispatch` and `host_apply` stage records, the compact-upload
+bytes and the store passes by path, and `observe_jit_caches`, the
+recompile sentinel's counterpart. Plain `counts` are kept beside them.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,9 +69,16 @@ from evolu_tpu_torch.core.merkle import (
 )
 from evolu_tpu_torch.core.murmur import to_int32
 from evolu_tpu_torch.core.types import NonCanonicalStoreError
-from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many
+from evolu_tpu_torch.obs import anatomy, flight, metrics
+from evolu_tpu_torch.ops import (
+    bucket_size,
+    columns_to_device,
+    record_pull_wave,
+    resolve_device,
+    to_host_many,
+)
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
-from evolu_tpu_torch.ops.cuda_lib import device_work
+from evolu_tpu_torch.ops.cuda_lib import device_work, stream_state_count
 from evolu_tpu_torch.ops.encode import pack_ts_keys, unpack_ts_keys
 from evolu_tpu_torch.ops.host_parse import parse_packed_timestamps, parse_timestamp_strings
 from evolu_tpu_torch.ops.merkle_ops import decode_owner_minute_deltas, owner_minute_segments
@@ -82,8 +96,9 @@ from evolu_tpu_torch.parallel.reconcile import dispatch_columns_sharded, xor_all
 from evolu_tpu_torch.server import scope
 from evolu_tpu_torch.server.relay import ShardedRelayStore, fetch_response_stream
 from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.utils.log import span
 
-# Dispatches by route, in place of the reference's metrics: `delta` and
+# Dispatches by route, beside the reference's metrics: `delta` and
 # `full` count the 16-B and 20-B compact uploads, `overflow` the
 # full-width reruns after a cap overflow, `host_owners` the owners whose
 # non-canonical hex case sent them to the host fold; `deferred_passes`
@@ -98,6 +113,55 @@ _counts_lock = threading.Lock()
 def _count(key: str, n: int = 1) -> None:
     with _counts_lock:
         counts[key] += n
+
+
+# The launch shapes the engine has dispatched: (route, shard rows, segment
+# cap, shards). The port has no jit cache; a new entry here is its
+# counterpart of a recompile (a new bucket shape for the kernels).
+_DISPATCHED_BUCKETS: set = set()
+
+
+def _note_bucket(route: str, shard_size: int, cap: int, n_shards: int) -> None:
+    with _counts_lock:
+        _DISPATCHED_BUCKETS.add((route, shard_size, cap, n_shards))
+
+
+def merkle_jit_cache_size() -> int:
+    """The number of launch shapes (route, shard rows, cap, shards) the
+    engine has dispatched in this process."""
+    with _counts_lock:
+        return len(_DISPATCHED_BUCKETS)
+
+
+# Recompile sentinel: last-observed sizes, diffed after each scheduler
+# batch. Only the scheduler's dispatcher thread calls observe_jit_caches.
+_JIT_SENTINEL_SIZES: Dict[str, int] = {}
+
+
+def observe_jit_caches(batch_rows: int = 0) -> Dict[str, int]:
+    """The recompile sentinel of the reference, for what the port keeps
+    per launch shape: `merkle` counts the bucket shapes the engine has
+    dispatched (`merkle_jit_cache_size`), `kernel_state` the kernels'
+    per-(kind, device, stream) scratch states (`ops.cuda_lib.stream_state`).
+    Exports `evolu_jit_cache_size{cache}` gauges and grows
+    `evolu_jit_recompiles_total{cache}` by the diff since the last
+    batch, with a `kernel:jit` flight event naming the batch's bucket.
+    The first observation is the baseline; traffic within a bucket stays
+    flat. Returns {cache: size}."""
+    sizes = {"merkle": merkle_jit_cache_size(), "kernel_state": stream_state_count()}
+    for cache, size in sizes.items():
+        metrics.set_gauge("evolu_jit_cache_size", size, cache=cache)
+        prev = _JIT_SENTINEL_SIZES.get(cache)
+        if prev is not None and size > prev:
+            metrics.inc("evolu_jit_recompiles_total", size - prev, cache=cache)
+            flight.record(
+                "kernel:jit", "launch-shape cache grew", cache=cache,
+                new_entries=size - prev, total_entries=size,
+                batch_rows=batch_rows,
+                bucket_rows=bucket_size(max(1, batch_rows)),
+            )
+        _JIT_SENTINEL_SIZES[cache] = size
+    return sizes
 
 
 def _merkle_shard_kernel(millis, counter, node, valid, owner_ix):
@@ -119,15 +183,20 @@ def _compact_segments_tail(owner_ix, k1, node, valid, cap):
     caller reruns the full-width kernel."""
     hashes, digest = masked_key_hashes(k1, node, valid)
     millis, _ = unpack_ts_keys(k1)
-    owner_s, minute_s, seg_end, seg_xor, valid_s = owner_minute_segments(
-        owner_ix, millis, hashes, valid, tile_local=False
-    )
+    segments = owner_minute_segments(owner_ix, millis, hashes, valid, tile_local=False)
+    return (*compact_segments(*segments, cap), digest)
+
+
+def compact_segments(owner_s, minute_s, seg_end, seg_xor, valid_s, cap):
+    """The compact-delta encode (the `delta_encode` stage): pack
+    owner<<32|minute, move the segment ends to the front with a stable
+    sort, keep `cap` of them. → (packed keys[cap], xors[cap], seg_count)."""
     is_seg = seg_end & valid_s
     packed = (owner_s.to(torch.int64) << 32) | (minute_s.to(torch.int64) & 0xFFFFFFFF)
     _, order = torch.sort((~is_seg).to(torch.uint8), stable=True)
     order = order[:cap]
     seg_count = is_seg.sum(dtype=torch.int32).reshape(1)
-    return packed[order], seg_xor[order], seg_count, digest
+    return packed[order], seg_xor[order], seg_count
 
 
 def _merkle_shard_kernel_compact(k1, node, owner_ix, cap):
@@ -169,6 +238,12 @@ def owner_minute_deltas(
     the parsed node verbatim, so owners whose rows carry non-canonical hex
     case take the host fold (one vectorized parse gives the per-row case
     flags); the other owners stay on the card."""
+    with span("kernel:merkle", "owner_minute_deltas", owners=len(owner_rows),
+              n=sum(len(v) for v in owner_rows.values())):
+        return _owner_minute_deltas_timed(owner_rows, device, mesh, ctx)
+
+
+def _owner_minute_deltas_timed(owner_rows, device, mesh, ctx):
     owners = list(owner_rows)
     flat = [ts for o in owners for ts in owner_rows[o]]
     all_m, all_c, all_n, case_ok = parse_timestamp_strings(flat, with_case=True)
@@ -304,6 +379,8 @@ def deltas_dispatch(
     )
     if use_delta:
         _count("delta")
+        metrics.inc("evolu_engine_compact_upload_bytes_total", 16 * total, variant="delta")
+        _note_bucket("delta", shard_size, cap, mesh.size)
         dmillis = np.where(real, millis - base, 0).astype(np.uint32)
         ownctr = np.where(
             real,
@@ -315,6 +392,8 @@ def deltas_dispatch(
         kernel, args = _merkle_shard_kernel_compact_delta, (base, cap)
     else:
         _count("full")
+        metrics.inc("evolu_engine_compact_upload_bytes_total", 20 * total, variant="full")
+        _note_bucket("full", shard_size, cap, mesh.size)
         cols = {"k1": k1, "node": node, "owner_ix": oix}
         kernel, args = _merkle_shard_kernel_compact, (cap,)
     outs = _launch_shards(mesh, cols, lambda t: kernel(*t.values(), *args))
@@ -367,11 +446,15 @@ def _start_pull(outs):
 
 def _pull_outputs(events, host):
     """The pull thread's half of `_start_pull`: wait for the events, then
-    hand each shard's outputs over as numpy arrays."""
+    hand each shard's outputs over as numpy arrays. One pull wave, recorded
+    as `to_host_many` records its waves."""
+    t0 = time.perf_counter()
     with device_work("a relay batch"):
         for event in events:
             event.synchronize()
-        return [tuple(x.numpy() for x in o) for o in host]
+        out = [tuple(x.numpy() for x in o) for o in host]
+    record_pull_wave(time.perf_counter() - t0, [a for o in out for a in o])
+    return out
 
 
 def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
@@ -393,6 +476,7 @@ def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
     k1, node, oix, mesh, cap = extra
     if any(int(seg_count[0]) > cap for _, _, seg_count, _ in pulled):
         _count("overflow")
+        _note_bucket("overflow", len(k1) // mesh.size, cap, mesh.size)
         cols = {
             "millis": (k1 >> np.uint64(16)).astype(np.int64),
             "counter": (k1 & np.uint64(0xFFFF)).astype(np.int32),
@@ -509,6 +593,7 @@ class BatchReconciler:
 
     def _ingest(self, requests):
         """The batched ingest, routed by store shape → (trees, strings)."""
+        metrics.inc("evolu_engine_store_passes_total", path="oneshot")
         strings: Dict[str, str] = {}
         if self._packed_store():
             trees = self._ingest_packed(requests, strings)
@@ -638,7 +723,9 @@ class BatchReconciler:
             cols = parse_packed_timestamps(ts_packed, len(ts_list), with_case=True)
             return gu, gc, ts_packed, was_new, cols
 
-        with self._shard_transactions(stores, live):
+        with span("kernel:merkle", "reconcile_ingest", owners=len({r.user_id for r in requests}),
+                  n=sum(len(r.messages) for r in requests), shards=len(live)), \
+                self._shard_transactions(stores, live):
             # The transactions stay open across the device dispatch, so
             # the inserts and the trees commit together.
             results = self._map_shards(ingest_shard, live, len(stores))
@@ -702,6 +789,7 @@ class BatchReconciler:
         natively, dispatch the device hash of ALL kept rows, and hand the
         pull of the compact outputs to the pull thread. No database access
         happens here. → the state `finish_batch` lands."""
+        t0_dispatch = time.perf_counter()
         stores, shard_index = self._shards()
         per_shard: List[List[protocol.SyncRequest]] = [[] for _ in stores]
         for r in requests:
@@ -764,6 +852,7 @@ class BatchReconciler:
             if dev_state[3] is not None:
                 pull = self._pull_executor().submit(_pull_outputs, *_start_pull(dev_state[3]))
                 dev_state = (*dev_state[:3], pull, dev_state[4])
+        anatomy.record_stage("device_dispatch", time.perf_counter() - t0_dispatch, rows=off)
         return {
             "requests": requests, "live": live, "shard_data": shard_data,
             "dev": dev_state, "packed": packed, "n_total": off,
@@ -777,6 +866,7 @@ class BatchReconciler:
         failure. `wire=True` answers in bytes (`_respond_wire`), else with
         SyncResponse objects (`_respond`)."""
         stores, shard_index = self._shards()
+        metrics.inc("evolu_engine_store_passes_total", path="stream")
         respond = self._respond_wire if wire else self._respond
         live, shard_data = st["live"], st["shard_data"]
         trees: Dict[str, dict] = {}
@@ -788,7 +878,14 @@ class BatchReconciler:
             gu, gc, ts_packed, content_packed, lens = shard_data[si]
             return si, stores[si].db.relay_insert_packed(gu, gc, ts_packed, content_packed, lens)
 
-        with self._shard_transactions(stores, live):
+        # host_apply: the native inserts, the delta decode, the tree folds
+        # and the commits. The pull records itself as pull_wave on the
+        # pull thread; the two legs can overlap.
+        t0_apply = time.perf_counter()
+        with span("kernel:merkle", "reconcile_stream_finish",
+                  owners=len({r.user_id for r in st["requests"]}), n=st["n_total"],
+                  shards=len(live)), \
+                self._shard_transactions(stores, live):
             was_new_by_shard = dict(self._map_shards(ingest_shard, live, len(stores)))
             deltas_by_owner, st["digest"] = deltas_finish(st["dev"])
             self._recompute_duplicate_owners(st, was_new_by_shard, deltas_by_owner)
@@ -807,6 +904,7 @@ class BatchReconciler:
                         'INSERT OR REPLACE INTO "merkleTree" ("userId", "merkleTree") VALUES (?, ?)',
                         tree_rows[si],
                     )
+        anatomy.record_stage("host_apply", time.perf_counter() - t0_apply, rows=st["n_total"])
         return respond(st["requests"], trees, strings)
 
     def _recompute_duplicate_owners(self, st, was_new_by_shard, deltas_by_owner) -> None:
@@ -994,9 +1092,12 @@ class BatchReconciler:
         trees: Dict[str, dict] = {}
         strings: Dict[str, str] = {}
         _count("deferred_passes")
+        metrics.inc("evolu_engine_store_passes_total", path="write_behind")
         if not live:
             return self._respond_deferred(requests, trees, strings)
-        deltas_by_owner, _digest = deltas_finish(st["dev"])
+        with span("kernel:merkle", "reconcile_deferred", owners=len({r.user_id for r in requests}),
+                  n=st["n_total"], shards=len(live)):
+            deltas_by_owner, _digest = deltas_finish(st["dev"])
         for o, deltas in deltas_by_owner.items():
             if not deltas:
                 continue
@@ -1198,8 +1299,11 @@ def reconcile_pod(mesh, store, requests: Sequence[protocol.SyncRequest],
     try:
         if not eng._packed_store():
             raise ValueError("reconcile_pod needs a store with the native packed insert")
-        st = eng.start_batch([requests[i] for i in mine])
-        answers = eng.finish_batch(st, wire=wire)
+        with span("kernel:merkle", "reconcile_pod", owners=len({r.user_id for r in requests}),
+                  local_owners=len(mine), n=sum(len(requests[i].messages) for i in mine),
+                  nproc=nproc):
+            st = eng.start_batch([requests[i] for i in mine])
+            answers = eng.finish_batch(st, wire=wire)
     finally:
         eng.close()
     # The pass's digest holds the host-folded (non-canonical) owners' too;

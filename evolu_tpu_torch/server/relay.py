@@ -22,11 +22,20 @@ routing). `write_behind=True` turns on the write-behind storage inversion
 an fsync'd record log, and drain workers materialize SQLite later).
 `MultiprocessRelay` pre-forks worker processes (`python -m
 evolu_tpu_torch.server.relay_worker`) that serve the per-request host path
-over one shared file-backed store. The endpoints of the observability tier,
-not ported yet (`/metrics`, `/ledger`, `/trace`, `/profile`), answer 404,
-as do `/replicate/*`, `/fleet*` and `/push/poll` on a relay without
-replication, a fleet or a push hub, and the options that would turn the
-missing tiers on raise NotImplementedError before a socket is bound.
+over one shared file-backed store. `/replicate/*`, `/fleet*` and
+`/push/poll` answer 404 on a relay without replication, a fleet or a push
+hub.
+
+Observability (`evolu_tpu_torch.obs`): GET `/metrics` (Prometheus v0.0.4
+text from the process registry), `/stats` (with `latency_ms` and the stage
+anatomy's `stages`), `/trace` and `/trace/<id>` (the span tree of one
+trace; `?format=chrome` for the Chrome-trace export) and `/profile?ms=N`
+(a torch.profiler capture of live traffic, with a CUDA device lane once
+the process has initialised CUDA and called `prepare_device_profiler()`
+on its main thread, merged with the logger's and the trace's spans into
+one Chrome-trace document; a second concurrent capture answers 429). With `EVOLU_OBS_TOKEN` set they answer 403 unless the
+`X-Evolu-Obs-Token` header matches. `/ledger` answers 404: no module of
+the port counts into the conservation ledger yet.
 
 `add_messages` inserts with per-row was-new flags (the changes==1
 Merkle gate) and hashes on the host; the batched many-owner path is
@@ -48,6 +57,7 @@ import dataclasses
 import json
 import os
 import threading
+import time
 from contextlib import nullcontext
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -67,9 +77,11 @@ from evolu_tpu_torch.core.timestamp import (
     timestamp_to_string,
 )
 from evolu_tpu_torch.core.types import NonCanonicalStoreError
+from evolu_tpu_torch.obs import anatomy, flight, ledger, metrics, trace
 from evolu_tpu_torch.storage.native import open_database
 from evolu_tpu_torch.storage.sqlite import configure_shared_file_db
-from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.utils.log import log
 
 MAX_BODY_BYTES = 20 * 1024 * 1024  # index.ts:222
 
@@ -77,6 +89,26 @@ MAX_BODY_BYTES = 20 * 1024 * 1024  # index.ts:222
 DEFAULT_CAPABILITIES = protocol.KNOWN_CAPABILITIES
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _count_ingest_mix(messages) -> None:
+    """The relay's ingest by wire format (the relay stays E2EE-blind: the
+    3-byte version magic is framing, not content). Called on the SERVING
+    relay after a successful serve, so each message counts once."""
+    if not messages:
+        return
+    n_v2 = aead.count_v2(messages)
+    if n_v2:
+        metrics.inc("evolu_crypto_v2_relay_messages_total", n_v2)
+    if n_v2 < len(messages):
+        metrics.inc("evolu_crypto_v1_relay_messages_total", len(messages) - n_v2)
+
+
+# Per-thread serve scope (see serve_single_request): one pending ledger
+# entry a request, committed only when the serve answers, so a serve that
+# commits the store and then fails posts nothing, and the object-path
+# fallback's second ingest cannot classify the same messages twice.
+_SERVE_SCOPE = threading.local()
 
 
 def fetch_response_stream(db, user_id, node_id, server_tree, client_tree) -> bytes:
@@ -111,14 +143,25 @@ def serve_single_request(store, request: protocol.SyncRequest, device=None) -> b
     responses are byte-identical to this. A scoped request ingests through
     `store.add_messages` and is answered by `scope.serve_scoped`, never on
     the fused wire path (its per-row lane filter cannot ride it); its fold
-    runs on `device` (None = the card)."""
-    if request.scope is not None:
-        from evolu_tpu_torch.server import scope
+    runs on `device` (None = the card). The whole serve runs under one
+    ledger scope (`_SERVE_SCOPE`), committed when it answers."""
+    scope_state = {"entry": ledger.pending(), "classified": False}
+    _SERVE_SCOPE.scope = scope_state
+    try:
+        if request.scope is not None:
+            from evolu_tpu_torch.server import scope
 
-        return scope.serve_scoped(store, request, device=device)
-    out = store.sync_wire(request) if hasattr(store, "sync_wire") else None
-    if out is None:
-        out = protocol.encode_sync_response(store.sync(request))
+            out = scope.serve_scoped(store, request, device=device)
+        else:
+            out = store.sync_wire(request) if hasattr(store, "sync_wire") else None
+            if out is None:
+                out = protocol.encode_sync_response(store.sync(request))
+    except BaseException:
+        scope_state["entry"].abort()
+        raise
+    finally:
+        _SERVE_SCOPE.scope = None
+    scope_state["entry"].commit()
     return out
 
 
@@ -336,9 +379,11 @@ class ShardedRelayStore:
 
 
 class _Counts:
-    """The relay's request counts, in place of the reference's metrics
-    registry: sync POSTs in all and by storage shard, and answers of 400,
-    413 and 500 (`errors`). One a server or worker process."""
+    """The relay's request counts, each also counted in the metrics
+    registry (`evolu_relay_requests_total{endpoint="/"}`,
+    `evolu_relay_shard_requests_total`, `evolu_relay_errors_total`): sync
+    POSTs in all and by storage shard, and error answers (400, 403, 413,
+    500). One a server or worker process."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -349,14 +394,17 @@ class _Counts:
     def request(self) -> None:
         with self._lock:
             self.requests += 1
+        metrics.inc("evolu_relay_requests_total", endpoint="/")
 
     def error(self) -> None:
         with self._lock:
             self.errors += 1
+        metrics.inc("evolu_relay_errors_total")
 
     def shard(self, index: int) -> None:
         with self._lock:
             self.shard_requests[index] = self.shard_requests.get(index, 0) + 1
+        metrics.inc("evolu_relay_shard_requests_total", shard=str(index))
 
 
 def mesh_stats_payload(ctx=None) -> dict:
@@ -364,18 +412,27 @@ def mesh_stats_payload(ctx=None) -> dict:
     `parallel.mesh.MeshContext`'s counts (the JAX package reads its
     `evolu_mesh_*` metrics): shards, sharded dispatches, cross-shard
     reduces by kind, and the number of per-shard occupancy and padding
-    observations. Their quantiles are null until the port has metrics
-    (ROADMAP queue 1 item 10). Without a context (the mesh engine has not
-    run a batch yet) the counts are zero and `devices` is null."""
+    observations, with their quantiles from the `evolu_mesh_*`
+    histograms of the metrics registry. Without a context (the mesh
+    engine has not run a batch yet) the counts are zero and `devices` is
+    null."""
     from evolu_tpu_torch.parallel.mesh import XDEV_KINDS
 
     c = ctx.counts if ctx is not None else None
+
+    def dist(name: str) -> dict:
+        return {
+            "count": c[name] if c else 0,
+            "p50": metrics.quantile(f"evolu_mesh_{name}", 0.50),
+            "p99": metrics.quantile(f"evolu_mesh_{name}", 0.99),
+        }
+
     return {
         "devices": ctx.n_shards if ctx is not None else None,
         "dispatches_total": c["dispatches"] if c else 0,
         "xdev_reduce_total": {k: (c["xdev_reduce"][k] if c else 0) for k in XDEV_KINDS},
-        "shard_rows": {"count": c["shard_rows"] if c else 0, "p50": None, "p99": None},
-        "padding_waste_rows": {"count": c["padding_waste_rows"] if c else 0, "p50": None, "p99": None},
+        "shard_rows": dist("shard_rows"),
+        "padding_waste_rows": dist("padding_waste_rows"),
     }
 
 
@@ -383,11 +440,12 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
                         push_hub=None, conn_tier=None, write_behind=None,
                         mesh_engine: bool = False, mesh_ctx=None) -> dict:
     """The GET /stats JSON: the store's row counts a shard (shared truth in
-    a MultiprocessRelay) with this process's sync requests a shard, and
-    its request and error totals; with replication, a fleet, a push hub,
-    the event-loop tier, a write-behind queue or the mesh engine attached,
-    their `replication`, `fleet`, `push`, `conn`, `write_behind` and
-    `mesh` sections."""
+    a MultiprocessRelay) with this process's sync requests a shard, its
+    request and error totals, the request-latency histogram's count and
+    quantiles (`latency_ms`) and the stage anatomy (`stages`); with
+    replication, a fleet, a push hub, the event-loop tier, a write-behind
+    queue or the mesh engine attached, their `replication`, `fleet`,
+    `push`, `conn`, `write_behind` and `mesh` sections."""
     shards = store.stats() if hasattr(store, "stats") else []
     for s in shards:
         s["requests"] = counts.shard_requests.get(s["index"], 0)
@@ -397,6 +455,12 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
         "users": sum(s["users"] for s in shards),
         "requests_total": counts.requests,
         "errors_total": counts.errors,
+        "latency_ms": {
+            "count": (metrics.registry.get_histogram("evolu_relay_request_ms")
+                      or (None, None, 0.0, 0))[3],
+            "p50": metrics.quantile("evolu_relay_request_ms", 0.50),
+            "p99": metrics.quantile("evolu_relay_request_ms", 0.99),
+        },
     }
     if replication is not None:
         payload["replication"] = replication.stats_payload()
@@ -410,7 +474,160 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
         payload["write_behind"] = write_behind.stats_payload()
     if mesh_engine:
         payload["mesh"] = mesh_stats_payload(mesh_ctx)
+    payload["stages"] = anatomy.stages_payload()
     return payload
+
+
+# GET /profile single-flight: one profiler capture a process; a second
+# concurrent request answers 429 instead of racing the first.
+_PROFILE_LOCK = threading.Lock()
+_PROFILER_READY = False
+
+
+def prepare_device_profiler() -> bool:
+    """Initialise torch.profiler's CUDA tracing (kineto and CUPTI) once a
+    process, on the calling thread, which must be the thread that loaded
+    torch (the main thread): kineto runs its one-time client init only
+    there, and a first CUDA capture on an HTTP handler thread records no
+    kernel events. A program that serves GET /profile calls this on its
+    main thread before it serves; without it `capture_live_profile` takes
+    the device lane only when it runs on the main thread itself. Costs a
+    few seconds once (CUPTI's init), so relays do not call it on their
+    own. → whether the device lane is ready."""
+    global _PROFILER_READY
+    if _PROFILER_READY:
+        return True
+    import torch
+
+    if not torch.cuda.is_available():
+        return False
+    from torch.profiler import ProfilerActivity, profile
+
+    with _PROFILE_LOCK, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
+    _PROFILER_READY = True
+    return True
+
+
+def _profiler_events(prof, pid: int) -> List[dict]:
+    """A finished torch.profiler capture's Chrome-trace events."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="evolu-profile-", suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    finally:
+        os.unlink(path)
+    events = []
+    for ev in doc.get("traceEvents", []) if isinstance(doc, dict) else doc:
+        # Keep the merged document uniformly loadable: skip bare {} rows,
+        # give metadata rows a pid.
+        if not isinstance(ev, dict) or not ev.get("ph"):
+            continue
+        ev.setdefault("pid", pid)
+        events.append(ev)
+    return events
+
+
+def capture_live_profile(duration_ms: float) -> dict:
+    """Capture `duration_ms` of live traffic as one loadable Chrome-trace
+    JSON document (perfetto and chrome://tracing open it). Three lanes
+    share the timebase:
+
+    - a torch.profiler capture, taken only when torch is ALREADY loaded
+      in this process (a relay that never touched torch stays torch-free),
+      with CUDA activity when the process has initialised CUDA and the
+      profiler can trace it from this thread (`prepare_device_profiler`):
+      the device lane of the kernels every thread launched in the window.
+      Span
+      annotations (`utils.log.enable_trace_annotations`) are on for the
+      window, so `kernel:*` names appear in the profiler timeline too;
+    - the logger's span ring, as host-lane complete events;
+    - the sampled obs.trace spans of the window (`trace.export_chrome`).
+
+    The capture starts and stops on the calling thread (the caller holds
+    `_PROFILE_LOCK`). Never raises on profiler trouble: a failed capture
+    degrades to the host lanes with the error in the metadata
+    (`torch_error`); `metadata.device_lane` says whether the CUDA lane was
+    captured."""
+    import sys
+
+    from evolu_tpu_torch.utils import log as log_mod
+
+    t_start = time.time()
+    pid = os.getpid()
+    events: List[dict] = []
+    meta: Dict[str, object] = {"requested_ms": duration_ms}
+    prof = None
+    cuda_lane = False
+    annotations_were_on = log_mod._trace_annotation_cls is not None
+    torch_mod = sys.modules.get("torch")
+    if torch_mod is not None:
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            cuda_lane = bool(torch_mod.cuda.is_initialized())
+            if cuda_lane and not _PROFILER_READY and threading.current_thread() is not threading.main_thread():
+                cuda_lane = False
+                meta["device_lane_note"] = "call prepare_device_profiler() on the main thread first"
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda_lane else [])
+            log_mod.enable_trace_annotations(True)
+            t0 = time.perf_counter()
+            prof = profile(activities=activities)
+            prof.start()
+            meta["start_ms"] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # noqa: BLE001 - degrade to the host lanes
+            meta["torch_error"] = f"{type(e).__name__}: {e}"
+            prof = None
+    time.sleep(max(float(duration_ms), 0.0) / 1e3)
+    if prof is not None:
+        try:
+            t0 = time.perf_counter()
+            prof.stop()
+            t1 = time.perf_counter()
+            events.extend(_profiler_events(prof, pid))
+            meta.update(stop_ms=(t1 - t0) * 1e3, export_ms=(time.perf_counter() - t1) * 1e3)
+        except Exception as e:  # noqa: BLE001
+            meta["torch_error"] = f"{type(e).__name__}: {e}"
+            prof = None
+    if not annotations_were_on:
+        log_mod.enable_trace_annotations(False)
+    meta["torch_profiler"] = prof is not None
+    meta["device_lane"] = prof is not None and cuda_lane
+    t_end = time.time()
+
+    # Host lane 1: the logger's span events overlapping the window.
+    n_host = 0
+    for ev in log_mod.logger.recent_events():
+        if ev.duration_ms is None:
+            continue
+        s0 = ev.t - ev.duration_ms / 1e3
+        if ev.t < t_start or s0 > t_end:
+            continue
+        n_host += 1
+        events.append({
+            "name": f"{ev.target}|{ev.message}" if ev.message else ev.target,
+            "cat": "evolu-host",
+            "ph": "X",
+            "ts": s0 * 1e6,
+            "dur": ev.duration_ms * 1e3,
+            "pid": pid,
+            "tid": 0,
+            "args": {k: str(v) for k, v in ev.fields.items()},
+        })
+    # Host lane 2: the sampled trace spans of the window.
+    win_spans = [
+        s for s in trace.recorder.dump()
+        if s.t_start <= t_end and s.t_start + s.duration_ms / 1e3 >= t_start
+    ]
+    events.extend(trace.export_chrome(win_spans)["traceEvents"])
+    meta.update(captured_at=t_start, wall_ms=(t_end - t_start) * 1e3,
+                host_span_events=n_host, trace_span_events=len(win_spans),
+                platform=anatomy.get_platform())
+    return {"displayTimeUnit": "ms", "traceEvents": events, "metadata": meta}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -439,7 +656,85 @@ class _Handler(BaseHTTPRequestHandler):
         return out + protocol.encode_response_capabilities(caps)
 
     def log_message(self, format: str, *args) -> None:
-        pass  # quiet: the port has no logger yet (ROADMAP queue 1 item 10)
+        # Target-gated like every other runtime signal (config.log): quiet
+        # by default, switchable with the `dev` target. The is_enabled
+        # check keeps the default path allocation-free (this fires per
+        # request); _flight=False because access lines would evict the
+        # sparse events the flight ring keeps.
+        from evolu_tpu_torch.utils.log import logger
+
+        if logger.is_enabled("dev"):
+            log("dev", f"relay {self.address_string()} {format % args}", _flight=False)
+
+    def _obs_authorized(self) -> bool:
+        """The token gate of the observability reads (`/metrics`, `/stats`,
+        `/trace*`, `/profile`): with EVOLU_OBS_TOKEN set, demand the
+        matching X-Evolu-Obs-Token header (constant-time compare). Unset =
+        open. False → 403 already answered."""
+        token = os.environ.get("EVOLU_OBS_TOKEN")
+        if not token:
+            return True
+        import hmac
+
+        got = self.headers.get("X-Evolu-Obs-Token", "")
+        # Compare bytes: compare_digest raises on non-ASCII str inputs,
+        # and a hostile header must answer 403, not crash the handler.
+        if hmac.compare_digest(got.encode("utf-8", "replace"), token.encode("utf-8")):
+            return True
+        self.counts.error()
+        self.send_error(403, "observability token mismatch")
+        return False
+
+    def _do_trace(self) -> None:
+        """GET /trace → recent trace ids; GET /trace/<id> → the span tree
+        of one trace (fan-in spans included through their links);
+        `?format=chrome` → the Chrome-trace export of those spans. An id
+        that is not 32 lower-case hex digits answers 404, never a 500."""
+        import urllib.parse
+
+        parts = urllib.parse.urlsplit(self.path)
+        fmt = urllib.parse.parse_qs(parts.query).get("format", [""])[0]
+        tail = parts.path[len("/trace"):].strip("/")
+        if not tail:
+            body = json.dumps({
+                "recent": trace.recorder.recent_trace_ids(),
+                "span_ring": trace.recorder.size(),
+            }).encode("utf-8")
+        elif len(tail) != 32 or not all(c in "0123456789abcdef" for c in tail):
+            self.send_error(404, "not a trace id")
+            return
+        elif fmt == "chrome":
+            body = json.dumps(trace.export_chrome(trace.recorder.spans_for(tail))).encode("utf-8")
+        else:
+            body = json.dumps(trace.serve_trace(tail)).encode("utf-8")
+        self._respond(200, body, "application/json")
+
+    def _do_profile(self) -> None:
+        """GET /profile?ms=N: capture N ms (clamped to 10–30,000) of live
+        traffic (`capture_live_profile`); 400 for a bad ms, 429 while
+        another capture runs."""
+        import urllib.parse
+
+        q = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
+        try:
+            ms = float(q.get("ms", ["250"])[0])
+        except ValueError:
+            self.send_error(400, "ms must be a number")
+            return
+        ms = min(max(ms, 10.0), 30_000.0)
+        if not _PROFILE_LOCK.acquire(blocking=False):
+            metrics.inc("evolu_relay_profile_busy_total")
+            self.send_error(429, "a profile capture is already running")
+            return
+        try:
+            body = json.dumps(capture_live_profile(ms)).encode("utf-8")
+        except Exception as e:  # noqa: BLE001 - the reader gets a clean 500
+            self.counts.error()
+            self.send_error(500, str(e))
+            return
+        finally:
+            _PROFILE_LOCK.release()
+        self._respond(200, body, "application/json")
 
     def _body_length(self) -> Optional[int]:
         """Content-Length, or None after answering 400 for one that is not
@@ -489,14 +784,44 @@ class _Handler(BaseHTTPRequestHandler):
                 return None
         return serve_single_request(self.store, request, device=self.device)
 
-    def do_GET(self) -> None:  # /ping (index.ts:250-252), /health, /stats, /push/poll
+    def do_GET(self) -> None:  # /ping (index.ts:250-252), /health, /push/poll and the obs reads
         if self.path == "/ping":
             body = b"ok"
             self.send_response(200)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+        elif self.path == "/metrics":
+            metrics.inc("evolu_relay_requests_total", endpoint="/metrics")
+            if not self._obs_authorized():
+                return
+            try:
+                # Refresh the process gauges at scrape time (uptime, RSS).
+                metrics.update_process_gauges()
+                body = metrics.render_prometheus().encode("utf-8")
+            except Exception as e:  # noqa: BLE001 - the scraper gets a clean 500
+                self.counts.error()
+                self.send_error(500, str(e))
+                return
+            self._respond(200, body, metrics.PROMETHEUS_CONTENT_TYPE)
+        elif self.path == "/trace" or self.path.startswith(("/trace/", "/trace?")):
+            # One fixed endpoint label: raw paths must never mint series.
+            metrics.inc("evolu_relay_requests_total", endpoint="/trace")
+            if not self._obs_authorized():
+                return
+            try:
+                self._do_trace()
+            except Exception as e:  # noqa: BLE001 - the reader gets a clean 500
+                self.counts.error()
+                self.send_error(500, str(e))
+        elif self.path == "/profile" or self.path.startswith("/profile?"):
+            metrics.inc("evolu_relay_requests_total", endpoint="/profile")
+            if self._obs_authorized():
+                self._do_profile()
         elif self.path == "/stats":
+            metrics.inc("evolu_relay_requests_total", endpoint="/stats")
+            if not self._obs_authorized():
+                return
             try:
                 mesh_ctx = None
                 if self.mesh_engine:
@@ -515,6 +840,7 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/health":
             # Readiness (/ping is liveness): 503 while a snapshot install is
             # in progress, or, in a fleet, any owner is mid-rebalance.
+            metrics.inc("evolu_relay_requests_total", endpoint="/health")
             try:
                 if self.fleet is not None:
                     serving, detail = self.fleet.health_payload()
@@ -626,13 +952,21 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path.startswith("/fleet/"):
             self._do_fleet()
             return
+        t0 = time.perf_counter()
         # Counted before any reject, so errors never outnumber requests.
         self.counts.request()
         body = self._read_body()
         if body is None:
             return
+        metrics.observe("evolu_relay_request_bytes", len(body), buckets=metrics.SIZE_BUCKETS)
+        # A malformed or oversized traceparent parses to None and the
+        # request proceeds untraced, never a 4xx/5xx.
+        tctx = trace.parse_traceparent(self.headers.get(trace.TRACEPARENT_HEADER))
+        srv_span = trace.start_span("relay.sync", parent=tctx, attrs={"endpoint": "/"})
+        tok = trace.activate(srv_span.context)
         try:
             request = protocol.decode_sync_request(body)
+            srv_span.set_attr("owner", request.user_id)
             if self.fleet is not None and not self._route_fleet(request, body):
                 return  # answered: 307, forwarded or 503 not ready
             self.counts.shard(
@@ -640,15 +974,37 @@ class _Handler(BaseHTTPRequestHandler):
             out = self._serve_request(request)
             if out is None:
                 return  # 503 backpressure already answered
+            # After routing and a successful serve: each message counts
+            # once, at the relay that ingested it.
+            _count_ingest_mix(request.messages)
             self._notify_push(request)
         except Exception as e:  # noqa: BLE001 - index.ts:231-233
+            # The flight dump rides the exception (server side only: the
+            # wire answer stays a bare 500).
+            flight.attach(e)
+            srv_span.set_attr("error", repr(e))
             self.counts.error()
+            log("dev", "relay sync request failed", error=repr(e))
             self.send_error(500, str(e))
             return
+        finally:
+            trace.deactivate(tok)
+            srv_span.end()
+            metrics.observe("evolu_relay_request_ms", (time.perf_counter() - t0) * 1e3,
+                            exemplar=srv_span.trace_id)
         if self.replication is not None and request.messages:
             # Fresh rows reach peer relays at gossip-debounce latency.
             self.replication.hint()
-        self._respond(200, self._negotiate_caps(request, out), "application/octet-stream")
+        # The respond leg's own span, parented explicitly (the server span
+        # closed above, with the latency exemplar).
+        rspan = trace.start_span("relay.respond", parent=srv_span.context)
+        out = self._negotiate_caps(request, out)
+        metrics.observe("evolu_relay_response_bytes", len(out), buckets=metrics.SIZE_BUCKETS)
+        rspan.set_attr("bytes", len(out))
+        # End BEFORE the socket write: the client may ask GET /trace/<id>
+        # the moment it reads the answer.
+        rspan.end()
+        self._respond(200, out, "application/octet-stream")
 
     def _do_replicate(self) -> None:
         """POST /replicate/{summary,pull,snapshot,snapshot/chunk}: the peer
@@ -1033,7 +1389,33 @@ class RelayServer:
         host, port = self._httpd.server_address[:2]
         return f"http://{host}:{port}"
 
+    def _publish_build_info(self) -> None:
+        """`evolu_build_info` (constant 1, facts in labels): which build and
+        topology this relay process runs. Never raises: identity labels
+        are not worth a failed start."""
+        try:
+            from evolu_tpu_torch import __version__
+            from evolu_tpu_torch.utils.config import default_config
+
+            shards = getattr(self.store, "shards", None)
+            db = getattr((shards[0] if shards else self.store), "db", None)
+            mesh_devices = default_config.mesh_devices
+            metrics.set_build_info(
+                version=__version__,
+                backend="native" if hasattr(db, "relay_insert_packed") else "python",
+                shards=len(shards) if shards else 1,
+                batching=int(self.scheduler is not None),
+                write_behind=int(self.write_behind is not None),
+                mesh_engine=int(self.mesh_engine),
+                mesh_devices="auto" if mesh_devices is None else mesh_devices,
+                connection_tier=self.connection_tier,
+                push=int(self.push_hub is not None),
+            )
+        except Exception:  # noqa: BLE001,S110 - telemetry must not fail a start
+            pass
+
     def start(self) -> "RelayServer":
+        self._publish_build_info()
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True, name="evolu-relay")
         self._thread.start()
         if self.replication is not None:

@@ -41,9 +41,12 @@ Robustness contract:
 - `stop()` serves everything already queued in full-size batches, then
   rejects new submits.
 
+Observability as the reference's: the `evolu_sched_*` metrics, a
+`sched.queue` span a request under its own trace, `sched.single` for a
+singleton dispatch, and one fan-in `engine.batch` span a pass that links
+its requests' traces (the engine's `kernel:*` spans nest under it). Plain
 `counts` (batches, coalesced, singles, poison_retries, poisoned_batches,
-rejected) stand in for the reference's metrics, trace spans and ledger
-counts until the observability item is ported.
+rejected) are kept beside them.
 """
 
 from __future__ import annotations
@@ -52,9 +55,11 @@ import threading
 import time
 from typing import List, Optional
 
+from evolu_tpu_torch.obs import metrics, trace
 from evolu_tpu_torch.ops import resolve_device
 from evolu_tpu_torch.ops.cuda_lib import KernelError
-from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.utils.log import log
 
 
 class SchedulerQueueFull(Exception):
@@ -80,12 +85,18 @@ class _Pending:
     thread, so it can never join an engine transaction left open on the
     shared connection."""
 
-    __slots__ = ("request", "single", "t_enqueue", "done", "response", "error")
+    __slots__ = ("request", "single", "t_enqueue", "t_wall", "ctx",
+                 "done", "response", "error")
 
     def __init__(self, request: protocol.SyncRequest, single: bool = False):
         self.request = request
         self.single = single
         self.t_enqueue = time.monotonic()
+        self.t_wall = time.time()
+        # The submitting handler thread's trace context: the dispatcher
+        # records this request's queue-wait span under it and links it
+        # from the batch span.
+        self.ctx = trace.current()
         self.done = threading.Event()
         self.response: Optional[bytes] = None
         self.error: Optional[BaseException] = None
@@ -180,8 +191,10 @@ class SyncScheduler:
         with self._cv:
             if self._stopping or len(self._queue) >= self.max_queue:
                 self.counts["rejected"] += 1
+                metrics.inc("evolu_sched_rejected_total")
                 raise SchedulerQueueFull(self.retry_after_s)
             self._queue.append(p)
+            metrics.set_gauge("evolu_sched_queue_depth", len(self._queue))
             self._cv.notify()
         if not p.done.wait(self.submit_timeout_s):
             raise TimeoutError(
@@ -212,6 +225,7 @@ class SyncScheduler:
                             break
                         self._cv.wait(remaining)
                     batch = self._close_batch()
+                    metrics.set_gauge("evolu_sched_queue_depth", len(self._queue))
                 try:
                     self._run_batch(batch)
                 except BaseException:
@@ -252,29 +266,65 @@ class SyncScheduler:
         self._queue = keep
         return batch
 
+    def _record_queue_waits(self, batch: List[_Pending]) -> float:
+        """Per-request queue-wait spans (enqueue → batch close), under each
+        request's own trace. Returns the dispatch instant (monotonic) the
+        waits were measured against."""
+        t_dispatch = time.monotonic()
+        for p in batch:
+            if p.ctx is not None:
+                trace.record_span("sched.queue", p.ctx, p.t_wall,
+                                  (t_dispatch - p.t_enqueue) * 1e3)
+        return t_dispatch
+
     def _run_batch(self, batch: List[_Pending]) -> None:
         if not batch:
             return
         if batch[0].single:
             p = batch[0]
             self._count("singles")
+            metrics.inc("evolu_sched_fallback_total", reason="non_canonical")
+            self._record_queue_waits(batch)
+            sspan = trace.start_span("sched.single", parent=p.ctx,
+                                     attrs={"owner": p.request.user_id})
             try:
-                p.resolve(self._serve_single(p.request))
+                with sspan, trace.use(sspan.context):
+                    p.resolve(self._serve_single(p.request))
             except Exception as e:  # noqa: BLE001 - a per-request error
                 p.fail(e)
             return
+        t0 = time.perf_counter()
         self._count("batches")
+        metrics.inc("evolu_sched_batches_total")
+        metrics.observe("evolu_sched_batch_requests", len(batch),
+                        buckets=metrics.COUNT_BUCKETS)
+        self._record_queue_waits(batch)
+        # The fan-in span: one engine pass serves N requests of N traces,
+        # so the batch span LINKS them (a span has one trace). It is
+        # recorded whenever any linked request is sampled, and GET
+        # /trace/<request-id> finds it through the link index.
+        links = [p.ctx for p in batch if p.ctx is not None]
+        bspan = trace.start_span("engine.batch", links=links, attrs={
+            "requests": len(batch),
+            "owners": len({p.request.user_id for p in batch}),
+        })
         try:
             engine = self._ensure_engine()
         except Exception as e:  # noqa: BLE001 - fails this batch, not remembered
+            bspan.set_attr("error", repr(e))
+            bspan.end()
             for p in batch:
                 p.fail(e)
             return
         try:
-            outs = engine.run_batch_wire([p.request for p in batch])
+            with trace.use(bspan.context):
+                outs = engine.run_batch_wire([p.request for p in batch])
+            bspan.end()
         except _write_behind_full_type() as e:
             # Write-behind backpressure: nothing was served or persisted.
             # Flow control, not poison: every member answers 503.
+            bspan.set_attr("backpressure", True)
+            bspan.end()
             for p in batch:
                 p.fail(SchedulerQueueFull(e.retry_after))
             return
@@ -282,6 +332,8 @@ class SyncScheduler:
             # A fault of the card or a kernel, not of a request: every
             # member fails (the handler answers 500); a singleton retry on
             # the host path would hide it.
+            bspan.set_attr("error", repr(e))
+            bspan.end()
             for p in batch:
                 p.fail(e)
             return
@@ -290,7 +342,13 @@ class SyncScheduler:
             # queued.) Every shard transaction rolled back, so the
             # singleton retry is exact and isolates the poison to the
             # request that carries it.
+            bspan.set_attr("poisoned", True)
+            bspan.set_attr("error", repr(e))
+            bspan.end()
             self._count("poisoned_batches")
+            metrics.inc("evolu_sched_poisoned_batches_total")
+            log("server", "scheduler batch poisoned; retrying as singletons",
+                error=repr(e), requests=len(batch))
             for p in batch:
                 try:
                     response = self._serve_single(p.request)
@@ -298,11 +356,36 @@ class SyncScheduler:
                     p.fail(pe)
                 else:
                     self._count("poison_retries")
+                    metrics.inc("evolu_sched_fallback_total", reason="poison_retry")
                     p.resolve(response)
+            self._observe_jit_caches(batch)
+            metrics.observe("evolu_sched_batch_ms", (time.perf_counter() - t0) * 1e3,
+                            exemplar=bspan.trace_id)
             return
         self._count("coalesced", len(batch))
+        metrics.inc("evolu_sched_coalesced_requests_total", len(batch))
+        n_v2 = sum(aead.count_v2(p.request.messages) for p in batch)
+        if n_v2:
+            metrics.inc("evolu_crypto_v2_batched_messages_total", n_v2)
         for p, out in zip(batch, outs):
             p.resolve(out)
+        self._observe_jit_caches(batch)
+        metrics.observe("evolu_sched_batch_ms", (time.perf_counter() - t0) * 1e3,
+                        exemplar=bspan.trace_id)
+
+    def _observe_jit_caches(self, batch) -> None:
+        """Recompile sentinel, after each engine pass: the engine's
+        per-launch-shape state into gauges and a counter, a flight event
+        on growth (`engine.observe_jit_caches`). Skipped until an engine
+        exists. Never raises."""
+        if self._engine is None:
+            return
+        try:
+            from evolu_tpu_torch.server import engine as eng_mod
+
+            eng_mod.observe_jit_caches(sum(len(p.request.messages) for p in batch))
+        except Exception:  # noqa: BLE001,S110 - the sentinel must not fail a batch
+            pass
 
     def _ensure_engine(self):
         """The BatchReconciler on the scheduler's device, made on the

@@ -22,10 +22,12 @@ exclusive across clients of the same database (syncLock.ts:8-12).
 Departures from `evolu_tpu.sync.client`, all of them routes this
 slice does not port and never replaces:
 
-- Where the reference counts into its metrics registry, traces and
-  logs, the transport and the `PushSubscriber` keep plain `counts`; the
-  POST carries no traceparent header (the reference's path for a
-  2-argument `http_post`).
+- The transport records the reference's `evolu_sync_*` request,
+  response, redirect, route, error and offline metrics, traces each
+  round as a `sync.round` span (joining the mutation's trace) and sends
+  its context as the POST's traceparent header; it keeps plain `counts`
+  beside them. The crypto and scope counters, and the `PushSubscriber`,
+  keep plain `counts` only.
 
 Under `Config.sync_scope` (`sync/scope.py`) a round carries the scope
 clause (SyncRequest field 6), with a lane tag for each pushed message,
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -51,11 +54,13 @@ from typing import Callable, Optional, Tuple
 
 from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage, UnknownError
+from evolu_tpu_torch.obs import metrics, trace
 from evolu_tpu_torch.runtime.messages import OnError, SyncRequestInput
 from evolu_tpu_torch.runtime.synclock import SyncLock
 from evolu_tpu_torch.sync import aead, native_crypto, protocol
 from evolu_tpu_torch.sync.crypto import encrypt_symmetric
 from evolu_tpu_torch.utils.config import Config
+from evolu_tpu_torch.utils.log import log
 
 
 def encrypt_messages(messages, mnemonic: str):
@@ -309,7 +314,7 @@ class SyncTransport:
                 item.set()
                 continue
             with self.sync_lock.hold():
-                received = self._sync_round_body(item)
+                received = self._sync_round(item)
             # Everything below runs with the sync lock RELEASED. The
             # worker's _receive skips its anti-entropy resend while the
             # lock is pending/held — handing it the response under the
@@ -406,6 +411,27 @@ class SyncTransport:
         response = protocol.decode_sync_response(response_bytes)
         return decrypt_messages(response.messages, mnemonic), response.merkle_tree
 
+    def _post_traced(self, url: str, body: bytes) -> bytes:
+        """The sync POST with the ambient trace context as a traceparent
+        header (headers only: the body bytes are untouched). An injected
+        2-argument http_post is served without the header rather than
+        broken."""
+        hdrs = trace.inject_headers()
+        if hdrs and _accepts_headers(self._http_post):
+            return self._http_post(url, body, headers=hdrs)
+        return self._http_post(url, body)
+
+    def _sync_round(self, request: SyncRequestInput):
+        """One round, traced end to end: the round span joins the
+        mutation's trace when the request carries one (the worker mints it
+        at Send) and roots a fresh trace for pull-only rounds; the POST
+        carries this span's context. Returns what `_sync_round_body`
+        returns."""
+        rspan = trace.start_span("sync.round", parent=getattr(request, "trace", None),
+                                 attrs={"messages": len(request.messages)})
+        with rspan, trace.use(rspan.context):
+            return self._sync_round_body(request)
+
     def _sync_round_body(self, request: SyncRequestInput):
         """One encrypt→POST→decrypt round. Returns the decoded
         (messages, merkle_tree, previous_diff) for the caller to hand
@@ -433,6 +459,10 @@ class SyncTransport:
         self._count("requests")
         self._count("request_messages", len(request.messages))
         self._count("request_bytes", len(body))
+        metrics.inc("evolu_sync_requests_total")
+        metrics.inc("evolu_sync_request_messages_total", len(request.messages))
+        metrics.observe("evolu_sync_request_bytes", len(body), buckets=metrics.SIZE_BUCKETS)
+        log("sync:request", url=url, messages=len(request.messages), bytes=len(body))
 
         class _Abort(Exception):
             pass
@@ -472,7 +502,7 @@ class SyncTransport:
         try:
             while True:
                 try:
-                    response_bytes = self._http_post(url, body)
+                    response_bytes = self._post_traced(url, body)
                     break
                 except urllib.error.HTTPError as e:
                     # A fleet relay answers a non-placed sync POST with
@@ -486,6 +516,10 @@ class SyncTransport:
                         target = urllib.parse.urljoin(url, location)
                         self._routes[owner_id] = target
                         self._count("redirects")
+                        metrics.inc("evolu_sync_redirects_total")
+                        trace.record_span("sync.redirect", trace.current(), time.time(), 0.0,
+                                          {"target": target})
+                        log("sync:request", "fleet redirect", url=target)
                         retarget(target)
                         continue
                     if e.code in (307, 404) and self._routes.pop(owner_id, None):
@@ -494,6 +528,7 @@ class SyncTransport:
                         # route is stale — and so is what we thought that
                         # relay had negotiated.
                         self._count("route_invalidations")
+                        metrics.inc("evolu_sync_route_invalidations_total")
                         self._drop_negotiated(url)
                         if e.code == 404 and url != base:
                             retarget(base)
@@ -502,6 +537,7 @@ class SyncTransport:
                     # offline — surface it so divergence isn't silent.
                     # The transport is demonstrably UP.
                     self._count("http_errors")
+                    metrics.inc("evolu_sync_http_errors_total")
                     self._note_online()
                     self.on_error(UnknownError(e))
                     return None
@@ -511,12 +547,14 @@ class SyncTransport:
                         # nothing about the configured one: drop the
                         # route (and its negotiated set) and fail over.
                         self._count("route_invalidations")
+                        metrics.inc("evolu_sync_route_invalidations_total")
                         self._drop_negotiated(url)
                         retarget(base)
                         continue
                     # Offline is not an error (sync.worker.ts:217-227)
                     # — but it arms the reconnect probe.
                     self._count("offline_rounds")
+                    metrics.inc("evolu_sync_offline_rounds_total")
                     self._note_offline()
                     return None
         except _Abort:
@@ -554,6 +592,11 @@ class SyncTransport:
             self._count("responses")
             self._count("response_messages", len(messages))
             self._count("response_bytes", len(response_bytes))
+            metrics.inc("evolu_sync_responses_total")
+            metrics.inc("evolu_sync_response_messages_total", len(messages))
+            metrics.observe("evolu_sync_response_bytes", len(response_bytes),
+                            buckets=metrics.SIZE_BUCKETS)
+            log("sync:response", messages=len(messages), bytes=len(response_bytes))
             return (messages, merkle_tree, request.previous_diff)
         except Exception as e:  # noqa: BLE001
             self.on_error(UnknownError(e))
@@ -619,10 +662,13 @@ def _http_post(url: str, body: bytes, *, retries: int = BACKOFF_RETRIES,
                 # standard de-synchronizer for a fleet of clients all
                 # bounced by the same overloaded relay.
                 delay = min(max_delay, base_delay * (2 ** attempt)) * rng()
+            metrics.inc("evolu_sync_backoff_retries_total", reason=str(e.code))
+            log("sync:request", "backoff retry", code=e.code, delay_s=round(delay, 4))
         except (urllib.error.URLError, OSError):
             if attempt >= retries:
                 raise
             delay = min(max_delay, base_delay * (2 ** attempt)) * rng()
+            metrics.inc("evolu_sync_backoff_retries_total", reason="connection")
         sleep(min(delay, max_delay))
         attempt += 1
 

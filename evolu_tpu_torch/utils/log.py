@@ -1,0 +1,275 @@
+"""Structured logging + kernel timing (reference: packages/evolu/src/log.ts).
+
+The port's copy of `evolu_tpu.utils.log`, with the same targets, gating
+and mirroring into obs.flight, obs.metrics, obs.anatomy and obs.trace.
+
+The reference gates console logs on `config.log` with targets
+`clock:read | clock:update | sync:request | sync:response | dev`
+(types.ts:21-26) and carries a commented-out duration profiler
+(log.ts:16-37). This module keeps the exact target names and gating
+semantics (`log: true` enables all targets; a string or list enables a
+subset), and realizes the profiler as `span(target)` — a context
+manager recording wall-clock durations, used for per-kernel timing
+keyed by the same target names.
+
+Events also land in a bounded in-memory ring (`recent_events`) so
+tests and embedders can observe the runtime without scraping stdout.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Tuple, Union
+
+# Reference targets (types.ts:21-26) + the kernel-span targets.
+TARGETS = (
+    "clock:read",
+    "clock:update",
+    "sync:request",
+    "sync:response",
+    "dev",
+    "kernel:merge",
+    "kernel:merkle",
+    "kernel:reconcile",
+)
+
+# torch.profiler annotations keyed by the SAME span target names: when
+# enabled, every `span(target, message)` also opens a
+# `torch.profiler.record_function("<target>|<message>")`, so a captured
+# trace (the relay's GET /profile) shows the host-side spans around the
+# CUDA kernels they launched, under the names the log/metrics surfaces
+# already use. OFF by default (a record_function outside a profile
+# still costs a little) and lazily imported — this module never imports
+# torch at import time (the obs import-hygiene contract), and a
+# disabled span stays allocation-free.
+_trace_annotation_cls = None
+
+
+def enable_trace_annotations(flag: bool = True) -> None:
+    """Turn profiler span annotations on/off (also honored at import
+    time via EVOLU_TRACE_ANNOTATIONS=1)."""
+    global _trace_annotation_cls
+    if not flag:
+        _trace_annotation_cls = None
+        return
+    from torch.profiler import record_function  # lazy: only when opted in
+
+    _trace_annotation_cls = record_function
+
+
+if os.environ.get("EVOLU_TRACE_ANNOTATIONS") == "1":
+    enable_trace_annotations(True)
+
+
+@dataclass
+class LogEvent:
+    target: str
+    message: str
+    t: float
+    duration_ms: Optional[float] = None
+    fields: Dict[str, object] = field(default_factory=dict)
+
+
+def _obs():
+    """Lazy (obs.flight, obs.metrics, obs.trace, obs.anatomy) tuple —
+    obs imports LogEvent from this module, so the reverse edge must
+    resolve at call time. Cached after the first call; one tuple check
+    per event afterwards."""
+    global _obs_pair
+    if _obs_pair is None:
+        from evolu_tpu_torch.obs import anatomy, flight, metrics, trace
+
+        _obs_pair = (flight, metrics, trace, anatomy)
+    return _obs_pair
+
+
+_obs_pair = None
+
+
+class Logger:
+    """Target-gated logger with a bounded event ring.
+
+    `enabled` follows config.log semantics: True = every target,
+    False = nothing, str/list = those targets only (log.ts:5-14).
+    """
+
+    def __init__(self, enabled: Union[bool, str, List[str]] = False, capacity: int = 1024):
+        self._lock = threading.Lock()
+        self._ring: Deque[LogEvent] = deque(maxlen=capacity)
+        # target -> (count, total_ms, max_ms): O(1) running aggregates,
+        # never a per-call list (long-lived workers span per batch).
+        self._durations: Dict[str, Tuple[int, float, float]] = {}
+        self.configure(enabled)
+
+    def configure(self, enabled: Union[bool, str, List[str]]) -> None:
+        if isinstance(enabled, str):
+            enabled = [enabled]
+        self._enabled = enabled
+
+    def is_enabled(self, target: str) -> bool:
+        if self._enabled is True:
+            return True
+        if not self._enabled:
+            return False
+        return target in self._enabled
+
+    def log(self, target: str, message: str = "", *, _flight: bool = True,
+            **fields) -> None:
+        """log(target)(message) analog (log.ts:5-14): console + ring.
+        The flight recorder (obs.flight) mirrors the event even when the
+        target's console output is disabled — post-mortems need exactly
+        the events nobody was watching (host-fallback warnings, sync
+        rounds); the console gating stays ring/print-only. High-volume
+        chatter (per-request HTTP access lines) passes `_flight=False`
+        so it cannot evict the sparse events the bounded ring exists to
+        preserve. The event is built only if some consumer is active —
+        a fully-disabled call stays allocation-free."""
+        recorder = _obs()[0].recorder
+        flight_on = _flight and recorder.enabled
+        console_on = self.is_enabled(target)
+        if not (flight_on or console_on):
+            return
+        ev = LogEvent(target=target, message=message, t=time.time(), fields=fields)
+        if flight_on:
+            recorder.record_event(ev)
+        if not console_on:
+            return
+        with self._lock:
+            self._ring.append(ev)
+        extra = (" " + " ".join(f"{k}={v}" for k, v in fields.items())) if fields else ""
+        print(f"[{target}] {message}{extra}")
+
+    @contextmanager
+    def span(self, target: str, message: str = "", **fields):
+        """Duration measurement (the reference's commented-out
+        createLogDuration, log.ts:16-37). Records even when console
+        output for the target is disabled so kernel timings are always
+        queryable via `duration_stats`. With trace annotations enabled
+        (`enable_trace_annotations`), the span also opens a
+        torch.profiler.record_function under "<target>|<message>" so a
+        captured trace carries the same names the log/metrics surfaces
+        use."""
+        annotation = None
+        if _trace_annotation_cls is not None:
+            annotation = _trace_annotation_cls(
+                f"{target}|{message}" if message else target
+            )
+            annotation.__enter__()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if annotation is not None:
+                annotation.__exit__(None, None, None)
+            ms = (time.perf_counter() - t0) * 1e3
+            ev = LogEvent(target=target, message=message, t=time.time(),
+                          duration_ms=ms, fields=fields)
+            with self._lock:
+                cnt, tot, mx = self._durations.get(target, (0, 0.0, 0.0))
+                self._durations[target] = (cnt + 1, tot + ms, max(mx, ms))
+                self._ring.append(ev)
+            # Span aggregates feed observability: the duration lands in
+            # the per-target latency histogram (percentiles via
+            # `duration_summary` / the relay's /metrics) and the event
+            # in the flight ring. Host-side values only — the span
+            # wraps dispatch+pull, it never adds one. With an ambient
+            # trace context (obs.trace — e.g. the scheduler's batch
+            # span active around the engine pass), the same interval
+            # also lands in the distributed trace under its kernel:*
+            # name, so the chrome export interleaves host and kernel
+            # spans on one timebase.
+            flight, metrics, trace, anatomy = _obs()
+            metrics.observe("evolu_kernel_span_ms", ms, target=target)
+            if target.startswith("kernel:"):
+                # Stage-anatomy fold: kernel spans become
+                # evolu_stage_* series keyed by their target, with the
+                # span's n= field as the row count so the per-stage fit
+                # separates fixed RTT from slope. Bounded label set —
+                # targets come from TARGETS, never request data.
+                anatomy.record_span(target, ms, rows=fields.get("n", 0))
+            flight.recorder.record_event(ev)
+            tctx = trace.current()
+            if tctx is not None:
+                trace.record_span(
+                    target if not message else f"{target}|{message}",
+                    tctx, ev.t - ms / 1e3, ms, fields or None,
+                )
+            if self.is_enabled(target):
+                extra = (" " + " ".join(f"{k}={v}" for k, v in fields.items())) if fields else ""
+                print(f"[{target}] {message} {ms:.3f}ms{extra}")
+
+    def recent_events(self, target: Optional[str] = None) -> List[LogEvent]:
+        with self._lock:
+            evs = list(self._ring)
+        if target is None:
+            return evs
+        return [e for e in evs if e.target == target]
+
+    def duration_stats(self, target: str) -> Optional[Tuple[int, float, float]]:
+        """(count, total_ms, max_ms) for a span target, or None."""
+        with self._lock:
+            return self._durations.get(target)
+
+    def duration_summary(
+        self, target: str, percentiles: Tuple[int, ...] = (50, 90, 99)
+    ) -> Optional[Dict[str, float]]:
+        """Mean/max/percentile summary for a span target, or None if it
+        never fired. count/mean/max come from the exact O(1) aggregates;
+        percentiles are estimated from the log-bucketed span histogram
+        (obs.metrics), so they carry bucket-resolution error. The
+        histogram is process-global, so percentiles are attached only
+        on the module singleton — a scoped Logger's aggregates would
+        otherwise be paired with percentiles that include every OTHER
+        logger's spans for the target (internally inconsistent)."""
+        with self._lock:
+            stats = self._durations.get(target)
+        if stats is None:
+            return None
+        cnt, tot, mx = stats
+        out: Dict[str, float] = {
+            "count": cnt, "total_ms": tot, "mean_ms": tot / cnt, "max_ms": mx,
+        }
+        if globals().get("logger") is self:
+            metrics = _obs()[1]
+            for p in percentiles:
+                q = metrics.quantile("evolu_kernel_span_ms", p / 100.0, target=target)
+                if q is not None:
+                    out[f"p{p}_ms"] = q
+        return out
+
+    def clear(self) -> None:
+        """Reset the ring + duration aggregates. On the MODULE SINGLETON
+        (`logger`) this also resets the process metrics registry,
+        flight recorder, and trace span ring — one call returns the
+        whole observability surface to a clean slate (test isolation).
+        Scoped Logger
+        instances clear only their own state: an embedder emptying a
+        private ring must not zero the counters the relay is serving
+        at GET /metrics (Prometheus counters are monotonic)."""
+        with self._lock:
+            self._ring.clear()
+            self._durations.clear()
+        if globals().get("logger") is self:
+            flight, metrics, trace, anatomy = _obs()
+            metrics.reset()
+            flight.recorder.clear()
+            trace.recorder.clear()
+            anatomy.reset()
+
+
+# Module-level default, mirroring the reference's module singleton. The
+# runtime re-configures it from Config at init (setConfig analog).
+logger = Logger()
+
+
+def log(target: str, message: str = "", **fields) -> None:
+    logger.log(target, message, **fields)
+
+
+def span(target: str, message: str = "", **fields):
+    return logger.span(target, message, **fields)

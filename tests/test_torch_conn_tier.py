@@ -101,8 +101,8 @@ def test_twin_relay_oracle_byte_identity():
 
 def test_stats_sections_and_observability_404s_on_both_tiers():
     """/stats: the push section on both tiers and the conn section on the
-    event tier, with the JAX relay's keys; the observability endpoints
-    answer 404 on both of the port's tiers."""
+    event tier, with the JAX relay's keys; on both of the port's tiers the
+    observability reads answer 200 and `/ledger` (not wired yet) 404."""
     relays = [server(PORT, connection_tier=t).start() for t in ("threaded", "eventloop")]
     jax = server(JAX, connection_tier="eventloop").start()
     try:
@@ -122,9 +122,11 @@ def test_stats_sections_and_observability_404s_on_both_tiers():
         assert set(stats[1]["conn"]) == set(stats[2]["conn"])
         assert set(stats[1]["conn"]["closed_total"]) == set(stats[2]["conn"]["closed_total"])
         for srv in relays:
-            for path in ("/metrics", "/ledger", "/trace", "/trace/" + "0" * 32, "/profile?ms=10"):
+            for path in ("/metrics", "/trace", "/trace/" + "0" * 32, "/profile?ms=10"):
                 resp = exchange(addr(srv), raw_request("GET", path))
-                assert resp.startswith(b"HTTP/1.0 404"), (srv.connection_tier, path)
+                assert resp.startswith(b"HTTP/1.0 200"), (srv.connection_tier, path)
+            resp = exchange(addr(srv), raw_request("GET", "/ledger"))
+            assert resp.startswith(b"HTTP/1.0 404"), (srv.connection_tier, "/ledger")
     finally:
         for s in relays + [jax]:
             s.stop()

@@ -1679,3 +1679,122 @@ def test_mesh_over_every_card(dev):
     got = reconcile_owner_batches(batches, winners, mesh_ctx=ctx)
     one = reconcile_owner_batches(batches, winners)
     assert got[1] == one[1] and all(got[0][o][0] == one[0][o][0] and got[0][o][2] == one[0][o][2] for o in batches)
+
+
+def _obs_planes(on):
+    from evolu_tpu_torch.obs import metrics, trace
+    from evolu_tpu_torch.utils import log as log_mod
+
+    metrics.set_enabled(on)
+    trace.set_enabled(on)
+    trace.set_sample_rate(1.0)
+    log_mod.enable_trace_annotations(on)
+
+
+def test_obs_planes_change_no_output_or_launch_on_the_card(dev):
+    """The liveness fence on cuda:0: the columns pass and the engine's
+    `deltas_dispatch` / `deltas_finish` with every observability plane on
+    (metrics, tracing at 100% under a root span, the stage anatomy,
+    record_function annotations) equal the same passes with every plane
+    off, output for output, with the same launches of L, X and H and the
+    same pull waves."""
+    from evolu_tpu_torch.obs import metrics, trace
+    from evolu_tpu_torch.ops.host_parse import parse_timestamp_strings
+    from evolu_tpu_torch.parallel import reconcile as pr
+    from evolu_tpu_torch.server import engine as pe
+    from evolu_tpu_torch.utils.log import logger
+
+    batches, winners = _fleet_messages(41)
+    rows = {o: [m.timestamp for m in ms] for o, ms in batches.items() if o != "owner005"}
+    flat = [t for ts in rows.values() for t in ts]
+    all_m, all_c, all_n, case_ok = parse_timestamp_strings(flat, with_case=True)
+    index, pos = {}, 0
+    for o, ts in rows.items():
+        index[o] = np.arange(pos, pos + len(ts))
+        pos += len(ts)
+
+    def run(on):
+        _obs_planes(on)
+        waves = []
+        orig = (pr.to_host_many, pe.to_host_many)
+        pr.to_host_many = lambda *xs: waves.append(1) or orig[0](*xs)
+        pe.to_host_many = lambda *xs: waves.append(1) or orig[1](*xs)
+        before = _launches()
+        root = trace.start_span("fence.pass")
+        try:
+            with trace.use(root.context):
+                plan = pr.reconcile_owner_batches(batches, winners)
+                deltas = pe.deltas_finish(pe.deltas_dispatch(index, all_m, all_c, all_n, case_ok, flat))
+            torch.cuda.synchronize()
+        finally:
+            root.end()
+            pr.to_host_many, pe.to_host_many = orig
+        return (plan, deltas), {k: v - before[k] for k, v in _launches().items()}, len(waves)
+
+    logger.clear()
+    try:
+        off1, on, off2 = run(False), run(True), run(False)
+        _obs_planes(True)
+        assert metrics.registry.get_histogram("evolu_kernel_span_ms", target="kernel:reconcile")[3] == 1
+        assert any(s.name.startswith("kernel:reconcile") for s in trace.recorder.dump())
+    finally:
+        _obs_planes(True)
+        from evolu_tpu_torch.utils import log as log_mod
+
+        log_mod.enable_trace_annotations(False)
+        logger.clear()
+    assert on[0] == off1[0] == off2[0]
+    assert on[1] == off1[1] == off2[1] and on[1]["L"] == 2 and on[1]["H"] == 2 and on[1]["X"] == 2
+    assert on[2] == off1[2] == off2[2] > 0
+
+
+def test_live_profile_holds_the_port_kernels(dev):
+    """`capture_live_profile` around one engine pass on the card returns
+    a device lane whose CUDA kernel events are named after the port's
+    kernels (`lookback_scan` of seg_scan.cu, `ts_hash_kernel` of
+    ts_hash.cu)."""
+    import threading
+
+    from evolu_tpu_torch.server import relay as relay_mod
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import RelayStore
+
+    store = RelayStore(backend="native")
+    engine = BatchReconciler(store, device=dev)
+    reqs = [_relay_request(f"prof{i}", i) for i in range(8)]
+    engine.run_batch_wire(reqs[:1])  # builds the kernels before the window
+    done = threading.Event()
+
+    def one_pass():
+        import time
+
+        time.sleep(0.2)
+        engine.run_batch_wire(reqs[1:])
+        done.set()
+
+    assert relay_mod.prepare_device_profiler()
+    t = threading.Thread(target=one_pass)
+    t.start()
+    with relay_mod._PROFILE_LOCK:
+        doc = relay_mod.capture_live_profile(1500)
+    t.join()
+    engine.close()
+    store.close()
+    assert done.is_set()
+    assert doc["metadata"]["device_lane"] is True, doc["metadata"]
+    kernels = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("lookback_scan" in k for k in kernels), sorted(kernels)[:20]
+    assert any("ts_hash_kernel" in k for k in kernels), sorted(kernels)[:20]
+
+
+def _relay_request(owner, seed, n=300):
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+    from evolu_tpu_torch.sync import protocol
+
+    rng = np.random.default_rng(seed)
+    node = f"{int(rng.integers(0, 2**63)):016x}"
+    msgs = tuple(protocol.EncryptedCrdtMessage(
+        timestamp_to_string(Timestamp(1_700_000_000_000 + seed * 100_000 + i * 37, 0, node)), b"ct%d" % i)
+        for i in range(n))
+    return protocol.SyncRequest(msgs, owner, node, "{}")

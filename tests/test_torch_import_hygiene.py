@@ -369,3 +369,83 @@ def test_write_behind_drain_child_runs_without_jax_or_the_card(tmp_path):
     assert json.loads(out.stdout[4 : 4 + n]) == {"ok": True, "tainted": [], "counts": [[1, 0]]}
     line = next(l for l in out.stderr.decode().splitlines() if l.startswith("RESULT:"))
     assert json.loads(line[len("RESULT:"):]) == {"forbidden": [], "cuda_initialized": False}
+
+
+_OBS = r"""
+import json, sys
+import evolu_tpu_torch.obs
+import evolu_tpu_torch.utils.log
+from evolu_tpu_torch.obs import anatomy, ledger, metrics, trace
+from evolu_tpu_torch.utils.log import logger
+
+with logger.span("kernel:merkle", "hygiene", n=4):
+    pass
+metrics.inc("evolu_hygiene_total")
+ledger.count(ledger.INGRESS_SYNC, 1, owner="o")
+span = trace.start_span("hygiene")
+span.end()
+anatomy.record_stage("host_apply", 0.001, rows=4)
+print("RESULT:" + json.dumps(sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("torch", "jax", "jaxlib", "evolu_tpu", "ml_dtypes", "numpy")
+    or (m.startswith("evolu_tpu_torch.") and not m.startswith(("evolu_tpu_torch.obs", "evolu_tpu_torch.utils")))
+)))
+"""
+
+
+def test_obs_and_log_import_no_torch_no_kernel_module():
+    """`evolu_tpu_torch.obs` and `evolu_tpu_torch.utils.log` import no
+    torch, no jax, no kernel module (nothing of the port outside `obs` and
+    `utils`) and nothing of `evolu_tpu`, at import time and while they
+    record, as the reference's obs imports no jax."""
+    out = subprocess.run(
+        [sys.executable, "-c", _OBS], cwd=_REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
+    assert json.loads(line[len("RESULT:"):]) == []
+
+
+_OBS_RELAY = r"""
+import json, sys, urllib.request
+import torch
+from evolu_tpu_torch.core.timestamp import timestamp_to_string
+from evolu_tpu_torch.core.types import Timestamp
+from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.sync.client import _http_post
+
+relay = RelayServer(RelayStore(backend="native"), batching=True, device="cpu").start()
+msg = protocol.EncryptedCrdtMessage(timestamp_to_string(Timestamp(1_700_000_000_000, 0, "a" * 16)), b"ct")
+tid = "4bf92f3577b34da6a3ce929d0e0e4736"
+_http_post(relay.url, protocol.encode_sync_request(protocol.SyncRequest((msg,), "alice", "a" * 16, "{}")),
+           headers={"traceparent": f"00-{tid}-00f067aa0ba902b7-01"})
+got = {}
+for path in ("/metrics", "/stats", "/trace/" + tid, "/profile?ms=10"):
+    with urllib.request.urlopen(relay.url + path, timeout=60) as r:
+        got[path] = r.status
+relay.stop()
+print("RESULT:" + json.dumps({
+    "codes": got,
+    "forbidden": sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "evolu_tpu", "ml_dtypes")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_relay_serves_its_observability_without_jax():
+    """A batching port relay serves a traced sync POST and answers
+    /metrics, /stats, /trace/<id> and /profile importing nothing of JAX
+    or `evolu_tpu`, CUDA untouched."""
+    out = subprocess.run(
+        [sys.executable, "-c", _OBS_RELAY], cwd=_REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    line = next(l for l in out.stdout.splitlines() if l.startswith("RESULT:"))
+    result = json.loads(line[len("RESULT:"):])
+    assert result == {"codes": {"/metrics": 200, "/stats": 200, "/trace/4bf92f3577b34da6a3ce929d0e0e4736": 200,
+                                "/profile?ms=10": 200},
+                      "forbidden": [], "cuda_initialized": False}

@@ -461,7 +461,7 @@ def _jax_mesh_metrics():
 def test_mesh_stats_section_matches_jax():
     """POSTs through a mesh relay on each side: equal bytes, and the
     `mesh` section's keys, devices and counts equal the JAX metrics'
-    growth over the same traffic (quantiles null in the port)."""
+    growth over the same traffic; its quantiles are the port registry's."""
     bodies = [pp.encode_sync_request(pp.SyncRequest(_msgs(pp, "d" * 16, 0, 9), "obs-u", "d" * 16, "{}")),
               pp.encode_sync_request(pp.SyncRequest(_msgs(pp, "e" * 16, 0, 400), "obs-hot", "e" * 16, "{}"))]
 
@@ -487,7 +487,12 @@ def test_mesh_stats_section_matches_jax():
     assert mesh["devices"] == jm["devices"] == 8
     assert mesh["dispatches_total"] == after["dispatches_total"] - before["dispatches_total"] > 0
     assert mesh["xdev_reduce_total"] == {k: after["xdev"][k] - before["xdev"][k] for k in after["xdev"]}
-    assert mesh["shard_rows"] == {"count": after["shard_rows"] - before["shard_rows"], "p50": None, "p99": None}
+    from evolu_tpu_torch.obs import metrics as port_metrics
+
+    assert mesh["shard_rows"] == {"count": after["shard_rows"] - before["shard_rows"],
+                                  "p50": port_metrics.quantile("evolu_mesh_shard_rows", 0.50),
+                                  "p99": port_metrics.quantile("evolu_mesh_shard_rows", 0.99)}
+    assert mesh["shard_rows"]["p50"] is not None
     assert mesh["padding_waste_rows"]["count"] == after["padding_waste_rows"] - before["padding_waste_rows"]
     assert set(mesh["shard_rows"]) == set(jm["shard_rows"])
 

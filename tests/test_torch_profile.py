@@ -1,0 +1,218 @@
+"""GET /profile on a port relay, the twin of tests/test_profile.py: a
+token-gated capture of live traffic as one loadable Chrome-trace document
+(the host span lanes always; a torch.profiler lane when torch is loaded,
+with CUDA activity once the process has initialised CUDA), single-flight
+429, ms validation and clamping, and the engine's runtime stages on GET
+/stats after real traffic."""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import pytest
+
+from evolu_tpu_torch.core.timestamp import Timestamp, timestamp_to_string
+from evolu_tpu_torch.obs import anatomy
+from evolu_tpu_torch.server import relay as relay_mod
+from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.utils.log import logger
+
+BASE = 1_700_000_000_000
+
+
+@pytest.fixture(autouse=True)
+def _clean_slate():
+    logger.clear()
+    yield
+    logger.configure(False)
+    logger.clear()
+
+
+def _get(url, headers=None):
+    # Generous timeout: a /profile capture pays the profiler's start/stop
+    # on top of the requested window.
+    req = urllib.request.Request(url, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
+def _post(url, req):
+    body = protocol.encode_sync_request(req)
+    r = urllib.request.urlopen(
+        urllib.request.Request(
+            url, data=body, headers={"Content-Type": "application/octet-stream"}
+        ),
+        timeout=30,
+    )
+    return r.read()
+
+
+def _sync_req(user, node, n_msgs, start=0):
+    msgs = tuple(
+        protocol.EncryptedCrdtMessage(
+            timestamp_to_string(Timestamp(BASE + (start + i) * 1000, 0, node)),
+            b"ct-%d" % (start + i),
+        )
+        for i in range(n_msgs)
+    )
+    return protocol.SyncRequest(msgs, user, node, "{}")
+
+
+def test_profile_captures_live_traffic():
+    """The operator runbook path: GET /profile?ms=N against a relay
+    serving real traffic answers one loadable chrome-trace JSON whose
+    events include the live sync spans from inside the window."""
+    server = RelayServer(RelayStore()).start()
+    stop = threading.Event()
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            _post(server.url, _sync_req("prof-user", "c" * 16, n_msgs=2,
+                                        start=i * 10))
+            i += 1
+
+    t = threading.Thread(target=traffic, daemon=True)
+    t.start()
+    try:
+        body = _get(server.url + "/profile?ms=300")
+        doc = json.loads(body)
+        assert doc["displayTimeUnit"] == "ms"
+        events = doc["traceEvents"]
+        assert events, "profile of a live relay captured no events"
+        names = {e.get("name", "") for e in events}
+        assert any("relay.sync" in n for n in names), sorted(names)[:20]
+        # Every event is a well-formed chrome event (perfetto loads by
+        # these fields); complete events carry µs ts/dur.
+        for e in events:
+            assert "ph" in e and "pid" in e
+            if e.get("ph") == "X":
+                assert isinstance(e["ts"], (int, float))
+                assert isinstance(e["dur"], (int, float))
+        meta = doc["metadata"]
+        assert meta["requested_ms"] == 300.0
+        assert meta["wall_ms"] >= 300.0
+        assert isinstance(meta["torch_profiler"], bool)
+        assert meta["device_lane"] is False  # the CPU: no CUDA activity
+    finally:
+        stop.set()
+        t.join(timeout=10)
+        server.stop()
+
+
+def test_profile_ms_validation_and_clamp():
+    server = RelayServer(RelayStore()).start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(server.url + "/profile?ms=abc")
+        assert e.value.code == 400
+        # Sub-minimum ms clamps to 10ms, not an error. The clamp is
+        # asserted on the echoed request window (wall time additionally
+        # carries profiler start/stop overhead, which is load-dependent).
+        doc = json.loads(_get(server.url + "/profile?ms=0"))
+        assert doc["metadata"]["requested_ms"] == 10.0
+        assert doc["metadata"]["wall_ms"] >= 10.0
+    finally:
+        server.stop()
+
+
+def test_profile_token_gate(monkeypatch):
+    server = RelayServer(RelayStore()).start()
+    try:
+        monkeypatch.setenv("EVOLU_OBS_TOKEN", "s3cret")
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(server.url + "/profile?ms=10")
+        assert e.value.code == 403
+        doc = json.loads(_get(server.url + "/profile?ms=10",
+                              {"X-Evolu-Obs-Token": "s3cret"}))
+        assert "traceEvents" in doc
+    finally:
+        server.stop()
+
+
+def test_profile_single_flight_answers_429():
+    server = RelayServer(RelayStore()).start()
+    try:
+        assert relay_mod._PROFILE_LOCK.acquire(blocking=False)
+        try:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _get(server.url + "/profile?ms=10")
+            assert e.value.code == 429
+        finally:
+            relay_mod._PROFILE_LOCK.release()
+        json.loads(_get(server.url + "/profile?ms=10"))  # released: serves
+    finally:
+        server.stop()
+
+
+def test_stats_stages_section_reports_runtime_anatomy():
+    """Engine-wiring integration proof: one real device batch through
+    BatchReconciler populates device_dispatch / host_apply / pull_wave
+    in the anatomy plane, and GET /stats surfaces them with shares."""
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+
+    store = ShardedRelayStore(shards=2)
+    engine = BatchReconciler(store, device="cpu")
+    msgs = tuple(
+        protocol.EncryptedCrdtMessage(
+            timestamp_to_string(Timestamp(BASE + i * 1000, 0, "d" * 16)),
+            b"ct-%d" % i,
+        )
+        for i in range(24)
+    )
+    # reconcile_stream drives the start_batch/finish_batch seams where
+    # the device_dispatch/host_apply stage records live.
+    engine.reconcile_stream(
+        [[protocol.SyncRequest(msgs, "stage-user", "d" * 16, "{}")]])
+
+    payload = anatomy.stages_payload()
+    stages = payload["stages"]
+    for name in ("device_dispatch", "host_apply", "pull_wave"):
+        assert stages.get(name, {}).get("count", 0) > 0, (name, stages.keys())
+    shares = [stages[s]["share"] for s in anatomy.RUNTIME_SHARE_STAGES]
+    assert all(s is not None for s in shares)
+    assert sum(shares) == pytest.approx(1.0)
+    # The same section rides GET /stats.
+    server = RelayServer(RelayStore()).start()
+    try:
+        stats = json.loads(_get(server.url + "/stats"))
+        assert stats["stages"]["registry_digest"] == anatomy.registry_digest()
+        assert "device_dispatch" in stats["stages"]["stages"]
+    finally:
+        server.stop()
+
+
+def test_profile_holds_the_torch_lane_and_the_engine_annotations():
+    """In a process with torch loaded the capture holds torch.profiler's
+    events, among them the engine pass's `kernel:merkle|...` ranges
+    (span annotations are on for the window and restored after), beside
+    the host lanes' relay spans."""
+    import evolu_tpu_torch.utils.log as log_mod
+
+    server = RelayServer(RelayStore(backend="native"), batching=True, device="cpu").start()
+    stop = threading.Event()
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            _post(server.url, _sync_req(f"lane-{i % 4}", "e" * 16, n_msgs=3, start=i * 10))
+            i += 1
+
+    t = threading.Thread(target=traffic, daemon=True)
+    t.start()
+    try:
+        doc = json.loads(_get(server.url + "/profile?ms=400"))
+    finally:
+        stop.set()
+        t.join(timeout=10)
+        server.stop()
+    meta = doc["metadata"]
+    assert meta["torch_profiler"] is True and meta["device_lane"] is False
+    assert "torch_error" not in meta
+    names = {e.get("name", "") for e in doc["traceEvents"]}
+    assert any(n.startswith("kernel:merkle|") for n in names), sorted(names)[:30]
+    assert any("relay.sync" in n for n in names)
+    assert log_mod._trace_annotation_cls is None  # restored after the window
