@@ -352,21 +352,44 @@ failure ends the run with a traceback and a nonzero code):
               `ms` is CUDA events around 10 back-to-back wrapper calls
               (host cost included wherever the host is the slower);
               `device_ms` is the kernels' own duration from
-              torch.profiler (null, with `device_ms_events` from CUDA
-              events beside it, where the profiler recorded nothing in
-              five sessions); `host_us` is the wrapper's host time per
+              torch.profiler, each session a warm-up step and then the
+              active step read, counted only if it caught every kernel
+              record (null, with `device_ms_events` from CUDA events
+              beside it, where none of three sessions did); `host_us` is the wrapper's host time per
               call over 1000 calls with no synchronize, on the smallest
               input path C2 gave the kernel (`host_us_rows`). The relay
               engine's three kernel functions on E1's columns: bytes up and
               down, upload, device and pull times; and H and X on the inputs
               E1 gave them, against their plain versions.
+20. path O3 — the conservation ledger on the relay tier, after the
+              timing phase, where it cannot touch that phase's profiler
+              sessions.
+              O3a three times on fresh relays, the ledger off, on, off:
+              K1's 256 requests from its 32 lanes at a write-behind
+              batching card relay R (4 native file shards, a drain worker
+              a shard), 8 exact redeliveries, an upper-case-hex node (the
+              host-owner route), an 8-digit node (the singleton's 500) and
+              a forced 503: responses equal K1's, one X, one H and one pull
+              wave an engine dispatch; in the on run a second card relay
+              pulls every row, its round armed by a traced write's
+              `hint(origin=)`: every station of both relays equals the
+              script's own count, GET /ledger has no violation, /stats has
+              its ledger section and a convergence lag, /trace/<id> on the
+              peer holds repl.round; the on run's msgs/s is printed beside
+              the off runs' spread. O3b: 32 requests sent to the wrong
+              member of a two-relay forward fleet: egress.forward =
+              ingress.forward = the messages sent, the forward leg in the
+              request's trace. O3c: one Receive of 16,384 config-2 todo
+              messages into a card DbWorker with the ledger off and on:
+              equal end states, the apply plane's equations, route.packed
+              > 0, L twice and H and X once.
 
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
 `launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,o,p,m,n}` are the counts themselves (H1,
 H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1, J3 and J4 as path
-J; K2 and K3's serving children as path K; O1 and O2 as path O; P1-P4 as path P; M1, M3 and
+J; K2 and K3's serving children as path K; O1, O2 and O3's five steps as path O; P1-P4 as path P; M1, M3 and
 M4 as path M, M2 being timing; N1-N6 as path N, N5's from its two pod
 processes, each step's mesh runs only); `ms`, `device_ms`,
 `plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
@@ -398,6 +421,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 
@@ -468,31 +492,48 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fns, reps: int = 10, per: int = 1) -> dict:
+def device_ms(torch, fns, reps: int = 10, per: int = 1, records: int | None = None) -> dict:
     """Device time of the kernels that one call of each of `fns` launches,
     summed over `fns`, averaged over `reps` rounds and divided by `per`,
-    from torch.profiler (CUPTI kernel records), after a warm-up:
-    {"device_ms": t}. A session whose record comes back empty (seen now
-    and then on the H100, once three sessions in a row) is run again, up
-    to five in all; after that the row says so: {"device_ms": None,
-    "device_ms_events": t}, t from CUDA events around the same calls, an
-    upper bound that includes the launch gaps."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler (CUPTI kernel records): {"device_ms": t}. The
+    session runs on the profiler's schedule, a warm-up step (its records
+    dropped) and then the active step that is read. `records` is the count
+    of device records one round of `fns` leaves (each port kernel's wrapper
+    launches one kernel and nothing else, so 1 a call); None where a call
+    launches library kernels too, and then every kernel name's count must be
+    a multiple of `reps`. A session that caught another count is not
+    recorded (on the H100 some sessions catch a part of the kernels, or
+    none) and is run again, up to three in all; after that the row says so:
+    {"device_ms": None, "device_ms_events": t}, t from CUDA events around the
+    same calls, an upper bound that includes the launch gaps."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if spans:
-            return {"device_ms": round(sum(spans) / reps / 1e3 / per, 5)}
-        time.sleep(1.0)
+    def rounds():
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+
+    rounds()
+    seen = []
+    for _ in range(3):
+        got = {}
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.update(events=p.events())) as prof:
+            for _step in range(2):
+                rounds()
+                prof.step()
+        # Device records of the calls only: a user annotation (the
+        # schedule's ProfilerStep range) may show on the device lane too.
+        kernels = [e for e in got.get("events", ()) if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False) and not e.name.startswith("ProfilerStep")]
+        names = collections.Counter(e.name for e in kernels)
+        whole = (len(kernels) == reps * records if records is not None
+                 else bool(names) and all(c % reps == 0 for c in names.values()))
+        if whole:
+            return {"device_ms": round(sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3 / per, 5)}
+        seen.append(len(kernels))
+        time.sleep(0.2)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -500,7 +541,8 @@ def device_ms(torch, fns, reps: int = 10, per: int = 1) -> dict:
             fn()
     end.record()
     end.synchronize()
-    print("  device_ms: torch.profiler recorded no device activity in 5 sessions; "
+    want = reps * records if records is not None else f"a multiple of {reps} a kernel"
+    print(f"  device_ms: torch.profiler caught {seen} device records in 3 sessions, {want} expected; not measured, "
           "the row carries device_ms_events instead", flush=True)
     return {"device_ms": None, "device_ms_events": round(start.elapsed_time(end) / reps / per, 5)}
 
@@ -2959,7 +3001,8 @@ def path_h1(torch, kernels, keep, tmp, bodies):
     renum = {i: j for j, i in enumerate(k1_ix)}
     keep["k1_replay"] = ([bodies[i] for i in k1_ix], [jobs[i][1] for i in k1_ix],
                          [[renum[i] for i in lane if i in renum] for lane in lanes],
-                         sum(len(jobs[i][0].messages) for i in k1_ix), k1_owners)
+                         sum(len(jobs[i][0].messages) for i in k1_ix), k1_owners,
+                         [(jobs[i][0].user_id, [m.timestamp for m in jobs[i][0].messages]) for i in k1_ix])
     routes = {k: eng.counts[k] - routes0[k] for k in routes0}
     lat_ms = sorted(x * 1e3 for x in lat)
     out = {"requests": len(jobs), "messages": n, "client_threads": H_CLIENTS,
@@ -3149,6 +3192,7 @@ def path_h(torch, kernels, keep, tmp, h3_oracle, bodies, gpu=""):
 
 I2_PER_OWNER = 128  # I2's donor: each owner's first 128 messages of E1, 128,000 rows (cut from 1.1M)
 I2_TAIL = 10_000  # I2's handoff: new messages POSTed to the donor after the capture
+I2_TAIL_OWNERS = 500  # the owners the tail goes to (all 1,000 until path O3 was added)
 I3_RELAYS, I3_R = 3, 2  # benchmarks/fleet_scaling.py:332-339: 3 relays, replication factor 2,
 I3_THREADS, I3_BATCH, I3_ZIPF = 8, 64, 1.1  # 8 client threads, batches of 64, Zipf 1.1 over owners
 # I3's depth, cut from 128,000 and 12,800 when runs of the script passed 650 s with path K's crash episodes;
@@ -3338,7 +3382,7 @@ def path_i2(torch, kernels, keep, tmp):
     rng = np.random.default_rng(29)
     contents = [bytes(b) for b in rng.integers(0, 256, (256, E_CONTENT_BYTES), dtype=np.uint8)]
     # E2's shape, a minute past every stamp of paths E and H: C pulls the tail alone.
-    owner, _m, _c, _n, stamps = e_stamps(E_MESSAGES + E_MESSAGES // 10 + 16 * 60_000, I2_TAIL, E_OWNERS, rng)
+    owner, _m, _c, _n, stamps = e_stamps(E_MESSAGES + E_MESSAGES // 10 + 16 * 60_000, I2_TAIL, I2_TAIL_OWNERS, rng)
     tail = i_requests([(f"owner{o:04d}", s, contents[i % 256]) for i, (o, s) in enumerate(zip(owner.tolist(), stamps))])
     walls = {"bootstrap": [], "install_chunk": [], "verify": [], "swap": []}
     report, relays = {}, []
@@ -4271,7 +4315,7 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
     from evolu_tpu_torch.storage import write_behind as wbm
     from evolu_tpu_torch.sync.client import _http_post
 
-    bodies, want, lanes, n, owners = keep["k1_replay"]  # path O2 replays it too
+    bodies, want, lanes, n, owners, _stamps = keep["k1_replay"]  # paths O2 and O3 replay it too
     path = os.path.join(tmp, "k1.db")
     server = RelayServer(RelayStore(path, backend="native"), batching=True, write_behind=True).start()
     wb = server.write_behind
@@ -4493,7 +4537,7 @@ def path_k(torch, kernels, keep, tmp, h1, h2, gpu=""):
     per["k2"], report["k2"] = path_k2(torch, kernels, keep, tmp, h2, gpu)
     replay = keep["k1_replay"]
     keep.clear()
-    keep["k1_replay"] = replay  # for path O2
+    keep["k1_replay"] = replay  # for paths O2 and O3
     per["k3"], report["k3"] = path_k3(torch, kernels, tmp, gpu)
     report["launches"] = per
     launches = {k: sum(p[k] for p in per.values()) for k in per["k2"]}
@@ -4726,7 +4770,7 @@ def path_o2(torch, kernels, keep, tmp, gpu=""):
     from evolu_tpu_torch.sync.client import _http_post
     from evolu_tpu_torch.utils.log import logger
 
-    bodies, want, lanes, n, owners = keep.pop("k1_replay")
+    bodies, want, lanes, n, owners, _stamps = keep["k1_replay"]  # path O3 replays it too
     t0 = time.perf_counter()
     if not prepare_device_profiler():  # on this, the main thread: /profile's handler thread captures
         raise AssertionError("path O2: the device profiler cannot be prepared")
@@ -4852,9 +4896,424 @@ def path_o2(torch, kernels, keep, tmp, gpu=""):
     return launches, out
 
 
+# ---- path O3: the conservation ledger's stations and the relay tier's legs ----------
+
+O3_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"  # the traced write whose hint arms the peer's round
+O3B_TRACE_ID = "5c0f3e4b8d1a42c6b07e9a13d2f46e81"  # the traced forward across the fleet
+O3_REDELIVER = 8  # exact redeliveries of K1 bodies after the burst
+O3_UPPER_NODE = "ABCDEF0123456789"  # a node id in upper-case hex: the engine's host-owner route
+O3_SHORT_NODE = "deadbeef"  # a node id of 8 hex digits: a non-canonical width, the singleton path's 500
+O3B_OWNERS = 16  # owners placed on the second fleet relay, both their K1 bodies sent to the first
+O3C_MESSAGES = 1 << 14  # the client's Receive: config 2's todo shape, above Config.min_device_batch
+
+
+def o3_post(url, body, n, acct, lock, headers=None, retry=True, reject=False):
+    """POST `body` (`n` messages) until it is served, counting every
+    delivery's messages in `acct` as the script's own ledger: `attempts`,
+    `shed` (a 503 answer), `rejected` (a 500, expected with `reject`) and
+    `served`. With `retry=False` a 503 is the answer. → the response
+    bytes, or None for a 503 not retried or a 500."""
+    from evolu_tpu_torch.sync.client import _http_post
+
+    while True:
+        with lock:
+            acct["attempts"] += n
+        try:
+            out = _http_post(url, body, retries=0, headers=headers)
+        except urllib.error.HTTPError as e:
+            if reject and e.code == 500:
+                with lock:
+                    acct["rejected"] += n
+                return None
+            if e.code != 503:
+                raise
+            with lock:
+                acct["shed"] += n
+            if not retry:
+                return None
+            time.sleep(0.05)
+            continue
+        with lock:
+            acct["served"] += n
+        return out
+
+
+def o3_stations(before):
+    """The conservation ledger's station totals since `before`."""
+    from evolu_tpu_torch.obs import ledger
+
+    now = ledger.totals()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in sorted(set(now) | set(before))
+            if now.get(k, 0) != before.get(k, 0)}
+
+
+def o3_get_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def o3_pull_waves():
+    from evolu_tpu_torch.obs import metrics
+
+    h = metrics.registry.get_histogram("evolu_pull_wave_bytes")
+    return h[3] if h else 0
+
+
+def o3_check_ledger(step, stations, want):
+    """Each station of `want` equals the script's own count; on a mismatch
+    the phase fails with the per-station deltas."""
+    bad = {k: (stations.get(k, 0), v) for k, v in want.items() if stations.get(k, 0) != v}
+    if bad:
+        raise AssertionError(f"path {step}: ledger stations (counted, the script's own): {bad}; "
+                             f"every station's delta: {stations}")
+
+
+def o3_relay_burst(kernels, r, replay, acct, lock, tag):
+    """R's traffic in one O3a run: K1's bodies from their 32 lanes, 8 exact
+    redeliveries, a request whose node id is upper-case hex (the engine's
+    host-owner route), one whose node id is 8 digits (a non-canonical
+    width: it bounces to the singleton path, whose host oracle answers
+    500) and one forced 503 shed (a scheduler queue of 0 for one request),
+    then the queue's flush. Every K1 response must equal K1's. → (the
+    distinct (owner, timestamp) rows served, the rejected request's
+    messages, the burst's seconds, its launches, engine dispatches and
+    pull waves)."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.sync import protocol
+
+    bodies, want, lanes, _n, _owners, stamps = replay
+    got, errors = [None] * len(bodies), []
+
+    def lane(ix):
+        try:
+            for i in ix:
+                got[i] = o3_post(r.url, bodies[i], len(stamps[i][1]), acct, lock)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    routes0, waves0 = dict(eng.counts), o3_pull_waves()
+    reset(kernels)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=lane, args=(ix,)) for ix in lanes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    burst_s = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"path O3a ({tag}): a client's POST failed") from errors[0]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"path O3a ({tag}): {len(bad)} responses differ from K1's (first: request {bad[0]})")
+    pairs = {(u, t) for u, ts in stamps for t in ts}
+    for i in range(O3_REDELIVER):
+        o3_post(r.url, bodies[i], len(stamps[i][1]), acct, lock)
+    upper = [timestamp_to_string(Timestamp(BASE_MILLIS + 40_000_000_000 + j, 0, O3_UPPER_NODE)) for j in range(4)]
+    o3_post(r.url, protocol.encode_sync_request(protocol.SyncRequest(
+        tuple(protocol.EncryptedCrdtMessage(t, b"o3-upper-%d" % j) for j, t in enumerate(upper)),
+        "o3-upper-owner", O3_UPPER_NODE.lower(), "{}")), len(upper), acct, lock)
+    pairs.update(("o3-upper-owner", t) for t in upper)
+    short = [f"{ts[:-16]}{O3_SHORT_NODE}" for ts in upper[:3]]
+    o3_post(r.url, protocol.encode_sync_request(protocol.SyncRequest(
+        tuple(protocol.EncryptedCrdtMessage(t, b"o3-short") for t in short), "o3-short-owner",
+        O3_SHORT_NODE, "{}")), len(short), acct, lock, reject=True)
+    queue_max, r.scheduler.max_queue = r.scheduler.max_queue, 0
+    try:
+        shed = o3_post(r.url, bodies[-1], len(stamps[-1][1]), acct, lock, retry=False)
+    finally:
+        r.scheduler.max_queue = queue_max
+    if shed is not None:
+        raise AssertionError(f"path O3a ({tag}): the forced shed was served")
+    r.write_behind.flush()
+    launches = read(kernels)
+    counts = dict(r.scheduler.counts)
+    if counts["singles"] != 1 or acct["rejected"] != len(short) or acct["shed"] < len(stamps[-1][1]):
+        raise AssertionError(f"path O3a ({tag}): scheduler counts {counts}, the script's {dict(acct)}")
+    return len(pairs), len(short), burst_s, launches, engine_passes(routes0), o3_pull_waves() - waves0
+
+
+def path_o3a(torch, kernels, replay, tmp, tag, ledger_on, device=None, gpu=""):
+    """O3a, one run (`tag` names it): R's traffic (`o3_relay_burst`) at a
+    fresh write-behind batching card relay R (4 native file shards, a drain
+    worker a shard, a replication listener) with the conservation ledger on
+    or off. With it on, a second card relay P (batching, no write-behind)
+    then takes a traced write, whose `hint(origin=)` arms the replication
+    round that pulls every row of R's into that trace, and every station of
+    both relays is held to the script's own counts. → (launches, report)."""
+    from evolu_tpu_torch.core.timestamp import timestamp_to_string
+    from evolu_tpu_torch.core.types import Timestamp
+    from evolu_tpu_torch.obs import ledger
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore, ShardedRelayStore
+    from evolu_tpu_torch.sync import protocol
+
+    n, lanes = replay[3], replay[2]
+    ledger.reset()
+    ledger.set_enabled(ledger_on)
+    acct, lock = {"attempts": 0, "shed": 0, "rejected": 0, "served": 0}, threading.Lock()
+    r = RelayServer(ShardedRelayStore(os.path.join(tmp, f"o3r-{tag}.db"), backend="native", shards=4),
+                    write_behind=True, peers=[], replication_interval_s=3600, device=device).start()
+    # One pull response carries R's whole history: the peer's one round
+    # ingests it in one coalesced batch of requests.
+    r.replication.pull_messages_per_response = 1 << 18
+    p = None
+    try:
+        t0 = time.perf_counter()
+        rows, rejected, burst_s, launches, passes, waves = o3_relay_burst(kernels, r, replay, acct, lock, tag)
+        serve_s = time.perf_counter() - t0
+        r_stations = o3_stations({})
+        r_ledger = o3_get_json(r.url + "/ledger")
+        r_stats = o3_get_json(r.url + "/stats")
+        out = {"run": tag, "ledger": "on" if ledger_on else "off", "requests": len(replay[0]), "messages": n,
+               "client_threads": len(lanes),
+               "burst_s": round(burst_s, 4), "msgs_per_s": round(n / burst_s), "serve_and_flush_s": round(serve_s, 4),
+               "engine_passes": passes, "pull_waves": waves, "launches": launches,
+               "scheduler_counts": dict(r.scheduler.counts), "script_counts": dict(acct), "distinct_rows": rows,
+               "relay_stations": r_stations}
+        if ledger_on:
+            # P: a traced write arms its hint with the write's context; the
+            # round it then runs against R pulls every row into that trace.
+            p = RelayServer(RelayStore(os.path.join(tmp, "o3p.db"), backend="native"), batching=True, peers=[],
+                            replication_interval_s=3600, device=device).start()
+            t1 = time.perf_counter()
+            before = ledger.totals()
+            routes0, waves0 = dict(eng.counts), o3_pull_waves()
+            reset(kernels)
+            origin = [timestamp_to_string(Timestamp(BASE_MILLIS + 41_000_000_000 + j, 0, "0123456789abcdef"))
+                      for j in range(2)]
+            o3_post(p.url, protocol.encode_sync_request(protocol.SyncRequest(
+                tuple(protocol.EncryptedCrdtMessage(t, b"o3-origin") for t in origin), "o3-origin-owner",
+                "0123456789abcdef", "{}")), len(origin), acct, lock,
+                headers={"traceparent": f"00-{O3_TRACE_ID}-00f067aa0ba902b7-01"})
+            p.replication.add_peer(r.url)
+            r_trees = dict(r.store.owner_trees())
+            wait_until(lambda: all(p.store.get_merkle_tree_string(o) == t for o, t in r_trees.items()),
+                       f"path O3a: the peer's convergence on R's {len(r_trees)} owners")
+            # Stopping the loop joins its round in flight: every pulled row
+            # is ingested and counted before the peer's counts are read.
+            p.replication.stop()
+            pulled = p.replication.peer_counts.get(r.url, {}).get("messages_pulled", 0)
+            peer = {"wall_s": round(time.perf_counter() - t1, 4), "rows_pulled": pulled,
+                    "launches": read(kernels), "engine_passes": engine_passes(routes0),
+                    "pull_waves": o3_pull_waves() - waves0, "stations": o3_stations(before)}
+            p_ledger = o3_get_json(p.url + "/ledger")
+            p_stats = o3_get_json(p.url + "/stats")
+            p_trace = {s["name"] for s in o3_get_json(p.url + f"/trace/{O3_TRACE_ID}")["spans"]}
+            out["peer"] = peer
+    finally:
+        if p is not None:
+            p.stop()
+        r.stop()
+        ledger.set_enabled(True)
+    print(f"  path O3a ({tag}): {json.dumps(out)} | {gpu}", flush=True)
+    runs = [(launches, passes, waves)] + ([(peer["launches"], peer["engine_passes"], peer["pull_waves"])]
+                                         if ledger_on else [])
+    for run_launches, run_passes, run_waves in runs:
+        expect = {"seg_lex_max_scan": 0, "seg_xor_scan": run_passes, "timestamp_hash": run_passes, "seg_sum_scan": 0}
+        if run_launches != expect or not run_passes or run_waves != run_passes:
+            raise AssertionError(f"path O3a ({tag}): launches {run_launches} and {run_waves} pull waves for "
+                                 f"{run_passes} engine dispatches, expected {expect} and a wave a dispatch")
+    if "ledger" not in r_stats:
+        raise AssertionError(f"path O3a ({tag}): /stats without its ledger section")
+    if not ledger_on:
+        if r_stations:
+            raise AssertionError(f"path O3a ({tag}): the disabled ledger counted {r_stations}")
+        return launches, out
+    o3_check_ledger("O3a relay", r_stations, {
+        ledger.INGRESS_SYNC: acct["attempts"] - len(origin), ledger.SHED_BACKPRESSURE: acct["shed"],
+        ledger.STORE_INSERTED: rows, ledger.STORE_DUPLICATE: acct["served"] - len(origin) - rows,
+        ledger.WB_QUEUED: r_stations.get(ledger.WB_DRAINED, -1), ledger.REJECT_INVALID: acct["rejected"],
+        ledger.BOUNCE_NON_CANONICAL: rejected})
+    o3_check_ledger("O3a peer", peer["stations"], {
+        ledger.INGRESS_SYNC: len(origin), ledger.INGRESS_REPLICATION: pulled,
+        ledger.STORE_INSERTED: rows + len(origin), ledger.STORE_DUPLICATE: pulled - rows})
+    if r_ledger["violations"] or p_ledger["violations"]:
+        raise AssertionError(f"path O3a: GET /ledger violations {r_ledger['violations']} {p_ledger['violations']}")
+    if "ledger" not in p_stats or p_stats["replication"]["peers"][0]["convergence_lag_p99_ms"] is None:
+        raise AssertionError(f"path O3a: the peer's /stats: {p_stats.get('replication')}")
+    if "repl.round" not in p_trace:
+        raise AssertionError(f"path O3a: /trace/{O3_TRACE_ID} on the peer holds {sorted(p_trace)}, no repl.round")
+    return {k: launches[k] + peer["launches"][k] for k in launches}, out
+
+
+def path_o3b(torch, kernels, replay, device=None, gpu=""):
+    """O3b: a two-relay forward fleet of batching card relays; both K1
+    bodies of 16 owners placed on the second are sent to the first, one of
+    them traced. Responses equal K1's; the first relay's egress.forward
+    equals the second's ingress.forward equals the messages sent; the
+    forward leg joins the request's trace. → (launches, report)."""
+    from evolu_tpu_torch.obs import ledger
+    from evolu_tpu_torch.server import engine as eng
+    from evolu_tpu_torch.server.relay import RelayServer, RelayStore
+    from evolu_tpu_torch.utils.config import FleetConfig
+
+    bodies, want, _lanes, _n, _owners, stamps = replay
+    f1 = RelayServer(RelayStore(backend="native"), batching=True, device=device)
+    f2 = RelayServer(RelayStore(backend="native"), batching=True, device=device)
+    cfg = FleetConfig(relays=(f1.url, f2.url), replication_factor=1, version=1, forward=True)
+    f1.enable_fleet(cfg)
+    f2.enable_fleet(cfg)
+    f1.start()
+    f2.start()
+    acct, lock = {"attempts": 0, "shed": 0, "rejected": 0, "served": 0}, threading.Lock()
+    try:
+        placed = []
+        for i, (owner, _ts) in enumerate(stamps):
+            if f1.fleet.ring.primary(owner) == f2.url and owner not in placed:
+                placed.append(owner)
+            if len(placed) == O3B_OWNERS:
+                break
+        ix = [i for i, (owner, _ts) in enumerate(stamps) if owner in placed]
+        before = ledger.totals()
+        routes0 = dict(eng.counts)
+        reset(kernels)
+        t0 = time.perf_counter()
+        got = {}
+        for k, i in enumerate(ix):
+            hdrs = {"traceparent": f"00-{O3B_TRACE_ID}-a3ce929d0e0e4736-01"} if k == 0 else None
+            got[i] = o3_post(f1.url, bodies[i], len(stamps[i][1]), acct, lock, headers=hdrs)
+        wall = time.perf_counter() - t0
+        launches = read(kernels)
+        passes = engine_passes(routes0)
+        stations = o3_stations(before)
+        names = {s["name"] for s in o3_get_json(f2.url + f"/trace/{O3B_TRACE_ID}")["spans"]}
+        violations = [o3_get_json(f.url + "/ledger")["violations"] for f in (f1, f2)]
+    finally:
+        f2.stop()
+        f1.stop()
+    bad = [i for i in ix if got[i] != want[i]]
+    if bad:
+        raise AssertionError(f"path O3b: {len(bad)} forwarded responses differ from K1's")
+    out = {"requests": len(ix), "owners": len(placed), "messages": acct["served"], "wall_s": round(wall, 4),
+           "engine_passes": passes, "script_counts": dict(acct), "stations": stations,
+           "trace": sorted(n for n in names if not n.startswith("kernel:"))}
+    print(f"  path O3b: {json.dumps(out)} | {gpu}", flush=True)
+    o3_check_ledger("O3b", stations, {ledger.EGRESS_FORWARD: acct["served"], ledger.INGRESS_FORWARD: acct["served"],
+                                      ledger.INGRESS_SYNC: acct["attempts"], ledger.SHED_BACKPRESSURE: acct["shed"]})
+    if not {"relay.sync", "fleet.forward", "fleet.forward.serve"} <= names:
+        raise AssertionError(f"path O3b: /trace/{O3B_TRACE_ID} on the target holds {sorted(names)}")
+    if any(violations):
+        raise AssertionError(f"path O3b: GET /ledger violations {violations}")
+    expect = {"seg_lex_max_scan": 0, "seg_xor_scan": passes, "timestamp_hash": passes, "seg_sum_scan": 0}
+    if launches != expect or not passes:
+        raise AssertionError(f"path O3b: launches {launches} for {passes} engine dispatches, expected {expect}")
+    return launches, out
+
+
+def path_o3c(torch, kernels, device=None, gpu=""):
+    """O3c: one Receive of 16,384 messages of config 2's todo shape (path
+    D's generator), sealed with the native encrypt_batch, pushed into a
+    native relay store (the engine's pass), served back and decoded to a
+    PackedReceive, into a card
+    DbWorker on CppSqliteDatabase with the ledger off, then into another
+    with it on. The apply plane's equations hold, the batch routes packed,
+    and both workers end equal. → (launches, report)."""
+    from evolu_tpu_torch.obs import ledger
+    from evolu_tpu_torch.server.engine import BatchReconciler
+    from evolu_tpu_torch.server.relay import RelayStore, serve_single_request
+    from evolu_tpu_torch.storage.clock import read_clock
+    from evolu_tpu_torch.storage.native import CppSqliteDatabase
+    from evolu_tpu_torch.sync import native_crypto, protocol
+    from evolu_tpu_torch.utils.config import Config
+
+    base, batch = config2_batch(7, O3C_MESSAGES)
+    sealed = native_crypto.encrypt_batch(batch, MNEMONIC)
+    if sealed is None:
+        raise AssertionError("path O3c: the native encrypt_batch declined a canonical batch")
+    states, reports, launches, body = {}, {}, None, None
+    for tag in ("off", "on"):
+        clock = {"now": base}
+        # The sort plan pinned: "auto" is the sort plan on the card and the
+        # scatter plan on the CPU, and kernel L is the sort plan's.
+        cfg = Config(backend="auto", winner_cache=True, merge_plan="sort")
+        w = DWorker(f"o3c-{tag}", cfg, clock, device=device, db=CppSqliteDatabase())
+        if body is None:  # one owner and node for both workers: one response
+            store = RelayStore(backend="native")
+            relay = BatchReconciler(store, device=device)
+            relay.run_batch_wire([protocol.SyncRequest(sealed, w.worker.owner.id, "f" * 16, "{}")])
+            relay.close()
+            body = serve_single_request(store, protocol.SyncRequest(
+                (), w.worker.owner.id, read_clock(w.worker.db).timestamp.node, "{}"), device=device)
+            store.close()
+        decoded = native_crypto.decrypt_response_columns(body, MNEMONIC)
+        if decoded is None or len(decoded[0]) != len(batch):
+            raise AssertionError("path O3c: the served response did not decode to columns")
+        ledger.reset()
+        ledger.set_enabled(tag == "on")
+        try:
+            reset(kernels)
+            route = w.receive("o3c", *decoded)
+            run = read(kernels)
+            stations, audit = ledger.totals(), ledger.audit(at_barrier=False)
+        finally:
+            ledger.set_enabled(True)
+        states[tag] = d_state(w)
+        w.stop()
+        if launches is not None and run != launches:
+            raise AssertionError(f"path O3c: launches {run} with the ledger on, {launches} with it off")
+        launches = run
+        reports[tag] = {"wall_s": round(w.walls["o3c"], 4), "plans": route.get("plans"), "stations": stations,
+                        "violations": audit}
+    out = {"messages": len(batch), "runs": reports, "launches": launches}
+    print(f"  path O3c: {json.dumps(out)} | {gpu}", flush=True)
+    if states["on"] != states["off"]:
+        raise AssertionError("path O3c: the worker with the ledger on ends unlike the worker with it off")
+    st = reports["on"]["stations"]
+    if reports["on"]["violations"] or st.get(ledger.APPLY_INGRESS) != len(batch) \
+            or st.get(ledger.ROUTE_PACKED, 0) <= 0:
+        raise AssertionError(f"path O3c: apply plane {st}, violations {reports['on']['violations']}")
+    plans = sum((reports["on"]["plans"] or {}).values())
+    expect = {"seg_lex_max_scan": 2 * plans, "timestamp_hash": plans, "seg_xor_scan": plans, "seg_sum_scan": 0}
+    if not plans or launches != expect:
+        raise AssertionError(f"path O3c: launches {launches} for {plans} device plans, expected {expect}")
+    return launches, out
+
+
+def path_o3(torch, kernels, replay, tmp, device=None, gpu=""):
+    """Path O3: O3a with the conservation ledger off, on, then off again,
+    each on a fresh relay R, so the on run's msgs/s is read beside the
+    spread of the two off runs around it; then O3b and O3c. Each O3a run
+    holds its own launches and pull waves to one X, one H and one wave an
+    engine dispatch. → (launches, report)."""
+    from evolu_tpu_torch.obs import metrics, trace
+
+    # The metrics and tracing planes on (the peer's trace check reads
+    # them), the span annotations left as they are (off).
+    metrics.set_enabled(True)
+    trace.set_enabled(True)
+    trace.set_sample_rate(1.0)
+    t0 = time.perf_counter()
+    report, per, walls = {}, {}, {}
+
+    def step(name, fn, *args):
+        t1 = time.perf_counter()
+        per[name], report[name] = fn(torch, kernels, *args)
+        walls[name] = round(time.perf_counter() - t1, 3)
+
+    for tag, ledger_on in (("off_1", False), ("on", True), ("off_2", False)):
+        step(f"o3a_{tag}", path_o3a, replay, tmp, tag, ledger_on, device, gpu)
+    step("o3b", path_o3b, replay, device, gpu)
+    step("o3c", path_o3c, device, gpu)
+    off = [report["o3a_off_1"]["msgs_per_s"], report["o3a_off_2"]["msgs_per_s"]]
+    on = report["o3a_on"]["msgs_per_s"]
+    report["wall_s"], report["walls_s"] = round(time.perf_counter() - t0, 3), walls
+    report["msgs_per_s"] = {"ledger_off": off, "ledger_on": on, "on_minus_mean_off": round(on - sum(off) / 2),
+                            "off_spread": abs(off[0] - off[1])}
+    report["launches"] = per
+    print(f"  path O3: wall {report['wall_s']}s ({json.dumps(walls)}); O3a msgs/s {json.dumps(report['msgs_per_s'])}; "
+          f"launches {json.dumps(per)} | {gpu}", flush=True)
+    launches = {k: sum(p[k] for p in per.values()) for k in per["o3c"]}
+    return launches, report
+
+
 def path_o(torch, kernels, keep, tmp, gpu=""):
     """Path O: O1 and O2, each with its own launch counts (summed as path
-    O). → (launches, report)."""
+    O; `main` adds O3's, which runs after the kernel timing phase).
+    → (launches, report)."""
     report, per = {}, {}
     per["o1"], report["o1"] = path_o1(torch, kernels, gpu)
     per["o2"], report["o2"] = path_o2(torch, kernels, keep, tmp, gpu)
@@ -6441,7 +6900,7 @@ def time_sum_kernel(torch, captured):
         same([got], [want], f"S on path C1's {slot} input")
         call = functools.partial(cuda_scan.segmented_sum_scan_cuda, flags, values)
         ms = cuda_ms(call)
-        dev = device_ms(torch, [call])
+        dev = device_ms(torch, [call], records=1)
         plain_ms = cuda_ms(functools.partial(cuda_scan.segmented_sum_scan_plain, flags, values), reps=3, inner=2)
         cumsum_ms = cuda_ms(functools.partial(torch.cumsum, values, 0))
         bound = max(bound_parts("S", (flags, values)))
@@ -6609,7 +7068,7 @@ def time_path_calls(torch, kernels, calls):
             rows.append(int(a[0].shape[0]))
         small = min(range(len(rows)), key=rows.__getitem__)
         out[k["name"]] = {"calls": len(rows), "rows_min": min(rows), "rows_max": max(rows),
-                          "ms": round(ms, 5), **device_ms(torch, fns, reps=5),
+                          "ms": round(ms, 5), **device_ms(torch, fns, reps=5, records=len(fns)),
                           "bound_ms": round(bound, 5), "host_us": round(host_us(torch, fns[small]), 3),
                           "host_us_rows": rows[small]}
         print(f"  {k['name']} per run of path C2: {json.dumps(out[k['name']])}", flush=True)
@@ -6625,7 +7084,7 @@ def time_slot_at(torch, slot, a, kw, what):
     call = functools.partial(cuda_fn, *a, **kw)
     t_bytes, t_ops = bound_parts(slot, a)
     out = {"timed_on": what, "rows": int(a[0].shape[0]), "max_abs_err": max_abs_err(got, want),
-           "ms": round(cuda_ms(call), 5), **device_ms(torch, [call]),
+           "ms": round(cuda_ms(call), 5), **device_ms(torch, [call], records=1),
            "plain_ms": round(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2), 5),
            "bound_ms": round(max(t_bytes, t_ops), 5), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     print(f"  {slot} {what}: {json.dumps(out)}", flush=True)
@@ -6647,7 +7106,8 @@ def time_kernels(torch, kernels, captured):
         for g, w in zip(got, want):
             same(g, w, k["name"] + " on main-path inputs")
         ms = statistics.mean(cuda_ms(functools.partial(cuda_fn, *a, **kw)) for a, kw in timed)
-        dev = device_ms(torch, [functools.partial(cuda_fn, *a, **kw) for a, kw in timed], per=len(timed))
+        dev = device_ms(torch, [functools.partial(cuda_fn, *a, **kw) for a, kw in timed], per=len(timed),
+                         records=len(timed))
         plain_ms = statistics.mean(cuda_ms(functools.partial(plain_fn, *a, **kw), reps=3, inner=2)
                                    for a, kw in timed)
         t_bytes, t_ops = bound_parts(k["slot"], calls[0][0])
@@ -6899,6 +7359,17 @@ def main() -> int:
         c2_times = time_path_calls(torch, kernels, c2_calls)
         report_e["engine_kernels"] = engine_kernel_timing(torch, captured_e)
     del captured_e
+    # O3 runs after the timing phase: with O3 after O2, unscheduled
+    # profiler sessions of the timing phase caught fewer kernel records,
+    # none in four of five whole runs. `device_ms`'s scheduled sessions
+    # caught every record before and after O3 alike, but O3 stays out of
+    # their way (ROADMAP queue 3 item 10).
+    with phase("path O3: the conservation ledger on the relay tier (write-behind relay and peer, forward fleet, "
+               "client apply; ledger off / on / off)", gpu), tempfile.TemporaryDirectory() as tmp_o3:
+        launches_o3, report_o["o3"] = path_o3(torch, kernels, keep_e.pop("k1_replay"), tmp_o3, gpu=gpu)
+        report_o["launches"]["o3"] = launches_o3
+        launches["o"] = {k: launches["o"][k] + launches_o3[k] for k in launches_o3}
+        print("  " + json.dumps(report_o["launches"]) + f" | {gpu}", flush=True)
     table[1]["at_path_e"] = report_e["engine_kernels"]["X_on_e1"]
     table[2]["at_path_e"] = report_e["engine_kernels"]["H_on_e1"]
     table[2]["ops_per_hashed_row"] = h_ops_per_row

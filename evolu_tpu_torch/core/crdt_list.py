@@ -26,6 +26,7 @@ import json
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import metrics
 
 ROOT_ORIGIN = ""
 
@@ -196,11 +197,18 @@ def replay_log(msgs: Sequence[CrdtMessage]) -> Dict[Cell, str]:
 def apply_list_ops(db, new_msgs: Sequence[CrdtMessage]) -> Set[Cell]:
     """Fold new list ops (already screened against `__message`) into
     `__crdt_list` / `__crdt_list_kill`. Returns touched cells."""
-    from evolu_tpu_torch.core.crdt_types import _chunked_in, alive_add_flags
+    from evolu_tpu_torch.core.crdt_types import LIST as _LT, _chunked_in, alive_add_flags
 
-    inserts, deletes, _bad = decode_list_batch(new_msgs)
+    inserts, deletes, bad = decode_list_batch(new_msgs)
+    if bad:
+        metrics.inc("evolu_crdt_malformed_ops_total", bad, type=_LT)
     if not inserts and not deletes:
         return set()
+    metrics.inc("evolu_crdt_ops_total", len(inserts) + len(deletes), type=_LT)
+    if inserts:
+        metrics.inc("evolu_crdt_list_ops_total", len(inserts), kind="insert")
+    if deletes:
+        metrics.inc("evolu_crdt_list_ops_total", len(deletes), kind="delete")
     kills: Set[str] = {t for _m, t in deletes}
     insert_tags = [m.timestamp for m, _o, _v in inserts]
     state_killed: Set[str] = set()
@@ -266,7 +274,12 @@ def materialize_list_values(db, table: str, column: str, rows: Sequence[str],
     per_row = _cell_rows(db, table, column, rows)
     total = sum(len(v) for v in per_row.values())
     oversized = total > DEVICE_MAX_ELEMS or len(per_row) > DEVICE_MAX_CELLS
-    if DEVICE_FOLD_MIN <= total and not oversized:
+    use_device = DEVICE_FOLD_MIN <= total and not oversized
+    if oversized:
+        metrics.inc("evolu_crdt_list_oversized_host_routes_total")
+    metrics.inc("evolu_crdt_list_linearize_total", path="device" if use_device else "host")
+    metrics.inc("evolu_crdt_list_linearized_elements_total", total)
+    if use_device:
         return _materialize_device(per_row, device)
     return {row: fold_cell(elems)[1] for row, elems in per_row.items()}
 
@@ -283,17 +296,22 @@ def _materialize_device(per_row: Dict[str, list], device=None) -> Dict[str, str]
     alive: List[int] = []
     vals: List[str] = []
     spans: List[Tuple[str, int, int]] = []  # (row, start, count)
+    orphans = 0
     for ci, row in enumerate(sorted(per_row)):
         elems = sorted(per_row[row])  # ascending tag: the rank order
         base = len(cell_id)
         ix = {tag: j for j, (tag, _o, _v, _a) in enumerate(elems)}
         for tag, origin, val, a in elems:
             ok = origin != ROOT_ORIGIN and origin in ix and origin < tag
+            if not ok and origin != ROOT_ORIGIN:
+                orphans += 1
             cell_id.append(ci)
             parent_ix.append(base + ix[origin] if ok else -1)
             alive.append(int(a))
             vals.append(val)
         spans.append((row, base, len(elems)))
+    if orphans:
+        metrics.inc("evolu_crdt_list_orphan_inserts_total", orphans)
     pos, slot = rga_order(np.asarray(cell_id, np.int32), np.asarray(parent_ix, np.int32),
                           np.asarray(alive, np.int32), device=device)
     out: Dict[str, str] = {}

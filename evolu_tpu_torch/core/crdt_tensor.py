@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import metrics
 
 TENSOR = "tensor"
 MONOIDS = ("sum", "mean", "max")
@@ -355,9 +356,18 @@ def apply_tensor_ops(db, ct: str, new_msgs: Sequence[CrdtMessage]) -> Set[Cell]:
     cells."""
     if not new_msgs:
         return set()
-    valid, _bad = decode_tensor_batch(parse_tensor_type(ct), new_msgs)
+    valid, bad = decode_tensor_batch(parse_tensor_type(ct), new_msgs)
+    if bad:
+        metrics.inc("evolu_crdt_malformed_ops_total", bad, type=TENSOR)
     if not valid:
         return set()
+    metrics.inc("evolu_crdt_ops_total", len(valid), type=TENSOR)
+    n_sets = sum(1 for _m, kind, _p, _c in valid if kind == "s")
+    if n_sets:
+        metrics.inc("evolu_crdt_tensor_ops_total", n_sets, kind="set")
+    if len(valid) - n_sets:
+        metrics.inc("evolu_crdt_tensor_ops_total", len(valid) - n_sets, kind="delta")
+    metrics.inc("evolu_crdt_tensor_bytes_total", sum(len(p) for _m, _k, p, _c in valid))
     db.run_many(
         'INSERT OR IGNORE INTO "__crdt_tensor" '
         '("tag", "table", "row", "column", "kind", "count", "payload") VALUES (?, ?, ?, ?, ?, ?, ?)',
@@ -389,7 +399,11 @@ def materialize_tensor_values(db, ct: str, table: str, column: str, rows: Sequen
 
     cfg = parse_tensor_type(ct)
     plans = {row: contributing_ops(ops) for row, ops in _cell_rows(db, table, column, rows).items()}
-    if DEVICE_FOLD_MIN <= sum(len(c) for c in plans.values()) * cfg.size:
+    total_elems = sum(len(c) for c in plans.values()) * cfg.size
+    use_device = DEVICE_FOLD_MIN <= total_elems
+    metrics.inc("evolu_crdt_tensor_fold_total", path="device" if use_device else "host", monoid=cfg.monoid)
+    metrics.inc("evolu_crdt_tensor_folded_elements_total", total_elems)
+    if use_device:
         return _materialize_device(cfg, plans, device)
     return {row: _fold_contributions(cfg, c) for row, c in plans.items()}
 
@@ -438,6 +452,7 @@ def _materialize_device(cfg: TensorConfig, plans: Dict[str, List[Tuple[str, int,
             out[row] = zeros_value(cfg)
             continue
         if len(contribs) > max_ops:  # one cell exceeds a dispatch
+            metrics.inc("evolu_crdt_tensor_oversized_host_folds_total")
             out[row] = _fold_contributions(cfg, contribs)
             continue
         if chunk_ops + len(contribs) > max_ops:

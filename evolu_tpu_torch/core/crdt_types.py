@@ -26,7 +26,10 @@ Batches of at least `DEVICE_FOLD_MIN` ops fold on the device
 `ops/crdt_tensor_merge.py`). Every fold takes `device=None`, which
 means CUDA and is resolved only when a fold takes the device route:
 without a card such a fold raises unless the caller passes
-`device="cpu"`, which runs the kernels' plain versions.
+`device="cpu"`, which runs the kernels' plain versions. The typed plane
+counts into the `evolu_crdt_*` families as the reference does: ops and
+malformed ops by type, folds by route, materialized cells, and
+pre-declaration folds.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import json
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import metrics
 
 LWW = "lww"
 COUNTER = "counter"
@@ -183,6 +187,7 @@ def _fold_predeclaration_ops(db, decls: Sequence[Tuple[str, str, str]], device=N
         )
     if not msgs:
         return
+    metrics.inc("evolu_crdt_predeclaration_folds_total", len(msgs))
     touched = _fold_by_type(db, partition_typed(schema, msgs), device)
     if touched:
         materialize_cells(db, schema, touched, device)
@@ -407,12 +412,17 @@ def _fold_counters_host(pairs: Sequence[Tuple[CrdtMessage, int]]):
 
 def apply_counter_ops(db, new_msgs: Sequence[CrdtMessage], device=None) -> Set[Cell]:
     """Fold new counter ops into `__crdt_counter`. Returns touched cells."""
-    pairs, _bad = decode_counter_batch(new_msgs)
+    pairs, bad = decode_counter_batch(new_msgs)
+    if bad:
+        metrics.inc("evolu_crdt_malformed_ops_total", bad, type=COUNTER)
     if not pairs:
         return set()
+    metrics.inc("evolu_crdt_ops_total", len(pairs), type=COUNTER)
     if len(pairs) >= DEVICE_FOLD_MIN:
+        metrics.inc("evolu_crdt_plan_total", type=COUNTER, path="device")
         sums = _fold_counters_device(pairs, device)
     else:
+        metrics.inc("evolu_crdt_plan_total", type=COUNTER, path="host")
         sums = _fold_counters_host(pairs)
     db.run_many(
         'INSERT INTO "__crdt_counter" ("table", "row", "column", "pos", "neg") '
@@ -427,9 +437,12 @@ def apply_counter_ops(db, new_msgs: Sequence[CrdtMessage], device=None) -> Set[C
 def apply_set_ops(db, new_msgs: Sequence[CrdtMessage], device=None) -> Set[Cell]:
     """Fold new set ops into `__crdt_set` / `__crdt_kill`. Returns
     touched cells (adds and removes: a remove changes the value too)."""
-    adds, removes, _bad = decode_set_batch(new_msgs)
+    adds, removes, bad = decode_set_batch(new_msgs)
+    if bad:
+        metrics.inc("evolu_crdt_malformed_ops_total", bad, type=AWSET)
     if not adds and not removes:
         return set()
+    metrics.inc("evolu_crdt_ops_total", len(adds) + len(removes), type=AWSET)
     kills: Set[str] = set()
     for _m, tags in removes:
         kills.update(tags)
@@ -446,8 +459,10 @@ def apply_set_ops(db, new_msgs: Sequence[CrdtMessage], device=None) -> Set[Cell]
     if len(adds) + len(kills) >= DEVICE_FOLD_MIN:
         from evolu_tpu_torch.ops.crdt_merge import awset_alive_flags
 
+        metrics.inc("evolu_crdt_plan_total", type=AWSET, path="device")
         alive = awset_alive_flags(add_tags, kills, state_killed, device=device)
     else:
+        metrics.inc("evolu_crdt_plan_total", type=AWSET, path="host")
         alive = alive_add_flags(add_tags, kills, state_killed)
 
     touched: Set[Cell] = set()
@@ -528,6 +543,7 @@ def materialize_cells(db, schema: CrdtSchema, cells: Iterable[Cell], device=None
             _upsert_sql(table, column),
             [(row, values.get(row, default), values.get(row, default)) for row in rows],
         )
+        metrics.inc("evolu_crdt_materialized_cells_total", len(rows), type=ct)
 
 
 def _fold_by_type(db, by_type: Dict[str, List[CrdtMessage]], device=None) -> Set[Cell]:

@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from evolu_tpu_torch.obs import metrics
 from evolu_tpu_torch.ops import bucket_size, resolve_device, to_host_many
 from evolu_tpu_torch.ops.crdt_merge import _dump_set
 from evolu_tpu_torch.ops.cuda_scan import segmented_max_scan, segmented_sum_scan
@@ -150,6 +151,7 @@ def tensor_shard_sums(owner_ix: np.ndarray, cell_id: np.ndarray, contrib: np.nda
     cell_max = int(cell_id.max(initial=0, where=real))
     owner_max = int(owner_ix.max(initial=0))
     packed = cell_max < _CELL_LIMIT and owner_max < _OWNER_LIMIT and n <= 1 << 24
+    metrics.inc("evolu_crdt_tensor_kernel_total", variant="packed" if packed else "wide")
     size = bucket_size(n)
     o_p = np.concatenate([owner_ix.astype(np.int32), np.zeros(size - n, np.int32)])
     c_p = np.concatenate([cell_id.astype(np.int32), np.full(size - n, int(_PAD_CELL), np.int32)])

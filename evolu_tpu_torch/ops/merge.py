@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from evolu_tpu_torch.core.types import CrdtMessage
-from evolu_tpu_torch.obs import metrics
+from evolu_tpu_torch.obs import ledger, metrics
 from evolu_tpu_torch.ops import bucket_size, columns_to_device, resolve_device, to_host_many, u64_order
 from evolu_tpu_torch.ops.cuda_hash import masked_key_hashes
 from evolu_tpu_torch.ops.cuda_scan import segmented_max_scan
@@ -209,6 +209,7 @@ def strip_typed_upserts(plan, messages, schema):
     typed_idx = [i for i, m in enumerate(messages) if schema.is_typed(m.table, m.column)]
     if not typed_idx:
         return plan
+    metrics.inc("evolu_crdt_upserts_stripped_total", len(typed_idx))
 
     def keep(m):
         return not schema.is_typed(m.table, m.column)
@@ -325,9 +326,11 @@ def _plan_batch_device_timed(messages, existing_winners, device):
     args = (cols["cell_id"], cols["k1"], cols["k2"], cols["ex_k1"], cols["ex_k2"])
     if table_size is not None:
         count("merge_plan", "scatter")
+        metrics.inc("evolu_merge_plan_total", path="scatter")
         masks = scatter_plan_masks(*args, table_size)
     else:
         count("merge_plan", "sort")
+        metrics.inc("evolu_merge_plan_total", path="sort")
         masks = plan_merge_core(*args)
     xor_mask, upsert_mask = to_host_many(*masks)
     return xor_mask[:n].tolist(), select_messages(messages, upsert_mask[:n])
@@ -344,6 +347,11 @@ def _host_fallback(messages, existing_winners, with_deltas=False):
 
     metrics.inc("evolu_merge_host_fallbacks_total")
     metrics.inc("evolu_merge_host_fallback_messages_total", len(messages))
+    # Ledger tallies outside the flow equations (the batch's messages still
+    # end through whichever apply route takes this plan): the messages the
+    # host oracle planned, and the canonicality bounce that sent them here.
+    ledger.count(ledger.ROUTE_HOST_FALLBACK, len(messages))
+    ledger.count(ledger.BOUNCE_NON_CANONICAL, len(messages))
     log("kernel:merge", "non-canonical hex case: host-planner fallback", n=len(messages))
     xor_mask, upserts = plan_batch(messages, existing_winners)
     if not with_deltas:
@@ -405,9 +413,11 @@ def _run_full_plan(cell_ids, k1, k2, ex_k1, ex_k2, n: int, device):
     args = (cols["cell_id"], cols["k1"], cols["k2"], cols["ex_k1"], cols["ex_k2"])
     if table_size is not None:
         count("merge_plan", "scatter")
+        metrics.inc("evolu_merge_plan_total", path="scatter")
         outs = plan_full_kernel_scatter(*args, table_size)
     else:
         count("merge_plan", "sort")
+        metrics.inc("evolu_merge_plan_total", path="sort")
         outs = plan_full_kernel(*args)
     xor_s, upsert_s, i_s, minute_sorted, seg_end, seg_xor, valid = to_host_many(*outs)
     xor_mask, upsert_mask = unpermute_masks(xor_s, upsert_s, i_s)

@@ -32,9 +32,12 @@ answers an oversized declaration without the tier buffering it), and a
 response write that stops progressing for `write_timeout_s` closes the
 connection. Every one of these is enforced from the loop.
 
-Departure from the reference: plain `counts` (accepted, shed, closed by
-reason) in place of the `evolu_conn_*` metrics, and no log line for a
-handler escape (the port has no logger yet); `stats_payload` answers the
+Observability as the reference's: the `evolu_conn_*` families (accepted,
+shed and closed connections, the open and dispatch-pending gauges),
+`evolu_relay_requests_total` for the polls the loop parks itself,
+`evolu_push_redirects_total` for its fleet redirects, and log lines for a
+handler escape or a failed dispatch. Plain `counts` (accepted, shed,
+closed by reason) are kept beside them; `stats_payload` answers the
 reference's keys from them.
 """
 
@@ -48,6 +51,9 @@ import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional, Tuple
+
+from evolu_tpu_torch.obs import metrics
+from evolu_tpu_torch.utils.log import log
 
 # Defaults; RelayServer threads the Config knobs through.
 MAX_HEADER_BYTES = 16384
@@ -110,10 +116,13 @@ def serve_buffered(handler_cls, raw: bytes, client_address: Tuple[str, int]) -> 
     fake = _BufferedSocket(raw)
     try:
         handler_cls(fake, client_address, _SERVER_SHIM)
-    except Exception:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001
+        log("dev", "conn tier handler escape", error=repr(e))
         counts = getattr(handler_cls, "counts", None)
         if counts is not None:
-            counts.error()
+            counts.error()  # counts evolu_relay_errors_total too
+        else:
+            metrics.inc("evolu_relay_errors_total")
         if not fake.out:
             body = b"handler failure"
             fake.out += (
@@ -341,6 +350,8 @@ class EventLoopHTTPServer:
             self._active.add(conn)
             self._sel.register(sock, selectors.EVENT_READ, conn)
             self.counts["accepted"] += 1
+            metrics.inc("evolu_conn_accepted_total")
+            metrics.set_gauge("evolu_conn_open", len(self._conns))
 
     def _on_readable(self, conn: _Conn) -> None:
         try:
@@ -433,6 +444,7 @@ class EventLoopHTTPServer:
             # The loop's own admission bound: shedding here keeps a request
             # flood from buffering without bound ahead of the pool.
             self.counts["shed"] += 1
+            metrics.inc("evolu_conn_shed_total")
             self._respond_inline(conn, frame_response(503, [("Retry-After", "1"), ("Content-Length", "0")]))
             return
         conn.state = _DISPATCHED
@@ -440,12 +452,14 @@ class EventLoopHTTPServer:
         self._active.discard(conn)
         self._sel.unregister(conn.sock)
         self._inflight += 1
+        metrics.set_gauge("evolu_conn_dispatch_pending", self._inflight)
         handler_cls, addr = self.handler_cls, conn.addr
 
         def job():
             try:
                 out = serve_buffered(handler_cls, raw, addr)
-            except BaseException:  # noqa: BLE001 - never lose a connection
+            except BaseException as e:  # noqa: BLE001 - never lose a connection
+                log("dev", "conn dispatch failed", error=repr(e))
                 out = frame_response(500, [("Content-Length", "0")])
             with self._done_lock:
                 self._done.append((conn, out))
@@ -463,6 +477,7 @@ class EventLoopHTTPServer:
                 continue  # closed while handling (client hangup)
             if conn.state == _DISPATCHED:
                 self._inflight -= 1
+                metrics.set_gauge("evolu_conn_dispatch_pending", self._inflight)
                 self._sel.register(conn.sock, selectors.EVENT_WRITE, conn)
             elif conn.state == _PARKED:
                 self._sel.modify(conn.sock, selectors.EVENT_WRITE, conn)
@@ -501,6 +516,7 @@ class EventLoopHTTPServer:
             owner, node, cursor, timeout, tags = push_mod.parse_poll_query(urlsplit(target).query)
         except ValueError:
             return False  # pool → handler → 400, byte-identical
+        metrics.inc("evolu_relay_requests_total", endpoint="/push/poll")
         fleet = getattr(self.handler_cls, "fleet", None)
         if fleet is not None:
             resp = _push_fleet_route(fleet, owner, target, hub)
@@ -537,6 +553,7 @@ class EventLoopHTTPServer:
     def _respond_inline(self, conn: _Conn, out: bytes, counted: Optional[str] = None) -> None:
         if counted:
             self.counts["closed"][counted] += 1
+            metrics.inc("evolu_conn_closed_total", reason=counted)
         conn.state = _WRITE
         conn.outbuf = memoryview(out)
         conn.outpos = 0
@@ -578,6 +595,8 @@ class EventLoopHTTPServer:
             pass
         if not quiet:
             self.counts["closed"][reason] += 1
+            metrics.inc("evolu_conn_closed_total", reason=reason)
+            metrics.set_gauge("evolu_conn_open", len(self._conns))
 
     def _sweep_deadlines(self) -> None:
         now = time.monotonic()
@@ -622,6 +641,7 @@ def _push_fleet_route(fleet, owner: str, target: str, hub=None) -> Optional[byte
         return None
     if hub is not None:
         hub._count("redirects")
+    metrics.inc("evolu_push_redirects_total")
     return frame_response(307, [("Location", peer + target), ("Content-Length", "0")])
 
 

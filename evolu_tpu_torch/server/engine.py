@@ -47,6 +47,10 @@ pass (they nest under the scheduler's `engine.batch` span), the
 `device_dispatch` and `host_apply` stage records, the compact-upload
 bytes and the store passes by path, and `observe_jit_caches`, the
 recompile sentinel's counterpart. Plain `counts` are kept beside them.
+Each committed pass posts its conservation-ledger terminals
+(`_ledger_count_pass`: `store.inserted` from the pulled was-new flags or
+the set-diff, the rest of each owner's rows `store.duplicate`) after the
+shard transactions committed, so a rolled-back pass posts nothing.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ from evolu_tpu_torch.core.merkle import (
 )
 from evolu_tpu_torch.core.murmur import to_int32
 from evolu_tpu_torch.core.types import NonCanonicalStoreError
-from evolu_tpu_torch.obs import anatomy, flight, metrics
+from evolu_tpu_torch.obs import anatomy, flight, ledger, metrics
 from evolu_tpu_torch.ops import (
     bucket_size,
     columns_to_device,
@@ -498,6 +502,28 @@ def deltas_finish(state) -> Tuple[Dict[str, Dict[str, int]], int]:
     return deltas, digest ^ xor_allreduce(digests.view(np.uint32).tolist())
 
 
+def _owner_totals(requests) -> Dict[str, int]:
+    """The messages each owner sent in `requests`."""
+    totals: Dict[str, int] = {}
+    for r in requests:
+        if r.messages:
+            totals[r.user_id] = totals.get(r.user_id, 0) + len(r.messages)
+    return totals
+
+
+def _ledger_count_pass(requests, inserted_by_owner) -> None:
+    """The conservation-ledger terminals of ONE committed engine pass: per
+    owner, `inserted` rows were new (was-new flags or the set-diff), and
+    every other row the owner sent this pass, the in-batch dedup's drops
+    included, ends at store.duplicate. Call only after the shard
+    transactions committed: a rolled-back pass posts nothing, so the
+    scheduler's singleton retry cannot count twice."""
+    for o, total in _owner_totals(requests).items():
+        ins = int(inserted_by_owner.get(o, 0))
+        ledger.count(ledger.STORE_INSERTED, ins, owner=o)
+        ledger.count(ledger.STORE_DUPLICATE, total - ins, owner=o)
+
+
 def _pack_rows(ts_list, contents):
     """Pack one shard's rows into flat buffers. Each timestamp's width is
     checked before packing: a total-length check alone would accept
@@ -710,6 +736,7 @@ class BatchReconciler:
         trees: Dict[str, dict] = {}
         if not live:
             return trees
+        inserted_by_owner: Dict[str, int] = {}
 
         def ingest_shard(si: int):
             db = stores[si].db
@@ -739,6 +766,7 @@ class BatchReconciler:
                     ix = np.nonzero(was_new[pos : pos + k])[0] + (pos + off)
                     if len(ix):
                         owner_index.setdefault(u, []).append(ix)
+                        inserted_by_owner[u] = inserted_by_owner.get(u, 0) + len(ix)
                     pos += k
                 buffers.append(ts_packed)
                 offsets.append(off)
@@ -770,6 +798,7 @@ class BatchReconciler:
                         'INSERT OR REPLACE INTO "merkleTree" ("userId", "merkleTree") VALUES (?, ?)',
                         tree_rows[si],
                     )
+        _ledger_count_pass(requests, inserted_by_owner)
         return trees
 
     # -- the pipelined streaming reconcile --
@@ -905,6 +934,18 @@ class BatchReconciler:
                         tree_rows[si],
                     )
         anatomy.record_stage("host_apply", time.perf_counter() - t0_apply, rows=st["n_total"])
+        # The ledger's terminals after the per-shard commits: the was-new
+        # sums are the inserted rows; the request totals fold the in-batch
+        # dedup's drops into store.duplicate.
+        ins_by_owner: Dict[str, int] = {}
+        for si in live:
+            gu, gc = shard_data[si][:2]
+            was_new = was_new_by_shard[si]
+            pos = 0
+            for u, k in zip(gu, gc):
+                ins_by_owner[u] = ins_by_owner.get(u, 0) + int(np.count_nonzero(was_new[pos : pos + k]))
+                pos += k
+        _ledger_count_pass(st["requests"], ins_by_owner)
         return respond(st["requests"], trees, strings)
 
     def _recompute_duplicate_owners(self, st, was_new_by_shard, deltas_by_owner) -> None:
@@ -987,7 +1028,9 @@ class BatchReconciler:
         db = self.store.db
         with db.transaction():
             self._insert_new(new_by_owner)
-            return self._store_trees(deltas_by_owner, tree_strings)
+            trees = self._store_trees(deltas_by_owner, tree_strings)
+        _ledger_count_pass(requests, {o: len(ms) for o, ms in new_by_owner.items()})
+        return trees
 
     def _insert_new(self, new_by_owner) -> None:
         rows = [(m.timestamp, o, m.content) for o, ms in new_by_owner.items() for m in ms]
@@ -1122,11 +1165,20 @@ class BatchReconciler:
                     tree_rows.append((o, strings[o]))
             records.append(IngestRecord(gu, gc, ts_packed, content_packed, lens, tree_rows))
         wb.append_batch(records, {o: (trees[o], strings[o]) for o in strings})
-        # The queue counted its rows; the rows the in-batch dedup dropped
-        # never reach it and end here, as duplicates. Nothing is counted if
-        # the append raised.
-        kept = sum(sum(shard_data[si][1]) for si in live)
-        _count("store_duplicate", sum(len(r.messages) for r in requests) - kept)
+        # The queue counted its rows (wb.queued, the ACK); the rows the
+        # in-batch dedup dropped never reach it and end here, as
+        # store.duplicate. The queued rows' inserted/duplicate split is
+        # classified at drain time, by shard. Nothing is counted if the
+        # append raised.
+        kept: Dict[str, int] = {}
+        for si in live:
+            gu, gc = shard_data[si][:2]
+            for u, k in zip(gu, gc):
+                kept[u] = kept.get(u, 0) + k
+        totals = _owner_totals(requests)
+        for o, total in totals.items():
+            ledger.count(ledger.STORE_DUPLICATE, total - kept.get(o, 0), owner=o)
+        _count("store_duplicate", sum(totals.values()) - sum(kept.values()))
         return self._respond_deferred(requests, trees, strings)
 
     def _resolve_tree_deferred(self, user_id: str, trees, tree_strings):
@@ -1306,6 +1358,10 @@ def reconcile_pod(mesh, store, requests: Sequence[protocol.SyncRequest],
             answers = eng.finish_batch(st, wire=wire)
     finally:
         eng.close()
+    # The ledger, a process: the broadcast batch enters HERE only for the
+    # rows this process stores (its owners); finish_batch posted their
+    # terminals.
+    ledger.count(ledger.INGRESS_SYNC, sum(len(requests[i].messages) for i in mine))
     # The pass's digest holds the host-folded (non-canonical) owners' too;
     # the pod's digest is the device-hashed rows' alone.
     device_digest = st["digest"] ^ st["dev"][1] if st["dev"] is not None else 0

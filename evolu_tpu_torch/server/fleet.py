@@ -22,9 +22,13 @@ into a fleet that partitions owners across relays:
   donor's watermark (503 + Retry-After until then). Writes the loser ACKed
   after the capture heal through scoped gossip.
 
-Departures from the reference: plain per-object `counts` in place of the
-`evolu_fleet_*` metrics, no ledger terminals or logs. With a
-`write_behind` queue an owner move installs behind its `drain_barrier()`.
+Observability as the reference's: the `evolu_fleet_*` families (the
+relay counts its redirects and forwards where it routes), the
+conservation ledger's `ingress.snapshot` for every row a rebalance
+installs (`store.add_messages` posts their store terminals), and log
+lines for rebalances. Plain per-object `counts` are kept beside them.
+With a `write_behind` queue an owner move installs behind its
+`drain_barrier()`.
 
 `python -m evolu_tpu_torch.server.fleet` runs one fleet relay process,
 batching on the card with `--batching`.
@@ -39,8 +43,10 @@ import time
 from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from evolu_tpu_torch.obs import ledger, metrics
 from evolu_tpu_torch.sync import protocol
 from evolu_tpu_torch.utils.config import FleetConfig
+from evolu_tpu_torch.utils.log import log
 
 # How long one readiness probe result is trusted.
 PROBE_TTL_S = 1.0
@@ -171,6 +177,7 @@ class FleetManager:
             with self._lock:
                 if owner_id in self._installing:
                     self.counts["not_ready"] += 1
+                    metrics.inc("evolu_fleet_not_ready_total")
                     raise FleetNotReady()
             return ("local", None)
         mode = "forward" if self.config.forward else "redirect"
@@ -178,6 +185,7 @@ class FleetManager:
             if self._peer_serving(url):
                 if url != placement[0]:
                     self._count("failovers")
+                    metrics.inc("evolu_fleet_failovers_total")
                 return (mode, url)
         if not placement:
             return ("local", None)
@@ -186,6 +194,7 @@ class FleetManager:
         # Forwarding to a known-down peer would pin a handler thread through
         # the transport's timeouts: shed instead; the next route re-probes.
         self._count("not_ready")
+        metrics.inc("evolu_fleet_not_ready_total")
         raise FleetNotReady()
 
     def _peer_serving(self, url: str) -> bool:
@@ -228,6 +237,8 @@ class FleetManager:
         owners = self.store.user_ids()
         placed = [u for u in owners if self.placed_on(u, self.self_url)]
         primary = [u for u in placed if self.is_primary(u)]
+        metrics.set_gauge("evolu_fleet_owners", len(placed))
+        metrics.set_gauge("evolu_fleet_primary_owners", len(primary))
         with self._lock:
             c = dict(self.counts)
         return {
@@ -267,10 +278,13 @@ class FleetManager:
                         "strictly newer version")
                 else:
                     self.counts["reloads"] += 1
+                    metrics.inc("evolu_fleet_reloads_total")
             if changed:
                 self.config = config
                 self.ring = HashRing(config)
                 self._probe_cache.clear()
+                metrics.set_gauge("evolu_fleet_ring_version", config.version)
+                metrics.set_gauge("evolu_fleet_members", len(self.ring.relays))
         # New members become gossip peers (add_peer is idempotent); departed
         # members' scoped summaries go empty on their own.
         if changed and self.replication is not None:
@@ -307,8 +321,10 @@ class FleetManager:
         with self._rebalance_serial:
             try:
                 self._sweep()
-            except Exception:  # noqa: BLE001 - degrades to incremental anti-entropy
+            except Exception as e:  # noqa: BLE001 - degrades to incremental anti-entropy
                 self._count("rebalance_failures")
+                metrics.inc("evolu_fleet_rebalance_failures_total")
+                log("server", "fleet rebalance failed", error=repr(e))
 
     def _sweep(self) -> int:
         """For each peer: ask for the owners it stores that are placed on us
@@ -320,8 +336,10 @@ class FleetManager:
                 continue
             try:
                 moved_total += self._pull_moved_owners(peer_url)
-            except Exception:  # noqa: BLE001 - one unreachable loser must not
+            except Exception as e:  # noqa: BLE001 - one unreachable loser must not
                 self._count("rebalance_failures")  # block gains from the others
+                metrics.inc("evolu_fleet_rebalance_failures_total")
+                log("server", "fleet rebalance peer failed", peer=peer_url, error=repr(e))
         if self.replication is not None and moved_total:
             self.replication.hint()  # post-capture donor writes heal at debounce latency
         return moved_total
@@ -340,6 +358,7 @@ class FleetManager:
             if self._stopping:
                 return 0
             self._installing.update(gained)
+        t0 = time.perf_counter()
         try:
             # With write-behind on, the install sees and writes committed
             # state only, and no serve folds onto a pre-install tree.
@@ -363,11 +382,17 @@ class FleetManager:
             root_crc = by_owner.get(uid)
             exact = (shipped and self.store.get_merkle_tree_string(uid) == shipped and root_crc is not None
                      and zlib.crc32(shipped.encode("utf-8")) == root_crc[1])
+            metrics.inc("evolu_fleet_cutover_verified_total" if exact else "evolu_fleet_cutover_superset_total")
             with self._lock:
                 self.counts["cutovers_verified" if exact else "cutovers_superset"] += 1
                 self._installing.discard(uid)
         self._count("rebalanced_owners", len(gained))
         self._count("rebalanced_messages", installed_msgs)
+        metrics.inc("evolu_fleet_rebalanced_owners_total", len(gained))
+        metrics.inc("evolu_fleet_rebalanced_messages_total", installed_msgs)
+        metrics.observe("evolu_fleet_rebalance_ms", (time.perf_counter() - t0) * 1e3)
+        log("server", "fleet rebalance installed owners", peer=peer_url, owners=len(gained),
+            messages=installed_msgs)
         return len(gained)
 
     def _install_from_snapshot(self, peer_url: str, wanted: set):
@@ -407,6 +432,9 @@ class FleetManager:
                     shipped_trees[rec[1]] = rec[2]
             for uid, msgs in by_owner.items():
                 self.store.add_messages(uid, msgs)
+                # The ledger's ingress: these rows arrive as snapshot
+                # chunks; add_messages posted their store terminals.
+                ledger.count(ledger.INGRESS_SNAPSHOT, len(msgs), owner=uid)
                 installed += len(msgs)
         return installed, shipped_trees
 

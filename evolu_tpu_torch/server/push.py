@@ -28,10 +28,10 @@ client's sync round observes them): the sync POST handler and the
 (server/replicate.py), and `notify_all` after a whole-store snapshot
 install.
 
-Departure from the reference: plain `counts` (poll requests, wakeups by
-reason, timeouts, rejections, fleet redirects) in place of the
-`evolu_push_*` metrics, one set a hub; `stats_payload` answers the
-reference's keys from them.
+Observability as the reference's: the `evolu_push_*` families (poll
+requests, wakeups by reason, timeouts, rejections, the subscriptions
+gauge; the relay counts fleet redirects), beside plain `counts`, one set
+a hub, from which `stats_payload` answers the reference's keys.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from evolu_tpu_torch.obs import metrics
 
 # Per-owner bounded event ring: enough to qualify any plausibly-live
 # cursor; older cursors degrade to a conservative wake (never a miss).
@@ -189,6 +191,7 @@ class PushHub:
         with self._lock:
             wakeups = self.counts["wakeups"]
             wakeups[reason] = wakeups.get(reason, 0) + n
+        metrics.inc("evolu_push_wakeups_total", n, reason=reason)
 
     # -- registration / polling --
 
@@ -204,6 +207,7 @@ class PushHub:
         lock. Raises HubFull at the subscription bound."""
         with self._lock:
             self.counts["poll_requests"] += 1
+            metrics.inc("evolu_push_poll_requests_total")
             if self._closed:
                 return ("now", poll_body(False, cursor))
             ch = self._channels.get(owner)
@@ -222,9 +226,11 @@ class PushHub:
                     # None: the cursor predates the ring (or another
                     # epoch's), so the interim can't be proved self-only.
                     self.counts["wakeups"]["stale_cursor" if q is None else "ready"] += 1
+                    metrics.inc("evolu_push_wakeups_total", reason="stale_cursor" if q is None else "ready")
                     return ("now", poll_body(True, ch.seq))
             if self._n_waiters >= self.max_subscriptions:
                 self.counts["rejected"] += 1
+                metrics.inc("evolu_push_rejected_total")
                 raise HubFull()
             w = _Waiter(owner, node, cursor,
                         time.monotonic() + self._clamp_timeout(timeout),
@@ -235,6 +241,7 @@ class PushHub:
                 self._by_token[token] = w
             self._waiters.setdefault(owner, []).append(w)
             self._n_waiters += 1
+            metrics.set_gauge("evolu_push_subscriptions", self._n_waiters)
             return ("parked", w)
 
     def poll_blocking(self, owner: str, node: str, cursor: int,
@@ -253,6 +260,7 @@ class PushHub:
                 ch = self._channels.get(owner)
                 w.result = poll_body(False, ch.seq if ch else cursor)
                 self.counts["timeouts"] += 1
+                metrics.inc("evolu_push_timeouts_total")
         return w.result
 
     def park(self, owner: str, node: str, cursor: int,
@@ -307,6 +315,7 @@ class PushHub:
                     del self._waiters[owner]
                 self._drop_tokens_locked(woken)
                 self._n_waiters -= len(woken)
+                metrics.set_gauge("evolu_push_subscriptions", self._n_waiters)
         if woken:
             self._count_wakeups(reason, len(woken))
         self._resolve(woken)
@@ -333,6 +342,7 @@ class PushHub:
                 w.result = poll_body(True, self._channels[w.owner].seq)
             self._drop_tokens_locked(woken)
             self._n_waiters -= len(woken)
+            metrics.set_gauge("evolu_push_subscriptions", self._n_waiters)
         if woken:
             self._count_wakeups(reason, len(woken))
         self._resolve(woken)
@@ -364,6 +374,7 @@ class PushHub:
                 self._remove_locked(w)
                 expired.append(w)
             self.counts["timeouts"] += len(expired)
+            metrics.inc("evolu_push_timeouts_total", len(expired))
         self._resolve(expired)
         return len(expired)
 
@@ -380,6 +391,7 @@ class PushHub:
             self._by_token.clear()
             self._park_heap.clear()
             self._n_waiters = 0
+            metrics.set_gauge("evolu_push_subscriptions", 0)
             for w in waiters:
                 if w.result is None:
                     ch = self._channels.get(w.owner)
@@ -395,6 +407,7 @@ class PushHub:
             if not lst:
                 del self._waiters[w.owner]
             self._n_waiters -= 1
+            metrics.set_gauge("evolu_push_subscriptions", self._n_waiters)
 
     def _drop_tokens_locked(self, waiters: List[_Waiter]) -> None:
         for w in waiters:

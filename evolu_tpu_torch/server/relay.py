@@ -33,9 +33,14 @@ trace; `?format=chrome` for the Chrome-trace export) and `/profile?ms=N`
 (a torch.profiler capture of live traffic, with a CUDA device lane once
 the process has initialised CUDA and called `prepare_device_profiler()`
 on its main thread, merged with the logger's and the trace's spans into
-one Chrome-trace document; a second concurrent capture answers 429). With `EVOLU_OBS_TOKEN` set they answer 403 unless the
-`X-Evolu-Obs-Token` header matches. `/ledger` answers 404: no module of
-the port counts into the conservation ledger yet.
+one Chrome-trace document; a second concurrent capture answers 429)
+and `/ledger` (the conservation ledger's stations, owner sub-ledgers,
+equations and audit; with write-behind on it audits under a drain
+barrier). `/stats` carries the ledger's station totals and its
+in-stream audit. With `EVOLU_OBS_TOKEN` set they answer 403 unless the
+`X-Evolu-Obs-Token` header matches. Every sync POST counts its messages
+into the ledger at decode (`ingress.sync`) and each reaches one terminal:
+the store's classification, a shed 503, a reject, or a fleet egress.
 
 `add_messages` inserts with per-row was-new flags (the changes==1
 Merkle gate) and hashes on the host; the batched many-owner path is
@@ -109,6 +114,30 @@ def _count_ingest_mix(messages) -> None:
 # commits the store and then fails posts nothing, and the object-path
 # fallback's second ingest cannot classify the same messages twice.
 _SERVE_SCOPE = threading.local()
+
+
+def _ledger_store_apply(user_id, new_flags) -> None:
+    """The conservation-ledger terminals of the OBJECT store path
+    (`RelayStore.add_messages`): the per-row was-new flags are the
+    changes==1 truth, new rows end at store.inserted and the rest at
+    store.duplicate. Inside a serve scope the counts ride the scope's
+    pending entry (committed only when the serve answers; the first
+    classification wins); outside one (the engine's sharded Python
+    ingest, a fleet rebalance install, a direct call) they post at once.
+    One seam on purpose: the ledger's negative test mis-wires exactly
+    this function to show that the audit catches a route that forgets to
+    count."""
+    n_new = ledger.flag_sum(new_flags)
+    scope = getattr(_SERVE_SCOPE, "scope", None)
+    if scope is not None:
+        if scope["classified"]:
+            return  # the fallback's re-insert classifies again; the first wins
+        scope["classified"] = True
+        scope["entry"].count(ledger.STORE_INSERTED, n_new, owner=user_id)
+        scope["entry"].count(ledger.STORE_DUPLICATE, len(new_flags) - n_new, owner=user_id)
+        return
+    ledger.count(ledger.STORE_INSERTED, n_new, owner=user_id)
+    ledger.count(ledger.STORE_DUPLICATE, len(new_flags) - n_new, owner=user_id)
 
 
 def fetch_response_stream(db, user_id, node_id, server_tree, client_tree) -> bytes:
@@ -223,6 +252,9 @@ class RelayStore:
                 'INSERT OR REPLACE INTO "merkleTree" ("userId", "merkleTree") VALUES (?, ?)',
                 (user_id, merkle_tree_to_string(tree)),
             )
+        # After the transaction committed: a rolled-back batch posts
+        # nothing (the scheduler's retry posts once instead).
+        _ledger_store_apply(user_id, new_flags)
         return tree
 
     def get_messages(
@@ -445,7 +477,9 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
     quantiles (`latency_ms`) and the stage anatomy (`stages`); with
     replication, a fleet, a push hub, the event-loop tier, a write-behind
     queue or the mesh engine attached, their `replication`, `fleet`,
-    `push`, `conn`, `write_behind` and `mesh` sections."""
+    `push`, `conn`, `write_behind` and `mesh` sections; and the `ledger`
+    section (station totals and the audit without the barrier-only
+    equations)."""
     shards = store.stats() if hasattr(store, "stats") else []
     for s in shards:
         s["requests"] = counts.shard_requests.get(s["index"], 0)
@@ -474,6 +508,13 @@ def relay_stats_payload(store, counts: _Counts, replication=None, fleet=None,
         payload["write_behind"] = write_behind.stats_payload()
     if mesh_engine:
         payload["mesh"] = mesh_stats_payload(mesh_ctx)
+    # The conservation ledger's station totals and the in-stream audit
+    # (barrier-only equations skipped: /stats never forces a drain
+    # barrier; GET /ledger runs the full audit).
+    payload["ledger"] = {
+        "stations": ledger.totals(),
+        "violations": ledger.audit(at_barrier=False),
+    }
     payload["stages"] = anatomy.stages_payload()
     return payload
 
@@ -653,6 +694,11 @@ class _Handler(BaseHTTPRequestHandler):
         caps = tuple(c for c in request.capabilities if c in self.capabilities)
         if not caps:
             return out
+        metrics.inc("evolu_crdt_capability_negotiations_total")
+        for cap in caps:
+            # A bounded label set: only capabilities this relay serves reach
+            # here, never raw client strings.
+            metrics.inc("evolu_crypto_capability_echoes_total", capability=cap)
         return out + protocol.encode_response_capabilities(caps)
 
     def log_message(self, format: str, *args) -> None:
@@ -780,6 +826,11 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 return self.scheduler.submit(request)
             except SchedulerQueueFull as e:
+                # Flow control, not an error. The shed is these messages'
+                # terminal: nothing was stored (the engine raises before any
+                # ACK or commit on this path).
+                metrics.inc("evolu_relay_backpressure_total")
+                ledger.count(ledger.SHED_BACKPRESSURE, len(request.messages), owner=request.user_id)
                 self._respond_retry_after(e.retry_after)
                 return None
         return serve_single_request(self.store, request, device=self.device)
@@ -804,6 +855,25 @@ class _Handler(BaseHTTPRequestHandler):
                 self.send_error(500, str(e))
                 return
             self._respond(200, body, metrics.PROMETHEUS_CONTENT_TYPE)
+        elif self.path == "/ledger" or self.path.startswith("/ledger?"):
+            # The conservation ledger's read: station totals, owner
+            # sub-ledgers and the audit at the barrier. With a write-behind
+            # queue it audits under a drain barrier (wb.queued ==
+            # wb.drained holds there); requests in flight can still show as
+            # passing deltas: the hard gate is a quiescent audit.
+            metrics.inc("evolu_relay_requests_total", endpoint="/ledger")
+            if not self._obs_authorized():
+                return
+            try:
+                barrier = self.write_behind.drain_barrier() if self.write_behind is not None else nullcontext()
+                with barrier:
+                    payload = ledger.snapshot(at_barrier=True)
+                body = json.dumps(payload).encode("utf-8")
+            except Exception as e:  # noqa: BLE001 - the reader gets a clean 500
+                self.counts.error()
+                self.send_error(500, str(e))
+                return
+            self._respond(200, body, "application/json")
         elif self.path == "/trace" or self.path.startswith(("/trace/", "/trace?")):
             # One fixed endpoint label: raw paths must never mint series.
             metrics.inc("evolu_relay_requests_total", endpoint="/trace")
@@ -867,6 +937,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._respond(200 if serving else 503, json.dumps(detail).encode("utf-8"), "application/json")
         elif self.path == "/fleet" and self.fleet is not None:
+            metrics.inc("evolu_relay_requests_total", endpoint="/fleet")
             try:
                 body = json.dumps(self.fleet.stats_payload()).encode("utf-8")
             except Exception as e:  # noqa: BLE001
@@ -891,6 +962,7 @@ class _Handler(BaseHTTPRequestHandler):
 
         from evolu_tpu_torch.server import push as push_mod
 
+        metrics.inc("evolu_relay_requests_total", endpoint="/push/poll")
         if self.push_hub is None:
             self.send_error(404)
             return
@@ -914,6 +986,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             if action != "local":
                 self.push_hub._count("redirects")
+                metrics.inc("evolu_push_redirects_total")
                 self.send_response(307)
                 self.send_header("Location", peer + self.path)
                 self.send_header("Content-Length", "0")
@@ -964,14 +1037,22 @@ class _Handler(BaseHTTPRequestHandler):
         tctx = trace.parse_traceparent(self.headers.get(trace.TRACEPARENT_HEADER))
         srv_span = trace.start_span("relay.sync", parent=tctx, attrs={"endpoint": "/"})
         tok = trace.activate(srv_span.context)
+        request = None
+        served = False
         try:
             request = protocol.decode_sync_request(body)
             srv_span.set_attr("owner", request.user_id)
+            # The ledger's ingress at the decode boundary (a body that never
+            # decoded never became messages): every message of this
+            # delivery must reach exactly one terminal station.
+            ledger.count(ledger.INGRESS_SYNC, len(request.messages), owner=request.user_id)
             if self.fleet is not None and not self._route_fleet(request, body):
+                served = True  # the egress or shed terminal was counted there
                 return  # answered: 307, forwarded or 503 not ready
             self.counts.shard(
                 self.store.shard_index(request.user_id) if hasattr(self.store, "shard_index") else 0)
             out = self._serve_request(request)
+            served = True  # terminals counted: the store path or the 503 shed
             if out is None:
                 return  # 503 backpressure already answered
             # After routing and a successful serve: each message counts
@@ -984,6 +1065,10 @@ class _Handler(BaseHTTPRequestHandler):
             flight.attach(e)
             srv_span.set_attr("error", repr(e))
             self.counts.error()
+            if request is not None and not served:
+                # Ingressed but never reached a store terminal: the 500 is
+                # the terminal (the client's retry is a fresh delivery).
+                ledger.count(ledger.REJECT_INVALID, len(request.messages), owner=request.user_id)
             log("dev", "relay sync request failed", error=repr(e))
             self.send_error(500, str(e))
             return
@@ -993,8 +1078,10 @@ class _Handler(BaseHTTPRequestHandler):
             metrics.observe("evolu_relay_request_ms", (time.perf_counter() - t0) * 1e3,
                             exemplar=srv_span.trace_id)
         if self.replication is not None and request.messages:
-            # Fresh rows reach peer relays at gossip-debounce latency.
-            self.replication.hint()
+            # Fresh rows reach peer relays at gossip-debounce latency; the
+            # hint carries the write's trace context, so the gossip round
+            # that ships these rows records into the same trace.
+            self.replication.hint(origin=srv_span.context)
         # The respond leg's own span, parented explicitly (the server span
         # closed above, with the latency exemplar).
         rspan = trace.start_span("relay.respond", parent=srv_span.context)
@@ -1015,19 +1102,28 @@ class _Handler(BaseHTTPRequestHandler):
 
         if self.replication is None or self.path not in (
                 "/replicate/summary", "/replicate/pull", "/replicate/snapshot", "/replicate/snapshot/chunk"):
+            # 404 before any metric: the endpoint label takes allowlisted
+            # values only.
             self.send_error(404)
             return
+        metrics.inc("evolu_relay_requests_total", endpoint=self.path)
         body = self._read_body()
         if body is None:
             return
+        # The gossiping peer's round span rides the traceparent header; its
+        # trace is the origin trace of the write that armed the round
+        # (`replicate.hint`), so the serving spans land in that trace.
+        tctx = trace.parse_traceparent(self.headers.get(trace.TRACEPARENT_HEADER))
+        sspan = trace.start_span("repl.serve", parent=tctx,
+                                 attrs={"leg": self.path.rsplit("/replicate/", 1)[-1]})
         # Every /replicate serve reads the store: with write-behind on it
         # drains first and holds the drain lock, so peers and snapshot
         # pullers only ever see committed state.
         barrier = self.write_behind.drain_barrier() if self.write_behind is not None else nullcontext()
         try:
-            with barrier:
+            with sspan, trace.use(sspan.context), barrier:
                 if self.path == "/replicate/summary":
-                    out = replicate.serve_summary(self.store, body, self.replication)
+                    out = replicate.serve_summary(self.store, body, self.replication, origin=tctx)
                 elif self.path == "/replicate/pull":
                     out = replicate.serve_pull(self.store, body,
                                                per_owner=self.replication.pull_messages_per_owner,
@@ -1041,7 +1137,9 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_error(400, str(e))
             return
         except Exception as e:  # noqa: BLE001 - the peer gets a clean 500
+            flight.attach(e)
             self.counts.error()
+            log("dev", "relay replicate request failed", error=repr(e))
             self.send_error(500, str(e))
             return
         self._respond(200, out, "application/octet-stream")
@@ -1059,40 +1157,66 @@ class _Handler(BaseHTTPRequestHandler):
         from evolu_tpu_torch.server.fleet import FleetNotReady
         from evolu_tpu_torch.sync.client import _http_post
 
+        n_msgs = len(request.messages)
         try:
             action, target = self.fleet.route(request.user_id)
         except FleetNotReady as e:
+            ledger.count(ledger.SHED_BACKPRESSURE, n_msgs, owner=request.user_id)
             self._respond_retry_after(e.retry_after)
             return False
         if action == "local":
             return True
         if action == "redirect":
             self.fleet._count("redirects")
+            metrics.inc("evolu_fleet_redirects_total")
+            ledger.count(ledger.EGRESS_REDIRECT, n_msgs, owner=request.user_id)
+            # A zero-length event span: the trace shows which relay
+            # answered 307 (the client's own sync.redirect span the follow).
+            trace.record_span("fleet.redirect", trace.current(), time.time(), 0.0, {"target": target})
             self.send_response(307)
             self.send_header("Location", target + "/")
             self.send_header("Content-Length", "0")
             self.end_headers()
             return False
         # Forward: the untouched client body in the hop-guarded envelope,
-        # the peer's raw response relayed back.
+        # the peer's raw response relayed back. The forward POST carries
+        # the forward span's context in its headers only: the envelope
+        # bytes are exactly the client's.
         self.fleet._count("forwards")
+        metrics.inc("evolu_fleet_forwards_total")
         env = protocol.encode_fleet_forward(protocol.FleetForward(body, self.fleet.self_url, 1))
+        fwd_span = trace.start_span("fleet.forward", parent=trace.current(), attrs={"target": target})
         try:
-            out = _http_post(target + "/fleet/forward", env, retries=1)
+            with fwd_span:
+                out = _http_post(target + "/fleet/forward", env, retries=1,
+                                 headers=trace.inject_headers(ctx=fwd_span.context))
         except urllib.error.HTTPError as e:
             self.fleet._count("forward_failures")
+            metrics.inc("evolu_fleet_forward_failures_total")
             if e.code in (429, 503):
-                self._respond_retry_after(0.25)  # the peer sheds load: relayed
+                # The peer sheds load: flow control, relayed.
+                ledger.count(ledger.SHED_BACKPRESSURE, n_msgs, owner=request.user_id)
+                self._respond_retry_after(0.25)
                 return False
             # A definitive answer (404: no fleet there, 400, 500) is not
             # transient: 502, never a retry-forever 503.
             self.counts.error()
+            ledger.count(ledger.REJECT_INVALID, n_msgs, owner=request.user_id)
+            log("dev", "fleet forward rejected by peer", peer=target, code=e.code)
             self.send_error(502, f"fleet forward target answered {e.code}")
             return False
-        except Exception:  # noqa: BLE001 - target down mid-window: flow control;
+        except Exception as e:  # noqa: BLE001 - target down mid-window: flow control;
             self.fleet._count("forward_failures")  # the next route() re-probes
+            metrics.inc("evolu_fleet_forward_failures_total")
+            ledger.count(ledger.SHED_BACKPRESSURE, n_msgs, owner=request.user_id)
+            log("dev", "fleet forward failed", peer=target, error=repr(e))
             self._respond_retry_after(0.25)
             return False
+        # Forwarded and answered: these messages left this process, and
+        # egress.forward is their terminal here (the peer's ingress.forward
+        # accounts for them in its ledger).
+        ledger.count(ledger.EGRESS_FORWARD, n_msgs, owner=request.user_id)
+        metrics.observe("evolu_relay_response_bytes", len(out), buckets=metrics.SIZE_BUCKETS)
         self._respond(200, out, "application/octet-stream")
         return False
 
@@ -1103,11 +1227,16 @@ class _Handler(BaseHTTPRequestHandler):
         EVOLU_FLEET_RELOAD_TOKEN set, a request without the matching
         X-Evolu-Fleet-Token header answers 403)."""
         if self.fleet is None or self.path not in ("/fleet/forward", "/fleet/reload"):
+            # 404 before any metric: the endpoint label takes allowlisted
+            # values only.
             self.send_error(404)
             return
+        metrics.inc("evolu_relay_requests_total", endpoint=self.path)
         body = self._read_body()
         if body is None:
             return
+        request = None
+        served = False
         try:
             if self.path == "/fleet/forward":
                 env = protocol.decode_fleet_forward(body)
@@ -1118,16 +1247,32 @@ class _Handler(BaseHTTPRequestHandler):
                 # No route() here: a forwarded request is served where it
                 # lands, even if the rings disagree mid-reload.
                 self.fleet._count("forwarded_served")
-                out = self._serve_request(request)
+                metrics.inc("evolu_fleet_forwarded_served_total")
+                # The forwarding hop counted egress.forward in its ledger;
+                # these messages enter this process here.
+                ledger.count(ledger.INGRESS_FORWARD, len(request.messages), owner=request.user_id)
+                # The forwarder's span rode the traceparent header: the
+                # serve span joins the same trace (a malformed header
+                # starts a fresh one, never an error).
+                tctx = trace.parse_traceparent(self.headers.get(trace.TRACEPARENT_HEADER))
+                fspan = trace.start_span("fleet.forward.serve", parent=tctx,
+                                         attrs={"owner": request.user_id, "origin": env.origin})
+                with fspan, trace.use(fspan.context):
+                    out = self._serve_request(request)
+                served = True  # terminals counted: the store path or the shed
                 if out is None:
                     return  # 503 backpressure already answered
+                _count_ingest_mix(request.messages)
                 # The forward SERVE is where the owner's rows land, and
                 # where its subscriptions are parked (polls 307 to
                 # placement): notify here, never at the forwarding hop.
                 self._notify_push(request)
                 if self.replication is not None and request.messages:
-                    self.replication.hint()
-                self._respond(200, self._negotiate_caps(request, out), "application/octet-stream")
+                    self.replication.hint(origin=fspan.context)
+                out = self._negotiate_caps(request, out)
+                # Recorded before the socket write, as do_POST's respond span.
+                trace.start_span("relay.respond", parent=fspan.context, attrs={"bytes": len(out)}).end()
+                self._respond(200, out, "application/octet-stream")
                 return
             token = os.environ.get("EVOLU_FLEET_RELOAD_TOKEN")
             if token:
@@ -1146,9 +1291,15 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond(200, out, "application/json")
         except ValueError as e:
             self.counts.error()
+            if request is not None and not served:
+                ledger.count(ledger.REJECT_INVALID, len(request.messages), owner=request.user_id)
             self.send_error(400, str(e))
         except Exception as e:  # noqa: BLE001 - a clean 500, like sync
+            flight.attach(e)
             self.counts.error()
+            if request is not None and not served:
+                ledger.count(ledger.REJECT_INVALID, len(request.messages), owner=request.user_id)
+            log("dev", "relay fleet request failed", error=repr(e))
             self.send_error(500, str(e))
 
 

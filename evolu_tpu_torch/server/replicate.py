@@ -26,16 +26,24 @@ round resets it. With `bootstrap_lag_owners` set, an empty (or far
 lagging) relay installs a peer's snapshot instead (server/snapshot.py) and
 then gossips from its watermark.
 
-Departures from the reference: plain `counts` (per peer in `peer_counts`,
-HTTP legs in `round_trips`) in place of the `evolu_repl_*` / `evolu_snap_*`
-metrics, so `stats_payload` answers the reference's keys with
-`convergence_lag_p99_ms` and `install_p99_ms` null until the observability
-item is ported; no trace spans, freshness gauges, ledger terminals or
-logs. With a `write_behind` queue (storage/write_behind.py) a round
-flushes it before it advertises (a drain failure is the round's failure),
-and a snapshot bootstrap runs behind its `drain_barrier()`. With a `push_hub`, every ingest wakes the owner's parked push
-subscriptions (reason "replication"), and a snapshot install wakes them
-all (reason "conservative").
+Observability as the reference's: the `evolu_repl_*` families (rounds,
+peer health, hints, round trips, diffs, pulls and serves, the convergence
+lag) and the installer's `evolu_snap_*`; the `repl.round` span, which
+joins the trace of the write whose `hint(origin=)` armed it (later origins
+ride as links), with a `repl.<leg>` child span a HTTP leg whose context
+rides the traceparent header to the peer's `repl.serve`, and
+`repl.ingest`; `_gossip`'s per-owner freshness gauges and its
+write-visible lag histogram; the conservation ledger's
+`ingress.replication` for every pulled message the serve path landed; log
+lines for divergence, failed rounds and bootstraps. Plain `counts` are
+kept beside them (per peer in `peer_counts`, HTTP legs in `round_trips`);
+`stats_payload` answers the reference's keys from them, with
+`convergence_lag_p99_ms` and `install_p99_ms` from the registry. With a
+`write_behind` queue (storage/write_behind.py) a round flushes it before
+it advertises (a drain failure is the round's failure), and a snapshot
+bootstrap runs behind its `drain_barrier()`. With a `push_hub`, every
+ingest wakes the owner's parked push subscriptions (reason "replication"),
+and a snapshot install wakes them all (reason "conservative").
 """
 
 from __future__ import annotations
@@ -45,8 +53,16 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from evolu_tpu_torch.core.merkle import diff_merkle_trees, merkle_tree_from_string
-from evolu_tpu_torch.core.timestamp import SYNC_NODE_ID, create_sync_timestamp, timestamp_to_string
-from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.core.timestamp import (
+    SYNC_NODE_ID,
+    create_sync_timestamp,
+    iso_to_millis,
+    timestamp_to_string,
+)
+from evolu_tpu_torch.core.types import TimestampParseError
+from evolu_tpu_torch.obs import ledger, metrics, trace
+from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.utils.log import log
 
 # One pull POST covers at most this many owners: bounds request bodies
 # (the relay's 20 MB cap applies to peers too), not a round's coverage.
@@ -75,18 +91,21 @@ def owner_tree_map(store) -> List[Tuple[str, str]]:
     return [(u, store.get_merkle_tree_string(u)) for u in store.user_ids()]
 
 
-def serve_summary(store, body: bytes, manager: Optional["ReplicationManager"]) -> bytes:
+def serve_summary(store, body: bytes, manager: Optional["ReplicationManager"], origin=None) -> bytes:
     """Handler body for `POST /replicate/summary`: decode the caller's
     summary, arm the local manager's hint if the caller advertises anything
     we diverge from, and answer with our summary (scoped to the caller's
-    placement in a fleet). ValueError only on malformed input (→ 400)."""
+    placement in a fleet). `origin` is the caller's trace context (the
+    relay parses it off the traceparent header): a divergence-armed hint
+    carries it, so our next round records into the same convergence
+    trace. ValueError only on malformed input (→ 400)."""
     incoming = protocol.decode_replica_summary(body)
     mine = owner_tree_map(store)
     if manager is not None:
         by_owner = dict(mine)
         # "{}" is what an unseen owner's tree reads: lacking it is divergence.
         if any(by_owner.get(uid, "{}") != tree for uid, tree in incoming.trees):
-            manager.hint()
+            manager.hint(origin=origin)
     fleet = getattr(manager, "fleet", None) if manager is not None else None
     if fleet is not None and incoming.peer_url:
         # Advertise only owners placed on the caller: O(R) gossip. Owners
@@ -120,6 +139,9 @@ def serve_pull(store, body: bytes, per_owner: Optional[int] = None,
         msgs = store.replica_messages(uid, since, min(cap_owner, cap_resp - served))
         served += len(msgs)
         chunks.append(protocol.OwnerMessages(uid, msgs, store.get_merkle_tree_string(uid)))
+    # Unlabeled: the wire `replica_id` is untrusted input, and a label a
+    # distinct value would grow the registry without bound.
+    metrics.inc("evolu_repl_messages_served_total", served)
     return protocol.encode_replica_pull_response(protocol.ReplicaPullResponse(tuple(chunks)))
 
 
@@ -130,15 +152,17 @@ class _ManagerStopping(Exception):
 
 
 class _Peer:
-    """A peer's gossip state: due time and the consecutive-failure count
-    that drives the bounded backoff."""
+    """A peer's gossip state: due time, the consecutive-failure count that
+    drives the bounded backoff, and since when it has been diverged (the
+    convergence lag's start)."""
 
-    __slots__ = ("url", "failures", "next_due")
+    __slots__ = ("url", "failures", "next_due", "diverged_since")
 
     def __init__(self, url: str, now: float):
         self.url = url.rstrip("/")
         self.failures = 0
         self.next_due = now  # gossip immediately on start
+        self.diverged_since: Optional[float] = None
 
 
 class ReplicationManager:
@@ -209,6 +233,10 @@ class ReplicationManager:
         self._snapshot_cache_lock = threading.Lock()
         self._post = http_post or functools.partial(_http_post, retries=0)
         self._rng = rng or random.random
+        # The trace contexts of recent write hints (the origin traces of the
+        # convergence trace), drained by the next round; bounded and
+        # deduped, the newest 8 kept.
+        self._hint_origins: List = []
         # The owner-sharded fleet (server/fleet.py), attached by
         # RelayServer.enable_fleet: scopes summaries and pulls to placement
         # and turns the whole-store bootstrap off.
@@ -224,6 +252,9 @@ class ReplicationManager:
         self._stopping = False
         self._thread: Optional[threading.Thread] = None
         self._pool = None
+        metrics.set_gauge("evolu_repl_peers", len(self._peers), replica=self.replica_id)
+        for p in self._peers:
+            metrics.set_gauge("evolu_repl_peer_healthy", 1, replica=self.replica_id, peer=p.url)
 
     def _count(self, url: str, key: str, n: int = 1) -> None:
         with self._counts_lock:
@@ -249,6 +280,8 @@ class ReplicationManager:
         if self._thread is not None:
             self._thread.join(timeout=35.0)
             if self._thread.is_alive():
+                log("server", "replication loop still blocked at stop; leaving the daemon thread",
+                    replica=self.replica_id)
                 return
         if self._pool is not None:
             self._pool.shutdown(wait=True)
@@ -260,18 +293,30 @@ class ReplicationManager:
         with self._cv:
             if any(p.url == url.rstrip("/") for p in self._peers):
                 return
-            self._peers.append(_Peer(url, time.monotonic()))
+            p = _Peer(url, time.monotonic())
+            self._peers.append(p)
+            metrics.set_gauge("evolu_repl_peers", len(self._peers), replica=self.replica_id)
+            metrics.set_gauge("evolu_repl_peer_healthy", 1, replica=self.replica_id, peer=p.url)
             self._cv.notify()
 
-    def hint(self) -> None:
+    def hint(self, origin=None) -> None:
         """Debounced write hint: a burst of local writes (or a peer summary
         showing divergence) coalesces into one early sweep `debounce_s`
-        after the first hint. Peers in backoff are not pulled forward."""
+        after the first hint. Peers in backoff are not pulled forward.
+        `origin`, the hinting write's trace context, is remembered
+        (bounded, deduped), so the round this hint arms records its spans
+        into the trace the client's mutation started: the convergence
+        trace."""
         with self._cv:
             if self._stopping:
                 return
+            if origin is not None and origin.sampled:
+                if not any(o.trace_id == origin.trace_id for o in self._hint_origins):
+                    self._hint_origins.append(origin)
+                    del self._hint_origins[:-8]  # keep the newest 8
             if self._hint_at is None:
                 self._hint_at = time.monotonic() + self.debounce_s
+                metrics.inc("evolu_repl_hints_total", replica=self.replica_id)
                 self._cv.notify()
 
     # -- the loop --
@@ -327,10 +372,23 @@ class ReplicationManager:
         round trip counted a leg."""
         if self._stopping:
             raise _ManagerStopping()
-        leg = url.rsplit("/replicate/", 1)[-1]
+        from evolu_tpu_torch.sync.client import _accepts_headers
+
+        leg = url.rsplit("/replicate/", 1)[-1] if "/replicate/" in url else "other"
         with self._counts_lock:
             self.round_trips[leg] = self.round_trips.get(leg, 0) + 1
-        return self._post(url, body)
+        metrics.inc("evolu_repl_round_trips_total", replica=self.replica_id, leg=leg)
+        # Each HTTP leg is a child span of the ambient round span, and its
+        # context rides the traceparent header (the wire bytes are
+        # untouched): the serving peer's repl.serve joins the same trace.
+        # Header support is probed at call time: `_post` is swappable, and
+        # a 2-argument transport is served without the header.
+        lspan = trace.start_span(f"repl.{leg}", parent=trace.current())
+        with lspan:
+            hdrs = trace.inject_headers(ctx=lspan.context)
+            if hdrs and _accepts_headers(self._post):
+                return self._post(url, body, headers=hdrs)
+            return self._post(url, body)
 
     def _finish_pending_swap_once(self) -> None:
         """A crash between shard swaps leaves a verified install half
@@ -354,41 +412,79 @@ class ReplicationManager:
             if st is not None and st["phase"] == "swap":
                 inst.finish_swap()
                 self._count(st["peer"], "snapshot_bootstraps")
-        except Exception:  # noqa: BLE001 - recovery never blocks gossip;
+                metrics.inc("evolu_snap_installs_total", result="ok", replica=self.replica_id,
+                            peer=st["peer"])
+                log("server", "finished stranded snapshot swap", snapshot=st["snapshot_id"],
+                    peer=st["peer"])
+        except Exception as e:  # noqa: BLE001 - recovery never blocks gossip;
             self._swap_checked = False  # the pending state stays for the next try
+            log("server", "pending snapshot swap check failed", error=repr(e))
+
+    def _restore_origins(self, origins: List) -> None:
+        with self._cv:
+            self._hint_origins = origins + self._hint_origins
+            del self._hint_origins[:-8]
 
     def _round(self, peer: _Peer) -> None:
         self._finish_pending_swap_once()
+        labels = {"replica": self.replica_id, "peer": peer.url}
+        # Drain the hint origins: the round span joins the FIRST origin's
+        # trace (the convergence trace the client's mutation started) and
+        # links the rest, as the scheduler's batch span does. They are
+        # restored on a failure, so a retried round lands in the right
+        # trace.
+        with self._cv:
+            origins, self._hint_origins = self._hint_origins, []
+        rspan = trace.start_span("repl.round", parent=origins[0] if origins else None,
+                                 links=origins[1:], attrs={"peer": peer.url})
         try:
-            if self.write_behind is not None:
-                # Advertise only committed state.
-                self.write_behind.flush()
-            pulled = self._gossip(peer)
+            with rspan, trace.use(rspan.context):
+                if self.write_behind is not None:
+                    # Advertise only committed state.
+                    self.write_behind.flush()
+                converged, pulled = self._gossip(peer)
         except _ManagerStopping:
+            self._restore_origins(origins)
             return  # tearing down, not a peer failure
-        except Exception:  # noqa: BLE001 - a peer failure never kills the loop
+        except Exception as e:  # noqa: BLE001 - a peer failure never kills the loop
+            self._restore_origins(origins)
             peer.failures += 1
             self._count(peer.url, "rounds_error")
+            metrics.inc("evolu_repl_peer_failures_total", **labels)
+            metrics.inc("evolu_repl_rounds_total", result="error", **labels)
+            metrics.set_gauge("evolu_repl_peer_healthy", 0, **labels)
             # Bounded exponential backoff with jitter: delay in [0.5, 1.0] x
             # min(max, base * 2^failures), never zero.
             delay = min(self.backoff_max_s, self.backoff_base_s * (2 ** min(peer.failures, 20))) \
                 * (0.5 + 0.5 * self._rng())
             peer.next_due = time.monotonic() + delay
+            log("server", "replication round failed", peer=peer.url, error=repr(e),
+                failures=peer.failures, retry_s=round(delay, 3))
             return
         peer.failures = 0
         self._count(peer.url, "rounds_ok")
+        metrics.inc("evolu_repl_rounds_total", result="ok", **labels)
+        metrics.set_gauge("evolu_repl_peer_healthy", 1, **labels)
+        if converged and peer.diverged_since is not None:
+            metrics.observe("evolu_repl_convergence_lag_ms", (time.monotonic() - peer.diverged_since) * 1e3,
+                            exemplar=rspan.trace_id, **labels)
+            peer.diverged_since = None
         peer.next_due = time.monotonic() + self.interval_s
         if pulled:
             # Freshly pulled rows may need to travel further (chain
-            # topologies): the next hop leaves at debounce latency. A
-            # converged mesh pulls nothing, so the chain ends.
-            self.hint()
+            # topologies): the next hop leaves at debounce latency, in the
+            # same convergence trace. A converged mesh pulls nothing, so
+            # the chain ends.
+            self.hint(origin=rspan.context)
 
     # -- one gossip round --
 
-    def _gossip(self, peer: _Peer) -> int:
+    def _gossip(self, peer: _Peer) -> Tuple[bool, int]:
         """Summary exchange → per-owner diff → ranged pull → ingest. →
-        the number of messages pulled (or installed by a bootstrap)."""
+        (converged, messages pulled or installed by a bootstrap): converged
+        when the round ends with every diverged owner's tree equal to the
+        peer's at pull time (the convergence lag's end)."""
+        labels = {"replica": self.replica_id, "peer": peer.url}
         local = dict(owner_tree_map(self.store))  # one bulk read
         send = local
         if self.fleet is not None:
@@ -402,9 +498,12 @@ class ReplicationManager:
         resp = protocol.decode_replica_summary(
             self._post_checked(peer.url + "/replicate/summary", protocol.encode_replica_summary(mine)))
         if self._should_bootstrap(local, resp.trees):
-            # The donor may have written past the snapshot's watermark: the
-            # nonzero return arms the hint, and the next round pulls the tail.
-            return self._bootstrap(peer)
+            if peer.diverged_since is None:
+                peer.diverged_since = time.monotonic()
+            # Not converged yet: the donor may have written past the
+            # snapshot's watermark; the nonzero return arms the hint, and
+            # the next round pulls the tail.
+            return False, self._bootstrap(peer)
         diverged: List[Tuple[str, str]] = []  # (owner, since)
         for uid, peer_tree_s in resp.trees:
             if self.fleet is not None and not self.fleet.placed_on(uid, self.fleet.self_url):
@@ -418,23 +517,55 @@ class ReplicationManager:
                 continue  # hash-equal roots
             diverged.append((uid, timestamp_to_string(create_sync_timestamp(diff))))
         if not diverged:
-            return 0
+            return True, 0
+        if peer.diverged_since is None:
+            peer.diverged_since = time.monotonic()
         self._count(peer.url, "owners_diffed", len(diverged))
+        metrics.inc("evolu_repl_owners_diffed_total", len(diverged), **labels)
+        log("server", "replication divergence", peer=peer.url, owners=len(diverged))
+        peer_tree_at_pull = {}
         requests: List[protocol.SyncRequest] = []
+        freshness: Dict[str, int] = {}  # owner → the newest pulled HLC millis
         pulled = 0
         for i in range(0, len(diverged), self.pull_chunk):
             pull = protocol.ReplicaPull(tuple(diverged[i : i + self.pull_chunk]), self.replica_id)
             pr = protocol.decode_replica_pull_response(
                 self._post_checked(peer.url + "/replicate/pull", protocol.encode_replica_pull(pull)))
             for om in pr.chunks:
+                peer_tree_at_pull[om.user_id] = om.merkle_tree
                 pulled += len(om.messages)
                 if om.messages:
                     # The peer's tree rides as the request's client tree: once
                     # the ingest makes ours equal, the response is empty.
                     requests.append(protocol.SyncRequest(om.messages, om.user_id, SYNC_NODE_ID, om.merkle_tree))
+                    try:
+                        # Messages arrive in timestamp order: the last one's
+                        # HLC millis is the owner's watermark. A
+                        # non-canonical timestamp skips the gauge, never
+                        # the round.
+                        freshness[om.user_id] = max(freshness.get(om.user_id, 0),
+                                                    iso_to_millis(om.messages[-1].timestamp[:24]))
+                    except (ValueError, TimestampParseError):
+                        pass
         self._count(peer.url, "messages_pulled", pulled)
-        self._ingest(requests)
-        return pulled
+        metrics.inc("evolu_repl_messages_pulled_total", pulled, **labels)
+        ispan = trace.start_span("repl.ingest", parent=trace.current(),
+                                 attrs={"peer": peer.url, "owners": len(requests), "messages": pulled})
+        with ispan:
+            self._ingest(requests)
+        # The convergence plane: per (owner, peer) the newest HLC millis this
+        # replica has seen from that peer, and the write-to-visible lag from
+        # the millis the rows carry against this host's wall clock. The
+        # registry's label-cardinality bound keeps the gauges finite.
+        now_ms = time.time() * 1e3
+        for uid, newest in freshness.items():
+            metrics.set_gauge("evolu_conv_owner_freshness_millis", newest,
+                              replica=self.replica_id, peer=peer.url, owner=uid)
+            metrics.observe("evolu_conv_write_visible_ms", max(0.0, now_ms - newest),
+                            exemplar=ispan.trace_id, replica=self.replica_id, peer=peer.url)
+        converged = all(self.store.get_merkle_tree_string(uid) == peer_tree_at_pull.get(uid, object())
+                        for uid, _since in diverged)
+        return converged, pulled
 
     # -- snapshot bootstrap (server/snapshot.py) --
 
@@ -480,7 +611,9 @@ class ReplicationManager:
 
         from evolu_tpu_torch.server import snapshot as snap
 
+        labels = {"replica": self.replica_id, "peer": peer.url}
         inst = snap.SnapshotInstaller(self.store)
+        t0 = time.perf_counter()
         manifest, start = None, 0
         st = inst.pending()
         if st is not None and st["phase"] == "swap":
@@ -488,6 +621,8 @@ class ReplicationManager:
             # swap began, and finishing is peer-independent.
             inst.finish_swap()
             self._count(peer.url, "snapshot_bootstraps")
+            metrics.observe("evolu_snap_install_ms", (time.perf_counter() - t0) * 1e3)
+            metrics.inc("evolu_snap_installs_total", result="ok", **labels)
             return 0
         if st is not None and st["peer"] != peer.url:
             with self._cv:
@@ -496,6 +631,7 @@ class ReplicationManager:
                 # The watermark belongs to another configured peer: resume
                 # against it (only it serves this snapshot id).
                 peer = _Peer(st["peer"], time.monotonic())
+                labels = {"replica": self.replica_id, "peer": peer.url}
             else:
                 inst.abort()  # an unconfigured peer's stale install
                 st = None
@@ -503,12 +639,18 @@ class ReplicationManager:
             manifest, start = st["manifest"], st["next_chunk"]
             if start:
                 self._count(peer.url, "snapshot_resumes")
+                metrics.inc("evolu_snap_resumes_total", **labels)
+                log("server", "snapshot bootstrap resuming", peer=peer.url, snapshot=manifest.snapshot_id,
+                    next_chunk=start, chunks=len(manifest.chunk_sizes))
         if manifest is None:
             body = protocol.encode_snapshot_request(
                 protocol.SnapshotRequest(self.replica_id, self.snapshot_chunk_bytes or 0))
             manifest = protocol.decode_snapshot_manifest(
                 self._post_checked(peer.url + "/replicate/snapshot", body))
             inst.begin(manifest, peer.url)
+            log("server", "snapshot bootstrap starting", peer=peer.url, snapshot=manifest.snapshot_id,
+                owners=len(manifest.owners), rows=manifest.message_count, bytes=manifest.total_bytes,
+                chunks=len(manifest.chunk_sizes))
         try:
             for i in range(start, len(manifest.chunk_sizes)):
                 req = protocol.encode_snapshot_chunk_request(
@@ -520,6 +662,7 @@ class ReplicationManager:
                         # The donor no longer serves this snapshot id.
                         inst.abort()
                         self._count(peer.url, "snapshot_expired")
+                        metrics.inc("evolu_snap_installs_total", result="expired", **labels)
                     raise
                 chunk = protocol.decode_snapshot_chunk(raw)
                 if (chunk.snapshot_id != manifest.snapshot_id or chunk.index != i
@@ -530,6 +673,8 @@ class ReplicationManager:
                 inst.install_chunk(i, chunk.payload, expected_crc=manifest.chunk_crcs[i])
                 self._count(peer.url, "snapshot_chunks_fetched")
                 self._count(peer.url, "snapshot_bytes_fetched", len(chunk.payload))
+                metrics.inc("evolu_snap_chunks_fetched_total", **labels)
+                metrics.inc("evolu_snap_bytes_fetched_total", len(chunk.payload), **labels)
             inst.verify(manifest)
         except (_ManagerStopping, urllib.error.URLError, OSError):
             raise  # transport interruptions keep the watermark
@@ -538,9 +683,14 @@ class ReplicationManager:
             # refetch. The live tables are untouched.
             inst.abort()
             self._count(peer.url, "snapshot_errors")
+            metrics.inc("evolu_snap_installs_total", result="error", **labels)
             raise
         inst.swap()
         self._count(peer.url, "snapshot_bootstraps")
+        metrics.observe("evolu_snap_install_ms", (time.perf_counter() - t0) * 1e3)
+        metrics.inc("evolu_snap_installs_total", result="ok", **labels)
+        log("server", "snapshot bootstrap installed", peer=peer.url, snapshot=manifest.snapshot_id,
+            rows=manifest.message_count, owners=len(manifest.owners))
         if self.push_hub is not None:
             # A whole-store install changed arbitrarily many owners at once:
             # per-row attribution is gone, so wake everything.
@@ -558,6 +708,11 @@ class ReplicationManager:
         did commit were woken."""
         if not requests:
             return
+        n_v2 = sum(aead.count_v2(r.messages) for r in requests)
+        if n_v2:
+            # Peer pulls carry stored ciphertext verbatim: v2 records cross
+            # the replication surface as opaquely as v1 ones.
+            metrics.inc("evolu_crypto_v2_replicated_messages_total", n_v2)
         if self.scheduler is not None:
             futures = [self._ingest_pool().submit(self.scheduler.submit, r) for r in requests]
             first_err: Optional[BaseException] = None
@@ -568,6 +723,7 @@ class ReplicationManager:
                     served.append(r)
                 first_err = first_err or e
             self._notify_push(served)
+            self._ledger_ingress(served)
             if first_err is not None:
                 raise first_err
             return
@@ -580,6 +736,16 @@ class ReplicationManager:
                 served.append(r)
         finally:
             self._notify_push(served)
+            self._ledger_ingress(served)
+
+    @staticmethod
+    def _ledger_ingress(served: List[protocol.SyncRequest]) -> None:
+        """The ledger's ingress for the pulled messages the serve path
+        landed: the serve posted their store terminals, so only requests
+        that were served enter. A failed submit posted neither side, and
+        the next round's re-pull is a fresh delivery."""
+        for r in served:
+            ledger.count(ledger.INGRESS_REPLICATION, len(r.messages), owner=r.user_id)
 
     def _notify_push(self, requests: List[protocol.SyncRequest]) -> None:
         """Wake parked push subscriptions for rows replication just landed
@@ -605,8 +771,9 @@ class ReplicationManager:
 
     def stats_payload(self) -> dict:
         """The `replication` section of GET /stats: each peer's health and
-        counts, and this process's snapshot-donor counts. The two quantiles
-        are null until the observability item is ported."""
+        counts, and this process's snapshot-donor counts; the convergence
+        lag's and the install time's p99 from the registry (null before the
+        first observation)."""
         from evolu_tpu_torch.server import snapshot as snap
 
         peers = []
@@ -621,7 +788,8 @@ class ReplicationManager:
                 "rounds_error": c["rounds_error"],
                 "owners_diffed": c["owners_diffed"],
                 "messages_pulled": c["messages_pulled"],
-                "convergence_lag_p99_ms": None,
+                "convergence_lag_p99_ms": metrics.quantile("evolu_repl_convergence_lag_ms", 0.99,
+                                                           replica=self.replica_id, peer=p.url),
                 "snapshot_bootstraps": c["snapshot_bootstraps"],
                 "snapshot_chunks_fetched": c["snapshot_chunks_fetched"],
                 "snapshot_bytes_fetched": c["snapshot_bytes_fetched"],
@@ -639,6 +807,6 @@ class ReplicationManager:
                 "chunks_served": donor["chunks_served"],
                 "chunk_bytes_served": donor["chunk_bytes_served"],
                 "checkpoints": donor["checkpoints"],
-                "install_p99_ms": None,
+                "install_p99_ms": metrics.quantile("evolu_snap_install_ms", 0.99),
             },
         }

@@ -44,9 +44,10 @@ Robustness contract:
 Observability as the reference's: the `evolu_sched_*` metrics, a
 `sched.queue` span a request under its own trace, `sched.single` for a
 singleton dispatch, and one fan-in `engine.batch` span a pass that links
-its requests' traces (the engine's `kernel:*` spans nest under it). Plain
-`counts` (batches, coalesced, singles, poison_retries, poisoned_batches,
-rejected) are kept beside them.
+its requests' traces (the engine's `kernel:*` spans nest under it), and
+the conservation ledger's `bounce.non_canonical` tally for a singleton
+dispatch. Plain `counts` (batches, coalesced, singles, poison_retries,
+poisoned_batches, rejected) are kept beside them.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ import threading
 import time
 from typing import List, Optional
 
-from evolu_tpu_torch.obs import metrics, trace
+from evolu_tpu_torch.obs import ledger, metrics, trace
 from evolu_tpu_torch.ops import resolve_device
 from evolu_tpu_torch.ops.cuda_lib import KernelError
 from evolu_tpu_torch.sync import aead, protocol
@@ -284,6 +285,9 @@ class SyncScheduler:
             p = batch[0]
             self._count("singles")
             metrics.inc("evolu_sched_fallback_total", reason="non_canonical")
+            # A ledger tally outside the flow equations: the request's
+            # messages still end through the store path below.
+            ledger.count(ledger.BOUNCE_NON_CANONICAL, len(p.request.messages), owner=p.request.user_id)
             self._record_queue_waits(batch)
             sspan = trace.start_span("sched.single", parent=p.ctx,
                                      attrs={"owner": p.request.user_id})

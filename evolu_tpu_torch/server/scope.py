@@ -33,11 +33,12 @@ tag)`, written only when a scoped push assigns tags. Distinct lanes an
 owner are capped at `MAX_OWNER_LANES`; past it, new tags collapse into
 the `~overflow` lane, served to every scope.
 
-`counts` tallies, process-wide, what the reference posts to its
-`evolu_scope_*` metrics and its `serve.scoped_rows` /
-`serve.scope_filtered` ledger terminals: serves, served and filtered
-rows, folds by route, tree-cache hits, misses and evictions, and
-overflowed lanes.
+Observability as the reference's: the `evolu_scope_*` families (serves,
+served and filtered rows, folds by route, tree-cache hits, misses and
+evictions, overflowed lanes, lanes an owner) and the conservation
+ledger's `serve.scoped_rows` / `serve.scope_filtered` tallies (outside the
+flow equations: a scoped serve classifies response rows, never where an
+ingressed message ends). `counts` keeps the same tallies process-wide.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from evolu_tpu_torch.core.merkle import (
     minute_deltas_host,
 )
 from evolu_tpu_torch.core.timestamp import create_sync_timestamp, timestamp_to_string
+from evolu_tpu_torch.obs import ledger, metrics
 from evolu_tpu_torch.ops import resolve_device
 from evolu_tpu_torch.ops.cuda_lib import device_work
 from evolu_tpu_torch.ops.host_parse import parse_timestamp_strings
@@ -75,14 +77,27 @@ SCOPE_DEVICE_FOLD_MIN = 1024
 # full-tree text for the exact-match check.
 TREE_CACHE_CAP = 256
 
-counts = {"serves": 0, "served_rows": 0, "filtered_rows": 0, "fold_device": 0, "fold_host": 0,
-          "tree_cache_hits": 0, "tree_cache_misses": 0, "tree_cache_evictions": 0, "overflow": 0}
+# Each count's metric family and labels.
+_FAMILIES = {
+    "serves": ("evolu_scope_serves_total", {}),
+    "served_rows": ("evolu_scope_served_rows_total", {}),
+    "filtered_rows": ("evolu_scope_filtered_rows_total", {}),
+    "fold_device": ("evolu_scope_fold_total", {"route": "device"}),
+    "fold_host": ("evolu_scope_fold_total", {"route": "host"}),
+    "tree_cache_hits": ("evolu_scope_tree_cache_hits_total", {}),
+    "tree_cache_misses": ("evolu_scope_tree_cache_misses_total", {}),
+    "tree_cache_evictions": ("evolu_scope_tree_cache_evictions_total", {}),
+    "overflow": ("evolu_scope_overflow_total", {}),
+}
+counts = dict.fromkeys(_FAMILIES, 0)
 _counts_lock = threading.Lock()
 
 
 def _count(key: str, n: int = 1) -> None:
     with _counts_lock:
         counts[key] += n
+    name, labels = _FAMILIES[key]
+    metrics.inc(name, n, **labels)
 
 
 _LANE_TABLE_SQL = (
@@ -130,6 +145,7 @@ def record_push_lanes(db, user_id: str, timestamps: Sequence[str],
         db.run_many('INSERT OR IGNORE INTO "scopeLane" ("userId", "timestamp", "tag") VALUES (?, ?, ?)', out)
     if overflowed:
         _count("overflow", overflowed)
+    metrics.observe("evolu_scope_owner_lanes", len(lanes), buckets=metrics.COUNT_BUCKETS)
 
 
 def excluded_timestamps(db, user_id: str, tags: FrozenSet[str]) -> Set[str]:
@@ -305,6 +321,8 @@ def scoped_response(store, request: protocol.SyncRequest, device=None) -> protoc
     wm = _watermark_string(scope.watermark_millis)
     excluded = excluded_timestamps(shard.db, user_id, frozenset(scope.tags))
     kept, n_filtered = _filter_rows(rows, wm, excluded)
+    ledger.count(ledger.SERVE_SCOPED, len(kept), owner=user_id)
+    ledger.count(ledger.SERVE_SCOPE_FILTERED, n_filtered, owner=user_id)
     _count("served_rows", len(kept))
     _count("filtered_rows", n_filtered)
     return protocol.SyncResponse(tuple(kept), raw)

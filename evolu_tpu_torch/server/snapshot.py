@@ -36,9 +36,13 @@ owner's tree recomputed from them on the host (`_scope_stream`): its
 trees describe the slice, never the owner's full history, so it must
 never seed a full replica.
 
-Departures from the reference: the module keeps plain process-wide
-`counts` in place of its `evolu_snap_*` metrics (the install-time
-quantile is not kept), and posts no conservation-ledger terminals.
+Observability as the reference's: the `evolu_snap_*` families (donor
+captures and serves, checkpoints, verify failures, merged live rows, the
+install time), beside the plain process-wide `counts`; and the
+conservation ledger: a swap posts, in one pending entry committed after
+every shard of the run swapped, `ingress.snapshot` for the installed rows
+and their terminals, `store.duplicate` for the rows the store already
+held and `store.inserted` for the rest.
 """
 
 from __future__ import annotations
@@ -58,7 +62,9 @@ from evolu_tpu_torch.core.merkle import (
     merkle_tree_to_string,
     minute_deltas_host,
 )
+from evolu_tpu_torch.obs import ledger, metrics
 from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.utils.log import log
 
 # Chunk sizing: the default rides well under the relay's 20 MB body cap;
 # donors clamp puller-requested sizes into [64 KiB, 8 MiB].
@@ -84,18 +90,28 @@ _TREE_SCHEMA = (
     '"userId" TEXT PRIMARY KEY, "merkleTree" TEXT)'
 )
 
-# The process's snapshot counts, in place of the reference's unlabeled
-# evolu_snap_* counters: the donor side (captures, manifests and chunks
-# served) and the checkpoints written and failed. `_count` takes the lock.
-counts = dict.fromkeys((
-    "captures", "scoped_captures", "capture_rows", "capture_bytes", "manifests_served", "chunks_served",
-    "chunk_bytes_served", "checkpoints", "checkpoint_failures"), 0)
+# The process's snapshot counts, each with its unlabeled evolu_snap_*
+# counter: the donor side (captures, manifests and chunks served) and the
+# checkpoints written and failed. `_count` takes the lock.
+_FAMILIES = {
+    "captures": "evolu_snap_captures_total",
+    "scoped_captures": "evolu_snap_scoped_captures_total",
+    "capture_rows": "evolu_snap_capture_rows_total",
+    "capture_bytes": "evolu_snap_capture_bytes_total",
+    "manifests_served": "evolu_snap_manifests_served_total",
+    "chunks_served": "evolu_snap_chunks_served_total",
+    "chunk_bytes_served": "evolu_snap_chunk_bytes_served_total",
+    "checkpoints": "evolu_snap_checkpoints_total",
+    "checkpoint_failures": "evolu_snap_checkpoint_failures_total",
+}
+counts = dict.fromkeys(_FAMILIES, 0)
 _counts_lock = threading.Lock()
 
 
 def _count(key: str, n: int = 1) -> None:
     with _counts_lock:
         counts[key] += n
+    metrics.inc(_FAMILIES[key], n)
 
 
 class SnapshotInstallError(Exception):
@@ -572,6 +588,7 @@ class SnapshotInstaller:
                 or zlib.crc32(recomputed.encode("utf-8")) != crc
                 or (merkle_tree_from_string(recomputed).get("hash") or 0) != root
             ):
+                metrics.inc("evolu_snap_verify_failures_total")
                 raise SnapshotInstallError(
                     f"snapshot tree verification failed for owner {uid!r}: recomputed tree is not "
                     "byte-identical to the manifest watermark")
@@ -616,7 +633,15 @@ class SnapshotInstaller:
     def finish_swap(self) -> None:
         """Per shard, in one exclusive transaction: merge the live rows the
         snapshot lacks, then DROP + RENAME. Everything a client wrote up to
-        the rename's commit is in the snapshot or merged here."""
+        the rename's commit is in the snapshot or merged here.
+
+        The ledger: snapshot rows enter this process when they go live (the
+        swap's commit), and the live-vs-snapshot overlap classifies them, a
+        row the store already held as store.duplicate and the rest as
+        store.inserted. One pending entry, posted after every shard of THIS
+        run swapped (a resumed run posts only the shards it swaps)."""
+        merged = 0
+        entry = ledger.pending()
         for shard in self.shards:
             db = shard.db
             with _exclusive_txn(db):
@@ -624,11 +649,21 @@ class SnapshotInstaller:
                     "SELECT name FROM sqlite_master WHERE type='table' AND name='messageBsnap'")
                 if not have:
                     continue  # this shard already swapped (resume)
-                self._merge_live_rows_locked(db)
+                snap_total = db.exec_sql_query('SELECT COUNT(*) AS n FROM "messageBsnap"')[0]["n"]
+                overlap = db.exec_sql_query(
+                    'SELECT COUNT(*) AS n FROM "message" AS m WHERE EXISTS (SELECT 1 FROM "messageBsnap" '
+                    'AS b WHERE b."userId" = m."userId" AND b."timestamp" = m."timestamp")')[0]["n"]
+                entry.count(ledger.INGRESS_SNAPSHOT, snap_total)
+                entry.count(ledger.STORE_INSERTED, snap_total - overlap)
+                entry.count(ledger.STORE_DUPLICATE, overlap)
+                merged += self._merge_live_rows_locked(db)
                 db.run('DROP TABLE "message"')
                 db.run('ALTER TABLE "messageBsnap" RENAME TO "message"')
                 db.run('DROP TABLE "merkleTree"')
                 db.run('ALTER TABLE "merkleTreeBsnap" RENAME TO "merkleTree"')
+        entry.commit()
+        if merged:
+            metrics.inc("evolu_snap_local_rows_merged_total", merged)
         self._state_clear()
 
     def abort(self) -> None:
@@ -647,6 +682,7 @@ def install_stream(store, manifest: protocol.SnapshotManifest, chunks: Iterable[
     the watermark between fetches)."""
     inst = SnapshotInstaller(store)
     inst.begin(manifest, source)
+    t0 = time.perf_counter()
     try:
         for i, payload in enumerate(chunks):
             inst.install_chunk(i, payload, expected_crc=manifest.chunk_crcs[i])
@@ -655,6 +691,8 @@ def install_stream(store, manifest: protocol.SnapshotManifest, chunks: Iterable[
         inst.abort()
         raise
     inst.swap()
+    metrics.observe("evolu_snap_install_ms", (time.perf_counter() - t0) * 1e3)
+    metrics.inc("evolu_snap_installs_total", result="ok")
 
 
 # --- local checkpoints ---
@@ -690,6 +728,7 @@ def write_checkpoint(store, path: str, chunk_bytes: int = SNAPSHOT_CHUNK_BYTES,
     finally:
         os.close(dir_fd)
     _count("checkpoints")
+    metrics.set_gauge("evolu_snap_checkpoint_bytes", manifest.total_bytes)
     return manifest
 
 
@@ -755,8 +794,9 @@ class CheckpointWriter:
         while not self._stop.wait(self.interval_s):
             try:
                 write_checkpoint(self.store, self.path, self.chunk_bytes, barrier=self.barrier)
-            except Exception:  # noqa: BLE001 - keep checkpointing
+            except Exception as e:  # noqa: BLE001 - keep checkpointing
                 _count("checkpoint_failures")
+                log("server", "checkpoint write failed", path=self.path, error=repr(e))
 
     def stop(self) -> None:
         self._stop.set()

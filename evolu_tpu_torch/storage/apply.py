@@ -35,7 +35,14 @@ planner's `plan_packed` and applies with `apply_planned_cells`, with no
 per-row objects; a packed batch that holds a typed cell, or that the
 planner or the backend cannot take, is materialized and takes the
 object path before any side effect. `counts` says which route each
-batch took, in place of the reference's metrics.
+batch took, beside the reference's `evolu_apply_*` metrics.
+
+The apply plane of the conservation ledger (`obs/ledger.py`): each apply
+counts `apply.ingress`, its route (`route.packed` / `route.object` /
+`route.sequential`) and each message's outcome (`apply.inserted` /
+`apply.losing` / `apply.duplicate`) into a pending entry, from masks the
+host already holds, and commits it only when the transaction commits; a
+rolled-back batch posts `apply.ingress` and `apply.rejected` instead.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from evolu_tpu_torch.core.merkle import apply_prefix_xors, insert_into_merkle_tr
 from evolu_tpu_torch.core.packed import PackedReceive
 from evolu_tpu_torch.core.timestamp import timestamp_from_string
 from evolu_tpu_torch.core.types import CrdtMessage
+from evolu_tpu_torch.obs import ledger, metrics
 from evolu_tpu_torch.storage.changes import record_batch, record_typed_tables
 from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, quote_ident
 
@@ -58,6 +66,8 @@ from evolu_tpu_torch.storage.sqlite import PySqliteDatabase, quote_ident
 # messages (the reference's `apply.deferred_mat` ledger terminal).
 counts = {"packed": 0, "object": 0, "packed_bounces": 0, "typed_bounces": 0,
           "sequential": 0, "native_sequential": 0, "log_only": 0, "deferred_mat": 0}
+
+_mask_sum = ledger.flag_sum
 
 _SELECT_WINNER = (
     'SELECT "timestamp" FROM "__message" '
@@ -96,28 +106,55 @@ def apply_messages_sequential(
     # compares), so NUL-bearing fields take the Python loop, which binds
     # full bytes; typed batches too, or the C loop would upsert raw op
     # values into app tables.
-    if hasattr(db, "apply_sequential") and not typed and not any(
+    use_native = hasattr(db, "apply_sequential") and not typed and not any(
         "\x00" in m.timestamp or "\x00" in m.table or "\x00" in m.row or "\x00" in m.column
         for m in messages
-    ):
-        counts["native_sequential"] += 1
-        for m, flagged in zip(messages, db.apply_sequential(messages)):
-            if flagged:
+    )
+    entry = ledger.pending()
+    entry.count(ledger.APPLY_INGRESS, len(messages))
+    entry.count(ledger.ROUTE_SEQUENTIAL, len(messages))
+    entry.count(ledger.ROUTE_TYPED, len(typed))
+    try:
+        if use_native:
+            counts["native_sequential"] += 1
+            xor_mask = db.apply_sequential(messages)
+            for m, flagged in zip(messages, xor_mask):
+                if flagged:
+                    merkle_tree = insert_into_merkle_tree(timestamp_from_string(m.timestamp), merkle_tree)
+            # The native loop reports XOR flags only, so this route's split
+            # is coarser (inserted = XORed) than the batched routes'; the
+            # equations still balance.
+            n_xor = _mask_sum(xor_mask)
+            entry.count(ledger.APPLY_INSERTED, n_xor)
+            entry.count(ledger.APPLY_DUPLICATE, len(messages) - n_xor)
+            entry.commit()
+            return merkle_tree
+        counts["sequential"] += 1
+        if typed:
+            record_typed_tables(changes)
+            apply_typed_ops(db, schema, typed, device)
+        for m in messages:
+            rows = db.exec_sql_query(_SELECT_WINNER, (m.table, m.row, m.column))
+            t = rows[0]["timestamp"] if rows else None
+            won = t is None or t < m.timestamp
+            if won and not (typed and schema.is_typed(m.table, m.column)):
+                db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
+            if t is None or t != m.timestamp:
+                db.run(_INSERT_MESSAGE, (m.timestamp, m.table, m.row, m.column, m.value))
                 merkle_tree = insert_into_merkle_tree(timestamp_from_string(m.timestamp), merkle_tree)
+                entry.count(ledger.APPLY_INSERTED if won else ledger.APPLY_LOSING)
+            else:
+                entry.count(ledger.APPLY_DUPLICATE)
+        entry.commit()
         return merkle_tree
-    counts["sequential"] += 1
-    if typed:
-        record_typed_tables(changes)
-        apply_typed_ops(db, schema, typed, device)
-    for m in messages:
-        rows = db.exec_sql_query(_SELECT_WINNER, (m.table, m.row, m.column))
-        t = rows[0]["timestamp"] if rows else None
-        if (t is None or t < m.timestamp) and not (typed and schema.is_typed(m.table, m.column)):
-            db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
-        if t is None or t != m.timestamp:
-            db.run(_INSERT_MESSAGE, (m.timestamp, m.table, m.row, m.column, m.value))
-            merkle_tree = insert_into_merkle_tree(timestamp_from_string(m.timestamp), merkle_tree)
-    return merkle_tree
+    except BaseException:
+        # The loop runs statement by statement (no outer transaction): a
+        # failure half-way leaves the batch partly applied, and the ledger
+        # counts the whole batch rejected, the conservative class.
+        entry.abort()
+        ledger.count(ledger.APPLY_INGRESS, len(messages))
+        ledger.count(ledger.APPLY_REJECTED, len(messages))
+        raise
 
 
 def fetch_existing_winners(
@@ -192,10 +229,19 @@ def apply_messages(
     if not len(messages):
         return merkle_tree
     planner = planner or plan_batch
+    # The ledger's routing and outcome counts ride a pending entry, posted
+    # only when the transaction commits; a rolled-back batch posts
+    # apply.rejected instead, so a retry cannot count twice.
+    entry = ledger.pending()
     try:
         with db.transaction():  # whole-batch atomicity
-            return _apply_in_txn(db, merkle_tree, messages, planner, changes, device)
+            tree = _apply_in_txn(db, merkle_tree, messages, planner, changes, device, entry)
+        entry.commit()
+        return tree
     except BaseException:
+        entry.abort()
+        ledger.count(ledger.APPLY_INGRESS, len(messages))
+        ledger.count(ledger.APPLY_REJECTED, len(messages))
         _notify_plan_failure(planner)
         raise
 
@@ -211,7 +257,10 @@ def _notify_plan_failure(planner) -> None:
         on_failed()
 
 
-def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
+def _apply_in_txn(db, merkle_tree, messages, planner, changes, device, entry=None):
+    if entry is None:
+        entry = ledger.pending()  # discarded: the direct callers are tests
+    entry.count(ledger.APPLY_INGRESS, len(messages))
     # Recorded before planning: a route that fails half-way still leaves
     # a superset in the changed-set.
     record_batch(changes, messages)
@@ -222,20 +271,33 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
             # the typed fold needs message objects: bounce before any
             # side effect.
             counts["typed_bounces"] += 1
+            metrics.inc("evolu_crdt_packed_bounces_total")
         else:
             plan_packed = getattr(planner, "plan_packed", None)
             plan = (plan_packed(messages)
                     if plan_packed is not None and hasattr(db, "apply_planned_cells") else None)
             if plan is not None:
                 counts["packed"] += 1
+                metrics.inc("evolu_apply_batches_total", route="packed")
                 xor_mask, upsert_mask, deltas = plan
                 db.apply_planned_cells(messages, upsert_mask)
+                # The packed outcomes from the positional masks (pulled
+                # numpy already): winners upserted, XORed non-winners lost,
+                # the rest duplicates.
+                n, n_xor, n_win = len(messages), _mask_sum(xor_mask), _mask_sum(upsert_mask)
+                entry.count(ledger.ROUTE_PACKED, n)
+                entry.count(ledger.APPLY_INSERTED, n_win)
+                entry.count(ledger.APPLY_LOSING, n_xor - n_win)
+                entry.count(ledger.APPLY_DUPLICATE, n - n_xor)
                 return apply_prefix_xors(merkle_tree, deltas)
         # Bounced (a typed cell, non-canonical hex case, a small batch,
         # or a backend without the cell apply): materialize exactly.
         counts["packed_bounces"] += 1
+        metrics.inc("evolu_apply_packed_bounces_total")
         messages = messages.to_messages()
     counts["object"] += 1
+    metrics.inc("evolu_apply_batches_total", route="object")
+    entry.count(ledger.ROUTE_OBJECT, len(messages))
     owner = getattr(planner, "__self__", None)
     fetches = getattr(planner, "fetches_winners", getattr(owner, "fetches_winners", True))
     if fetches:
@@ -250,6 +312,9 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
         record_typed_tables(changes)
         apply_typed_ops(db, schema, typed, device)
         plan = strip_typed_upserts(plan, messages, schema)
+        # A tally outside the equations: typed messages still ride the
+        # object route's __message insert below.
+        entry.count(ledger.ROUTE_TYPED, len(typed))
     if len(plan) == 3:
         xor_mask, upserts, deltas = plan
     else:
@@ -275,6 +340,7 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
                 mask.append(key in pending)
                 pending.discard(key)
         db.apply_planned(messages, mask)
+        n_win = _mask_sum(mask)
     else:
         for m in upserts:  # only the final winner per cell touches the row
             db.run(_upsert_sql(m.table, m.column), (m.row, m.value, m.value))
@@ -282,6 +348,14 @@ def _apply_in_txn(db, merkle_tree, messages, planner, changes, device):
             _INSERT_MESSAGE,
             [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages],
         )
+        n_win = len(upserts)
+    # The outcomes from masks already on the host (a device planner
+    # returns pulled numpy): winners upserted, XORed non-winners lost, the
+    # rest exact duplicates.
+    n_xor = _mask_sum(xor_mask)
+    entry.count(ledger.APPLY_INSERTED, n_win)
+    entry.count(ledger.APPLY_LOSING, n_xor - n_win)
+    entry.count(ledger.APPLY_DUPLICATE, len(messages) - n_xor)
     return apply_prefix_xors(merkle_tree, deltas)
 
 
@@ -300,15 +374,30 @@ def apply_messages_log_only(
     The fold is the host fold: out-of-scope batches launch nothing."""
     if not len(messages):
         return merkle_tree
-    with db.transaction():
-        # Recorded although nothing materializes: a query that reads a
-        # deferred table must re-run and meet the typed deferral.
-        record_batch(changes, messages)
-        existing = fetch_existing_winners(db, {(m.table, m.row, m.column) for m in messages})
-        xor_mask, _upserts = plan_batch(messages, existing)
-        deltas, _ = minute_deltas_host(m.timestamp for i, m in enumerate(messages) if xor_mask[i])
-        db.run_many(_INSERT_MESSAGE, [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages])
-        tree = apply_prefix_xors(merkle_tree, deltas)
+    entry = ledger.pending()
+    try:
+        with db.transaction():
+            entry.count(ledger.APPLY_INGRESS, len(messages))
+            entry.count(ledger.ROUTE_OBJECT, len(messages))
+            # Recorded although nothing materializes: a query that reads a
+            # deferred table must re-run and meet the typed deferral.
+            record_batch(changes, messages)
+            existing = fetch_existing_winners(db, {(m.table, m.row, m.column) for m in messages})
+            xor_mask, upserts = plan_batch(messages, existing)
+            deltas, _ = minute_deltas_host(m.timestamp for i, m in enumerate(messages) if xor_mask[i])
+            db.run_many(_INSERT_MESSAGE, [(m.timestamp, m.table, m.row, m.column, m.value) for m in messages])
+            n_xor = _mask_sum(xor_mask)
+            entry.count(ledger.APPLY_INSERTED, len(upserts))
+            entry.count(ledger.APPLY_LOSING, n_xor - len(upserts))
+            entry.count(ledger.APPLY_DUPLICATE, len(messages) - n_xor)
+            entry.count(ledger.APPLY_DEFERRED_MAT, len(messages))
+            tree = apply_prefix_xors(merkle_tree, deltas)
+        entry.commit()
+    except BaseException:
+        entry.abort()
+        ledger.count(ledger.APPLY_INGRESS, len(messages))
+        ledger.count(ledger.APPLY_REJECTED, len(messages))
+        raise
     counts["log_only"] += 1
     counts["deferred_mat"] += len(messages)
     return tree

@@ -19,7 +19,7 @@ watermark, consecutive-failure counter) and one drain worker (fewer with
   read while the child commits (WAL + busy_timeout + BEGIN IMMEDIATE, as
   `sqlite.configure_shared_file_db` sets up for file-backed stores). Other
   stores drain on threads; `drain_mode` says which, and the refusal is
-  counted (`counts["process_drain_refused"]`).
+  logged and counted (`counts["process_drain_refused"]`).
 
 Durability:
 - Every appended record is framed (length + crc32) into ONE append-only
@@ -61,14 +61,23 @@ Barriers:
 Backpressure: a full queue raises `WriteBehindFull` before mutating
 anything; the scheduler answers 503 + Retry-After (never drops).
 
-Departure from the reference: plain `counts` in place of its ledger
-terminals, metrics, trace spans and log lines (ROADMAP queue 1 item 10),
-each posted where the reference posts its ledger terminal or metric:
-`queued`, `drained`, `inserted`, `duplicate`, `replayed` (rows) and
-`replayed_records`, `dropped` (by `reset`), `stalls`, `corrected_owners`
-and `corrected_records`, `drain_batches`, `drain_failures`, `flushes`,
-`log_poisoned`, `proc_spawned` and `process_drain_refused`. `stats_payload`
-answers the reference's keys from them, with the apply-lag quantiles null.
+Observability as the reference's: the conservation ledger's write-behind
+stations (`wb.queued` at the ACK, `wb.drained` as a shard batch commits,
+`wb.dropped` by `reset`, `ingress.replay` for replayed rows) and each
+drain shard's own `ledger.pending()` entry of `store.inserted` /
+`store.duplicate`, committed only if that shard's SQLite transaction
+committed, so a kill between shard commits leaves every row at exactly
+one terminal; the `evolu_wb_*` families (queue and shard gauges, drain
+and apply-lag histograms with `wb.drain` span exemplars), the `wb.drain`
+span, the drain's `host_apply` stage record a shard, and log lines for
+replays, drain failures, a poisoned log and a refused process drain.
+Plain `counts` are kept beside them: `queued`, `drained`, `inserted`,
+`duplicate`, `replayed` (rows) and `replayed_records`, `dropped` (by
+`reset`), `stalls`, `corrected_owners` and `corrected_records`,
+`drain_batches`, `drain_failures`, `flushes`, `log_poisoned`,
+`proc_spawned` and `process_drain_refused`. `stats_payload` answers the
+reference's keys from them, with the apply-lag quantiles from the
+registry.
 """
 
 from __future__ import annotations
@@ -87,9 +96,13 @@ from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from evolu_tpu_torch.obs import anatomy, ledger, metrics, trace
+from evolu_tpu_torch.utils.log import log
+
 LOG_MAGIC = b"EVOLUWB1\n"
 _U16 = struct.Struct("<H")
 _U32 = struct.Struct("<I")
+_ROW_BUCKETS = metrics.COUNT_BUCKETS
 
 _COUNT_KEYS = (
     "queued", "drained", "inserted", "duplicate", "replayed", "replayed_records", "dropped",
@@ -191,9 +204,9 @@ class _Slice:
     unit. Byte ranges are cut at append, so a slice holds no reference to
     its record (the log frame is the durable copy)."""
 
-    __slots__ = ("seq", "si", "owner", "k", "ts_b", "content_b", "lens", "tree_s")
+    __slots__ = ("seq", "si", "owner", "k", "ts_b", "content_b", "lens", "tree_s", "t_enqueue")
 
-    def __init__(self, seq, si, owner, k, ts_b, content_b, lens, tree_s):
+    def __init__(self, seq, si, owner, k, ts_b, content_b, lens, tree_s, t_enqueue):
         self.seq = seq
         self.si = si
         self.owner = owner
@@ -202,6 +215,7 @@ class _Slice:
         self.content_b = content_b
         self.lens = lens
         self.tree_s = tree_s
+        self.t_enqueue = t_enqueue
 
 
 class _ShardState:
@@ -388,8 +402,9 @@ class WriteBehindQueue:
                         if getattr(s.db, "path", None) in (None, ":memory:")
                         or hasattr(s.db, "relay_insert_packed")]
             if blockers:
-                # Needs pure-Python file-backed shards: drain on threads.
                 self._count("process_drain_refused")
+                log("storage", "write-behind process drain unavailable; falling back to threads",
+                    shards=blockers, reason="needs pure-Python file-backed shards")
             else:
                 self.drain_mode = "process"
 
@@ -447,7 +462,7 @@ class WriteBehindQueue:
         _stores, shard_index = self._shards()
         return self._shard_states[shard_index(owner)].lock
 
-    def _record_slices(self, seq: int, rec: IngestRecord) -> List[_Slice]:
+    def _record_slices(self, seq: int, rec: IngestRecord, now: float) -> List[_Slice]:
         _stores, shard_index = self._shards()
         offs = np.concatenate([[0], np.cumsum(rec.lens)]).astype(np.int64)
         tree_of = dict(rec.tree_rows)
@@ -457,7 +472,7 @@ class WriteBehindQueue:
             lo, hi = row, row + k
             out.append(_Slice(seq, shard_index(u), u, k, rec.ts_packed[lo * 46 : hi * 46],
                               rec.content_packed[int(offs[lo]) : int(offs[hi])],
-                              rec.lens[lo:hi], tree_of.get(u)))
+                              rec.lens[lo:hi], tree_of.get(u), now))
             row = hi
         return out
 
@@ -472,18 +487,29 @@ class WriteBehindQueue:
         records = self._decode_log(existing)
         if records:
             self._count("replayed_records", len(records))
+            metrics.inc("evolu_wb_replayed_records_total", len(records))
+            metrics.inc("evolu_wb_replayed_rows_total", sum(r.n_rows for r in records))
+            log("storage", "write-behind log replay", records=len(records), path=path)
             # Replay through the always-exact path before serving and before
             # any worker starts: an ACKed write is in SQLite by the time the
-            # constructor returns. The log replay is these rows' ingress.
+            # constructor returns.
             with self.db_lock:
                 self._materialize(records, exact=True)
             self._count("replayed", sum(r.n_rows for r in records))
+            # In this process these rows never rode a sync POST: the replay
+            # is their ingress, and _materialize just posted their
+            # terminals by shard (rows a shard committed before the crash
+            # re-classify as store.duplicate, never counted twice).
+            for r in records:
+                for o, k in zip(r.gu, r.gc):
+                    ledger.count(ledger.INGRESS_REPLAY, k, owner=o)
         self._log = open(path, "wb")
         self._log.write(LOG_MAGIC)
         self._log.flush()
         if self.fsync:
             os.fsync(self._log.fileno())
         self._log_bytes = len(LOG_MAGIC)
+        metrics.set_gauge("evolu_wb_log_bytes", self._log_bytes)
 
     @staticmethod
     def _decode_log(data: bytes) -> List[IngestRecord]:
@@ -531,13 +557,17 @@ class WriteBehindQueue:
                 self._log.flush()
                 if self.fsync:
                     os.fsync(self._log.fileno())
-            except BaseException:  # noqa: BLE001
+            except BaseException as te:  # noqa: BLE001
                 self._log.close()
                 self._log = None
                 self._log_poisoned = True
                 self._count("log_poisoned")
+                metrics.inc("evolu_wb_log_poisoned_total")
+                log("storage", "write-behind log unrecoverable; admission refused until restart",
+                    error=repr(te))
             self._log_bytes = start
             raise
+        metrics.set_gauge("evolu_wb_log_bytes", self._log_bytes)
 
     def _log_truncate_locked(self) -> None:
         """Called under `_cv` with EVERY shard queue empty: everything in
@@ -552,6 +582,7 @@ class WriteBehindQueue:
         if self.fsync:
             os.fsync(self._log.fileno())
         self._log_bytes = len(LOG_MAGIC)
+        metrics.set_gauge("evolu_wb_log_bytes", self._log_bytes)
 
     # -- admission (engine dispatcher thread) --
 
@@ -569,29 +600,55 @@ class WriteBehindQueue:
                 raise WriteBehindFull(self.retry_after_s, self._pending_rows)
             if self._pending_rows + n_rows > self.max_rows and self._pending_rows:
                 self._count("stalls")
+                metrics.inc("evolu_wb_stalls_total")
                 raise WriteBehindFull(self.retry_after_s, self._pending_rows)
             # The log write and the fsync run under _cv, once an engine
             # pass: that keeps the drain's truncate (also under _cv) from
             # erasing a frame between its fsync and its pending-install.
             self._log_append(records)
+            now = time.monotonic()
+            touched: Set[int] = set()
             for r in records:
                 self._last_seq += 1
-                slices = self._record_slices(self._last_seq, r)
+                slices = self._record_slices(self._last_seq, r, now)
                 if slices:
                     self._seq_slices[self._last_seq] = len(slices)
                 for sl in slices:
                     st = self._shard_states[sl.si]
                     st.pending.append(sl)
                     st.rows += sl.k
+                    touched.add(sl.si)
                     self._owner_seq[sl.owner] = self._last_seq
                     self._owner_shard[sl.owner] = sl.si
             self._pending_rows += n_rows
             if trees:
                 self._trees.update(trees)
             self._count("queued", n_rows)
+            metrics.inc("evolu_wb_enqueued_rows_total", n_rows)
+            # The queued half of the ledger's checkpoint pair: these rows
+            # are ACKed (fsynced), and wb.queued == wb.drained + wb.dropped
+            # holds at every drain barrier. By owner, so GET /ledger shows
+            # one owner's rows parked in the queue.
+            for r in records:
+                for o, k in zip(r.gu, r.gc):
+                    ledger.count(ledger.WB_QUEUED, k, owner=o)
+            self._gauges_locked(touched)
             seq = self._last_seq
             self._cv.notify_all()
         return seq
+
+    def _gauges_locked(self, touched=None) -> None:
+        """The queue's gauges (caller holds `_cv`); the shard gauges of the
+        `touched` shards only, all of them when None. Shard labels are
+        bounded by the store topology."""
+        metrics.set_gauge("evolu_wb_queue_rows", self._pending_rows)
+        metrics.set_gauge("evolu_wb_queue_records", len(self._seq_slices))
+        for st in self._shard_states:
+            if touched is not None and st.si not in touched:
+                continue
+            metrics.set_gauge("evolu_wb_shard_queue_rows", st.rows, shard=str(st.si))
+            metrics.set_gauge("evolu_wb_shard_watermark_lag", self._last_seq - self._floor_locked(st),
+                              shard=str(st.si))
 
     # -- serving-state reads (engine dispatcher thread) --
 
@@ -660,6 +717,7 @@ class WriteBehindQueue:
         """Block until every record appended so far is committed on EVERY
         shard."""
         self._count("flushes")
+        metrics.inc("evolu_wb_flushes_total", scope="all")
         with self._cv:
             seq = self._last_seq
         self._wait_drained(seq, timeout)
@@ -673,6 +731,7 @@ class WriteBehindQueue:
             seq = self._owner_seq.get(owner, 0)
         if seq:
             self._count("flushes")
+            metrics.inc("evolu_wb_flushes_total", scope="owner")
             self._wait_drained(seq, timeout, sis=[si])
         with self._cv:
             if self._floor_locked(self._shard_states[si]) >= self._needs_flush.get(owner, 0):
@@ -718,7 +777,13 @@ class WriteBehindQueue:
             self._trees.clear()
             self._needs_flush.clear()
             self._log_truncate_locked()
+            self._gauges_locked()
             self._count("dropped", dropped)
+            if dropped:
+                metrics.inc("evolu_wb_reset_dropped_rows_total", dropped)
+                # Dropped rows are a flow terminal: they entered and were
+                # queued, and will never classify at a drain.
+                ledger.count(ledger.WB_DROPPED, dropped)
             self._cv.notify_all()
 
     def close(self, flush: bool = True) -> None:
@@ -727,8 +792,8 @@ class WriteBehindQueue:
         if flush:
             try:
                 self.flush()
-            except Exception:  # noqa: BLE001 - still stop the threads
-                pass
+            except Exception as e:  # noqa: BLE001 - still stop the threads
+                log("storage", "write-behind close flush failed", error=repr(e))
         with self._cv:
             self._stopping = True
             self._cv.notify_all()
@@ -778,13 +843,19 @@ class WriteBehindQueue:
             delay = self._drain_delay_s + self._shard_delay_s.get(pick, 0.0)
             if delay:
                 time.sleep(delay)  # the test hooks' kill window
+            t0 = time.perf_counter()
+            dspan = trace.start_span("wb.drain", attrs={"shard": pick, "slices": len(batch), "rows": rows})
             ops = [(sl.owner, sl.k, sl.ts_b, sl.content_b, sl.lens, sl.tree_s) for sl in batch]
             try:
-                with st.lock:
+                with dspan, trace.use(dspan.context), st.lock:
                     tainted = self._materialize_shard(pick, ops, exact=False, carry_taint=carry_taint,
                                                       wid=wid)
             except Exception as e:  # noqa: BLE001 - keep draining
                 self._count("drain_failures")
+                metrics.inc("evolu_wb_drain_failures_total")
+                metrics.inc("evolu_wb_shard_drain_failures_total", shard=str(pick))
+                log("storage", "write-behind shard drain batch failed; retrying", shard=pick,
+                    error=repr(e), slices=len(batch))
                 with self._cv:
                     st.err = e
                     st.failures += 1
@@ -795,6 +866,8 @@ class WriteBehindQueue:
                 backoff[pick] = min(backoff[pick] * 2, 2.0)
                 continue
             backoff[pick] = 0.05
+            dt = time.perf_counter() - t0
+            now = time.monotonic()
             with self._cv:
                 st.err = None
                 st.failures = 0
@@ -810,6 +883,8 @@ class WriteBehindQueue:
                             self._seq_slices.pop(sl.seq, None)
                         else:
                             self._seq_slices[sl.seq] = left
+                    metrics.observe("evolu_wb_apply_lag_ms", (now - sl.t_enqueue) * 1e3,
+                                    exemplar=dspan.trace_id)
                 floor = self._floor_locked(st)
                 for o in tainted:
                     # The serving path must re-read the corrected tree
@@ -827,29 +902,56 @@ class WriteBehindQueue:
                         self._needs_flush.pop(o, None)
                 if not self._seq_slices:
                     self._log_truncate_locked()
+                self._gauges_locked({pick})
                 self._cv.notify_all()
             self._count("drained", rows)
             self._count("drain_batches")
+            metrics.inc("evolu_wb_drained_rows_total", rows)
+            # The drained half of the ledger's checkpoint pair; the
+            # inserted/duplicate split was posted by _materialize_shard as
+            # this shard's transaction committed.
+            for sl in batch:
+                ledger.count(ledger.WB_DRAINED, sl.k, owner=sl.owner)
+            metrics.observe("evolu_wb_drain_batch_rows", rows, buckets=_ROW_BUCKETS, exemplar=dspan.trace_id)
+            metrics.observe("evolu_wb_drain_ms", dt * 1e3, exemplar=dspan.trace_id)
+            metrics.observe("evolu_wb_shard_drain_ms", dt * 1e3, shard=str(pick), exemplar=dspan.trace_id)
+            # The host_apply stage a shard: under write-behind the drain is
+            # the btree and tree leg that left the serving pass.
+            anatomy.record_stage("host_apply", dt, rows=rows, shard=pick)
 
     # -- materialization --
 
     def _materialize_shard(self, si: int, ops, exact: bool, carry_taint,
                            wid: Optional[int] = None) -> Set[str]:
-        """Commit one shard's ordered op list in ONE transaction and count
-        its inserted / duplicate rows iff it committed. A failed shard
-        re-runs alone. Caller holds the shard's lock. → the owners whose
-        optimistic trees were corrected (none in `exact` mode)."""
+        """Commit one shard's ordered op list in ONE transaction, with ONE
+        ledger entry committed iff the transaction did, and count its
+        inserted / duplicate rows. A failed shard re-runs alone (its
+        committed siblings already popped their slices), so every queued
+        row still reaches exactly one terminal. Caller holds the shard's
+        lock. → the owners whose optimistic trees were corrected (none in
+        `exact` mode)."""
         stores, _ = self._shards()
-        if self.drain_mode == "process" and wid is not None:
-            tainted, counts = self._child_apply(wid, si, ops, exact, carry_taint)
-        else:
-            tainted, counts = apply_shard_ops(stores[si].db, stores[si].get_merkle_tree_string,
-                                              ops, exact, carry_taint)
+        entry = ledger.pending()
+        try:
+            if self.drain_mode == "process" and wid is not None:
+                tainted, counts = self._child_apply(wid, si, ops, exact, carry_taint)
+            else:
+                tainted, counts = apply_shard_ops(stores[si].db, stores[si].get_merkle_tree_string,
+                                                  ops, exact, carry_taint)
+        except BaseException:
+            entry.abort()
+            raise
+        for (u, _k, *_rest), (n_new, n_dup) in zip(ops, counts):
+            entry.count(ledger.STORE_INSERTED, n_new, owner=u)
+            entry.count(ledger.STORE_DUPLICATE, n_dup, owner=u)
+        entry.commit()
         self._count("inserted", sum(n for n, _ in counts))
         self._count("duplicate", sum(d for _, d in counts))
         if tainted and not exact:
             self._count("corrected_records")
             self._count("corrected_owners", len(tainted))
+            metrics.inc("evolu_wb_corrected_records_total")
+            metrics.inc("evolu_wb_corrected_owners_total", len(tainted))
         return set(tainted)
 
     def _materialize(self, records: Sequence[IngestRecord], exact: bool = False) -> Set[str]:
@@ -858,7 +960,7 @@ class WriteBehindQueue:
         survives a shard-count change. Caller holds `db_lock`."""
         per_shard: Dict[int, List[tuple]] = {}
         for rec in records:
-            for sl in self._record_slices(0, rec):
+            for sl in self._record_slices(0, rec, 0.0):
                 per_shard.setdefault(sl.si, []).append(
                     (sl.owner, sl.k, sl.ts_b, sl.content_b, sl.lens, sl.tree_s))
         with self._cv:
@@ -880,6 +982,7 @@ class WriteBehindQueue:
         env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
         proc = subprocess.Popen(args, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE)
         self._count("proc_spawned")
+        metrics.inc("evolu_wb_shard_proc_spawned_total")
         return proc
 
     def _child_apply(self, wid: int, si: int, ops, exact: bool,
@@ -943,8 +1046,8 @@ class WriteBehindQueue:
 
     def stats_payload(self) -> dict:
         """The `write_behind` section of /stats: the reference's keys, read
-        from `counts` (the apply-lag quantiles null until the observability
-        item is ported), plus the counts themselves."""
+        from `counts`, the apply-lag quantiles from the registry's
+        `evolu_wb_apply_lag_ms`, plus the counts themselves."""
         records, rows = self.backlog()
         last, drained = self.watermarks()
         with self._counts_lock:
@@ -968,8 +1071,8 @@ class WriteBehindQueue:
             "stalls": counts["stalls"],
             "flushes": counts["flushes"],
             "drain_failures": counts["drain_failures"],
-            "apply_lag_ms_p50": None,
-            "apply_lag_ms_p99": None,
+            "apply_lag_ms_p50": metrics.quantile("evolu_wb_apply_lag_ms", 0.50),
+            "apply_lag_ms_p99": metrics.quantile("evolu_wb_apply_lag_ms", 0.99),
             "counts": counts,
         }
 

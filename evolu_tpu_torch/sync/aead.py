@@ -48,8 +48,9 @@ unchanged.
 
 Crypto stays host-side by design: the CUDA kernels never see
 plaintext, and the relay stores v2 ciphertext as opaquely as v1.
-Where the reference counts into its metrics registry, the port keeps
-plain `counts` (observability is a later slice).
+Session keys derived and records that fail authentication count into
+the metrics registry (`evolu_crypto_*`) as in the reference, and into
+plain `counts` beside it.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ import threading
 from collections import OrderedDict
 from typing import Tuple
 
+from evolu_tpu_torch.obs import metrics
 from evolu_tpu_torch.sync.crypto import PgpError, decrypt_symmetric
 
 try:
@@ -81,9 +83,13 @@ RECORD_OVERHEAD = len(MAGIC) + SALT_LEN + NONCE_LEN + TAG_LEN  # = 47
 # derives the same key from (secret, salt)).
 HKDF_INFO = b"evolu-tpu aead-batch-v1 key"
 
-# Session keys derived and records that failed authentication, by name
-# (the reference's evolu_crypto_* counters).
-counts = {"session_keys_derived": 0, "auth_failures": 0}
+# Session keys derived and records that failed authentication, by name,
+# each with its evolu_crypto_* counter.
+_FAMILIES = {
+    "session_keys_derived": "evolu_crypto_session_keys_derived_total",
+    "auth_failures": "evolu_crypto_auth_failures_total",
+}
+counts = dict.fromkeys(_FAMILIES, 0)
 
 
 def hkdf_sha256(secret: bytes, salt: bytes) -> bytes:
@@ -126,6 +132,7 @@ _lock = threading.Lock()
 def _count(name: str) -> None:
     with _lock:
         counts[name] += 1
+    metrics.inc(_FAMILIES[name])
 
 
 _sessions: "OrderedDict[str, AeadSession]" = OrderedDict()  # password → session

@@ -19,15 +19,12 @@ recovery is the next sync trigger (sync.worker.ts:217-227). Every
 round runs under the per-database sync lock, making sync mutually
 exclusive across clients of the same database (syncLock.ts:8-12).
 
-Departures from `evolu_tpu.sync.client`, all of them routes this
-slice does not port and never replaces:
-
-- The transport records the reference's `evolu_sync_*` request,
-  response, redirect, route, error and offline metrics, traces each
-  round as a `sync.round` span (joining the mutation's trace) and sends
-  its context as the POST's traceparent header; it keeps plain `counts`
-  beside them. The crypto and scope counters, and the `PushSubscriber`,
-  keep plain `counts` only.
+Observability as the reference's: the transport records the
+`evolu_sync_*` request, response, redirect, route, error and offline
+metrics and its crypto and scope counters, traces each round as a
+`sync.round` span (joining the mutation's trace) and sends its context as
+the POST's traceparent header; the `PushSubscriber` records
+`evolu_push_client_*`. Both keep plain `counts` beside them.
 
 Under `Config.sync_scope` (`sync/scope.py`) a round carries the scope
 clause (SyncRequest field 6), with a lane tag for each pushed message,
@@ -357,6 +354,7 @@ class SyncTransport:
         un-negotiated (v1) until its own response says otherwise."""
         if self.negotiated_capabilities.pop(url, None) is not None:
             self._count("capability_invalidations")
+            metrics.inc("evolu_crypto_capability_invalidations_total")
 
     def _encode_push(self, request: SyncRequestInput, node_id: str,
                      caps, use_v2: bool, scope_clause=None) -> bytes:
@@ -489,6 +487,7 @@ class SyncTransport:
             if drop_scope:
                 clause = None
                 self._count("scope_downgrades_failover")
+                metrics.inc("evolu_scope_downgrades_total", reason="failover")
             try:
                 body = self._encode_push(request, node_id, caps, use_v2, scope_clause=clause)
             except Exception as e:  # noqa: BLE001 - encode must never
@@ -497,6 +496,7 @@ class SyncTransport:
                 raise _Abort() from e
             if need_v1:
                 self._count("v1_fallback_failover")
+                metrics.inc("evolu_crypto_v1_fallback_total", reason="failover")
 
         followed = False
         try:
@@ -578,15 +578,23 @@ class SyncTransport:
         if request.messages:
             if use_v2:
                 self._count("v2_push_legs")
+                metrics.inc("evolu_crypto_v2_push_legs_total")
                 self._count("v2_push_messages", len(request.messages))
+                metrics.inc("evolu_crypto_v2_push_messages_total", len(request.messages))
             elif protocol.CAP_AEAD_BATCH in caps and not downgraded:
                 self._count("v1_fallback_not_negotiated")
+                metrics.inc("evolu_crypto_v1_fallback_total", reason="not_negotiated")
         if caps:
             try:
                 negotiated = protocol.scan_sync_response_capabilities(response_bytes)
             except ValueError:
                 negotiated = ()  # decode error surfaces below, on the real decoder
             self.negotiated_capabilities[url] = negotiated
+            metrics.set_gauge("evolu_crdt_capability_negotiated", int(protocol.CAP_CRDT_TYPES in negotiated))
+            metrics.set_gauge("evolu_crdt_list_capability_negotiated", int(protocol.CAP_CRDT_LIST in negotiated))
+            metrics.set_gauge("evolu_crdt_tensor_capability_negotiated",
+                              int(protocol.CAP_CRDT_TENSOR in negotiated))
+            metrics.set_gauge("evolu_crypto_aead_negotiated", int(protocol.CAP_AEAD_BATCH in negotiated))
         try:
             messages, merkle_tree = self._decode_response(response_bytes, request.owner.mnemonic)
             self._count("responses")
@@ -756,9 +764,9 @@ class PushSubscriber:
     round re-binds the target, so the subscription follows fleet
     placement as the sync leg does.
 
-    `counts` (polls, wakes, redirects, errors, offline) stand in for the
-    reference's `evolu_push_client_*` metrics; `wakes` is the number of
-    `on_wake` firings."""
+    `counts` (polls, wakes, redirects, errors, offline) are kept beside
+    the reference's `evolu_push_client_*` metrics; `wakes` is the number
+    of `on_wake` firings."""
 
     def __init__(self, config: Config, on_wake: Callable[[], None],
                  http_get: Optional[Callable[[str, float], bytes]] = None,
@@ -835,6 +843,7 @@ class PushSubscriber:
                         with self._lock:
                             self._route = urllib.parse.urljoin(base + "/", location).split("/push/", 1)[0]
                         self.counts["redirects"] += 1
+                        metrics.inc("evolu_push_client_redirects_total")
                         continue
                     # A SECOND consecutive 307 means the relays' rings
                     # disagree (mid-rebalance): drop the learned route and
@@ -859,6 +868,7 @@ class PushSubscriber:
                 with self._lock:
                     self._route = None
                 self.counts["errors"] += 1
+                metrics.inc("evolu_push_client_errors_total")
                 delay = self._backoff(delay)
                 if delay is None:
                     return
@@ -867,6 +877,7 @@ class PushSubscriber:
                 with self._lock:
                     self._route = None
                 self.counts["offline"] += 1
+                metrics.inc("evolu_push_client_offline_total")
                 jittered = min(BACKOFF_MAX_S, BACKOFF_BASE_S * (2 ** attempt))
                 if self._stop.wait(jittered * random.random() + 0.01):
                     return
@@ -876,12 +887,14 @@ class PushSubscriber:
             delay = BACKOFF_BASE_S
             follows = 0
             self.counts["polls"] += 1
+            metrics.inc("evolu_push_client_polls_total")
             try:
                 body = json.loads(raw)
                 cursor = int(body["cursor"])
                 wake = bool(body["wake"])
             except (ValueError, KeyError, TypeError):
                 self.counts["errors"] += 1
+                metrics.inc("evolu_push_client_errors_total")
                 delay = self._backoff(delay)
                 if delay is None:
                     return
@@ -893,6 +906,7 @@ class PushSubscriber:
             if wake and not self._stop.is_set():
                 self.wakes += 1
                 self.counts["wakes"] += 1
+                metrics.inc("evolu_push_client_wakes_total")
                 try:
                     self.on_wake()
                 except Exception:  # noqa: BLE001,S110 - the wake hook must never

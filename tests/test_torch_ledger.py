@@ -4,8 +4,8 @@ audit with per-station deltas and barrier scoping, pending entries, the
 owner cardinality cap, the snapshot, a disabled ledger; then the
 recompile sentinel's port counterpart, the pull waves and the evidence
 dump, and parity with the JAX package's audit() and snapshot() for the
-same counts. No module of the port counts into the ledger yet, so the
-relay-level tests of the reference have no twin here."""
+same counts. The relay-level tests of the reference have their twins in
+tests/test_torch_ledger_relay.py and tests/test_torch_ledger_episode.py."""
 
 import json
 import urllib.error

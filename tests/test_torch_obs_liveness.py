@@ -8,7 +8,9 @@ for bit, the passes pull in the same number of `to_host_many` waves, and
 on the CPU no plane adds a `.cpu()` or `.numpy()` of a tensor. The planes
 are shown to have recorded while on, so the fence is not vacuous. The
 card-side half (equal `.launches` of kernels L, X and H) is
-tests/test_torch_cuda.py's."""
+tests/test_torch_cuda.py's. A last fence holds the conservation ledger's
+stations to the same rule on the relay's engine passes, and audits the
+ledger (reset first) at the barrier."""
 
 import contextlib
 
@@ -131,3 +133,72 @@ def test_annotations_add_no_copy_under_a_profile(monkeypatch):
         annotated, c_annotated = _run(batches, winners, True, monkeypatch)
     assert annotated == bare and c_annotated == c_bare
     assert "kernel:reconcile|reconcile_owner_batches" in {e.name for e in prof.events()}
+
+
+def _relay_requests(rng, n_owners=6, per_owner=40):
+    from evolu_tpu_torch.core.timestamp import Timestamp, timestamp_to_string
+    from evolu_tpu_torch.sync import protocol
+
+    reqs = []
+    for i in range(n_owners):
+        node = f"{i + 1:016x}"
+        stamps = sorted({int(x) for x in rng.integers(0, 3_600_000, per_owner)})
+        msgs = tuple(protocol.EncryptedCrdtMessage(timestamp_to_string(Timestamp(1_700_000_000_000 + t, 0, node)),
+                                                   b"ct-%d" % t) for t in stamps)
+        reqs.append(protocol.SyncRequest(msgs, f"owner{i:03d}", node, "{}"))
+    return reqs
+
+
+def _relay_passes(reqs, on: bool, monkeypatch):
+    """Two engine passes of the batching relay's path (`run_batch_wire`
+    on a two-shard native store, the second an exact redelivery) with the
+    conservation ledger on or off, from a reset ledger; each request's
+    messages are counted in at `ingress.sync` first, as the relay's decode
+    does. → (responses, waves and copies, station totals, the audit at
+    the barrier)."""
+    from evolu_tpu_torch.obs import ledger
+    from evolu_tpu_torch.server.relay import ShardedRelayStore
+
+    ledger.reset()
+    ledger.set_enabled(on)
+    store = ShardedRelayStore(shards=2, backend="native")
+    engine = eng.BatchReconciler(store, device="cpu")
+    try:
+        with monkeypatch.context() as m, _counting(m) as counts:
+            orig = eng._pull_outputs
+
+            def pull(*a, _orig=orig):
+                counts["waves"] += 1
+                return _orig(*a)
+
+            m.setattr(eng, "_pull_outputs", pull)
+            out = []
+            for _ in range(2):
+                for r in reqs:
+                    ledger.count(ledger.INGRESS_SYNC, len(r.messages), owner=r.user_id)
+                out += engine.run_batch_wire(reqs)
+        return out, counts, ledger.totals(), ledger.audit(at_barrier=True)
+    finally:
+        engine.close()
+        store.close()
+        ledger.set_enabled(True)
+
+
+def test_ledger_on_changes_no_output_wave_or_copy_and_conserves(monkeypatch):
+    """The conservation ledger's stations are host-side only: with the
+    ledger on, the relay's engine passes answer the same bytes with the
+    same pull waves and tensor copies as with it off, and the ledger
+    (reset first, so earlier traffic in the process cannot leak in)
+    balances: every message ingressed once, new rows inserted, the
+    redelivery all duplicates."""
+    reqs = _relay_requests(np.random.default_rng(11))
+    n = sum(len(r.messages) for r in reqs)
+    off, c_off, t_off, _ = _relay_passes(reqs, False, monkeypatch)
+    on, c_on, t_on, audit = _relay_passes(reqs, True, monkeypatch)
+    assert on == off
+    assert c_on == c_off and c_on["waves"] >= 2
+    assert t_off == {}
+    from evolu_tpu_torch.obs import ledger
+
+    assert t_on == {ledger.INGRESS_SYNC: 2 * n, ledger.STORE_INSERTED: n, ledger.STORE_DUPLICATE: n}
+    assert audit == []

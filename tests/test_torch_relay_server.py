@@ -176,10 +176,10 @@ def test_errors_and_404s_match_jax():
     poll = "/push/poll?owner=a&node=0000000000000000&cursor=0&timeout=0"
     port = prelay.RelayServer(prelay.RelayStore(backend="native"), push=False).start()
     try:
-        # The observability reads answer; the conservation ledger's does not yet.
-        for path in ("/metrics", "/trace", "/trace/" + "0" * 32, "/profile?ms=10"):
+        # The observability reads answer, the conservation ledger's too.
+        for path in ("/metrics", "/trace", "/trace/" + "0" * 32, "/profile?ms=10", "/ledger"):
             assert _get(port.url + path)[0] == 200, path
-        for path in ("/ledger", "/fleet", poll):
+        for path in ("/fleet", poll):
             assert _get(port.url + path)[0] == 404, path
         for path in ("/replicate/summary", "/replicate/pull", "/fleet/forward", "/fleet/reload"):
             assert _post(port.url + path, b"")[0] == 404, path

@@ -180,7 +180,11 @@ def test_two_relay_convergence_and_stats_match_jax():
     assert set(pstats["snapshot"]) == set(jstats["snapshot"])
     assert pp["url"] == a_url and pp["healthy"] is True and pp["messages_pulled"] >= 70
     assert pp["rounds_ok"] >= 1 and pp["rounds_error"] == 0
-    assert pp["convergence_lag_p99_ms"] is None and pstats["snapshot"]["install_p99_ms"] is None
+    # The quantiles come from the registry as in the reference: the pulling
+    # round observed a convergence lag, and no snapshot was installed.
+    assert (pp["convergence_lag_p99_ms"] is None) == (jp["convergence_lag_p99_ms"] is None)
+    assert pp["convergence_lag_p99_ms"] is not None and pp["convergence_lag_p99_ms"] >= 0
+    assert pstats["snapshot"]["install_p99_ms"] is None and jstats["snapshot"]["install_p99_ms"] is None
 
 
 @pytest.mark.parametrize("topology", ["pair", "chain"])

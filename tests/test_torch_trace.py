@@ -1,5 +1,6 @@
 """The port's distributed tracing (`evolu_tpu_torch.obs.trace`), the twin
-of tests/test_trace.py without its fleet episodes: the context codec and
+of tests/test_trace.py without its fleet episodes (their twins are in
+tests/test_torch_trace_legs.py): the context codec and
 deterministic sampling, the bounded span ring and fan-in link retrieval,
 the Chrome export's shape, the relay's GET /trace surface and its token
 gate, traceparent header fuzz (malformed headers are ignored, never a 4xx
