@@ -5,9 +5,10 @@ engine, the client handle with its encrypted sync, and the packed/native
 receive, the relay as a live HTTP server, the relay tier's replication
 half, push subscriptions on the event-loop connection tier, the
 write-behind storage inversion, scoped sync (partial replication), the
-sort-free scatter-argmax merge plan with its router, and the owner mesh
+sort-free scatter-argmax merge plan with its router, the owner mesh
 (the sharded reconcile, engine and winner cache, the hot-owner split and
-the multi-process pod pass) on shards sharing the card.
+the multi-process pod pass) on shards sharing the card, and the public
+surface with the system's entry points.
 Needs one
 NVIDIA Hopper card, g++, libsqlite3.so.0
 and libcrypto; run from the repo root:
@@ -46,7 +47,9 @@ failure ends the run with a traceback and a nonzero code):
               batches, then 64 replicas editing the same 100 rows,
               through `apply_messages(planner=plan_batch_device_full)`;
               every table and the Merkle tree string byte-identical to
-              `apply_messages_sequential` on a second database.
+              `apply_messages_sequential` on a second database, run in a
+              process of the spawned pool while the card runs paths M1 to
+              B (`b_oracle`, held by digest).
 5. path C1 — the typed folds at the repo's benchmark sizes, each against
               the port's host oracle: `pn_counter_sums` (2^20 ops, 2^18
               cells), `rga_order` (2^20-2 elements, 2^12 cells),
@@ -60,7 +63,9 @@ failure ends the run with a traceback and a nonzero code):
               and a 10k re-delivery, through `apply_messages` with the
               device planner and device folds; every table and the
               Merkle tree byte-identical to `apply_messages_sequential`
-              with host folds on a second database. Every call of a
+              with host folds on a second database, run in the pool while
+              the card runs paths M1 to C2 (`c2_oracle`, held by digest).
+              Every call of a
               kernel's dispatcher is recorded (for the timing phase)
               and must match its launch count.
 7. path D   — the client `DbWorker(device=None)` with `backend="auto"` and
@@ -110,9 +115,10 @@ failure ends the run with a traceback and a nonzero code):
               config 1: the todo table, 2 replicas, 930 messages in
               `batching()` groups under live
               QueryViews, B's reset_owner / restore_owner and re-sync (host
-              route); F2 config 2: A's 10 Sends of 10k, B pulls after each,
-              a third device C restores A's mnemonic after the 5th and pulls
-              the 50k history in one round, then pulls with B; F3 the typed
+              route); F2 config 2: A's 6 Sends of 10k (10 until the cut
+              for path Q), B pulls after each, a third device C restores
+              A's mnemonic after the 3rd and pulls the 30k history in one
+              round, then pulls with B; F3 the typed
               calls on path C2's board schema, 4 groups of 2,048. An oracle
               set (`backend="cpu"` clients on `device="cpu"` over
               `PySqliteDatabase`, the pure crypto loops,
@@ -125,9 +131,10 @@ failure ends the run with a traceback and a nonzero code):
               (the response decode), the workers' apply and the rest, the
               responses by decode route, the apply routes and the
               transports' counts.
-10. path G  — the packed/native receive. G1: path D's D1 and D2 (the
-              2^19-message initial sync in 4 chunks, then 3 steady
-              Receives of 100k) sealed with the native `encrypt_batch`,
+10. path G  — the packed/native receive. G1: path D's D1 and D2's first
+              batch (the 2^19-message initial sync in 4 chunks, then a
+              steady Receive of 100k; 3 of them until the cut for path Q)
+              sealed with the native `encrypt_batch`,
               pushed into a native `RelayStore` and served back by
               `serve_single_request`; the card side decodes each response
               with `decrypt_response_columns` into a `DbWorker(device=None)`
@@ -143,15 +150,17 @@ failure ends the run with a traceback and a nonzero code):
               responses equal path E's, tables equal path E's store. Each
               prints msgs/s and its wall split, and H and X's launches.
 11. path H  — the relay as a live server. H1: path E's E1 and E2
-              requests POSTed over HTTP by `sync.client._http_post` from 32
+              requests of owners 0-499 (half of them since the cut for
+              path Q) POSTed over HTTP by `sync.client._http_post` from 32
               client threads (disjoint owners, path E's order an owner) to
               `RelayServer(RelayStore(<file>, backend="native"),
               batching=True)` on the card: the continuous-batching
               `SyncScheduler` runs each batch through `start_batch` /
               `finish_batch`; responses equal path E's, tables path E's
-              store's; msgs/s, requests/s, client p50/p99 latency, engine
-              passes and their sizes, the scheduler's counts and the
-              streaming split. H2: E1 in 8 batches of 125 owners, then E2,
+              store's rows of those owners; msgs/s, requests/s, client
+              p50/p99 latency, engine passes and their sizes, the
+              scheduler's counts and the streaming split. H2: those owners'
+              E1 requests in 4 batches of 125 owners, then their E2,
               through `reconcile_stream` and through `run_batch_wire` batch
               by batch on fresh native stores: equal to path E and to each
               other, with the pull thread's wait beside the host leg per
@@ -164,13 +173,13 @@ failure ends the run with a traceback and a nonzero code):
 12. path I  — the relay tier's replication half, every relay a
               `RelayServer(RelayStore(<file>, backend="native"),
               batching=True)` on the card serving real HTTP. I1: a fresh
-              relay B with `peers=[A]`, A being H1's relay (1.1M rows, 1k
-              owners), converges on its own gossip loop (default caps);
+              relay B with `peers=[A]`, A being H1's relay (550,522 rows,
+              500 owners), converges on its own gossip loop (default caps);
               B's trees and rows an owner equal A's, the pulled keys are
               exactly A's rows (re-pulled messages counted apart; the
               full-table compare was cut when path M was added), H = X =
               B's engine passes. I2: a donor D of
-              128,000 rows (each owner's first 128 of E1, by
+              64,000 rows (each owner's first 64 of E1, by
               `run_batch_wire`) bootstraps a fresh relay C
               (`bootstrap_lag_owners=1`) from its snapshot in 4 MiB chunks,
               verified on the host with no engine pass; 10,000 new messages
@@ -178,8 +187,9 @@ failure ends the run with a traceback and a nonzero code):
               into 4 native shards with every tree equal. I3: 3 relays,
               each in a process of its own (`i3_member`, as
               benchmarks/fleet_scaling.py runs them; one interpreter until
-              path P was added), under one `FleetConfig` (R 2) take 16,000
-              messages (32,000 until path O was added) over 1k
+              path P was added), under one `FleetConfig` (R 2) take 8,000
+              messages (32,000 until path O was added, 16,000 until path
+              Q was) over 1k
               owners (Zipf 1.1, batches of 64, 8 client threads following
               one 307 each), then a 4th relay joins by `/fleet/reload`
               under a writer; at each scoped-gossip fixpoint every owner's
@@ -211,7 +221,7 @@ failure ends the run with a traceback and a nonzero code):
               = 0.
 14. path K  — the write-behind storage inversion: serve from in-memory
               trees, ACK into an fsync'd log, drain to SQLite later. K1:
-              the bodies of H1's first 128 owners (256 of its 2,000,
+              the bodies of H1's first 128 owners (256 of its 1,000,
               cut when path N was added) from its 32 lanes to a batching
               card relay with `write_behind=True` at the Config's
               defaults (503 + Retry-After when the queue is full, retried
@@ -224,7 +234,7 @@ failure ends the run with a traceback and a nonzero code):
               shards and 4 drain workers, serve ms a batch beside H2's,
               the flush, responses and drained tables equal path E's. K3:
               crash and replay through `tests/_torch_write_behind_worker.py`
-              (12 seeded batches of ~8,000 messages served on the card,
+              (12 seeded batches of ~4,000 messages served on the card,
               SIGKILL at a seeded ACK, replay in a fresh process), on 3
               shards with 3 workers, batches with no redelivered
               rows so the kill finds a backlog: the replayed state equals
@@ -268,8 +278,9 @@ failure ends the run with a traceback and a nonzero code):
               ingested by the one-shot packed ingest, lanes recorded by
               `record_push_lanes` (10 an owner, 1/64 untagged, one owner in
               upper-case hex), a native file store made in the pool
-              (`p_seed`); 16 fresh scoped pullers (half the history,
-              one lane) and 2 fresh full pullers converge over HTTP: each
+              (`p_seed`); 8 fresh scoped pullers of 8 of the owners (half
+              the history, one lane; 16 until the cut for path Q) and 2
+              fresh full pullers converge over HTTP: each
               crc carry equals its owed set's (a plain statement of the
               membership rule), 2 answers equal `scoped_response` on the
               CPU, and the scoped serve's split, rounds, bytes and rows/s
@@ -383,15 +394,35 @@ failure ends the run with a traceback and a nonzero code):
               messages into a card DbWorker with the ledger off and on:
               equal end states, the apply plane's equations, route.packed
               > 0, L twice and H and X once.
+21. path Q  — the public surface, every step through `from evolu_tpu_torch
+              import ...` and `evolu_tpu_torch.examples`, on the card. Q1:
+              a `RelayServer(RelayStore(file))`; client A (`create_evolu`
+              with todo_cli's schema, `connect`) creates 20 categories and
+              2,000 todos, toggles 500, renames 500, assigns 1,000 and
+              soft-deletes 200 (about 12,500 messages), and syncs; client B
+              restores A's mnemonic on an empty database and syncs once:
+              its first receive holds all of A's messages (at least 8,192,
+              above `min_device_batch`, so the card plans it), and a twin of
+              B with backend="cpu" does the same. B's `ls` rows equal A's,
+              B's tree equals A's and the relay's, B's app tables and
+              `__message` equal the twin's; L, X and H launch. Q2: the web
+              demo's episode over HTTP (CRUD, a long-poll woken by a
+              toggle, a soft delete, a reset), then two demos of one owner
+              converging through Q1's relay. Q3 (the processes started
+              before Q1): `python -m evolu_tpu_torch.examples.relay_server`
+              answers /ping and a push and a pull with an in-process
+              RelayServer's bytes; `python -m evolu_tpu_torch.examples.pod_server`
+              prints JAX's line for its demo batch (pod digest 0x9eac93cd).
 
 Every path sets every kernel's launch count to 0 just before it runs
 and reads all four just after (G1 and G2 each, summed as path G). In
 the kernels JSON, `launches` is the sum of those counts and
-`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,o,p,m,n}` are the counts themselves (H1,
+`launches_path_{a,b,c1,c2,d,e,f,g,h,i,j,k,o,p,m,n,q}` are the counts themselves (H1,
 H2 and H3 each, summed as path H; I1, I2 and I3 as path I; J1, J3 and J4 as path
 J; K2 and K3's serving children as path K; O1, O2 and O3's five steps as path O; P1-P4 as path P; M1, M3 and
 M4 as path M, M2 being timing; N1-N6 as path N, N5's from its two pod
-processes, each step's mesh runs only); `ms`, `device_ms`,
+processes, each step's mesh runs only; Q1 and Q2 as path Q, Q3's
+processes uncounted); `ms`, `device_ms`,
 `plain_ms`, `bound_ms` and `max_abs_err` are at the input named by
 `timed_on`; `path_c2_{ms,device_ms,bound_ms}`
 are summed over every call path C2 made; `ported` and `redesigned` are
@@ -417,6 +448,8 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -424,6 +457,7 @@ import tempfile
 import threading
 import time
 import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -969,22 +1003,26 @@ def path_a(torch, kernels, need, pool):
                       "wall": wall, "messages": n_msgs, "routes": routes}
 
 
-def path_b(torch, kernels, need):
-    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
-    from evolu_tpu_torch.core.types import CrdtMessage, TableDefinition
-    from evolu_tpu_torch.ops.merge import plan_batch_device_full
-    from evolu_tpu_torch.storage import (
-        PySqliteDatabase, apply_messages, apply_messages_sequential, init_db_model, update_db_schema,
-    )
+B_TABLES = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",)}
 
-    tables = {"todo": ("title", "isCompleted", "categoryId"), "todoCategory": ("name",)}
 
-    def make_db():
-        db = PySqliteDatabase()
-        init_db_model(db, MNEMONIC)
-        update_db_schema(db, [TableDefinition.of(t, c) for t, c in tables.items()])
-        return db
+def b_db():
+    from evolu_tpu_torch.core.types import TableDefinition
+    from evolu_tpu_torch.storage import PySqliteDatabase, init_db_model, update_db_schema
 
+    db = PySqliteDatabase()
+    init_db_model(db, MNEMONIC)
+    update_db_schema(db, [TableDefinition.of(t, c) for t, c in B_TABLES.items()])
+    return db
+
+
+def b_batches():
+    """Path B's batches from seed 13 (the same in the card's process and in
+    the oracle's): 100k messages in batches of 10k, a 5k re-delivery, then
+    config 4's 64 replicas editing the same 100 rows."""
+    from evolu_tpu_torch.core.types import CrdtMessage
+
+    tables = B_TABLES
     rng = np.random.default_rng(13)
     n = 100_000
     table = np.where(rng.random(n) < 0.8, "todo", "todoCategory")
@@ -1012,14 +1050,43 @@ def path_b(torch, kernels, need):
                 for k, s in enumerate(ts_strings(t_ms, rng.integers(0, 3, 100),
                                                  np.full(100, int(nodes[r], 16), dtype=np.uint64)))]
     batches.append(hot)
+    return batches
 
-    planner = plan_batch_device_full
-    db, oracle = make_db(), make_db()
-    tree, oracle_tree = {}, {}
+
+def b_state(db, tree):
+    """Every table of path B (digests of their rows in key order) and the tree."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+
+    return ({t: digest(db.exec(f'SELECT * FROM "{t}" ORDER BY 1, 2')) for t in ("__message", *B_TABLES)},
+            merkle_tree_to_string(tree))
+
+
+def b_oracle():
+    """Path B's sequential oracle, run in a process of the spawned pool
+    while the card runs paths M1 to B (it ran after B's card side, 10 s,
+    until the cut for path Q). → (`b_state`, its wall)."""
+    from evolu_tpu_torch.storage import apply_messages_sequential
+
+    db, tree = b_db(), {}
+    t0 = time.perf_counter()
+    for b in b_batches():
+        tree = apply_messages_sequential(db, tree, b)
+    return b_state(db, tree), time.perf_counter() - t0
+
+
+def path_b(torch, kernels, need, oracle_job):
+    """SQLite apply through the device planner against the sequential
+    oracle of the pool (`b_oracle`): every table (by digest) and the tree
+    equal. → launches."""
+    from evolu_tpu_torch.ops.merge import plan_batch_device_full
+    from evolu_tpu_torch.storage import apply_messages
+
+    batches = b_batches()
+    db, tree = b_db(), {}
     reset(kernels)
     t0 = time.perf_counter()
     for b in batches:
-        tree = apply_messages(db, tree, b, planner=planner)
+        tree = apply_messages(db, tree, b, planner=plan_batch_device_full)
     wall = time.perf_counter() - t0
     launches = read(kernels)
     total = sum(len(b) for b in batches)
@@ -1027,16 +1094,16 @@ def path_b(torch, kernels, need):
           f"({total / wall:,.0f} msgs/s incl. SQLite); launches {launches}", flush=True)
     check_launched("path B", launches, need)
     t0 = time.perf_counter()
-    for b in batches:
-        oracle_tree = apply_messages_sequential(oracle, oracle_tree, b)
-    for t in ("__message", *tables):
-        q = f'SELECT * FROM "{t}" ORDER BY 1, 2'
-        if db.exec(q) != oracle.exec(q):
-            raise AssertionError(f"path B: table {t} differs from the sequential oracle")
-    if merkle_tree_to_string(tree) != merkle_tree_to_string(oracle_tree):
+    (want_tables, want_tree), oracle_wall = oracle_job.get()
+    waited = time.perf_counter() - t0
+    got_tables, got_tree = b_state(db, tree)
+    bad = [t for t in want_tables if got_tables[t] != want_tables[t]]
+    if bad:
+        raise AssertionError(f"path B: tables {bad} differ from the sequential oracle")
+    if got_tree != want_tree:
         raise AssertionError("path B: Merkle tree differs from the sequential oracle")
-    print(f"  path B: every table and the Merkle tree byte-identical to the sequential oracle "
-          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    print(f"  path B: every table and the Merkle tree byte-identical to the sequential oracle of the pool "
+          f"({oracle_wall:.1f}s there; waited {waited:.1f}s for it)", flush=True)
     return launches
 
 
@@ -1291,31 +1358,61 @@ C2_DISPATCHERS = (
 )
 
 
-def path_c2(torch, kernels, calls):
-    """SQLite typed apply through the device planner and device folds,
-    against the sequential oracle with host folds. Every dispatcher call
-    is appended to `calls[slot]`. Returns (launches, report)."""
-    from evolu_tpu_torch.core import crdt_types
-    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
-    from evolu_tpu_torch.core.types import TableDefinition
-    from evolu_tpu_torch.ops.merge import plan_batch_device_full
-    from evolu_tpu_torch.storage import (
-        PySqliteDatabase, apply_messages, apply_messages_sequential, init_db_model, update_db_schema,
-    )
+# Path C2's tables, each with the key order its rows are compared in.
+C2_ORDER = {"__message": "1", "board": "1", "__crdt_schema": "1, 2", "__crdt_counter": "1, 2, 3",
+            "__crdt_set": "1", "__crdt_kill": "1", "__crdt_list": "1", "__crdt_list_kill": "1",
+            "__crdt_tensor": "1"}
 
-    def make_db():
-        db = PySqliteDatabase()
-        init_db_model(db, MNEMONIC)
-        update_db_schema(db, [TableDefinition.of("board", TYPED_COLUMNS)])
-        return db
+
+def c2_db():
+    from evolu_tpu_torch.core.types import TableDefinition
+    from evolu_tpu_torch.storage import PySqliteDatabase, init_db_model, update_db_schema
+
+    db = PySqliteDatabase()
+    init_db_model(db, MNEMONIC)
+    update_db_schema(db, [TableDefinition.of("board", TYPED_COLUMNS)])
+    return db
+
+
+def c2_state(db, tree):
+    """Every table of path C2 (digests of their rows in key order, and row
+    counts) and the tree."""
+    from evolu_tpu_torch.core.merkle import merkle_tree_to_string
+
+    rows = {t: db.exec(f'SELECT * FROM "{t}" ORDER BY {by}') for t, by in C2_ORDER.items()}
+    return {t: (digest(r), len(r)) for t, r in rows.items()}, merkle_tree_to_string(tree)
+
+
+def c2_oracle():
+    """Path C2's sequential oracle with host folds (an independent oracle),
+    run in a process of the spawned pool while the card runs paths M1 to
+    C2 (it ran after C2's card side, 17 s, until the cut for path Q).
+    → (`c2_state`, its wall)."""
+    from evolu_tpu_torch.core import crdt_types
+    from evolu_tpu_torch.storage import apply_messages_sequential
+
+    db, tree = c2_db(), {}
+    t0 = time.perf_counter()
+    with patched(crdt_types, "DEVICE_FOLD_MIN", 10**12):  # host folds
+        for b in typed_traffic(np.random.default_rng(29)):
+            tree = apply_messages_sequential(db, tree, b)
+    return c2_state(db, tree), time.perf_counter() - t0
+
+
+def path_c2(torch, kernels, calls, oracle_job):
+    """SQLite typed apply through the device planner and device folds,
+    against the sequential oracle with host folds of the pool
+    (`c2_oracle`). Every dispatcher call is appended to `calls[slot]`.
+    Returns (launches, report)."""
+    from evolu_tpu_torch.ops.merge import plan_batch_device_full
+    from evolu_tpu_torch.storage import apply_messages
 
     t0 = time.perf_counter()
     batches = typed_traffic(np.random.default_rng(29))
     total = sum(len(b) for b in batches)
     print(f"  path C2: {total} messages in {len(batches)} batches built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    db, oracle = make_db(), make_db()
-    tree, oracle_tree = {}, {}
+    db, tree = c2_db(), {}
     with contextlib.ExitStack() as stack:
         for mod, name, slot in C2_DISPATCHERS:
             m = importlib.import_module(f"evolu_tpu_torch.ops.{mod}")
@@ -1334,24 +1431,18 @@ def path_c2(torch, kernels, calls):
             raise AssertionError(f"path C2: {len(calls.get(k['slot'], []))} recorded calls of "
                                  f"{k['name']}, {launches[k['name']]} launches")
     t0 = time.perf_counter()
-    with patched(crdt_types, "DEVICE_FOLD_MIN", 10**12):  # host folds: an independent oracle
-        for b in batches:
-            oracle_tree = apply_messages_sequential(oracle, oracle_tree, b)
-    oracle_wall = time.perf_counter() - t0
-    order = {"__message": "1", "board": "1", "__crdt_schema": "1, 2", "__crdt_counter": "1, 2, 3",
-             "__crdt_set": "1", "__crdt_kill": "1", "__crdt_list": "1", "__crdt_list_kill": "1",
-             "__crdt_tensor": "1"}
-    sizes = {}
-    for t, by in order.items():
-        q = f'SELECT * FROM "{t}" ORDER BY {by}'
-        got = db.exec(q)
-        if got != oracle.exec(q):
-            raise AssertionError(f"path C2: table {t} differs from the sequential oracle")
-        sizes[t] = len(got)
-    if merkle_tree_to_string(tree) != merkle_tree_to_string(oracle_tree):
+    (want_tables, want_tree), oracle_wall = oracle_job.get()
+    waited = time.perf_counter() - t0
+    got_tables, got_tree = c2_state(db, tree)
+    bad = [t for t in want_tables if got_tables[t] != want_tables[t]]
+    if bad:
+        raise AssertionError(f"path C2: tables {bad} differ from the sequential oracle")
+    if got_tree != want_tree:
         raise AssertionError("path C2: Merkle tree differs from the sequential oracle")
+    sizes = {t: n for t, (_d, n) in got_tables.items()}
     print(f"  path C2: every table ({json.dumps(sizes)} rows) and the Merkle tree byte-identical "
-          f"to the sequential oracle ({oracle_wall:.1f}s)", flush=True)
+          f"to the sequential oracle of the pool ({oracle_wall:.1f}s there; waited {waited:.1f}s for it)",
+          flush=True)
     return launches, {"messages": total, "batches": len(batches), "wall_s": round(wall, 4),
                       "msgs_per_s": round(total / wall), "oracle_wall_s": round(oracle_wall, 4),
                       "rows": sizes}
@@ -1568,14 +1659,13 @@ def d_inputs():
     return d1, d2, d3, trees
 
 
-def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2=None, after_d2_first=None):
+def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2_first=None):
     """Drive one DWorker through path D: D1, D2 and D3's Receives, each with
     the relay's tree after it; then D4: a Send of 1k, a Query of 10
     subscribed queries, a Sync, a Receive of 200 whose server tree holds
     one hash the client lacks (in a minute after all of its history), and a
     Query. `after_d1(w)` runs between D1 and D2, `after_d2_first(w)` after
-    D2's first Receive, `after_d2(w)` between D2 and D3. → each phase's
-    Receive routes."""
+    D2's first Receive. → each phase's Receive routes."""
     from evolu_tpu_torch.core.merkle import insert_into_merkle_tree, merkle_tree_to_string
     from evolu_tpu_torch.core.timestamp import timestamp_to_string
     from evolu_tpu_torch.core.types import CrdtMessage, NewCrdtMessage, Timestamp
@@ -1596,8 +1686,6 @@ def d_script(w, clock, d1, d2, d3, trees, after_d1=None, after_d2=None, after_d2
         routes["d2"].append(w.receive("d2", batch, tree))
         if i == 0 and after_d2_first is not None:
             after_d2_first(w)
-    if after_d2 is not None:
-        after_d2(w)
     for (base, batch), tree in zip(d3, trees[1 + len(d2):]):
         clock["now"] = base
         routes["d3"].append(w.receive("d3", batch, tree))
@@ -1631,19 +1719,17 @@ def d_state(w):
 def d_oracle():
     """Path D's oracle, run in a process of the spawned pool while the card
     runs paths B to D: a `backend="cpu"` worker through `d_script`. → its
-    `d_state` after D1 (path M3's oracle), after D2's first Receive (path
-    N4's), after D2 (path G1's) and at the end, and its walls."""
+    `d_state` after D1 (path M3's oracle), after D2's first Receive (paths
+    G1's and N4's) and at the end, and its walls."""
     from evolu_tpu_torch.utils.config import Config
 
     d1, d2, d3, trees = d_inputs()
     clock = {"now": D1_BASE}
     cpu = DWorker("cpu oracle", Config(backend="cpu", receive_chunk_size=1 << 17), clock)
-    after_d1, after_d2, after_d2_first = {}, {}, {}
+    after_d1, after_d2_first = {}, {}
     d_script(cpu, clock, d1, d2, d3, trees, after_d1=lambda w: after_d1.update(d_state(w)),
-             after_d2=lambda w: after_d2.update(d_state(w)),
              after_d2_first=lambda w: after_d2_first.update(d_state(w)))
-    out = {"after_d1": after_d1, "after_d2": after_d2, "after_d2_first": after_d2_first,
-           "end": d_state(cpu), "walls": dict(cpu.walls)}
+    out = {"after_d1": after_d1, "after_d2_first": after_d2_first, "end": d_state(cpu), "walls": dict(cpu.walls)}
     cpu.stop()
     return out
 
@@ -1653,11 +1739,10 @@ def path_d(torch, kernels, oracle_job):
     `device=None`) through `d_script`, against a `backend="cpu"` worker fed
     the same commands in a process of the pool (`oracle_job`, `d_oracle`):
     outputs, pushes, every table (by digest) and the tree equal. Returns
-    (launches, report, the relay's trees after D1 and each D2 batch, D1 and
-    the D2 batches as (base, messages), and the oracle's states after D1,
-    after D2 and after D2's first Receive: path M3 replays D1 against the
-    first, path G1 D1 and D2 against the second, path N4 D1 and D2's first
-    batch against the third)."""
+    (launches, report, the relay's trees after D1 and D2's first batch, D1
+    and that batch as (base, messages), and the oracle's states after D1
+    and after D2's first Receive: path M3 replays D1 against the first,
+    paths G1 and N4 D1 and D2's first batch against the second)."""
     from evolu_tpu_torch.utils.config import Config
 
     t0 = time.perf_counter()
@@ -1712,8 +1797,7 @@ def path_d(torch, kernels, oracle_job):
     report["rows"] = sizes
     report["oracle_in_pool_process"] = True
     gpu.stop()
-    return (launches, report, trees[:1 + len(d2)], [(D1_BASE, d1)] + d2,
-            (oracle["after_d1"], oracle["after_d2"], oracle["after_d2_first"]))
+    return (launches, report, trees[:2], [(D1_BASE, d1), d2[0]], (oracle["after_d1"], oracle["after_d2_first"]))
 
 
 E_MESSAGES = 1_000_000  # BASELINE config 3: 1M messages over 1k owners
@@ -2082,7 +2166,8 @@ F_PARTS = ("encrypt", "relay", "decrypt", "apply")
 # tests/test_torch_apply.py::test_redelivered_loser_is_xored_again_as_in_jax.
 F_ROUND_MS = 60_000
 # F2: Sends of F2_CATS * 3 + F2_TODOS * 5 + F2_UPDATES * 2 = 10,000 messages.
-F2_SENDS, F2_CATS, F2_TODOS, F2_UPDATES = 10, 200, 1600, 700
+# F2's Sends of 10k: 6 (10 until the cut for path Q; C restores after half of them).
+F2_SENDS, F2_CATS, F2_TODOS, F2_UPDATES = 6, 200, 1600, 700
 # F3's groups cut from 8 to 4 when path G was added.
 F3_ROWS, F3_GROUPS, F3_CALLS = 256, 4, 2048
 
@@ -2340,10 +2425,10 @@ def f1_todos(fs):
 
 
 def f2_config2(fs, sends=F2_SENDS, after_send=None):
-    """F2, BASELINE config 2: todo/todoCategory, 100k messages. A makes 10
+    """F2, BASELINE config 2's todo/todoCategory shape: A makes F2_SENDS
     Sends of 10k (1,600 todo creates, 200 category creates and 700 updates
-    a Send, in batching()); B pulls after each. After the 5th Send a third
-    device C restores A's mnemonic on an empty database and pulls the 50k
+    a Send, in batching()); B pulls after each. After half of the Sends a
+    third device C restores A's mnemonic on an empty database and pulls the
     history in one round, then pulls with B. Every batch is device-planned.
     `sends` cuts the Sends (C restores after half of them); `after_send(s)`
     runs once A's Send s has reached the relay."""
@@ -2613,23 +2698,32 @@ def native_paths_in_port_build():
     return paths
 
 
-def pure_decrypt(pool, contents, mnemonic):
-    """The pure OpenPGP loop (`decrypt_messages_pure`) over `contents` in
-    the processes of `pool`, contiguous slices in order: the G1 oracle's
-    decode, run while the card side is timed. → an AsyncResult of the
-    slices' message tuples."""
+def pure_decode_slice(body, part, mnemonic):
+    """The pure decode of a sync response `body` (the protobuf decode, then
+    the OpenPGP loop `decrypt_messages_pure`) for the `part`-th of
+    ORACLE_PROCESSES contiguous slices of its messages. → (the response's
+    tree, the slice's messages)."""
+    from evolu_tpu_torch.sync import protocol
     from evolu_tpu_torch.sync.client import decrypt_messages_pure
 
-    size = -(-len(contents) // ORACLE_PROCESSES)
-    slices = [(contents[i:i + size], mnemonic) for i in range(0, len(contents), size)]
-    return pool.starmap_async(decrypt_messages_pure, slices)
+    response = protocol.decode_sync_response(body)
+    size = -(-len(response.messages) // ORACLE_PROCESSES)
+    return response.merkle_tree, decrypt_messages_pure(response.messages[part * size:(part + 1) * size], mnemonic)
+
+
+def pure_decrypt(pool, body, mnemonic):
+    """The G1 oracle's pure decode of one response, in the processes of
+    `pool` (each decodes the protobuf and decrypts its slice), run while the
+    card side is timed. → an AsyncResult of the slices' (tree, messages)."""
+    return pool.starmap_async(pure_decode_slice, [(body, i, mnemonic) for i in range(ORACLE_PROCESSES)])
 
 
 def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     """G1, a client's packed receive on the card, at path D's config-2 todo
     shape: D1's initial sync (2^19 messages over ~2^17 cells, in 4 chunks
-    of 2^17), then D2's Receives of 100k over the 5k-row population (the
-    cached case). Each batch is sealed with the native `encrypt_batch`,
+    of 2^17), then D2's first Receive of 100k over the 5k-row population
+    (the cached case; D2's other two were cut to make room for path Q).
+    Each batch is sealed with the native `encrypt_batch`,
     pushed into a native `RelayStore` (the packed ingest on the card), and
     served back to the client as a sync response by
     `serve_single_request`; these bytes are made before the counts are
@@ -2640,12 +2734,13 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     processes of `pool`, while the card side runs), which must give
     exactly the messages and trees
     path D's `backend="cpu"` worker on `PySqliteDatabase` received for D1
-    and D2, with the same clock; that worker's outputs, pushes, tables and
-    tree after them (`oracle`, taken in path D) are the oracle's. They
+    and D2's first batch, with the same clock; that worker's outputs,
+    pushes, tables and tree after them (`oracle`, taken in path D) are the
+    oracle's. They
     must equal the card side's; every batch must plan and apply packed (no
     bounce); L twice, H and X once a plan, S never. `batches` are path D's
-    D1 and D2 as (base, messages) and `trees` the relay's trees after
-    each. Returns (launches, report)."""
+    D1 and D2's first batch as (base, messages) and `trees` the relay's
+    trees after each. Returns (launches, report)."""
     from evolu_tpu_torch.core.packed import PackedReceive
     from evolu_tpu_torch.ops.winner_cache import DeviceWinnerCache
     from evolu_tpu_torch.runtime import worker as worker_mod
@@ -2685,13 +2780,10 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
 
     # The oracle's pure decode of every response starts in the pool now and
     # runs while the card side below is timed (it took 15-17 s after it
-    # until path P was added).
+    # until path P was added; the protobuf decode ran here, 7 s, until the
+    # cut for path Q).
     t1 = time.perf_counter()
-    oracle_jobs = []
-    for ph, _base, _n, body in bodies:
-        response = protocol.decode_sync_response(body)
-        oracle_jobs.append((ph, response.merkle_tree, pure_decrypt(pool, response.messages, MNEMONIC)))
-    del response
+    oracle_jobs = [(ph, pure_decrypt(pool, body, MNEMONIC)) for ph, _base, _n, body in bodies]
     oracle_submit_s = time.perf_counter() - t1
 
     split = Timed(torch, [(PackedReceive, "parse_timestamps", "hlc_fold", False),
@@ -2714,11 +2806,12 @@ def path_g1(torch, kernels, trees, batches, report_d, oracle, pool):
     apply_routes = {k: papply.counts[k] - applied[k] for k in applied}
     parts = {k: round(v, 4) for k, v in parts.items()}
     oracle_wait = {"d1": 0.0, "d2": 0.0}
-    for (ph, served_tree, job), (_b, batch), tree in zip(oracle_jobs, batches, trees):
+    for (ph, job), (_b, batch), tree in zip(oracle_jobs, batches, trees):
         t1 = time.perf_counter()
-        messages = tuple(itertools.chain.from_iterable(job.get()))
+        slices = job.get()
         oracle_wait[ph] += time.perf_counter() - t1
-        if messages != tuple(batch) or served_tree != tree:
+        messages = tuple(itertools.chain.from_iterable(m for _t, m in slices))
+        if messages != tuple(batch) or {t for t, _m in slices} != {tree}:
             raise AssertionError("path G1: the pure decode of a response differs from what path D's "
                                  "oracle worker received")
     del messages, oracle_jobs
@@ -2870,8 +2963,9 @@ def path_g2(torch, kernels, keep):
 # ---- path H: the relay as a live server ----------------------------------------------
 
 H_CLIENTS = 32  # H1's client threads, each with a disjoint slice of owners
-K1_OWNERS = 128  # path K1 replays these first owners of H1 (256 of its 2,000 bodies)
-H2_BATCHES = 8  # E1 split into batches of 125 owners for the pipeline
+H_OWNERS = 500  # H1, H2 and K2 drive path E's owners 0-499 (all 1,000 until the cut for path Q)
+K1_OWNERS = 128  # path K1 replays these first owners of H1 (256 of its 1,000 bodies)
+H2_BATCHES = 4  # H1's owners' E1 requests in batches of 125 owners for the pipeline
 H3_SENDS = 5  # F2 cut to 5 Sends of 10k for the HTTP clients
 F2_V1_CRYPTO_SHARE = "13.5-15.6%"  # path F's F2 on the v1 wire (PERF.md section 5)
 
@@ -2907,27 +3001,38 @@ def h_stream_split(torch, eng):
                          (eng.BatchReconciler, "_respond_wire", "respond", False)])
 
 
+def h_owner(user_id) -> bool:
+    """Whether an owner of path E is one of H1's (owners 0 to H_OWNERS - 1)."""
+    return user_id < f"owner{H_OWNERS:04d}"
+
+
+def h_requests(pairs):
+    """The (request, wanted response) pairs of path E that belong to H1's owners."""
+    return [(r, out) for r, out in pairs if h_owner(r.user_id)]
+
+
 def h1_bodies():
-    """Path E's E1 and E2 requests encoded as sync POST bodies, in H1's
-    order; made in a process of the spawned pool while the card runs paths
-    B to E (the encoding, 3–5 s, was cut from H1's phase when path K was
-    added)."""
+    """Path E's E1 and E2 requests of H1's owners encoded as sync POST
+    bodies, in H1's order; made in a process of the spawned pool while the
+    card runs paths B to E (the encoding, 3–5 s, was cut from H1's phase
+    when path K was added)."""
     from evolu_tpu_torch.sync import protocol
 
     _pool, e1, e2, _e3 = e_requests()
-    return [protocol.encode_sync_request(r) for r in e1 + e2]
+    return [protocol.encode_sync_request(r) for r in e1 + e2 if h_owner(r.user_id)]
 
 
 def path_h1(torch, kernels, keep, tmp, bodies):
-    """H1, the live relay at config 3: path E's E1 requests (1M messages over
-    1k owners), then its E2 requests, POSTed over HTTP by `sync.client.
+    """H1, the live relay at config 3: path E's E1 requests of owners 0-499
+    (500,000 messages; all 1k owners until the cut for path Q), then their
+    E2 requests, POSTed over HTTP by `sync.client.
     _http_post` from H_CLIENTS threads, each owning a disjoint slice of
     owners and sending each owner's requests in path E's order, to
     `RelayServer(RelayStore(<file>, backend="native"), batching=True)` with
     `device=None`: every batch takes `start_batch`/`finish_batch` on the
-    card. Every response equals path E's and the tables path E's store (a
-    batch never holds two requests of one owner). `bodies`: the requests
-    encoded (`h1_bodies`). → (launches, report)."""
+    card. Every response equals path E's and the tables path E's store's
+    rows of these owners (a batch never holds two requests of one owner).
+    `bodies`: the requests encoded (`h1_bodies`). → (launches, report)."""
     import threading
 
     from evolu_tpu_torch.server import engine as eng
@@ -2935,8 +3040,8 @@ def path_h1(torch, kernels, keep, tmp, bodies):
     from evolu_tpu_torch.sync import protocol
     from evolu_tpu_torch.sync.client import _http_post
 
-    (e1, e1_out), (e2, e2_out), generic = keep["e1"], keep["e2"], keep["store"]
-    jobs = [(r, out) for reqs, outs in ((e1, e1_out), (e2, e2_out)) for r, out in zip(reqs, outs)]
+    (e1, e1_out), (e2, e2_out) = keep["e1"], keep["e2"]
+    jobs = h_requests(zip(e1, e1_out)) + h_requests(zip(e2, e2_out))
     if len(bodies) != len(jobs) or any(protocol.decode_sync_request(bodies[i]) != jobs[i][0]
                                        for i in range(0, len(jobs), 97)):
         raise AssertionError("path H1: the pool's bodies are not path E's requests")
@@ -2989,7 +3094,7 @@ def path_h1(torch, kernels, keep, tmp, bodies):
         if got[i] != want:
             raise AssertionError(f"path H1: the response to {r.user_id} differs from path E's")
     t1 = time.perf_counter()
-    mine, theirs = e_dump(server.store), keep.setdefault("store_dump", e_dump(generic))
+    mine, theirs = e_dump(server.store), keep["h_dump"]
     if mine[0] != theirs[0] or mine[1] != theirs[1]:
         raise AssertionError("path H1: the message or merkleTree table differs from path E's store")
     del mine
@@ -3027,21 +3132,24 @@ def path_h1(torch, kernels, keep, tmp, bodies):
 
 
 def path_h2(torch, kernels, keep):
-    """H2, the pipeline alone: E1's requests split into H2_BATCHES batches of
-    125 owners, then E2 as one batch, through `reconcile_stream` on a fresh
+    """H2, the pipeline alone: H1's owners' E1 requests split into H2_BATCHES
+    batches of 125 owners, then their E2 requests as one batch, through
+    `reconcile_stream` on a fresh
     native store and through `run_batch_wire` one batch at a time on
     another. The encoded responses equal path E's on both, and both
-    stores' tables path E's store's. Per batch: the dispatch, the pull
+    stores' tables path E's store's rows of these owners. Per batch: the
+    dispatch, the pull
     thread's wait, the dispatcher's wait for the pull and decode, and the
     host leg (`finish_batch`). → (launches, report)."""
     from evolu_tpu_torch.server import engine as eng
     from evolu_tpu_torch.server.relay import RelayStore
     from evolu_tpu_torch.sync import protocol
 
-    (e1, e1_out), (e2, e2_out), generic = keep["e1"], keep["e2"], keep["store"]
+    e1_jobs, e2_jobs = h_requests(zip(*keep["e1"])), h_requests(zip(*keep["e2"]))
+    e1, e2 = [r for r, _ in e1_jobs], [r for r, _ in e2_jobs]
     per = len(e1) // H2_BATCHES
     batches = [e1[i * per:(i + 1) * per] for i in range(H2_BATCHES - 1)] + [e1[(H2_BATCHES - 1) * per:], e2]
-    want = e1_out + e2_out
+    want = [out for _, out in e1_jobs + e2_jobs]
     n = sum(len(r.messages) for b in batches for r in b)
     report, stores = {}, {}
     routes0 = dict(eng.counts)
@@ -3078,7 +3186,7 @@ def path_h2(torch, kernels, keep):
                 'SELECT "userId", "merkleTree" FROM "merkleTree" ORDER BY 1'):
         if a.db.exec_sql_query_packed_raw(sql) != b.db.exec_sql_query_packed_raw(sql):
             raise AssertionError("path H2: the pipelined and the one-batch-at-a-time stores' tables differ")
-    if e_dump(a) != keep.setdefault("store_dump", e_dump(generic)):
+    if e_dump(a) != keep["h_dump"]:
         raise AssertionError("path H2: the stores' tables differ from path E's store")
     report["compare_s"] = round(time.perf_counter() - t0, 3)
     for st in stores.values():
@@ -3173,12 +3281,14 @@ def path_h(torch, kernels, keep, tmp, h3_oracle, bodies, gpu=""):
     `keep["h1_server"]` beside path E's store dump, for path I. →
     (launches, report)."""
     report, per = {}, {}
+    # Path E's store rows of H1's owners, which H1, H2, I1 and K2 hold.
+    keep["h_dump"] = tuple([row for row in rows if h_owner(row[0])] for rows in keep["store_dump"])
     try:
         per["h1"], report["h1"] = path_h1(torch, kernels, keep, tmp, bodies)
         per["h2"], report["h2"] = path_h2(torch, kernels, keep)
         keep.pop("store").close()
         # Path K's K2 runs H2's batches again.
-        keep["k_requests"] = (keep.pop("e1")[0], keep.pop("e2")[0])
+        keep["k_requests"] = tuple([r for r in keep.pop(e)[0] if h_owner(r.user_id)] for e in ("e1", "e2"))
         per["h3"], report["h3"] = path_h3(torch, kernels, h3_oracle, gpu)
     finally:
         if "store" in keep:
@@ -3190,15 +3300,17 @@ def path_h(torch, kernels, keep, tmp, h3_oracle, bodies, gpu=""):
 
 # ---- path I: the relay tier's replication half on the card --------------------------
 
-I2_PER_OWNER = 128  # I2's donor: each owner's first 128 messages of E1, 128,000 rows (cut from 1.1M)
+# I2's donor: each owner's first 64 messages of E1, 64,000 rows (cut from 1.1M, then from 128 an owner
+# to make room for path Q).
+I2_PER_OWNER = 64
 I2_TAIL = 10_000  # I2's handoff: new messages POSTed to the donor after the capture
 I2_TAIL_OWNERS = 500  # the owners the tail goes to (all 1,000 until path O3 was added)
 I3_RELAYS, I3_R = 3, 2  # benchmarks/fleet_scaling.py:332-339: 3 relays, replication factor 2,
 I3_THREADS, I3_BATCH, I3_ZIPF = 8, 64, 1.1  # 8 client threads, batches of 64, Zipf 1.1 over owners
 # I3's depth, cut from 128,000 and 12,800 when runs of the script passed 650 s with path K's crash episodes;
-# its ingest cut again from 32,000 to 16,000 to make room for path O.
-I3_MESSAGES = 16_000  # at config 3's 1,000 owners
-I3_JOIN_MESSAGES = 6_400  # the writer's during the join (first half of the owner ids)
+# its ingest cut again to 16,000 and 6,400 to make room for path O, and to 8,000 and 3,200 for path Q.
+I3_MESSAGES = 8_000  # at config 3's 1,000 owners
+I3_JOIN_MESSAGES = 3_200  # the writer's during the join (first half of the owner ids)
 I3_JOIN_DEBOUNCE_S = 2.0  # the joiner's gossip debounce: its snapshot sweep, not a ranged pull, moves owners
 I_WAIT_S = 300.0
 
@@ -3275,9 +3387,9 @@ def path_i1(torch, kernels, keep, tmp):
     """I1, anti-entropy at full state: a fresh card relay B
     (`RelayServer(RelayStore(<file>, backend="native"), batching=True,
     peers=[A])`, bootstrap off, the default pull caps) converges on its own
-    gossip loop to path H1's relay A, 1.1M rows over 1k owners; every
+    gossip loop to path H1's relay A, 550,522 rows over 500 owners; every
     pulled message goes through B's scheduler into engine passes on the
-    card. B's Merkle trees equal A's (path E's store) and so do its rows an
+    card. B's Merkle trees equal A's (path E's store's, H1's owners) and so do its rows an
     owner (the full-table compare was cut when path M was added); every
     row was pulled, each exactly once apart from the counted re-pulls, and
     the pulls counted exactly. → (launches, report)."""
@@ -3285,7 +3397,7 @@ def path_i1(torch, kernels, keep, tmp):
     from evolu_tpu_torch.server.relay import RelayServer, RelayStore
 
     donor = keep["h1_server"]
-    want = keep["store_dump"]
+    want = keep["h_dump"]
     donor_trees = dict(want[1])
     keys, sizes = [], []
     store = RelayStore(os.path.join(tmp, "i1.db"), backend="native")
@@ -3896,7 +4008,7 @@ def path_i(torch, kernels, keep, tmp, gpu=""):
         for m in spawned[0] + [spawned[1]]:
             m.close()
         raise
-    for k in [k for k in keep if k not in ("h1_wants", "k1_replay", "store_dump", "k_requests")]:  # for K1, K2
+    for k in [k for k in keep if k not in ("h1_wants", "k1_replay", "store_dump", "h_dump", "k_requests")]:
         del keep[k]
     per["i3"], report["i3"] = path_i3(torch, kernels, tmp, spawned)
     report["launches"] = per
@@ -4268,7 +4380,9 @@ def path_j(torch, kernels, tmp, gpu=""):
 
 K2_MAX_ROWS = 1 << 22  # K2's queue bound: `run_batch_wire` alone has no 503 path, so E1 must fit
 K3_BATCHES = 12  # the reference torture's 12 seeded batches
-K3_SIZE = (64, 64, 500)  # owners, most owners a batch, most new messages an owner: ~8,000 messages a batch
+# Owners, most owners a batch, most new messages an owner: ~4,000 messages a batch (500 an owner, ~8,000
+# a batch, until the cut for path Q).
+K3_SIZE = (64, 64, 250)
 # K3's batches redeliver no earlier rows (the worker's `resend=0`): a redelivery makes the respond
 # wait for its owner's shard to drain (the exact re-read), and nearly every batch of 64 owners holds
 # one, so the queue would be empty at every ACK. With none, the drain stalled a second before each
@@ -4404,8 +4518,9 @@ def path_k1(torch, kernels, keep, tmp, h1, gpu=""):
 
 
 def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
-    """K2, H2 with write-behind on: E1 in H2's 8 batches of 125 owners, then
-    E2, through `run_batch_wire` with a `WriteBehindQueue` (its log beside
+    """K2, H2 with write-behind on: H1's owners' E1 requests in H2's batches of
+    125 owners, then their E2 requests, through `run_batch_wire` with a
+    `WriteBehindQueue` (its log beside
     the shards, 4 drain workers) over a 4-shard native file
     `ShardedRelayStore`. Serve ms of each batch beside H2's, then the
     flush; the responses equal path E's, the drained tables path E's
@@ -4441,7 +4556,7 @@ def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         if bad or len(got) != len(want):
             raise AssertionError(f"path K2: {len(bad)} responses differ from path E's")
-        if k_dump(store) != keep["store_dump"]:
+        if k_dump(store) != keep["h_dump"]:
             raise AssertionError("path K2: the drained tables differ from path E's store")
         wb_counts = dict(wb.counts)
         deferred = eng.counts["deferred_passes"] - routes0["deferred_passes"]
@@ -4468,7 +4583,7 @@ def path_k2(torch, kernels, keep, tmp, h2, gpu=""):
 def path_k3(torch, kernels, tmp, gpu=""):
     """K3, crash and replay on the card, through `tests/
     _torch_write_behind_worker.py` (the port's copy of the reference
-    torture's worker): a child serves K3_BATCHES seeded batches of ~8,000
+    torture's worker): a child serves K3_BATCHES seeded batches of ~4,000
     messages on the card with the drain slowed and a checkpoint every 4th
     batch, the parent SIGKILLs it at a seeded ACK count, and a fresh
     process replays the log (the host fold: no kernel) and flushes. Its
@@ -5332,6 +5447,9 @@ P_UNTAGGED_EVERY = 64  # 1/64 of an owner's rows pushed untagged: lane unknown, 
 P_UPPER_OWNER = 15  # its node hex is upper case: its scoped fold takes the host route
 P_FULL_OWNERS = (0, 1)  # also pulled by full (unscoped) pullers
 P_BYTE_OWNERS = (2, 3)  # HTTP answer held against `scoped_response(device="cpu")`
+# The owners with a scoped puller: 8 of the 16 (all 16 until the cut for
+# path Q), the byte owners and the upper-case owner among them.
+P_SCOPED_OWNERS = (0, 1, 2, 3, 4, 5, 6, P_UPPER_OWNER)
 P3_OWNERS = 4
 P_BASE = BASE_MILLIS + 30_000_000_000  # after every stamp of paths A-K
 P_STEP_MS = 4_000  # an owner's rows 4 s apart: 65,536 rows over 73 hours
@@ -5482,7 +5600,7 @@ def path_p1(torch, kernels, seed, gpu=""):
     lanes (10 an owner, 1/64 untagged, one owner with upper-case node hex),
     made by `p_seed` in the pool (`seed` is its (path, report)), behind a
     batching card `RelayServer` that advertises sync-scope-v1 (and serves
-    /replicate/* for P3). 16 fresh scoped pullers (watermark = the middle
+    /replicate/* for P3). 8 fresh scoped pullers of P_SCOPED_OWNERS (watermark = the middle
     of the history, one lane) and 2 fresh full pullers converge over HTTP;
     each puller's crc carry equals the crc of its owed set, and for 2
     owners the first answer's bytes equal `scoped_response(device="cpu")`
@@ -5522,7 +5640,7 @@ def path_p1(torch, kernels, seed, gpu=""):
                           ("_filter_rows", "filter")):
             stack.enter_context(durations(scope, attr, split[key]))
         for kind, clause_of, which in (
-                ("scoped", lambda o: protocol.ScopeClause(P_WATERMARK, (lane0[o],), ()), range(P_OWNERS)),
+                ("scoped", lambda o: protocol.ScopeClause(P_WATERMARK, (lane0[o],), ()), P_SCOPED_OWNERS),
                 ("full", lambda o: None, P_FULL_OWNERS)):
             threads = [threading.Thread(target=puller, args=((kind, o), o, clause_of(o))) for o in which]
             t0 = time.perf_counter()
@@ -5549,7 +5667,7 @@ def path_p1(torch, kernels, seed, gpu=""):
         if len(served) != len(want) or p_crc(served) != p_crc(want):
             raise AssertionError(f"path P1: the {kind} puller of {owners[o]} was served {len(served)} rows "
                                  f"(crc {p_crc(served)}), owed {len(want)} (crc {p_crc(want)})")
-    report["owed_rows_scoped"] = sum(len(v) for v in owed.values())
+    report["owed_rows_scoped"] = sum(len(owed[owners[o]]) for o in P_SCOPED_OWNERS)
     t0 = time.perf_counter()
     for o in P_BYTE_OWNERS:
         (req, got), = firsts[o]
@@ -5563,10 +5681,11 @@ def path_p1(torch, kernels, seed, gpu=""):
     report["scheduler_counts"] = sched
     if sched["poisoned_batches"] or sched["singles"] or sched["rejected"]:
         raise AssertionError(f"path P1: scheduler counts {sched}")
-    canonical = P_OWNERS - 1
-    if counts["fold_device"] != canonical or counts["fold_host"] != 1 or counts["tree_cache_misses"] != P_OWNERS:
+    canonical = len(P_SCOPED_OWNERS) - 1
+    if counts["fold_device"] != canonical or counts["fold_host"] != 1 \
+            or counts["tree_cache_misses"] != len(P_SCOPED_OWNERS):
         raise AssertionError(f"path P1: scope counts {counts}: expected {canonical} device folds, 1 host fold "
-                             f"(the upper-case owner) and {P_OWNERS} misses")
+                             f"(the upper-case owner) and {len(P_SCOPED_OWNERS)} misses")
     folds = counts["fold_device"]
     check_p("P1", launches, {"seg_lex_max_scan": 0, "seg_xor_scan": folds, "timestamp_hash": folds,
                              "seg_sum_scan": 0})
@@ -7153,6 +7272,329 @@ def native_build():
     return join
 
 
+# ---- path Q: the public surface and the system's entry points ----------------------
+
+Q_CATEGORIES = 20
+Q_TODOS = 2_000
+Q_EDITS = {"toggle": 500, "rename": 500, "assign": 1_000, "delete": 200}
+Q_MIN_RECEIVE = 8_192  # B's first receive must hold at least this many of A's messages
+Q_DEVICE = None  # the entry points' device (None = the card; a CPU rehearsal sets "cpu")
+Q_WAIT_S = 120.0
+# JAX's examples/pod_server.py prints this line for its demo batch at one
+# process (tests/test_torch_examples.py holds the port's to it).
+Q_POD_LINE = ("proc 0/1: answered 8/8 requests [0, 1, 2, 3, 4, 5, 6, 7] (5312 response bytes), "
+              "pod digest 0x9eac93cd")
+Q_APP_TABLES = ("todo", "todoCategory")
+
+
+def q_command(name, *args):
+    device = () if Q_DEVICE is None else ("--device", Q_DEVICE)
+    return [sys.executable, "-m", f"evolu_tpu_torch.examples.{name}", *args, *device]
+
+
+def q_spawn(tmp):
+    """Q3's two entry points as processes, started before Q1 so that they
+    reach the card while Q1 and Q2 run: the relay server on a free port and
+    the one-process pod server."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    relay = subprocess.Popen(q_command("relay_server", "--host", "127.0.0.1", "--port", str(port),
+                                       "--db", os.path.join(tmp, "q3_relay.db")),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+    pod = subprocess.Popen(q_command("pod_server"), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           env=env, cwd=tmp)
+    return {"relay": relay, "pod": pod, "port": port, "t0": t0}
+
+
+def q_line(proc, prefix, deadline_s=Q_WAIT_S):
+    """The first line of `proc`'s output that starts with `prefix`; fails
+    with the output so far if the process ends or the deadline passes."""
+    import selectors
+
+    seen = []
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    end = time.perf_counter() + deadline_s
+    try:
+        while time.perf_counter() < end:
+            if not sel.select(timeout=max(0.0, end - time.perf_counter())):
+                break
+            line = proc.stdout.readline()
+            if not line:
+                break
+            seen.append(line.rstrip("\n"))
+            if line.startswith(prefix):
+                return seen[-1]
+    finally:
+        sel.unregister(proc.stdout)
+    raise AssertionError(f"path Q3: no {prefix!r} line from {proc.args}; its output:\n" + "\n".join(seen[-40:]))
+
+
+def q_settle(*clients, rounds=4):
+    for _ in range(rounds):
+        for c in clients:
+            c.sync()
+            c.worker.flush()
+            c._transport.flush()
+            c.worker.flush()
+
+
+def q_dump(db):
+    """The app tables and `__message`, each in key order."""
+    out = {t: db.exec(f'SELECT * FROM "{t}" ORDER BY "id"') for t in Q_APP_TABLES}
+    out["__message"] = db.exec('SELECT * FROM "__message" ORDER BY "timestamp"')
+    return out
+
+
+def q_tree(db):
+    (tree,), = db.exec('SELECT "merkleTree" FROM "__clock"')
+    return tree
+
+
+def path_q1(torch, kernels, tmp, device=None):
+    """The TodoMVC flow through the public surface: client A writes a real
+    user's list and syncs it through a relay; client B restores A's
+    mnemonic on an empty database and syncs once (its first receive, all of
+    A's messages, planned on the card); a twin of B with backend="cpu" does
+    the same on the host planner."""
+    from evolu_tpu_torch import Config, RelayServer, RelayStore, connect, create_evolu
+    from evolu_tpu_torch.examples import todo_cli
+
+    report = {}
+    reset(kernels)
+    t0 = time.perf_counter()
+    relay = RelayServer(RelayStore(os.path.join(tmp, "q_relay.db")), device=device).start()
+    clients = []
+    try:
+        cfg = Config(sync_url=relay.url + "/")
+        a = create_evolu(todo_cli.SCHEMA, config=cfg, db_path=os.path.join(tmp, "q_a.db"), device=device)
+        clients.append(a)
+        connect(a)
+        with a.batching():
+            cats = [a.create("todoCategory", {"name": f"category {i}"}) for i in range(Q_CATEGORIES)]
+        with a.batching():
+            todos = [a.create("todo", {"title": f"todo {i}", "isCompleted": False}) for i in range(Q_TODOS)]
+        with a.batching():
+            for i in range(Q_EDITS["toggle"]):
+                a.update("todo", todos[i], {"isCompleted": True})
+        with a.batching():
+            for i in range(Q_EDITS["rename"]):
+                a.update("todo", todos[250 + i], {"title": f"renamed todo {250 + i}"})
+        with a.batching():
+            for i in range(Q_EDITS["assign"]):
+                a.update("todo", todos[2 * i], {"categoryId": cats[i % Q_CATEGORIES]})
+        with a.batching():
+            for i in range(Q_EDITS["delete"]):
+                a.update("todo", todos[Q_TODOS - 1 - 3 * i], {"isDeleted": True})
+        q_settle(a, rounds=2)
+        report["a_s"] = round(time.perf_counter() - t0, 3)
+        a_messages = a.db.exec('SELECT COUNT(*) FROM "__message"')[0][0]
+        a_tree = q_tree(a.db)
+        if relay.store.get_merkle_tree_string(a.owner.id) != a_tree:
+            raise AssertionError("path Q1: the relay's tree differs from A's after A synced")
+
+        b_end = {}
+        for name, backend, dev in (("b", "auto", device), ("b_cpu", "cpu", "cpu")):
+            t1 = time.perf_counter()
+            b = create_evolu(todo_cli.SCHEMA, config=Config(sync_url=relay.url + "/", backend=backend),
+                             db_path=os.path.join(tmp, f"q_{name}.db"), mnemonic=a.owner.mnemonic, device=dev)
+            clients.append(b)
+            tb = connect(b)
+            q_settle(b, rounds=1)
+            first = tb.counts.get("response_messages", 0)
+            report[f"{name}_first_receive"] = first
+            report[f"{name}_s"] = round(time.perf_counter() - t1, 3)
+            if first != a_messages or first < Q_MIN_RECEIVE:
+                raise AssertionError(f"path Q1: {name}'s first receive held {first} messages, not A's {a_messages} "
+                                     f"(at least {Q_MIN_RECEIVE})")
+            b_end[name] = (b.query_once(todo_cli.TODOS), q_tree(b.db), q_dump(b.db))
+        launches = read(kernels)
+        wall = time.perf_counter() - t0
+        a_rows = a.query_once(todo_cli.TODOS)
+        if b_end["b"][0] != a_rows:
+            raise AssertionError("path Q1: B's ls rows differ from A's")
+        if not (b_end["b"][1] == a_tree == relay.store.get_merkle_tree_string(a.owner.id)):
+            raise AssertionError("path Q1: B's Merkle tree differs from A's or the relay's")
+        if b_end["b"][2] != b_end["b_cpu"][2]:
+            raise AssertionError("path Q1: B's SQLite end state differs from its backend='cpu' twin's")
+        if b_end["b_cpu"][0] != a_rows or b_end["b_cpu"][1] != a_tree:
+            raise AssertionError("path Q1: the backend='cpu' twin's rows or tree differ from A's")
+        live = len(a_rows)
+        if live != Q_TODOS - Q_EDITS["delete"]:
+            raise AssertionError(f"path Q1: {live} live todos, not {Q_TODOS - Q_EDITS['delete']}")
+        for k in kernels:
+            if k["slot"] in "LXH" and not launches[k["name"]]:
+                raise AssertionError(f"path Q1: {k['name']} never launched")
+        report.update({"messages": a_messages, "live_todos": live, "wall_s": round(wall, 3),
+                       "b_msgs_per_s": round(a_messages / report["b_s"], 1),
+                       "b_cpu_msgs_per_s": round(a_messages / report["b_cpu_s"], 1)})
+        return launches, report, relay
+    except BaseException:
+        stop_relay(relay)
+        raise
+    finally:
+        for c in clients:
+            c.dispose()
+
+
+def q_api(base, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def path_q2(torch, kernels, relay, device=None):
+    """The web demo's episode over HTTP (tests/test_web_demo.py): CRUD with
+    categories and soft-delete, a long-poll woken by a mutation, a reset;
+    then two demos of one owner converging through Q1's relay."""
+    from evolu_tpu_torch.examples.web_todo import DemoApp, DemoServer
+
+    reset(kernels)
+    t0 = time.perf_counter()
+    report = {}
+    server = DemoServer(DemoApp(device=device)).start()
+    try:
+        base = server.url
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            if "TodoMVC" not in r.read().decode():
+                raise AssertionError("path Q2: the page does not render")
+        cat = q_api(base, "/api/mutate", {"table": "todoCategory", "values": {"name": "home"}})["id"]
+        t1 = q_api(base, "/api/mutate", {"table": "todo", "values": {"title": "Buy milk", "isCompleted": False,
+                                                                   "categoryId": cat}})["id"]
+        s1 = q_api(base, "/api/state?since=-1")
+        if [t["title"] for t in s1["todos"]] != ["Buy milk"] or s1["todos"][0]["categoryId"] != cat \
+                or not s1["owner"]["mnemonic"]:
+            raise AssertionError(f"path Q2: state after two creates: {s1}")
+        got = {}
+        poll = threading.Thread(target=lambda: got.update(q_api(base, f"/api/state?since={s1['version']}")))
+        poll.start()
+        time.sleep(0.2)
+        q_api(base, "/api/mutate", {"table": "todo", "values": {"id": t1, "isCompleted": True}})
+        poll.join(timeout=60)
+        if poll.is_alive() or got.get("version", -1) <= s1["version"] or got["todos"][0]["isCompleted"] != 1:
+            raise AssertionError(f"path Q2: the long-poll did not wake with the toggle: {got}")
+        q_api(base, "/api/mutate", {"table": "todo", "values": {"id": t1, "isDeleted": True}})
+        if q_api(base, "/api/state?since=-1")["todos"] != []:
+            raise AssertionError("path Q2: the soft-deleted todo is still listed")
+        q_api(base, "/api/reset", {})
+        s = q_api(base, "/api/state?since=-1")
+        if s["todos"] != [] or s["categories"] != []:
+            raise AssertionError("path Q2: reset left rows")
+    finally:
+        server.stop()
+    a = DemoServer(DemoApp(sync_url=relay.url, device=device)).start()
+    b = None
+    try:
+        b = DemoServer(DemoApp(sync_url=relay.url, mnemonic=a.app.evolu.owner.mnemonic, device=device)).start()
+        cat = q_api(a.url, "/api/mutate", {"table": "todoCategory", "values": {"name": "shared"}})["id"]
+        for title in ("from A", "and another"):
+            q_api(a.url, "/api/mutate", {"table": "todo", "values": {"title": title, "isCompleted": False,
+                                                                   "categoryId": cat}})
+        q_api(a.url, "/api/sync", {})
+        end = time.perf_counter() + Q_WAIT_S
+        while True:
+            q_api(b.url, "/api/sync", {})
+            sa, sb = q_api(a.url, "/api/state?since=-1"), q_api(b.url, "/api/state?since=-1")
+            if (sa["todos"], sa["categories"]) == (sb["todos"], sb["categories"]) and len(sb["todos"]) == 2:
+                break
+            if time.perf_counter() > end:
+                raise AssertionError(f"path Q2: the two demos did not converge: {sa['todos']} vs {sb['todos']}")
+            time.sleep(0.1)
+        report["converged_titles"] = [t["title"] for t in sb["todos"]]
+    finally:
+        for s in (a, b):
+            if s is not None:
+                s.stop()
+    launches = read(kernels)
+    report["wall_s"] = round(time.perf_counter() - t0, 3)
+    return launches, report
+
+
+def path_q3(torch, spawned, tmp, device=None):
+    """The entry points as processes: the relay server answers /ping and a
+    POST with the bytes an in-process RelayServer answers; the one-process
+    pod server prints JAX's line for the demo batch."""
+    from evolu_tpu_torch import RelayServer, RelayStore, Timestamp, timestamp_to_string
+    from evolu_tpu_torch.sync import SyncRequest, EncryptedCrdtMessage, encode_sync_request
+
+    t0 = time.perf_counter()
+    report = {}
+    relay, pod = spawned["relay"], spawned["pod"]
+    try:
+        q_line(relay, "relay listening on ")
+        report["relay_up_s"] = round(time.perf_counter() - spawned["t0"], 3)
+        msgs = tuple(EncryptedCrdtMessage(timestamp_to_string(Timestamp(BASE_MILLIS + i * 61_000, i % 3, "ab" * 8)),
+                                          b"q3-%d" % i) for i in range(64))
+        bodies = [encode_sync_request(SyncRequest(msgs, "q3-owner", "ab" * 8, "{}")),
+                  encode_sync_request(SyncRequest((), "q3-owner", "f" * 16, "{}"))]
+        twin = RelayServer(RelayStore(os.path.join(tmp, "q3_twin.db")), device=device).start()
+        answers = {}
+        try:
+            for url in (f"http://127.0.0.1:{spawned['port']}", twin.url):
+                with urllib.request.urlopen(url + "/ping", timeout=60) as r:
+                    answers[url] = [(r.status, r.read())]
+                for body in bodies:
+                    req = urllib.request.Request(url + "/", data=body,
+                                                 headers={"Content-Type": "application/octet-stream"})
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        answers[url].append((r.status, r.read()))
+        finally:
+            stop_relay(twin)
+        process, in_process = answers.values()
+        if process != in_process:
+            raise AssertionError("path Q3: the relay_server process answers other bytes than an in-process "
+                                 "RelayServer")
+        report["answers"] = [(status, len(body)) for status, body in process]
+        line = q_line(pod, "proc 0/1:")
+        report["pod_up_s"] = round(time.perf_counter() - spawned["t0"], 3)
+        if line != Q_POD_LINE:
+            raise AssertionError(f"path Q3: the pod server printed {line!r}, not {Q_POD_LINE!r}")
+        pod.wait(timeout=Q_WAIT_S)
+        if pod.returncode != 0:
+            raise AssertionError(f"path Q3: the pod server ended {pod.returncode}")
+        report["pod_line"] = line
+    finally:
+        q_stop(spawned)
+    report["wall_s"] = round(time.perf_counter() - t0, 3)
+    return report
+
+
+def q_stop(spawned):
+    for key in ("relay", "pod"):
+        p = spawned[key]
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        p.stdout.close()
+
+
+def path_q(torch, kernels, tmp, gpu=""):
+    spawned = q_spawn(tmp)
+    try:
+        launches_q1, report_q1, relay = path_q1(torch, kernels, tmp, Q_DEVICE)
+        try:
+            launches_q2, report_q2 = path_q2(torch, kernels, relay, Q_DEVICE)
+        finally:
+            stop_relay(relay)
+        report_q3 = path_q3(torch, spawned, tmp, Q_DEVICE)
+    finally:
+        q_stop(spawned)
+    launches = {k: launches_q1[k] + launches_q2[k] for k in launches_q1}
+    report = {"q1": report_q1, "q2": report_q2, "q3": report_q3,
+              "launches": {"q1": launches_q1, "q2": launches_q2}}
+    print("  " + json.dumps(report) + f" | {gpu}", flush=True)
+    return launches, report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -7217,6 +7659,10 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(ORACLE_PROCESSES)
     with phase("path A: reconcile_owner_batches 1M x 1k owners", gpu):
         launches["a"], path_a_run = path_a(torch, kernels, lww_names, pool)
+    # Path D's oracle (the longest) and paths B's and C2's sequential
+    # oracles run in the pool while the card runs paths M1 to D.
+    d_oracle_job = pool.apply_async(d_oracle)
+    b_oracle_job, c2_oracle_job = pool.apply_async(b_oracle), pool.apply_async(c2_oracle)
     launches_m, report_m = {}, {}
     with phase("path M1: path A's owners through the scatter plan vs path A's sort plan", gpu):
         launches_m["m1"], report_m["m1"] = path_m1(torch, kernels, path_a_run, gpu)
@@ -7224,9 +7670,9 @@ def main() -> int:
     with phase("path N2: path A's owners through reconcile_owner_batches on 8 shards of the card vs path A", gpu):
         launches_n["n2"], report_n["n2"] = path_n2(torch, kernels, path_a_run, gpu)
         del path_a_run
-    # Paths D's, E's, F's and H3's oracles, and H1's bodies, are made in the
+    # Paths E's, F's and H3's oracles, and H1's bodies, are made in the
     # pool while the card runs paths B to E.
-    d_oracle_job, e_oracle_job = pool.apply_async(d_oracle), pool.apply_async(e_oracle)
+    e_oracle_job = pool.apply_async(e_oracle)
     f_oracle_job, h1_bodies_job = pool.apply_async(f_oracle), pool.apply_async(h1_bodies)
     # Path P's oracle set and P1's 1M-row store are made in the pool too.
     p_dir = tempfile.TemporaryDirectory()
@@ -7237,16 +7683,16 @@ def main() -> int:
     n5_requests_path = os.path.join(n5_dir.name, "n5_requests.pkl")
     n5_requests_job = pool.apply_async(n5_write_requests, (n5_requests_path,))
     with phase("path B: SQLite apply 100k + 64-replica contention", gpu):
-        launches["b"] = path_b(torch, kernels, lww_names)
+        launches["b"] = path_b(torch, kernels, lww_names, b_oracle_job)
     captured, c2_calls = {}, {}
     with phase("path C1: typed folds at benchmark sizes", gpu):
         launches["c1"], report_c1 = path_c1(torch, kernels, captured)
         print("  " + json.dumps(report_c1), flush=True)
     with phase("path C2: SQLite typed apply 4 x 31k + 10k re-delivery", gpu):
-        launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls)
+        launches["c2"], report_c2 = path_c2(torch, kernels, c2_calls, c2_oracle_job)
         print("  " + json.dumps(report_c2), flush=True)
     with phase("path D: client DbWorker with the winner cache vs the backend='cpu' oracle", gpu):
-        launches["d"], report_d, trees_d2, batches_d, (m3_oracle, g1_oracle, n4_oracle) = path_d(
+        launches["d"], report_d, trees_d2, batches_d, (m3_oracle, n4_oracle) = path_d(
             torch, kernels, d_oracle_job)
         print("  " + json.dumps(report_d), flush=True)
     captured_e, keep_e = {}, {}
@@ -7256,16 +7702,16 @@ def main() -> int:
         launches["f"], report_f, h3_oracle = path_f(torch, kernels, f_oracle_job, gpu=gpu)
     with phase("path G1: packed receive, native decrypt to columns into a card DbWorker on the C++ "
                "SQLite layer vs the pure oracle", gpu):
-        launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, g1_oracle, pool)
+        launches_g1, report_g1 = path_g1(torch, kernels, trees_d2, batches_d, report_d, n4_oracle, pool)
         print("  " + json.dumps(report_g1) + f" | {gpu}", flush=True)
     with phase("path M3: a card DbWorker on the scatter plan replays D1 and D2 vs path D's oracle", gpu):
         launches_m["m3"], report_m["m3"] = path_m3(torch, kernels, trees_d2, batches_d, m3_oracle, gpu)
         report_m["m3"]["path_d_msgs_per_s"] = {"d1": report_d["d1"]["msgs_per_s"]}
     with phase("path N4: a card DbWorker on 8 shards (the hot-owner route, the sharded winner cache) replays D1 "
                "and D2 vs path D's oracle", gpu):
-        launches_n["n4"], report_n["n4"] = path_n4(torch, kernels, trees_d2[:2], batches_d[:2], n4_oracle,
+        launches_n["n4"], report_n["n4"] = path_n4(torch, kernels, trees_d2, batches_d, n4_oracle,
                                                    report_d, gpu)
-        del batches_d, g1_oracle, m3_oracle, n4_oracle
+        del batches_d, m3_oracle, n4_oracle
     bodies_h1 = h1_bodies_job.get()
     p2_oracle_out, p_seed_out = p2_oracle_job.get(), p_seed_job.get()
     n5_requests_job.get()
@@ -7370,6 +7816,10 @@ def main() -> int:
         report_o["launches"]["o3"] = launches_o3
         launches["o"] = {k: launches["o"][k] + launches_o3[k] for k in launches_o3}
         print("  " + json.dumps(report_o["launches"]) + f" | {gpu}", flush=True)
+    with phase("path Q: the public surface (the TodoMVC flow through create_evolu, connect and a RelayServer, "
+               "the web demo over HTTP, the relay and pod servers as processes)", gpu), \
+            tempfile.TemporaryDirectory() as tmp_q:
+        launches["q"], report_q = path_q(torch, kernels, tmp_q, gpu)
     table[1]["at_path_e"] = report_e["engine_kernels"]["X_on_e1"]
     table[2]["at_path_e"] = report_e["engine_kernels"]["H_on_e1"]
     table[2]["ops_per_hashed_row"] = h_ops_per_row
@@ -7385,7 +7835,7 @@ def main() -> int:
     })
     for row, k in zip(table, kernels):
         row.update({key: k[key] for key in ("ported", "redesigned", "design")})
-        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "o", "p", "m", "n"):
+        for p in ("a", "b", "c1", "c2", "d", "e", "f", "g", "h", "i", "j", "k", "o", "p", "m", "n", "q"):
             row[f"launches_path_{p}"] = launches[p][row["name"]]
         row["launches"] = sum(launches[p][row["name"]] for p in launches)
         row["path_c2_ms"] = c2_times[row["name"]]["ms"]
@@ -7400,7 +7850,7 @@ def main() -> int:
                       "relay": report_e, "handle": report_f, "packed_native": report_g, "live_relay": report_h,
                       "relay_tier": report_i, "push_tier": report_j, "write_behind": report_k,
                       "observability": report_o, "scoped_sync": report_p, "merge_plan": report_m,
-                      "mesh": report_n}, default=str))
+                      "mesh": report_n, "public_surface": report_q}, default=str))
     print(json.dumps({"kernels": table}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,6 +83,14 @@ def minute_deltas_host(timestamp_strings) -> tuple:
     return deltas, digest
 
 
+def insert_many_into_merkle_tree(timestamps, tree: dict) -> dict:
+    """Insert every timestamp of a batch (the order does not matter: XOR
+    commutes); each insert copies the path it touches."""
+    for t in timestamps:
+        tree = insert_into_merkle_tree(t, tree)
+    return tree
+
+
 def apply_prefix_xors(tree: dict, prefix_xors: dict) -> dict:
     """Apply {base3-minute-key: xor-of-hashes} deltas to a tree, touching
     O(distinct minutes * 16) nodes. Equivalent to inserting the batch

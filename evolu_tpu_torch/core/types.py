@@ -1,5 +1,4 @@
-"""Core CRDT data types and errors (the slice of `evolu_tpu.core.types`
-the reconcile pass, the client handle and worker, and the relay need).
+"""Core CRDT data types and errors, the names of `evolu_tpu.core.types`.
 
 A `CrdtValue` is `None | str | int | float`. Messages address a single
 (table, row, column) cell and carry an HLC timestamp string that
@@ -14,6 +13,7 @@ from typing import Union
 CrdtValue = Union[None, str, int, float]
 
 MAX_COUNTER = 65535
+MAX_DRIFT_DEFAULT = 60000  # the reference config's default maxDrift
 
 
 @dataclass(frozen=True)
@@ -124,6 +124,10 @@ class SyncError(EvoluError):
 
     def __init__(self) -> None:
         super().__init__("sync livelock: repeated identical merkle diff")
+
+
+class SQLiteError(EvoluError):
+    type = "SQLiteError"
 
 
 class ValidationError(EvoluError):

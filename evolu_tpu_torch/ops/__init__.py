@@ -61,7 +61,8 @@ def wrap_int32(x: torch.Tensor) -> torch.Tensor:
 
 def to_host_many(*xs):
     """One synchronize, then one `.cpu()` wave for every output. Tensors
-    become numpy arrays; anything else passes through.
+    become numpy arrays, pulls begun by `start_host_transfer` are waited
+    for; anything else passes through.
 
     Instrumented like the reference's: pull bytes, the wave-size
     histogram and pull seconds, and one `pull_wave` stage record a wave.
@@ -72,10 +73,57 @@ def to_host_many(*xs):
     if any(isinstance(x, torch.Tensor) and x.is_cuda for x in xs):
         torch.cuda.synchronize()
     out = tuple(
-        x.cpu().numpy() if isinstance(x, torch.Tensor) else x for x in xs
+        x.cpu().numpy() if isinstance(x, torch.Tensor)
+        else x.wait() if isinstance(x, HostTransfer) else x
+        for x in xs
     )
     record_pull_wave(time.perf_counter() - t0, out)
     return out
+
+
+def to_host(x):
+    """One tensor's pull: a wave of one (`to_host_many`)."""
+    return to_host_many(x)[0]
+
+
+class HostTransfer:
+    """A device → host copy begun on a side stream: `wait()` waits for its
+    event and gives the numpy array."""
+
+    def __init__(self, host: torch.Tensor, event):
+        self.host, self.event = host, event
+
+    def wait(self) -> np.ndarray:
+        self.event.synchronize()
+        return self.host.numpy()
+
+
+_side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def start_host_transfer(*xs):
+    """The starting half of `to_host_many`: begin every CUDA tensor's copy
+    into pinned host memory on a side stream (after the work queued so
+    far on the current stream) and return a `HostTransfer` for each; CPU
+    tensors and anything else come back untouched. A later
+    `to_host_many` on the results is the counted pull wave."""
+    out = []
+    for x in xs:
+        if not (isinstance(x, torch.Tensor) and x.is_cuda):
+            out.append(x)
+            continue
+        side = _side_streams.get(x.device)
+        if side is None:
+            side = _side_streams.setdefault(x.device, torch.cuda.Stream(x.device))
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            x.record_stream(side)
+            event = torch.cuda.Event()
+            event.record(side)
+        out.append(HostTransfer(host, event))
+    return tuple(out)
 
 
 def record_pull_wave(seconds: float, arrays) -> None:

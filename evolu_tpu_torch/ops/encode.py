@@ -7,6 +7,8 @@ int64 bit pattern) — and
 
 - `timestamp_hashes` gives murmur3-32 of each canonical string: kernel H
   (`ops.cuda_hash`) on a CUDA tensor, the plain render below on the CPU;
+- `render_timestamp_strings` gives the canonical strings themselves, as
+  an (N, 46) uint8 tensor, from the same plain render;
 - `pack_ts_keys` packs (millis, counter) into one u64 whose unsigned
   order equals the string order (node is the second u64 tiebreak).
 
@@ -94,6 +96,13 @@ def timestamp_bytes(millis, counter, node) -> List[torch.Tensor]:
     return cols
 
 
+def render_timestamp_strings(millis, counter, node) -> torch.Tensor:
+    """(N,) int64 millis, int32 counter, int64-carried u64 node → (N, 46)
+    uint8 canonical strings `YYYY-MM-DDTHH:mm:ss.sssZ-CCCC-n*16`, on the
+    tensors' device: the bytes `timestamp_hashes` hashes."""
+    return torch.stack(timestamp_bytes(millis, counter, node), dim=1).to(torch.uint8)
+
+
 def timestamp_hashes(millis, counter, node) -> torch.Tensor:
     """Batched `timestampToHash`: (N,) int64 millis, int32 counter,
     int64-carried u64 node → (N,) int32-carried u32 murmur3 hashes.
@@ -136,3 +145,8 @@ def pack_ts_key_host(millis, counter):
 def node_hex_to_u64(node: str) -> int:
     """16-hex-char node id → uint64 (big-endian nibbles)."""
     return int(node, 16)
+
+
+def u64_to_node_hex(v: int) -> str:
+    """uint64 → the 16 lower-case hex digits of a node id."""
+    return f"{v:016x}"

@@ -14,6 +14,8 @@ from typing import Sequence
 
 import torch
 
+from evolu_tpu_torch.ops import wrap_int32
+
 _M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -67,3 +69,12 @@ def murmur3_32_bytes(bytes_i64: Sequence[torch.Tensor], length: int, seed: int =
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
     return h ^ (h >> 16)
+
+
+def murmur3_32_batch(data: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """murmur3-32 of each row of an (N, L) uint8 tensor → (N,) u32 hashes
+    as int32 bit patterns, on the tensor's device. Every row is L bytes
+    long (no per-row lengths)."""
+    _, length = data.shape
+    cols = data.to(torch.int64)
+    return wrap_int32(murmur3_32_bytes([cols[:, i] for i in range(length)], length, seed))

@@ -174,6 +174,12 @@ def plan_merge_core(cell_id, k1, k2, ex_k1, ex_k2):
     return xor_mask, upsert_mask
 
 
+def plan_merge(cell_id, k1, k2, ex_k1, ex_k2, num_segments=None):
+    """The reference's jitted name of `plan_merge_core`; `num_segments` is
+    accepted for its signature and unused there too."""
+    return plan_merge_core(cell_id, k1, k2, ex_k1, ex_k2)
+
+
 def unpermute_masks(xor_sorted, upsert_sorted, i_s, block_size: int = 0):
     """Host side: sorted-order masks + permutation → batch order (numpy).
     With `block_size` > 0 the arrays are per-shard blocks joined in shard

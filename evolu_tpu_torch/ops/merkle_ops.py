@@ -21,7 +21,7 @@ import torch
 from evolu_tpu_torch.core.merkle import minutes_base3
 from evolu_tpu_torch.core.murmur import to_int32
 from evolu_tpu_torch.ops import columns_to_device, to_host_many, wrap_int32
-from evolu_tpu_torch.ops.cuda_scan import segmented_xor_scan
+from evolu_tpu_torch.ops.cuda_scan import segmented_xor_scan, segmented_xor_scan_plain
 from evolu_tpu_torch.ops.encode import timestamp_hashes
 
 _SENTINEL_HI = 0x7FFFFFFF  # int32 max: masked rows sort after every real key
@@ -29,6 +29,12 @@ _SENTINEL_HI = 0x7FFFFFFF  # int32 max: masked rows sort after every real key
 # Tile width of the block-local grouping sort: only the GROUPING of equal
 # keys matters to the decoders, so rows sort within (N/8192, 8192) tiles.
 _GROUP_TILE = 8192
+
+
+def segmented_xor_scan_reference(flags, values):
+    """The inclusive segmented XOR scan's semantics reference: kernel X's
+    plain version, on any device."""
+    return segmented_xor_scan_plain(flags, values)
 
 
 def segment_xor2_core(hi_i32, lo_i32, hashes_i32, tile_local=True):

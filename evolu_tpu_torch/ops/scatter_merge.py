@@ -213,3 +213,8 @@ def scatter_plan_masks(cell_id, k1, k2, ex_k1, ex_k2, table_size: int):
     xor_mask = real & (~b | (fb[cell] < idx))
     upsert_mask = is_t & ~a & ~b
     return xor_mask, upsert_mask
+
+
+# The reference's name of the mask-only dispatch (its jitted
+# `scatter_plan_masks`).
+plan_masks_scatter = scatter_plan_masks

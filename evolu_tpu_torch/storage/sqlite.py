@@ -35,6 +35,18 @@ class PySqliteDatabase:
             except sqlite3.Error as e:
                 raise UnknownError(e) from e
 
+    def exec_script(self, sql: str) -> None:
+        """Execute a multi-statement script (DDL bootstrap); returns no
+        rows. Refused inside an open transaction: sqlite3's executescript
+        would COMMIT it first."""
+        with self._lock:
+            if self._conn.in_transaction:
+                raise UnknownError("exec_script inside an open transaction")
+            try:
+                self._conn.executescript(sql)
+            except sqlite3.Error as e:
+                raise UnknownError(e) from e
+
     def exec_sql_query(self, sql: str, parameters: Sequence = ()) -> List[dict]:
         """Parameterized query; rows as column->value dicts."""
         with self._lock:
@@ -59,6 +71,11 @@ class PySqliteDatabase:
                 return self._conn.executemany(sql, rows).rowcount
             except sqlite3.Error as e:
                 raise UnknownError(e) from e
+
+    def changes(self) -> int:
+        """Rows changed since the connection opened (SQLite's total_changes)."""
+        with self._lock:
+            return self._conn.total_changes
 
     @contextmanager
     def transaction(self):

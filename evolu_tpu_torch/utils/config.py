@@ -1,9 +1,9 @@
-"""Runtime configuration: the fields of `evolu_tpu.utils.config.Config`
-that the handle (`runtime/client.py`), the worker and its planner
-(`runtime/worker.py`), the sync transport (`sync/client.py`) and the
-relay tier (`server/replicate.py`, `server/relay.py`) read, with the same
-defaults, the process-wide `default_config` / `set_config`, and the
-fleet's `FleetConfig`.
+"""Runtime configuration: every field of `evolu_tpu.utils.config.Config`
+with its default, read by the handle
+(`runtime/client.py`), the worker and its planner (`runtime/worker.py`),
+the sync transport (`sync/client.py`) and the relay tier
+(`server/replicate.py`, `server/relay.py`); the process-wide
+`default_config` / `set_config`, and the fleet's `FleetConfig`.
 
 `backend` picks the merge PLANNER:
 
@@ -18,6 +18,10 @@ WHERE the device planner runs is a separate argument, `device=` of
 `runtime.worker.DbWorker` and `select_planner`: None means the CUDA card
 (it raises without one), "cpu" runs the plain PyTorch version of every
 kernel.
+
+`log` sets the module logger's channels and `reload_url` is the
+reference's page-reload target after an owner reset or restore, kept for
+the reference's field order.
 
 `merge_plan` picks the LWW plan formulation of the device planner and the
 fleet reconcile (`ops/scatter_merge.py`); `EVOLU_MERGE_PLAN` overrides it.
@@ -36,10 +40,13 @@ MERGE_PLANS = ("auto", "sort", "scatter")
 class Config:
     # The relay's sync endpoint (the transport POSTs here).
     sync_url: str = "http://localhost:4000"
-    # Accepted for the reference's shape; the port has no logger yet
-    # (it comes with the observability seams).
+    # The module logger's setting (`utils/log.py`): False, True, or the
+    # names of the channels to print; `DbWorker.start` applies it.
     log: Union[bool, str, List[str]] = False
     max_drift: int = 60000
+    # Where a page reloads to after an owner reset or restore (the
+    # reference's reloadUrl); the headless handle keeps it for the shape.
+    reload_url: str = "/"
     backend: str = "auto"  # "cpu" | "auto" | "cuda"
     # Receive batches above this size apply chunk by chunk, each chunk
     # its own transaction, with the clock persisted per chunk. None =

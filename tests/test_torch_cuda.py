@@ -1798,3 +1798,26 @@ def _relay_request(owner, seed, n=300):
         timestamp_to_string(Timestamp(1_700_000_000_000 + seed * 100_000 + i * 37, 0, node)), b"ct%d" % i)
         for i in range(n))
     return protocol.SyncRequest(msgs, owner, node, "{}")
+
+
+def test_start_host_transfer_pulls_on_a_side_stream(dev, monkeypatch):
+    """`start_host_transfer` begins each CUDA tensor's copy on a side
+    stream after the work queued on the current stream (`y` is still being
+    computed there when the copy is queued); `to_host_many` on the results
+    is one counted pull wave with the values, and `to_host` is a wave of
+    one."""
+    import evolu_tpu_torch.ops as ops
+
+    waves = []
+    real = ops.record_pull_wave
+    monkeypatch.setattr(ops, "record_pull_wave",
+                        lambda seconds, arrays: (waves.append(len(arrays)), real(seconds, arrays)))
+    x = torch.arange(1 << 20, dtype=torch.int64, device=dev)
+    y = (x * 3) % 7 == 1
+    started = ops.start_host_transfer(x, y, "passes")
+    assert isinstance(started[0], ops.HostTransfer) and started[2] == "passes"
+    a, b, c = ops.to_host_many(*started)
+    assert np.array_equal(a, np.arange(1 << 20)) and c == "passes"
+    assert np.array_equal(b, (np.arange(1 << 20) * 3) % 7 == 1)
+    assert np.array_equal(ops.to_host(x + 1), np.arange(1, (1 << 20) + 1))
+    assert waves == [3, 1]

@@ -53,7 +53,8 @@ def test_port_imports_no_jax_and_touches_no_card():
                  "server.scheduler", "server.snapshot", "server.relay_worker", "server.replicate",
                  "server.fleet", "server.push", "server.conn", "storage.write_behind",
                  "storage._wb_shard_proc", "sync.scope", "server.scope", "ops.scatter_merge",
-                 "parallel.mesh", "parallel.hot_owner", "parallel.multihost"):
+                 "parallel.mesh", "parallel.hot_owner", "parallel.multihost", "examples",
+                 "examples.relay_server", "examples.pod_server", "examples.todo_cli", "examples.web_todo"):
         assert f"evolu_tpu_torch.{name}" in result["modules"]
     assert result["forbidden"] == []
     assert result["cuda_initialized"] is False
