@@ -2691,7 +2691,8 @@ def native_paths_in_port_build():
     from evolu_tpu_torch.utils import native_loader
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "evolu_tpu_torch", "_build", "native")
-    paths = {so: (native_loader.build_info.get(so) or {}).get("path") for so in native_loader.TARGETS}
+    paths = {so: (native_loader.build_info.get(so) or {}).get("path")
+             for so, target in native_loader.TARGETS.items() if target[0] == native_loader.NATIVE_DIR}
     for so, path in paths.items():
         if not path or os.path.commonpath([os.path.abspath(path), root]) != root:
             raise AssertionError(f"path G: {so} is not loaded from the port's build directory: {path}")

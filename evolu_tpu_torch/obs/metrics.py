@@ -445,6 +445,13 @@ snapshot = registry.snapshot
 reset = registry.reset
 quantile = registry.quantile
 
+# The relay front's decode of a sync POST, by route (server/relay.py).
+registry.describe(
+    "evolu_relay_decode_total",
+    "sync POSTs decoded: route=packed by the native scan into packed columns, "
+    "route=object by protocol.decode_sync_request",
+)
+
 # Content-Type for the text exposition endpoint.
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 

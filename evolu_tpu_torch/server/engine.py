@@ -100,6 +100,7 @@ from evolu_tpu_torch.parallel.reconcile import dispatch_columns_sharded, xor_all
 from evolu_tpu_torch.server import scope
 from evolu_tpu_torch.server.relay import ShardedRelayStore, fetch_response_stream
 from evolu_tpu_torch.sync import protocol
+from evolu_tpu_torch.sync.wire_scan import PackedMessages
 from evolu_tpu_torch.utils.log import span
 
 # Dispatches by route, beside the reference's metrics: `delta` and
@@ -537,6 +538,23 @@ def _pack_rows(ts_list, contents):
     return ts_packed, b"".join(contents), lens
 
 
+def _kept_rows(r: protocol.SyncRequest, seen: Optional[set]):
+    """The columns (ts_packed, content_packed, lens) of the rows of `r`
+    that the in-batch dedup keeps: the first occurrence of each
+    (timestamp, owner) in request order. `seen` is the batch's set of
+    kept keys, shared by its requests; None when the batch holds one
+    request an owner (the scheduler's batches), so the dedup is the
+    request's own, and packed messages are deduped on their columns."""
+    msgs = r.messages
+    if seen is None:
+        if isinstance(msgs, PackedMessages):
+            return msgs.take(msgs.first_occurrences())
+        seen = set()
+    kept = [m for m in msgs
+            if (m.timestamp, r.user_id) not in seen and not seen.add((m.timestamp, r.user_id))]
+    return _pack_rows([m.timestamp for m in kept], [m.content for m in kept])
+
+
 class _PackedRows:
     """Lazy timestamp-string access over per-shard packed 46-byte buffers
     (read only by the host fold of a non-canonical owner)."""
@@ -824,7 +842,11 @@ class BatchReconciler:
         for r in requests:
             per_shard[shard_index(r.user_id)].append(r)
 
-        seen: set = set()
+        # In-batch dedup up front (the one-shot path leaves it to the
+        # primary key), so that was_new False means exactly "already
+        # stored". One owner's rows stay in request order, so the kept
+        # occurrence is the row the primary key would keep.
+        seen: Optional[set] = None if len({r.user_id for r in requests}) == len(requests) else set()
         shard_data: Dict[int, tuple] = {}
         buffers: List[bytes] = []
         offsets: List[int] = []
@@ -835,28 +857,23 @@ class BatchReconciler:
         for si, reqs in enumerate(per_shard):
             gu: List[str] = []
             gc: List[int] = []
-            ts_list: List[str] = []
-            contents: List[bytes] = []
+            parts: List[tuple] = []
             for r in reqs:
-                # In-batch dedup up front (the one-shot path leaves it to the
-                # primary key), so that was_new False means exactly "already
-                # stored". One owner's rows stay in request order, so the
-                # kept occurrence is the row the primary key would keep.
-                kept = [
-                    m for m in r.messages
-                    if (m.timestamp, r.user_id) not in seen
-                    and not seen.add((m.timestamp, r.user_id))
-                ]
-                if kept:
+                rows = _kept_rows(r, seen)
+                if len(rows[2]):
                     gu.append(r.user_id)
-                    gc.append(len(kept))
-                    ts_list.extend(m.timestamp for m in kept)
-                    contents.extend(m.content for m in kept)
-            n = len(ts_list)
-            if n == 0:
+                    gc.append(len(rows[2]))
+                    parts.append(rows)
+            if not parts:
                 continue
             live.append(si)
-            ts_packed, content_packed, lens = _pack_rows(ts_list, contents)
+            if len(parts) == 1:
+                ts_packed, content_packed, lens = parts[0]
+            else:
+                ts_packed = b"".join(p[0] for p in parts)
+                content_packed = b"".join(p[1] for p in parts)
+                lens = np.concatenate([p[2] for p in parts])
+            n = len(lens)
             cols = parse_packed_timestamps(ts_packed, n, with_case=True)
             pos = 0
             for u, k in zip(gu, gc):

@@ -44,6 +44,7 @@ from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from evolu_tpu_torch.obs import metrics
+from evolu_tpu_torch.sync.wire_scan import PackedMessages
 
 # Per-owner bounded event ring: enough to qualify any plausibly-live
 # cursor; older cursors degrade to a conservative wake (never a miss).
@@ -62,7 +63,11 @@ WAKE_REASONS = ("write", "replication", "ready", "stale_cursor", "conservative")
 def _author_nodes(timestamps: Sequence[str]) -> Optional[frozenset]:
     """The set of author node ids for one notify batch, or None when any
     timestamp is too short to carry a node suffix (unknown author →
-    conservative: wakes every subscriber)."""
+    conservative: wakes every subscriber). Packed messages (the relay
+    front's `wire_scan.PackedMessages`, 46-character timestamps) give
+    theirs from the packed column."""
+    if isinstance(timestamps, PackedMessages):
+        return timestamps.node_suffixes(NODE_HEX_LEN)
     nodes = set()
     for ts in timestamps:
         if len(ts) < NODE_HEX_LEN:
@@ -285,8 +290,9 @@ class PushHub:
                reason: str = "write",
                tags: Optional[frozenset] = None) -> int:
         """Rows for `owner` became newly visible. `timestamps` are the
-        batch's plaintext timestamps (their node suffixes gate the
-        own-write exclusion); None = authors unknown → wake everyone.
+        batch's plaintext timestamps, or the `PackedMessages` that carry
+        them (their node suffixes gate the own-write exclusion); None =
+        authors unknown → wake everyone.
         `tags` are the batch's scope-lane tags when the pushing client
         assigned them; None = lanes unknown → every scoped waiter
         qualifies. Callers must notify on every path that makes rows

@@ -85,7 +85,7 @@ from evolu_tpu_torch.core.types import NonCanonicalStoreError
 from evolu_tpu_torch.obs import anatomy, flight, ledger, metrics, trace
 from evolu_tpu_torch.storage.native import open_database
 from evolu_tpu_torch.storage.sqlite import configure_shared_file_db
-from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.sync import aead, protocol, wire_scan
 from evolu_tpu_torch.utils.log import log
 
 MAX_BODY_BYTES = 20 * 1024 * 1024  # index.ts:222
@@ -225,6 +225,8 @@ class RelayStore:
         *newly inserted* timestamps into the tree (the server gates on
         changes==1, unlike the client's always-XOR). One transaction;
         returns the updated tree."""
+        # Packed messages (the relay front's) build their objects once.
+        messages = tuple(messages)
         with self.db.transaction():
             tree = self.get_merkle_tree(user_id)
             deltas: Dict[str, int] = {}
@@ -1003,9 +1005,10 @@ class _Handler(BaseHTTPRequestHandler):
         """Wake parked subscriptions AFTER the serve committed (a woken
         client's sync round must observe the rows); the timestamps carry
         the author-node metadata of the hub's own-write exclusion."""
-        if self.push_hub is not None and request.messages:
-            self.push_hub.notify(request.user_id, [m.timestamp for m in request.messages],
-                                 tags=_notify_tags(request))
+        msgs = request.messages
+        if self.push_hub is not None and msgs:
+            stamps = msgs if isinstance(msgs, wire_scan.PackedMessages) else [m.timestamp for m in msgs]
+            self.push_hub.notify(request.user_id, stamps, tags=_notify_tags(request))
 
     def _read_body(self) -> Optional[bytes]:
         """The request body, or None after answering 400 or 413."""
@@ -1040,7 +1043,10 @@ class _Handler(BaseHTTPRequestHandler):
         request = None
         served = False
         try:
-            request = protocol.decode_sync_request(body)
+            # The native scan into packed columns, or the object decoder
+            # for a body that is not canonical (its errors are the 500s).
+            request, route = wire_scan.decode_sync_post(body)
+            metrics.inc("evolu_relay_decode_total", route=route)
             srv_span.set_attr("owner", request.user_id)
             # The ledger's ingress at the decode boundary (a body that never
             # decoded never became messages): every message of this

@@ -60,6 +60,7 @@ from evolu_tpu_torch.obs import ledger, metrics, trace
 from evolu_tpu_torch.ops import resolve_device
 from evolu_tpu_torch.ops.cuda_lib import KernelError
 from evolu_tpu_torch.sync import aead, protocol
+from evolu_tpu_torch.sync.wire_scan import PackedMessages
 from evolu_tpu_torch.utils.log import log
 
 
@@ -117,7 +118,10 @@ def _batchable(request: protocol.SyncRequest) -> bool:
     the error surface. Hex-case anomalies at canonical width stay
     batchable (the engine sends those owners to the host fold). Contents
     never count: the relay is E2EE-blind, and an `aead-batch-v1` record
-    batches like an OpenPGP one."""
+    batches like an OpenPGP one. Packed messages are 46 wide by
+    construction."""
+    if isinstance(request.messages, PackedMessages):
+        return True
     return all(len(m.timestamp) == 46 for m in request.messages)
 
 

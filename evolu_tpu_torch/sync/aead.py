@@ -64,6 +64,7 @@ from typing import Tuple
 
 from evolu_tpu_torch.obs import metrics
 from evolu_tpu_torch.sync.crypto import PgpError, decrypt_symmetric
+from evolu_tpu_torch.sync.wire_scan import PackedMessages
 
 try:
     from cryptography.hazmat.primitives.ciphers.aead import AESGCM
@@ -237,5 +238,8 @@ def decrypt_content(content: bytes, password: str) -> bytes:
 def count_v2(messages) -> int:
     """How many of a request's EncryptedCrdtMessages are v2 records —
     the relay's ingest-side observability (it stays E2EE-blind; the
-    3-byte magic is framing, not content)."""
+    3-byte magic is framing, not content). Packed messages (the relay
+    front's `wire_scan.PackedMessages`) are counted on their columns."""
+    if isinstance(messages, PackedMessages):
+        return messages.count_prefix(MAGIC)
     return sum(1 for m in messages if is_v2_record(m.content))

@@ -1,10 +1,14 @@
-"""Build and load the native host libraries (`native/*.cpp`) for the port.
+"""Build and load the native host libraries (`native/*.cpp`, `csrc/*.cpp`)
+for the port.
 
-Two bindings use it: `storage.native` over `libevolu_host.so` (the C++
+Three bindings use it: `storage.native` over `libevolu_host.so` (the C++
 SQLite host layer) and `sync.native_crypto` over `libevolu_crypto.so`
-(the batched OpenPGP and AES-GCM legs). The C++ sources are the
-reference's, compiled unchanged with `g++` and the flags of
-`native/Makefile` at first use; nothing is ever written into `native/`.
+(the batched OpenPGP and AES-GCM legs), whose C++ sources are the
+reference's in `native/`, and `sync.wire_scan` over
+`libevolu_wire_scan.so` (the relay front's scan of a sync POST), whose
+source is the port's own in `evolu_tpu_torch/csrc/`. Each is compiled
+unchanged with `g++` and the flags of `native/Makefile` at first use;
+nothing is ever written into a source directory.
 
 Each library lands in `evolu_tpu_torch/_build/native/<hash>/`, keyed by
 its sources, the flags, the linked soname and the compiler's version,
@@ -32,16 +36,19 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
-_REPO = Path(__file__).resolve().parent.parent.parent
-NATIVE_DIR = _REPO / "native"
-BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build" / "native"
+_PKG = Path(__file__).resolve().parent.parent
+NATIVE_DIR = _PKG.parent / "native"
+CSRC_DIR = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build" / "native"
 CXX = "g++"
 CXXFLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
-HEADERS = ("wire.h",)
-# so_name -> (source, candidate sonames to link, first that links wins)
+# so_name -> (source directory, source, headers it includes, candidate
+# sonames to link: the first that links wins; an empty tuple links none)
 TARGETS = {
-    "libevolu_host.so": ("evolu_host.cpp", ("libsqlite3.so.0",)),
-    "libevolu_crypto.so": ("evolu_crypto.cpp", ("libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so")),
+    "libevolu_host.so": (NATIVE_DIR, "evolu_host.cpp", ("wire.h",), ("libsqlite3.so.0",)),
+    "libevolu_crypto.so": (NATIVE_DIR, "evolu_crypto.cpp", ("wire.h",),
+                           ("libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so")),
+    "libevolu_wire_scan.so": (CSRC_DIR, "wire_scan.cpp", (), ()),
 }
 
 
@@ -79,25 +86,26 @@ def _compiler_version() -> str:
 
 def toolchain() -> dict:
     """What this machine offers the build: the compiler's version line and,
-    for each library, the soname it links (None where none links)."""
+    for each library that links one, the soname it links (None where none
+    links)."""
     return {"compiler": _compiler_version(),
-            "links": {so: _linkable(candidates) for so, (_src, candidates) in TARGETS.items()}}
+            "links": {so: _linkable(t[3]) for so, t in TARGETS.items() if t[3]}}
 
 
 def _build(so_name: str):
     """Compile `so_name` into its hashed directory (or find it there).
-    → (the library's path, the soname it links); raises NativeBuildError
-    with the log."""
-    source, candidates = TARGETS[so_name]
+    → (the library's path, the soname it links, "" for none); raises
+    NativeBuildError with the log."""
+    src_dir, source, headers, candidates = TARGETS[so_name]
     version = _compiler_version()
-    linked = _linkable(candidates)
+    linked = _linkable(candidates) if candidates else ""
     if linked is None:
         raise NativeBuildError(
             f"evolu_tpu_torch: {so_name}: none of {', '.join(candidates)} links with {CXX} ({version})")
     h = hashlib.sha256("\0".join((version, linked, *CXXFLAGS)).encode())
-    for name in (source, *HEADERS):
+    for name in (source, *headers):
         h.update(name.encode())
-        h.update((NATIVE_DIR / name).read_bytes())
+        h.update((src_dir / name).read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     so = out_dir / so_name
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -106,7 +114,7 @@ def _build(so_name: str):
         if so.exists():
             return so, linked
         tmp = out_dir / f".{so_name}.{os.getpid()}.tmp"
-        cmd = [CXX, *CXXFLAGS, "-o", str(tmp), str(NATIVE_DIR / source), f"-l:{linked}"]
+        cmd = [CXX, *CXXFLAGS, "-o", str(tmp), str(src_dir / source)] + ([f"-l:{linked}"] if linked else [])
         result = _run(cmd, timeout=600)
         log = " ".join(cmd) + "\n" + result.stdout
         (out_dir / f"{so_name}.log").write_text(log)

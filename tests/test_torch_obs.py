@@ -643,7 +643,9 @@ def test_single_relay_metrics_parity_with_jax():
     """The same bodies POSTed one at a time to a batching JAX relay and a
     batching port relay: the same /metrics family names and the same
     values for the deterministic counters (requests, messages, bytes,
-    batches, coalesced requests, store passes, upload bytes)."""
+    batches, coalesced requests, store passes, upload bytes). The port's
+    own family, `evolu_relay_decode_total`, counts each canonical body
+    under the packed route."""
     from evolu_tpu.server import relay as jrelay
     from evolu_tpu.utils.log import logger as jlogger
 
@@ -665,7 +667,7 @@ def test_single_relay_metrics_parity_with_jax():
     # The port prices only the card (COST_LAWS has a `cuda` row alone), so on
     # the CPU it records no floor families; the JAX package prices its CPU.
     priced = {"evolu_stage_floor_ms", "evolu_stage_over_floor_ratio", "evolu_stage_over_floor_total"}
-    assert _families(ptext) == _families(jtext) - priced
+    assert _families(ptext) == (_families(jtext) - priced) | {"evolu_relay_decode_total"}
     assert not _families(ptext) & priced
     jp, pp = _parse_prometheus(jtext), _parse_prometheus(ptext)
     for name in ("evolu_relay_requests_total", "evolu_crypto_v1_relay_messages_total",
@@ -680,3 +682,5 @@ def test_single_relay_metrics_parity_with_jax():
     upload = ("evolu_engine_compact_upload_bytes_total", frozenset({("variant", '"delta"')}))
     assert 8 * pp[upload] == jp[upload] > 0
     assert pp[("evolu_crypto_v1_relay_messages_total", frozenset())] == sum(3 + i for i in range(5))
+    assert {k: v for k, v in pp.items() if k[0] == "evolu_relay_decode_total"} == {
+        ("evolu_relay_decode_total", frozenset({("route", '"packed"')})): len(bodies)}

@@ -19,7 +19,10 @@ JAX package.
   and labels; `evolu_stage_over_floor_total`, which a slow stage alone
   mints, left out), and the device-transfer bytes, which scale with the
   JAX session's 8 virtual devices against the port's one shard (the
-  compact upload exactly 8x, the pull by name and labels).
+  compact upload exactly 8x, the pull by name and labels). One family is
+  the port's own, `evolu_relay_decode_total{route}` (the relay front's
+  decode route): it is held apart and must count every sync POST the
+  reference counts under `evolu_relay_requests_total{endpoint="/"}`.
 
 Tolerance: exact."""
 
@@ -216,6 +219,13 @@ _TIMED_OVER_FLOOR = "evolu_stage_over_floor_total"
 # per-device digest, so it is compared by name and labels.
 _MESH_SCALED = "evolu_engine_compact_upload_bytes_total"
 _PULL_BYTES = ("evolu_pull_bytes_total", "evolu_stage_bytes_total")
+# The port's own family: the relay front's decode by route.
+_PORT_ONLY = "evolu_relay_decode_total"
+
+
+def _sync_posts(counters) -> int:
+    """The sync POSTs a relay counted (`evolu_relay_requests_total{endpoint="/"}`)."""
+    return counters.get(("evolu_relay_requests_total", (("endpoint", "/"),)), 0)
 
 
 def test_counter_and_histogram_families_equal_jax_over_one_episode(tmp_path):
@@ -226,7 +236,9 @@ def test_counter_and_histogram_families_equal_jax_over_one_episode(tmp_path):
     (tmp_path / "port").mkdir()
     want = _episode(JAX, tmp_path / "jax", ports)
     got = _episode(PORT, tmp_path / "port", ports)
-    g_counters = {k: v for k, v in got[0].items() if k[0] != _TIMED_OVER_FLOOR}
+    decoded = sum(v for k, v in got[0].items() if k[0] == _PORT_ONLY)
+    assert decoded == _sync_posts(want[0]) > 0
+    g_counters = {k: v for k, v in got[0].items() if k[0] not in (_TIMED_OVER_FLOOR, _PORT_ONLY)}
     w_counters = {k: v for k, v in want[0].items() if k[0] != _TIMED_OVER_FLOOR}
     assert set(g_counters) == set(w_counters), sorted(set(g_counters) ^ set(w_counters))
     for k in g_counters:
